@@ -1,0 +1,65 @@
+"""Carry the reference's state across to this package.
+
+The solver has no learned weights.  Its state is the mesh, the material
+fields, the basis tables and the power iterations' start vectors, all of
+which the reference keeps as numpy arrays (or can hand over as such).
+These helpers rebuild them here, on a given device and dtype, so that
+both packages compute the same thing on the same inputs.  Nothing here
+imports the reference: a mesh is read by its attributes.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.fem.mesh import HexMesh
+
+__all__ = ["hex_mesh", "operator_data", "start_vectors"]
+
+
+def hex_mesh(mesh) -> HexMesh:
+    """This package's :class:`HexMesh` from any object with the reference
+    mesh's attributes (``nx``, ``ny``, ``nz``, ``lengths``, ``elem_attr``,
+    ``linear_map``)."""
+    elem_attr = getattr(mesh, "elem_attr", None)
+    linear_map = getattr(mesh, "linear_map", None)
+    return HexMesh(
+        int(mesh.nx),
+        int(mesh.ny),
+        int(mesh.nz),
+        tuple(float(v) for v in mesh.lengths),
+        None if elem_attr is None else np.array(elem_attr, dtype=np.int32),
+        None if linear_map is None else np.array(linear_map, dtype=np.float64),
+    )
+
+
+def operator_data(
+    lam_w, mu_w, jinv, B, G, *, device, dtype: torch.dtype
+) -> dict[str, torch.Tensor]:
+    """The PAop inputs ``lam_w``/``mu_w`` (nelem, Q, Q, Q), ``jinv`` (3, 3),
+    ``B``/``G`` (Q, D) from numpy arrays, contiguous on ``device``."""
+    arrays = {"lam_w": lam_w, "mu_w": mu_w, "jinv": jinv, "B": B, "G": G}
+    out = {
+        k: torch.as_tensor(np.ascontiguousarray(v), dtype=dtype, device=device)
+        for k, v in arrays.items()
+    }
+    q = out["B"].shape[0]
+    if out["lam_w"].shape[1:] != (q, q, q) or out["mu_w"].shape != out["lam_w"].shape:
+        raise ValueError(
+            f"lam_w {tuple(out['lam_w'].shape)} / mu_w "
+            f"{tuple(out['mu_w'].shape)} do not match Q1D={q}"
+        )
+    if out["G"].shape != out["B"].shape or out["jinv"].shape[-2:] != (3, 3):
+        raise ValueError("B/G must share a shape and jinv must be (..., 3, 3)")
+    return out
+
+
+def start_vectors(
+    arrays: Sequence, *, device, dtype: torch.dtype
+) -> list[torch.Tensor]:
+    """Power-iteration start vectors (one (nscalar, 3) array per smoothed
+    level, coarse -> fine) as tensors on ``device``."""
+    return [torch.as_tensor(np.array(a), dtype=dtype, device=device) for a in arrays]
