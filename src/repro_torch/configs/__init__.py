@@ -1,0 +1,10 @@
+from repro_torch.configs.base import (
+    ALIASES,
+    ARCH_IDS,
+    PORTED,
+    ArchConfig,
+    get_config,
+    get_reduced,
+)
+
+__all__ = ["ALIASES", "ARCH_IDS", "PORTED", "ArchConfig", "get_config", "get_reduced"]

@@ -3,21 +3,24 @@
 The solver has no learned weights.  Its state is the mesh, the material
 fields, the basis tables and the power iterations' start vectors, all of
 which the reference keeps as numpy arrays (or can hand over as such).
-These helpers rebuild them here, on a given device and dtype, so that
-both packages compute the same thing on the same inputs.  Nothing here
-imports the reference: a mesh is read by its attributes.
+The LM's state is its parameter pytree (:func:`lm_params`).  These
+helpers rebuild them here, on a given device and dtype, so that both
+packages compute the same thing on the same inputs.  Nothing here imports
+the reference: a mesh is read by its attributes, parameters are numpy
+arrays in nested dicts.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Mapping, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.fem.mesh import HexMesh
+from repro_torch.models.transformer import param_dtype, param_shapes
 
-__all__ = ["hex_mesh", "operator_data", "start_vectors"]
+__all__ = ["hex_mesh", "lm_params", "operator_data", "start_vectors"]
 
 
 def hex_mesh(mesh) -> HexMesh:
@@ -63,3 +66,32 @@ def start_vectors(
     """Power-iteration start vectors (one (nscalar, 3) array per smoothed
     level, coarse -> fine) as tensors on ``device``."""
     return [torch.as_tensor(np.array(a), dtype=dtype, device=device) for a in arrays]
+
+
+def lm_params(params, cfg, *, device, dtype: torch.dtype | None = None) -> dict:
+    """The reference's ``init_params`` pytree for ``cfg`` (nested dicts of
+    arrays, e.g. ``jax.tree.map(np.asarray, params)``), as this package's
+    parameters on ``device`` in ``dtype`` (default: ``cfg.dtype``).
+
+    Covers the stacked ``blocks`` (leading layer axis), ``embed``,
+    ``final_norm`` and, when the embeddings are not tied, ``lm_head``.
+    Every key and shape is checked against :func:`param_shapes`.  bfloat16
+    arrays (numpy's ``ml_dtypes`` extension) pass through float32, which
+    holds them exactly.
+    """
+    dtype = dtype or param_dtype(cfg)
+
+    def convert(tree, shapes, path):
+        if isinstance(shapes, dict):
+            if not isinstance(tree, Mapping) or set(tree) != set(shapes):
+                keys = sorted(tree) if isinstance(tree, Mapping) else type(tree).__name__
+                raise ValueError(f"lm_params: {path or 'params'} has {keys}, expected {sorted(shapes)}")
+            return {k: convert(tree[k], shapes[k], f"{path}/{k}".lstrip("/")) for k in shapes}
+        a = np.array(tree)  # a writable copy for torch.from_numpy
+        if a.shape != shapes:
+            raise ValueError(f"lm_params: {path} has shape {a.shape}, expected {shapes}")
+        if a.dtype.kind != "f":
+            a = a.astype(np.float32)
+        return torch.from_numpy(a).to(device=device, dtype=dtype)
+
+    return convert(params, param_shapes(cfg), "")

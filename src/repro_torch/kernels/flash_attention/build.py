@@ -1,0 +1,60 @@
+"""Build and load the flash-attention kernel library.
+
+``csrc/flash_attention.cu`` is compiled at first use with ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface, loaded with
+``ctypes``; :mod:`repro_torch.kernels.nvcc` does the build into ``_build/``
+beside this file, named by a hash of the source and flags.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import pathlib
+import threading
+
+from repro_torch.kernels import nvcc
+
+__all__ = ["KernelLibrary", "load", "BUILD_DIR", "SOURCES", "ENTRY_POINTS"]
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
+SOURCES = ("flash_attention.cu",)
+ENTRY_POINTS = ("flash_attention_f32", "flash_attention_bf16")
+
+_P = ctypes.c_void_p
+# q, k, v, o; B, S, H, K, D, window; (b, s, h) strides of q, k, v, o; stream
+_ARGTYPES = [_P] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12 + [_P]
+
+
+class KernelLibrary:
+    """The loaded shared library with its C signatures declared."""
+
+    def __init__(self, path: pathlib.Path, build_seconds: float, log: str):
+        self.path = path
+        self.build_seconds = build_seconds  # 0.0 when loaded from _build/
+        self.log = log  # nvcc/ptxas output of the build (registers, spills)
+        lib = ctypes.CDLL(str(path))
+        for name in ENTRY_POINTS:
+            fn = getattr(lib, name)
+            fn.argtypes = _ARGTYPES
+            fn.restype = ctypes.c_int
+        lib.flash_error_string.argtypes = [ctypes.c_int]
+        lib.flash_error_string.restype = ctypes.c_char_p
+        self.lib = lib
+
+    def check(self, err: int, what: str) -> None:
+        if err != 0:
+            msg = self.lib.flash_error_string(err).decode()
+            raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
+
+
+_LOCK = threading.Lock()
+_LOADED: list[KernelLibrary] = []
+
+
+def load() -> KernelLibrary:
+    """Build (if needed) and load the kernel library, once per process."""
+    with _LOCK:
+        if not _LOADED:
+            _LOADED.append(KernelLibrary(*nvcc.build(CSRC, SOURCES, BUILD_DIR, "flash_attention")))
+        return _LOADED[0]

@@ -2,11 +2,9 @@
 
 The sources in ``csrc/`` are compiled at first use with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, loaded with
-``ctypes`` (no PyTorch headers, so a build takes seconds, not minutes).
-Each source compiles in its own ``nvcc`` process, all started together,
-then one link.  The library lands in ``_build/`` beside this file (listed
-in ``.gitignore``), named by a hash of the sources and flags, so an
-edited source rebuilds and an unchanged one loads at once.
+``ctypes``; :mod:`repro_torch.kernels.nvcc` does the build (one ``nvcc``
+per source, all started together, then one link) into ``_build/`` beside
+this file, named by a hash of the sources and flags.
 
 After each load the probe kernel (``o = 2 x``) runs once on the current
 card and is compared with ``2 * x``: a toolchain or launch fault raises
@@ -16,44 +14,20 @@ here, before any solve starts.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
-import tempfile
 import threading
-import time
 
 import torch
 
-__all__ = ["KernelLibrary", "load", "nvcc_path", "BUILD_DIR", "SOURCES"]
+from repro_torch.kernels import nvcc
+
+__all__ = ["KernelLibrary", "load", "BUILD_DIR", "SOURCES"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 SOURCES = ("pa_elasticity.cu", "probe.cu")
-ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
-FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
-
-
-def nvcc_path() -> str:
-    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH, else the toolkit's
-    default install location."""
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    if home and (pathlib.Path(home) / "bin" / "nvcc").exists():
-        return str(pathlib.Path(home) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = pathlib.Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError(
-        "nvcc not found (set CUDA_HOME or put nvcc on PATH); the CUDA "
-        "kernels are built from source at first use"
-    )
 
 
 class KernelLibrary:
@@ -93,52 +67,6 @@ class KernelLibrary:
             raise RuntimeError("probe kernel returned a wrong result")
 
 
-def _digest() -> str:
-    h = hashlib.sha256()
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
-    h.update(" ".join(ARCH + FLAGS).encode())
-    return h.hexdigest()[:16]
-
-
-def _run(cmd: list[str], log: pathlib.Path) -> subprocess.Popen:
-    with open(log, "w") as f:
-        return subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
-
-
-def _build(target: pathlib.Path) -> str:
-    nvcc = nvcc_path()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = pathlib.Path(tempfile.mkdtemp(dir=BUILD_DIR))
-    try:
-        objs, jobs = [], []
-        for name in SOURCES:
-            obj = tmp / (name + ".o")
-            log = tmp / (name + ".log")
-            cmd = [nvcc, *ARCH, *FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
-            jobs.append((name, _run(cmd, log), log))
-            objs.append(str(obj))
-        out = []
-        for name, proc, log in jobs:
-            proc.wait()
-            out.append(f"== {name}\n{log.read_text()}")
-        failed = [name for name, proc, _ in jobs if proc.returncode != 0]
-        if failed:
-            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(out))
-        lib = tmp / target.name
-        link_log = tmp / "link.log"
-        link = _run([nvcc, *ARCH, "-shared", "-o", str(lib), *objs], link_log)
-        if link.wait() != 0:
-            raise RuntimeError(f"nvcc link failed:\n{link_log.read_text()}")
-        text = "\n".join(out)
-        target.with_suffix(".log").write_text(text)
-        os.replace(lib, target)
-        return text
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-
-
 _LOCK = threading.Lock()
 _LOADED: list[KernelLibrary] = []
 
@@ -148,16 +76,8 @@ def load() -> KernelLibrary:
     process."""
     with _LOCK:
         if not _LOADED:
-            target = BUILD_DIR / f"libpa_elasticity-{_digest()}.so"
-            t0 = time.perf_counter()
-            if target.exists():
-                log = target.with_suffix(".log")
-                text = log.read_text() if log.exists() else ""
-                seconds = 0.0
-            else:
-                text = _build(target)
-                seconds = time.perf_counter() - t0
-            lib = KernelLibrary(target, seconds, text)
+            path, seconds, text = nvcc.build(CSRC, SOURCES, BUILD_DIR, "pa_elasticity")
+            lib = KernelLibrary(path, seconds, text)
             lib.probe_check()
             _LOADED.append(lib)
         return _LOADED[0]

@@ -23,8 +23,7 @@ import time
 from typing import Any, Sequence
 
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import record_function
 
 from repro_torch.core.geometry import MATERIALS_BEAM
 from repro_torch.core.operators import ASSEMBLY_LEVELS, ElasticityOperator
@@ -32,6 +31,7 @@ from repro_torch.core.precision import resolve_precision
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.fem.bc import eliminate_rhs
 from repro_torch.fem.mesh import beam_hex
+from repro_torch.profiling import print_profile
 from repro_torch.solvers.cg import pcg
 from repro_torch.solvers.gmg import build_hierarchy
 
@@ -198,46 +198,7 @@ def main(argv=None) -> None:
         f"total={rep.t_total:.3f}s rel={rep.final_rel_norm:.2e}"
     )
     if args.profile:
-        print_profile(run)
-
-
-def print_profile(run, top: int = 8) -> None:
-    """Run ``run()`` under torch.profiler and print, for each phase, its
-    host time, the device time of the kernels and copies that ran inside
-    it (their ratio is the device's busy share in that phase), and its
-    top kernels by device time.  A phase ends in a synchronize, so every
-    device event that a phase caused starts inside its host range."""
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        run()
-    events = prof.events()
-    phases = sorted(
-        (e for e in events
-         if e.name.startswith("solve_beam.") and e.device_type == DeviceType.CPU),
-        key=lambda e: e.time_range.start,
-    )
-    device = [
-        e for e in events
-        if e.device_type == DeviceType.CUDA and not e.name.startswith("solve_beam.")
-    ]
-    for ph in phases:
-        lo, hi = ph.time_range.start, ph.time_range.end
-        per_kernel: dict[str, list] = {}
-        for e in device:
-            if lo <= e.time_range.start < hi:
-                acc = per_kernel.setdefault(e.name, [0.0, 0])
-                acc[0] += e.time_range.elapsed_us()
-                acc[1] += 1
-        busy = sum(us for us, _ in per_kernel.values())
-        host = ph.time_range.elapsed_us()
-        print(f"[profile] {ph.name}: host {host / 1e3:.3f} ms, device busy "
-              f"{busy / 1e3:.3f} ms ({100 * busy / host if host else 0:.1f}%)")
-        ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
-        for name, (us, n) in ranked[:top]:
-            print(f"[profile]   {us / 1e3:9.3f} ms {100 * us / busy if busy else 0:5.1f}% "
-                  f"x{n:<6d} {name[:100]}")
+        print_profile(run, prefix="solve_beam.")
 
 
 if __name__ == "__main__":

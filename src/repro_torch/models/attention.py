@@ -1,0 +1,124 @@
+"""Attention: GQA with optional QKV bias, qk-norm and sliding window.
+
+Two paths, as in the reference:
+
+* :func:`attention` -- full-sequence causal attention.  The score /
+  softmax / PV step goes through :func:`repro_torch.kernels.flash_attention.flash_attention`:
+  on the card that is the hand-written kernel (online softmax over KV
+  tiles, no S x S intermediate), on the CPU its plain version.  There is
+  one path for every S; the reference's ``impl`` switch chooses between
+  two XLA strategies (``full`` materialized, ``chunked`` online softmax)
+  for the same function, and the tests hold this one against both.
+* :func:`decode_attention` -- a one-token query against a KV cache (dense,
+  or a rolling sliding-window buffer), in plain PyTorch: the reference has
+  no kernel for it either.
+
+KV heads stay folded (B, S, K, hd) with queries grouped (K, G): query head
+h = k * G + g.  Positions are RoPE's; M-RoPE and sinusoidal embeddings wait
+for their families (``models.transformer.check_supported`` rejects them).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.common import dense_init, rmsnorm
+from repro_torch.models.rope import apply_rope
+
+__all__ = ["attn_init", "attention", "decode_attention", "init_kv_cache"]
+
+NEG_INF = -1e30
+
+
+def attn_init(generator: torch.Generator, cfg, dtype):
+    d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    dev = generator.device
+    p = {
+        "wq": dense_init(generator, (d, H * hd), dtype),
+        "wk": dense_init(generator, (d, K * hd), dtype),
+        "wv": dense_init(generator, (d, K * hd), dtype),
+        "wo": dense_init(generator, (H * hd, d), dtype),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((H * hd,), dtype=dtype, device=dev)
+        p["bk"] = torch.zeros((K * hd,), dtype=dtype, device=dev)
+        p["bv"] = torch.zeros((K * hd,), dtype=dtype, device=dev)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=dtype, device=dev)
+        p["k_norm"] = torch.ones((hd,), dtype=dtype, device=dev)
+    return p
+
+
+def _qkv(params, x, cfg, positions):
+    B, S, _ = x.shape
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q = x @ params["wq"]
+    k = x @ params["wk"]
+    v = x @ params["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, K, hd)
+    v = v.reshape(B, S, K, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, params["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, params["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attention(params, x, cfg, positions):
+    """Full-sequence causal attention; returns ((B, S, d_model), (k, v))
+    with k/v (B, S, K, hd) for the decode cache."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(params, x, cfg, positions)
+    o = flash_attention(q, k, v, window=cfg.sliding_window)
+    return o.reshape(B, S, -1) @ params["wo"], (k, v)
+
+
+# ---------------------------------------------------------------------------
+# Decode path
+# ---------------------------------------------------------------------------
+def init_kv_cache(cfg, batch: int, max_len: int, dtype, device=None):
+    """Dense cache, or a rolling window buffer under SWA."""
+    K, hd = cfg.n_kv_heads, cfg.head_dim_
+    size = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    return {
+        "k": torch.zeros((batch, size, K, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, size, K, hd), dtype=dtype, device=device),
+    }
+
+
+def decode_attention(params, x, cfg, cache, pos: int):
+    """One-token step: x (B, 1, d); cache k/v (B, C, K, hd); pos the number
+    of tokens already in the cache.
+
+    Returns (out (B, 1, d), cache).  The new k/v are written into
+    ``cache`` in place (the reference returns an updated copy).  Under SWA
+    the buffer is rolling (slot = pos % size); otherwise slot = pos, and a
+    full cache raises an IndexError.
+    """
+    B = x.shape[0]
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    G = H // K
+    positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    q, k_new, v_new = _qkv(params, x, cfg, positions)
+
+    size = cache["k"].shape[1]
+    slot = pos % size if cfg.sliding_window else pos
+    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+    k, v = cache["k"], cache["v"]
+
+    qg = q.reshape(B, 1, K, G, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k) / math.sqrt(hd)
+    idx = torch.arange(size, device=x.device)
+    valid = idx <= slot if not cfg.sliding_window else (idx <= slot) | (pos >= size)
+    s = torch.where(valid, s.float(), NEG_INF)
+    p = torch.softmax(s, dim=-1).to(x.dtype)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v).reshape(B, 1, H * hd)
+    return o @ params["wo"], cache

@@ -7,14 +7,23 @@ runs without the repository's conftest:
     PYTHONPATH=src python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_reduced
+from repro_torch.convert import lm_params
 from repro_torch.core.basis import basis_tables
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import flash_ref
 from repro_torch.kernels.pa_elasticity import ops
 from repro_torch.kernels.pa_elasticity.ref import paop_ref
 from repro_torch.launch.solve import solve_beam
 from repro_torch.fem.mesh import beam_hex
+from repro_torch.models.transformer import init_params
+from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.solvers.gmg import hierarchy_spaces
 
 TOL = {torch.float64: (1e-12, 1e-12), torch.float32: (2e-4, 2e-5)}  # rtol, atol / max|ref|
@@ -80,3 +89,62 @@ def test_small_solve_on_card_matches_cpu(card):
     # the deterministic scatter makes a repeat on the card bitwise equal
     c = solve_beam(2, 1, device=card, start_vectors=sv, keep_solution=True)
     assert torch.equal(a.x, c.x)
+
+
+FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # tests/test_flash_kernel.py
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,K,D,window", [
+    (2, 128, 4, 2, 16, None),
+    (1, 256, 8, 8, 32, None),  # MHA
+    (2, 64, 8, 1, 8, None),  # MQA
+    (1, 512, 4, 2, 64, None),
+    (2, 128, 4, 2, 16, 48),
+    (1, 1, 4, 2, 128, None),  # ragged S
+    (1, 100, 6, 3, 128, 16),
+    (2, 300, 16, 8, 128, None),
+])
+@pytest.mark.parametrize("pad", [0, 2])  # 2: row strides no multiple of 8
+def test_flash_kernel_matches_plain_on_card(card, B, S, H, K, D, window, dtype, pad):
+    g = torch.Generator(device=card).manual_seed(S)
+    q = torch.randn((B, S, H, D + pad), generator=g, device=card).to(dtype)[..., :D]
+    k = torch.randn((B, S, K, D + pad), generator=g, device=card).to(dtype)[..., :D]
+    v = torch.randn((B, S, K, D + pad), generator=g, device=card).to(dtype)[..., :D]
+    before = flash_ops.counts["flash_attention"].launches
+    o = flash_ops.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert flash_ops.counts["flash_attention"].launches == before + 1
+    assert o.dtype == dtype and o.shape == q.shape
+    ref = flash_ref(q, k, v, window=window)
+    torch.testing.assert_close(o.float(), ref.float(), rtol=0, atol=FLASH_ATOL[dtype])
+    if dtype == torch.bfloat16:
+        # also row by row, scaled to the row: ||o - ref|| / ||ref|| per (b, s, h)
+        diff = (o.float() - ref.float()).norm(dim=-1)
+        assert float((diff / ref.float().norm(dim=-1)).max()) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_small_serve_on_card_matches_cpu(card):
+    cfg = dataclasses.replace(get_reduced("qwen3-1.7b"), dtype="float32")
+    host = init_params(torch.Generator().manual_seed(0), cfg)
+
+    def numpy_tree(t):
+        return {k: numpy_tree(v) for k, v in t.items()} if isinstance(t, dict) else t.numpy()
+
+    arrays = numpy_tree(host)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, (n,)).astype(np.int32) for n in (5, 9, 3, 12, 7)]
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        eng = ServeEngine(cfg, params=lm_params(arrays, cfg, device=dev), max_len=32,
+                          max_batch=4, device=dev)
+        reqs = [Request(prompt=p, max_new_tokens=6) for p in prompts]
+        flash_ops.reset_counts()
+        eng.generate(reqs)
+        c = flash_ops.counts["flash_attention"]
+        if dev.type == "cuda":
+            assert (c.launches, c.plain_calls) == (2 * cfg.n_layers, 0)
+        out[dev.type] = [r.out_tokens for r in reqs]
+    assert out["cuda"] == out["cpu"]

@@ -19,7 +19,8 @@ from repro.launch.solve import solve_beam as ref_solve_beam
 from repro_torch import convert
 from repro_torch.fem.mesh import beam_hex
 from repro_torch.kernels.pa_elasticity import ops
-from repro_torch.launch.solve import main, print_profile, solve_beam
+from repro_torch.launch.solve import main, solve_beam
+from repro_torch.profiling import print_profile
 from repro_torch.solvers.gmg import hierarchy_spaces
 
 P, REFINE, REL_TOL = 2, 1, 1e-6
@@ -120,7 +121,7 @@ def test_print_profile_reports_each_phase(capsys):
             with record_function(phase):
                 torch.ones(16).cumsum(0)
 
-    print_profile(run)
+    print_profile(run, prefix="solve_beam.")
     out = capsys.readouterr().out
     for phase in ("precond", "pcg"):
         assert f"[profile] solve_beam.{phase}: host" in out
