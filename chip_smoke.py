@@ -9,17 +9,20 @@ Phases (any failure exits non-zero; no phase's exception is caught):
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
 2. build the CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (the
-   PAop and flash-attention libraries in parallel, each timed), print what
-   ``ptxas`` reports per instantiation, and hold the probe kernel against
-   ``2 * x``;
+   PAop and flash-attention libraries in parallel, one ``nvcc`` per
+   source, each library timed), print what ``ptxas`` reports per
+   instantiation (registers, spills, the wgmma kernel's shared memory, and
+   any ``wgmma ... serialized`` warning), and hold the probe kernel
+   against ``2 * x``;
 3. hold the PAop kernel against its plain PyTorch version on the card for
    p = 1..8 in float64 and float32 at NE in {1, 7, 4096}, and at every
    (p, NE) the main path gives it, with the tests' tolerances; hold the
-   flash-attention kernel against its plain version in float32 (atol
+   flash-attention kernels against their plain version in float32 (atol
    2e-5) and bfloat16 (atol 3e-2, and 1e-2 per-row relative) at the
    shapes of ``tests/test_flash_kernel.py``, windows {16, 48, 128},
-   ragged S in {1, 7, 100, 1000}, and the serve path's
-   (8, 2048, 16, 8, 128);
+   ragged S in {1, 7, 100, 1000}, the wgmma route's D = 64 and 128 cases,
+   and the serve path's (8, 2048, 16, 8, 128), each case asserting which
+   route (``ops.route``: wgmma, mma_sync or fma) launched;
 4. the solve path: ``solve_beam(4, 4, precision="f64", device="cuda")`` on
    the 2-material beam (32,768 elements, 6,502,275 DoFs) with every
    kernel count zeroed just before and read just after; it must converge
@@ -29,14 +32,17 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    seeded random weights) generates 32 greedy tokens for each of 8
    requests of 2048 prompt tokens, with every count zeroed just before
    and read just after: 28 flash-attention launches per prefill batch
-   and no plain call.  A 2-token warm-up at the same shapes, its prompts
+   and no plain call, all 28 on the wgmma route.  A 2-token warm-up at
+   the same shapes, its prompts
    left-padded to 2048, keeps the q/k/v that the first and the last
    layer give the kernel, and the kernel's output on them is held
    against the plain version (1e-2 per-row relative); a reduced float32
    qwen3 must give the same tokens and logits on the card as on the CPU;
 6. time the fine-level PAop apply (p=4, NE=32768, f64) and the flash
-   kernel at (8, 2048, 16, 8, 128) bf16 with CUDA events beside their
-   plain versions, a library call where one exists, and their bounds.
+   kernel at (8, 2048, 16, 8, 128) bf16 beside their plain versions, a
+   library call where one exists, and their bounds: rounds of back-to-back
+   launches between one pair of CUDA events, the versions in turns (the
+   wgmma kernel, SDPA, the mma_sync kernel, ...), the median round.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -108,6 +114,10 @@ FLASH_CASES = [
     (2, 7, 16, 8, 128, None),
     (2, 100, 16, 8, 128, None),
     (1, 1000, 16, 8, 128, 128),
+    (2, 300, 8, 8, 128, None),  # the wgmma route: MHA, MQA, windows, D = 64
+    (2, 300, 8, 1, 128, 128),
+    (1, 384, 8, 2, 64, 48),
+    (2, 2048, 4, 2, 64, None),
 ]
 # The serve path: qwen3-1.7b, 8 requests of 2048 prompt tokens, 32 new.
 SERVE_ARCH, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = "qwen3-1.7b", 8, 2048, 32
@@ -124,17 +134,27 @@ def card_line() -> str:
     return out[torch.cuda.current_device()] if len(out) > 1 else out[0]
 
 
-def ptxas_summary(log: str) -> list[str]:
-    """One line per kernel instantiation: registers and spills."""
+def ptxas_summary(log: str, smem_bytes=None) -> list[str]:
+    """One line per kernel instantiation: registers and spills, and the
+    dynamic shared memory ``smem_bytes(D)`` gives for the wgmma kernel; then
+    every ptxas warning that wgmma instructions were serialized."""
     rows, name, spill = [], None, ""
     for line in log.splitlines():
+        if re.search(r"wgmma.*serializ", line):
+            rows.append(f"  WARNING {line.strip()}")
+            continue
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = m.group(1)
             k = re.search(r"pa_elasticity_kernelI([df])Li(\d+)ELi(\d+)E", name)
             f = re.search(r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", name)
             tc = re.search(r"flash_fwd_tc_kernelILi(\d+)ELi(\d+)E", name)
-            if k:
+            wg = re.search(r"flash_fwd_wgmma_kernelILi(\d+)E", name)
+            if wg:
+                d = int(wg.group(1))
+                smem = f", {smem_bytes(d)} B dynamic shared memory" if smem_bytes else ""
+                name = f"flash_attention<bf16, D={d}, BQ=BK=128> (wgmma, TMA{smem})"
+            elif k:
                 name = f"pa_elasticity<{'f64' if k.group(1) == 'd' else 'f32'}, D={k.group(2)}, Q={k.group(3)}>"
             elif f:
                 name = f"flash_attention<{'f32' if f.group(1) == 'f' else 'bf16'}, D={f.group(2)}, BK={f.group(3)}> (FMA)"
@@ -154,20 +174,31 @@ def ptxas_summary(log: str) -> list[str]:
     return rows
 
 
-def event_ms(fn, reps: int, warmup: int = 3) -> float:
-    """Median device time of ``fn()`` over ``reps`` runs, CUDA events."""
-    for _ in range(warmup):
+def round_ms(fn, n: int) -> float:
+    """Device time per call of ``n`` back-to-back calls of ``fn()`` between
+    one pair of CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
         fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def event_ms(fns: dict, n: int, rounds: int, warmup: int = 2) -> dict[str, float]:
+    """Median over ``rounds`` of :func:`round_ms` for each of ``fns``
+    (name -> callable), the callables timed in turns within each round."""
+    for fn in fns.values():
+        for _ in range(warmup):
+            fn()
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            times[name].append(round_ms(fn, n))
+    return {name: statistics.median(t) for name, t in times.items()}
 
 
 def pa_inputs(p: int, ne: int, dtype, gen: torch.Generator) -> tuple:
@@ -209,6 +240,14 @@ def paop_bound(args, y, p: int) -> tuple[float, str]:
 def reset_all_counts() -> None:
     ops.reset_counts()
     flash_ops.reset_counts()
+
+
+def expected_route(dt, D: int, pad: int) -> str:
+    """The flash kernel each case must launch: bf16 at D in {64, 128} with
+    16-byte rows takes wgmma, other bf16 at D >= 16 mma_sync, the rest fma."""
+    if dt == torch.bfloat16 and D in (64, 128) and pad == 0:
+        return "wgmma"
+    return "mma_sync" if dt == torch.bfloat16 and D >= 16 else "fma"
 
 
 def all_counts() -> dict[str, tuple[int, int]]:
@@ -297,9 +336,9 @@ def main() -> int:
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         builds = [pool.submit(build.load), pool.submit(flash_build.load)]
         kl, fl = (b.result() for b in builds)
-    for lib in (kl, fl):
+    for lib, smem in ((kl, None), (fl, fl.lib.flash_attention_wgmma_smem_bytes)):
         print(f"[build] {lib.path.name}: {lib.build_seconds:.1f} s (0 = cached)")
-        for row in ptxas_summary(lib.log):
+        for row in ptxas_summary(lib.log, smem):
             print(row)
     px = torch.arange(8 * 128, dtype=torch.float32, device="cuda").reshape(8, 128)
     po = ops.probe(px)
@@ -335,13 +374,18 @@ def main() -> int:
     flash_cases.append(((*FLASH_MAIN, None), torch.bfloat16, 0))
     for (B, S, H, K, D, window), dt, pad in flash_cases:
         q, k, v = flash_inputs(B, S, H, K, D, dt, gen, pad)
+        want = expected_route(dt, D, pad)
+        before = dict(flash_ops.route_launches)
         o = flash_ops.flash_attention(q, k, v, window=window)
         torch.cuda.synchronize()
+        moved = [r for r in flash_ops.ROUTES if flash_ops.route_launches[r] != before[r]]
         flash_err, row_rel, ok = flash_check(o, flash_ref(q, k, v, window=window), dt)
         print(f"[flash vs plain] (B,S,H,K,D)=({B},{S},{H},{K},{D}) window={window} "
-              f"{str(dt)[6:]}{' strided' if pad else ''}: max abs err {flash_err:.3e}, "
-              f"max row rel err {row_rel:.3e} {'ok' if ok else 'OUT OF TOLERANCE'}")
-        if not ok:
+              f"{str(dt)[6:]}{' strided' if pad else ''} route {moved}: max abs err "
+              f"{flash_err:.3e}, max row rel err {row_rel:.3e} {'ok' if ok else 'OUT OF TOLERANCE'}")
+        if moved != [want]:
+            bad.append(((B, S, H, K, D, window), str(dt), pad, f"route {moved}, expected {want}"))
+        elif not ok:
             bad.append(((B, S, H, K, D, window), str(dt), pad, flash_err))
     if bad:
         raise SystemExit(f"flash kernel disagrees with its plain version: {bad}")
@@ -431,6 +475,7 @@ def main() -> int:
     reset_all_counts()
     eng.generate(reqs)
     serve_counts = all_counts()
+    serve_routes = dict(flash_ops.route_launches)
     st = eng.stats
     print(f"[serve] {cfg.name} {cfg.dtype} L={cfg.n_layers} d={cfg.d_model} "
           f"H={cfg.n_heads} K={cfg.n_kv_heads} hd={cfg.head_dim_} vocab={cfg.vocab}: "
@@ -439,12 +484,14 @@ def main() -> int:
           f"tok/s, {st.prefill_batches} batches), decode {st.decode_s} s "
           f"({st.decode_tokens / st.decode_s} decode tok/s, {st.decode_steps} steps), "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"[serve] counts (launches, plain_calls): {serve_counts}")
+    print(f"[serve] counts (launches, plain_calls): {serve_counts}; flash launches per "
+          f"route: {serve_routes}")
     launches, plain = serve_counts["flash_attention"]
-    if launches != cfg.n_layers * st.prefill_batches or plain != 0:
-        raise SystemExit(f"serve path did not run only through flash_attention: "
-                         f"launches={launches} plain_calls={plain}, expected "
-                         f"{cfg.n_layers} x {st.prefill_batches} batches")
+    want_routes = {**dict.fromkeys(flash_ops.ROUTES, 0), "wgmma": cfg.n_layers * st.prefill_batches}
+    if launches != cfg.n_layers * st.prefill_batches or plain != 0 or serve_routes != want_routes:
+        raise SystemExit(f"serve path did not run only through the wgmma flash kernel: "
+                         f"launches={launches} plain_calls={plain} routes={serve_routes}, "
+                         f"expected {cfg.n_layers} x {st.prefill_batches} batches on wgmma")
     if any(len(r.out_tokens) != SERVE_NEW or not all(0 <= t < cfg.vocab for t in r.out_tokens)
            for r in reqs):
         raise SystemExit("serve path: a request did not get 32 tokens in [0, vocab)")
@@ -484,29 +531,41 @@ def main() -> int:
     if not ok:
         raise SystemExit(f"fine-level apply out of tolerance: {rel}")
     del ref
-    kernel_ms = event_ms(lambda: ops.pa_elasticity(*args), reps=30)
-    plain_ms = event_ms(lambda: paop_ref(*args), reps=20)
+    pa_ms = event_ms({"kernel": lambda: ops.pa_elasticity(*args),
+                      "plain": lambda: paop_ref(*args)}, n=10, rounds=5)
+    kernel_ms, plain_ms = pa_ms["kernel"], pa_ms["plain"]
     bound_ms, bound_by = paop_bound(args, y, MAIN_P)
-    print(f"[time] pa_elasticity p={MAIN_P} NE={ne} f64: kernel {kernel_ms} ms "
-          f"(median of 30), plain {plain_ms} ms (median of 20), bound "
-          f"{bound_ms} ms ({bound_by}), {100 * bound_ms / kernel_ms}% of bound")
+    print(f"[time] pa_elasticity p={MAIN_P} NE={ne} f64: kernel {kernel_ms} ms, plain "
+          f"{plain_ms} ms (in turns, median of 5 rounds of 10), bound {bound_ms} ms "
+          f"({bound_by}), {100 * bound_ms / kernel_ms}% of bound")
+    del args, y
     flash_args = flash_inputs(*FLASH_MAIN, torch.bfloat16, gen)
-    flash_ms = event_ms(lambda: flash_ops.flash_attention(*flash_args), reps=20)
-    flash_plain_ms = event_ms(lambda: flash_ref(*flash_args), reps=10)
+    if flash_ops.route(*flash_args) != "wgmma":
+        raise SystemExit("the serve shape's timing inputs do not take the wgmma route")
     # SDPA wants (B, H, S, D); the layout change stays outside the timing.
     sdpa_args = [t.transpose(1, 2).contiguous() for t in flash_args]
-    flash_lib_ms = event_ms(lambda: F.scaled_dot_product_attention(
-        *sdpa_args, is_causal=True, enable_gqa=True), reps=20)
+    flash_t = event_ms({
+        "wgmma": lambda: flash_ops.launch("wgmma", *flash_args),
+        "sdpa": lambda: F.scaled_dot_product_attention(*sdpa_args, is_causal=True,
+                                                       enable_gqa=True),
+        "mma_sync": lambda: flash_ops.launch("mma_sync", *flash_args),
+    }, n=20, rounds=5)
+    flash_ms, flash_lib_ms, flash_old_ms = flash_t["wgmma"], flash_t["sdpa"], flash_t["mma_sync"]
+    flash_plain_ms = event_ms({"plain": lambda: flash_ref(*flash_args)}, n=3, rounds=3)["plain"]
     flash_bound_ms, flash_bound_by = flash_bound(*flash_args)
-    print(f"[time] flash_attention (B,S,H,K,D)={FLASH_MAIN} bf16: kernel {flash_ms} ms "
-          f"(median of 20), plain {flash_plain_ms} ms (median of 10), SDPA "
-          f"{flash_lib_ms} ms (median of 20), bound {flash_bound_ms} ms "
-          f"({flash_bound_by}), {100 * flash_bound_ms / flash_ms}% of bound")
+    print(f"[time] flash_attention (B,S,H,K,D)={FLASH_MAIN} bf16, in turns, median of 5 "
+          f"rounds of 20: wgmma kernel {flash_ms} ms, SDPA {flash_lib_ms} ms, mma_sync "
+          f"kernel {flash_old_ms} ms; plain {flash_plain_ms} ms (median of 3 rounds of 3); "
+          f"bound {flash_bound_ms} ms ({flash_bound_by}): wgmma {100 * flash_bound_ms / flash_ms}% "
+          f"of bound, {flash_ms / flash_lib_ms}x SDPA's time; mma_sync "
+          f"{100 * flash_bound_ms / flash_old_ms}% of bound")
     del flash_args, sdpa_args
-    probe_ms = event_ms(lambda: ops.probe(px), reps=30)
-    probe_plain_ms = event_ms(lambda: probe_ref(px), reps=30)
-    probe_lib_ms = event_ms(lambda: torch.mul(px, 2.0), reps=30)
+    probe_t = event_ms({"kernel": lambda: ops.probe(px), "plain": lambda: probe_ref(px),
+                        "library": lambda: torch.mul(px, 2.0)}, n=100, rounds=5)
+    probe_ms, probe_plain_ms, probe_lib_ms = probe_t["kernel"], probe_t["plain"], probe_t["library"]
     probe_bound = 2 * px.numel() * px.element_size() / MEM_BYTES_PER_S * 1e3
+    print(f"[time] probe (8, 128) f32, in turns, median of 5 rounds of 100: kernel "
+          f"{probe_ms} ms, plain {probe_plain_ms} ms, torch.mul {probe_lib_ms} ms")
 
     kernels = [
         {
@@ -538,7 +597,7 @@ def main() -> int:
         {
             "name": "flash_attention",
             "route": "cuda",
-            "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_wgmma.cu",
             "replaces": "src/repro/kernels/flash_attention/flash_attention.py:42",
             "launches": serve_counts["flash_attention"][0],
             "max_abs_err": flash_main_err,

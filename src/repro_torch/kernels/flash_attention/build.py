@@ -1,9 +1,11 @@
 """Build and load the flash-attention kernel library.
 
-``csrc/flash_attention.cu`` is compiled at first use with ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface, loaded with
-``ctypes``; :mod:`repro_torch.kernels.nvcc` does the build into ``_build/``
-beside this file, named by a hash of the source and flags.
+``csrc/flash_attention.cu`` (the mma_sync and fma routes) and
+``csrc/flash_attention_wgmma.cu`` (the wgmma route) are compiled at first
+use with ``nvcc`` for ``sm_90a``, one process each, into one shared library
+with a plain C interface, loaded with ``ctypes``;
+:mod:`repro_torch.kernels.nvcc` does the build into ``_build/`` beside this
+file, named by a hash of ``csrc/`` and the flags.
 """
 
 from __future__ import annotations
@@ -18,8 +20,14 @@ __all__ = ["KernelLibrary", "load", "BUILD_DIR", "SOURCES", "ENTRY_POINTS"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
-SOURCES = ("flash_attention.cu",)
-ENTRY_POINTS = ("flash_attention_f32", "flash_attention_bf16")
+SOURCES = ("flash_attention.cu", "flash_attention_wgmma.cu")
+# (route, dtype name) -> C entry point
+ENTRY_POINTS = {
+    ("wgmma", "bf16"): "flash_attention_wgmma_bf16",
+    ("mma_sync", "bf16"): "flash_attention_mma_sync_bf16",
+    ("fma", "bf16"): "flash_attention_fma_bf16",
+    ("fma", "f32"): "flash_attention_fma_f32",
+}
 
 _P = ctypes.c_void_p
 # q, k, v, o; B, S, H, K, D, window; (b, s, h) strides of q, k, v, o; stream
@@ -34,10 +42,12 @@ class KernelLibrary:
         self.build_seconds = build_seconds  # 0.0 when loaded from _build/
         self.log = log  # nvcc/ptxas output of the build (registers, spills)
         lib = ctypes.CDLL(str(path))
-        for name in ENTRY_POINTS:
+        for name in ENTRY_POINTS.values():
             fn = getattr(lib, name)
             fn.argtypes = _ARGTYPES
             fn.restype = ctypes.c_int
+        lib.flash_attention_wgmma_smem_bytes.argtypes = [ctypes.c_int]
+        lib.flash_attention_wgmma_smem_bytes.restype = ctypes.c_int
         lib.flash_error_string.argtypes = [ctypes.c_int]
         lib.flash_error_string.restype = ctypes.c_char_p
         self.lib = lib

@@ -1,0 +1,136 @@
+"""Time this checkout's wgmma flash kernel against other builds of it, SDPA
+and the mma_sync kernel, in turns, on one card.
+
+    PYTHONPATH=src python -m repro_torch.kernels.flash_attention.compare [CHECKOUT ...]
+
+Each CHECKOUT is the root of another copy of the repository (an earlier
+state of the kernel, unpacked with ``git archive``); its flash library is
+built there, and its ``flash_attention_wgmma_bf16`` entry point is checked
+and timed beside this checkout's.  Every build is first held against
+``flash_ref`` (bf16: atol 3e-2 and a per-row relative error of 1e-2, as in
+``chip_smoke.py``) on ragged, windowed, MHA and MQA shapes.  Then, per
+shape, each version runs in rounds of 20 back-to-back calls between one
+pair of CUDA events, the versions in turns, and the median round and its
+causal TFLOP/s are printed.  The card's name and power limit come first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import ctypes
+import statistics
+import subprocess
+import sys
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention import build, ops
+from repro_torch.kernels.flash_attention.ref import flash_ref
+
+CHECK_SHAPES = [  # (B, S, H, K, D, window)
+    (1, 1, 1, 1, 64, None), (3, 129, 6, 3, 128, 16), (1, 4096, 2, 1, 128, 1000),
+    (2, 100, 16, 8, 128, None), (2, 300, 8, 8, 128, None), (2, 300, 8, 1, 64, 48),
+    (8, 2048, 16, 8, 128, None),
+]
+TIME_SHAPES = [(8, 2048, 16, 8, 128), (2, 8192, 16, 8, 128), (8, 2048, 16, 8, 64)]
+
+
+def _entry(path: str):
+    fn = ctypes.CDLL(path).flash_attention_wgmma_bf16
+    fn.argtypes = build._ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _build_at(root: str) -> str:
+    """Build the flash library of the checkout at ``root``; its path."""
+    code = ("import sys; sys.path.insert(0, 'src'); "
+            "from repro_torch.kernels.flash_attention import build; print(build.load().path)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                         text=True, check=True)
+    return out.stdout.strip().splitlines()[-1]
+
+
+def _call(fn, q, k, v, window=None):
+    B, S, H, D = q.shape
+    o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, H, k.shape[2], D,
+             window or 0, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention_wgmma_bf16 failed: error {err}")
+    return o
+
+
+def _round_ms(fn, n: int = 20) -> float:
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("checkouts", nargs="*", help="roots of other checkouts to compare")
+    ap.add_argument("--rounds", type=int, default=7)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("compare: no CUDA device is available", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    with concurrent.futures.ThreadPoolExecutor(1 + len(args.checkouts)) as pool:
+        here = pool.submit(build.load)
+        others = [pool.submit(_build_at, root) for root in args.checkouts]
+        versions = {"this": _entry(str(here.result().path))}
+        versions.update({root: _entry(f.result()) for root, f in zip(args.checkouts, others)})
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def inputs(B, S, H, K, D):
+        return [torch.randn((B, S, n, D), generator=gen, device="cuda").to(torch.bfloat16)
+                for n in (H, K, K)]
+
+    bad = []
+    for B, S, H, K, D, window in CHECK_SHAPES:
+        q, k, v = inputs(B, S, H, K, D)
+        ref = flash_ref(q, k, v, window=window).float()
+        for name, fn in versions.items():
+            diff = _call(fn, q, k, v, window).float() - ref
+            rel = float((diff.norm(dim=-1) / ref.norm(dim=-1).clamp_min(1e-30)).max())
+            err = float(diff.abs().max())
+            ok = err <= 3e-2 and rel <= 1e-2
+            print(f"[check] {name} {(B, S, H, K, D, window)}: max abs err {err:.3e}, "
+                  f"max row rel err {rel:.3e} {'ok' if ok else 'OUT OF TOLERANCE'}")
+            if not ok:
+                bad.append((name, (B, S, H, K, D, window)))
+    if bad:
+        print(f"compare: out of tolerance: {bad}", file=sys.stderr)
+        return 1
+    for B, S, H, K, D in TIME_SHAPES:
+        q, k, v = inputs(B, S, H, K, D)
+        sdpa_args = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+        fns = {name: (lambda fn=fn: _call(fn, q, k, v)) for name, fn in versions.items()}
+        fns["sdpa"] = lambda: F.scaled_dot_product_attention(*sdpa_args, is_causal=True,
+                                                             enable_gqa=True)
+        fns["mma_sync"] = lambda: ops.launch("mma_sync", q, k, v)
+        for fn in fns.values():
+            fn()
+        torch.cuda.synchronize()
+        times = {name: [] for name in fns}
+        for _ in range(args.rounds):
+            for name, fn in fns.items():
+                times[name].append(_round_ms(fn))
+        flops = 4 * B * H * D * S * (S + 1) / 2
+        for name, t in times.items():
+            ms = statistics.median(t)
+            print(f"[time] {(B, S, H, K, D)} {name}: {ms} ms, {flops / ms / 1e9:.1f} TFLOP/s")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,5 +1,10 @@
 // Causal GQA flash attention (forward), hand-written for Hopper (sm_90a),
-// bound to PyTorch through a plain C interface and ctypes.
+// bound to PyTorch through a plain C interface and ctypes: the "mma_sync"
+// and "fma" routes of ops.py::route.  bf16 with D in {64, 128} and 16-byte
+// aligned pointers and strides takes the "wgmma" route instead
+// (flash_attention_wgmma.cu); this file keeps the inputs that route does
+// not take: bf16 at D in {16, 32}, or with unaligned rows (mma_sync), and
+// float32 or bf16 at D = 8 (fma).
 //
 // Replaces: src/repro/kernels/flash_attention/flash_attention.py::_kernel
 // (launched by flash_attention_pallas, wrapped by ops.py::flash_attention;
@@ -43,20 +48,20 @@
 //     over 16 threads of 8 values (FMA path) or over a quad of lanes in
 //     mma fragments (tensor-core path); shared memory rows are padded
 //     against bank conflicts.
-// Not yet: wgmma, TMA, cp.async double buffering, warp specialisation.
-//
 // Instantiated for D in {8, 16, 32, 64, 128} in float32 and bfloat16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <type_traits>
+
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr float kMinL = 1e-30f;
+using flash::kMinL;
+using flash::kNegInf;
+
 constexpr int kThreads = 256;
 constexpr int kRows = 64;  // (query head, query position) rows per block
 
@@ -562,14 +567,10 @@ int launch_tc(const Args<__nv_bfloat16>& a, int B, cudaStream_t stream) {
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int S, int H, int K, int D, int window, long long qsb,
-             long long qss, long long qsh, long long ksb, long long kss,
-             long long ksh, long long vsb, long long vss, long long vsh,
-             long long osb, long long oss, long long osh, void* stream) {
-  if (B <= 0 || S <= 0) return static_cast<int>(cudaSuccess);
-  if (K <= 0 || H % K != 0 || B * K > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
+Args<T> make_args(const void* q, const void* k, const void* v, void* o, int S, int H, int K,
+                  int D, int window, long long qsb, long long qss, long long qsh,
+                  long long ksb, long long kss, long long ksh, long long vsb, long long vss,
+                  long long vsh, long long osb, long long oss, long long osh) {
   Args<T> a;
   a.q = static_cast<const T*>(q);
   a.k = static_cast<const T*>(k);
@@ -592,27 +593,34 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
   };
   a.vec = aligned(q) && aligned(k) && aligned(v) &&
           (qsb | qss | qsh | ksb | kss | ksh | vsb | vss | vsh) % 8 == 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    switch (D) {  // bf16: the tensor cores, except D = 8 (below one k-chunk)
-      case 8: return launch<T, 8>(a, B, st);
-      case 16: return launch_tc<16>(a, B, st);
-      case 32: return launch_tc<32>(a, B, st);
-      case 64: return launch_tc<64>(a, B, st);
-      case 128: return launch_tc<128>(a, B, st);
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-  } else {
-    switch (D) {
-      case 8: return launch<T, 8>(a, B, st);
-      case 16: return launch<T, 16>(a, B, st);
-      case 32: return launch<T, 32>(a, B, st);
-      case 64: return launch<T, 64>(a, B, st);
-      case 128: return launch<T, 128>(a, B, st);
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+  return a;
+}
+
+// The FMA kernel, any D of the instantiations.
+template <typename T>
+int run_fma(const Args<T>& a, int B, int D, cudaStream_t st) {
+  switch (D) {
+    case 8: return launch<T, 8>(a, B, st);
+    case 16: return launch<T, 16>(a, B, st);
+    case 32: return launch<T, 32>(a, B, st);
+    case 64: return launch<T, 64>(a, B, st);
+    case 128: return launch<T, 128>(a, B, st);
+    default: return flash::kErrRoute;
   }
 }
+
+// The mma.sync kernel, bf16 with D >= 16 (one k-chunk of m16n8k16).
+int run_mma_sync(const Args<__nv_bfloat16>& a, int B, int D, cudaStream_t st) {
+  switch (D) {
+    case 16: return launch_tc<16>(a, B, st);
+    case 32: return launch_tc<32>(a, B, st);
+    case 64: return launch_tc<64>(a, B, st);
+    case 128: return launch_tc<128>(a, B, st);
+    default: return flash::kErrRoute;
+  }
+}
+
+bool valid(int B, int H, int K) { return K > 0 && H % K == 0 && B * K <= 65535; }
 
 }  // namespace
 
@@ -624,18 +632,37 @@ extern "C" {
       long long ksb, long long kss, long long ksh, long long vsb,            \
       long long vss, long long vsh, long long osb, long long oss,            \
       long long osh, void *stream
-#define FLASH_PASS                                                       \
-  q, k, v, o, B, S, H, K, D, window, qsb, qss, qsh, ksb, kss, ksh, vsb, \
-      vss, vsh, osb, oss, osh, stream
+#define FLASH_STRIDES \
+  qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh
 
-int flash_attention_f32(FLASH_ARGS) { return dispatch<float>(FLASH_PASS); }
+int flash_attention_fma_f32(FLASH_ARGS) {
+  if (B <= 0 || S <= 0) return static_cast<int>(cudaSuccess);
+  if (!valid(B, H, K)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto a = make_args<float>(q, k, v, o, S, H, K, D, window, FLASH_STRIDES);
+  return run_fma(a, B, D, static_cast<cudaStream_t>(stream));
+}
 
-int flash_attention_bf16(FLASH_ARGS) {
-  return dispatch<__nv_bfloat16>(FLASH_PASS);
+int flash_attention_fma_bf16(FLASH_ARGS) {
+  if (B <= 0 || S <= 0) return static_cast<int>(cudaSuccess);
+  if (!valid(B, H, K)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto a = make_args<__nv_bfloat16>(q, k, v, o, S, H, K, D, window, FLASH_STRIDES);
+  return run_fma(a, B, D, static_cast<cudaStream_t>(stream));
+}
+
+int flash_attention_mma_sync_bf16(FLASH_ARGS) {
+  if (B <= 0 || S <= 0) return static_cast<int>(cudaSuccess);
+  if (!valid(B, H, K)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto a = make_args<__nv_bfloat16>(q, k, v, o, S, H, K, D, window, FLASH_STRIDES);
+  return run_mma_sync(a, B, D, static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  switch (err) {
+    case flash::kErrRoute: return "arguments outside this entry point's route";
+    case flash::kErrNoEncoder: return "the CUDA driver has no cuTensorMapEncodeTiled";
+    case flash::kErrTensorMap: return "cuTensorMapEncodeTiled refused a q/k/v tensor map";
+    default: return cudaGetErrorString(static_cast<cudaError_t>(err));
+  }
 }
 
 }  // extern "C"

@@ -2,16 +2,27 @@
 
 :func:`flash_attention` checks device, dtype, shape and strides, then:
 
-* for CUDA tensors launches the hand-written kernel (built from ``csrc/``
-  at first use, see :mod:`.build`) or raises; there is no fallback, and
-  unlike the reference's wrapper no detour to the plain version for short
-  sequences: the kernel takes any S >= 1;
+* for CUDA tensors launches one of three hand-written kernels (built from
+  ``csrc/`` at first use, see :mod:`.build`) or raises; there is no
+  fallback, and unlike the reference's wrapper no detour to the plain
+  version for short sequences: every kernel takes any S >= 1;
 * for CPU tensors runs its plain PyTorch version :func:`.ref.flash_ref`.
 
-Block sizes are the kernel's own compile-time constants; the reference's
+Which kernel runs is :func:`route`'s answer, from dtype, head dim,
+pointer alignment and strides alone (never from a failed launch):
+
+* ``"wgmma"``: bf16, D in {64, 128}, every base pointer and (b, s, h)
+  stride 16-byte aligned: TMA loads, wgmma products, a warp-specialised
+  pipeline (``csrc/flash_attention_wgmma.cu``);
+* ``"mma_sync"``: other bf16 with D >= 16: ``mma.sync`` tensor-core kernel
+  (``csrc/flash_attention.cu``);
+* ``"fma"``: float32, and bf16 at D = 8: the FMA-unit kernel (same file).
+
+Block sizes are the kernels' own compile-time constants; the reference's
 ``pick_block`` and its ``S % block == 0`` requirement are TPU tiling and
 have no counterpart.  ``counts["flash_attention"]`` keeps ``launches`` and
-``plain_calls``; :func:`reset_counts` zeroes them.
+``plain_calls``; ``route_launches`` counts the launches of each route
+beside it; :func:`reset_counts` zeroes both.
 """
 
 from __future__ import annotations
@@ -25,14 +36,20 @@ from repro_torch.kernels.flash_attention.ref import flash_ref
 
 __all__ = [
     "flash_attention",
+    "launch",
+    "route",
     "counts",
+    "route_launches",
     "reset_counts",
+    "ROUTES",
     "SUPPORTED_D",
     "KERNEL_DTYPES",
 ]
 
 SUPPORTED_D = (8, 16, 32, 64, 128)
-KERNEL_DTYPES = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
+KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+ROUTES = ("wgmma", "mma_sync", "fma")
+WGMMA_D = (64, 128)
 
 
 @dataclasses.dataclass
@@ -42,11 +59,37 @@ class Counts:
 
 
 counts = {"flash_attention": Counts()}
+route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def reset_counts() -> None:
     for c in counts.values():
         c.launches = c.plain_calls = 0
+    for r in ROUTES:
+        route_launches[r] = 0
+
+
+def _aligned16(t: torch.Tensor) -> bool:
+    """Base pointer and the strides of every dimension of more than one
+    element but the last on 16-byte boundaries (the wgmma kernel's TMA
+    maps); a size-1 dimension is never stepped over."""
+    size = t.element_size()
+    if t.data_ptr() % 16:
+        return False
+    return all(n == 1 or (st > 0 and st * size % 16 == 0)
+               for n, st in zip(t.shape[:-1], t.stride()[:-1]))
+
+
+def route(q, k, v) -> str:
+    """The kernel that :func:`flash_attention` launches for these (checked)
+    CUDA or CPU tensors: one of :data:`ROUTES`, from shape, dtype and
+    layout alone."""
+    D = q.shape[-1]
+    if q.dtype == torch.float32 or D < 16:
+        return "fma"
+    if D in WGMMA_D and all(_aligned16(t) for t in (q, k, v)):
+        return "wgmma"
+    return "mma_sync"
 
 
 def _check_args(q, k, v, window) -> tuple[int, int, int, int, int]:
@@ -88,17 +131,30 @@ def flash_attention(q, k, v, *, window=None):
     """Causal GQA attention. q (B, S, H, D); k/v (B, S, K, D), H = K * G,
     query head h = k * G + g.  Optional sliding window: position s sees
     t with s - window < t <= s.  Returns (B, S, H, D) in q.dtype."""
-    B, S, H, K, D = _check_args(q, k, v, window)
+    _check_args(q, k, v, window)
     if q.device.type == "cpu":
         counts["flash_attention"].plain_calls += 1
         return flash_ref(q, k, v, window=window)
+    return launch(route(q, k, v), q, k, v, window=window)
+
+
+def launch(name: str, q, k, v, *, window=None):
+    """Launch the kernel of route ``name`` on CUDA tensors and count it.
+    :func:`flash_attention` passes :func:`route`'s answer; a caller may name
+    another route that takes these inputs (``"mma_sync"`` takes every bf16
+    input with D >= 16, ``"fma"`` every input) to time it beside the first.
+    Raises if the kernel refuses them."""
+    B, S, H, K, D = _check_args(q, k, v, window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    entry = build.ENTRY_POINTS.get((name, KERNEL_DTYPES[q.dtype]))
+    if entry is None:
+        raise ValueError(f"flash_attention: no {name!r} kernel for {q.dtype}")
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     if o.numel() == 0:
         return o
     kl = build.load()
-    fn = getattr(kl.lib, KERNEL_DTYPES[q.dtype])
+    fn = getattr(kl.lib, entry)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
@@ -107,6 +163,7 @@ def flash_attention(q, k, v, *, window=None):
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
             stream,
         )
-    kl.check(err, f"flash_attention launch (B={B}, S={S}, H={H}, K={K}, D={D}, {q.dtype})")
+    kl.check(err, f"flash_attention {name} launch (B={B}, S={S}, H={H}, K={K}, D={D}, {q.dtype})")
     counts["flash_attention"].launches += 1
+    route_launches[name] += 1
     return o

@@ -5,8 +5,9 @@ bound to PyTorch through ``ctypes`` (no PyTorch headers, so a build takes
 seconds, not minutes).  :func:`build` compiles each source in its own
 ``nvcc`` process for ``sm_90a``, all started together, then links once.
 The library lands in the package's ``_build/`` (listed in ``.gitignore``),
-named by a hash of the sources and flags, so an edited source rebuilds and
-an unchanged one loads at once.
+named by a hash of every file under ``csrc/`` (headers included) and of the
+flags, so an edited source or header rebuilds and an unchanged tree loads
+at once.
 """
 
 from __future__ import annotations
@@ -45,10 +46,11 @@ def nvcc_path() -> str:
 
 def _digest(csrc: pathlib.Path, sources: tuple[str, ...]) -> str:
     h = hashlib.sha256()
-    for name in sources:
-        h.update(name.encode())
-        h.update((csrc / name).read_bytes())
-    h.update(" ".join(ARCH + FLAGS).encode())
+    for path in sorted(p for p in csrc.rglob("*") if p.is_file()):
+        h.update(path.relative_to(csrc).as_posix().encode())
+        h.update(path.read_bytes())
+    h.update("\0".join(sources).encode())
+    h.update("\0".join(ARCH + FLAGS).encode())
     return h.hexdigest()[:16]
 
 

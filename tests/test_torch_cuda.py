@@ -94,6 +94,14 @@ def test_small_solve_on_card_matches_cpu(card):
 FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # tests/test_flash_kernel.py
 
 
+def _flash_route(dtype, D, pad):
+    """The kernel ops.route must pick: bf16 at D in {64, 128} with 16-byte
+    rows takes wgmma, other bf16 at D >= 16 mma_sync, the rest fma."""
+    if dtype == torch.bfloat16 and D in (64, 128) and pad == 0:
+        return "wgmma"
+    return "mma_sync" if dtype == torch.bfloat16 and D >= 16 else "fma"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,H,K,D,window", [
@@ -105,6 +113,17 @@ FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # tests/test_flash_ker
     (1, 1, 4, 2, 128, None),  # ragged S
     (1, 100, 6, 3, 128, 16),
     (2, 300, 16, 8, 128, None),
+    # the wgmma route (bf16, pad 0) at D = 64 and 128: S in {1, 100, 300,
+    # 2048}, a window of 128, MHA and MQA
+    (1, 1, 8, 4, 64, None),
+    (2, 100, 8, 4, 64, None),
+    (1, 300, 4, 2, 64, 128),
+    (1, 2048, 4, 2, 64, None),
+    (2, 100, 16, 8, 128, None),
+    (1, 300, 8, 2, 128, 128),
+    (1, 2048, 4, 2, 128, None),
+    (1, 300, 8, 8, 128, None),  # MHA
+    (2, 300, 8, 1, 128, None),  # MQA
 ])
 @pytest.mark.parametrize("pad", [0, 2])  # 2: row strides no multiple of 8
 def test_flash_kernel_matches_plain_on_card(card, B, S, H, K, D, window, dtype, pad):
@@ -112,10 +131,15 @@ def test_flash_kernel_matches_plain_on_card(card, B, S, H, K, D, window, dtype, 
     q = torch.randn((B, S, H, D + pad), generator=g, device=card).to(dtype)[..., :D]
     k = torch.randn((B, S, K, D + pad), generator=g, device=card).to(dtype)[..., :D]
     v = torch.randn((B, S, K, D + pad), generator=g, device=card).to(dtype)[..., :D]
+    want = _flash_route(dtype, D, pad)
+    assert flash_ops.route(q, k, v) == want
     before = flash_ops.counts["flash_attention"].launches
+    routes = dict(flash_ops.route_launches)
     o = flash_ops.flash_attention(q, k, v, window=window)
     torch.cuda.synchronize()
     assert flash_ops.counts["flash_attention"].launches == before + 1
+    routes[want] += 1
+    assert flash_ops.route_launches == routes
     assert o.dtype == dtype and o.shape == q.shape
     ref = flash_ref(q, k, v, window=window)
     torch.testing.assert_close(o.float(), ref.float(), rtol=0, atol=FLASH_ATOL[dtype])
@@ -144,7 +168,8 @@ def test_small_serve_on_card_matches_cpu(card):
         flash_ops.reset_counts()
         eng.generate(reqs)
         c = flash_ops.counts["flash_attention"]
-        if dev.type == "cuda":
+        if dev.type == "cuda":  # f32: the FMA kernel
             assert (c.launches, c.plain_calls) == (2 * cfg.n_layers, 0)
+            assert flash_ops.route_launches["fma"] == 2 * cfg.n_layers
         out[dev.type] = [r.out_tokens for r in reqs]
     assert out["cuda"] == out["cpu"]

@@ -9,8 +9,15 @@ ragged S (against ``flash_ref`` only: the reference kernel needs
 S % block == 0).  Tolerances are those of ``tests/test_flash_kernel.py``:
 atol 2e-5 in float32, 3e-2 in bfloat16 on unit-normal inputs.
 
-The CUDA kernel itself is held against the plain version on the card in
-``test_torch_cuda.py`` and ``chip_smoke.py``.
+The CUDA kernels themselves are held against the plain version on the
+card in ``test_torch_cuda.py`` and ``chip_smoke.py``.  What the CPU can
+check of the wgmma kernel (``csrc/flash_attention_wgmma.cu``) is its
+algorithm: :func:`wgmma_emulation` repeats it in numpy (128-row q tiles,
+128-key KV tiles, q tiles last-first, only the KV tiles that meet the
+band, masks only on the diagonal and window-edge tiles, exp2 with
+log2(e) folded into the scale, p rounded to the inputs' dtype, zero-filled
+loads past S) and is held against ``flash_ref`` and the reference kernel;
+``ops.route``, which picks the kernel, is pure Python and tested here.
 """
 
 import jax.numpy as jnp
@@ -24,6 +31,9 @@ from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import flash_ref
 
 ATOL = {"f32": 2e-5, "bf16": 3e-2}
+NEG_INF = np.float32(-1e30)
+BQ = BK = 128  # the wgmma kernel's q and KV tiles
+LOG2E = 1.4426950408889634
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 SHAPES = [  # (B, S, H, K, D) of tests/test_flash_kernel.py
     (2, 128, 4, 2, 16),
@@ -154,3 +164,221 @@ def test_wrapper_rejects_bad_window(window):
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 8, 4, 2, 16))
     with pytest.raises(ValueError, match="window"):
         ops.flash_attention(q, k, v, window=window)
+
+
+# ---- the wgmma kernel's algorithm, emulated in numpy ----------------------
+
+
+def _round_bf16(x):
+    """float32 -> nearest-even bfloat16, returned in float32."""
+    b = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    b = (b + np.uint32(0x7FFF) + ((b >> 16) & np.uint32(1))) & np.uint32(0xFFFF0000)
+    return b.view(np.float32)
+
+
+ROUND = {"f32": lambda x: np.asarray(x, np.float32), "bf16": _round_bf16}
+
+
+def _band(q0, S, window):
+    """KV tiles the kernel visits for the q tile at q0, and those it masks:
+    the diagonal tile, and tiles that cross the window's lower edge."""
+    j_begin = max(0, q0 - window + 1) // BK if window else 0
+    tiles = list(range(j_begin, q0 // BK + 1))
+    masked = [j for j in tiles
+              if j * BK + BK - 1 > q0 or (window and j * BK <= q0 + BQ - 1 - window)]
+    return tiles, masked
+
+
+def wgmma_emulation(q, k, v, window=None, round_p=_round_bf16):
+    """numpy version of ``flash_fwd_wgmma_kernel``'s arithmetic on inputs
+    already in the kernel's dtype (f32 arrays).  Returns (o in f32 before
+    the output rounding, {q tile: masked KV tiles})."""
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    nq = -(-S // BQ)
+    pad = ((0, 0), (0, nq * BQ - S), (0, 0), (0, 0))  # TMA zero-fills past S
+    qp, kp, vp = (np.pad(np.asarray(a, np.float32), pad) for a in (q, k, v))
+    # query head h reads KV head h // G
+    kh = np.repeat(kp.transpose(0, 2, 1, 3), G, axis=1)  # (B, H, S', D)
+    vh = np.repeat(vp.transpose(0, 2, 1, 3), G, axis=1)
+    c = np.float32(LOG2E / np.sqrt(D))
+    o = np.zeros((B, H, nq * BQ, D), np.float32)
+    masked_tiles = {}
+    for qt in reversed(range(nq)):  # longest causal bands first
+        q0 = qt * BQ
+        rows = q0 + np.arange(BQ)
+        Q = qp[:, q0:q0 + BQ].transpose(0, 2, 1, 3)  # (B, H, BQ, D)
+        m = np.full((B, H, BQ), NEG_INF, np.float32)
+        l = np.zeros((B, H, BQ), np.float32)
+        acc = np.zeros((B, H, BQ, D), np.float32)
+        tiles, masked = _band(q0, S, window)
+        masked_tiles[qt] = masked
+        for j in tiles:
+            kv0 = j * BK
+            s = Q @ kh[:, :, kv0:kv0 + BK].transpose(0, 1, 3, 2)  # (B, H, BQ, BK) f32
+            if j in masked:
+                cols = kv0 + np.arange(BK)
+                on = cols[None, :] <= rows[:, None]
+                if window:
+                    on &= rows[:, None] - cols[None, :] < window
+                t = np.where(on, s * c, NEG_INF)
+                m_new = np.maximum(m, t.max(-1))
+                p = np.where(on, np.exp2(t - m_new[..., None]), np.float32(0))
+            else:
+                m_new = np.maximum(m, s.max(-1) * c)
+                p = np.exp2(s * c - m_new[..., None])
+            alpha = np.exp2(m - m_new)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + round_p(p) @ vh[:, :, kv0:kv0 + BK]
+            m = m_new
+        o[:, :, q0:q0 + BQ] = acc / np.maximum(l, np.float32(1e-30))[..., None]
+    return o.transpose(0, 2, 1, 3)[:, :S], masked_tiles
+
+
+def _emulate(arrays, dtype_name, window=None):
+    rnd = ROUND[dtype_name]
+    o, _ = wgmma_emulation(*(rnd(a) for a in arrays), window=window, round_p=rnd)
+    return rnd(o)
+
+
+def _flash_ref_np(arrays, dtype_name, window=None):
+    tdt = DTYPES[dtype_name][1]
+    q, k, v = (torch.from_numpy(a).to(tdt) for a in arrays)
+    return flash_ref(q, k, v, window=window).float().numpy()
+
+
+@pytest.mark.parametrize("dtype_name", ["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,K,D", SHAPES + [(1, 384, 4, 2, 128)])
+def test_wgmma_emulation_matches_reference(B, S, H, K, D, dtype_name):
+    arrays = _inputs(B, S, H, K, D, seed=5)
+    o = _emulate(arrays, dtype_name)
+    np.testing.assert_allclose(o, _flash_ref_np(arrays, dtype_name), atol=ATOL[dtype_name])
+    for ref in _reference(arrays, dtype_name):
+        np.testing.assert_allclose(o, ref, atol=ATOL[dtype_name])
+
+
+@pytest.mark.parametrize("dtype_name", ["f32", "bf16"])
+@pytest.mark.parametrize("window", [16, 48, 128])
+@pytest.mark.parametrize("B,S,H,K,D", [(2, 128, 4, 2, 16), (1, 512, 4, 2, 64)])
+def test_wgmma_emulation_sliding_window(B, S, H, K, D, window, dtype_name):
+    arrays = _inputs(B, S, H, K, D, seed=6)
+    o = _emulate(arrays, dtype_name, window)
+    np.testing.assert_allclose(o, _flash_ref_np(arrays, dtype_name, window),
+                               atol=ATOL[dtype_name])
+    for ref in _reference(arrays, dtype_name, window):
+        np.testing.assert_allclose(o, ref, atol=ATOL[dtype_name])
+
+
+@pytest.mark.parametrize("dtype_name", ["f32", "bf16"])
+@pytest.mark.parametrize("S,H,K,D,window", [
+    (1, 16, 8, 128, None), (7, 16, 8, 128, None), (100, 16, 8, 128, None),
+    (1000, 4, 2, 64, None), (1000, 4, 2, 128, 128),
+])
+def test_wgmma_emulation_ragged_s(S, H, K, D, window, dtype_name):
+    arrays = _inputs(1, S, H, K, D, seed=7)
+    o = _emulate(arrays, dtype_name, window)
+    np.testing.assert_allclose(o, _flash_ref_np(arrays, dtype_name, window),
+                               atol=ATOL[dtype_name])
+
+
+@pytest.mark.parametrize("window", [None, 1, 16, 48, 128, 129, 300])
+def test_wgmma_band_visits_and_masks_only_what_it_must(window):
+    """Per q tile, the kernel visits exactly the KV tiles holding a visible
+    (row, key) pair and masks exactly those holding an invisible one among
+    them (all 128 rows of the tile, ragged ones included)."""
+    S = 1000
+    for q0 in range(0, S, BQ):
+        rows = np.arange(q0, q0 + BQ)[:, None]
+        tiles, masked = _band(q0, S, window)
+        want_tiles, want_masked = [], []
+        for j in range(-(-S // BK)):
+            cols = np.arange(j * BK, j * BK + BK)[None, :]
+            on = (cols <= rows) & ((rows - cols < window) if window else True)
+            if on.any():
+                want_tiles.append(j)
+                if not on.all():
+                    want_masked.append(j)
+        assert tiles == want_tiles and masked == want_masked, (q0, window)
+
+
+def _view(shape, dtype, pad=0, offset=0):
+    """(B, S, n, D) tensor as a view of rows D + pad wide, starting
+    ``offset`` elements into its storage."""
+    B, S, n, D = shape
+    base = torch.zeros(B * S * n * (D + pad) + offset, dtype=dtype)
+    return base[offset:].view(B, S, n, D + pad)[..., :D]
+
+
+@pytest.mark.parametrize("dtype,D,layout,want", [
+    (torch.float32, 128, "contiguous", "fma"),
+    (torch.float32, 64, "contiguous", "fma"),
+    (torch.float32, 8, "contiguous", "fma"),
+    (torch.bfloat16, 8, "contiguous", "fma"),
+    (torch.bfloat16, 16, "contiguous", "mma_sync"),
+    (torch.bfloat16, 32, "contiguous", "mma_sync"),
+    (torch.bfloat16, 64, "contiguous", "wgmma"),
+    (torch.bfloat16, 128, "contiguous", "wgmma"),
+    (torch.bfloat16, 128, "pad=2", "mma_sync"),  # rows 260 B apart
+    (torch.bfloat16, 64, "pad=2", "mma_sync"),
+    (torch.bfloat16, 16, "pad=2", "mma_sync"),
+    (torch.float32, 128, "pad=2", "fma"),
+    (torch.bfloat16, 128, "pad=8", "wgmma"),  # rows 272 B apart
+    (torch.bfloat16, 128, "offset=1", "mma_sync"),  # base pointer 2 B off
+    (torch.bfloat16, 64, "heads-major", "wgmma"),  # (B, H, S, D) transposed
+    (torch.bfloat16, 128, "k broadcast over B", "mma_sync"),  # a 0 stride
+    (torch.bfloat16, 128, "B=S=1 odd strides", "wgmma"),  # size-1 dims' strides
+])
+def test_route(dtype, D, layout, want):
+    B, S, H, K = 2, 16, 4, 2
+    if layout == "contiguous":
+        q, k, v = (torch.zeros((B, S, n, D), dtype=dtype) for n in (H, K, K))
+    elif layout.startswith("pad="):
+        pad = int(layout[4:])
+        q, k, v = (_view((B, S, n, D), dtype, pad=pad) for n in (H, K, K))
+    elif layout == "offset=1":
+        q = _view((B, S, H, D), dtype, offset=1)
+        k, v = (torch.zeros((B, S, K, D), dtype=dtype) for _ in range(2))
+    elif layout == "heads-major":
+        q, k, v = (torch.zeros((B, n, S, D), dtype=dtype).transpose(1, 2) for n in (H, K, K))
+    elif layout == "k broadcast over B":
+        q, v = torch.zeros((B, S, H, D), dtype=dtype), torch.zeros((B, S, K, D), dtype=dtype)
+        k = torch.zeros((1, S, K, D), dtype=dtype).expand(B, S, K, D)
+    else:  # B = S = 1 with odd strides, never stepped over
+        q, k, v = (torch.zeros(n * D, dtype=dtype).as_strided((1, 1, n, D), (7, 3, D, 1))
+                   for n in (H, K, K))
+    assert ops.route(q, k, v) == want
+    # the CPU runs the plain version whatever the route
+    ops.reset_counts()
+    ops.flash_attention(q, k, v)
+    assert ops.counts["flash_attention"].plain_calls == 1
+    assert ops.route_launches == dict.fromkeys(ops.ROUTES, 0)
+
+
+def test_launch_refuses_cpu_tensors():
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _inputs(1, 8, 4, 2, 64))
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.launch("wgmma", q, k, v)
+
+
+def test_build_hash_covers_every_csrc_file(tmp_path):
+    """An edited header under csrc/ names a new library (so it is rebuilt),
+    as an edited source does; an unchanged tree loads the built one."""
+    import shutil
+
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels.flash_attention import build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    out = tmp_path / "_build"
+    first = nvcc._digest(csrc, build.SOURCES)
+    (out / f"libflash_attention-{first}.so").parent.mkdir()
+    (out / f"libflash_attention-{first}.so").write_bytes(b"")
+    path, seconds, _ = nvcc.build(csrc, build.SOURCES, out, "flash_attention")
+    assert path.name == f"libflash_attention-{first}.so" and seconds == 0.0  # no nvcc run
+    for name in ("flash_common.cuh", "flash_attention_wgmma.cu"):
+        f = csrc / name
+        f.write_text(f.read_text() + "\n// edited\n")
+        digest = nvcc._digest(csrc, build.SOURCES)
+        assert digest != first, name
+        first = digest
