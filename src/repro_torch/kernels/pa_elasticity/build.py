@@ -38,12 +38,16 @@ class KernelLibrary:
         self.build_seconds = build_seconds  # 0.0 when loaded from _build/
         self.log = log  # nvcc/ptxas output of the build (registers, spills)
         lib = ctypes.CDLL(str(path))
-        for name in ("pa_elasticity_f64", "pa_elasticity_f32"):
-            fn = getattr(lib, name)
+        # The C entry points, looked up once: PAop by dtype, the probe.
+        self.pa_elasticity = {}
+        for dtype, tag in ((torch.float64, "f64"), (torch.float32, "f32")):
+            fn = getattr(lib, f"pa_elasticity_{tag}")
             fn.argtypes = [_P] * 7 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P]
             fn.restype = ctypes.c_int
+            self.pa_elasticity[dtype] = fn
         lib.probe_f32.argtypes = [_P, _P, ctypes.c_int, _P]
         lib.probe_f32.restype = ctypes.c_int
+        self.probe = lib.probe_f32
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
         self.lib = lib
@@ -60,7 +64,7 @@ class KernelLibrary:
         o = torch.empty_like(x)
         stream = torch.cuda.current_stream().cuda_stream
         self.check(
-            self.lib.probe_f32(x.data_ptr(), o.data_ptr(), x.numel(), stream),
+            self.probe(x.data_ptr(), o.data_ptr(), x.numel(), stream),
             "probe kernel launch",
         )
         if not torch.equal(o, 2 * x):
@@ -73,7 +77,9 @@ _LOADED: list[KernelLibrary] = []
 
 def load() -> KernelLibrary:
     """Build (if needed), load and probe the kernel library, once per
-    process."""
+    process.  Once it is loaded, a call returns it without the lock."""
+    if _LOADED:
+        return _LOADED[0]
     with _LOCK:
         if not _LOADED:
             path, seconds, text = nvcc.build(CSRC, SOURCES, BUILD_DIR, "pa_elasticity")

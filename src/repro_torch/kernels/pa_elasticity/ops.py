@@ -33,7 +33,7 @@ __all__ = [
 ]
 
 SUPPORTED_P = tuple(range(1, 9))
-KERNEL_DTYPES = {torch.float64: "pa_elasticity_f64", torch.float32: "pa_elasticity_f32"}
+KERNEL_DTYPES = (torch.float64, torch.float32)
 
 
 @dataclasses.dataclass
@@ -50,41 +50,45 @@ def reset_counts() -> None:
         c.launches = c.plain_calls = 0
 
 
+_PA_NAMES = ("x_e", "lam_w", "mu_w", "jinv", "B", "G")
+
+
 def _check_pa_args(x_e, lam_w, mu_w, jinv, B, G) -> tuple[int, int, int]:
     if jinv.ndim != 2:
         raise ValueError(
             "pa_elasticity kernel assumes a mesh-constant affine J^{-1}; "
             "use repro_torch.core.paop.paop_apply for per-element geometry"
         )
-    args = {"x_e": x_e, "lam_w": lam_w, "mu_w": mu_w, "jinv": jinv, "B": B, "G": G}
-    for name, t in args.items():
-        if t.dtype != x_e.dtype or t.device != x_e.device:
+    dtype, device = x_e.dtype, x_e.device
+    for name, t in zip(_PA_NAMES, (x_e, lam_w, mu_w, jinv, B, G)):
+        if t.dtype != dtype or t.device != device:
             raise ValueError(
                 f"pa_elasticity: {name} is {t.dtype} on {t.device}, expected "
-                f"{x_e.dtype} on {x_e.device} like x_e"
+                f"{dtype} on {device} like x_e"
             )
         if not t.is_contiguous():
             raise ValueError(f"pa_elasticity: {name} must be contiguous")
-    if x_e.ndim != 5 or x_e.shape[1] != 3 or len(set(x_e.shape[2:])) != 1:
+    shape = x_e.shape
+    if len(shape) != 5 or shape[1] != 3 or not shape[2] == shape[3] == shape[4]:
         raise ValueError(
-            f"pa_elasticity: x_e has shape {tuple(x_e.shape)}, expected "
+            f"pa_elasticity: x_e has shape {tuple(shape)}, expected "
             f"(nelem, 3, D1D, D1D, D1D)"
         )
-    ne, d1d, q1d = x_e.shape[0], x_e.shape[-1], lam_w.shape[-1]
-    if tuple(lam_w.shape) != (ne, q1d, q1d, q1d) or mu_w.shape != lam_w.shape:
+    ne, d1d, q1d = shape[0], shape[4], lam_w.shape[-1]
+    if lam_w.shape != (ne, q1d, q1d, q1d) or mu_w.shape != lam_w.shape:
         raise ValueError(
             f"pa_elasticity: lam_w {tuple(lam_w.shape)} / mu_w "
             f"{tuple(mu_w.shape)} must both be (nelem, Q1D, Q1D, Q1D) with "
             f"nelem={ne}"
         )
-    if tuple(B.shape) != (q1d, d1d) or B.shape != G.shape or tuple(jinv.shape) != (3, 3):
+    if B.shape != (q1d, d1d) or B.shape != G.shape or jinv.shape != (3, 3):
         raise ValueError(
             f"pa_elasticity: B {tuple(B.shape)}, G {tuple(G.shape)} must be "
             f"(Q1D, D1D) = ({q1d}, {d1d}) and jinv {tuple(jinv.shape)} (3, 3)"
         )
-    if x_e.dtype not in KERNEL_DTYPES:
+    if dtype not in KERNEL_DTYPES:
         raise ValueError(
-            f"pa_elasticity: no kernel instantiation for dtype {x_e.dtype}; "
+            f"pa_elasticity: no kernel instantiation for dtype {dtype}; "
             f"instantiated for float64 and float32"
         )
     p = d1d - 1
@@ -94,6 +98,17 @@ def _check_pa_args(x_e, lam_w, mu_w, jinv, B, G) -> tuple[int, int, int]:
             f"({d1d}, {q1d}); instantiated for p = 1..8 with Q1D = p + 2"
         )
     return ne, d1d, q1d
+
+
+def _on_stream(fn, t, *args) -> int:
+    """Call the C entry ``fn(*args, stream)`` on the current stream of
+    ``t``'s card.  The device context is entered only when that card is not
+    the current one."""
+    index = t.device.index
+    if index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(index):
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
 
 
 def pa_elasticity(x_e, lam_w, mu_w, jinv, B, G):
@@ -115,14 +130,13 @@ def pa_elasticity(x_e, lam_w, mu_w, jinv, B, G):
     if ne == 0:
         return y
     kl = build.load()
-    fn = getattr(kl.lib, KERNEL_DTYPES[x_e.dtype])
-    with torch.cuda.device(x_e.device):
-        stream = torch.cuda.current_stream(x_e.device).cuda_stream
-        err = fn(
-            x_e.data_ptr(), lam_w.data_ptr(), mu_w.data_ptr(), jinv.data_ptr(),
-            B.data_ptr(), G.data_ptr(), y.data_ptr(), ne, d1d, q1d, stream,
-        )
-    kl.check(err, f"pa_elasticity launch (D1D={d1d}, Q1D={q1d}, {x_e.dtype})")
+    err = _on_stream(
+        kl.pa_elasticity[x_e.dtype], x_e,
+        x_e.data_ptr(), lam_w.data_ptr(), mu_w.data_ptr(), jinv.data_ptr(),
+        B.data_ptr(), G.data_ptr(), y.data_ptr(), ne, d1d, q1d,
+    )
+    if err:
+        kl.check(err, f"pa_elasticity launch (D1D={d1d}, Q1D={q1d}, {x_e.dtype})")
     counts["pa_elasticity"].launches += 1
     return y
 
@@ -138,10 +152,9 @@ def probe(x):
         raise ValueError(f"probe: unsupported device {x.device}")
     kl = build.load()
     o = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = kl.lib.probe_f32(x.data_ptr(), o.data_ptr(), x.numel(), stream)
-    kl.check(err, "probe kernel launch")
+    err = _on_stream(kl.probe, x, x.data_ptr(), o.data_ptr(), x.numel())
+    if err:
+        kl.check(err, "probe kernel launch")
     counts["probe"].launches += 1
     return o
 
