@@ -12,8 +12,9 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    PAop and flash-attention libraries in parallel, one ``nvcc`` per
    source, each library timed), print what ``ptxas`` reports per
    instantiation (registers, spills, the wgmma kernel's shared memory, and
-   any ``wgmma ... serialized`` warning), and hold the probe kernel
-   against ``2 * x``;
+   any ``wgmma ... serialized`` warning; for the PAop kernel and its
+   baseline, the first port's kernel, also the shared bytes per block and
+   the blocks an SM holds), and hold the probe kernel against ``2 * x``;
 3. hold the PAop kernel against its plain PyTorch version on the card for
    p = 1..8 in float64 and float32 at NE in {1, 7, 4096}, and at every
    (p, NE) the main path gives it, with the tests' tolerances; hold the
@@ -38,11 +39,15 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    layer give the kernel, and the kernel's output on them is held
    against the plain version (1e-2 per-row relative); a reduced float32
    qwen3 must give the same tokens and logits on the card as on the CPU;
-6. time the fine-level PAop apply (p=4, NE=32768, f64) and the flash
-   kernel at (8, 2048, 16, 8, 128) bf16 beside their plain versions, a
+6. time the PAop apply at p in {2, 4, 8} (NE=32768, f64; p=4 is the
+   fine level of the solve) beside the baseline kernel, and the flash
+   kernel at (8, 2048, 16, 8, 128) bf16, beside their plain versions, a
    library call where one exists, and their bounds: rounds of back-to-back
    launches between one pair of CUDA events, the versions in turns (the
-   wgmma kernel, SDPA, the mma_sync kernel, ...), the median round.
+   kernel, the baseline, the plain version; the wgmma kernel, SDPA, the
+   mma_sync kernel), the median round; then the host time per call of the
+   wrappers (``time.perf_counter`` over back-to-back calls, no sync
+   inside), with the probe's wrapper split into its parts.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -58,6 +63,7 @@ import re
 import statistics
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -90,6 +96,7 @@ PEAK_FLOPS = {torch.float64: 67e12, torch.float32: 67e12, torch.bfloat16: 989e12
 # of max |plain|.
 TOL = {torch.float64: (1e-12, 1e-12), torch.float32: (2e-4, 2e-5)}
 MAIN_P, MAIN_REFINE = 4, 4
+PA_TIME_P = (2, 4, 8)  # orders timed at the fine level's NE, in f64
 SEED = 0
 # Flash attention: absolute tolerances of tests/test_flash_kernel.py on
 # unit-normal inputs; (B, S, H, K, D, window) cases held against the plain
@@ -134,10 +141,12 @@ def card_line() -> str:
     return out[torch.cuda.current_device()] if len(out) > 1 else out[0]
 
 
-def ptxas_summary(log: str, smem_bytes=None) -> list[str]:
-    """One line per kernel instantiation: registers and spills, and the
-    dynamic shared memory ``smem_bytes(D)`` gives for the wgmma kernel; then
-    every ptxas warning that wgmma instructions were serialized."""
+def ptxas_summary(log: str, smem_bytes=None, pa_config=None) -> list[str]:
+    """One line per kernel instantiation: registers and spills, the dynamic
+    shared memory ``smem_bytes(D)`` gives for the wgmma kernel, and for the
+    PAop kernels what ``pa_config(name, dtype, D)`` (``KernelLibrary.config``)
+    gives; then every ptxas warning that wgmma instructions were
+    serialized."""
     rows, name, spill = [], None, ""
     for line in log.splitlines():
         if re.search(r"wgmma.*serializ", line):
@@ -146,7 +155,7 @@ def ptxas_summary(log: str, smem_bytes=None) -> list[str]:
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = m.group(1)
-            k = re.search(r"pa_elasticity_kernelI([df])Li(\d+)ELi(\d+)E", name)
+            k = re.search(r"pa_elasticity_(baseline_)?kernelI([df])Li(\d+)E", name)
             f = re.search(r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", name)
             tc = re.search(r"flash_fwd_tc_kernelILi(\d+)ELi(\d+)E", name)
             wg = re.search(r"flash_fwd_wgmma_kernelILi(\d+)E", name)
@@ -155,7 +164,15 @@ def ptxas_summary(log: str, smem_bytes=None) -> list[str]:
                 smem = f", {smem_bytes(d)} B dynamic shared memory" if smem_bytes else ""
                 name = f"flash_attention<bf16, D={d}, BQ=BK=128> (wgmma, TMA{smem})"
             elif k:
-                name = f"pa_elasticity<{'f64' if k.group(1) == 'd' else 'f32'}, D={k.group(2)}, Q={k.group(3)}>"
+                kname = "pa_elasticity_baseline" if k.group(1) else "pa_elasticity"
+                dt = torch.float64 if k.group(2) == "d" else torch.float32
+                d = int(k.group(3))
+                name = f"{kname}<{str(dt)[6:]}, D={d}, Q={d + 1}>"
+                if pa_config:
+                    c = pa_config(kname, dt, d)
+                    name += (f" ({c['threads']} threads, {c['elems']} elements, "
+                             f"{c['smem_bytes']} B shared per block, "
+                             f"{c['blocks_per_sm']} blocks per SM)")
             elif f:
                 name = f"flash_attention<{'f32' if f.group(1) == 'f' else 'bf16'}, D={f.group(2)}, BK={f.group(3)}> (FMA)"
             elif tc:
@@ -235,6 +252,21 @@ def paop_bound(args, y, p: int) -> tuple[float, str]:
     t_bytes = nbytes / MEM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[args[0].dtype]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def host_us(fn, n: int = 200, warmup: int = 20) -> float:
+    """Host time per call of ``n`` back-to-back calls of ``fn()``, in
+    microseconds, with no sync inside (what a caller's thread pays to
+    enqueue the call)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
 
 
 def reset_all_counts() -> None:
@@ -336,9 +368,10 @@ def main() -> int:
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         builds = [pool.submit(build.load), pool.submit(flash_build.load)]
         kl, fl = (b.result() for b in builds)
-    for lib, smem in ((kl, None), (fl, fl.lib.flash_attention_wgmma_smem_bytes)):
+    for lib, smem, cfg in ((kl, None, kl.config),
+                           (fl, fl.lib.flash_attention_wgmma_smem_bytes, None)):
         print(f"[build] {lib.path.name}: {lib.build_seconds:.1f} s (0 = cached)")
-        for row in ptxas_summary(lib.log, smem):
+        for row in ptxas_summary(lib.log, smem, cfg):
             print(row)
     px = torch.arange(8 * 128, dtype=torch.float32, device="cuda").reshape(8, 128)
     po = ops.probe(px)
@@ -522,23 +555,32 @@ def main() -> int:
     if tok_gpu != tok_cpu or lg_rel > SMALL_SERVE_REL:
         raise SystemExit("small serve on the card disagrees with the CPU")
 
-    # ---- 6. time the fine-level apply and the flash kernel
+    # ---- 6. time the PAop apply (kernel, baseline, plain) and the flash kernel
     ne = main_shapes[-1][1]
-    args = pa_inputs(MAIN_P, ne, torch.float64, gen)
-    y = ops.pa_elasticity(*args)
-    ref = paop_ref(*args)
-    max_abs, rel, ok = compare(y, ref, torch.float64)
-    if not ok:
-        raise SystemExit(f"fine-level apply out of tolerance: {rel}")
-    del ref
-    pa_ms = event_ms({"kernel": lambda: ops.pa_elasticity(*args),
+    pa_t = {}
+    for p in PA_TIME_P:
+        args = pa_inputs(p, ne, torch.float64, gen)
+        y = ops.pa_elasticity(*args)
+        ref = paop_ref(*args)
+        max_abs, rel, ok = compare(y, ref, torch.float64)
+        _, base_rel, base_ok = compare(ops.launch_baseline(*args), ref, torch.float64)
+        if not (ok and base_ok):
+            raise SystemExit(f"p={p} NE={ne} apply out of tolerance: kernel {rel}, "
+                             f"baseline {base_rel}")
+        del ref
+        t = event_ms({"kernel": lambda: ops.pa_elasticity(*args),
+                      "baseline": lambda: ops.launch_baseline(*args),
                       "plain": lambda: paop_ref(*args)}, n=10, rounds=5)
-    kernel_ms, plain_ms = pa_ms["kernel"], pa_ms["plain"]
-    bound_ms, bound_by = paop_bound(args, y, MAIN_P)
-    print(f"[time] pa_elasticity p={MAIN_P} NE={ne} f64: kernel {kernel_ms} ms, plain "
-          f"{plain_ms} ms (in turns, median of 5 rounds of 10), bound {bound_ms} ms "
-          f"({bound_by}), {100 * bound_ms / kernel_ms}% of bound")
-    del args, y
+        bound_ms, bound_by = paop_bound(args, y, p)
+        pa_t[p] = {**t, "bound_ms": bound_ms, "bound_by": bound_by, "max_abs": max_abs}
+        print(f"[time] pa_elasticity p={p} NE={ne} f64, in turns, median of 5 rounds of 10: "
+              f"kernel {t['kernel']} ms ({100 * bound_ms / t['kernel']}% of bound), baseline "
+              f"{t['baseline']} ms ({100 * bound_ms / t['baseline']}% of bound), plain "
+              f"{t['plain']} ms; bound {bound_ms} ms ({bound_by}); kernel "
+              f"{t['baseline'] / t['kernel']}x faster than the baseline; max rel err "
+              f"kernel {rel:.3e}, baseline {base_rel:.3e}")
+        del args, y
+    main_t = pa_t[MAIN_P]
     flash_args = flash_inputs(*FLASH_MAIN, torch.bfloat16, gen)
     if flash_ops.route(*flash_args) != "wgmma":
         raise SystemExit("the serve shape's timing inputs do not take the wgmma route")
@@ -559,7 +601,29 @@ def main() -> int:
           f"bound {flash_bound_ms} ms ({flash_bound_by}): wgmma {100 * flash_bound_ms / flash_ms}% "
           f"of bound, {flash_ms / flash_lib_ms}x SDPA's time; mma_sync "
           f"{100 * flash_bound_ms / flash_old_ms}% of bound")
-    del flash_args, sdpa_args
+    pa_args = pa_inputs(MAIN_P, ne, torch.float64, gen)
+    po = torch.empty_like(px)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (px.data_ptr(), po.data_ptr(), px.numel())
+    host = {
+        "ops.probe": host_us(lambda: ops.probe(px)),
+        "torch.mul": host_us(lambda: torch.mul(px, 2.0)),
+        f"ops.pa_elasticity p={MAIN_P}": host_us(lambda: ops.pa_elasticity(*pa_args)),
+        "flash_ops.launch wgmma": host_us(lambda: flash_ops.launch("wgmma", *flash_args)),
+    }
+    probe_parts = {
+        "build.load()": host_us(build.load),
+        "checks (dtype, is_contiguous, device.type)": host_us(
+            lambda: (px.dtype != torch.float32, px.is_contiguous(), px.device.type)),
+        "torch.empty_like": host_us(lambda: torch.empty_like(px)),
+        "torch.cuda.current_device()": host_us(torch.cuda.current_device),
+        "current_stream().cuda_stream": host_us(lambda: torch.cuda.current_stream().cuda_stream),
+        "2 x data_ptr()": host_us(lambda: (px.data_ptr(), po.data_ptr())),
+        "ctypes call": host_us(lambda: kl.probe(*ptrs, stream)),
+    }
+    print(f"[host] us per call, mean of 200 back-to-back calls after 20, no sync inside: "
+          f"{host}; the probe wrapper's parts: {probe_parts}")
+    del flash_args, sdpa_args, pa_args
     probe_t = event_ms({"kernel": lambda: ops.probe(px), "plain": lambda: probe_ref(px),
                         "library": lambda: torch.mul(px, 2.0)}, n=100, rounds=5)
     probe_ms, probe_plain_ms, probe_lib_ms = probe_t["kernel"], probe_t["plain"], probe_t["library"]
@@ -574,11 +638,11 @@ def main() -> int:
             "source": "src/repro_torch/kernels/pa_elasticity/csrc/pa_elasticity.cu",
             "replaces": "src/repro/kernels/pa_elasticity/pa_elasticity.py:85",
             "launches": main_counts["pa_elasticity"][0],
-            "max_abs_err": max_abs,
-            "ms": kernel_ms,
-            "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": bound_by,
+            "max_abs_err": main_t["max_abs"],
+            "ms": main_t["kernel"],
+            "plain_ms": main_t["plain"],
+            "bound_ms": main_t["bound_ms"],
+            "bound_by": main_t["bound_by"],
             "library_ms": None,
         },
         {

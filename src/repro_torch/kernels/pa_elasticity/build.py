@@ -25,7 +25,7 @@ __all__ = ["KernelLibrary", "load", "BUILD_DIR", "SOURCES"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
-SOURCES = ("pa_elasticity.cu", "probe.cu")
+SOURCES = ("pa_elasticity.cu", "pa_elasticity_baseline.cu", "probe.cu")
 
 _P = ctypes.c_void_p
 
@@ -38,13 +38,21 @@ class KernelLibrary:
         self.build_seconds = build_seconds  # 0.0 when loaded from _build/
         self.log = log  # nvcc/ptxas output of the build (registers, spills)
         lib = ctypes.CDLL(str(path))
-        # The C entry points, looked up once: PAop by dtype, the probe.
-        self.pa_elasticity = {}
+        # The C entry points, looked up once: PAop and its baseline (the
+        # first port's kernel, a yardstick) by dtype, their launch shapes,
+        # the probe.
+        self.pa_elasticity, self.pa_elasticity_baseline, self._config = {}, {}, {}
         for dtype, tag in ((torch.float64, "f64"), (torch.float32, "f32")):
-            fn = getattr(lib, f"pa_elasticity_{tag}")
-            fn.argtypes = [_P] * 7 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P]
-            fn.restype = ctypes.c_int
-            self.pa_elasticity[dtype] = fn
+            for name, table in (("pa_elasticity", self.pa_elasticity),
+                                ("pa_elasticity_baseline", self.pa_elasticity_baseline)):
+                fn = getattr(lib, f"{name}_{tag}")
+                fn.argtypes = [_P] * 7 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P]
+                fn.restype = ctypes.c_int
+                table[dtype] = fn
+                cfg = getattr(lib, f"{name}_config_{tag}")
+                cfg.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 4
+                cfg.restype = ctypes.c_int
+                self._config[name, dtype] = cfg
         lib.probe_f32.argtypes = [_P, _P, ctypes.c_int, _P]
         lib.probe_f32.restype = ctypes.c_int
         self.probe = lib.probe_f32
@@ -56,6 +64,16 @@ class KernelLibrary:
         if err != 0:
             msg = self.lib.kernel_error_string(err).decode()
             raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
+
+    def config(self, name: str, dtype, d1d: int) -> dict[str, int]:
+        """Launch shape of kernel ``name`` ("pa_elasticity" or
+        "pa_elasticity_baseline") at (dtype, D1D) and its resident blocks
+        per SM on the current card."""
+        out = [ctypes.c_int() for _ in range(4)]
+        self.check(self._config[name, dtype](d1d, *map(ctypes.byref, out)),
+                   f"{name} config (D1D={d1d}, {dtype})")
+        keys = ("threads", "elems", "smem_bytes", "blocks_per_sm")
+        return {k: v.value for k, v in zip(keys, out)}
 
     def probe_check(self) -> None:
         """Launch the probe once on the current card and compare it with

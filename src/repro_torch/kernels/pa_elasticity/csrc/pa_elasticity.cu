@@ -10,57 +10,90 @@
 //      into 6 weighted Voigt stresses (lam_w * div + 2 mu_w * eps);
 //   3. the rows of sigma . J^{-T} are pulled back;
 //   4. transposed contractions give y_e.
-// It does not carry over the TPU blocking: the element-last layout, the
-// padding to whole element blocks and the VMEM budget exist for the TPU's
-// 128-wide lanes.  The layout here is the framework's element-first one:
-// x/y (NE, 3, D, D, D), lam_w/mu_w (NE, Q, Q, Q), B/G (Q, D), J^{-1} (3, 3).
+// It does not carry over the TPU blocking (element-last layout, padding to
+// whole element blocks, the VMEM budget): the layout is the framework's
+// element-first one, x/y (NE, 3, D, D, D), lam_w/mu_w (NE, Q, Q, Q), B/G
+// (Q, D), J^{-1} (3, 3).
 //
-// What bounds it on this card: per element it must read x, lam_w, mu_w and
-// write y, (6 D^3 + 2 Q^3) words, against paop_flops_per_elem(p)
-// operations.  At p = 4 in f64 that is 9.5 KB for 107 kFLOP, about 11
-// FLOP/byte.  Against the H100 SXM data-sheet peaks (3.35 TB/s, and
-// 67 TFLOP/s in f64 with the tensor cores: 20 FLOP/byte) the bytes bound
-// it; on the f64 FMA units this kernel uses (34 TFLOP/s: 10 FLOP/byte) the
-// two are about even.  So the
-// design touches device memory once per word: one thread block owns whole
-// elements; x is staged once in shared memory; every intermediate (the two
-// X-sweep channels, the three Y-sweep channels, the transposed sweeps)
-// lives in shared memory; the six Voigt channels live in registers; lam_w
-// and mu_w are read once, at the point where they are used; y is written
-// once.  The component-sliced order of the TPU kernel is kept: the forward
-// pass walks one displacement component at a time and folds its gradient
-// into the Voigt accumulators, the backward pass emits one output
-// component at a time.
+// What bounds it on this card.  Per element it must read x, lam_w, mu_w
+// and write y, (6 D^3 + 2 Q^3) words, against paop_flops_per_elem(p)
+// operations.  At p = 4 in f64, NE = 32,768: 303 MB, 0.0925 ms at
+// 3.35 TB/s (the bound); 3.50 GFLOP, 0.104 ms on the f64 FMA pipes
+// (33.5 TFLOP/s, 64 FMA/clk/SM) this kernel runs on.  The sweeps stage
+// every intermediate in shared memory, which gives an SM 128 B/clk: 16
+// doubles against 64 FMA/clk.  The first port (pa_elasticity_baseline.cu)
+// gave each thread one output point and read both the operand and the
+// B/G entry from shared memory for every FMA (~1.5 shared words per FMA),
+// so its sweeps ran at about a fifth of the FMA rate, on blocks of 72
+// threads that left whole lanes idle.
 //
-// Threads: a Q x Q tile per element, thread (tx, ty) owns the quadrature
-// column (qx, qy) = (tx, ty) and walks the z-slices; at low p a block holds
-// several elements (blockDim.z) so that it has at least 64 threads.  B and
-// G sit in shared memory.  At p = 8 in f64 a block needs more than the
-// 48 KB of static shared memory, so the launch raises the dynamic limit
-// with cudaFuncSetAttribute first.
+// The design:
+//   * Blocks of kThreads (a multiple of 32) hold kElems whole elements,
+//     kElems Q^2 <= kThreads, so that every quadrature column of an
+//     element has one owner thread.
+//   * Pencil sweeps.  Each sweep is a loop over its pencils (one line of
+//     an element along the contracted axis), a pencil per thread: it reads
+//     its D (or Q) inputs from shared memory once into registers and
+//     produces all its outputs, or streams its inputs into register
+//     accumulators, whichever needs fewer registers.  The B/G index is a
+//     function of the unrolled loop counters alone, so every lane reads the
+//     same table word: a broadcast.  At p = 4 this is ~0.3 shared words
+//     per FMA.  Intermediate rows are padded so that the lanes of a warp
+//     hit distinct banks on both sides of each sweep.
+//   * The column owner keeps the six Voigt channels x Q in registers
+//     (the Z sweep, the pointwise stress and the Z^T sweep); the
+//     component-sliced order of the TPU kernel is kept: the forward pass
+//     walks one displacement component at a time, the backward pass emits
+//     one output component at a time.
+//   * x, lam_w and mu_w are copied once, contiguously, with cp.async (16
+//     bytes where the source allows), into shared memory at a shift that
+//     makes the source and the copy agree modulo 16 bytes; lam_w/mu_w go
+//     in a second group that is still in flight while the forward sweeps
+//     run.  y is assembled in x's place and written out contiguously.
+//   * __launch_bounds__ caps the registers so that kMinBlocks blocks fit
+//     on an SM without spills (ptxas -v reports the spills;
+//     pa_elasticity_config_* reports blocks per SM and shared bytes).
 //
 // Instantiated for p = 1..8 (D = p + 1, Q = p + 2) in float64 and float32.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <type_traits>
+
 namespace {
 
-constexpr int kMinThreadsPerBlock = 64;
+constexpr int round_up(int n, int m) { return (n + m - 1) / m * m; }
 
-template <int Q>
-struct Tile {
-  static constexpr int kElems =
-      (kMinThreadsPerBlock + Q * Q - 1) / (Q * Q);  // elements per block
-  static constexpr int kThreads = Q * Q * kElems;
-};
-
-template <typename T, int D, int Q>
-struct Smem {
-  static constexpr int kTables = 2 * Q * D;  // B, G
-  // x (3 components), X-sweep (2 channels), Y-sweep (3 channels)
-  static constexpr int kPerElem = 3 * D * D * D + 2 * D * D * Q + 3 * D * Q * Q;
-  static constexpr size_t kBytes =
-      sizeof(T) * (kTables + static_cast<size_t>(Tile<Q>::kElems) * kPerElem);
+// Launch shape and shared-memory layout per (T, D); sizes in words of T.
+template <typename T, int D>
+struct Config {
+  static constexpr int Q = D + 1;
+  static constexpr int kThreads = 128;
+  static constexpr int kElems = kThreads / (Q * Q);
+  // Blocks per SM the register cap is set for (65,536 / (128 kMinBlocks)
+  // registers a thread): the column owner holds 6 Q Voigt values beside a
+  // sweep's values.  At p = 4 in f64 a cap of 128 spills, so 170.
+  static constexpr int kMinBlocks =
+      sizeof(T) == 8 ? (D <= 4 ? 4 : D <= 6 ? 3 : 2) : (D <= 7 ? 4 : 3);
+  static constexpr int kAlign = 16 / static_cast<int>(sizeof(T));
+  // U/V rows along qx: an odd stride, so a warp's pencils hit distinct
+  // banks.  W's z stride is congruent to Q modulo 32 words, so the lanes of
+  // a Y sweep (z, qx) and of a column owner (qy, qx) both see it as
+  // contiguous.
+  static constexpr int Qp = Q | 1;
+  static constexpr int Sz = Q * Q + ((Q - Q * Q) % 32 + 32) % 32;
+  static constexpr int kUElem = D * D * Qp;  // U/V per element: [y][z][qx]
+  static constexpr int kWElem = 3 * D * Sz;  // W per element: [m][z][qy][qx]
+  static constexpr int kT = round_up(Q * D, kAlign);  // B, then G
+  static constexpr int kJ = round_up(9, kAlign);
+  // x in, y out; lam_w; mu_w: one 16-byte chunk of slack for the shift.
+  static constexpr int kX = round_up(kElems * 3 * D * D * D, kAlign) + kAlign;
+  static constexpr int kL = round_up(kElems * Q * Q * Q, kAlign) + kAlign;
+  static constexpr int kU = round_up(kElems * kUElem, kAlign);
+  static constexpr int kW = round_up(kElems * kWElem, kAlign);
+  static constexpr int kWords = 2 * kT + kJ + kX + 2 * kL + 2 * kU + kW;
+  static constexpr size_t kBytes = sizeof(T) * static_cast<size_t>(kWords);
 };
 
 // Voigt slot of the symmetric pair (a, b): [00, 11, 22, 01, 02, 12].
@@ -68,225 +101,368 @@ __host__ __device__ constexpr int voigt(int a, int b) {
   return a == b ? a : 2 + a + b;
 }
 
-template <typename T, int D, int Q>
-__global__ void __launch_bounds__(Tile<Q>::kThreads)
+// Words of T by which p lies past a 16-byte boundary.
+template <typename T>
+__device__ __forceinline__ int shift_words(const T* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) & 15) / sizeof(T));
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (N == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src),
+                 "n"(N)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// n words from global src to shared dst, which agree modulo 16 bytes:
+// word copies up to the first 16-byte boundary, 16-byte copies, a word tail.
+template <typename T, int NT>
+__device__ __forceinline__ void copy_in(T* dst, const T* src, int n, int tid) {
+  constexpr int V = 16 / sizeof(T);
+  const int head = min(n, (V - shift_words(src)) % V);
+  const int body = (n - head) / V;
+  for (int i = tid; i < head; i += NT) cp_async<sizeof(T)>(dst + i, src + i);
+  for (int i = tid; i < body; i += NT) {
+    cp_async<16>(dst + head + i * V, src + head + i * V);
+  }
+  for (int i = head + body * V + tid; i < n; i += NT) {
+    cp_async<sizeof(T)>(dst + i, src + i);
+  }
+}
+
+// n words from shared src to global dst: 16-byte stores where the two
+// agree modulo 16 bytes, word stores otherwise.
+template <typename T, int NT>
+__device__ __forceinline__ void copy_out(T* dst, const T* src, int n, int tid) {
+  constexpr int V = 16 / sizeof(T);
+  if (shift_words(dst) != shift_words(src)) {
+    for (int i = tid; i < n; i += NT) dst[i] = src[i];
+    return;
+  }
+  const int head = min(n, (V - shift_words(src)) % V);
+  const int body = (n - head) / V;
+  for (int i = tid; i < head; i += NT) dst[i] = src[i];
+  for (int i = tid; i < body; i += NT) {
+    reinterpret_cast<int4*>(dst + head)[i] =
+        reinterpret_cast<const int4*>(src + head)[i];
+  }
+  for (int i = head + body * V + tid; i < n; i += NT) dst[i] = src[i];
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(Config<T, D>::kThreads, Config<T, D>::kMinBlocks)
 pa_elasticity_kernel(const T* __restrict__ x, const T* __restrict__ lam,
                      const T* __restrict__ mu, const T* __restrict__ jinv,
                      const T* __restrict__ Bg, const T* __restrict__ Gg,
                      T* __restrict__ y, long long ne) {
-  constexpr int NB = Tile<Q>::kElems;
-  constexpr int NT = Tile<Q>::kThreads;
-  constexpr int D3 = D * D * D;
-  constexpr int Q3 = Q * Q * Q;
-  constexpr int QQ = Q * Q;
-  constexpr int DQQ = D * Q * Q;
+  using C = Config<T, D>;
+  constexpr int Q = C::Q, NT = C::kThreads, NB = C::kElems;
+  constexpr int D3 = D * D * D, Q3 = Q * Q * Q, QQ = Q * Q;
+  constexpr int Qp = C::Qp, Sz = C::Sz, SU = C::kUElem, SW = C::kWElem;
+  constexpr int DSz = D * Sz;  // W's channel stride
+  constexpr int YS = D * Qp;   // U/V's y stride
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int tx = threadIdx.x, ty = threadIdx.y, tz = threadIdx.z;
   T* sB = reinterpret_cast<T*>(smem_raw);  // [Q][D]
-  T* sG = sB + Q * D;                      // [Q][D]
-  T* sX = sG + Q * D + tz * Smem<T, D, Q>::kPerElem;  // [3][D][D][D]
-  T* sU = sX + 3 * D3;                     // [D][D][Q]
-  T* sV = sU + D * D * Q;                  // [D][D][Q]
-  T* sW = sV + D * D * Q;                  // [3][D][Q][Q]
+  T* sG = sB + C::kT;                      // [Q][D]
+  T* sJ = sG + C::kT;                      // [3][3]
+  T* sXr = sJ + C::kJ;
+  T* sLr = sXr + C::kX;
+  T* sMr = sLr + C::kL;
+  T* sU = sMr + C::kL;  // [NB][y][z][qx]
+  T* sV = sU + C::kU;   // [NB][y][z][qx]
+  T* sW = sV + C::kU;   // [NB][3][z][qy][qx]
 
-  const int tid = tx + Q * (ty + Q * tz);
-  const int ltid = tx + Q * ty;
-  const long long e = static_cast<long long>(blockIdx.x) * NB + tz;
-  const bool valid = e < ne;  // the last block may hold fewer elements
+  const int tid = threadIdx.x;
+  const long long e0 = static_cast<long long>(blockIdx.x) * NB;
+  const int nb = static_cast<int>(ne - e0 < NB ? ne - e0 : NB);  // ragged tail
 
+  // ---- stage: x (group 0), lam_w and mu_w (group 1, waited for only
+  // after the forward sweeps), the tables.
+  const T* xg = x + e0 * 3 * D3;
+  const T* lg = lam + e0 * Q3;
+  const T* mg = mu + e0 * Q3;
+  T* sX = sXr + shift_words(xg);  // [NB][3][z][y][x]: x, then y
+  T* sL = sLr + shift_words(lg);  // [NB][qz][qy][qx]
+  T* sM = sMr + shift_words(mg);
+  copy_in<T, NT>(sX, xg, nb * 3 * D3, tid);
+  cp_async_commit();
+  copy_in<T, NT>(sL, lg, nb * Q3, tid);
+  copy_in<T, NT>(sM, mg, nb * Q3, tid);
+  cp_async_commit();
   for (int i = tid; i < Q * D; i += NT) {
     sB[i] = Bg[i];
     sG[i] = Gg[i];
   }
-  T J[9];
-#pragma unroll
-  for (int i = 0; i < 9; ++i) J[i] = jinv[i];
-  if (valid) {
-    const T* xe = x + e * 3 * D3;
-    for (int i = ltid; i < 3 * D3; i += QQ) sX[i] = xe[i];
-  } else {
-    for (int i = ltid; i < 3 * D3; i += QQ) sX[i] = T(0);
-  }
+  if (tid < 9) sJ[tid] = jinv[tid];
+  cp_async_wait<1>();
   __syncthreads();
 
+  // The column owner: element ce, column col = qy * Q + qx.
+  const int ce = tid / QQ, col = tid % QQ;
+  const bool owner = tid < nb * QQ;
+
   // ---- forward, one displacement component c at a time.  acc holds the
-  // running Voigt channels at this thread's (qy, qx) column for every qz:
-  // slots 0..2 the diagonal gradients d_c u_c, slots 3..5 the symmetrized
-  // sums d_k u_j + d_j u_k.
+  // owner's running Voigt channels for every qz: slots 0..2 the diagonal
+  // gradients d_c u_c, slots 3..5 the symmetrized sums d_k u_j + d_j u_k.
   T acc[6][Q];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    const T* xc = sX + c * D3;
-    // X sweep: (z, y, x) -> (z, y, qx), threads (qx, y) = (tx, ty).
-    if (ty < D) {
-      for (int iz = 0; iz < D; ++iz) {
+    // X sweep: pencil (e, y, z) along x -> U (B) and V (G) at (y, z, qx).
+    for (int w = tid; w < nb * D * D; w += NT) {
+      const int e = w / (D * D), r = w % (D * D), iy = r / D, iz = r % D;
+      const T* px = sX + e * 3 * D3 + c * D3 + (iz * D + iy) * D;
+      T xv[D];
+#pragma unroll
+      for (int ix = 0; ix < D; ++ix) xv[ix] = px[ix];
+      T* pu = sU + e * SU + r * Qp;
+      T* pv = sV + e * SU + r * Qp;
+#pragma unroll
+      for (int qx = 0; qx < Q; ++qx) {
         T u = 0, v = 0;
 #pragma unroll
         for (int ix = 0; ix < D; ++ix) {
-          const T xv = xc[(iz * D + ty) * D + ix];
-          u += sB[tx * D + ix] * xv;
-          v += sG[tx * D + ix] * xv;
+          u += sB[qx * D + ix] * xv[ix];
+          v += sG[qx * D + ix] * xv[ix];
         }
-        sU[(iz * D + ty) * Q + tx] = u;
-        sV[(iz * D + ty) * Q + tx] = v;
+        pu[qx] = u;
+        pv[qx] = v;
       }
     }
     __syncthreads();
-    // Y sweep: (z, y, qx) -> (z, qy, qx), threads (qx, qy) = (tx, ty).
-    for (int iz = 0; iz < D; ++iz) {
-      T a = 0, b = 0, w = 0;
+    // Y sweep: pencil (e, z, qx) along y -> W0, W1, W2 at (z, qy, qx).
+    for (int w = tid; w < nb * D * Q; w += NT) {
+      const int e = w / (D * Q), r = w % (D * Q), iz = r / Q, qx = r % Q;
+      const T* pu = sU + e * SU + iz * Qp + qx;
+      const T* pv = sV + e * SU + iz * Qp + qx;
+      T uu[D], vv[D];
 #pragma unroll
       for (int iy = 0; iy < D; ++iy) {
-        const T uu = sU[(iz * D + iy) * Q + tx];
-        const T vv = sV[(iz * D + iy) * Q + tx];
-        a += sB[ty * D + iy] * vv;  // d_xi:   G in x, B in y
-        b += sG[ty * D + iy] * uu;  // d_eta:  B in x, G in y
-        w += sB[ty * D + iy] * uu;  // d_zeta: B in x, B in y
+        uu[iy] = pu[iy * YS];
+        vv[iy] = pv[iy * YS];
       }
-      const int o = iz * QQ + ty * Q + tx;
-      sW[o] = a;
-      sW[DQQ + o] = b;
-      sW[2 * DQQ + o] = w;
+      T* pw = sW + e * SW + iz * Sz + qx;
+#pragma unroll
+      for (int qy = 0; qy < Q; ++qy) {
+        T a = 0, b = 0, s = 0;
+#pragma unroll
+        for (int iy = 0; iy < D; ++iy) {
+          a += sB[qy * D + iy] * vv[iy];  // d_xi:   G in x, B in y
+          b += sG[qy * D + iy] * uu[iy];  // d_eta:  B in x, G in y
+          s += sB[qy * D + iy] * uu[iy];  // d_zeta: B in x, B in y
+        }
+        pw[qy * Q] = a;
+        pw[DSz + qy * Q] = b;
+        pw[2 * DSz + qy * Q] = s;
+      }
     }
     __syncthreads();
-    // Z sweep on this thread's column, then the physical gradient
-    // d_j u_c = sum_m ghat[c, m] Jinv[m, j], folded into the accumulators.
-    // (The next X sweep writes only sU/sV, and the sync after it orders
-    // these sW reads before the next Y sweep rewrites sW.)
+    // Z sweep on the owner's column, one reference direction m at a time
+    // (B along z for m = 0, 1; G for m = 2), each folded into the
+    // accumulators as d_j u_c += ghat[c, m] Jinv[m, j].  (The next X sweep
+    // writes only U/V, and the sync after it orders these W reads before
+    // the next Y sweep rewrites W.)
+    if (owner) {
 #pragma unroll
-    for (int qz = 0; qz < Q; ++qz) {
-      T g0 = 0, g1 = 0, g2 = 0;
+      for (int m = 0; m < 3; ++m) {
+        const T* tab = m == 2 ? sG : sB;
+        const T* pw = sW + ce * SW + m * DSz + col;
+        T wm[D];
 #pragma unroll
-      for (int iz = 0; iz < D; ++iz) {
-        const int o = iz * QQ + ty * Q + tx;
-        g0 += sB[qz * D + iz] * sW[o];
-        g1 += sB[qz * D + iz] * sW[DQQ + o];
-        g2 += sG[qz * D + iz] * sW[2 * DQQ + o];
-      }
+        for (int iz = 0; iz < D; ++iz) wm[iz] = pw[iz * Sz];
+        const T j0 = sJ[3 * m], j1 = sJ[3 * m + 1], j2 = sJ[3 * m + 2];
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const T grad = g0 * J[j] + g1 * J[3 + j] + g2 * J[6 + j];
-        if (j == c || c < j) {
-          acc[voigt(c, j)][qz] = grad;  // first contribution to the slot
-        } else {
-          acc[voigt(c, j)][qz] += grad;
+        for (int qz = 0; qz < Q; ++qz) {
+          T g = 0;
+#pragma unroll
+          for (int iz = 0; iz < D; ++iz) g += tab[qz * D + iz] * wm[iz];
+          const T jm[3] = {j0, j1, j2};
+#pragma unroll
+          for (int j = 0; j < 3; ++j) {
+            if (m == 0 && (j == c || c < j)) {
+              acc[voigt(c, j)][qz] = g * jm[j];  // first contribution to the slot
+            } else {
+              acc[voigt(c, j)][qz] += g * jm[j];
+            }
+          }
         }
       }
     }
   }
 
   // ---- pointwise weighted Voigt stress, in place in the accumulators.
+  cp_async_wait<0>();
+  __syncthreads();
+  if (owner) {
+    const T* pl = sL + ce * Q3 + col;
+    const T* pm = sM + ce * Q3 + col;
 #pragma unroll
-  for (int qz = 0; qz < Q; ++qz) {
-    T lw = 0, mw = 0;
-    if (valid) {
-      const long long qo = e * Q3 + (qz * Q + ty) * Q + tx;
-      lw = lam[qo];
-      mw = mu[qo];
+    for (int qz = 0; qz < Q; ++qz) {
+      const T lw = pl[qz * QQ], mw = pm[qz * QQ];
+      const T ld = lw * (acc[0][qz] + acc[1][qz] + acc[2][qz]);
+      const T two_mu = T(2) * mw;
+      acc[0][qz] = ld + two_mu * acc[0][qz];
+      acc[1][qz] = ld + two_mu * acc[1][qz];
+      acc[2][qz] = ld + two_mu * acc[2][qz];
+      acc[3][qz] = mw * acc[3][qz];
+      acc[4][qz] = mw * acc[4][qz];
+      acc[5][qz] = mw * acc[5][qz];
     }
-    const T ld = lw * (acc[0][qz] + acc[1][qz] + acc[2][qz]);
-    const T two_mu = T(2) * mw;
-    acc[0][qz] = ld + two_mu * acc[0][qz];
-    acc[1][qz] = ld + two_mu * acc[1][qz];
-    acc[2][qz] = ld + two_mu * acc[2][qz];
-    acc[3][qz] = mw * acc[3][qz];
-    acc[4][qz] = mw * acc[4][qz];
-    acc[5][qz] = mw * acc[5][qz];
   }
-  __syncthreads();  // the last Z sweep's sW reads end before Z^T writes sW
 
   // ---- backward, one output component c at a time.
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     // Pull-back rows q_m = sum_j sigma[c, j] Jinv[m, j] and the Z^T sweep
-    // on this thread's column: G along z for m = 2, B otherwise.
-    T t0[D], t1[D], t2[D];
+    // on the owner's column (G along z for m = 2, B otherwise), one m at a
+    // time, into W.  The owner wrote and read only its own column of W
+    // since the last sync, and the previous component's Y^T reads of W
+    // finished before the sync that preceded its X^T sweep.
+    if (owner) {
 #pragma unroll
-    for (int iz = 0; iz < D; ++iz) t0[iz] = t1[iz] = t2[iz] = 0;
+      for (int m = 0; m < 3; ++m) {
+        const T* tab = m == 2 ? sG : sB;
+        const T j0 = sJ[3 * m], j1 = sJ[3 * m + 1], j2 = sJ[3 * m + 2];
+        T t[D];
 #pragma unroll
-    for (int qz = 0; qz < Q; ++qz) {
-      const T s0 = acc[voigt(c, 0)][qz];
-      const T s1 = acc[voigt(c, 1)][qz];
-      const T s2 = acc[voigt(c, 2)][qz];
-      const T q0 = s0 * J[0] + s1 * J[1] + s2 * J[2];
-      const T q1 = s0 * J[3] + s1 * J[4] + s2 * J[5];
-      const T q2 = s0 * J[6] + s1 * J[7] + s2 * J[8];
+        for (int iz = 0; iz < D; ++iz) t[iz] = 0;
 #pragma unroll
-      for (int iz = 0; iz < D; ++iz) {
-        t0[iz] += sB[qz * D + iz] * q0;
-        t1[iz] += sB[qz * D + iz] * q1;
-        t2[iz] += sG[qz * D + iz] * q2;
-      }
-    }
-    // (The previous component's Y^T reads of sW finished before the sync
-    // that preceded its X^T sweep.)
+        for (int qz = 0; qz < Q; ++qz) {
+          const T q = acc[voigt(c, 0)][qz] * j0 + acc[voigt(c, 1)][qz] * j1 +
+                      acc[voigt(c, 2)][qz] * j2;
 #pragma unroll
-    for (int iz = 0; iz < D; ++iz) {
-      const int o = iz * QQ + ty * Q + tx;
-      sW[o] = t0[iz];
-      sW[DQQ + o] = t1[iz];
-      sW[2 * DQQ + o] = t2[iz];
-    }
-    __syncthreads();
-    // Y^T sweep: (z, qy, qx) -> (z, y, qx), threads (qx, y) = (tx, ty).
-    // m = 0 takes B along y and G along x; m = 1 takes G along y and
-    // m = 2 B along y, both B along x, so they share one channel.
-    if (ty < D) {
-      for (int iz = 0; iz < D; ++iz) {
-        T wg = 0, wb = 0;
-#pragma unroll
-        for (int qy = 0; qy < Q; ++qy) {
-          const int o = iz * QQ + qy * Q + tx;
-          wg += sB[qy * D + ty] * sW[o];
-          wb += sG[qy * D + ty] * sW[DQQ + o] + sB[qy * D + ty] * sW[2 * DQQ + o];
+          for (int iz = 0; iz < D; ++iz) t[iz] += tab[qz * D + iz] * q;
         }
-        sU[(iz * D + ty) * Q + tx] = wg;
-        sV[(iz * D + ty) * Q + tx] = wb;
+        T* pw = sW + ce * SW + m * DSz + col;
+#pragma unroll
+        for (int iz = 0; iz < D; ++iz) pw[iz * Sz] = t[iz];
       }
     }
     __syncthreads();
-    // X^T sweep: (z, y, qx) -> (z, y, x), threads (x, y) = (tx, ty),
-    // written straight to this component's slice of y.  (The next
-    // component's Y^T writes sU/sV only after the sync that follows its
-    // Z^T sweep, so these reads are ordered before it.)
-    if (valid && tx < D && ty < D) {
-      T* yc = y + (e * 3 + c) * D3;
-      for (int iz = 0; iz < D; ++iz) {
-        T out = 0;
+    // Y^T sweep: pencil (e, z, qx) along qy, streamed into D + D register
+    // sums -> U (G along x follows) and V (B along x follows) at (y, z, qx).
+    // m = 0 takes B along y; m = 1 G and m = 2 B along y share V.
+    for (int w = tid; w < nb * D * Q; w += NT) {
+      const int e = w / (D * Q), r = w % (D * Q), iz = r / Q, qx = r % Q;
+      const T* pw = sW + e * SW + iz * Sz + qx;
+      T wg[D], wb[D];
 #pragma unroll
-        for (int qx = 0; qx < Q; ++qx) {
-          const int o = (iz * D + ty) * Q + qx;
-          out += sG[qx * D + tx] * sU[o] + sB[qx * D + tx] * sV[o];
+      for (int iy = 0; iy < D; ++iy) wg[iy] = wb[iy] = 0;
+#pragma unroll
+      for (int qy = 0; qy < Q; ++qy) {
+        const T a = pw[qy * Q], b = pw[DSz + qy * Q], s = pw[2 * DSz + qy * Q];
+#pragma unroll
+        for (int iy = 0; iy < D; ++iy) {
+          wg[iy] += sB[qy * D + iy] * a;
+          wb[iy] += sG[qy * D + iy] * b + sB[qy * D + iy] * s;
         }
-        yc[(iz * D + ty) * D + tx] = out;
       }
+      T* pu = sU + e * SU + iz * Qp + qx;
+      T* pv = sV + e * SU + iz * Qp + qx;
+#pragma unroll
+      for (int iy = 0; iy < D; ++iy) {
+        pu[iy * YS] = wg[iy];
+        pv[iy * YS] = wb[iy];
+      }
+    }
+    __syncthreads();
+    // X^T sweep: pencil (e, y, z) along qx, streamed into D register sums,
+    // written into component c of y in x's place.  (The next component's
+    // Y^T writes U/V only after the sync that follows its Z^T sweep.)
+    for (int w = tid; w < nb * D * D; w += NT) {
+      const int e = w / (D * D), r = w % (D * D), iy = r / D, iz = r % D;
+      const T* pu = sU + e * SU + r * Qp;
+      const T* pv = sV + e * SU + r * Qp;
+      T out[D];
+#pragma unroll
+      for (int ix = 0; ix < D; ++ix) out[ix] = 0;
+#pragma unroll
+      for (int qx = 0; qx < Q; ++qx) {
+        const T g = pu[qx], b = pv[qx];
+#pragma unroll
+        for (int ix = 0; ix < D; ++ix) {
+          out[ix] += sG[qx * D + ix] * g + sB[qx * D + ix] * b;
+        }
+      }
+      T* py = sX + e * 3 * D3 + c * D3 + (iz * D + iy) * D;
+#pragma unroll
+      for (int ix = 0; ix < D; ++ix) py[ix] = out[ix];
     }
   }
+  __syncthreads();
+  copy_out<T, NT>(y + e0 * 3 * D3, sX, nb * 3 * D3, tid);
+}
+
+template <typename T, int D>
+cudaError_t allow_smem() {
+  using C = Config<T, D>;
+  if (C::kBytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(pa_elasticity_kernel<T, D>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(C::kBytes));
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* x, const void* lam, const void* mu,
                    const void* jinv, const void* B, const void* G, void* y,
                    long long ne, cudaStream_t stream) {
-  constexpr int Q = D + 1;
-  const size_t bytes = Smem<T, D, Q>::kBytes;
-  auto kernel = pa_elasticity_kernel<T, D, Q>;
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
-  }
-  const long long blocks = (ne + Tile<Q>::kElems - 1) / Tile<Q>::kElems;
+  using C = Config<T, D>;
+  const cudaError_t err = allow_smem<T, D>();
+  if (err != cudaSuccess) return err;
+  const long long blocks = (ne + C::kElems - 1) / C::kElems;
   if (blocks == 0) return cudaSuccess;
-  const dim3 block(Q, Q, Tile<Q>::kElems);
-  kernel<<<static_cast<unsigned>(blocks), block, bytes, stream>>>(
+  pa_elasticity_kernel<T, D><<<static_cast<unsigned>(blocks), C::kThreads,
+                               C::kBytes, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(lam),
       static_cast<const T*>(mu), static_cast<const T*>(jinv),
       static_cast<const T*>(B), static_cast<const T*>(G),
       static_cast<T*>(y), ne);
   return cudaGetLastError();
+}
+
+// The launch shape of one instantiation and how many of its blocks an SM
+// of the current card holds at once.
+template <typename T, int D>
+cudaError_t config(int* threads, int* elems, int* smem_bytes, int* blocks_per_sm) {
+  using C = Config<T, D>;
+  const cudaError_t err = allow_smem<T, D>();
+  if (err != cudaSuccess) return err;
+  *threads = C::kThreads;
+  *elems = C::kElems;
+  *smem_bytes = static_cast<int>(C::kBytes);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, pa_elasticity_kernel<T, D>, C::kThreads, C::kBytes);
+}
+
+// f(std::integral_constant<int, D>) for D = d1d in 2..9.
+template <typename F>
+cudaError_t by_order(int d1d, F&& f) {
+  switch (d1d) {
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 5: return f(std::integral_constant<int, 5>{});
+    case 6: return f(std::integral_constant<int, 6>{});
+    case 7: return f(std::integral_constant<int, 7>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 9: return f(std::integral_constant<int, 9>{});
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
@@ -295,19 +471,17 @@ int dispatch(const void* x, const void* lam, const void* mu, const void* jinv,
              int q1d, void* stream) {
   if (q1d != d1d + 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (d1d) {
-    case 2: err = launch<T, 2>(x, lam, mu, jinv, B, G, y, ne, s); break;
-    case 3: err = launch<T, 3>(x, lam, mu, jinv, B, G, y, ne, s); break;
-    case 4: err = launch<T, 4>(x, lam, mu, jinv, B, G, y, ne, s); break;
-    case 5: err = launch<T, 5>(x, lam, mu, jinv, B, G, y, ne, s); break;
-    case 6: err = launch<T, 6>(x, lam, mu, jinv, B, G, y, ne, s); break;
-    case 7: err = launch<T, 7>(x, lam, mu, jinv, B, G, y, ne, s); break;
-    case 8: err = launch<T, 8>(x, lam, mu, jinv, B, G, y, ne, s); break;
-    case 9: err = launch<T, 9>(x, lam, mu, jinv, B, G, y, ne, s); break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(by_order(d1d, [&](auto d) {
+    return launch<T, decltype(d)::value>(x, lam, mu, jinv, B, G, y, ne, s);
+  }));
+}
+
+template <typename T>
+int dispatch_config(int d1d, int* threads, int* elems, int* smem_bytes,
+                    int* blocks_per_sm) {
+  return static_cast<int>(by_order(d1d, [&](auto d) {
+    return config<T, decltype(d)::value>(threads, elems, smem_bytes, blocks_per_sm);
+  }));
 }
 
 }  // namespace
@@ -324,6 +498,16 @@ int pa_elasticity_f32(const void* x, const void* lam, const void* mu,
                       const void* jinv, const void* B, const void* G, void* y,
                       long long ne, int d1d, int q1d, void* stream) {
   return dispatch<float>(x, lam, mu, jinv, B, G, y, ne, d1d, q1d, stream);
+}
+
+int pa_elasticity_config_f64(int d1d, int* threads, int* elems, int* smem_bytes,
+                             int* blocks_per_sm) {
+  return dispatch_config<double>(d1d, threads, elems, smem_bytes, blocks_per_sm);
+}
+
+int pa_elasticity_config_f32(int d1d, int* threads, int* elems, int* smem_bytes,
+                             int* blocks_per_sm) {
+  return dispatch_config<float>(d1d, threads, elems, smem_bytes, blocks_per_sm);
 }
 
 const char* kernel_error_string(int err) {

@@ -24,6 +24,7 @@ from repro_torch.kernels.pa_elasticity.ref import paop_ref, probe_ref
 
 __all__ = [
     "pa_elasticity",
+    "launch_baseline",
     "probe",
     "check_probe",
     "counts",
@@ -138,6 +139,31 @@ def pa_elasticity(x_e, lam_w, mu_w, jinv, B, G):
     if err:
         kl.check(err, f"pa_elasticity launch (D1D={d1d}, Q1D={q1d}, {x_e.dtype})")
     counts["pa_elasticity"].launches += 1
+    return y
+
+
+def launch_baseline(x_e, lam_w, mu_w, jinv, B, G):
+    """The first port's PAop kernel (``csrc/pa_elasticity_baseline.cu``) on
+    CUDA tensors, as a yardstick for :func:`pa_elasticity`'s kernel: timed
+    beside it by ``chip_smoke.py`` and held against the plain version by the
+    card's tests.  The main path never routes here, and it is not counted.
+    Raises for a tensor on any other device."""
+    ne, d1d, q1d = _check_pa_args(x_e, lam_w, mu_w, jinv, B, G)
+    if x_e.device.type != "cuda":
+        raise ValueError(
+            f"pa_elasticity baseline: runs only on CUDA tensors, got {x_e.device}"
+        )
+    y = torch.empty_like(x_e)
+    if ne == 0:
+        return y
+    kl = build.load()
+    err = _on_stream(
+        kl.pa_elasticity_baseline[x_e.dtype], x_e,
+        x_e.data_ptr(), lam_w.data_ptr(), mu_w.data_ptr(), jinv.data_ptr(),
+        B.data_ptr(), G.data_ptr(), y.data_ptr(), ne, d1d, q1d,
+    )
+    if err:
+        kl.check(err, f"pa_elasticity baseline launch (D1D={d1d}, Q1D={q1d}, {x_e.dtype})")
     return y
 
 

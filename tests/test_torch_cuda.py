@@ -18,7 +18,7 @@ from repro_torch.convert import lm_params
 from repro_torch.core.basis import basis_tables
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import flash_ref
-from repro_torch.kernels.pa_elasticity import ops
+from repro_torch.kernels.pa_elasticity import build, ops
 from repro_torch.kernels.pa_elasticity.ref import paop_ref
 from repro_torch.launch.solve import solve_beam
 from repro_torch.fem.mesh import beam_hex
@@ -57,7 +57,10 @@ def _args(p, ne, dtype, device):
 @pytest.mark.parametrize("p", ops.SUPPORTED_P)
 def test_kernel_matches_plain_on_card(card, p, dtype):
     rtol, atol = TOL[dtype]
-    for ne in (1, 7, 300):
+    # a block holds `elems` whole elements: 41 elems + 1 leaves the last
+    # block ragged (where elems > 1)
+    elems = build.load().config("pa_elasticity", dtype, p + 1)["elems"]
+    for ne in (1, 7, 300, 41 * elems + 1):
         args = _args(p, ne, dtype, card)
         before = ops.counts["pa_elasticity"].launches
         y = ops.pa_elasticity(*args)
@@ -67,10 +70,27 @@ def test_kernel_matches_plain_on_card(card, p, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("p", [2, 4, 8])
+def test_baseline_matches_plain_on_card(card, p):
+    rtol, atol = TOL[torch.float64]
+    for ne in (1, 7, 300):
+        args = _args(p, ne, torch.float64, card)
+        before = ops.counts["pa_elasticity"].launches
+        y = ops.launch_baseline(*args)
+        assert ops.counts["pa_elasticity"].launches == before  # not counted
+        ref = paop_ref(*args)
+        torch.testing.assert_close(y, ref, rtol=rtol, atol=atol * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
 def test_probe_on_card(card):
     ops.check_probe(card)
+    # a tensor on the current card takes the path without a device context
     x = torch.randn(1000, device=card)
+    assert x.device.index == torch.cuda.current_device()
+    before = ops.counts["probe"].launches
     assert torch.equal(ops.probe(x), 2 * x)
+    assert ops.counts["probe"].launches == before + 1
 
 
 @pytest.mark.cuda

@@ -23,7 +23,8 @@ import torch
 from repro.kernels.pa_elasticity import ops as ref_ops
 from repro.kernels.pa_elasticity.ref import paop_ref as ref_paop_ref
 from repro_torch.core.basis import basis_tables
-from repro_torch.kernels.pa_elasticity import ops
+from repro_torch.kernels import nvcc
+from repro_torch.kernels.pa_elasticity import build, ops
 from repro_torch.kernels.pa_elasticity.ref import paop_ref
 
 NE_MAX = 7
@@ -170,3 +171,52 @@ def test_probe_rejects_non_f32():
     with pytest.raises(ValueError, match="float32"):
         ops.probe(torch.ones(4, dtype=torch.float64))
 
+
+
+def test_launch_baseline_refuses_cpu_tensors():
+    before = (ops.counts["pa_elasticity"].launches, ops.counts["pa_elasticity"].plain_calls)
+    with pytest.raises(ValueError, match="only on CUDA tensors"):
+        ops.launch_baseline(*_small_args())
+    after = (ops.counts["pa_elasticity"].launches, ops.counts["pa_elasticity"].plain_calls)
+    assert after == before
+
+
+def test_launch_baseline_checks_arguments():
+    with pytest.raises(ValueError, match="x_e has shape"):
+        ops.launch_baseline(*_bad("x_rank"))
+
+
+def test_load_fast_path_builds_once(monkeypatch):
+    calls = []
+
+    def fake_build(csrc, sources, build_dir, stem):
+        calls.append(stem)
+        return build_dir / "libfake.so", 0.0, ""
+
+    class FakeLibrary:
+        def __init__(self, path, seconds, log):
+            self.path = path
+
+        def probe_check(self):
+            pass
+
+    monkeypatch.setattr(build.nvcc, "build", fake_build)
+    monkeypatch.setattr(build, "KernelLibrary", FakeLibrary)
+    monkeypatch.setattr(build, "_LOADED", [])
+    first = build.load()
+    assert build.load() is first and build.load() is first
+    assert calls == ["pa_elasticity"]
+
+
+def test_sources_hash_covers_the_baseline(tmp_path):
+    assert "pa_elasticity_baseline.cu" in build.SOURCES
+    for name in build.SOURCES:
+        assert (build.CSRC / name).is_file()
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in build.SOURCES:
+        (csrc / name).write_bytes((build.CSRC / name).read_bytes())
+    before = nvcc._digest(csrc, build.SOURCES)
+    path = csrc / "pa_elasticity_baseline.cu"
+    path.write_text(path.read_text() + "\n// edited\n")
+    assert nvcc._digest(csrc, build.SOURCES) != before
