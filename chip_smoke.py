@@ -613,11 +613,14 @@ def main() -> int:
     }
     probe_parts = {
         "build.load()": host_us(build.load),
-        "checks (dtype, is_contiguous, device.type)": host_us(
-            lambda: (px.dtype != torch.float32, px.is_contiguous(), px.device.type)),
+        "checks (dtype, is_contiguous, is_cuda)": host_us(
+            lambda: (px.dtype != torch.float32, px.is_contiguous(), px.is_cuda)),
         "torch.empty_like": host_us(lambda: torch.empty_like(px)),
-        "torch.cuda.current_device()": host_us(torch.cuda.current_device),
-        "current_stream().cuda_stream": host_us(lambda: torch.cuda.current_stream().cuda_stream),
+        "get_device() == current_device()": host_us(
+            lambda: px.get_device() == torch.cuda.current_device()),
+        "raw current stream": host_us(lambda: torch._C._cuda_getCurrentRawStream(0)),
+        "current_stream().cuda_stream (not used)": host_us(
+            lambda: torch.cuda.current_stream().cuda_stream),
         "2 x data_ptr()": host_us(lambda: (px.data_ptr(), po.data_ptr())),
         "ctypes call": host_us(lambda: kl.probe(*ptrs, stream)),
     }

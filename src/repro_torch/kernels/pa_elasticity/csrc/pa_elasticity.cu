@@ -65,35 +65,55 @@ namespace {
 
 constexpr int round_up(int n, int m) { return (n + m - 1) / m * m; }
 
+// Elements a block holds, by D = 2..9: about 128 threads or fewer at two
+// a quadrature column, and shared memory for 3-5 blocks an SM in f64.
+constexpr int elems_for(int d) {
+  return d == 2 ? 7 : d == 3 ? 4 : d == 4 ? 2 : d == 5 ? 2 : 1;
+}
+
 // Launch shape and shared-memory layout per (T, D); sizes in words of T.
 template <typename T, int D>
 struct Config {
   static constexpr int Q = D + 1;
-  static constexpr int kThreads = 128;
-  static constexpr int kElems = kThreads / (Q * Q);
-  // Blocks per SM the register cap is set for (65,536 / (128 kMinBlocks)
-  // registers a thread): the column owner holds 6 Q Voigt values beside a
-  // sweep's values.  At p = 4 in f64 a cap of 128 spills, so 170.
-  static constexpr int kMinBlocks =
-      sizeof(T) == 8 ? (D <= 4 ? 4 : D <= 6 ? 3 : 2) : (D <= 7 ? 4 : 3);
+  static constexpr int kElems = elems_for(D);
+  // Threads a quadrature column: each owns Qh of its Q points along z, so
+  // that it holds 6 Qh Voigt values, not 6 Q; the two are neighbouring
+  // lanes.  Threads in all: rounded up to whole warps.
+  static constexpr int kSplit = 2;
+  static constexpr int Qh = (Q + kSplit - 1) / kSplit;
+  static constexpr int kThreads = round_up(kElems * Q * Q * kSplit, 32);
+  // Displacement components a sweep takes at once: 3, so that every table
+  // word a lane reads serves three FMAs; 1 (one component at a time) for
+  // f64 at p = 8, where three components' intermediates would leave room
+  // for one block an SM.
+  static constexpr int kGroup = sizeof(T) == 8 && D == 9 ? 1 : 3;
   static constexpr int kAlign = 16 / static_cast<int>(sizeof(T));
   // U/V rows along qx: an odd stride, so a warp's pencils hit distinct
-  // banks.  W's z stride is congruent to Q modulo 32 words, so the lanes of
-  // a Y sweep (z, qx) and of a column owner (qy, qx) both see it as
+  // banks.  W's z stride is congruent to Q modulo the words one shared
+  // wavefront spreads over (16 doubles, 32 floats), so the lanes of a Y
+  // sweep (z, qx) and of a column owner (qy, qx) both see it as
   // contiguous.
+  static constexpr int kBankWords = 128 / static_cast<int>(sizeof(T));
   static constexpr int Qp = Q | 1;
-  static constexpr int Sz = Q * Q + ((Q - Q * Q) % 32 + 32) % 32;
-  static constexpr int kUElem = D * D * Qp;  // U/V per element: [y][z][qx]
-  static constexpr int kWElem = 3 * D * Sz;  // W per element: [m][z][qy][qx]
+  static constexpr int Sz = Q * Q + ((Q - Q * Q) % kBankWords + kBankWords) % kBankWords;
+  static constexpr int kUElem = kGroup * D * D * Qp;  // U/V: [g][y][z][qx]
+  static constexpr int kWElem = 3 * kGroup * D * Sz;  // W: [g][m][z][qy][qx]
   static constexpr int kT = round_up(Q * D, kAlign);  // B, then G
   static constexpr int kJ = round_up(9, kAlign);
-  // x in, y out; lam_w; mu_w: one 16-byte chunk of slack for the shift.
+  // x in, y out, with one 16-byte chunk of slack for the shift.
   static constexpr int kX = round_up(kElems * 3 * D * D * D, kAlign) + kAlign;
-  static constexpr int kL = round_up(kElems * Q * Q * Q, kAlign) + kAlign;
   static constexpr int kU = round_up(kElems * kUElem, kAlign);
   static constexpr int kW = round_up(kElems * kWElem, kAlign);
-  static constexpr int kWords = 2 * kT + kJ + kX + 2 * kL + 2 * kU + kW;
-  static constexpr size_t kBytes = sizeof(T) * static_cast<size_t>(kWords);
+  static constexpr int kWords = 2 * kT + kJ + kX + 2 * kU + kW;
+  static constexpr int kBytes = static_cast<int>(sizeof(T)) * kWords;
+  // Blocks per SM the register cap is set for: as many as the SM's
+  // 232,448 B of shared memory hold (1 KB of it reserved per block), but no
+  // fewer registers a thread than an owner needs beside a sweep's values
+  // (6 Qh Voigt values): 100 in f64 up to p = 4, 128 above, 96 in f32.
+  static constexpr int kSmemBlocks = 232448 / (kBytes + 1024);
+  static constexpr int kRegBlocks =
+      65536 / (kThreads * (sizeof(T) == 8 ? (D <= 5 ? 100 : 128) : 96));
+  static constexpr int kMinBlocks = kSmemBlocks < kRegBlocks ? kSmemBlocks : kRegBlocks;
 };
 
 // Voigt slot of the symmetric pair (a, b): [00, 11, 22, 01, 02, 12].
@@ -171,77 +191,84 @@ pa_elasticity_kernel(const T* __restrict__ x, const T* __restrict__ lam,
                      const T* __restrict__ Bg, const T* __restrict__ Gg,
                      T* __restrict__ y, long long ne) {
   using C = Config<T, D>;
-  constexpr int Q = C::Q, NT = C::kThreads, NB = C::kElems;
-  constexpr int D3 = D * D * D, Q3 = Q * Q * Q, QQ = Q * Q;
+  constexpr int Q = C::Q, NT = C::kThreads, NB = C::kElems, CG = C::kGroup;
+  constexpr int S = C::kSplit, Qh = C::Qh;
+  constexpr int D3 = D * D * D, Q3 = Q * Q * Q, QQ = Q * Q, DD = D * D;
   constexpr int Qp = C::Qp, Sz = C::Sz, SU = C::kUElem, SW = C::kWElem;
-  constexpr int DSz = D * Sz;  // W's channel stride
-  constexpr int YS = D * Qp;   // U/V's y stride
+  constexpr int DSz = D * Sz;   // W's channel stride
+  constexpr int YS = D * Qp;    // U/V's y stride
+  constexpr int US = DD * Qp;   // U/V's component stride
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sB = reinterpret_cast<T*>(smem_raw);  // [Q][D]
   T* sG = sB + C::kT;                      // [Q][D]
   T* sJ = sG + C::kT;                      // [3][3]
   T* sXr = sJ + C::kJ;
-  T* sLr = sXr + C::kX;
-  T* sMr = sLr + C::kL;
-  T* sU = sMr + C::kL;  // [NB][y][z][qx]
-  T* sV = sU + C::kU;   // [NB][y][z][qx]
-  T* sW = sV + C::kU;   // [NB][3][z][qy][qx]
+  T* sU = sXr + C::kX;  // [NB][CG][y][z][qx]
+  T* sV = sU + C::kU;   // [NB][CG][y][z][qx]
+  T* sW = sV + C::kU;   // [NB][CG][3][z][qy][qx]
 
   const int tid = threadIdx.x;
   const long long e0 = static_cast<long long>(blockIdx.x) * NB;
   const int nb = static_cast<int>(ne - e0 < NB ? ne - e0 : NB);  // ragged tail
 
-  // ---- stage: x (group 0), lam_w and mu_w (group 1, waited for only
-  // after the forward sweeps), the tables.
+  // ---- stage x with cp.async, and the tables.
   const T* xg = x + e0 * 3 * D3;
-  const T* lg = lam + e0 * Q3;
-  const T* mg = mu + e0 * Q3;
   T* sX = sXr + shift_words(xg);  // [NB][3][z][y][x]: x, then y
-  T* sL = sLr + shift_words(lg);  // [NB][qz][qy][qx]
-  T* sM = sMr + shift_words(mg);
   copy_in<T, NT>(sX, xg, nb * 3 * D3, tid);
-  cp_async_commit();
-  copy_in<T, NT>(sL, lg, nb * Q3, tid);
-  copy_in<T, NT>(sM, mg, nb * Q3, tid);
   cp_async_commit();
   for (int i = tid; i < Q * D; i += NT) {
     sB[i] = Bg[i];
     sG[i] = Gg[i];
   }
   if (tid < 9) sJ[tid] = jinv[tid];
-  cp_async_wait<1>();
+
+  // The owners of a column: element ce, column col = qy * Q + qx, part h of
+  // the points along z, qz = qz0 + k for k < Qh (and qz < Q).
+  const int ce = tid / (QQ * S), col = tid % (QQ * S) / S, h = tid % S;
+  const int qz0 = h * Qh;
+  const bool owner = tid < nb * QQ * S;
+  cp_async_wait<0>();
   __syncthreads();
 
-  // The column owner: element ce, column col = qy * Q + qx.
-  const int ce = tid / QQ, col = tid % QQ;
-  const bool owner = tid < nb * QQ;
-
-  // ---- forward, one displacement component c at a time.  acc holds the
-  // owner's running Voigt channels for every qz: slots 0..2 the diagonal
-  // gradients d_c u_c, slots 3..5 the symmetrized sums d_k u_j + d_j u_k.
-  T acc[6][Q];
+  // ---- forward, CG displacement components c = c0 + g at a time.  acc
+  // holds the owner's running Voigt channels for every qz: slots 0..2 the
+  // diagonal gradients d_c u_c, slots 3..5 the symmetrized sums
+  // d_k u_j + d_j u_k.
+  T acc[6][Qh];
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
+  for (int c0 = 0; c0 < 3; c0 += CG) {
     // X sweep: pencil (e, y, z) along x -> U (B) and V (G) at (y, z, qx).
-    for (int w = tid; w < nb * D * D; w += NT) {
-      const int e = w / (D * D), r = w % (D * D), iy = r / D, iz = r % D;
-      const T* px = sX + e * 3 * D3 + c * D3 + (iz * D + iy) * D;
-      T xv[D];
+    for (int w = tid; w < nb * DD; w += NT) {
+      const int e = w / DD, r = w % DD, iy = r / D, iz = r % D;
+      const T* px = sX + e * 3 * D3 + c0 * D3 + (iz * D + iy) * D;
+      T xv[CG][D];
 #pragma unroll
-      for (int ix = 0; ix < D; ++ix) xv[ix] = px[ix];
+      for (int g = 0; g < CG; ++g) {
+#pragma unroll
+        for (int ix = 0; ix < D; ++ix) xv[g][ix] = px[g * D3 + ix];
+      }
       T* pu = sU + e * SU + r * Qp;
       T* pv = sV + e * SU + r * Qp;
 #pragma unroll
       for (int qx = 0; qx < Q; ++qx) {
-        T u = 0, v = 0;
+        T u[CG], v[CG];
+#pragma unroll
+        for (int g = 0; g < CG; ++g) u[g] = v[g] = 0;
 #pragma unroll
         for (int ix = 0; ix < D; ++ix) {
-          u += sB[qx * D + ix] * xv[ix];
-          v += sG[qx * D + ix] * xv[ix];
+          const T b = sB[qx * D + ix], gd = sG[qx * D + ix];
+#pragma unroll
+          for (int g = 0; g < CG; ++g) {
+            u[g] += b * xv[g][ix];
+            v[g] += gd * xv[g][ix];
+          }
         }
-        pu[qx] = u;
-        pv[qx] = v;
+#pragma unroll
+        for (int g = 0; g < CG; ++g) {
+          pu[g * US + qx] = u[g];
+          pv[g * US + qx] = v[g];
+        }
       }
     }
     __syncthreads();
@@ -250,54 +277,81 @@ pa_elasticity_kernel(const T* __restrict__ x, const T* __restrict__ lam,
       const int e = w / (D * Q), r = w % (D * Q), iz = r / Q, qx = r % Q;
       const T* pu = sU + e * SU + iz * Qp + qx;
       const T* pv = sV + e * SU + iz * Qp + qx;
-      T uu[D], vv[D];
+      T uu[CG][D], vv[CG][D];
 #pragma unroll
-      for (int iy = 0; iy < D; ++iy) {
-        uu[iy] = pu[iy * YS];
-        vv[iy] = pv[iy * YS];
+      for (int g = 0; g < CG; ++g) {
+#pragma unroll
+        for (int iy = 0; iy < D; ++iy) {
+          uu[g][iy] = pu[g * US + iy * YS];
+          vv[g][iy] = pv[g * US + iy * YS];
+        }
       }
       T* pw = sW + e * SW + iz * Sz + qx;
 #pragma unroll
       for (int qy = 0; qy < Q; ++qy) {
-        T a = 0, b = 0, s = 0;
+        T a[CG], b[CG], s[CG];
+#pragma unroll
+        for (int g = 0; g < CG; ++g) a[g] = b[g] = s[g] = 0;
 #pragma unroll
         for (int iy = 0; iy < D; ++iy) {
-          a += sB[qy * D + iy] * vv[iy];  // d_xi:   G in x, B in y
-          b += sG[qy * D + iy] * uu[iy];  // d_eta:  B in x, G in y
-          s += sB[qy * D + iy] * uu[iy];  // d_zeta: B in x, B in y
+          const T bt = sB[qy * D + iy], gt = sG[qy * D + iy];
+#pragma unroll
+          for (int g = 0; g < CG; ++g) {
+            a[g] += bt * vv[g][iy];  // d_xi:   G in x, B in y
+            b[g] += gt * uu[g][iy];  // d_eta:  B in x, G in y
+            s[g] += bt * uu[g][iy];  // d_zeta: B in x, B in y
+          }
         }
-        pw[qy * Q] = a;
-        pw[DSz + qy * Q] = b;
-        pw[2 * DSz + qy * Q] = s;
+#pragma unroll
+        for (int g = 0; g < CG; ++g) {
+          pw[3 * g * DSz + qy * Q] = a[g];
+          pw[(3 * g + 1) * DSz + qy * Q] = b[g];
+          pw[(3 * g + 2) * DSz + qy * Q] = s[g];
+        }
       }
     }
     __syncthreads();
-    // Z sweep on the owner's column, one reference direction m at a time
-    // (B along z for m = 0, 1; G for m = 2), each folded into the
-    // accumulators as d_j u_c += ghat[c, m] Jinv[m, j].  (The next X sweep
-    // writes only U/V, and the sync after it orders these W reads before
-    // the next Y sweep rewrites W.)
+    // Z sweep on the owner's column and part of z, one reference direction
+    // m at a time (B along z for m = 0, 1; G for m = 2), each folded into
+    // the accumulators as d_j u_c += ghat[c, m] Jinv[m, j].  The two owners
+    // of a column read the same W words (one wavefront) and different
+    // table rows.  (With CG = 1 the next X sweep writes only U/V, and the
+    // sync after it orders these W reads before the next Y sweep rewrites
+    // W.)
     if (owner) {
 #pragma unroll
       for (int m = 0; m < 3; ++m) {
-        const T* tab = m == 2 ? sG : sB;
+        const T* tab = (m == 2 ? sG : sB) + qz0 * D;
         const T* pw = sW + ce * SW + m * DSz + col;
-        T wm[D];
+        T wm[CG][D];
 #pragma unroll
-        for (int iz = 0; iz < D; ++iz) wm[iz] = pw[iz * Sz];
-        const T j0 = sJ[3 * m], j1 = sJ[3 * m + 1], j2 = sJ[3 * m + 2];
+        for (int g = 0; g < CG; ++g) {
 #pragma unroll
-        for (int qz = 0; qz < Q; ++qz) {
-          T g = 0;
+          for (int iz = 0; iz < D; ++iz) wm[g][iz] = pw[3 * g * DSz + iz * Sz];
+        }
+        const T jm[3] = {sJ[3 * m], sJ[3 * m + 1], sJ[3 * m + 2]};
 #pragma unroll
-          for (int iz = 0; iz < D; ++iz) g += tab[qz * D + iz] * wm[iz];
-          const T jm[3] = {j0, j1, j2};
+        for (int k = 0; k < Qh; ++k) {
+          if (Q % S != 0 && qz0 + k >= Q) break;
+          T gq[CG];
 #pragma unroll
-          for (int j = 0; j < 3; ++j) {
-            if (m == 0 && (j == c || c < j)) {
-              acc[voigt(c, j)][qz] = g * jm[j];  // first contribution to the slot
-            } else {
-              acc[voigt(c, j)][qz] += g * jm[j];
+          for (int g = 0; g < CG; ++g) gq[g] = 0;
+#pragma unroll
+          for (int iz = 0; iz < D; ++iz) {
+            const T t = tab[k * D + iz];
+#pragma unroll
+            for (int g = 0; g < CG; ++g) gq[g] += t * wm[g][iz];
+          }
+#pragma unroll
+          for (int g = 0; g < CG; ++g) {
+            const int c = c0 + g;
+#pragma unroll
+            for (int j = 0; j < 3; ++j) {
+              if (m == 0 && (j == c || c < j)) {
+                acc[voigt(c, j)][k] = gq[g] * jm[j];  // first contribution
+              } else {
+                acc[voigt(c, j)][k] += gq[g] * jm[j];
+              }
             }
           }
         }
@@ -306,102 +360,167 @@ pa_elasticity_kernel(const T* __restrict__ x, const T* __restrict__ lam,
   }
 
   // ---- pointwise weighted Voigt stress, in place in the accumulators.
-  cp_async_wait<0>();
-  __syncthreads();
+  // The owner reads its column of lam_w/mu_w straight into registers here
+  // (loaded before the sweeps, they cost registers that the sweeps need
+  // more: tune.py).
   if (owner) {
-    const T* pl = sL + ce * Q3 + col;
-    const T* pm = sM + ce * Q3 + col;
+    const T* lq = lam + (e0 + ce) * Q3 + col;
+    const T* mq = mu + (e0 + ce) * Q3 + col;
 #pragma unroll
-    for (int qz = 0; qz < Q; ++qz) {
-      const T lw = pl[qz * QQ], mw = pm[qz * QQ];
-      const T ld = lw * (acc[0][qz] + acc[1][qz] + acc[2][qz]);
+    for (int k = 0; k < Qh; ++k) {
+      if (Q % S != 0 && qz0 + k >= Q) break;
+      const T lw = lq[(qz0 + k) * QQ], mw = mq[(qz0 + k) * QQ];
+      const T ld = lw * (acc[0][k] + acc[1][k] + acc[2][k]);
       const T two_mu = T(2) * mw;
-      acc[0][qz] = ld + two_mu * acc[0][qz];
-      acc[1][qz] = ld + two_mu * acc[1][qz];
-      acc[2][qz] = ld + two_mu * acc[2][qz];
-      acc[3][qz] = mw * acc[3][qz];
-      acc[4][qz] = mw * acc[4][qz];
-      acc[5][qz] = mw * acc[5][qz];
+      acc[0][k] = ld + two_mu * acc[0][k];
+      acc[1][k] = ld + two_mu * acc[1][k];
+      acc[2][k] = ld + two_mu * acc[2][k];
+      acc[3][k] = mw * acc[3][k];
+      acc[4][k] = mw * acc[4][k];
+      acc[5][k] = mw * acc[5][k];
     }
   }
 
-  // ---- backward, one output component c at a time.
+  // ---- backward, CG output components c = c0 + g at a time.
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
+  for (int c0 = 0; c0 < 3; c0 += CG) {
     // Pull-back rows q_m = sum_j sigma[c, j] Jinv[m, j] and the Z^T sweep
     // on the owner's column (G along z for m = 2, B otherwise), one m at a
-    // time, into W.  The owner wrote and read only its own column of W
-    // since the last sync, and the previous component's Y^T reads of W
-    // finished before the sync that preceded its X^T sweep.
-    if (owner) {
+    // time, into W: each owner sums over its part of z, the two parts are
+    // added across the neighbouring lanes (every lane of the warp takes part
+    // in the shuffle), and each owner writes half of the result.  The
+    // owners wrote and read only their own column of W since the last sync,
+    // and (CG = 1) the previous component's Y^T reads of W finished before
+    // the sync that preceded its X^T sweep.
 #pragma unroll
-      for (int m = 0; m < 3; ++m) {
-        const T* tab = m == 2 ? sG : sB;
-        const T j0 = sJ[3 * m], j1 = sJ[3 * m + 1], j2 = sJ[3 * m + 2];
-        T t[D];
+    for (int m = 0; m < 3; ++m) {
+      const T* tab = (m == 2 ? sG : sB) + qz0 * D;
+      const T j0 = sJ[3 * m], j1 = sJ[3 * m + 1], j2 = sJ[3 * m + 2];
+      T t[CG][D];
 #pragma unroll
-        for (int iz = 0; iz < D; ++iz) t[iz] = 0;
+      for (int g = 0; g < CG; ++g) {
 #pragma unroll
-        for (int qz = 0; qz < Q; ++qz) {
-          const T q = acc[voigt(c, 0)][qz] * j0 + acc[voigt(c, 1)][qz] * j1 +
-                      acc[voigt(c, 2)][qz] * j2;
+        for (int iz = 0; iz < D; ++iz) t[g][iz] = 0;
+      }
+      if (owner) {
 #pragma unroll
-          for (int iz = 0; iz < D; ++iz) t[iz] += tab[qz * D + iz] * q;
+        for (int k = 0; k < Qh; ++k) {
+          if (Q % S != 0 && qz0 + k >= Q) break;
+          T q[CG];
+#pragma unroll
+          for (int g = 0; g < CG; ++g) {
+            const int c = c0 + g;
+            q[g] = acc[voigt(c, 0)][k] * j0 + acc[voigt(c, 1)][k] * j1 +
+                   acc[voigt(c, 2)][k] * j2;
+          }
+#pragma unroll
+          for (int iz = 0; iz < D; ++iz) {
+            const T tz = tab[k * D + iz];
+#pragma unroll
+            for (int g = 0; g < CG; ++g) t[g][iz] += tz * q[g];
+          }
         }
+      }
+#pragma unroll
+      for (int g = 0; g < CG; ++g) {
+#pragma unroll
+        for (int iz = 0; iz < D; ++iz) {
+#pragma unroll
+          for (int lane = 1; lane < S; lane *= 2) {
+            t[g][iz] += __shfl_xor_sync(0xffffffffu, t[g][iz], lane);
+          }
+        }
+      }
+      if (owner) {
         T* pw = sW + ce * SW + m * DSz + col;
 #pragma unroll
-        for (int iz = 0; iz < D; ++iz) pw[iz * Sz] = t[iz];
+        for (int g = 0; g < CG; ++g) {
+#pragma unroll
+          for (int iz = 0; iz < D; ++iz) {
+            if (iz % S == h) pw[3 * g * DSz + iz * Sz] = t[g][iz];
+          }
+        }
       }
     }
     __syncthreads();
-    // Y^T sweep: pencil (e, z, qx) along qy, streamed into D + D register
-    // sums -> U (G along x follows) and V (B along x follows) at (y, z, qx).
+    // Y^T sweep: pencil (e, z, qx) along qy, streamed into register sums
+    // -> U (G along x follows) and V (B along x follows) at (y, z, qx).
     // m = 0 takes B along y; m = 1 G and m = 2 B along y share V.
     for (int w = tid; w < nb * D * Q; w += NT) {
       const int e = w / (D * Q), r = w % (D * Q), iz = r / Q, qx = r % Q;
       const T* pw = sW + e * SW + iz * Sz + qx;
-      T wg[D], wb[D];
+      T wg[CG][D], wb[CG][D];
 #pragma unroll
-      for (int iy = 0; iy < D; ++iy) wg[iy] = wb[iy] = 0;
+      for (int g = 0; g < CG; ++g) {
+#pragma unroll
+        for (int iy = 0; iy < D; ++iy) wg[g][iy] = wb[g][iy] = 0;
+      }
 #pragma unroll
       for (int qy = 0; qy < Q; ++qy) {
-        const T a = pw[qy * Q], b = pw[DSz + qy * Q], s = pw[2 * DSz + qy * Q];
+        T a[CG], b[CG], s[CG];
+#pragma unroll
+        for (int g = 0; g < CG; ++g) {
+          a[g] = pw[3 * g * DSz + qy * Q];
+          b[g] = pw[(3 * g + 1) * DSz + qy * Q];
+          s[g] = pw[(3 * g + 2) * DSz + qy * Q];
+        }
 #pragma unroll
         for (int iy = 0; iy < D; ++iy) {
-          wg[iy] += sB[qy * D + iy] * a;
-          wb[iy] += sG[qy * D + iy] * b + sB[qy * D + iy] * s;
+          const T bt = sB[qy * D + iy], gt = sG[qy * D + iy];
+#pragma unroll
+          for (int g = 0; g < CG; ++g) {
+            wg[g][iy] += bt * a[g];
+            wb[g][iy] += gt * b[g] + bt * s[g];
+          }
         }
       }
       T* pu = sU + e * SU + iz * Qp + qx;
       T* pv = sV + e * SU + iz * Qp + qx;
 #pragma unroll
-      for (int iy = 0; iy < D; ++iy) {
-        pu[iy * YS] = wg[iy];
-        pv[iy * YS] = wb[iy];
+      for (int g = 0; g < CG; ++g) {
+#pragma unroll
+        for (int iy = 0; iy < D; ++iy) {
+          pu[g * US + iy * YS] = wg[g][iy];
+          pv[g * US + iy * YS] = wb[g][iy];
+        }
       }
     }
     __syncthreads();
-    // X^T sweep: pencil (e, y, z) along qx, streamed into D register sums,
-    // written into component c of y in x's place.  (The next component's
-    // Y^T writes U/V only after the sync that follows its Z^T sweep.)
-    for (int w = tid; w < nb * D * D; w += NT) {
-      const int e = w / (D * D), r = w % (D * D), iy = r / D, iz = r % D;
+    // X^T sweep: pencil (e, y, z) along qx, streamed into register sums,
+    // written into components c0 .. c0 + CG - 1 of y in x's place.  (With
+    // CG = 1 the next component's Y^T writes U/V only after the sync that
+    // follows its Z^T sweep.)
+    for (int w = tid; w < nb * DD; w += NT) {
+      const int e = w / DD, r = w % DD, iy = r / D, iz = r % D;
       const T* pu = sU + e * SU + r * Qp;
       const T* pv = sV + e * SU + r * Qp;
-      T out[D];
+      T out[CG][D];
 #pragma unroll
-      for (int ix = 0; ix < D; ++ix) out[ix] = 0;
+      for (int g = 0; g < CG; ++g) {
+#pragma unroll
+        for (int ix = 0; ix < D; ++ix) out[g][ix] = 0;
+      }
 #pragma unroll
       for (int qx = 0; qx < Q; ++qx) {
-        const T g = pu[qx], b = pv[qx];
+        T gu[CG], bv[CG];
+#pragma unroll
+        for (int g = 0; g < CG; ++g) {
+          gu[g] = pu[g * US + qx];
+          bv[g] = pv[g * US + qx];
+        }
 #pragma unroll
         for (int ix = 0; ix < D; ++ix) {
-          out[ix] += sG[qx * D + ix] * g + sB[qx * D + ix] * b;
+          const T gt = sG[qx * D + ix], bt = sB[qx * D + ix];
+#pragma unroll
+          for (int g = 0; g < CG; ++g) out[g][ix] += gt * gu[g] + bt * bv[g];
         }
       }
-      T* py = sX + e * 3 * D3 + c * D3 + (iz * D + iy) * D;
+      T* py = sX + e * 3 * D3 + c0 * D3 + (iz * D + iy) * D;
 #pragma unroll
-      for (int ix = 0; ix < D; ++ix) py[ix] = out[ix];
+      for (int g = 0; g < CG; ++g) {
+#pragma unroll
+        for (int ix = 0; ix < D; ++ix) py[g * D3 + ix] = out[g][ix];
+      }
     }
   }
   __syncthreads();
@@ -444,7 +563,7 @@ cudaError_t config(int* threads, int* elems, int* smem_bytes, int* blocks_per_sm
   if (err != cudaSuccess) return err;
   *threads = C::kThreads;
   *elems = C::kElems;
-  *smem_bytes = static_cast<int>(C::kBytes);
+  *smem_bytes = C::kBytes;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks_per_sm, pa_elasticity_kernel<T, D>, C::kThreads, C::kBytes);
 }

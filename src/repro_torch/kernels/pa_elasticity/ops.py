@@ -1,4 +1,5 @@
-"""Public wrappers of the PAop kernel and the probe kernel.
+"""Public wrappers of the PAop kernel and the probe kernel, and of the
+first port's PAop kernel kept as a yardstick (:func:`launch_baseline`).
 
 Each wrapper checks device, dtype, shape and contiguity, then:
 
@@ -60,12 +61,14 @@ def _check_pa_args(x_e, lam_w, mu_w, jinv, B, G) -> tuple[int, int, int]:
             "pa_elasticity kernel assumes a mesh-constant affine J^{-1}; "
             "use repro_torch.core.paop.paop_apply for per-element geometry"
         )
-    dtype, device = x_e.dtype, x_e.device
+    dtype, index = x_e.dtype, x_e.get_device()  # -1 off the card
     for name, t in zip(_PA_NAMES, (x_e, lam_w, mu_w, jinv, B, G)):
-        if t.dtype != dtype or t.device != device:
+        if t.dtype != dtype or t.get_device() != index or (
+            index < 0 and t.device != x_e.device
+        ):
             raise ValueError(
                 f"pa_elasticity: {name} is {t.dtype} on {t.device}, expected "
-                f"{dtype} on {device} like x_e"
+                f"{dtype} on {x_e.device} like x_e"
             )
         if not t.is_contiguous():
             raise ValueError(f"pa_elasticity: {name} must be contiguous")
@@ -104,12 +107,14 @@ def _check_pa_args(x_e, lam_w, mu_w, jinv, B, G) -> tuple[int, int, int]:
 def _on_stream(fn, t, *args) -> int:
     """Call the C entry ``fn(*args, stream)`` on the current stream of
     ``t``'s card.  The device context is entered only when that card is not
-    the current one."""
-    index = t.device.index
+    the current one.  The stream is PyTorch's current one, read as a raw
+    handle: ``torch.cuda.current_stream()`` builds a ``Stream`` object,
+    several microseconds of host time a call."""
+    index = t.get_device()
     if index == torch.cuda.current_device():
-        return fn(*args, torch.cuda.current_stream().cuda_stream)
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
     with torch.cuda.device(index):
-        return fn(*args, torch.cuda.current_stream().cuda_stream)
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
 def pa_elasticity(x_e, lam_w, mu_w, jinv, B, G):
@@ -122,11 +127,11 @@ def pa_elasticity(x_e, lam_w, mu_w, jinv, B, G):
     Returns y_e in the layout of x_e.
     """
     ne, d1d, q1d = _check_pa_args(x_e, lam_w, mu_w, jinv, B, G)
-    if x_e.device.type == "cpu":
+    if not x_e.is_cuda:
+        if x_e.device.type != "cpu":
+            raise ValueError(f"pa_elasticity: unsupported device {x_e.device}")
         counts["pa_elasticity"].plain_calls += 1
         return paop_ref(x_e, lam_w, mu_w, jinv, B, G)
-    if x_e.device.type != "cuda":
-        raise ValueError(f"pa_elasticity: unsupported device {x_e.device}")
     y = torch.empty_like(x_e)
     if ne == 0:
         return y
@@ -149,7 +154,7 @@ def launch_baseline(x_e, lam_w, mu_w, jinv, B, G):
     card's tests.  The main path never routes here, and it is not counted.
     Raises for a tensor on any other device."""
     ne, d1d, q1d = _check_pa_args(x_e, lam_w, mu_w, jinv, B, G)
-    if x_e.device.type != "cuda":
+    if not x_e.is_cuda:
         raise ValueError(
             f"pa_elasticity baseline: runs only on CUDA tensors, got {x_e.device}"
         )
@@ -171,11 +176,11 @@ def probe(x):
     """``o = 2 x`` on a contiguous float32 tensor."""
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("probe: x must be a contiguous float32 tensor")
-    if x.device.type == "cpu":
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"probe: unsupported device {x.device}")
         counts["probe"].plain_calls += 1
         return probe_ref(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"probe: unsupported device {x.device}")
     kl = build.load()
     o = torch.empty_like(x)
     err = _on_stream(kl.probe, x, x.data_ptr(), o.data_ptr(), x.numel())
