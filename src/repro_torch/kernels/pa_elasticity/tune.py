@@ -4,8 +4,8 @@ other and the baseline kernel, in turns, on one card.
     PYTHONPATH=src python -m repro_torch.kernels.pa_elasticity.tune [--p 4] [--ne 32768]
 
 Each variant is this checkout's ``csrc/`` with a few constants of
-``pa_elasticity.cu`` replaced (elements per block, components per sweep,
-where lam_w/mu_w are loaded, the register cap), built into a library of
+``pa_elasticity.cu`` replaced (threads a quadrature column, elements per
+block, components per sweep), built into a library of
 its own in ``_build/`` (all variants' ``nvcc`` runs at once).  Every
 variant is first held against the plain version at the timed shape (f64,
 rtol and atol 1e-12 of max |plain|, as in ``chip_smoke.py``); then each
@@ -32,18 +32,17 @@ from repro_torch.kernels.pa_elasticity import build
 from repro_torch.kernels.pa_elasticity.ref import paop_ref
 
 # name -> list of (pattern, replacement) applied to pa_elasticity.cu
-ELEMS = r"return d == 2 \? 7 : d == 3 \? 4 : d == 4 \? 2 : d == 5 \? 2 : 1;"
-REGS = r"\(D <= 5 \? 100 : 128\)"
+SPLIT = r"static constexpr int kSplit = D >= 6 \? 2 : 1;"
 VARIANTS = {
     "as built": [],
-    "one thread a column, 3 elements at p=4 (128 threads)": [
-        (r"static constexpr int kSplit = 2;", "static constexpr int kSplit = 1;"),
-        (ELEMS, "return d == 2 ? 14 : d == 3 ? 8 : d == 4 ? 3 : d == 5 ? 3 : 1;"),
-        (REGS, "(D == 9 ? 255 : 168)")],
-    "3 elements at p=4 (224 threads)": [
-        (ELEMS, "return d == 2 ? 7 : d == 3 ? 4 : d == 4 ? 2 : d == 5 ? 3 : 1;")],
-    "register cap 128": [(REGS, "128")],
-    "register cap 80 up to p=4": [(REGS, "(D <= 5 ? 80 : 128)")],
+    "one element group a block (not persistent, no L2 prefetch)": [
+        (r"static constexpr bool kPersistent = true;", "static constexpr bool kPersistent = false;")],
+    "two threads a column at every p": [(SPLIT, "static constexpr int kSplit = 2;")],
+    "one thread a column at every p": [
+        (SPLIT, "static constexpr int kSplit = 1;"),
+        (r"\(kSplit == 1 \? 168 : 128\)", "(D == 9 ? 255 : 168)")],
+    "2 elements at p = 3, 4 (96 threads)": [
+        (r"d == 3 \? 8 : d <= 5 \? 3 : 1", "d == 3 ? 8 : d <= 5 ? 2 : 1")],
     "one component a sweep": [(r"static constexpr int kGroup = [^;]*;",
                                "static constexpr int kGroup = 1;")],
 }
