@@ -118,10 +118,6 @@ struct Config {
   static constexpr int kRegBlocks =
       65536 / (kThreads * (sizeof(T) == 8 ? (kSplit == 1 ? 168 : 128) : 96));
   static constexpr int kMinBlocks = kSmemBlocks < kRegBlocks ? kSmemBlocks : kRegBlocks;
-  // One block per resident slot, each walking element groups (and asking
-  // L2 for the next group's words while it computes), rather than one
-  // block per group.
-  static constexpr bool kPersistent = true;
 };
 
 // Voigt slot of the symmetric pair (a, b): [00, 11, 22, 01, 02, 12].
@@ -155,18 +151,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Asks L2 for the 128-byte lines of n words at p, the block's threads
-// taking one line each in turn.
-template <typename T, int NT>
-__device__ __forceinline__ void prefetch_l2(const T* p, long long n, int tid) {
-  if (n <= 0) return;
-  const uintptr_t first = reinterpret_cast<uintptr_t>(p) & ~uintptr_t(127);
-  const uintptr_t last = (reinterpret_cast<uintptr_t>(p + n) - 1) & ~uintptr_t(127);
-  for (uintptr_t a = first + 128 * uintptr_t(tid); a <= last; a += 128 * uintptr_t(NT)) {
-    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(a));
-  }
 }
 
 // n words from global src to shared dst, which agree modulo 16 bytes:
@@ -229,35 +213,25 @@ pa_elasticity_kernel(const T* __restrict__ x, const T* __restrict__ lam,
   T* sW = sV + C::kU;   // [NB][CG][3][z][qy][qx]
 
   const int tid = threadIdx.x;
+  const long long e0 = static_cast<long long>(blockIdx.x) * NB;
+  const int nb = static_cast<int>(ne - e0 < NB ? ne - e0 : NB);  // ragged tail
+
+  // ---- stage x with cp.async, and the tables.
+  const T* xg = x + e0 * 3 * D3;
+  T* sX = sXr + shift_words(xg);  // [NB][3][z][y][x]: x, then y
+  copy_in<T, NT>(sX, xg, nb * 3 * D3, tid);
+  cp_async_commit();
   for (int i = tid; i < Q * D; i += NT) {
     sB[i] = Bg[i];
     sG[i] = Gg[i];
   }
   if (tid < 9) sJ[tid] = jinv[tid];
+
   // The owners of a column: element ce, column col = qy * Q + qx, part h of
   // the points along z, qz = qz0 + k for k < Qh (and qz < Q).
   const int ce = tid / (QQ * S), col = tid % (QQ * S) / S, h = tid % S;
   const int qz0 = h * Qh;
-
-  // Element groups e0 .. e0 + nb - 1, this block's every gridDim.x-th.
-  const long long ngroups = (ne + NB - 1) / NB;
-  for (long long grp = blockIdx.x; grp < ngroups; grp += gridDim.x) {
-  const long long e0 = grp * NB;
-  const int nb = static_cast<int>(ne - e0 < NB ? ne - e0 : NB);  // ragged tail
   const bool owner = tid < nb * QQ * S;
-
-  // ---- stage x with cp.async; ask L2 for this group's lam_w/mu_w (read
-  // at the pointwise stress) and the next group's x.
-  const T* xg = x + e0 * 3 * D3;
-  T* sX = sXr + shift_words(xg);  // [NB][3][z][y][x]: x, then y
-  copy_in<T, NT>(sX, xg, nb * 3 * D3, tid);
-  cp_async_commit();
-  prefetch_l2<T, NT>(lam + e0 * Q3, nb * Q3, tid);
-  prefetch_l2<T, NT>(mu + e0 * Q3, nb * Q3, tid);
-  if (grp + gridDim.x < ngroups) {
-    const long long e1 = (grp + gridDim.x) * NB;
-    prefetch_l2<T, NT>(x + e1 * 3 * D3, (ne - e1 < NB ? ne - e1 : NB) * 3 * D3, tid);
-  }
   cp_async_wait<0>();
   __syncthreads();
 
@@ -555,8 +529,6 @@ pa_elasticity_kernel(const T* __restrict__ x, const T* __restrict__ lam,
   }
   __syncthreads();
   copy_out<T, NT>(y + e0 * 3 * D3, sX, nb * 3 * D3, tid);
-  __syncthreads();  // the next group's x overwrites sX
-  }
 }
 
 template <typename T, int D>
@@ -575,26 +547,8 @@ cudaError_t launch(const void* x, const void* lam, const void* mu,
   using C = Config<T, D>;
   const cudaError_t err = allow_smem<T, D>();
   if (err != cudaSuccess) return err;
-  long long blocks = (ne + C::kElems - 1) / C::kElems;
+  const long long blocks = (ne + C::kElems - 1) / C::kElems;
   if (blocks == 0) return cudaSuccess;
-  if (C::kPersistent) {
-    static int resident[64];  // the blocks the card holds at once, by device
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return e;
-    int cap = dev < 64 ? resident[dev] : 0;
-    if (cap == 0) {
-      int sms = 0, per_sm = 0;
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-      if (e != cudaSuccess) return e;
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, pa_elasticity_kernel<T, D>, C::kThreads, C::kBytes);
-      if (e != cudaSuccess) return e;
-      cap = sms * per_sm > 0 ? sms * per_sm : 1;
-      if (dev < 64) resident[dev] = cap;
-    }
-    if (blocks > cap) blocks = cap;
-  }
   pa_elasticity_kernel<T, D><<<static_cast<unsigned>(blocks), C::kThreads,
                                C::kBytes, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(lam),

@@ -35,8 +35,6 @@ from repro_torch.kernels.pa_elasticity.ref import paop_ref
 SPLIT = r"static constexpr int kSplit = D >= 6 \? 2 : 1;"
 VARIANTS = {
     "as built": [],
-    "one element group a block (not persistent, no L2 prefetch)": [
-        (r"static constexpr bool kPersistent = true;", "static constexpr bool kPersistent = false;")],
     "two threads a column at every p": [(SPLIT, "static constexpr int kSplit = 2;")],
     "one thread a column at every p": [
         (SPLIT, "static constexpr int kSplit = 1;"),
