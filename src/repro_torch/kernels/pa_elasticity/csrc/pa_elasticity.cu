@@ -24,35 +24,36 @@
 // doubles against 64 FMA/clk.  The first port (pa_elasticity_baseline.cu)
 // gave each thread one output point and read both the operand and the
 // B/G entry from shared memory for every FMA (~1.5 shared words per FMA),
-// so its sweeps ran at about a fifth of the FMA rate, on blocks of 72
-// threads that left whole lanes idle.
+// on blocks of 72 threads that left whole lanes idle.
 //
 // The design:
-//   * Blocks of kThreads (a multiple of 32) hold kElems whole elements,
-//     kElems Q^2 <= kThreads, so that every quadrature column of an
-//     element has one owner thread.
+//   * Blocks of kThreads (whole warps) hold kElems whole elements, and
+//     every quadrature column of an element has its owner threads.
 //   * Pencil sweeps.  Each sweep is a loop over its pencils (one line of
 //     an element along the contracted axis), a pencil per thread: it reads
-//     its D (or Q) inputs from shared memory once into registers and
-//     produces all its outputs, or streams its inputs into register
-//     accumulators, whichever needs fewer registers.  The B/G index is a
-//     function of the unrolled loop counters alone, so every lane reads the
-//     same table word: a broadcast.  At p = 4 this is ~0.3 shared words
-//     per FMA.  Intermediate rows are padded so that the lanes of a warp
-//     hit distinct banks on both sides of each sweep.
-//   * The column owner keeps the six Voigt channels x Q in registers
-//     (the Z sweep, the pointwise stress and the Z^T sweep); the
-//     component-sliced order of the TPU kernel is kept: the forward pass
-//     walks one displacement component at a time, the backward pass emits
-//     one output component at a time.
-//   * x, lam_w and mu_w are copied once, contiguously, with cp.async (16
-//     bytes where the source allows), into shared memory at a shift that
-//     makes the source and the copy agree modulo 16 bytes; lam_w/mu_w go
-//     in a second group that is still in flight while the forward sweeps
-//     run.  y is assembled in x's place and written out contiguously.
+//     its inputs from shared memory once into registers and produces all
+//     its outputs, or streams its inputs into register sums, whichever
+//     needs fewer registers.  The B/G index is a function of the unrolled
+//     loop counters alone, so every lane reads the same table word (a
+//     broadcast), and a sweep takes the three displacement components at
+//     once, so each table word serves three FMAs.  Intermediate rows are
+//     padded against bank conflicts.
+//   * The column owner keeps the six Voigt channels in registers through
+//     the Z sweep, the pointwise stress and the Z^T sweep.  From p = 5 on
+//     two neighbouring lanes share a column, each holding half of its
+//     points along z; the Z^T partial sums meet through a shuffle.
+//   * x is copied once, contiguously, with cp.async (16 bytes where the
+//     source allows) into shared memory at a shift that makes the source
+//     and the copy agree modulo 16 bytes; y is assembled in x's place and
+//     written out the same way.  The owners read lam_w/mu_w into
+//     registers at the pointwise stress.
 //   * __launch_bounds__ caps the registers so that kMinBlocks blocks fit
-//     on an SM without spills (ptxas -v reports the spills;
-//     pa_elasticity_config_* reports blocks per SM and shared bytes).
+//     on an SM (ptxas -v reports the spills; pa_elasticity_config_*
+//     reports blocks per SM and shared bytes).
+// Measured (PERF.md): neither the shared-memory traffic nor the FMA issue
+// is saturated at p = 4 (each is about half busy by the count above), so
+// latency between the short, synchronised sweeps sets the pace; tune.py
+// times the launch-configuration choices.
 //
 // Instantiated for p = 1..8 (D = p + 1, Q = p + 2) in float64 and float32.
 
@@ -236,9 +237,9 @@ pa_elasticity_kernel(const T* __restrict__ x, const T* __restrict__ lam,
   __syncthreads();
 
   // ---- forward, CG displacement components c = c0 + g at a time.  acc
-  // holds the owner's running Voigt channels for every qz: slots 0..2 the
-  // diagonal gradients d_c u_c, slots 3..5 the symmetrized sums
-  // d_k u_j + d_j u_k.
+  // holds the owner's running Voigt channels at its Qh points along z:
+  // slots 0..2 the diagonal gradients d_c u_c, slots 3..5 the symmetrized
+  // sums d_k u_j + d_j u_k.
   T acc[6][Qh];
 #pragma unroll
   for (int c0 = 0; c0 < 3; c0 += CG) {

@@ -43,6 +43,8 @@ VARIANTS = {
         (r"d == 3 \? 8 : d <= 5 \? 3 : 1", "d == 3 ? 8 : d <= 5 ? 2 : 1")],
     "one component a sweep": [(r"static constexpr int kGroup = [^;]*;",
                                "static constexpr int kGroup = 1;")],
+    "three components a sweep at every p": [(r"static constexpr int kGroup = [^;]*;",
+                                             "static constexpr int kGroup = 3;")],
 }
 
 
