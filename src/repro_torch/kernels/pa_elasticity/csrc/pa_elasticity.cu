@@ -39,7 +39,7 @@
 //     once, so each table word serves three FMAs.  Intermediate rows are
 //     padded against bank conflicts.
 //   * The column owner keeps the six Voigt channels in registers through
-//     the Z sweep, the pointwise stress and the Z^T sweep.  From p = 5 on
+//     the Z sweep, the pointwise stress and the Z^T sweep.  From p = 7 on
 //     two neighbouring lanes share a column, each holding half of its
 //     points along z; the Z^T partial sums meet through a shuffle.
 //   * x is copied once, contiguously, with cp.async (16 bytes where the
@@ -78,11 +78,12 @@ template <typename T, int D>
 struct Config {
   static constexpr int Q = D + 1;
   // Threads a quadrature column: each owns Qh of its Q points along z and
-  // holds 6 Qh Voigt values.  Two (neighbouring lanes) from p = 5 on, where
-  // 6 Q values would crowd out the sweeps' registers; one below, where
-  // the second thread's shuffles and duplicate loads cost more than the
-  // registers it frees (tune.py).  Threads in all: whole warps.
-  static constexpr int kSplit = D >= 6 ? 2 : 1;
+  // holds 6 Qh Voigt values.  Two (neighbouring lanes) from p = 7 on, where
+  // 6 Q values crowd out the sweeps' registers; one below, where the
+  // second thread's shuffles and duplicate loads cost more than the
+  // registers it frees (tune.py: p = 2, 4, 6 and 8 timed).  Threads in
+  // all: whole warps.
+  static constexpr int kSplit = D >= 8 ? 2 : 1;
   static constexpr int Qh = (Q + kSplit - 1) / kSplit;
   static constexpr int kElems = elems_for(D, kSplit);
   static constexpr int kThreads = round_up(kElems * Q * Q * kSplit, 32);

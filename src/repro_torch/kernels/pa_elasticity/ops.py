@@ -117,6 +117,24 @@ def _on_stream(fn, t, *args) -> int:
         return fn(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
+def _launch(name, x_e, lam_w, mu_w, jinv, B, G):
+    """Launch the library's entry ``name`` ("pa_elasticity" or
+    "pa_elasticity_baseline") on checked CUDA tensors; returns y_e."""
+    ne, d1d, q1d = x_e.shape[0], x_e.shape[4], lam_w.shape[-1]
+    y = torch.empty_like(x_e)
+    if ne == 0:
+        return y
+    kl = build.load()
+    err = _on_stream(
+        getattr(kl, name)[x_e.dtype], x_e,
+        x_e.data_ptr(), lam_w.data_ptr(), mu_w.data_ptr(), jinv.data_ptr(),
+        B.data_ptr(), G.data_ptr(), y.data_ptr(), ne, d1d, q1d,
+    )
+    if err:
+        kl.check(err, f"{name} launch (D1D={d1d}, Q1D={q1d}, {x_e.dtype})")
+    return y
+
+
 def pa_elasticity(x_e, lam_w, mu_w, jinv, B, G):
     """Fused PAop operator action.
 
@@ -126,24 +144,15 @@ def pa_elasticity(x_e, lam_w, mu_w, jinv, B, G):
     B, G:   (Q1D, D1D)
     Returns y_e in the layout of x_e.
     """
-    ne, d1d, q1d = _check_pa_args(x_e, lam_w, mu_w, jinv, B, G)
+    ne, _, _ = _check_pa_args(x_e, lam_w, mu_w, jinv, B, G)
     if not x_e.is_cuda:
         if x_e.device.type != "cpu":
             raise ValueError(f"pa_elasticity: unsupported device {x_e.device}")
         counts["pa_elasticity"].plain_calls += 1
         return paop_ref(x_e, lam_w, mu_w, jinv, B, G)
-    y = torch.empty_like(x_e)
-    if ne == 0:
-        return y
-    kl = build.load()
-    err = _on_stream(
-        kl.pa_elasticity[x_e.dtype], x_e,
-        x_e.data_ptr(), lam_w.data_ptr(), mu_w.data_ptr(), jinv.data_ptr(),
-        B.data_ptr(), G.data_ptr(), y.data_ptr(), ne, d1d, q1d,
-    )
-    if err:
-        kl.check(err, f"pa_elasticity launch (D1D={d1d}, Q1D={q1d}, {x_e.dtype})")
-    counts["pa_elasticity"].launches += 1
+    y = _launch("pa_elasticity", x_e, lam_w, mu_w, jinv, B, G)
+    if ne:
+        counts["pa_elasticity"].launches += 1
     return y
 
 
@@ -153,23 +162,12 @@ def launch_baseline(x_e, lam_w, mu_w, jinv, B, G):
     beside it by ``chip_smoke.py`` and held against the plain version by the
     card's tests.  The main path never routes here, and it is not counted.
     Raises for a tensor on any other device."""
-    ne, d1d, q1d = _check_pa_args(x_e, lam_w, mu_w, jinv, B, G)
+    _check_pa_args(x_e, lam_w, mu_w, jinv, B, G)
     if not x_e.is_cuda:
         raise ValueError(
             f"pa_elasticity baseline: runs only on CUDA tensors, got {x_e.device}"
         )
-    y = torch.empty_like(x_e)
-    if ne == 0:
-        return y
-    kl = build.load()
-    err = _on_stream(
-        kl.pa_elasticity_baseline[x_e.dtype], x_e,
-        x_e.data_ptr(), lam_w.data_ptr(), mu_w.data_ptr(), jinv.data_ptr(),
-        B.data_ptr(), G.data_ptr(), y.data_ptr(), ne, d1d, q1d,
-    )
-    if err:
-        kl.check(err, f"pa_elasticity baseline launch (D1D={d1d}, Q1D={q1d}, {x_e.dtype})")
-    return y
+    return _launch("pa_elasticity_baseline", x_e, lam_w, mu_w, jinv, B, G)
 
 
 def probe(x):

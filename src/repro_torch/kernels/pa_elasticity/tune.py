@@ -32,7 +32,7 @@ from repro_torch.kernels.pa_elasticity import build
 from repro_torch.kernels.pa_elasticity.ref import paop_ref
 
 # name -> list of (pattern, replacement) applied to pa_elasticity.cu
-SPLIT = r"static constexpr int kSplit = D >= 6 \? 2 : 1;"
+SPLIT = r"static constexpr int kSplit = D >= 8 \? 2 : 1;"
 VARIANTS = {
     "as built": [],
     "two threads a column at every p": [(SPLIT, "static constexpr int kSplit = 2;")],
