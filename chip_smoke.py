@@ -17,7 +17,8 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    the blocks an SM holds), and hold the probe kernel against ``2 * x``;
 3. hold the PAop kernel against its plain PyTorch version on the card for
    p = 1..8 in float64 and float32 at NE in {1, 7, 4096}, and at every
-   (p, NE) the main path gives it, with the tests' tolerances; hold the
+   (p, NE) the single and the batched solve give it (S * NE elements, and
+   the coarse probe's n * S * NE), with the tests' tolerances; hold the
    flash-attention kernels against their plain version in float32 (atol
    2e-5) and bfloat16 (atol 3e-2, and 1e-2 per-row relative) at the
    shapes of ``tests/test_flash_kernel.py``, windows {16, 48, 128},
@@ -29,7 +30,26 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    kernel count zeroed just before and read just after; it must converge
    to rel_tol 1e-6 through the kernels alone, to a finite solution, and a
    small solve on the card must agree with the same solve on the CPU;
-5. the serve path: qwen3-1.7b at full width in bfloat16 (28 layers,
+5. the batched solve path: ``BatchedGMGSolver(beam_hex(), 4, 4,
+   precision="f64", device="cuda")`` at S = 8 requests of the reference
+   ``serve_solve`` workload (``repro_torch.launch.workload``: 4 rows of
+   attribute dicts, 4 of ``lognormal:0`` per-element fields; rel_tol 1e-8
+   and 1e-6 in turns).  A cold ``solve`` first, then each row alone
+   through a warm ``solve_beam``, timed; then, with every count zeroed
+   just before and read just after, a warm run of the user's entry
+   points: a new solver, ``prepare`` and one ``run_chunk`` to the end,
+   each timed between synchronize fences, with its peak memory, and
+   compared with the rows' summed ``solve_beam`` times.  Every row must
+   converge through the kernels alone, rows 0 and 4 must match
+   ``solve_beam`` of their own scenario (same iterations, x within 1e-10
+   of max |x|), and the warm run must equal the cold one bitwise.  Host syncs per ``solve`` are counted
+   under ``torch.cuda.set_sync_debug_mode("warn")``; the folded coarse
+   probe is timed beside a column-by-column loop, and a last prepare +
+   run_chunk runs under ``torch.profiler`` for the device's busy share in
+   each.  A small batched solve (p=2, refine=1, S=3) must agree with the
+   CPU, and its chunked run and a masked row refill must be bitwise where
+   they should be;
+6. the serve path: qwen3-1.7b at full width in bfloat16 (28 layers,
    seeded random weights) generates 32 greedy tokens for each of 8
    requests of 2048 prompt tokens, with every count zeroed just before
    and read just after: 28 flash-attention launches per prefill batch
@@ -39,7 +59,7 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    layer give the kernel, and the kernel's output on them is held
    against the plain version (1e-2 per-row relative); a reduced float32
    qwen3 must give the same tokens and logits on the card as on the CPU;
-6. time the PAop apply at p in {2, 4, 8} (NE=32768, f64; p=4 is the
+7. time the PAop apply at p in {2, 4, 8} (NE=32768, f64; p=4 is the
    fine level of the solve) beside the baseline kernel, and the flash
    kernel at (8, 2048, 16, 8, 128) bf16, beside their plain versions, a
    library call where one exists, and their bounds: rounds of back-to-back
@@ -64,12 +84,14 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from torch.profiler import record_function  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config, get_reduced  # noqa: E402
@@ -82,9 +104,14 @@ from repro_torch.kernels.flash_attention.ref import flash_ref  # noqa: E402
 from repro_torch.kernels.pa_elasticity import build, ops  # noqa: E402
 from repro_torch.kernels.pa_elasticity.ref import paop_ref, probe_ref  # noqa: E402
 from repro_torch.launch.solve import solve_beam  # noqa: E402
+from repro_torch.launch.workload import make_workload  # noqa: E402
+from repro_torch.profiling import print_profile  # noqa: E402
 from repro_torch.models import attention as attention_module  # noqa: E402
 from repro_torch.models.transformer import init_params  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine, ServeStats  # noqa: E402
+from repro_torch.core.geometry import MATERIALS_BEAM  # noqa: E402
+from repro_torch.solvers.batched import BatchedGMGSolver  # noqa: E402
+from repro_torch.solvers.coarse import probe_coarse_matrix  # noqa: E402
 from repro_torch.solvers.gmg import hierarchy_spaces  # noqa: E402
 from repro_torch.fem.mesh import beam_hex  # noqa: E402
 
@@ -131,6 +158,10 @@ SERVE_ARCH, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = "qwen3-1.7b", 8, 2048, 32
 FLASH_MAIN = (SERVE_REQUESTS, SERVE_PROMPT, 16, 8, 128)  # (B, S, H, K, D)
 SMALL_SERVE_PROMPTS = (5, 9, 3, 12, 7)
 SMALL_SERVE_REL = 1e-4  # card vs CPU logits, of max |logit| (f32)
+# The batched solve path: S = 8 rows, the reference's serve_solve --max-batch
+# default, at its --rel-tol default; rows 0 and 4 (a dict and a field) are
+# held against solve_beam.
+BATCH_S, BATCH_BASE_TOL, BATCH_CHECK_ROWS = 8, 1e-6, (0, 4)
 
 
 def card_line() -> str:
@@ -351,6 +382,230 @@ def numpy_tree(tree):
     return tree.cpu().numpy()
 
 
+def batched_scenarios() -> tuple[list, np.ndarray, np.ndarray]:
+    """S = 8 requests of the reference's serve_solve workload (its
+    ``make_workload``, copied in ``repro_torch.launch.workload``) at
+    refine 4 and base_tol 1e-6: rows 0-3 with attribute dicts, rows 4-7
+    with ``lognormal:SEED`` per-element fields; each row's traction and
+    rel_tol (1e-8 for even rows, 1e-6 for odd) those of its request."""
+    dicts, trs, tols = make_workload(BATCH_S, MAIN_REFINE, BATCH_BASE_TOL)
+    fields, _, _ = make_workload(BATCH_S, MAIN_REFINE, BATCH_BASE_TOL, f"lognormal:{SEED}")
+    half = BATCH_S // 2
+    return dicts[:half] + fields[half:], trs, tols
+
+
+def count_syncs(fn):
+    """(fn(), the host syncs it made): the synchronizing CUDA operations
+    that ``torch.cuda.set_sync_debug_mode("warn")`` reports while it runs."""
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def small_batched_check() -> None:
+    """p=2, refine=1, S=3 (dict, field, dict; rel_tol 1e-6, 1e-8, 1e-10) on
+    the card and on the CPU from the same start vectors: iterations equal,
+    solutions within 1e-10 relative.  On the card, chunks of 3 to the end
+    equal one uninterrupted chunk bitwise, and a row refilled through
+    prepare(reset_mask) + run_chunk(do_reset=True) leaves the other rows
+    bitwise as they would be without it."""
+    spaces = hierarchy_spaces(beam_hex(), 1, 2)
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    sv = [torch.randn((sp.nscalar, 3), generator=cpu_gen, dtype=torch.float64)
+          for sp in spaces[1:]]
+    rng = np.random.default_rng(SEED)
+    ne = spaces[-1].nelem
+    mats = [MATERIALS_BEAM, (rng.lognormal(0, 0.5, ne), rng.lognormal(0, 0.5, ne)),
+            {1: (10.0, 5.0), 2: (2.0, 2.0)}]
+    trs = np.array([[0.0, 0.0, -1e-2], [0.0, 1e-3, -2e-2], [0.0, 0.0, -5e-3]])
+    tols = np.array([1e-6, 1e-8, 1e-10])
+    gpu = BatchedGMGSolver(beam_hex(), 1, 2, device="cuda", start_vectors=sv)
+    cpu = BatchedGMGSolver(beam_hex(), 1, 2, device="cpu", start_vectors=sv)
+    a, b = gpu.solve(mats, trs, tols), cpu.solve(mats, trs, tols)
+    diff = float((a.x.cpu() - b.x).abs().max()) / float(b.x.abs().max())
+    print(f"[small batched] p=2 refine=1 S=3 iters card/cpu {a.iterations.tolist()}/"
+          f"{b.iterations.tolist()}, max rel diff {diff:.3e}")
+    if not torch.equal(a.iterations.cpu(), b.iterations) or diff > 1e-10 \
+            or not bool(b.converged.all()):
+        raise SystemExit("small batched solve on the card disagrees with the CPU")
+    lam, mu = gpu.pack_materials(mats)
+    ones = np.ones(3, bool)
+    prep = gpu.prepare(lam, mu, ones, gpu.empty_prep(3))
+    whole, _ = gpu.run_chunk(trs, tols, ones, gpu.empty_state(3), prep, gpu.maxiter,
+                             do_reset=True)
+    state, _ = gpu.run_chunk(trs, tols, ones, gpu.empty_state(3), prep, 3, do_reset=True)
+    after3, chunks = state, 1
+    while bool(state.active.any()):
+        state, _ = gpu.run_chunk(trs, tols, ~ones, state, prep, 3)
+        chunks += 1
+    chunked_equal = all(torch.equal(getattr(state, f.name), getattr(whole, f.name))
+                        for f in dataclasses.fields(state))
+    mask = np.array([False, True, False])
+    lam2, mu2 = gpu.pack_materials([mats[0], {1: (9.0, 9.0), 2: (1.0, 3.0)}, mats[2]])
+    prep2 = gpu.prepare(lam2, mu2, mask, prep)
+    refilled, _ = gpu.run_chunk(trs, tols, mask, after3, prep2, 4, do_reset=True)
+    untouched, _ = gpu.run_chunk(trs, tols, ~ones, after3, prep, 4)
+    kept_equal = all(
+        torch.equal(getattr(refilled, f.name)[[0, 2]], getattr(untouched, f.name)[[0, 2]])
+        for f in dataclasses.fields(refilled))
+    prep_kept = all(torch.equal(o.reshape(3, -1)[[0, 2]], n.reshape(3, -1)[[0, 2]])
+                    for key in ("lam_w", "mu_w", "dinv", "lmax")
+                    for o, n in zip(prep[key], prep2[key]))
+    print(f"[small batched] {chunks} chunks of 3 == one chunk, bitwise: {chunked_equal}; "
+          f"row 1 refilled, rows 0 and 2 of prep and state bitwise kept: "
+          f"{prep_kept and kept_equal}")
+    if not (chunked_equal and kept_equal and prep_kept):
+        raise SystemExit("batched chunks or refill are not bitwise on the card")
+
+
+def batched_phase() -> dict[str, tuple[int, int]]:
+    """The batched solve path (phase 5); returns the counted run's
+    (launches, plain_calls) per kernel."""
+    n_coarse = hierarchy_spaces(beam_hex(), MAIN_REFINE, MAIN_P)[0].nscalar * 3
+    t_setup0 = time.perf_counter()
+    bsolver = BatchedGMGSolver(beam_hex(), MAIN_REFINE, MAIN_P, precision="f64",
+                               device="cuda")
+    fine = bsolver.fine_space
+    mats, trs, tols = batched_scenarios()
+    torch.cuda.synchronize()
+    t_cold0 = time.perf_counter()
+    cold = bsolver.solve(mats, trs, tols)
+    torch.cuda.synchronize()
+    t_cold1 = time.perf_counter()
+    print(f"[batched] cold: setup {t_cold0 - t_setup0} s, solve {t_cold1 - t_cold0} s")
+    # The same rows one solve_beam at a time, as they are served without the
+    # batched solver: after one untimed warm-up call, each call timed on the
+    # host clock between synchronize fences.  Rows 0 and 4 are held against
+    # the batch.
+    solve_beam(MAIN_P, MAIN_REFINE, precision="f64", device="cuda", materials=mats[0],
+               traction=tuple(trs[0]), rel_tol=float(tols[0]))
+    seq_wall, seq_solve, seq_iters = [], [], []
+    for row in range(BATCH_S):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        one = solve_beam(MAIN_P, MAIN_REFINE, precision="f64", device="cuda",
+                         materials=mats[row], traction=tuple(trs[row]),
+                         rel_tol=float(tols[row]), keep_solution=row in BATCH_CHECK_ROWS)
+        torch.cuda.synchronize()
+        seq_wall.append(time.perf_counter() - t)
+        seq_solve.append(one.t_solve)
+        seq_iters.append(one.iterations)
+        if row in BATCH_CHECK_ROWS:
+            scale = float(one.x.abs().max())
+            rdiff = float((cold.x[row] - one.x).abs().max()) / scale
+            print(f"[batched] row {row} vs solve_beam: iters {int(cold.iterations[row])}/"
+                  f"{one.iterations}, max diff {rdiff:.3e} of max |x|")
+            if int(cold.iterations[row]) != one.iterations or rdiff > 1e-10:
+                raise SystemExit(f"batched row {row} disagrees with solve_beam")
+        del one
+    torch.cuda.empty_cache()
+    print(f"[batched] one warm solve_beam a row: iters {seq_iters}, wall {seq_wall} s "
+          f"(sum {sum(seq_wall)} s), t_solve sum {sum(seq_solve)} s")
+    # The folded coarse probe (one apply of n * S rows) beside a loop over
+    # the n identity columns (n applies of S rows), on the prepared level.
+    lam, mu = bsolver.pack_materials(mats)
+    prep = bsolver.prepare(lam, mu, np.ones(BATCH_S, bool), bsolver.empty_prep(BATCH_S))
+    op0 = bsolver._base_ops[0].with_material_weights(prep["lam_w"][0], prep["mu_w"][0],
+                                                     BATCH_S)
+    cop0, n0 = op0.constrained(), n_coarse
+    eye = torch.eye(n0, dtype=torch.float64, device="cuda")
+
+    def probe_loop():
+        return torch.stack([cop0(eye[j].reshape(1, -1, 3).expand(BATCH_S, -1, 3)
+                                 .contiguous()).reshape(BATCH_S, n0)
+                            for j in range(n0)], dim=2)
+
+    probe_diff = float((probe_coarse_matrix(op0) - probe_loop()).abs().max())
+    probe_t = event_ms({"folded": lambda: probe_coarse_matrix(op0), "loop": probe_loop},
+                       n=3, rounds=3)
+    print(f"[batched] coarse probe S={BATCH_S} n={n0}, in turns, median of 3 rounds of 3: "
+          f"folded {probe_t['folded']} ms, column loop {probe_t['loop']} ms, max abs diff "
+          f"{probe_diff:.3e}")
+    del prep, lam, mu, op0, cop0, bsolver
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bsolver = BatchedGMGSolver(beam_hex(), MAIN_REFINE, MAIN_P, precision="f64",
+                               device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    lam, mu = bsolver.pack_materials(mats)
+    ones = np.ones(BATCH_S, bool)
+    prep = bsolver.prepare(lam, mu, ones, bsolver.empty_prep(BATCH_S))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    state, _ = bsolver.run_chunk(trs, tols, ones, bsolver.empty_state(BATCH_S), prep,
+                                 bsolver.maxiter, do_reset=True)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    batch_counts = all_counts()
+    batch_peak = torch.cuda.max_memory_allocated()
+    t_setup, t_prepare, t_solve = t1 - t0, t2 - t1, t3 - t2
+    rel = (torch.sqrt(state.nom.abs()) / torch.sqrt(state.nom0.abs())).tolist()
+    converged = (state.nom <= state.threshold).tolist()
+    ndof = fine.ndof
+    print(f"[batched] p={MAIN_P} refine={MAIN_REFINE} f64 S={BATCH_S}: {ndof} DoFs a row, "
+          f"{BATCH_S * fine.nelem} elements through the kernel at the fine level")
+    print(f"[batched] iters {state.iters.tolist()}, converged {converged}, final rel norms "
+          f"{rel}, rel_tol {tols.tolist()}")
+    print(f"[batched] warm: setup {t_setup} s, prepare {t_prepare} s, solve {t_solve} s; "
+          f"{BATCH_S / (t_prepare + t_solve)} scenarios/s (prepare + solve), "
+          f"{ndof * BATCH_S / t_solve} DoF*rows/s (solve), peak memory "
+          f"{batch_peak / 2**30:.3f} GiB")
+    print(f"[batched] counts (launches, plain_calls): {batch_counts}")
+    t_batch = t_setup + t_prepare + t_solve
+    print(f"[batched] against one warm solve_beam a row, same run: {BATCH_S / t_batch} "
+          f"against {BATCH_S / sum(seq_wall)} scenarios/s (setup + prepare + solve "
+          f"{t_batch} s, summed wall {sum(seq_wall)} s: {sum(seq_wall) / t_batch}x); "
+          f"t_solve {t_solve} s against summed t_solve {sum(seq_solve)} s: "
+          f"{t_solve / sum(seq_solve)}x")
+    if not all(converged):
+        raise SystemExit("batched solve: a row did not converge")
+    for name in ops.counts:
+        launches, plain = batch_counts[name]
+        if launches == 0 or plain != 0:
+            raise SystemExit(f"batched path did not run only through {name}: "
+                             f"launches={launches} plain_calls={plain}")
+    if not (torch.equal(state.x, cold.x) and torch.equal(state.iters, cold.iterations)):
+        raise SystemExit("batched warm run differs from the cold solve")
+    if not bool(torch.isfinite(state.x).all()):
+        raise SystemExit("batched solution is not finite")
+    del state, prep, lam, mu, cold
+    torch.cuda.synchronize()
+    ts0 = time.perf_counter()
+    res, syncs = count_syncs(lambda: bsolver.solve(mats, trs, tols))
+    torch.cuda.synchronize()
+    print(f"[batched] solve() under sync debug mode: {syncs} host syncs, "
+          f"{int(res.iterations.max())} iterations for the slowest row, "
+          f"{time.perf_counter() - ts0} s")
+    del res
+    # The same prepare + run_chunk under torch.profiler: device busy share
+    # of each phase (each ends in a synchronize).
+    lam, mu = bsolver.pack_materials(mats)
+
+    def profiled():
+        with record_function("batched.prepare"):
+            prep = bsolver.prepare(lam, mu, ones, bsolver.empty_prep(BATCH_S))
+            torch.cuda.synchronize()
+        with record_function("batched.pcg"):
+            bsolver.run_chunk(trs, tols, ones, bsolver.empty_state(BATCH_S), prep,
+                              bsolver.maxiter, do_reset=True)
+            torch.cuda.synchronize()
+
+    print_profile(profiled, prefix="batched.")
+    del lam, mu, bsolver
+    torch.cuda.empty_cache()
+    return batch_counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -388,6 +643,9 @@ def main() -> int:
     cases = [(dt, p, ne) for dt in (torch.float64, torch.float32)
              for p in ops.SUPPORTED_P for ne in (1, 7, 4096)]
     cases += [(torch.float64, p, ne) for p, ne in main_shapes]
+    n_coarse = hierarchy_spaces(beam_hex(), MAIN_REFINE, MAIN_P)[0].nscalar * 3
+    cases += [(torch.float64, p, BATCH_S * ne) for p, ne in main_shapes]
+    cases.append((torch.float64, 1, n_coarse * BATCH_S * main_shapes[0][1]))
     bad = []
     for dt, p, ne in cases:
         args = pa_inputs(p, ne, dt, gen)
@@ -470,7 +728,12 @@ def main() -> int:
     del small_gpu, small_cpu
     torch.cuda.empty_cache()
 
-    # ---- 5. the serve path, counted: qwen3-1.7b at full width, bf16
+    # ---- 5. the batched solve path, counted
+    batch_counts = batched_phase()
+    small_batched_check()
+    torch.cuda.empty_cache()
+
+    # ---- 6. the serve path, counted: qwen3-1.7b at full width, bf16
     cfg = get_config(SERVE_ARCH)
     eng = ServeEngine(cfg, max_len=SERVE_PROMPT + SERVE_NEW + 8,
                       max_batch=SERVE_REQUESTS, seed=SEED, device="cuda")
@@ -555,7 +818,7 @@ def main() -> int:
     if tok_gpu != tok_cpu or lg_rel > SMALL_SERVE_REL:
         raise SystemExit("small serve on the card disagrees with the CPU")
 
-    # ---- 6. time the PAop apply (kernel, baseline, plain) and the flash kernel
+    # ---- 7. time the PAop apply (kernel, baseline, plain) and the flash kernel
     ne = main_shapes[-1][1]
     pa_t = {}
     for p in PA_TIME_P:

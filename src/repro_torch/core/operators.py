@@ -1,7 +1,6 @@
 """ElasticityOperator: the paper's contribution as a composable module.
 
-One operator object per (mesh, degree) pair, single scenario, with two
-assembly levels:
+One operator object per (mesh, degree) pair, with two assembly levels:
 
 * ``"paop"`` — the plain PyTorch PAop (:func:`repro_torch.core.paop.paop_apply`),
   the counterpart of the reference's ``paop``;
@@ -13,12 +12,24 @@ assembly levels:
 ``apply(x)`` acts on the unconstrained L-vector (nscalar, 3);
 ``constrained()`` wraps it with MFEM ConstrainedOperator semantics and
 the matrix-free diagonal for the Chebyshev-Jacobi smoother.  Materials
-are one attribute->(lambda, mu) dict or one per-element ``(lam_e, mu_e)``
-pair of (nelem,) arrays.
+are one attribute->(lambda, mu) dict, one per-element ``(lam_e, mu_e)``
+pair of (nelem,) arrays, or a scenario *sequence* of such entries (dicts
+and pairs mixed freely, one per scenario).
+
+Scenario batching: with a scenario sequence (or fields of shape
+(S, nelem) bound through :meth:`ElasticityOperator.with_materials`) the
+operator acts on (S, nscalar, 3) L-vectors.  The scenario axis is folded
+into the element axis, so the PAop kernel runs unchanged on S * nelem
+elements.  ``materials=DEFER_MATERIALS`` builds a geometry carrier whose
+fields are bound later; the ``with_*`` methods return shallow copies that
+share geometry, tables and masks (and do not run the probe again).
 """
 
 from __future__ import annotations
 
+import copy
+
+import numpy as np
 import torch
 
 from repro_torch.core import diagonal as _diag
@@ -33,7 +44,11 @@ from repro_torch.fem.bc import ConstrainedOperator
 from repro_torch.fem.space import H1Space
 from repro_torch.kernels.pa_elasticity import ops as _kops
 
-__all__ = ["ElasticityOperator", "ASSEMBLY_LEVELS"]
+__all__ = ["ElasticityOperator", "ASSEMBLY_LEVELS", "DEFER_MATERIALS"]
+
+# Sentinel: build the operator as a geometry/tables carrier only; material
+# fields are bound later through with_materials / with_material_weights.
+DEFER_MATERIALS = "defer"
 
 ASSEMBLY_LEVELS = ("paop", "paop_cuda")
 
@@ -69,56 +84,162 @@ class ElasticityOperator:
         self.ess_mask = torch.as_tensor(
             space.essential_mask(ess_faces), device=self.device
         )
-        self.materials = materials if materials is not None else MATERIALS_BEAM
-        lam_e, mu_e = self._normalize_materials(self.materials)
-        self.lam_w = lam_e[:, None, None, None] * self.w_detj
-        self.mu_w = mu_e[:, None, None, None] * self.w_detj
+        if isinstance(materials, str) and materials == DEFER_MATERIALS:
+            self.materials = None
+            self.nbatch = None
+            self.lam_w = self.mu_w = None
+        else:
+            self.materials = materials if materials is not None else MATERIALS_BEAM
+            self._bind_materials(*self._normalize_materials(self.materials))
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(a, dtype=self.dtype, device=self.device)
 
-    def _normalize_materials(self, materials) -> tuple[torch.Tensor, torch.Tensor]:
-        """Per-element coefficient fields (lam_e, mu_e), each (nelem,), in
-        the operator's dtype on its device."""
+    @staticmethod
+    def _is_field_pair(m) -> bool:
+        """A (lam_e, mu_e) scenario entry: two 1-D array-likes."""
+        return (
+            isinstance(m, (tuple, list))
+            and len(m) == 2
+            and np.ndim(m[0]) == 1
+            and np.ndim(m[1]) == 1
+        )
+
+    def _normalize_materials(self, materials):
+        """Per-element coefficient fields (lam_e, mu_e), each (nelem,) for
+        one scenario or (S, nelem) for a scenario sequence, as numpy
+        arrays.  A pre-stacked (S, nelem) pair is refused here (it is bound
+        through :meth:`with_materials`): a sequence of per-scenario entries
+        is never mistaken for one stacked pair, or the other way round."""
+        mesh = self.space.mesh
         if isinstance(materials, dict):
-            lam_e, mu_e = material_fields(self.space.mesh, materials)
-        else:
-            try:
-                lam_e, mu_e = materials
-            except (TypeError, ValueError):
-                raise TypeError(
-                    "materials must be an attribute->(lambda, mu) dict or a "
-                    f"(lam_e, mu_e) pair of per-element arrays; got "
-                    f"{type(materials)!r}"
-                ) from None
-        lam_e, mu_e = self._tensor(lam_e), self._tensor(mu_e)
-        ne = self.space.nelem
-        if lam_e.shape != (ne,) or mu_e.shape != (ne,):
+            return material_fields(mesh, materials)
+        if (
+            isinstance(materials, (list, tuple))
+            and materials
+            and not self._is_field_pair(materials)
+            and all(isinstance(m, dict) or self._is_field_pair(m) for m in materials)
+        ):
+            fields = [
+                material_fields(mesh, m)
+                if isinstance(m, dict)
+                else (np.asarray(m[0]), np.asarray(m[1]))
+                for m in materials
+            ]
+            return np.stack([f[0] for f in fields]), np.stack([f[1] for f in fields])
+        try:
+            lam_e, mu_e = materials
+        except (TypeError, ValueError):
+            raise TypeError(
+                "materials must be an attribute->(lambda, mu) dict, a "
+                "(lam_e, mu_e) pair of per-element arrays, or a sequence of "
+                f"dicts / pairs (one per scenario); got {type(materials)!r}"
+            ) from None
+        if np.ndim(lam_e) != 1 or np.ndim(mu_e) != 1:
             raise ValueError(
-                f"material fields {tuple(lam_e.shape)}/{tuple(mu_e.shape)} "
-                f"must both be ({ne},); scenario batches are not supported "
-                f"by this operator"
+                f"material fields of {np.ndim(lam_e)}/{np.ndim(mu_e)} dimensions: "
+                f"the constructor takes scenario batches as a sequence of "
+                f"per-scenario entries; bind stacked (S, nelem) fields with "
+                f"with_materials"
             )
         return lam_e, mu_e
 
+    def _bind_materials(self, lam_e, mu_e) -> None:
+        """Set lam_w/mu_w from (nelem,) or (S, nelem) coefficient fields;
+        a leading scenario axis is folded into the element axis."""
+        lam_e, mu_e = self._tensor(lam_e), self._tensor(mu_e)
+        ne = self.space.nelem
+        if (
+            lam_e.shape != mu_e.shape
+            or lam_e.ndim not in (1, 2)
+            or lam_e.shape[-1] != ne
+        ):
+            raise ValueError(
+                f"material fields {tuple(lam_e.shape)}/{tuple(mu_e.shape)} must "
+                f"both be ({ne},) or (S, {ne})"
+            )
+        self.nbatch = lam_e.shape[0] if lam_e.ndim == 2 else None
+        self.lam_w = lam_e.reshape(-1)[:, None, None, None] * self.w_detj
+        self.mu_w = mu_e.reshape(-1)[:, None, None, None] * self.w_detj
+
+    def with_materials(self, lam_e, mu_e) -> "ElasticityOperator":
+        """A shallow copy with new coefficient fields, (nelem,) or
+        (S, nelem); geometry, tables and masks are shared."""
+        new = copy.copy(self)
+        new.materials = None
+        new._bind_materials(lam_e, mu_e)
+        return new
+
+    def with_material_weights(self, lam_w, mu_w, nbatch: int | None) -> "ElasticityOperator":
+        """A shallow copy binding precomputed weighted fields
+        (``lam_e * w_detj``) directly: for a scenario batch ``lam_w`` is the
+        folded (S * nelem, Q, Q, Q) tensor and ``nbatch`` is S."""
+        new = copy.copy(self)
+        new.materials = None
+        new.nbatch = nbatch
+        new.lam_w = lam_w
+        new.mu_w = mu_w
+        return new
+
+    def with_materials_rows(self, lam_e, mu_e, row_mask) -> "ElasticityOperator":
+        """Per-scenario-row field update: rows selected by ``row_mask`` (S,)
+        take freshly weighted fields from the (S, nelem) candidates; the
+        other rows keep this operator's fields bitwise."""
+        if self.nbatch is None:
+            raise ValueError("with_materials_rows requires a scenario-batched operator")
+        s, ne = self.nbatch, self.space.nelem
+        lam_e, mu_e = self._tensor(lam_e), self._tensor(mu_e)
+        if lam_e.shape != (s, ne) or mu_e.shape != (s, ne):
+            raise ValueError(
+                f"candidate fields {tuple(lam_e.shape)}/{tuple(mu_e.shape)} must "
+                f"be ({s}, {ne})"
+            )
+        mask = torch.as_tensor(row_mask, device=self.device).reshape((s,) + (1,) * 4)
+
+        def merge(old_w, cand_e):
+            cand_w = cand_e.reshape(-1)[:, None, None, None] * self.w_detj
+            tail = old_w.shape[1:]
+            return torch.where(
+                mask, cand_w.reshape((s, ne) + tail), old_w.reshape((s, ne) + tail)
+            ).reshape((s * ne,) + tail)
+
+        new = copy.copy(self)
+        new.materials = None
+        new.lam_w = merge(self.lam_w, lam_e)
+        new.mu_w = merge(self.mu_w, mu_e)
+        return new
+
     # -- raw action ---------------------------------------------------------
     def _apply_evec(self, x_e):
+        if self.lam_w is None:
+            raise ValueError("materials are deferred; bind them with with_materials first")
         args = (x_e, self.lam_w, self.mu_w, self.jinv, self.B, self.G)
         if self.assembly == "paop":
             return _paop.paop_apply(*args)
         return _kops.pa_elasticity(*args)
 
     def apply(self, x):
-        """Unconstrained y = A x on the L-vector (nscalar, 3)."""
-        return self.space.scatter_add(self._apply_evec(self.space.to_evec(x)))
+        """Unconstrained y = A x on the L-vector (nscalar, 3), or on the
+        scenario batch (S, nscalar, 3) of a batched operator."""
+        x_e = self.space.to_evec(x)
+        if self.nbatch is None:
+            return self.space.scatter_add(self._apply_evec(x_e))
+        s, ne = self.nbatch, self.space.nelem
+        y_e = self._apply_evec(x_e.reshape((s * ne,) + x_e.shape[2:]))
+        return self.space.scatter_add(y_e.reshape((s, ne) + y_e.shape[1:]))
 
     def __call__(self, x):
         return self.apply(x)
 
     # -- diagonal -------------------------------------------------------------
     def diagonal(self):
-        """Assembled operator diagonal as an L-vector (nscalar, 3)."""
+        """Assembled operator diagonal as an L-vector (nscalar, 3), with a
+        leading scenario axis for a batched operator."""
+        if self.lam_w is None:
+            raise ValueError("materials are deferred; bind them with with_materials first")
         d_e = _diag.element_diagonal(self.lam_w, self.mu_w, self.jinv, self.B, self.G)
+        if self.nbatch is not None:
+            d_e = d_e.reshape((self.nbatch, self.space.nelem) + d_e.shape[1:])
         return self.space.scatter_add(d_e)
 
     # -- constrained view -------------------------------------------------------

@@ -47,6 +47,14 @@ class PrecisionPolicy:
         """True when every tier runs one dtype (no cast boundaries)."""
         return self.solve_dtype == self.precond_dtype == self.coarse_dtype
 
+    @property
+    def reduced(self) -> bool:
+        """True when any tier runs below float64: exactly the policies the
+        batched solver's stagnation detector and f64 fallback cover."""
+        return not (
+            self.solve_dtype == self.precond_dtype == self.coarse_dtype == torch.float64
+        )
+
 
 PRECISION_POLICIES: dict[str, PrecisionPolicy] = {
     "f64": PrecisionPolicy("f64", torch.float64, torch.float64, torch.float64),

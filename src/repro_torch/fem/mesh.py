@@ -18,7 +18,7 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["HexMesh", "beam_hex"]
+__all__ = ["HexMesh", "beam_hex", "fine_descendants"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +93,47 @@ class HexMesh:
         if self.linear_map is not None:
             J = np.asarray(self.linear_map) @ J
         return J
+
+
+def fine_descendants(coarse: HexMesh, fine: HexMesh) -> np.ndarray:
+    """Fine-mesh element ids of every coarse element's descendants under
+    uniform refinement, shape (coarse.nelem, f^3) with f = fine.nx //
+    coarse.nx.
+
+    Row ``e`` lists the fine elements covering coarse element ``e`` (in
+    fine lexicographic order), so a per-element coefficient field given
+    on the fine mesh can be restricted to any coarser hierarchy level by
+    aggregating each row.  For ``coarse is fine`` this is the identity
+    map of shape (nelem, 1)."""
+    f, ry, rz = (
+        fine.nx // coarse.nx,
+        fine.ny // coarse.ny,
+        fine.nz // coarse.nz,
+    )
+    if ry != f or rz != f or (
+        coarse.nx * f,
+        coarse.ny * f,
+        coarse.nz * f,
+    ) != fine.shape or f < 1 or (f & (f - 1)):
+        raise ValueError(
+            f"{fine.shape} is not a uniform power-of-two refinement of "
+            f"{coarse.shape}"
+        )
+    d = np.arange(f)
+    fx = f * np.arange(coarse.nx)[:, None] + d[None, :]  # (nx, f)
+    fy = f * np.arange(coarse.ny)[:, None] + d[None, :]
+    fz = f * np.arange(coarse.nz)[:, None] + d[None, :]
+    idx = (
+        fx[None, None, :, None, None, :]
+        + fine.nx
+        * (
+            fy[None, :, None, None, :, None]
+            + fine.ny * fz[:, None, None, :, None, None]
+        )
+    )  # (nz, ny, nx, f_z, f_y, f_x)
+    return np.ascontiguousarray(
+        idx.reshape(coarse.nelem, f**3).astype(np.int32)
+    )
 
 
 def beam_hex(nx: int = 8, ny: int = 1, nz: int = 1) -> HexMesh:

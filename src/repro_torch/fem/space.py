@@ -133,24 +133,28 @@ class H1Space:
 
     # -- E <-> L ---------------------------------------------------------------
     def to_evec(self, u: torch.Tensor) -> torch.Tensor:
-        """L-vector (nscalar, 3) -> E-vector (nelem, 3, D1D, D1D, D1D)."""
+        """L-vector (..., nscalar, 3) -> E-vector (..., nelem, 3, D1D, D1D,
+        D1D); leading axes (a scenario batch) are kept."""
         gather, _ = self._index(u.device)
-        return u.reshape(-1)[gather]
+        return u.reshape(u.shape[:-2] + (-1,))[..., gather]
 
     def scatter_add(self, ye: torch.Tensor) -> torch.Tensor:
-        """E-vector (nelem, 3, D1D, D1D, D1D) -> L-vector (nscalar, 3) via
-        G^T (sum of element contributions at shared nodes, fixed order)."""
+        """E-vector (..., nelem, 3, D1D, D1D, D1D) -> L-vector (..., nscalar,
+        3) via G^T (sum of element contributions at shared nodes, fixed
+        order).  Each leading index (scenario row) reduces over the same
+        slots in the same order as an unbatched call."""
         _, table = self._index(ye.device)
         ne, d3 = self.nelem, self.d1d ** 3
-        rows = ye.new_empty((ne * d3 + 1, VDIM))
-        rows[-1] = 0
-        rows[:-1].view(ne, d3, VDIM).copy_(
-            ye.reshape(ne, VDIM, d3).transpose(1, 2)
+        lead = ye.shape[:-5]
+        rows = ye.new_empty(lead + (ne * d3 + 1, VDIM))
+        rows[..., -1, :] = 0
+        rows[..., :-1, :].view(lead + (ne, d3, VDIM)).copy_(
+            ye.reshape(lead + (ne, VDIM, d3)).transpose(-1, -2)
         )
-        g = rows[table]  # (nscalar, nslot, 3): the one gather
-        out = g[:, 0]
-        for s in range(1, g.shape[1]):
-            out = out + g[:, s]
+        g = rows[..., table, :]  # (..., nscalar, nslot, 3): the one gather
+        out = g[..., 0, :]
+        for s in range(1, g.shape[-2]):
+            out = out + g[..., s, :]
         return out.contiguous()
 
     # -- boundary -----------------------------------------------------------

@@ -9,7 +9,9 @@ into per-axis 1D operators applied to the global node grid:
   basis at the degree-p_f GLL nodes per axis.
 
 Prolongation is ``U_f = (Pz x Py x Px) U_c`` applied as three 1D
-``torch.einsum`` contractions; restriction is its exact transpose.
+``torch.einsum`` contractions; restriction is its exact transpose.  The
+contractions touch only the trailing axes, so a scenario batch
+(S, nscalar, 3) threads through unchanged.
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ def h_transfer_1d(n_el_coarse: int, p: int) -> np.ndarray:
 @dataclasses.dataclass
 class Transfer:
     """Separable 3D transfer between two H1 spaces on the same box, on
-    (nscalar, 3) L-vectors."""
+    (..., nscalar, 3) L-vectors."""
 
     px: torch.Tensor  # (Nx_f, Nx_c)
     py: torch.Tensor
@@ -60,23 +62,24 @@ class Transfer:
     grid_f: tuple[int, int, int]
 
     def prolong(self, u_c):
-        """(nscalar_c, 3) -> (nscalar_f, 3)."""
+        """(..., nscalar_c, 3) -> (..., nscalar_f, 3)."""
         nxc, nyc, nzc = self.grid_c
-        u = u_c.reshape(nzc, nyc, nxc, 3)
-        u = torch.einsum("zyxc,Xx->zyXc", u, self.px)
-        u = torch.einsum("zyXc,Yy->zYXc", u, self.py)
-        u = torch.einsum("zYXc,Zz->ZYXc", u, self.pz)
-        return u.reshape(-1, 3)
+        lead = u_c.shape[:-2]
+        u = u_c.reshape(lead + (nzc, nyc, nxc, 3))
+        u = torch.einsum("...zyxc,Xx->...zyXc", u, self.px)
+        u = torch.einsum("...zyXc,Yy->...zYXc", u, self.py)
+        u = torch.einsum("...zYXc,Zz->...ZYXc", u, self.pz)
+        return u.reshape(lead + (-1, 3))
 
     def restrict(self, r_f):
-        """Transpose: (nscalar_f, 3) -> (nscalar_c, 3)."""
+        """Transpose: (..., nscalar_f, 3) -> (..., nscalar_c, 3)."""
         nxf, nyf, nzf = self.grid_f
-        r = r_f.reshape(nzf, nyf, nxf, 3)
-        r = torch.einsum("ZYXc,Zz->zYXc", r, self.pz)
-        r = torch.einsum("zYXc,Yy->zyXc", r, self.py)
-        r = torch.einsum("zyXc,Xx->zyxc", r, self.px)
-        return r.reshape(-1, 3)
-
+        lead = r_f.shape[:-2]
+        r = r_f.reshape(lead + (nzf, nyf, nxf, 3))
+        r = torch.einsum("...ZYXc,Zz->...zYXc", r, self.pz)
+        r = torch.einsum("...zYXc,Yy->...zyXc", r, self.py)
+        r = torch.einsum("...zyXc,Xx->...zyxc", r, self.px)
+        return r.reshape(lead + (-1, 3))
 
 def make_transfer(
     coarse: H1Space, fine: H1Space, *, dtype: torch.dtype, device

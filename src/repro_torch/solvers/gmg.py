@@ -9,6 +9,15 @@ reference forces its pure-JAX ``paop`` there), so on the card no plain
 apply stays on the path.  Fine and intermediate levels smooth with
 Chebyshev(k=2)-Jacobi; the coarsest level is solved per
 :mod:`repro_torch.solvers.coarse`.
+
+Scenario batching: passing ``materials`` as a *sequence* of scenario
+entries builds one hierarchy whose operators, smoothers, transfers and
+coarse solve all carry a leading scenario axis (S, nscalar, 3); the
+V-cycle is shape-agnostic and preconditions every scenario in one pass.
+
+Per-element ``(lam_e, mu_e)`` fields are given on the finest mesh; each
+coarser h-level sees them averaged over its elements' fine descendants
+(:func:`restrict_field`), as the batched solver's levels do.
 """
 
 from __future__ import annotations
@@ -20,13 +29,15 @@ import torch
 
 from repro_torch.core.operators import ElasticityOperator
 from repro_torch.device import resolve_device
-from repro_torch.fem.mesh import HexMesh
+from repro_torch.fem.mesh import HexMesh, fine_descendants
 from repro_torch.fem.space import H1Space
 from repro_torch.fem.transfer import Transfer, make_transfer
 from repro_torch.solvers.chebyshev import ChebyshevSmoother
 from repro_torch.solvers.coarse import make_coarse_solver
 
 __all__ = [
+    "restrict_field",
+    "level_descendants",
     "p_chain",
     "hierarchy_spaces",
     "build_hierarchy",
@@ -43,6 +54,57 @@ def p_chain(p_target: int) -> list[int]:
     if chain[-1] != p_target:
         chain.append(p_target)
     return chain
+
+
+def restrict_field(field: torch.Tensor, desc: torch.Tensor) -> torch.Tensor:
+    """Average a per-element field (..., nelem_fine) over each coarse
+    element's fine descendants ``desc`` (nelem_coarse, 2^k), as a pairwise
+    halving tree: exact whenever all descendants of an element carry the
+    same value, so a piecewise-constant field gives the equivalent
+    attribute dict's fields bit for bit on every level."""
+    g = field[..., desc]  # (..., nelem_coarse, 2^k)
+    k = g.shape[-1]
+    while g.shape[-1] > 1:
+        g = g[..., 0::2] + g[..., 1::2]
+    return g[..., 0] / k
+
+
+def level_descendants(spaces: Sequence[H1Space], device) -> list[torch.Tensor | None]:
+    """Each level's fine-descendant map onto the finest level's mesh, an
+    int64 (nelem_level, 2^k) tensor on ``device`` for :func:`restrict_field`;
+    None for levels on the fine mesh (the p-levels)."""
+    fine_mesh = spaces[-1].mesh
+    return [
+        None
+        if sp.nelem == fine_mesh.nelem
+        else torch.as_tensor(
+            fine_descendants(sp.mesh, fine_mesh), dtype=torch.int64, device=device
+        )
+        for sp in spaces
+    ]
+
+
+def _level_materials(materials, desc: torch.Tensor | None, nelem_fine: int):
+    """``materials`` as a level with fine-descendant map ``desc`` sees
+    them: per-element pairs (alone or as scenario entries) restricted from
+    the fine mesh; dicts and the fine mesh's own materials unchanged."""
+    if materials is None or isinstance(materials, dict) or desc is None:
+        return materials
+
+    def level(m):
+        if isinstance(m, dict):
+            return m
+        pair = tuple(torch.as_tensor(f, dtype=torch.float64, device="cpu") for f in m)
+        if any(f.shape != (nelem_fine,) for f in pair):
+            raise ValueError(
+                f"per-element material fields must be given on the finest mesh "
+                f"({nelem_fine} elements), got {[tuple(f.shape) for f in pair]}"
+            )
+        return tuple(restrict_field(f, desc) for f in pair)
+
+    if ElasticityOperator._is_field_pair(materials):
+        return level(materials)
+    return [level(m) for m in materials]
 
 
 def hierarchy_spaces(
@@ -112,8 +174,9 @@ def build_hierarchy(
     """Build the paper's GMG preconditioner for the beam benchmark.
 
     ``start_vectors`` holds the power iteration's start vector of every
-    smoothed level (levels 1..L-1, coarse -> fine), each of shape
-    (nscalar, 3); without it each level draws its own from ``seed``."""
+    smoothed level (levels 1..L-1, coarse -> fine), each of the
+    per-scenario shape (nscalar, 3); without it each level draws its own
+    from ``seed``."""
     device = resolve_device(device)
     spaces = hierarchy_spaces(coarse_mesh, n_h_refine, p_target)
     if start_vectors is not None and len(start_vectors) != len(spaces) - 1:
@@ -122,12 +185,18 @@ def build_hierarchy(
             f"has {len(spaces) - 1} smoothed levels"
         )
 
+    # Per-element fields are restricted on the host, once per level.
+    descs = (
+        [None] * len(spaces)
+        if materials is None or isinstance(materials, dict)
+        else level_descendants(spaces, "cpu")
+    )
     levels: list[Level] = []
     for i, sp in enumerate(spaces):
         op = ElasticityOperator(
             sp,
             assembly=assembly,
-            materials=materials,
+            materials=_level_materials(materials, descs[i], spaces[-1].nelem),
             dtype=dtype,
             device=device,
             ess_faces=ess_faces,
@@ -145,6 +214,7 @@ def build_hierarchy(
                 power_iters=power_iters,
                 v0=v0,
                 seed=seed,
+                batch_dims=0 if op.nbatch is None else 1,
             )
         levels.append(
             Level(

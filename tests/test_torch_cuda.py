@@ -24,6 +24,7 @@ from repro_torch.launch.solve import solve_beam
 from repro_torch.fem.mesh import beam_hex
 from repro_torch.models.transformer import init_params
 from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.solvers.batched import BatchedGMGSolver
 from repro_torch.solvers.gmg import hierarchy_spaces
 
 TOL = {torch.float64: (1e-12, 1e-12), torch.float32: (2e-4, 2e-5)}  # rtol, atol / max|ref|
@@ -109,6 +110,98 @@ def test_small_solve_on_card_matches_cpu(card):
     # the deterministic scatter makes a repeat on the card bitwise equal
     c = solve_beam(2, 1, device=card, start_vectors=sv, keep_solution=True)
     assert torch.equal(a.x, c.x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("p", [1, 2, 4])
+def test_kernel_on_scenario_folded_batch(card, p, dtype):
+    """S scenarios folded into the element axis, each with its own lam_w /
+    mu_w, S * NE ragged against the block size: the launch agrees with the
+    plain version, and each scenario's slice equals that scenario's own
+    launch bitwise (elements are independent)."""
+    rtol, atol = TOL[dtype]
+    elems = build.load().config("pa_elasticity", dtype, p + 1)["elems"]
+    s, ne = 3, 7 * elems + 1
+    x, lam, mu, jinv, B, G = _args(p, s * ne, dtype, card)
+    scale = torch.tensor([1.0, 50.0, 0.02], dtype=dtype, device=card)
+    lam = (lam.reshape(s, ne, -1) * scale[:, None, None]).reshape(lam.shape)
+    mu = (mu.reshape(s, ne, -1) * scale[:, None, None]).reshape(mu.shape)
+    before = ops.counts["pa_elasticity"].launches
+    y = ops.pa_elasticity(x, lam, mu, jinv, B, G)
+    assert ops.counts["pa_elasticity"].launches == before + 1
+    ref = paop_ref(x, lam, mu, jinv, B, G)
+    for i in range(s):
+        rows = slice(i * ne, (i + 1) * ne)
+        torch.testing.assert_close(
+            y[rows], ref[rows], rtol=rtol, atol=atol * float(ref[rows].abs().max())
+        )
+        one = ops.pa_elasticity(x[rows].contiguous(), lam[rows].contiguous(),
+                                mu[rows].contiguous(), jinv, B, G)
+        assert torch.equal(one, y[rows])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f64", "mixed", "f32"])
+def test_small_batched_solve_on_card_matches_cpu(card, precision):
+    """p=2, refine=1, S=3 batched solve (dict, field, dict; tolerances 1e-6,
+    1e-8 and 1e-10, or 1e-13 under f32, below its floor) on the card and on
+    the CPU from the same start vectors."""
+    spaces = hierarchy_spaces(beam_hex(), 1, 2)
+    g = torch.Generator().manual_seed(0)
+    sv = [torch.randn((sp.nscalar, 3), generator=g, dtype=torch.float64) for sp in spaces[1:]]
+    rng = np.random.default_rng(0)
+    ne = spaces[-1].nelem
+    mats = [{1: (50.0, 50.0), 2: (1.0, 1.0)},
+            (rng.lognormal(0, 0.5, ne), rng.lognormal(0, 0.5, ne)),
+            {1: (10.0, 5.0), 2: (2.0, 2.0)}]
+    trs = np.array([[0.0, 0.0, -1e-2], [0.0, 1e-3, -2e-2], [0.0, 0.0, -5e-3]])
+    tols = [1e-6, 1e-8, 1e-13 if precision == "f32" else 1e-10]
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        solver = BatchedGMGSolver(beam_hex(), 1, 2, precision=precision, device=dev,
+                                  start_vectors=sv)
+        ops.reset_counts()
+        out[dev is card] = solver.solve(mats, trs, tols)
+        c = ops.counts["pa_elasticity"]
+        if dev.type == "cuda":
+            assert c.launches > 0 and c.plain_calls == 0
+    a, b = out[True], out[False]
+    assert bool(a.converged.all()) and bool(b.converged.all())
+    assert torch.equal(a.fallback.cpu(), b.fallback)
+    assert bool(b.fallback[2]) == (precision == "f32")
+    if precision == "f64":
+        assert torch.equal(a.iterations.cpu(), b.iterations)
+    rtol = {"f64": 1e-10, "mixed": 1e-6, "f32": 1e-4}[precision]
+    scale = float(b.x.abs().max())
+    torch.testing.assert_close(a.x.cpu(), b.x, rtol=rtol, atol=rtol * scale)
+
+
+@pytest.mark.cuda
+def test_batched_chunks_and_refill_are_bitwise_on_card(card):
+    solver = BatchedGMGSolver(beam_hex(), 1, 2, device=card)
+    mats = [{1: (50.0, 50.0), 2: (1.0, 1.0)}, {1: (10.0, 5.0), 2: (2.0, 2.0)},
+            {1: (20.0, 20.0), 2: (3.0, 1.0)}]
+    trs = np.array([[0.0, 0.0, -1e-2], [0.0, 1e-3, -2e-2], [0.0, 0.0, -5e-3]])
+    lam, mu = solver.pack_materials(mats)
+    ones = np.ones(3, bool)
+    prep = solver.prepare(lam, mu, ones, solver.empty_prep(3))
+    whole, _ = solver.run_chunk(trs, 1e-10, ones, solver.empty_state(3), prep, 1000,
+                                do_reset=True)
+    state, _ = solver.run_chunk(trs, 1e-10, ones, solver.empty_state(3), prep, 3,
+                                do_reset=True)
+    after3 = state
+    while bool(state.active.any()):
+        state, _ = solver.run_chunk(trs, 1e-10, ~ones, state, prep, 3)
+    assert torch.equal(state.x, whole.x) and torch.equal(state.iters, whole.iters)
+    mask = np.array([False, True, False])
+    lam2, mu2 = solver.pack_materials([mats[0], {1: (9.0, 9.0), 2: (1.0, 3.0)}, mats[2]])
+    prep2 = solver.prepare(lam2, mu2, mask, prep)
+    refilled, _ = solver.run_chunk(trs, 1e-10, mask, after3, prep2, 4, do_reset=True)
+    untouched, _ = solver.run_chunk(trs, 1e-10, ~ones, after3, prep, 4)
+    for name in ("x", "r", "d", "nom", "iters", "active"):
+        a, b = getattr(refilled, name), getattr(untouched, name)
+        assert torch.equal(a[[0, 2]], b[[0, 2]]), name
 
 
 FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # tests/test_flash_kernel.py
