@@ -49,6 +49,24 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    each.  A small batched solve (p=2, refine=1, S=3) must agree with the
    CPU, and its chunked run and a masked row refill must be bitwise where
    they should be;
+5b. the solve service: ``ElasticityService(max_batch=8, precision="f64",
+   device="cuda")`` on 16 requests of the same ``serve_solve`` traffic
+   (``--n-requests 16 --max-batch 8``: requests 0-3 and 8-11 attribute
+   dicts, 4-7 and 12-15 ``lognormal:0`` fields, so 0-7 are phase 5's batch
+   and 12-15 repeat 4-7), each run with every count zeroed just before and
+   read just after: ``solve`` (generational; generation 0 must give phase
+   5's iterations), then ``solve_continuous`` under the fixed and the
+   adaptive chunk policy (chunks of 8; the adaptive run under sync debug
+   mode), each request with the generational run's iterations and flags
+   and the kept solutions of requests 0, 4, 8 and 12 within 1e-10 of max
+   |x|, through the kernels alone; scenarios/s of each on the host clock
+   between fences, latency quantiles, the scheduler summary (chunks,
+   wasted iterations, refills), prep calls and copies, host syncs per
+   step, peak memory; and a last continuous run under ``torch.profiler``
+   with a fencing ``SpanRecorder``, whose per-ticket queue_wait + compute +
+   overhead must equal the wall, its Chrome trace written to a temporary
+   directory.  A small service (p=2, refine=1, 6 requests, max_batch 4,
+   continuous) must agree with the CPU;
 6. the serve path: qwen3-1.7b at full width in bfloat16 (28 layers,
    seeded random weights) generates 32 greedy tokens for each of 8
    requests of 2048 prompt tokens, with every count zeroed just before
@@ -77,12 +95,15 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import functools
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -104,10 +125,15 @@ from repro_torch.kernels.flash_attention.ref import flash_ref  # noqa: E402
 from repro_torch.kernels.pa_elasticity import build, ops  # noqa: E402
 from repro_torch.kernels.pa_elasticity.ref import paop_ref, probe_ref  # noqa: E402
 from repro_torch.launch.solve import solve_beam  # noqa: E402
+from repro_torch.launch.serve_solve import make_workload as serve_workload  # noqa: E402
 from repro_torch.launch.workload import make_workload  # noqa: E402
+from repro_torch.obs import MetricsRegistry, SpanRecorder, diff_snapshots  # noqa: E402
 from repro_torch.profiling import print_profile  # noqa: E402
 from repro_torch.models import attention as attention_module  # noqa: E402
 from repro_torch.models.transformer import init_params  # noqa: E402
+from repro_torch.serve import elasticity_service  # noqa: E402
+from repro_torch.serve.chunk_policy import SchedulerTrace, make_chunk_policy  # noqa: E402
+from repro_torch.serve.elasticity_service import ElasticityService  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine, ServeStats  # noqa: E402
 from repro_torch.core.geometry import MATERIALS_BEAM  # noqa: E402
 from repro_torch.solvers.batched import BatchedGMGSolver  # noqa: E402
@@ -162,6 +188,10 @@ SMALL_SERVE_REL = 1e-4  # card vs CPU logits, of max |logit| (f32)
 # default, at its --rel-tol default; rows 0 and 4 (a dict and a field) are
 # held against solve_beam.
 BATCH_S, BATCH_BASE_TOL, BATCH_CHECK_ROWS = 8, 1e-6, (0, 4)
+# The solve service: 16 requests of the same traffic (serve_solve's example
+# --n-requests 16 --max-batch 8), continuous chunks of 8 (its default);
+# four requests keep their solutions for the continuous-vs-generational check.
+SERVICE_N, SERVICE_CHUNK, SERVICE_KEEP = 16, 8, (0, 4, 8, 12)
 
 
 def card_line() -> str:
@@ -463,9 +493,9 @@ def small_batched_check() -> None:
         raise SystemExit("batched chunks or refill are not bitwise on the card")
 
 
-def batched_phase() -> dict[str, tuple[int, int]]:
+def batched_phase() -> tuple[dict[str, tuple[int, int]], list[int]]:
     """The batched solve path (phase 5); returns the counted run's
-    (launches, plain_calls) per kernel."""
+    (launches, plain_calls) per kernel and its per-row iterations."""
     n_coarse = hierarchy_spaces(beam_hex(), MAIN_REFINE, MAIN_P)[0].nscalar * 3
     t_setup0 = time.perf_counter()
     bsolver = BatchedGMGSolver(beam_hex(), MAIN_REFINE, MAIN_P, precision="f64",
@@ -578,6 +608,7 @@ def batched_phase() -> dict[str, tuple[int, int]]:
         raise SystemExit("batched warm run differs from the cold solve")
     if not bool(torch.isfinite(state.x).all()):
         raise SystemExit("batched solution is not finite")
+    batch_iters = state.iters.tolist()
     del state, prep, lam, mu, cold
     torch.cuda.synchronize()
     ts0 = time.perf_counter()
@@ -603,7 +634,199 @@ def batched_phase() -> dict[str, tuple[int, int]]:
     print_profile(profiled, prefix="batched.")
     del lam, mu, bsolver
     torch.cuda.empty_cache()
-    return batch_counts
+    return batch_counts, batch_iters
+
+
+def service_requests() -> list:
+    """SERVICE_N requests of the reference's serve_solve traffic at
+    p=MAIN_P, refine=MAIN_REFINE: request i has the traction and rel_tol of
+    request i of its ``make_workload``; requests 0-3 and 8-11 carry
+    attribute dicts, 4-7 and 12-15 ``lognormal:SEED`` fields (12-15 repeat
+    4-7, so prep rows are reused); 0-7 are phase 5's batch.  The requests
+    of SERVICE_KEEP keep their solutions."""
+    dicts = serve_workload(SERVICE_N, [MAIN_P], MAIN_REFINE, BATCH_BASE_TOL)
+    fields = serve_workload(SERVICE_N, [MAIN_P], MAIN_REFINE, BATCH_BASE_TOL,
+                            f"lognormal:{SEED}")
+    return [dataclasses.replace((fields if (i // 4) % 2 else dicts)[i],
+                                keep_solution=i in SERVICE_KEEP)
+            for i in range(SERVICE_N)]
+
+
+def service_run(svc: ElasticityService, reqs: list, continuous: bool):
+    """One counted run of the service (every count zeroed just before,
+    read just after), between synchronize fences: (reports, seconds,
+    counts, stats delta, scheduler summary of this run's decisions,
+    latency quantiles of this run's requests)."""
+    stats0, n0 = dict(svc.stats), len(svc.trace.decisions)
+    snap0 = svc.registry.snapshot()
+    reset_all_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reports = svc.solve_continuous(reqs) if continuous else svc.solve(reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = all_counts()
+    stats = {k: v - stats0[k] for k, v in svc.stats.items() if v != stats0[k]}
+    run_trace = SchedulerTrace()
+    for d in svc.trace.decisions[n0:]:
+        run_trace.append(d)
+    window = MetricsRegistry.from_snapshot(diff_snapshots(svc.registry.snapshot(), snap0))
+    lat = window.merged_histogram("request_latency_seconds")
+    latency = {f"p{round(q * 100)}": lat.quantile(q) for q in (0.5, 0.9, 0.99)}
+    return reports, dt, counts, stats, run_trace.summary(), latency
+
+
+def check_service_counts(tag: str, counts: dict, want_probe: bool) -> None:
+    """The run went through the kernels alone: PAop launched (and the probe,
+    where the run built a solver), no plain call."""
+    for name in ops.counts:
+        launches, plain = counts[name]
+        if plain != 0 or (launches == 0 and (name == "pa_elasticity" or want_probe)):
+            raise SystemExit(f"service {tag} run did not go only through {name}: "
+                             f"launches={launches} plain_calls={plain}")
+
+
+def check_same_as(tag: str, got: list, want: list) -> None:
+    """Per request the same iterations and flags as ``want``, and kept
+    solutions within 1e-10 of max |x|."""
+    for g, w in zip(got, want, strict=True):
+        if (g.iterations, g.converged, g.born_converged) != (w.iterations, w.converged,
+                                                              w.born_converged):
+            raise SystemExit(f"service {tag}: request {g.request} gave {g.iterations} "
+                             f"iterations, converged {g.converged}; generational "
+                             f"{w.iterations}, {w.converged}")
+        if w.x is not None:
+            scale = float(np.abs(w.x).max())
+            diff = float(np.abs(g.x - w.x).max()) / scale
+            if diff > 1e-10:
+                raise SystemExit(f"service {tag}: a kept solution differs by {diff} of "
+                                 f"max |x| from the generational run's")
+
+
+def service_phase(batch_iters: list[int]) -> None:
+    """The solve service (phase 5b) on one ElasticityService, so that its
+    solver stays warm between runs (the chunk policy is swapped between
+    them): the generational path, the continuous path under the fixed and
+    the adaptive chunk policy (the adaptive run with host syncs counted),
+    and a continuous run under torch.profiler with a fencing
+    SpanRecorder."""
+    t_phase = time.perf_counter()
+    reqs = service_requests()
+    svc = ElasticityService(max_batch=BATCH_S, precision="f64", chunk_iters=SERVICE_CHUNK,
+                            device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    gen, t_gen, counts, stats, _, latency = service_run(svc, reqs, continuous=False)
+    t_setup = max(r.t_setup for r in gen)
+    print(f"[service] p={MAIN_P} refine={MAIN_REFINE} f64, {SERVICE_N} requests, max_batch "
+          f"{BATCH_S}, chunks of {SERVICE_CHUNK}; generational: iters "
+          f"{[r.iterations for r in gen]}, {t_gen} s ({t_setup} s of it building the "
+          f"solver), {SERVICE_N / (t_gen - t_setup)} scenarios/s without the build; "
+          f"latency {latency}; counts {counts}; stats {stats}")
+    check_service_counts("generational", counts, want_probe=True)
+    if [r.iterations for r in gen[:BATCH_S]] != batch_iters:
+        raise SystemExit(f"service generation 0 iterations {[r.iterations for r in gen[:BATCH_S]]}"
+                         f" differ from phase 5's {batch_iters}")
+    if not all(r.converged for r in gen):
+        raise SystemExit("service generational: a request did not converge")
+    t_gen_solve = t_gen - t_setup
+
+    for policy in ("fixed", "adaptive"):
+        svc.chunk_policy = make_chunk_policy(policy, chunk_iters=SERVICE_CHUNK)
+        if policy == "adaptive":
+            out, syncs = count_syncs(lambda: service_run(svc, reqs, continuous=True))
+        else:
+            out, syncs = service_run(svc, reqs, continuous=True), None
+        cont, t_cont, counts, stats, sched, latency = out
+        check_service_counts(f"continuous {policy}", counts, want_probe=False)
+        check_same_as(f"continuous {policy}", cont, gen)
+        print(f"[service] continuous {policy}: {t_cont} s, {SERVICE_N / t_cont} scenarios/s "
+              f"({t_gen_solve / t_cont}x generational); latency {latency}; counts {counts}")
+        print(f"[service] scheduler[{policy}]: chunks={sched['chunks']} mean_chunk="
+              f"{sched['mean_chunk']} wasted_iters={sched['wasted_iters']} refills="
+              f"{sched['refills']}; stats {stats}")
+        if syncs is not None:
+            print(f"[service] continuous {policy} under sync debug mode: {syncs} host syncs "
+                  f"in {sched['chunks']} steps, {syncs / sched['chunks']} a step")
+    print(f"[service] latency_summary() over the three runs: {svc.latency_summary()}")
+    print(f"[service] peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    frozen = sum(max(r.iterations for r in gen[g:g + BATCH_S]) * BATCH_S
+                 - sum(r.iterations for r in gen[g:g + BATCH_S])
+                 for g in range(0, SERVICE_N, BATCH_S))
+    print(f"[service] generational frozen row-iterations {frozen} of "
+          f"{sum(r.iterations for r in gen) + frozen}")
+
+    # A last fixed-policy run under torch.profiler, with a fencing span
+    # recorder attached: the device's busy share, and the lifecycle spans.
+    svc.chunk_policy = make_chunk_policy("fixed", chunk_iters=SERVICE_CHUNK)
+    rec = SpanRecorder(fence=True)
+    svc.attach_spans(rec)
+    runs = []
+
+    def profiled():
+        with record_function("service.continuous"):
+            runs.append(service_run(svc, reqs, continuous=True))
+
+    t_prof = time.perf_counter()
+    print_profile(profiled, prefix="service.", top=12)
+    t_prof = time.perf_counter() - t_prof
+    fenced, t_fenced, counts, _, _, _ = runs[0]
+    check_service_counts("fenced", counts, want_probe=False)
+    check_same_as("fenced", fenced, gen)
+    waits = {s.args["ticket"]: s for s in rec.by_name("queue_wait")}
+    worst = 0.0
+    for sp in rec.by_name("solve"):
+        a = sp.args
+        wall = sp.end - waits[a["ticket"]].start
+        worst = max(worst, abs(a["queue_wait"] + a["compute"] + a["overhead"] - wall))
+    if len(rec.by_name("solve")) != SERVICE_N or worst > 1e-9:
+        raise SystemExit(f"service spans: {len(rec.by_name('solve'))} solve spans, lifecycle "
+                         f"identity off by {worst} s")
+    span_sum = {name: sum(sp.duration for sp in rec.by_name(name))
+                for name in ("chunk_dispatch", "chunk_device", "prep", "step")}
+    trace_dir = tempfile.mkdtemp(prefix="service_trace_")
+    rec.to_chrome_trace(os.path.join(trace_dir, "service.json"))
+    shutil.rmtree(trace_dir)
+    print(f"[service] profiled, fenced continuous run: {t_fenced} s ({t_prof} s with the "
+          f"profile's processing), {rec.count()} spans, summed seconds {span_sum}; "
+          f"queue_wait + compute + overhead == wall per ticket to {worst} s; Chrome trace "
+          f"written to a temporary directory")
+    print(f"[service] phase wall {time.perf_counter() - t_phase} s")
+    del svc, gen, fenced, runs
+    torch.cuda.empty_cache()
+
+
+def small_service_check() -> None:
+    """p=2, refine=1, 6 requests, max_batch 4, continuous (chunks of 3) on
+    the card and on the CPU from the same start vectors: iterations and
+    flags equal, solutions within 1e-10 of max |x|."""
+    spaces = hierarchy_spaces(beam_hex(), 1, 2)
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    sv = [torch.randn((sp.nscalar, 3), generator=cpu_gen, dtype=torch.float64)
+          for sp in spaces[1:]]
+    reqs = [dataclasses.replace(r, keep_solution=True)
+            for r in serve_workload(6, [2], 1, BATCH_BASE_TOL, f"lognormal:{SEED}")[:3]
+            + serve_workload(6, [2], 1, BATCH_BASE_TOL)[3:]]
+    inner = elasticity_service.BatchedGMGSolver
+    elasticity_service.BatchedGMGSolver = functools.partial(inner, start_vectors=sv)
+    try:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            svc = ElasticityService(max_batch=4, chunk_iters=3, device=dev)
+            reset_all_counts()
+            out[dev] = svc.solve_continuous(reqs)
+            if dev == "cuda":
+                check_service_counts("small", all_counts(), want_probe=True)
+    finally:
+        elasticity_service.BatchedGMGSolver = inner
+    diff = max(float(np.abs(a.x - b.x).max() / np.abs(b.x).max())
+               for a, b in zip(out["cuda"], out["cpu"]))
+    print(f"[small service] p=2 refine=1, 6 requests, max_batch 4, continuous: iters card/cpu "
+          f"{[r.iterations for r in out['cuda']]}/{[r.iterations for r in out['cpu']]}, "
+          f"max rel diff {diff:.3e}")
+    if [(r.iterations, r.converged) for r in out["cuda"]] != \
+            [(r.iterations, r.converged) for r in out["cpu"]] or diff > 1e-10 \
+            or not all(r.converged for r in out["cpu"]):
+        raise SystemExit("small service on the card disagrees with the CPU")
 
 
 def main() -> int:
@@ -729,8 +952,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 5. the batched solve path, counted
-    batch_counts = batched_phase()
+    batch_counts, batch_iters = batched_phase()
     small_batched_check()
+    torch.cuda.empty_cache()
+
+    # ---- 5b. the solve service, counted
+    service_phase(batch_iters)
+    small_service_check()
     torch.cuda.empty_cache()
 
     # ---- 6. the serve path, counted: qwen3-1.7b at full width, bf16

@@ -24,7 +24,9 @@ at once on the card, resumable in bounded chunks.
   exactly the reset rows; ``run_chunk`` rebuilds the hierarchy from that
   ``prep`` dict (no power iterations, no refactorization) and advances
   the state by ``k`` iterations; ``solve`` runs the same machinery to
-  completion in one call.
+  completion in one call.  ``take_rows`` (re-bucketing) and
+  ``copy_prep_rows`` (prep reuse between rows of equal materials) are
+  the continuous solve service's row moves.
 
 The scenario axis is threaded through ``ChebyshevSmoother``,
 ``GMGPreconditioner`` and ``Transfer``; operators fold it into the
@@ -540,6 +542,55 @@ class BatchedGMGSolver:
         return BpcgState(
             x=vec, r=vec, z=vec, d=vec, nom=row, nom0=row, threshold=row,
             iters=count, active=flag, best=row, stall=count, stalled=flag,
+        )
+
+    def _rows(self, rows) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(rows, dtype=np.int64), device=self.device)
+
+    def _prep_map(self, prep: dict, per_row: Callable) -> dict:
+        """Apply ``per_row`` to every prep tensor viewed with the scenario
+        axis leading (the folded weighted fields unfolded per level), and
+        fold the results back."""
+        def folded(w, ne):
+            tail = tuple(w.shape[1:])
+            return per_row(w.reshape((w.shape[0] // ne, ne) + tail)).reshape((-1,) + tail)
+
+        out = {
+            "lam_w": tuple(folded(w, sp.nelem) for w, sp in zip(prep["lam_w"], self.spaces)),
+            "mu_w": tuple(folded(w, sp.nelem) for w, sp in zip(prep["mu_w"], self.spaces)),
+            "dinv": tuple(per_row(d) for d in prep["dinv"]),
+            "lmax": tuple(per_row(m) for m in prep["lmax"]),
+            "chol": per_row(prep["chol"]),
+        }
+        if self._split_fine:
+            ne = self.fine_space.nelem
+            out["lam_w_solve"] = folded(prep["lam_w_solve"], ne)
+            out["mu_w_solve"] = folded(prep["mu_w_solve"], ne)
+        return out
+
+    def take_rows(self, state: BpcgState, prep: dict, rows) -> tuple[BpcgState, dict]:
+        """Gather batch rows (re-bucketing): returns ``(state, prep)`` whose
+        row i is the old row ``rows[i]``, bitwise.  ``rows`` may repeat
+        indices (placeholder rows that the caller is about to reset) and
+        may be shorter or longer than the old batch."""
+        idx = self._rows(rows)
+        new_state = BpcgState(**{
+            f.name: getattr(state, f.name).index_select(0, idx)
+            for f in dataclasses.fields(BpcgState)
+        })
+        return new_state, self._prep_map(prep, lambda a: a.index_select(0, idx))
+
+    def copy_prep_rows(self, prep: dict, src, dst) -> dict:
+        """Duplicate prepared batch rows: row ``dst[i]`` takes row
+        ``src[i]``'s derived data (weighted fields, smoother dinv/lmax,
+        coarse factor) bitwise.  Every source is gathered before any
+        destination is written, so a row may donate its prep while it is
+        overwritten itself.  Prep depends only on a row's materials, so a
+        refilled slot whose materials match a prepared row skips
+        ``prepare``.  The input prep is left unchanged."""
+        s_idx, d_idx = self._rows(src), self._rows(dst)
+        return self._prep_map(
+            prep, lambda a: a.index_copy(0, d_idx, a.index_select(0, s_idx))
         )
 
     def _restrict_field(self, field: torch.Tensor, level: int) -> torch.Tensor:

@@ -8,6 +8,7 @@ runs without the repository's conftest:
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -23,6 +24,8 @@ from repro_torch.kernels.pa_elasticity.ref import paop_ref
 from repro_torch.launch.solve import solve_beam
 from repro_torch.fem.mesh import beam_hex
 from repro_torch.models.transformer import init_params
+from repro_torch.serve import elasticity_service
+from repro_torch.serve.elasticity_service import ElasticityService, SolveRequest
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.solvers.batched import BatchedGMGSolver
 from repro_torch.solvers.gmg import hierarchy_spaces
@@ -286,3 +289,92 @@ def test_small_serve_on_card_matches_cpu(card):
             assert flash_ops.route_launches["fma"] == 2 * cfg.n_layers
         out[dev.type] = [r.out_tokens for r in reqs]
     assert out["cuda"] == out["cpu"]
+
+
+def _service_requests():
+    """Six requests at p=2, refine=1: fields, dicts, a repeated material."""
+    spaces = hierarchy_spaces(beam_hex(), 1, 2)
+    rng = np.random.default_rng(0)
+    ne = spaces[-1].nelem
+    field = (rng.lognormal(0, 0.5, ne), rng.lognormal(0, 0.5, ne))
+    mats = [{1: (50.0, 50.0), 2: (1.0, 1.0)}, field, {1: (10.0, 5.0), 2: (2.0, 2.0)},
+            field, {1: (50.0, 50.0), 2: (1.0, 1.0)}, {1: (10.0, 8.0), 2: (2.0, 1.5)}]
+    tols = [1e-8, 1e-6, 1e-10, 1e-8, 1e-6, 1e-8]
+    return [SolveRequest(p=2, refine=1, materials=m, traction=(0.0, 1e-3 * (i % 2), -1e-2),
+                         rel_tol=t, keep_solution=True)
+            for i, (m, t) in enumerate(zip(mats, tols))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("continuous", [True, False], ids=["continuous", "generational"])
+@pytest.mark.parametrize("precision", ["f64", "mixed"])
+def test_small_service_on_card_matches_cpu(card, monkeypatch, precision, continuous):
+    """The service on the card and on the CPU from the same start vectors:
+    iterations, flags and stats equal; solutions within 1e-10 of max |x|
+    in f64 (1e-6 under mixed, whose V-cycle runs in f32)."""
+    spaces = hierarchy_spaces(beam_hex(), 1, 2)
+    g = torch.Generator().manual_seed(0)
+    sv = [torch.randn((sp.nscalar, 3), generator=g, dtype=torch.float64) for sp in spaces[1:]]
+    monkeypatch.setattr(elasticity_service, "BatchedGMGSolver",
+                        functools.partial(BatchedGMGSolver, start_vectors=sv))
+    out, stats = {}, {}
+    for name, dev in (("card", card), ("cpu", torch.device("cpu"))):
+        svc = ElasticityService(max_batch=4, chunk_iters=3, precision=precision, device=dev)
+        ops.reset_counts()
+        reqs = _service_requests()
+        out[name] = svc.solve_continuous(reqs) if continuous else svc.solve(reqs)
+        stats[name] = dict(svc.stats)
+        c = ops.counts["pa_elasticity"]
+        if dev.type == "cuda":
+            assert c.launches > 0 and c.plain_calls == 0
+    assert stats["card"] == stats["cpu"]
+    rtol = 1e-10 if precision == "f64" else 1e-6
+    for a, b in zip(out["card"], out["cpu"], strict=True):
+        assert (a.iterations, a.converged, a.batch_size, a.padded_rows, a.generation) == (
+            b.iterations, b.converged, b.batch_size, b.padded_rows, b.generation)
+        assert isinstance(a.x, np.ndarray) and a.converged
+        np.testing.assert_allclose(a.x, b.x, rtol=rtol, atol=rtol * np.abs(b.x).max())
+
+
+@pytest.mark.cuda
+def test_take_rows_copy_prep_rows_bitwise_on_card(card):
+    """take_rows gathers state and prep rows bitwise, and rows that keep
+    their place resume bitwise.  A row that moves to another place resumes
+    with the same iterations and x within 1e-12 of max |x|: the card's
+    sum reduction treats a row's unaligned head apart, so a dot product's
+    order depends on where the row starts.  copy_prep_rows gathers every
+    source before it writes (a swap swaps) and leaves its input prep as
+    it was."""
+    solver = BatchedGMGSolver(beam_hex(), 1, 2, device=card)
+    mats = [{1: (50.0, 50.0), 2: (1.0, 1.0)}, {1: (10.0, 5.0), 2: (2.0, 2.0)},
+            {1: (20.0, 20.0), 2: (3.0, 1.0)}]
+    trs = np.array([[0.0, 0.0, -1e-2], [0.0, 1e-3, -2e-2], [0.0, 0.0, -5e-3]])
+    tols = np.array([1e-10, 1e-9, 1e-10])
+    lam, mu = solver.pack_materials(mats)
+    ones = np.ones(3, bool)
+    prep = solver.prepare(lam, mu, ones, solver.empty_prep(3))
+    state, _ = solver.run_chunk(trs, tols, ones, solver.empty_state(3), prep, 3, do_reset=True)
+    full = state
+    while bool(full.active.any()):
+        full, _ = solver.run_chunk(trs, tols, ~ones, full, prep, 4)
+    for rows in ([0, 1, 2], [2, 0, 0], [2, 0, 0, 1]):
+        kept, kprep = solver.take_rows(state, prep, rows)
+        for f in dataclasses.fields(kept):
+            assert torch.equal(getattr(kept, f.name), getattr(state, f.name)[rows]), f.name
+        assert torch.equal(kprep["chol"], prep["chol"][rows])
+        while bool(kept.active.any()):
+            kept, _ = solver.run_chunk(trs[rows], tols[rows], np.zeros(len(rows), bool), kept,
+                                       kprep, 4)
+        assert torch.equal(kept.iters, full.iters[rows])
+        if rows == [0, 1, 2]:
+            for f in dataclasses.fields(kept):
+                assert torch.equal(getattr(kept, f.name), getattr(full, f.name)), f.name
+        want = full.x[rows]
+        torch.testing.assert_close(kept.x, want, rtol=0, atol=1e-12 * float(want.abs().max()))
+    chol = prep["chol"].clone()
+    swapped = solver.copy_prep_rows(prep, [0, 1], [1, 0])
+    assert torch.equal(prep["chol"], chol)
+    for key in ("lam_w", "mu_w", "dinv", "lmax"):
+        for old, new in zip(prep[key], swapped[key]):
+            assert torch.equal(new.reshape(3, -1)[[1, 0, 2]], old.reshape(3, -1))
+    assert torch.equal(swapped["chol"][[1, 0, 2]], prep["chol"])
