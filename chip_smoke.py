@@ -67,6 +67,24 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    overhead must equal the wall, its Chrome trace written to a temporary
    directory.  A small service (p=2, refine=1, 6 requests, max_batch 4,
    continuous) must agree with the CPU;
+5c. recovery: phase 5b's requests and service under
+   ``ServiceRecovery(every=2, keep=2)`` in a temporary directory (which
+   must hold three checkpoints, or the phase fails), a scripted crash
+   inside step 4 right after the chunk launch, the service dropped, a
+   fresh one restored from step 3 with a step watchdog (1 ms) and
+   drained with every count zeroed just before the restore and read
+   after: every ticket bitwise as phase 5b's fixed run (iterations,
+   flags, final_rel_norm, kept x) through the kernels alone (PAop and the
+   probe launched, no plain call), one restore, the checkpoint writes the
+   steps call for, the watchdog fired (counter and span).  Printed beside
+   the card's name and power limit: free disk, checkpoint leaves and
+   bytes, each write's seconds and one write's parts (device-to-host
+   copy, crc32, np.save + fsync), the restore's seconds, the resumed run
+   against phase 5b's undisturbed one.  Then ``serve_solve --continuous``
+   on the card (p=2, refine=1, 6 requests, max_batch 4, chunks of 2)
+   uninterrupted, SIGKILLed after 2 steps with a checkpoint every step,
+   and resumed: the resumed run's ``--report-out`` lines must equal the
+   uninterrupted run's;
 6. the serve path: qwen3-1.7b at full width in bfloat16 (28 layers,
    seeded random weights) generates 32 greedy tokens for each of 8
    requests of 2048 prompt tokens, with every count zeroed just before
@@ -96,10 +114,12 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import functools
+import gc
 import json
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -134,6 +154,8 @@ from repro_torch.models.transformer import init_params  # noqa: E402
 from repro_torch.serve import elasticity_service  # noqa: E402
 from repro_torch.serve.chunk_policy import SchedulerTrace, make_chunk_policy  # noqa: E402
 from repro_torch.serve.elasticity_service import ElasticityService  # noqa: E402
+from repro_torch.serve.recovery import ServiceRecovery  # noqa: E402
+from repro_torch.checkpoint.manager import _crc32  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine, ServeStats  # noqa: E402
 from repro_torch.core.geometry import MATERIALS_BEAM  # noqa: E402
 from repro_torch.solvers.batched import BatchedGMGSolver  # noqa: E402
@@ -192,6 +214,13 @@ BATCH_S, BATCH_BASE_TOL, BATCH_CHECK_ROWS = 8, 1e-6, (0, 4)
 # --n-requests 16 --max-batch 8), continuous chunks of 8 (its default);
 # four requests keep their solutions for the continuous-vs-generational check.
 SERVICE_N, SERVICE_CHUNK, SERVICE_KEEP = 16, 8, (0, 4, 8, 12)
+# Recovery: phase 5b's fixed run checkpointed every 2 steps (the last 2
+# kept), crashed inside step 4 right after its chunk launch, restored
+# from step 3; the watchdog's timeout is well below one step.  The CLI's
+# SIGKILL/--resume round trip runs at a small size.
+RECOVERY_EVERY, RECOVERY_KEEP, RECOVERY_CRASH_STEP, RECOVERY_WATCHDOG_S = 2, 2, 4, 1e-3
+RECOVERY_CLI = ["--p", "2", "--refine", "1", "--n-requests", "6", "--max-batch", "4",
+                "--chunk-iters", "2"]
 
 
 def card_line() -> str:
@@ -703,13 +732,14 @@ def check_same_as(tag: str, got: list, want: list) -> None:
                                  f"max |x| from the generational run's")
 
 
-def service_phase(batch_iters: list[int]) -> None:
+def service_phase(batch_iters: list[int]) -> tuple[list, float]:
     """The solve service (phase 5b) on one ElasticityService, so that its
     solver stays warm between runs (the chunk policy is swapped between
     them): the generational path, the continuous path under the fixed and
     the adaptive chunk policy (the adaptive run with host syncs counted),
     and a continuous run under torch.profiler with a fencing
-    SpanRecorder."""
+    SpanRecorder.  Returns the continuous fixed run's reports and wall
+    seconds (phase 5c's undisturbed run)."""
     t_phase = time.perf_counter()
     reqs = service_requests()
     svc = ElasticityService(max_batch=BATCH_S, precision="f64", chunk_iters=SERVICE_CHUNK,
@@ -739,6 +769,8 @@ def service_phase(batch_iters: list[int]) -> None:
         cont, t_cont, counts, stats, sched, latency = out
         check_service_counts(f"continuous {policy}", counts, want_probe=False)
         check_same_as(f"continuous {policy}", cont, gen)
+        if policy == "fixed":
+            fixed_run = (cont, t_cont)
         print(f"[service] continuous {policy}: {t_cont} s, {SERVICE_N / t_cont} scenarios/s "
               f"({t_gen_solve / t_cont}x generational); latency {latency}; counts {counts}")
         print(f"[service] scheduler[{policy}]: chunks={sched['chunks']} mean_chunk="
@@ -793,6 +825,7 @@ def service_phase(batch_iters: list[int]) -> None:
     print(f"[service] phase wall {time.perf_counter() - t_phase} s")
     del svc, gen, fenced, runs
     torch.cuda.empty_cache()
+    return fixed_run
 
 
 def small_service_check() -> None:
@@ -829,6 +862,225 @@ def small_service_check() -> None:
         raise SystemExit("small service on the card disagrees with the CPU")
 
 
+class ScriptedCrash(RuntimeError):
+    """Phase 5c's stand-in for process death inside ``step()``."""
+
+
+def flight_bytes(svc: ElasticityService) -> int:
+    """Bytes of the arrays a checkpoint of ``svc`` holds, the host blob
+    left out: each flight's state and prep tensors and its host rows."""
+    total = 0
+    for fl in svc._flights.values():
+        tensors = [getattr(fl.state, f.name) for f in dataclasses.fields(fl.state)]
+        for v in fl.prep.values():
+            tensors += list(v) if isinstance(v, tuple) else [v]
+        total += sum(t.numel() * t.element_size() for t in tensors)
+        total += sum(a.nbytes for a in (fl.lam, fl.mu, fl.tr, fl.tol, fl.row_iters,
+                                        fl.prep_lam, fl.prep_mu))
+    return total
+
+
+def write_parts(svc: ElasticityService, directory: str) -> dict[str, float]:
+    """Seconds of each part of a checkpoint write of ``svc``'s flights,
+    done one after the other as ``CheckpointManager.save`` does them:
+    the device-to-host copy, crc32, and np.save + fsync of every leaf
+    into ``directory`` (removed after)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    arrays = []
+    for fl in svc._flights.values():
+        arrays += [*fl.solver.state_to_host(fl.state).values(),
+                   *fl.solver.prep_to_host(fl.prep).values()]
+    t1 = time.perf_counter()
+    for a in arrays:
+        _crc32(a)
+    t2 = time.perf_counter()
+    os.makedirs(directory)
+    for i, a in enumerate(arrays):
+        with open(os.path.join(directory, f"leaf_{i:05d}.npy"), "wb") as f:
+            np.save(f, a)
+            f.flush()
+            os.fsync(f.fileno())
+    t3 = time.perf_counter()
+    shutil.rmtree(directory)
+    return {"bytes": sum(a.nbytes for a in arrays), "device-to-host": t1 - t0,
+            "crc32": t2 - t1, "np.save + fsync": t3 - t2}
+
+
+def cli_round_trip(tmp: str, card: str) -> None:
+    """serve_solve --continuous on the card three times: uninterrupted;
+    SIGKILLed after 2 local steps with a checkpoint every step; resumed.
+    The resumed run's --report-out lines must equal the uninterrupted
+    run's, x_sha256 included."""
+    common = [sys.executable, "-m", "repro_torch.launch.serve_solve", "--continuous",
+              "--device", "cuda", *RECOVERY_CLI]
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    tmp = os.path.join(tmp, "cli")
+    os.makedirs(tmp)
+    walls = []
+
+    def run(*extra):
+        t0 = time.perf_counter()
+        out = subprocess.run(common + list(extra), cwd=tmp, env=env, capture_output=True,
+                             text=True, timeout=600)
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    a = run("--report-out", "a.jsonl")
+    if a.returncode != 0:
+        raise SystemExit(f"serve_solve (uninterrupted) failed:\n{a.stderr[-4000:]}")
+    b = run("--checkpoint-dir", "ckpt", "--checkpoint-every", "1", "--kill-after-steps", "2",
+            "--report-out", "b.jsonl")
+    if b.returncode != -signal.SIGKILL:
+        raise SystemExit(f"serve_solve --kill-after-steps 2 ended with {b.returncode}, not "
+                         f"SIGKILL:\n{b.stderr[-4000:]}")
+    c = run("--checkpoint-dir", "ckpt", "--resume", "--report-out", "c.jsonl")
+    if c.returncode != 0 or "resumed from checkpoint step 2" not in c.stdout:
+        raise SystemExit(f"serve_solve --resume failed ({c.returncode}):\n{c.stdout[-2000:]}"
+                         f"\n{c.stderr[-4000:]}")
+
+    def lines(name):
+        with open(os.path.join(tmp, name)) as f:
+            return sorted(map(json.loads, f.read().splitlines()), key=lambda r: r["ticket"])
+
+    base, got = lines("a.jsonl"), lines("c.jsonl")
+    if len(base) != 6 or got != base or any(r["x_sha256"] is None for r in base):
+        raise SystemExit(f"serve_solve resumed reports differ from the uninterrupted run's:\n"
+                         f"{base}\n{got}")
+    recovery = [ln for ln in c.stdout.splitlines() if ln.startswith("recovery:")]
+    print(f"[recovery] serve_solve --continuous {' '.join(RECOVERY_CLI)} --device cuda: "
+          f"uninterrupted {walls[0]} s, SIGKILLed after 2 local steps {walls[1]} s, resumed "
+          f"from step 2 {walls[2]} s (process walls); {len(base)} --report-out lines equal, "
+          f"x_sha256 included, iterations {[r['iterations'] for r in base]}; {recovery} ({card})")
+
+
+def recovery_phase(fixed: list, t_fixed: float, card: str) -> None:
+    """Recovery (phase 5c): phase 5b's 16 requests under ServiceRecovery,
+    a crash inside step 4 right after the chunk launch, a restore into a
+    fresh service with a watchdog, drained with every count zeroed just
+    before the restore and read after; bitwise against phase 5b's fixed
+    run (``fixed``, ``t_fixed`` s); then the CLI's SIGKILL/--resume
+    round trip."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="recovery_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        ckpt = os.path.join(tmp, "ckpt")
+        reqs = service_requests()
+
+        def service():
+            return ElasticityService(max_batch=BATCH_S, precision="f64",
+                                     chunk_iters=SERVICE_CHUNK, device="cuda",
+                                     spans=SpanRecorder(fence=False))
+
+        svc = service()
+        rec = ServiceRecovery(svc, ckpt, every=RECOVERY_EVERY, keep=RECOVERY_KEEP)
+        inner = svc._launch_chunk
+
+        def launch(flight):
+            inner(flight)
+            if svc._step_index == RECOVERY_CRASH_STEP:
+                raise ScriptedCrash(f"scripted crash inside step {svc._step_index}")
+
+        svc._launch_chunk = launch
+        for r in reqs:
+            svc.submit(r)
+        need, crashed = None, False
+        try:
+            while not svc.idle():
+                svc.step()
+                # The write's span times the write, not the chunk's tail.
+                torch.cuda.synchronize()
+                if need is None:
+                    need = 3 * flight_bytes(svc)
+                    print(f"[recovery] free disk in the temporary directory before the "
+                          f"phase: {free} B; three checkpoints' arrays: {need} B ({card})")
+                    if free < need:
+                        raise SystemExit(f"phase 5c: {free} B free in {tmp}, less than "
+                                         f"three checkpoints ({need} B)")
+                rec.maybe_checkpoint()
+        except ScriptedCrash:
+            crashed = True
+        if not crashed:
+            raise SystemExit(f"phase 5c: the run drained before step {RECOVERY_CRASH_STEP}")
+        writes = svc.spans.by_name("checkpoint_write")
+        if [sp.args["step"] for sp in writes] != [1, 3] or svc.stats["checkpoints_written"] != 2:
+            raise SystemExit(f"phase 5c: checkpoints at steps {[sp.args['step'] for sp in writes]}"
+                             f", {svc.stats['checkpoints_written']} counted; expected [1, 3]")
+        cdir = os.path.join(ckpt, f"step_{rec.manager.latest():09d}")
+        with open(os.path.join(cdir, "manifest.json")) as f:
+            leaves = json.load(f)["leaves"]
+        on_disk = sum(os.path.getsize(os.path.join(cdir, n)) for n in os.listdir(cdir))
+        blob = next(e["shape"][0] for e in leaves if e["path"] == "['host']")
+        print(f"[recovery] checkpoint of step 3: {len(leaves)} leaves, {on_disk} B on disk "
+              f"(arrays {flight_bytes(svc)} B, host blob {blob} B); writes at steps 1 and 3 "
+              f"(checkpoint_write spans): {[sp.duration for sp in writes]} s ({card})")
+        parts = write_parts(svc, os.path.join(tmp, "parts"))
+        print(f"[recovery] one write's parts, one after the other on the crashed service's "
+              f"flight: {parts} ({card})")
+        del svc, rec, inner, launch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        svc = service()
+        rec = ServiceRecovery(svc, ckpt, every=RECOVERY_EVERY, keep=RECOVERY_KEEP)
+        wd = svc.attach_watchdog(RECOVERY_WATCHDOG_S)
+        reset_all_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if not rec.restore() or svc._step_index != 3:
+            raise SystemExit(f"phase 5c: restore did not land on step 3 ({svc._step_index})")
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        while not svc.idle():
+            svc.step()
+            torch.cuda.synchronize()
+            rec.maybe_checkpoint()
+        torch.cuda.synchronize()
+        t_resumed = time.perf_counter() - t0
+        counts = all_counts()
+        check_service_counts("resumed", counts, want_probe=True)
+        got = sorted(svc.drain(), key=lambda r: r.ticket)
+        if [r.ticket for r in got] != list(range(SERVICE_N)):
+            raise SystemExit(f"phase 5c: resumed tickets {[r.ticket for r in got]}")
+        for g, w in zip(got, fixed, strict=True):
+            same = ((g.iterations, g.converged, g.born_converged, g.precision, g.fallback,
+                     g.final_rel_norm) == (w.iterations, w.converged, w.born_converged,
+                                           w.precision, w.fallback, w.final_rel_norm))
+            if not same or (w.x is not None and not np.array_equal(g.x, w.x)):
+                raise SystemExit(f"phase 5c: ticket {g.ticket} differs from phase 5b's fixed "
+                                 f"run: {g.iterations} iterations, rel {g.final_rel_norm}; "
+                                 f"want {w.iterations}, {w.final_rel_norm}")
+        later = svc.spans.by_name("checkpoint_write")
+        want_writes = len(range(3 + RECOVERY_EVERY, svc._step_index + 1, RECOVERY_EVERY))
+        fires = svc.stats["watchdog_fires"]
+        if (svc.stats["restores"] != 1 or svc.stats["checkpoints_written"] != want_writes
+                or len(later) != want_writes):
+            raise SystemExit(f"phase 5c: stats {dict(svc.stats)}, {len(later)} writes, "
+                             f"expected 1 restore and {want_writes} writes")
+        if not (fires >= 1 and fires == wd.timeouts == svc.spans.count("watchdog_fire")):
+            raise SystemExit(f"phase 5c: watchdog fired {fires} (counter), {wd.timeouts} "
+                             f"(watchdog), {svc.spans.count('watchdog_fire')} (spans)")
+        restore_span = svc.spans.by_name("restore")[0].duration
+        print(f"[recovery] crash inside step {RECOVERY_CRASH_STEP} after the chunk launch; "
+              f"restore from step 3: {t_restore} s (restore span {restore_span} s); resumed "
+              f"run, restore to drain: {t_resumed} s over steps 4-{svc._step_index}, "
+              f"{want_writes} more writes {[sp.duration for sp in later]} s, against phase "
+              f"5b's undisturbed fixed run {t_fixed} s; counts {counts}; watchdog "
+              f"({RECOVERY_WATCHDOG_S} s) fired {fires} times, slowest step {wd.slowest} s "
+              f"({card})")
+        print(f"[recovery] resumed = phase 5b's fixed run, bitwise: {SERVICE_N} tickets' "
+              f"iterations {[r.iterations for r in got]}, flags and final_rel_norm, kept x of "
+              f"requests {list(SERVICE_KEEP)} ({card})")
+        del svc, rec, got
+        gc.collect()
+        torch.cuda.empty_cache()
+        cli_round_trip(tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[recovery] phase wall {time.perf_counter() - t_phase} s ({card})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -838,7 +1090,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     # ---- 1. the card
-    print(card_line())
+    card = card_line()
+    print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
@@ -957,9 +1210,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 5b. the solve service, counted
-    service_phase(batch_iters)
+    fixed, t_fixed = service_phase(batch_iters)
     small_service_check()
     torch.cuda.empty_cache()
+
+    # ---- 5c. recovery, counted
+    recovery_phase(fixed, t_fixed, card)
+    del fixed
 
     # ---- 6. the serve path, counted: qwen3-1.7b at full width, bf16
     cfg = get_config(SERVE_ARCH)

@@ -18,6 +18,10 @@ Usage:
         --material-field lognormal:7   # heterogeneous per-element fields
     PYTHONPATH=src python -m repro_torch.launch.serve_solve --continuous \
         --metrics-out metrics.prom --trace-out trace.json  # observability
+    PYTHONPATH=src python -m repro_torch.launch.serve_solve --continuous \
+        --checkpoint-dir ckpt --checkpoint-every 2   # fault tolerance
+    PYTHONPATH=src python -m repro_torch.launch.serve_solve --continuous \
+        --checkpoint-dir ckpt --resume               # restart after a kill
     PYTHONPATH=src python -m repro_torch.launch.serve_solve --device cpu \
         --continuous --n-requests 5 --p 1 --refine 0   # plain version, CPU
 
@@ -41,9 +45,19 @@ device-fencing span recorder and writes a Chrome ``trace_event`` file
 spans as JSON-lines; ``--report-out`` writes one JSON line per report
 (ticket, iterations, convergence, sha256 of the solution).
 
-Not ported yet: ``--checkpoint-dir``, ``--checkpoint-every``,
-``--resume``, ``--watchdog-timeout`` and ``--kill-after-steps`` (recovery,
-ROADMAP Queue 1 item 7) and ``--devices`` (scenario sharding, item 10).
+``--checkpoint-dir`` (continuous mode) snapshots the full serving state
+(every in-flight resumable BpcgState, the queue, tickets) every
+``--checkpoint-every`` steps through
+:class:`repro_torch.serve.recovery.ServiceRecovery`; ``--resume``
+restores the newest intact checkpoint instead of submitting a fresh
+workload, so a SIGKILLed run restarted with the same flags finishes
+every accepted request with the solutions and iteration counts of an
+uninterrupted run, bitwise.  ``--watchdog-timeout`` arms the step hang
+detector; ``--kill-after-steps`` SIGKILLs the process mid-run (the
+fault-injection hook of the tests).
+
+Not ported yet: ``--devices`` (scenario sharding, ROADMAP Queue 1 item
+10).
 """
 
 from __future__ import annotations
@@ -52,6 +66,8 @@ import argparse
 import dataclasses
 import hashlib
 import json
+import os
+import signal
 import time
 
 import numpy as np
@@ -60,6 +76,7 @@ from repro_torch.device import resolve_device, synchronize
 from repro_torch.launch.workload import make_workload as make_scenarios
 from repro_torch.obs import SpanRecorder
 from repro_torch.serve.elasticity_service import ElasticityService, SolveRequest
+from repro_torch.serve.recovery import ServiceRecovery
 
 __all__ = ["make_workload", "main"]
 
@@ -135,10 +152,35 @@ def main(argv=None) -> None:
     ap.add_argument("--report-out", default=None, metavar="PATH",
                     help="write one JSON line per report (ticket, "
                          "iterations, converged, rel_norm, precision, "
-                         "sha256 of the solution vector)")
+                         "sha256 of the solution vector) — the "
+                         "crash/restore differential tests compare "
+                         "these files bitwise")
+    ap.add_argument("--checkpoint-dir", default=None, metavar="DIR",
+                    help="continuous mode: checkpoint the full serving "
+                         "state (in-flight BpcgState, queue, tickets) "
+                         "into DIR at step boundaries")
+    ap.add_argument("--checkpoint-every", type=int, default=1,
+                    metavar="N", help="steps between checkpoints")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the newest intact checkpoint from "
+                         "--checkpoint-dir instead of submitting a "
+                         "fresh workload (falls back to a fresh "
+                         "workload when DIR has no usable checkpoint)")
+    ap.add_argument("--watchdog-timeout", type=float, default=None,
+                    metavar="SECONDS",
+                    help="arm a step hang detector: steps exceeding "
+                         "this raise the watchdog_fires counter and "
+                         "emit a watchdog_fire span")
+    ap.add_argument("--kill-after-steps", type=int, default=None,
+                    metavar="N", help="SIGKILL this process after N "
+                         "locally executed continuous steps (after the "
+                         "checkpoint hook) — fault-injection test hook")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; raises without a card)")
     args = ap.parse_args(argv)
+    if args.checkpoint_dir and not args.continuous:
+        ap.error("--checkpoint-dir requires --continuous (the "
+                 "generational path holds no resumable in-flight state)")
 
     device = resolve_device(args.device)
     spans = SpanRecorder() if (args.trace_out or args.events_out) else None
@@ -148,6 +190,22 @@ def main(argv=None) -> None:
         chunk_policy=args.chunk_policy, min_chunk=args.min_chunk,
         max_chunk=args.max_chunk, spans=spans, device=device,
     )
+    recovery = None
+    if args.checkpoint_dir:
+        recovery = ServiceRecovery(service, args.checkpoint_dir, every=args.checkpoint_every)
+    if args.watchdog_timeout is not None:
+        service.attach_watchdog(args.watchdog_timeout)
+    resumed = False
+    if recovery is not None and args.resume:
+        resumed = recovery.restore()
+        if resumed:
+            print(
+                f"resumed from checkpoint step {service._step_index} "
+                f"({len(service._flights)} flight(s), "
+                f"{len(service._queue)} queued) in {args.checkpoint_dir}"
+            )
+        else:
+            print(f"no usable checkpoint in {args.checkpoint_dir}; starting fresh")
     all_reports = []
     for round_i in range(args.repeat):
         reqs = make_workload(
@@ -159,9 +217,23 @@ def main(argv=None) -> None:
         synchronize(device)
         t0 = time.perf_counter()
         if args.continuous:
-            for r in reqs:
-                service.submit(r)
-            service.run_until_idle()
+            # Explicit step loop, so checkpoints land at every step
+            # boundary and a kill can strike between them.  A resumed
+            # round 0 submits nothing: the checkpoint carries the whole
+            # workload (flights, queue and any undrained reports).
+            if not (resumed and round_i == 0):
+                for r in reqs:
+                    service.submit(r)
+            local_steps = 0
+            while not service.idle():
+                service.step()
+                if recovery is not None:
+                    recovery.maybe_checkpoint()
+                local_steps += 1
+                if args.kill_after_steps is not None and local_steps >= args.kill_after_steps:
+                    print(f"kill-after-steps: SIGKILL after local step {local_steps}",
+                          flush=True)
+                    os.kill(os.getpid(), signal.SIGKILL)
             reports = service.drain()
         else:
             reports = service.solve(reqs)
@@ -190,6 +262,8 @@ def main(argv=None) -> None:
                 f"{rows:>7} {rep.t_setup:>8.3f} {rep.t_solve:>8.3f}"
             )
     print(f"service stats: {service.stats}")
+    if recovery is not None:
+        print(f"recovery: {recovery.summary()}")
     if args.report_out:
         with open(args.report_out, "w") as f:
             for rep in all_reports:

@@ -1,5 +1,5 @@
-"""Serving on the port: the batched elasticity solve service and LM
-serving (batched prefill + decode)."""
+"""Serving on the port: the batched elasticity solve service with its
+recovery, and LM serving (batched prefill + decode)."""
 
 from repro_torch.serve.chunk_policy import (  # noqa: F401
     AdaptiveChunkPolicy,
@@ -17,3 +17,4 @@ from repro_torch.serve.elasticity_service import (  # noqa: F401
     SolveRequest,
 )
 from repro_torch.serve.engine import Request, ServeEngine, ServeStats  # noqa: F401
+from repro_torch.serve.recovery import ServiceRecovery  # noqa: F401

@@ -53,11 +53,12 @@ flight per retire pass (the six (S,) convergence vectors and the last
 chunk's consumed vector, stacked), one per admitted request (its folded
 materials, which the digest hashes) and one per kept solution.
 
-Not ported yet: ``attach_watchdog`` and the recovery counters' writers
-(ROADMAP Queue 1 item 7), scenario sharding over more than one card
-(``mesh`` > 1, item 10).  The reference's Pallas-lane arguments have no
-counterpart: ``assembly`` picks the kernel (``"paop_cuda"``) or its
-plain version (``"paop"``).
+Fault tolerance: ``attach_watchdog`` arms a step hang detector, and
+:class:`repro_torch.serve.recovery.ServiceRecovery` checkpoints and
+restores the in-flight state.  Not ported yet: scenario sharding over
+more than one card (``mesh`` > 1, ROADMAP Queue 1 item 10).  The
+reference's Pallas-lane arguments have no counterpart: ``assembly``
+picks the kernel (``"paop_cuda"``) or its plain version (``"paop"``).
 """
 
 from __future__ import annotations
@@ -79,6 +80,7 @@ from repro_torch.core.geometry import (
 )
 from repro_torch.core.precision import PrecisionPolicy, resolve_precision
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.distributed.elastic import StepWatchdog
 from repro_torch.distributed.sharding import (
     normalize_scenario_mesh,
     scenario_row_devices,
@@ -116,9 +118,8 @@ _STAT_HELP = {
         "Rows a reduced-precision flight re-queued onto the f64 path "
         "after stagnation detection."
     ),
-    # Recovery counters: the keys are kept so the stats view has the
-    # reference's vocabulary; nothing writes them until recovery is
-    # ported (ROADMAP Queue 1 item 7).
+    # Recovery counters, labeled (policy, devices): written by
+    # repro_torch.serve.recovery and the step watchdog.
     "checkpoints_written": (
         "Recovery checkpoints committed to disk (atomic renames)."
     ),
@@ -369,18 +370,35 @@ class ElasticityService:
         self.registry = registry if registry is not None else MetricsRegistry()
         self.stats = _StatsView(self.registry)
         self.spans = None
+        self.watchdog: StepWatchdog | None = None
         self._t_submit: dict[int, float] = {}
         self._next_flight_idx = 0
         if spans is not None:
             self.attach_spans(spans)
 
     # -- observability -------------------------------------------------------
-    def attach_watchdog(self, timeout_s: float, on_timeout=None):
-        """The step hang detector is part of recovery, not ported yet."""
-        raise NotImplementedError(
-            "attach_watchdog: the step watchdog and the recovery counters "
-            "are not ported yet (ROADMAP Queue 1 item 7)"
-        )
+    def attach_watchdog(self, timeout_s: float, on_timeout=None) -> StepWatchdog:
+        """Arm a :class:`repro_torch.distributed.elastic.StepWatchdog` as
+        a hang detector on ``step()``: a step exceeding ``timeout_s``
+        increments the ``watchdog_fires`` counter (labeled policy/
+        devices) and emits a ``watchdog_fire`` span on the engine track,
+        then calls ``on_timeout(elapsed_s)`` if given (the escalation
+        hook).  Returns the watchdog, whose ``timeouts``/``slowest`` the
+        caller may read."""
+
+        def fire(elapsed: float) -> None:
+            self._inc_engine("watchdog_fires")
+            if self.spans is not None:
+                t = self.clock()
+                self.spans.emit(
+                    "watchdog_fire", cat="engine", tid=0, start=t, end=t,
+                    elapsed_s=elapsed, step=self._step_index,
+                )
+            if on_timeout is not None:
+                on_timeout(elapsed)
+
+        self.watchdog = StepWatchdog(timeout_s, on_timeout=fire)
+        return self.watchdog
 
     def attach_spans(self, recorder) -> None:
         """Install a :class:`repro_torch.obs.spans.SpanRecorder`.  With
@@ -400,6 +418,14 @@ class ElasticityService:
             "devices": self.n_shards,
             "precision": key[-1],
         }
+
+    def _inc_engine(self, stat: str) -> None:
+        """A counter of the engine as a whole (recovery, the watchdog),
+        labeled (policy, devices)."""
+        self.registry.counter(
+            f"service_{stat}_total", _STAT_HELP[stat],
+            policy=self.chunk_policy.name, devices=self.n_shards,
+        ).inc()
 
     def _inc(self, stat: str, key: tuple, n: int = 1) -> None:
         self.registry.counter(
@@ -539,7 +565,18 @@ class ElasticityService:
         in-flight discretization key: retire rows that stopped, refill
         freed slots from the queue, admit new submissions, re-bucket,
         and dispatch one chunk whose length the chunk policy picks.
-        Returns the number of requests completed by this step."""
+        Returns the number of requests completed by this step.
+
+        With a watchdog attached (:meth:`attach_watchdog`) the step runs
+        under its monitor: a step past the timeout fires the counter and
+        a span without interrupting the step (detection, not
+        preemption)."""
+        if self.watchdog is not None:
+            with self.watchdog.step():
+                return self._step_body()
+        return self._step_body()
+
+    def _step_body(self) -> int:
         self._step_index += 1
         rec = self.spans
         t_step0 = self.clock() if rec is not None else 0.0

@@ -593,6 +593,118 @@ class BatchedGMGSolver:
             prep, lambda a: a.index_copy(0, d_idx, a.index_select(0, s_idx))
         )
 
+    # -- host (de)serialization ----------------------------------------------
+    # The checkpoint contract of fault-tolerant serving
+    # (repro_torch.serve.recovery): a resumable (state, prep) pair
+    # round-trips through flat {name: host numpy array} dicts BITWISE, so a
+    # restored flight that re-enters run_chunk finishes with the solutions
+    # and iteration counts of the uninterrupted run.  The names are the
+    # reference's: BpcgState field names for the state; ``lam_w{i}``/
+    # ``mu_w{i}`` per hierarchy level, ``dinv{i}``/``lmax{i}`` per smoothed
+    # level, ``chol``, and (when the solve and V-cycle dtypes differ) the
+    # ``lam_w_solve``/``mu_w_solve`` fine-level twins for the prep.
+
+    def state_dtype(self, field: str):
+        """The numpy dtype of one BpcgState field under this solver's
+        precision policy (restore casts through it)."""
+        if field in ("iters", "stall"):
+            return np.int32
+        if field in ("active", "stalled"):
+            return np.bool_
+        return np.dtype(_NUMPY_DTYPE[self.dtype])
+
+    def state_to_host(self, state: BpcgState) -> dict[str, np.ndarray]:
+        """One host numpy array per BpcgState field, bitwise."""
+        return {
+            f.name: getattr(state, f.name).detach().cpu().numpy()
+            for f in dataclasses.fields(BpcgState)
+        }
+
+    def _check_batch(self, sizes: dict[str, float], what: str) -> None:
+        """Every array holds the same number of scenario rows (``sizes``:
+        name -> leading size over the rows a scenario takes there)."""
+        if len(set(sizes.values())) != 1:
+            raise ValueError(f"{what}: the arrays do not share one batch size: {sizes}")
+
+    def state_from_host(
+        self, arrays: dict[str, np.ndarray], *, place: bool = True
+    ) -> BpcgState:
+        """Rebuild a :class:`BpcgState` from a :meth:`state_to_host`
+        snapshot, each field cast to :meth:`state_dtype`.  ``place=True``
+        checks that every field has one batch size and puts the state on
+        this solver's device; ``place=False`` leaves CPU tensors (for a
+        ``take_rows`` right after)."""
+        state = BpcgState(**{
+            f.name: torch.from_numpy(
+                np.asarray(arrays[f.name], dtype=self.state_dtype(f.name))
+            )
+            for f in dataclasses.fields(BpcgState)
+        })
+        if not place:
+            return state
+        self._check_batch(
+            {f.name: getattr(state, f.name).shape[0] for f in dataclasses.fields(BpcgState)},
+            "state_from_host",
+        )
+        return BpcgState(**{
+            f.name: getattr(state, f.name).to(self.device)
+            for f in dataclasses.fields(BpcgState)
+        })
+
+    def prep_to_host(self, prep: dict) -> dict[str, np.ndarray]:
+        """One host numpy array per prep tensor, bitwise (see the
+        contract note above for the names)."""
+        get = lambda a: a.detach().cpu().numpy()  # noqa: E731
+        out: dict[str, np.ndarray] = {}
+        for i, (lw, mw) in enumerate(zip(prep["lam_w"], prep["mu_w"])):
+            out[f"lam_w{i}"] = get(lw)
+            out[f"mu_w{i}"] = get(mw)
+        for i, (d, m) in enumerate(zip(prep["dinv"], prep["lmax"])):
+            out[f"dinv{i}"] = get(d)
+            out[f"lmax{i}"] = get(m)
+        out["chol"] = get(prep["chol"])
+        if self._split_fine:
+            out["lam_w_solve"] = get(prep["lam_w_solve"])
+            out["mu_w_solve"] = get(prep["mu_w_solve"])
+        return out
+
+    def prep_from_host(
+        self, arrays: dict[str, np.ndarray], *, place: bool = True
+    ) -> dict:
+        """Rebuild a prep dict from a :meth:`prep_to_host` snapshot
+        (``place`` as in :meth:`state_from_host`).  Raises KeyError when
+        the snapshot's levels do not match this solver's, e.g. a
+        checkpoint of another discretization, or a mixed policy's twins
+        missing for this one."""
+        n_lv = len(self.spaces)
+        names = [f"{n}{i}" for i in range(n_lv) for n in ("lam_w", "mu_w")]
+        names += [f"{n}{i}" for i in range(n_lv - 1) for n in ("dinv", "lmax")]
+        names += ["chol"]
+        if self._split_fine:
+            names += ["lam_w_solve", "mu_w_solve"]
+        t = {name: torch.from_numpy(np.asarray(arrays[name])) for name in names}
+        if place:
+            # The weighted fields fold each scenario's elements into axis 0.
+            per = {f"{n}{i}": sp.nelem for i, sp in enumerate(self.spaces)
+                   for n in ("lam_w", "mu_w")}
+            per["lam_w_solve"] = per["mu_w_solve"] = self.fine_space.nelem
+            self._check_batch(
+                {name: a.shape[0] / per.get(name, 1) for name, a in t.items()},
+                "prep_from_host",
+            )
+            t = {name: a.to(self.device) for name, a in t.items()}
+        prep = {
+            "lam_w": tuple(t[f"lam_w{i}"] for i in range(n_lv)),
+            "mu_w": tuple(t[f"mu_w{i}"] for i in range(n_lv)),
+            "dinv": tuple(t[f"dinv{i}"] for i in range(n_lv - 1)),
+            "lmax": tuple(t[f"lmax{i}"] for i in range(n_lv - 1)),
+            "chol": t["chol"],
+        }
+        if self._split_fine:
+            prep["lam_w_solve"] = t["lam_w_solve"]
+            prep["mu_w_solve"] = t["mu_w_solve"]
+        return prep
+
     def _restrict_field(self, field: torch.Tensor, level: int) -> torch.Tensor:
         """Restrict a (S, nelem_fine) per-element coefficient field to
         hierarchy level ``level`` by averaging each level element's fine

@@ -26,6 +26,7 @@ from repro_torch.fem.mesh import beam_hex
 from repro_torch.models.transformer import init_params
 from repro_torch.serve import elasticity_service
 from repro_torch.serve.elasticity_service import ElasticityService, SolveRequest
+from repro_torch.serve.recovery import ServiceRecovery
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.solvers.batched import BatchedGMGSolver
 from repro_torch.solvers.gmg import hierarchy_spaces
@@ -378,3 +379,77 @@ def test_take_rows_copy_prep_rows_bitwise_on_card(card):
         for old, new in zip(prep[key], swapped[key]):
             assert torch.equal(new.reshape(3, -1)[[1, 0, 2]], old.reshape(3, -1))
     assert torch.equal(swapped["chol"][[1, 0, 2]], prep["chol"])
+
+
+class _ScriptedCrash(RuntimeError):
+    """Stands in for process death inside ``step()``."""
+
+
+@pytest.mark.cuda
+def test_crash_restore_bitwise_on_card(card, tmp_path):
+    """A service killed mid-chunk at step 2 and restored from its step-1
+    checkpoint into a fresh service drains the undisturbed run's reports
+    bitwise (iterations, flags, residual norms, solutions), through the
+    kernels alone."""
+    reqs = _service_requests()
+    base = ElasticityService(max_batch=4, chunk_iters=3, device=card).solve_continuous(reqs)
+
+    svc = ElasticityService(max_batch=4, chunk_iters=3, device=card)
+    rec = ServiceRecovery(svc, str(tmp_path), every=1)
+    inner = svc._launch_chunk
+
+    def launch(flight):
+        inner(flight)
+        if svc._step_index == 2:
+            raise _ScriptedCrash("mid-chunk at step 2")
+
+    svc._launch_chunk = launch
+    for r in reqs:
+        svc.submit(r)
+    with pytest.raises(_ScriptedCrash):
+        while not svc.idle():
+            svc.step()
+            rec.maybe_checkpoint()
+    svc2 = ElasticityService(max_batch=4, chunk_iters=3, device=card)
+    rec2 = ServiceRecovery(svc2, str(tmp_path), every=1)
+    ops.reset_counts()
+    assert rec2.restore() and svc2._step_index == 1
+    while not svc2.idle():
+        svc2.step()
+        rec2.maybe_checkpoint()
+    c = ops.counts["pa_elasticity"]
+    assert c.launches > 0 and c.plain_calls == 0 and ops.counts["probe"].launches > 0
+    got = {r.ticket: r for r in svc2.drain()}
+    assert sorted(got) == list(range(len(reqs)))
+    for t, want in enumerate(base):
+        g = got[t]
+        assert (g.iterations, g.converged, g.final_rel_norm) == (
+            want.iterations, want.converged, want.final_rel_norm), t
+        assert np.array_equal(g.x, want.x), t
+    assert svc2.stats["restores"] == 1
+
+
+@pytest.mark.cuda
+def test_state_host_roundtrip_bitwise_on_card(card):
+    """state_to_host -> state_from_host and prep_to_host ->
+    prep_from_host give the card's tensors back bitwise, on the card, and
+    a chunk from the restored pair is bitwise the original's."""
+    solver = BatchedGMGSolver(beam_hex(), 1, 2, device=card)
+    mats = [{1: (50.0, 50.0), 2: (1.0, 1.0)}, {1: (10.0, 5.0), 2: (2.0, 2.0)}]
+    trs = np.array([[0.0, 0.0, -1e-2], [0.0, 1e-3, -2e-2]])
+    lam, mu = solver.pack_materials(mats)
+    ones = np.ones(2, bool)
+    prep = solver.prepare(lam, mu, ones, solver.empty_prep(2))
+    state, _ = solver.run_chunk(trs, 1e-10, ones, solver.empty_state(2), prep, 3, do_reset=True)
+    state2 = solver.state_from_host(solver.state_to_host(state))
+    prep2 = solver.prep_from_host(solver.prep_to_host(prep))
+    for f in dataclasses.fields(state):
+        a, b = getattr(state, f.name), getattr(state2, f.name)
+        assert b.device == a.device and torch.equal(a, b), f.name
+    for key, val in prep.items():
+        for a, b in zip(val if isinstance(val, tuple) else (val,),
+                        prep2[key] if isinstance(val, tuple) else (prep2[key],)):
+            assert b.device == a.device and torch.equal(a, b), key
+    nxt, _ = solver.run_chunk(trs, 1e-10, ~ones, state, prep, 4)
+    nxt2, _ = solver.run_chunk(trs, 1e-10, ~ones, state2, prep2, 4)
+    assert torch.equal(nxt.x, nxt2.x) and torch.equal(nxt.iters, nxt2.iters)

@@ -141,8 +141,9 @@ def test_constructor_rejects_like_the_reference(kw):
 
 def test_left_out_parts_raise_and_idle_paths():
     svc = es.ElasticityService(device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        svc.attach_watchdog(1.0)
+    # the step watchdog is ported (recovery): idle steps run under it
+    wd = svc.attach_watchdog(1.0)
+    assert svc.watchdog is wd and wd.timeouts == 0
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         es.ElasticityService(device="cpu", mesh=2)
     # precision names fail at intake (the port has no bfloat16 policy yet)
@@ -153,6 +154,7 @@ def test_left_out_parts_raise_and_idle_paths():
     assert svc.step() == 0 and svc.drain() == [] and svc.solve([]) == []
     assert svc.latency_summary() == {}
     assert [svc.bucket_for(n) for n in (1, 2, 3, 5, 8, 9)] == [1, 2, 4, 8, 8, 8]
+    assert wd.timeouts == 0 and svc.stats["watchdog_fires"] == 0
 
 
 def test_default_device_raises_without_card():
