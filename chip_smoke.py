@@ -103,7 +103,32 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    kernel, the baseline, the plain version; the wgmma kernel, SDPA, the
    mma_sync kernel), the median round; then the host time per call of the
    wrappers (``time.perf_counter`` over back-to-back calls, no sync
-   inside), with the probe's wrapper split into its parts.
+   inside), with the probe's wrapper split into its parts;
+8. the ablation, the paper's assembly ladder on the card (``[ablation]``
+   lines, each beside the card's name and power limit): (a) on small
+   beams at p in {1, 2, 4, 8}, every level's ``apply`` on the card equal
+   to the same level on the CPU and to ``paop_cuda`` on the card (the f64
+   tolerances of ``TOL``), and ``fa``'s SpMV bitwise repeatable; (b)
+   ``operator_throughput`` (``repro_torch.obs.throughput``) of every
+   matrix-free level at p = 1..8, S = 1, f64, at the paper's 6,502,275
+   DoFs (p = 1, 2, 4, 8) or the refinement nearest it (p = 3, 5, 6, 7),
+   plus the 51,171,075-DoF beam at p = 8 for ``pa_baseline``,
+   ``pa_sumfact_voigt`` and ``paop_cuda``: ms per apply, GDoF/s, roofline
+   share, peak memory; three applies of each matrix-free level at p in
+   {1, 4, 8} under ``torch.profiler`` (device time by kernel); (c)
+   ``fa`` at 839,619 DoFs where its analytic
+   bytes (``fa_memory_bytes``) fit a tenth of the card's memory (p = 1
+   and 2), the model's bytes against the card's memory at p = 4 and 8,
+   decided from the model before anything is built; (d) the paper's
+   Table 4 on the card: ``solve_beam(4, 4)`` through ``pa_baseline``,
+   ``pa_sumfact_voigt`` and ``paop_cuda``, and ``solve_beam(2, 4)``
+   through ``fa`` and ``paop_cuda``, each with every count zeroed just
+   before and read just after: the same iterations across levels at each
+   size, phase times, the operator's ``memory_bytes``, peak memory, PAop
+   and probe launches and no plain call.  "pa_baseline" is MFEM's
+   Algorithm 1 (dense O((p+1)^6) contractions, cuBLAS GEMMs); it is not
+   the "baseline kernel" of phase 7, the PAop kernel of the first port
+   (``csrc/pa_elasticity_baseline.cu``).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -162,11 +187,17 @@ from repro_torch.solvers.batched import BatchedGMGSolver  # noqa: E402
 from repro_torch.solvers.coarse import probe_coarse_matrix  # noqa: E402
 from repro_torch.solvers.gmg import hierarchy_spaces  # noqa: E402
 from repro_torch.fem.mesh import beam_hex  # noqa: E402
+from repro_torch.configs.elasticity import ELASTICITY_SHAPES  # noqa: E402
+from repro_torch.core.fa import fa_memory_bytes  # noqa: E402
+from repro_torch.core.operators import ASSEMBLY_LEVELS, ElasticityOperator  # noqa: E402
+from repro_torch.fem.space import H1Space  # noqa: E402
+from repro_torch.launch.roofline import H100_SXM  # noqa: E402
+from repro_torch.obs.throughput import operator_throughput  # noqa: E402
 
 # H100 SXM data sheet: HBM3 rate, and the peak rates used for the bound
 # (f64 and bf16 with the tensor cores; f32 outside them).
-MEM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float64: 67e12, torch.float32: 67e12, torch.bfloat16: 989e12}
+MEM_BYTES_PER_S = H100_SXM.hbm_bw
+PEAK_FLOPS = {dt: H100_SXM.peak(dt) for dt in (torch.float64, torch.float32, torch.bfloat16)}
 # The tests' tolerances (docs/KERNELS.md): rtol, and atol as a fraction
 # of max |plain|.
 TOL = {torch.float64: (1e-12, 1e-12), torch.float32: (2e-4, 2e-5)}
@@ -221,6 +252,25 @@ SERVICE_N, SERVICE_CHUNK, SERVICE_KEEP = 16, 8, (0, 4, 8, 12)
 RECOVERY_EVERY, RECOVERY_KEEP, RECOVERY_CRASH_STEP, RECOVERY_WATCHDOG_S = 2, 2, 4, 1e-3
 RECOVERY_CLI = ["--p", "2", "--refine", "1", "--n-requests", "6", "--max-batch", "4",
                 "--chunk-iters", "2"]
+# The ablation (phase 8).  Matrix-free levels swept at p = 1..8, S = 1, f64,
+# each p at the refinement that gives the paper's 6,502,275 DoFs (p = 1, 2,
+# 4, 8; beam_p2_6m and beam_p8_6m of configs/elasticity.py) or the one
+# nearest it (p = 3, 5, 6, 7); beam_p8_51m for three levels.
+ABLATION_LEVELS = ("pa_baseline", "pa_sumfact", "pa_sumfact_voigt", "paop", "paop_cuda")
+ABLATION_REFINE = {1: 6, 2: ELASTICITY_SHAPES["beam_p2_6m"].n_h_refine, 3: 4, 4: 4, 5: 4,
+                   6: 3, 7: 3, 8: ELASTICITY_SHAPES["beam_p8_6m"].n_h_refine}
+ABLATION_51M = ("pa_baseline", "pa_sumfact_voigt", "paop_cuda")
+# FA at the paper's 839,619 DoFs (p -> refinement); it runs where its
+# analytic bytes fit a tenth of the card's memory: the host's scipy
+# assembly and the padded ELL copy on the card grow with them.
+ABLATION_FA = {1: 5, 2: 4, 4: 3, 8: 2}
+FA_RUN_SHARE = 0.1
+ABLATION_CHECK_REFINE = {1: 1, 2: 1, 4: 0, 8: 0}  # small beams of check (a)
+ABLATION_PROFILE_P = (1, 4, 8)  # where an apply's device time goes, per level
+# The paper's Table 4 on the card: (p, refine) -> levels, iterations equal
+# within each size.
+TABLE4 = {(MAIN_P, MAIN_REFINE): ("pa_baseline", "pa_sumfact_voigt", "paop_cuda"),
+          (2, 4): ("fa", "paop_cuda")}
 
 
 def card_line() -> str:
@@ -1081,6 +1131,158 @@ def recovery_phase(fixed: list, t_fixed: float, card: str) -> None:
     print(f"[recovery] phase wall {time.perf_counter() - t_phase} s ({card})")
 
 
+def ablation_line(row: dict, peak: int, base: int, card: str) -> str:
+    """One sweep row; ``peak`` is the peak allocation during it, ``base``
+    what was allocated before it (earlier phases' tensors)."""
+    pl = row["placement"]
+    return (f"[ablation] {row['assembly']} p={row['p']} refine={row['refine']} "
+            f"ndof={row['ndof']} nelem={row['nelem']} route={row['route']}: "
+            f"{row['t_apply_s'] * 1e3} ms/apply, {row['gdofs_per_s']} GDoF/s, "
+            f"{row['gflops_per_s']} GFLOP/s, {row['gbytes_per_s']} GB/s (model), "
+            f"roofline share {100 * pl['fraction']}% ({pl['bound']}-bound at OI "
+            f"{pl['oi']}), operator {row['memory_bytes']} B, peak "
+            f"{peak / 2**30} GiB, {(peak - base) / 2**30} GiB above the "
+            f"{base / 2**30} GiB held before ({card})")
+
+
+def ablation_check(card: str) -> None:
+    """Phase 8 (a): every level on the card against the same level on the
+    CPU and against paop_cuda on the card; fa's SpMV bitwise repeatable."""
+    gen = torch.Generator().manual_seed(SEED)
+    bad = []
+    for p, refine in ABLATION_CHECK_REFINE.items():
+        space = H1Space(beam_hex().refined(refine), p)
+        x = torch.randn((space.nscalar, 3), generator=gen, dtype=torch.float64)
+        ys = {}
+        for a in ASSEMBLY_LEVELS:
+            op = ElasticityOperator(space, assembly=a, device="cuda")
+            y = op.apply(x.cuda())
+            if a == "fa" and not torch.equal(op.apply(x.cuda()), y):
+                bad.append((p, a, "SpMV not bitwise repeatable"))
+            ys[a] = y
+            _, rel, ok = compare(y.cpu(), ElasticityOperator(space, assembly=a, device="cpu")
+                                 .apply(x), torch.float64)
+            if not ok:
+                bad.append((p, a, "card vs CPU", rel))
+            print(f"[ablation] check p={p} refine={refine} ndof={space.ndof} {a}: card vs "
+                  f"CPU max rel err {rel:.3e} {'ok' if ok else 'OUT OF TOLERANCE'} ({card})")
+        worst = 0.0
+        for a, y in ys.items():
+            _, rel, ok = compare(y, ys["paop_cuda"], torch.float64)
+            worst = max(worst, rel)
+            if not ok:
+                bad.append((p, a, "vs paop_cuda", rel))
+        print(f"[ablation] check p={p}: every level vs paop_cuda on the card, max rel err "
+              f"{worst:.3e}; fa SpMV bitwise repeatable ({card})")
+    if bad:
+        raise SystemExit(f"phase 8: assembly levels disagree: {bad}")
+
+
+def ablation_profile(p: int, refine: int, card: str) -> None:
+    """Three applies of every matrix-free level under torch.profiler: the
+    device time of each, by kernel (cuBLAS GEMMs, elementwise passes,
+    gathers, the PAop kernel)."""
+    space = H1Space(beam_hex().refined(refine), p)
+    x = torch.randn((1, space.nscalar, 3), dtype=torch.float64, device="cuda")
+    levels = {a: ElasticityOperator(space, assembly=a, materials=[MATERIALS_BEAM], device="cuda")
+              for a in ABLATION_LEVELS}
+    for op in levels.values():
+        op.apply(x)
+    torch.cuda.synchronize()
+
+    def run():
+        for a, op in levels.items():
+            with record_function(f"ablation.p{p}.{a}"):
+                for _ in range(3):
+                    op.apply(x)
+                torch.cuda.synchronize()
+
+    print(f"[ablation] profile: 3 applies of each level at p={p} refine={refine} "
+          f"ndof={space.ndof} ({card})")
+    print_profile(run, prefix=f"ablation.p{p}.", top=6)
+    del levels, x
+    torch.cuda.empty_cache()
+
+
+def ablation_phase(card: str) -> None:
+    """The ablation (phase 8): the paper's assembly ladder on the card."""
+    t_phase = time.perf_counter()
+    ablation_check(card)
+    torch.cuda.empty_cache()
+
+    # (b) the sweet-spot sweep, then (c) fa at its own size
+    def point(p, refine, a):
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        row = operator_throughput(p, refine, assembly=a, device="cuda")
+        print(ablation_line(row, torch.cuda.max_memory_allocated(), base, card))
+        torch.cuda.empty_cache()
+        return row
+
+    rows = []
+    for p, refine in ABLATION_REFINE.items():
+        rows += [point(p, refine, a) for a in ABLATION_LEVELS]
+    for a in ABLATION_LEVELS:
+        mine = [r for r in rows if r["assembly"] == a]
+        best = max(mine, key=lambda r: r["gdofs_per_s"])
+        print(f"[ablation] {a}: GDoF/s by p {[round(r['gdofs_per_s'], 4) for r in mine]}, "
+              f"peak at p={best['p']} ({card})")
+    for p in ABLATION_PROFILE_P:
+        ablation_profile(p, ABLATION_REFINE[p], card)
+    big = ELASTICITY_SHAPES["beam_p8_51m"]
+    rows += [point(big.p, big.n_h_refine, a) for a in ABLATION_51M]
+    mem_total = torch.cuda.get_device_properties(0).total_memory
+    for p, refine in ABLATION_FA.items():
+        space = H1Space(beam_hex().refined(refine), p)
+        model = fa_memory_bytes(space)
+        run = model <= FA_RUN_SHARE * mem_total
+        print(f"[ablation] fa p={p} refine={refine} ndof={space.ndof}: model "
+              f"{model} B against the card's {mem_total} B ({model / mem_total:.3f} of it): "
+              + ("run" if run else "not run, decided from the model"
+                 + (" (over the card's memory: the paper's OOM row)" if model > mem_total
+                    else f" (over {FA_RUN_SHARE} of the card's memory)"))
+              + f" ({card})")
+        if run:
+            t0 = time.perf_counter()
+            rows.append(point(p, refine, "fa"))
+            print(f"[ablation] fa p={p}: assembly + timing {time.perf_counter() - t0} s ({card})")
+
+    # (d) the paper's Table 4 on the card
+    for (p, refine), levels in TABLE4.items():
+        iters = {}
+        for a in levels:
+            mem = next((r["memory_bytes"] for r in rows
+                        if (r["assembly"], r["p"], r["refine"]) == (a, p, refine)), None)
+            if mem is None:
+                mem = ElasticityOperator(H1Space(beam_hex().refined(refine), p), assembly=a,
+                                         device="cuda").memory_bytes()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_all_counts()
+            rep = solve_beam(p, refine, assembly=a, precision="f64", device="cuda")
+            counts = all_counts()
+            print(f"[ablation] table4 p={p} refine={refine} ndof={rep.ndof} {a}: "
+                  f"iters={rep.iterations} rel={rep.final_rel_norm:.3e} prec={rep.t_precond} s "
+                  f"form={rep.t_form_ls} s solve={rep.t_solve} s total={rep.t_total} s, "
+                  f"operator {mem} B, peak {torch.cuda.max_memory_allocated() / 2**30} GiB, "
+                  f"counts (launches, plain_calls) {counts} ({card})")
+            (pa_l, pa_plain), (pr_l, pr_plain) = counts["pa_elasticity"], counts["probe"]
+            # A matrix-free hierarchy's coarsest operator is paop_cuda on the
+            # card (its construction runs the probe; the dict-material coarse
+            # matrix is assembled, so only a paop_cuda hierarchy applies
+            # PAop); an all-fa hierarchy runs neither kernel.
+            if not (rep.converged and rep.final_rel_norm <= 1e-6) or pa_plain or pr_plain \
+                    or (pa_l > 0) != (a == "paop_cuda") or (pr_l > 0) != (a != "fa"):
+                raise SystemExit(f"phase 8: table4 {a} at p={p} refine={refine}: converged="
+                                 f"{rep.converged} rel={rep.final_rel_norm} counts {counts}")
+            iters[a] = rep.iterations
+        if len(set(iters.values())) != 1:
+            raise SystemExit(f"phase 8: table4 iterations differ across levels at p={p} "
+                             f"refine={refine}: {iters}")
+    torch.cuda.empty_cache()
+    print(f"[ablation] phase wall {time.perf_counter() - t_phase} s ({card})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1381,6 +1583,9 @@ def main() -> int:
     probe_bound = 2 * px.numel() * px.element_size() / MEM_BYTES_PER_S * 1e3
     print(f"[time] probe (8, 128) f32, in turns, median of 5 rounds of 100: kernel "
           f"{probe_ms} ms, plain {probe_plain_ms} ms, torch.mul {probe_lib_ms} ms")
+
+    # ---- 8. the ablation: the paper's assembly ladder on the card
+    ablation_phase(card)
 
     kernels = [
         {

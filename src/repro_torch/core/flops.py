@@ -2,12 +2,14 @@
 
 :func:`default_q1d` is the single source of the 1D quadrature count;
 the kernel's bound in ``chip_smoke.py`` and ``PERF.md`` is derived from
-:func:`paop_flops_per_elem`.
+:func:`paop_flops_per_elem`, and the operator-throughput rows
+(:mod:`repro_torch.obs.throughput`) from it or, for ``pa_baseline``,
+:func:`dense_flops_per_elem`.
 """
 
 from __future__ import annotations
 
-__all__ = ["default_q1d", "paop_flops_per_elem"]
+__all__ = ["default_q1d", "paop_flops_per_elem", "dense_flops_per_elem"]
 
 
 def default_q1d(p: int) -> int:
@@ -32,3 +34,10 @@ def paop_flops_per_elem(p: int, q1d: int | None = None) -> float:
         3 * (Q * Q * Q * D) + 3 * (Q * Q * D * D) + 3 * (Q * D * D * D)
     )
     return float(fwd + geom + stress + bwd)
+
+
+def dense_flops_per_elem(p: int, q1d: int | None = None) -> float:
+    """Dense G3D contraction cost (the MFEM v4.8 baseline's O((p+1)^6))."""
+    D = p + 1
+    Q = default_q1d(p) if q1d is None else q1d
+    return float(2 * 2 * (3 * D**3) * (3 * 3 * Q**3))

@@ -1,9 +1,16 @@
 """ElasticityOperator: the paper's contribution as a composable module.
 
-One operator object per (mesh, degree) pair, with two assembly levels:
+One operator object per (mesh, degree) pair exposes every assembly level
+of the paper's ablation (Table 7) behind a single interface consumed by
+the solvers:
 
-* ``"paop"`` — the plain PyTorch PAop (:func:`repro_torch.core.paop.paop_apply`),
-  the counterpart of the reference's ``paop``;
+* ``"fa"`` — the globally assembled sparse matrix (:mod:`repro_torch.core.fa`),
+  scipy CSR on the host, applied on the device by a fixed-order row sum;
+* ``"pa_baseline"`` — MFEM v4.8's two-kernel PA dataflow with the dense
+  O((p+1)^6) gradient table (paper Algorithm 1, :mod:`repro_torch.core.pa_baseline`);
+* ``"pa_sumfact"`` / ``"pa_sumfact_voigt"`` — the sum-factorized but unfused
+  stages C1 and C2 (:mod:`repro_torch.core.pa_sumfact`);
+* ``"paop"`` — the plain PyTorch PAop (:func:`repro_torch.core.paop.paop_apply`);
 * ``"paop_cuda"`` — the hand-written CUDA kernel through
   :func:`repro_torch.kernels.pa_elasticity.ops.pa_elasticity`, the
   counterpart of the reference's ``paop_pallas``.  The default.  For CPU
@@ -14,15 +21,16 @@ One operator object per (mesh, degree) pair, with two assembly levels:
 the matrix-free diagonal for the Chebyshev-Jacobi smoother.  Materials
 are one attribute->(lambda, mu) dict, one per-element ``(lam_e, mu_e)``
 pair of (nelem,) arrays, or a scenario *sequence* of such entries (dicts
-and pairs mixed freely, one per scenario).
+and pairs mixed freely, one per scenario).  ``fa`` takes one dict only.
 
-Scenario batching: with a scenario sequence (or fields of shape
-(S, nelem) bound through :meth:`ElasticityOperator.with_materials`) the
-operator acts on (S, nscalar, 3) L-vectors.  The scenario axis is folded
-into the element axis, so the PAop kernel runs unchanged on S * nelem
-elements.  ``materials=DEFER_MATERIALS`` builds a geometry carrier whose
-fields are bound later; the ``with_*`` methods return shallow copies that
-share geometry, tables and masks (and do not run the probe again).
+Scenario batching (matrix-free levels): with a scenario sequence (or
+fields of shape (S, nelem) bound through
+:meth:`ElasticityOperator.with_materials`) the operator acts on
+(S, nscalar, 3) L-vectors.  The scenario axis is folded into the element
+axis, so the element operator runs unchanged on S * nelem elements.
+``materials=DEFER_MATERIALS`` builds a geometry carrier whose fields are
+bound later; the ``with_*`` methods return shallow copies that share
+geometry, tables and masks (and do not run the probe again).
 """
 
 from __future__ import annotations
@@ -33,6 +41,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import diagonal as _diag
+from repro_torch.core import fa as _fa
+from repro_torch.core import pa_baseline as _base
+from repro_torch.core import pa_sumfact as _sf
 from repro_torch.core import paop as _paop
 from repro_torch.core.geometry import (
     MATERIALS_BEAM,
@@ -44,13 +55,30 @@ from repro_torch.fem.bc import ConstrainedOperator
 from repro_torch.fem.space import H1Space
 from repro_torch.kernels.pa_elasticity import ops as _kops
 
-__all__ = ["ElasticityOperator", "ASSEMBLY_LEVELS", "DEFER_MATERIALS"]
+__all__ = ["ElasticityOperator", "ASSEMBLY_LEVELS", "DEFER_MATERIALS", "fused_level"]
 
 # Sentinel: build the operator as a geometry/tables carrier only; material
 # fields are bound later through with_materials / with_material_weights.
 DEFER_MATERIALS = "defer"
 
-ASSEMBLY_LEVELS = ("paop", "paop_cuda")
+ASSEMBLY_LEVELS = (
+    "fa",
+    "pa_baseline",
+    "pa_sumfact",
+    "pa_sumfact_voigt",
+    "paop",
+    "paop_cuda",
+)
+
+
+def fused_level(assembly: str, device) -> str:
+    """The level of the GMG coarsest operator for a hierarchy of
+    ``assembly``: ``fa`` keeps ``fa``; a fused level keeps itself; any
+    other level takes the fused operator of its device (``paop_cuda`` on
+    the card, ``paop`` on the CPU), as the reference takes its ``paop``."""
+    if assembly in ("fa", "paop", "paop_cuda"):
+        return assembly
+    return "paop_cuda" if torch.device(device).type == "cuda" else "paop"
 
 
 class ElasticityOperator:
@@ -85,12 +113,30 @@ class ElasticityOperator:
             space.essential_mask(ess_faces), device=self.device
         )
         if isinstance(materials, str) and materials == DEFER_MATERIALS:
+            if assembly == "fa":
+                raise ValueError("assembly='fa' cannot defer materials")
             self.materials = None
             self.nbatch = None
             self.lam_w = self.mu_w = None
         else:
             self.materials = materials if materials is not None else MATERIALS_BEAM
             self._bind_materials(*self._normalize_materials(self.materials))
+
+        self._g3d = None
+        if assembly == "pa_baseline":
+            self._g3d = _base.dense_grad_table(space.p, dtype=dtype, device=self.device)
+        self._sparse: _fa.SparseMatrix | None = None
+        if assembly == "fa":
+            if self.nbatch is not None or not isinstance(self.materials, dict):
+                raise ValueError(
+                    "assembly='fa' supports only a single attribute->"
+                    "(lambda, mu) dict; use a matrix-free level for "
+                    "scenario-batched or per-element materials"
+                )
+            # Assembled from the float64 geometry, whatever the dtype.
+            self._sparse = _fa.assemble_sparse(
+                space, geom, self.materials, dtype=dtype, device=self.device
+            )
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(a, dtype=self.dtype, device=self.device)
@@ -165,6 +211,8 @@ class ElasticityOperator:
     def with_materials(self, lam_e, mu_e) -> "ElasticityOperator":
         """A shallow copy with new coefficient fields, (nelem,) or
         (S, nelem); geometry, tables and masks are shared."""
+        if self.assembly == "fa":
+            raise ValueError("with_materials is matrix-free only (not 'fa')")
         new = copy.copy(self)
         new.materials = None
         new._bind_materials(lam_e, mu_e)
@@ -174,6 +222,8 @@ class ElasticityOperator:
         """A shallow copy binding precomputed weighted fields
         (``lam_e * w_detj``) directly: for a scenario batch ``lam_w`` is the
         folded (S * nelem, Q, Q, Q) tensor and ``nbatch`` is S."""
+        if self.assembly == "fa":
+            raise ValueError("with_material_weights is matrix-free only")
         new = copy.copy(self)
         new.materials = None
         new.nbatch = nbatch
@@ -185,6 +235,8 @@ class ElasticityOperator:
         """Per-scenario-row field update: rows selected by ``row_mask`` (S,)
         take freshly weighted fields from the (S, nelem) candidates; the
         other rows keep this operator's fields bitwise."""
+        if self.assembly == "fa":
+            raise ValueError("with_materials_rows is matrix-free only")
         if self.nbatch is None:
             raise ValueError("with_materials_rows requires a scenario-batched operator")
         s, ne = self.nbatch, self.space.nelem
@@ -213,14 +265,23 @@ class ElasticityOperator:
     def _apply_evec(self, x_e):
         if self.lam_w is None:
             raise ValueError("materials are deferred; bind them with with_materials first")
+        a = self.assembly
+        if a == "pa_baseline":
+            return _base.pa_baseline_apply(x_e, self.lam_w, self.mu_w, self.jinv, self._g3d)
         args = (x_e, self.lam_w, self.mu_w, self.jinv, self.B, self.G)
-        if self.assembly == "paop":
+        if a == "pa_sumfact":
+            return _sf.pa_sumfact_apply(*args)
+        if a == "pa_sumfact_voigt":
+            return _sf.pa_sumfact_voigt_apply(*args)
+        if a == "paop":
             return _paop.paop_apply(*args)
         return _kops.pa_elasticity(*args)
 
     def apply(self, x):
         """Unconstrained y = A x on the L-vector (nscalar, 3), or on the
         scenario batch (S, nscalar, 3) of a batched operator."""
+        if self.assembly == "fa":
+            return self._sparse.matvec(x.reshape(-1)).reshape(x.shape)
         x_e = self.space.to_evec(x)
         if self.nbatch is None:
             return self.space.scatter_add(self._apply_evec(x_e))
@@ -235,6 +296,8 @@ class ElasticityOperator:
     def diagonal(self):
         """Assembled operator diagonal as an L-vector (nscalar, 3), with a
         leading scenario axis for a batched operator."""
+        if self.assembly == "fa":
+            return self._tensor(self._sparse.csr.diagonal()).reshape(-1, 3)
         if self.lam_w is None:
             raise ValueError("materials are deferred; bind them with with_materials first")
         d_e = _diag.element_diagonal(self.lam_w, self.mu_w, self.jinv, self.B, self.G)
@@ -248,6 +311,9 @@ class ElasticityOperator:
 
     # -- introspection ------------------------------------------------------------
     def memory_bytes(self) -> int:
-        """Stored-operator footprint: the quadrature data D."""
+        """Stored-operator footprint: quadrature data D for PA levels, CSR
+        for FA (paper Fig. 4 peak-memory comparison)."""
+        if self.assembly == "fa":
+            return self._sparse.memory_bytes()
         n = self.lam_w.numel() + self.mu_w.numel() + self.jinv.numel()
         return int(n) * self.lam_w.element_size()

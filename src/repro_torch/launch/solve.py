@@ -4,6 +4,11 @@ GMG-preconditioned PCG (paper Sec. 5.1.4), on the card by default.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.solve --p 4 --refine 4
+    PYTHONPATH=src python -m repro_torch.launch.solve --p 4 --refine 4 --assembly pa_baseline
+
+``--assembly`` takes every level of the paper's ablation
+(:data:`~repro_torch.core.operators.ASSEMBLY_LEVELS`, default ``paop_cuda``);
+the report line names it.
 
 Reports the paper's phase breakdown: Prec. (preconditioner setup),
 Form-LS (RHS + constraint elimination), Solve (outer PCG), Total, and the

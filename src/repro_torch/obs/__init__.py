@@ -11,10 +11,9 @@
 * :mod:`repro_torch.obs.schema` — a dependency-free JSON-schema
   validator for the ``BENCH_*.json`` artifact schemas checked into
   ``benchmarks/schemas/``.
-
-The operator-throughput module of the reference (``obs/throughput.py``)
-is not ported yet: it places rows on a roofline that needs an H100
-hardware description (ROADMAP Queue 1 item 8).
+* :mod:`repro_torch.obs.throughput` — device-fenced operator-apply
+  throughput (DoF/s) for every assembly level, each row placed on the
+  card's roofline (:mod:`repro_torch.launch.roofline`).
 """
 
 from repro_torch.obs.metrics import (
@@ -28,6 +27,11 @@ from repro_torch.obs.metrics import (
 )
 from repro_torch.obs.spans import Span, SpanRecorder
 from repro_torch.obs.schema import SchemaError, validate_json
+from repro_torch.obs.throughput import (
+    model_flops_per_elem,
+    operator_throughput,
+    streaming_bytes_per_elem,
+)
 
 __all__ = [
     "Counter",
@@ -41,4 +45,7 @@ __all__ = [
     "SpanRecorder",
     "SchemaError",
     "validate_json",
+    "model_flops_per_elem",
+    "operator_throughput",
+    "streaming_bytes_per_elem",
 ]

@@ -52,7 +52,7 @@ from repro_torch.core.geometry import (
     check_material_fields,
     material_fields,
 )
-from repro_torch.core.operators import DEFER_MATERIALS, ElasticityOperator
+from repro_torch.core.operators import DEFER_MATERIALS, ElasticityOperator, fused_level
 from repro_torch.core.precision import PrecisionPolicy, resolve_precision
 from repro_torch.device import resolve_device
 from repro_torch.fem.mesh import HexMesh
@@ -357,6 +357,11 @@ class BatchedGMGSolver:
     to completion; ``prepare`` + ``run_chunk`` expose the same solve as a
     resumable step program for continuous batching.
 
+    ``assembly`` is any matrix-free level of
+    :data:`~repro_torch.core.operators.ASSEMBLY_LEVELS` (``fa`` raises);
+    the coarsest level runs the fused operator, as in
+    :func:`~repro_torch.solvers.gmg.build_hierarchy`.
+
     Precision: ``precision`` names a
     :class:`~repro_torch.core.precision.PrecisionPolicy` (``"f64"``,
     ``"f32"``, ``"mixed"`` or a policy object).  The outer Krylov loop
@@ -393,6 +398,8 @@ class BatchedGMGSolver:
         stall_iters: int = 20,
         stall_rtol: float = 0.99,
     ):
+        if assembly == "fa":
+            raise ValueError("batched solves are matrix-free ('fa' unsupported)")
         self.coarse_mesh = coarse_mesh
         self.n_h_refine = n_h_refine
         self.p_target = p_target
@@ -431,10 +438,19 @@ class BatchedGMGSolver:
         # fine-descendant map (an exact power-of-two tree average, see
         # _restrict_field); p-levels share the fine mesh (map None).
         self._split_fine = self.dtype != self.precond_dtype
-        self._base_ops = [self._carrier(sp, self.precond_dtype) for sp in spaces]
+        # The coarsest level runs the fused operator (the reference's level
+        # rule, see solvers/gmg.py), and so does a one-level hierarchy's
+        # fine solve-dtype twin.
+        coarse = fused_level(assembly, self.device)
+        self._base_ops = [
+            self._carrier(sp, self.precond_dtype, assembly if i > 0 else coarse)
+            for i, sp in enumerate(spaces)
+        ]
         self._desc_idx = level_descendants(spaces, self.device)
         self._fine_base_solve = (
-            self._carrier(spaces[-1], self.dtype) if self._split_fine else None
+            self._carrier(spaces[-1], self.dtype, assembly if len(spaces) > 1 else coarse)
+            if self._split_fine
+            else None
         )
         self.transfers = [
             make_transfer(
@@ -459,10 +475,10 @@ class BatchedGMGSolver:
         )
         self._fine_ess = self._base_ops[-1].ess_mask
 
-    def _carrier(self, space: H1Space, dtype) -> ElasticityOperator:
+    def _carrier(self, space: H1Space, dtype, assembly: str) -> ElasticityOperator:
         """A geometry/tables carrier: every call binds per-scenario fields."""
         return ElasticityOperator(
-            space, assembly=self.assembly, materials=DEFER_MATERIALS, dtype=dtype,
+            space, assembly=assembly, materials=DEFER_MATERIALS, dtype=dtype,
             device=self.device, ess_faces=self._ess_faces,
         )
 

@@ -3,11 +3,13 @@
 The paper assembles only the coarsest-level matrix and solves it with an
 inexact inner PCG.  Two solvers:
 
-* ``cholesky``: a prefactorized dense Cholesky solve.  The dense matrix
-  comes from probing the constrained coarse operator with identity
-  columns, for every material form (the reference assembles dict
-  materials through scipy instead; the two agree to round-off).  A
-  scenario-batched operator gets one factor per scenario;
+* ``cholesky``: a prefactorized dense Cholesky solve.  For one scenario
+  whose materials are an attribute dict, the dense matrix is the
+  assembled one (:func:`repro_torch.core.fa.assemble_sparse` with the
+  essential rows and columns eliminated), as in the reference; for
+  per-element fields and scenario batches it comes from probing the
+  constrained coarse operator with identity columns (the two agree to
+  round-off).  A scenario-batched operator gets one factor per scenario;
 * ``pcg_jacobi``: the paper's inexact inner PCG with a Jacobi
   preconditioner (single scenario only).
 """
@@ -18,10 +20,33 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core.fa import assemble_sparse
+from repro_torch.core.geometry import quadrature_geometry
 from repro_torch.core.operators import ElasticityOperator
 from repro_torch.solvers.cg import pcg
 
-__all__ = ["make_coarse_solver", "probe_coarse_matrix", "cholesky_solver"]
+__all__ = [
+    "make_coarse_solver",
+    "assembled_coarse_matrix",
+    "probe_coarse_matrix",
+    "cholesky_solver",
+]
+
+
+def assembled_coarse_matrix(op: ElasticityOperator) -> torch.Tensor:
+    """The constrained (n, n) matrix of a single-scenario operator with
+    attribute-dict materials, assembled through scipy (essential rows and
+    columns eliminated, unit diagonal), as a dense tensor on the
+    operator's device."""
+    space = op.space
+    sm = assemble_sparse(
+        space,
+        quadrature_geometry(space.mesh, space.tables),
+        op.materials,
+        ess_mask=op.ess_mask.cpu().numpy(),
+        device="cpu",
+    )
+    return torch.as_tensor(sm.csr.toarray(), dtype=op.dtype, device=op.device)
 
 
 def probe_coarse_matrix(op: ElasticityOperator) -> torch.Tensor:
@@ -66,7 +91,11 @@ def make_coarse_solver(
 ) -> Callable:
     """Return solve(b) -> x for the constrained coarsest-level system."""
     if method == "cholesky":
-        return cholesky_solver(torch.linalg.cholesky(probe_coarse_matrix(op)))
+        if op.nbatch is None and isinstance(op.materials, dict):
+            K = assembled_coarse_matrix(op)
+        else:
+            K = probe_coarse_matrix(op)
+        return cholesky_solver(torch.linalg.cholesky(K))
 
     if method == "pcg_jacobi":
         if op.nbatch is not None:

@@ -4,8 +4,11 @@ Hierarchy: starting from the coarse mesh, ``n_h_refine`` uniform
 refinements give levels 0..r at degree p_min = 1; p-refinements then
 double the degree until the finest level reaches the target p
 (appending p_target itself when it is not a power of two).  Every level
-uses the requested matrix-free operator, the coarsest included (the
-reference forces its pure-JAX ``paop`` there), so on the card no plain
+but the coarsest uses the requested assembly level; the coarsest runs
+the fused operator unless the whole hierarchy is ``fa``
+(:func:`~repro_torch.core.operators.fused_level`: the requested level if
+it is fused, else ``paop_cuda`` on the card and ``paop`` on the CPU, as
+the reference runs its ``paop`` there), so on the card no plain PAop
 apply stays on the path.  Fine and intermediate levels smooth with
 Chebyshev(k=2)-Jacobi; the coarsest level is solved per
 :mod:`repro_torch.solvers.coarse`.
@@ -27,7 +30,7 @@ from typing import Callable, Sequence
 
 import torch
 
-from repro_torch.core.operators import ElasticityOperator
+from repro_torch.core.operators import ElasticityOperator, fused_level
 from repro_torch.device import resolve_device
 from repro_torch.fem.mesh import HexMesh, fine_descendants
 from repro_torch.fem.space import H1Space
@@ -195,7 +198,7 @@ def build_hierarchy(
     for i, sp in enumerate(spaces):
         op = ElasticityOperator(
             sp,
-            assembly=assembly,
+            assembly=assembly if i > 0 else fused_level(assembly, device),
             materials=_level_materials(materials, descs[i], spaces[-1].nelem),
             dtype=dtype,
             device=device,

@@ -17,6 +17,8 @@ import torch
 from repro_torch.configs import get_reduced
 from repro_torch.convert import lm_params
 from repro_torch.core.basis import basis_tables
+from repro_torch.core.operators import ASSEMBLY_LEVELS, ElasticityOperator
+from repro_torch.fem.space import H1Space
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import flash_ref
 from repro_torch.kernels.pa_elasticity import build, ops
@@ -24,6 +26,7 @@ from repro_torch.kernels.pa_elasticity.ref import paop_ref
 from repro_torch.launch.solve import solve_beam
 from repro_torch.fem.mesh import beam_hex
 from repro_torch.models.transformer import init_params
+from repro_torch.obs.throughput import operator_throughput
 from repro_torch.serve import elasticity_service
 from repro_torch.serve.elasticity_service import ElasticityService, SolveRequest
 from repro_torch.serve.recovery import ServiceRecovery
@@ -453,3 +456,46 @@ def test_state_host_roundtrip_bitwise_on_card(card):
     nxt, _ = solver.run_chunk(trs, 1e-10, ~ones, state, prep, 4)
     nxt2, _ = solver.run_chunk(trs, 1e-10, ~ones, state2, prep2, 4)
     assert torch.equal(nxt.x, nxt2.x) and torch.equal(nxt.iters, nxt2.iters)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 2, 4])
+@pytest.mark.parametrize("level", ASSEMBLY_LEVELS)
+def test_assembly_level_on_card_matches_cpu(card, level, p):
+    """Every level of the ladder: its apply on the card equals the same
+    level on the CPU and paop_cuda on the card (f64 tolerances)."""
+    rtol, atol = TOL[torch.float64]
+    space = H1Space(beam_hex().refined(1 if p < 4 else 0), p)
+    x = torch.randn((2, space.nscalar, 3), generator=torch.Generator().manual_seed(p),
+                    dtype=torch.float64)
+    mats = [{1: (50.0, 50.0), 2: (1.0, 1.0)}, {1: (10.0, 5.0), 2: (2.0, 2.0)}]
+    if level == "fa":  # one scenario only
+        mats, x = mats[0], x[0]
+    y = ElasticityOperator(space, assembly=level, materials=mats, device=card).apply(
+        x.to(card))
+    want = ElasticityOperator(space, assembly=level, materials=mats, device="cpu").apply(x)
+    torch.testing.assert_close(y.cpu(), want, rtol=rtol, atol=atol * float(want.abs().max()))
+    fused = ElasticityOperator(space, assembly="paop_cuda", materials=mats,
+                               device=card).apply(x.to(card))
+    torch.testing.assert_close(y, fused, rtol=rtol, atol=atol * float(fused.abs().max()))
+
+
+@pytest.mark.cuda
+def test_fa_spmv_bitwise_repeatable_on_card(card):
+    op = ElasticityOperator(H1Space(beam_hex().refined(2), 2), assembly="fa", device=card)
+    x = torch.randn((op.space.nscalar, 3), generator=torch.Generator().manual_seed(0),
+                    dtype=torch.float64).to(card)
+    y = op.apply(x)
+    assert all(torch.equal(op.apply(x), y) for _ in range(3))
+
+
+@pytest.mark.cuda
+def test_throughput_row_on_card(card):
+    before = ops.counts["pa_elasticity"].launches
+    row = operator_throughput(4, 2, assembly="paop_cuda", device=card, repeats=1)
+    assert ops.counts["pa_elasticity"].launches > before
+    assert (row["route"], row["device"]) == ("cuda", torch.cuda.get_device_name(card))
+    assert row["t_apply_s"] > 0 and row["placement"]["hw"] == "nvidia-h100-sxm"
+    assert 0 < row["placement"]["fraction"] < 1
+    plain = operator_throughput(4, 2, assembly="pa_baseline", device=card, repeats=1)
+    assert plain["route"] == "plain" and plain["placement"]["bound"] == "compute"

@@ -104,7 +104,7 @@ def test_operator_f32_matches_reference():
 def test_operator_rejects_bad_inputs():
     sp = H1Space(convert.hex_mesh(ref_beam_hex()), 1)
     with pytest.raises(ValueError, match="unknown assembly"):
-        ElasticityOperator(sp, assembly="pa_baseline", device="cpu")
+        ElasticityOperator(sp, assembly="paop_pallas", device="cpu")
     with pytest.raises(ValueError, match="scenario batches"):
         ElasticityOperator(sp, materials=(np.ones((2, 8)), np.ones((2, 8))), device="cpu")
     with pytest.raises(TypeError, match="materials must be"):

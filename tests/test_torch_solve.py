@@ -4,9 +4,9 @@ The reference ``solve_beam(2, 1, assembly="paop")`` runs once (module
 fixture, ~15-20 s of jit).  The port runs the same solve on the CPU with
 the reference's power-iteration start vectors injected
 (``jax.random.normal(PRNGKey(1234), (nscalar, 3))`` per smoothed level),
-so lambda_max and then the iteration count match.  The coarse matrices
-differ at round-off (probe here, scipy assembly there), so solutions are
-compared to rtol 1e-10, not bitwise."""
+so lambda_max and then the iteration count match.  Both assemble the
+dict-material coarse matrix through scipy, but the operators' sums run in
+other orders, so solutions are compared to rtol 1e-10, not bitwise."""
 
 import jax
 import jax.numpy as jnp
