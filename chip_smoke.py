@@ -18,7 +18,9 @@ Phases (any failure exits non-zero; no phase's exception is caught):
 3. hold the PAop kernel against its plain PyTorch version on the card for
    p = 1..8 in float64 and float32 at NE in {1, 7, 4096}, and at every
    (p, NE) the single and the batched solve give it (S * NE elements, and
-   the coarse probe's n * S * NE), with the tests' tolerances; hold the
+   the coarse probe's n * S * NE) and phase 8's sweep times it at (p = 1..8
+   at the refinements of ``ABLATION_REFINE``, and beam_p8_51m), with the
+   tests' tolerances; hold the
    flash-attention kernels against their plain version in float32 (atol
    2e-5) and bfloat16 (atol 3e-2, and 1e-2 per-row relative) at the
    shapes of ``tests/test_flash_kernel.py``, windows {16, 48, 128},
@@ -114,7 +116,9 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    DoFs (p = 1, 2, 4, 8) or the refinement nearest it (p = 3, 5, 6, 7),
    plus the 51,171,075-DoF beam at p = 8 for ``pa_baseline``,
    ``pa_sumfact_voigt`` and ``paop_cuda``: ms per apply, GDoF/s, roofline
-   share, peak memory; three applies of each matrix-free level at p in
+   share (for ``pa_baseline`` both by the reference's dense model, which
+   counts 3x the FLOPs its GEMMs run, and by the GEMMs' 36 Q^3 D^3), peak
+   memory; three applies of each matrix-free level at p in
    {1, 4, 8} under ``torch.profiler`` (device time by kernel); (c)
    ``fa`` at 839,619 DoFs where its analytic
    bytes (``fa_memory_bytes``) fit a tenth of the card's memory (p = 1
@@ -125,7 +129,9 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    through ``fa`` and ``paop_cuda``, each with every count zeroed just
    before and read just after: the same iterations across levels at each
    size, phase times, the operator's ``memory_bytes``, peak memory, PAop
-   and probe launches and no plain call.  "pa_baseline" is MFEM's
+   and probe launches and no plain call; then the p=4/refine=4 coarse
+   factor built from the scipy-assembled matrix and from the probe, timed
+   in turns, the two matrices equal to 1e-12.  "pa_baseline" is MFEM's
    Algorithm 1 (dense O((p+1)^6) contractions, cuBLAS GEMMs); it is not
    the "baseline kernel" of phase 7, the PAop kernel of the first port
    (``csrc/pa_elasticity_baseline.cu``).
@@ -163,7 +169,7 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs import get_config, get_reduced  # noqa: E402
 from repro_torch.convert import lm_params  # noqa: E402
 from repro_torch.core.basis import basis_tables  # noqa: E402
-from repro_torch.core.flops import paop_flops_per_elem  # noqa: E402
+from repro_torch.core.flops import dense_gemm_flops_per_elem, paop_flops_per_elem  # noqa: E402
 from repro_torch.kernels.flash_attention import build as flash_build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_ref  # noqa: E402
@@ -184,14 +190,15 @@ from repro_torch.checkpoint.manager import _crc32  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine, ServeStats  # noqa: E402
 from repro_torch.core.geometry import MATERIALS_BEAM  # noqa: E402
 from repro_torch.solvers.batched import BatchedGMGSolver  # noqa: E402
-from repro_torch.solvers.coarse import probe_coarse_matrix  # noqa: E402
+from repro_torch.solvers.coarse import (  # noqa: E402
+    assembled_coarse_matrix, cholesky_solver, make_coarse_solver, probe_coarse_matrix)
 from repro_torch.solvers.gmg import hierarchy_spaces  # noqa: E402
 from repro_torch.fem.mesh import beam_hex  # noqa: E402
 from repro_torch.configs.elasticity import ELASTICITY_SHAPES  # noqa: E402
 from repro_torch.core.fa import fa_memory_bytes  # noqa: E402
 from repro_torch.core.operators import ASSEMBLY_LEVELS, ElasticityOperator  # noqa: E402
 from repro_torch.fem.space import H1Space  # noqa: E402
-from repro_torch.launch.roofline import H100_SXM  # noqa: E402
+from repro_torch.launch.roofline import H100_SXM, place_measured  # noqa: E402
 from repro_torch.obs.throughput import operator_throughput  # noqa: E402
 
 # H100 SXM data sheet: HBM3 rate, and the peak rates used for the bound
@@ -1135,12 +1142,23 @@ def ablation_line(row: dict, peak: int, base: int, card: str) -> str:
     """One sweep row; ``peak`` is the peak allocation during it, ``base``
     what was allocated before it (earlier phases' tensors)."""
     pl = row["placement"]
+    share = (f"roofline share {100 * pl['fraction']}% ({pl['bound']}-bound at OI "
+             f"{pl['oi']})")
+    if row["assembly"] == "pa_baseline":
+        # The reference's dense model counts 3x the FLOPs the GEMMs run;
+        # place the same time by the GEMMs' own 36 Q^3 D^3 as well.
+        gemm = place_measured(
+            flops_per_apply=dense_gemm_flops_per_elem(row["p"]) * row["nelem"] * row["batch"],
+            bytes_per_apply=row["bytes_per_apply"], t_apply_s=row["t_apply_s"],
+            hw=H100_SXM, dtype=torch.float64)
+        share = (f"{share} by the dense model (3x the GEMMs' FLOPs); by the GEMMs' "
+                 f"36 Q^3 D^3: {gemm.achieved_flops / 1e9} GFLOP/s, roofline share "
+                 f"{100 * gemm.fraction}% ({gemm.bound}-bound at OI {gemm.oi})")
     return (f"[ablation] {row['assembly']} p={row['p']} refine={row['refine']} "
             f"ndof={row['ndof']} nelem={row['nelem']} route={row['route']}: "
             f"{row['t_apply_s'] * 1e3} ms/apply, {row['gdofs_per_s']} GDoF/s, "
             f"{row['gflops_per_s']} GFLOP/s, {row['gbytes_per_s']} GB/s (model), "
-            f"roofline share {100 * pl['fraction']}% ({pl['bound']}-bound at OI "
-            f"{pl['oi']}), operator {row['memory_bytes']} B, peak "
+            f"{share}, operator {row['memory_bytes']} B, peak "
             f"{peak / 2**30} GiB, {(peak - base) / 2**30} GiB above the "
             f"{base / 2**30} GiB held before ({card})")
 
@@ -1202,6 +1220,38 @@ def ablation_profile(p: int, refine: int, card: str) -> None:
     print_profile(run, prefix=f"ablation.p{p}.", top=6)
     del levels, x
     torch.cuda.empty_cache()
+
+
+def coarse_factor_times(card: str, rounds: int = 5) -> None:
+    """The solve's coarse Cholesky factor at p=4/refine=4 (its coarsest
+    level: p=1, 8 elements), built from the scipy-assembled matrix (the
+    solve's path for attribute-dict materials) and from the probe (its
+    path for fields and batches), the two in turns between
+    synchronize fences, median of ``rounds``; the two matrices must agree
+    to 1e-12 of max |K|."""
+    space = hierarchy_spaces(beam_hex(), MAIN_REFINE, MAIN_P)[0]
+    op = ElasticityOperator(space, materials=MATERIALS_BEAM, device="cuda")
+    builds = {
+        "assembled": lambda: make_coarse_solver(op),
+        "probe": lambda: cholesky_solver(torch.linalg.cholesky(probe_coarse_matrix(op))),
+    }
+    times = {name: [] for name in builds}
+    for _ in range(rounds + 1):  # the first round warms both up
+        for name, build_fn in builds.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            build_fn()
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+    K = assembled_coarse_matrix(op)
+    rel = float((K - probe_coarse_matrix(op)).abs().max() / K.abs().max())
+    ms = {name: 1e3 * statistics.median(t[1:]) for name, t in times.items()}
+    print(f"[ablation] coarse factor at p={MAIN_P} refine={MAIN_REFINE} (coarsest level "
+          f"p={space.p}, nelem={space.nelem}, n={3 * space.nscalar}): assembled "
+          f"{ms['assembled']} ms, probe {ms['probe']} ms (median of {rounds}, host clock "
+          f"between fences); matrices agree to {rel:.3e} of max |K| ({card})")
+    if not rel <= 1e-12:
+        raise SystemExit(f"phase 8: assembled and probed coarse matrices differ: {rel}")
 
 
 def ablation_phase(card: str) -> None:
@@ -1279,6 +1329,7 @@ def ablation_phase(card: str) -> None:
         if len(set(iters.values())) != 1:
             raise SystemExit(f"phase 8: table4 iterations differ across levels at p={p} "
                              f"refine={refine}: {iters}")
+    coarse_factor_times(card)
     torch.cuda.empty_cache()
     print(f"[ablation] phase wall {time.perf_counter() - t_phase} s ({card})")
 
@@ -1324,6 +1375,11 @@ def main() -> int:
     n_coarse = hierarchy_spaces(beam_hex(), MAIN_REFINE, MAIN_P)[0].nscalar * 3
     cases += [(torch.float64, p, BATCH_S * ne) for p, ne in main_shapes]
     cases.append((torch.float64, 1, n_coarse * BATCH_S * main_shapes[0][1]))
+    # phase 8's sweep: every (p, NE) that paop_cuda is timed at
+    sweep = {(p, beam_hex().nelem * 8**r) for p, r in ABLATION_REFINE.items()}
+    big = ELASTICITY_SHAPES["beam_p8_51m"]
+    sweep.add((big.p, beam_hex().nelem * 8**big.n_h_refine))
+    cases += [(torch.float64, p, ne) for p, ne in sorted(sweep)]
     bad = []
     for dt, p, ne in cases:
         args = pa_inputs(p, ne, dt, gen)

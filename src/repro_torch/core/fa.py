@@ -23,7 +23,13 @@ from repro_torch.core.basis import BasisTables
 from repro_torch.core.pa_baseline import _dense_grad_table_np
 from repro_torch.fem.space import H1Space
 
-__all__ = ["element_matrix", "assemble_sparse", "SparseMatrix", "fa_memory_bytes"]
+__all__ = [
+    "element_matrix",
+    "assemble_csr",
+    "assemble_sparse",
+    "SparseMatrix",
+    "fa_memory_bytes",
+]
 
 
 def _chat(jinv: np.ndarray, lam: float, mu: float) -> np.ndarray:
@@ -103,15 +109,14 @@ class SparseMatrix:
         return self.nnz * 12 + (self.n + 1) * 4
 
 
-def assemble_sparse(
+def assemble_csr(
     space: H1Space,
     geom,
     materials: dict[int, tuple[float, float]],
     ess_mask: np.ndarray | None = None,
-    dtype: torch.dtype = torch.float64,
-    device=None,
-) -> SparseMatrix:
-    """Assemble the global sparse stiffness matrix (vdof = 3*node + comp).
+) -> sp.csr_matrix:
+    """Assemble the global sparse stiffness matrix (vdof = 3*node + comp)
+    as a scipy CSR matrix on the host, in float64.
 
     ``geom`` carries the mesh-constant ``jinv`` (3, 3) and ``detj``
     (:class:`~repro_torch.core.geometry.QuadratureGeometry`).  With
@@ -151,7 +156,21 @@ def assemble_sparse(
         A = D @ A @ D + sp.diags((~keep).astype(np.float64))
         A = A.tocsr()
         A.eliminate_zeros()
-    return SparseMatrix.from_scipy(A, dtype=dtype, device=device)
+    return A
+
+
+def assemble_sparse(
+    space: H1Space,
+    geom,
+    materials: dict[int, tuple[float, float]],
+    ess_mask: np.ndarray | None = None,
+    dtype: torch.dtype = torch.float64,
+    device=None,
+) -> SparseMatrix:
+    """:func:`assemble_csr` with its ELL copy on ``device`` for the SpMV."""
+    return SparseMatrix.from_scipy(
+        assemble_csr(space, geom, materials, ess_mask), dtype=dtype, device=device
+    )
 
 
 def fa_memory_bytes(space: H1Space) -> int:

@@ -9,7 +9,12 @@ the kernel's bound in ``chip_smoke.py`` and ``PERF.md`` is derived from
 
 from __future__ import annotations
 
-__all__ = ["default_q1d", "paop_flops_per_elem", "dense_flops_per_elem"]
+__all__ = [
+    "default_q1d",
+    "paop_flops_per_elem",
+    "dense_flops_per_elem",
+    "dense_gemm_flops_per_elem",
+]
 
 
 def default_q1d(p: int) -> int:
@@ -41,3 +46,15 @@ def dense_flops_per_elem(p: int, q1d: int | None = None) -> float:
     D = p + 1
     Q = default_q1d(p) if q1d is None else q1d
     return float(2 * 2 * (3 * D**3) * (3 * 3 * Q**3))
+
+
+def dense_gemm_flops_per_elem(p: int, q1d: int | None = None) -> float:
+    """FLOPs the two dense contractions of ``pa_baseline_apply`` execute
+    (forward ``mqL,ecL->ecmq`` and backward ``ecmq,mqL->ecL``, 9 Q^3 D^3
+    multiply-adds each): 36 Q^3 D^3, a third of
+    :func:`dense_flops_per_elem`, whose model counts a dense 9Q^3 x 3D^3
+    matrix.  The throughput rows keep the reference's model; this count
+    places the same measurement by what the card runs."""
+    D = p + 1
+    Q = default_q1d(p) if q1d is None else q1d
+    return float(2 * 2 * 9 * Q**3 * D**3)

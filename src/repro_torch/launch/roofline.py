@@ -25,14 +25,24 @@ __all__ = ["HardwareSpec", "H100_SXM", "MeasuredPlacement", "place_measured"]
 @dataclasses.dataclass(frozen=True)
 class HardwareSpec:
     name: str
-    peak_flops: float  # FLOP/s per chip, for a dtype not in peak_flops_by_dtype
+    peak_flops: float  # FLOP/s per chip; used only when there is no table
     hbm_bw: float  # bytes/s per chip
     link_bw: float  # bytes/s per link
     peak_flops_by_dtype: tuple[tuple[torch.dtype, float], ...] = ()
 
     def peak(self, dtype: torch.dtype | None = None) -> float:
-        """Peak FLOP/s for ``dtype`` (``peak_flops`` when it has no entry)."""
-        return dict(self.peak_flops_by_dtype).get(dtype, self.peak_flops)
+        """Peak FLOP/s for ``dtype``.  A spec with a per-dtype table
+        refuses a dtype it does not list (``None`` included): falling back
+        to one number would place an f64 row against the bf16 roof."""
+        if not self.peak_flops_by_dtype:
+            return self.peak_flops
+        table = dict(self.peak_flops_by_dtype)
+        if dtype not in table:
+            raise ValueError(
+                f"{self.name} has peaks for {sorted(str(d) for d in table)}; "
+                f"name the measurement's dtype, got {dtype}"
+            )
+        return table[dtype]
 
 
 H100_SXM = HardwareSpec(
@@ -74,8 +84,10 @@ def place_measured(
     chips: int = 1,
 ) -> MeasuredPlacement:
     """Place one measured operator apply against ``hw``'s roofline at the
-    peak of ``dtype``.  ``flops_per_apply`` / ``bytes_per_apply`` are the
-    analytic models; ``t_apply_s`` the fenced wall time of one apply."""
+    peak of ``dtype`` (required when ``hw`` has a per-dtype table, see
+    :meth:`HardwareSpec.peak`).  ``flops_per_apply`` / ``bytes_per_apply``
+    are the analytic models; ``t_apply_s`` the fenced wall time of one
+    apply."""
     if t_apply_s <= 0:
         raise ValueError(f"t_apply_s must be > 0, got {t_apply_s}")
     if bytes_per_apply <= 0:

@@ -5,7 +5,7 @@ inexact inner PCG.  Two solvers:
 
 * ``cholesky``: a prefactorized dense Cholesky solve.  For one scenario
   whose materials are an attribute dict, the dense matrix is the
-  assembled one (:func:`repro_torch.core.fa.assemble_sparse` with the
+  assembled one (:func:`repro_torch.core.fa.assemble_csr` with the
   essential rows and columns eliminated), as in the reference; for
   per-element fields and scenario batches it comes from probing the
   constrained coarse operator with identity columns (the two agree to
@@ -20,7 +20,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core.fa import assemble_sparse
+from repro_torch.core.fa import assemble_csr
 from repro_torch.core.geometry import quadrature_geometry
 from repro_torch.core.operators import ElasticityOperator
 from repro_torch.solvers.cg import pcg
@@ -39,14 +39,13 @@ def assembled_coarse_matrix(op: ElasticityOperator) -> torch.Tensor:
     columns eliminated, unit diagonal), as a dense tensor on the
     operator's device."""
     space = op.space
-    sm = assemble_sparse(
+    csr = assemble_csr(
         space,
         quadrature_geometry(space.mesh, space.tables),
         op.materials,
         ess_mask=op.ess_mask.cpu().numpy(),
-        device="cpu",
     )
-    return torch.as_tensor(sm.csr.toarray(), dtype=op.dtype, device=op.device)
+    return torch.as_tensor(csr.toarray(), dtype=op.dtype, device=op.device)
 
 
 def probe_coarse_matrix(op: ElasticityOperator) -> torch.Tensor:

@@ -14,13 +14,15 @@ import itertools
 
 import pytest
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from repro.configs import elasticity as ref_cfg
 from repro.core.flops import dense_flops_per_elem as ref_dense_flops
 from repro.launch.roofline import V5E, place_measured as ref_place
 from repro.obs import throughput as ref_tp
 from repro_torch.configs import elasticity as cfg
-from repro_torch.core.flops import dense_flops_per_elem
+from repro_torch.core.flops import dense_flops_per_elem, dense_gemm_flops_per_elem
+from repro_torch.core.pa_baseline import dense_grad_table
 from repro_torch.core.operators import ElasticityOperator
 from repro_torch.fem.mesh import beam_hex
 from repro_torch.fem.space import H1Space
@@ -47,6 +49,20 @@ def test_models_match_reference(p):
         assert model_flops_per_elem(p, a) == ref_tp.model_flops_per_elem(p, a)
     assert dense_flops_per_elem(p) == ref_dense_flops(p)
     assert dense_flops_per_elem(p, p + 3) == ref_dense_flops(p, p + 3)
+
+
+@pytest.mark.parametrize("p", [1, 4, 8])
+def test_dense_gemm_flops_count_the_baselines_contractions(p):
+    """The FLOPs of pa_baseline's two dense contractions, as PyTorch's
+    counter reads them, and a third of the reference's dense model."""
+    ne, g3d = 2, dense_grad_table(p)
+    xf = torch.zeros((ne, 3, g3d.shape[2]), dtype=torch.float64)
+    qvec = torch.zeros((ne, 3, 3, g3d.shape[1]), dtype=torch.float64)
+    with FlopCounterMode(display=False) as counter:
+        torch.einsum("mqL,ecL->ecmq", g3d, xf)
+        torch.einsum("ecmq,mqL->ecL", qvec, g3d)
+    assert counter.get_total_flops() == dense_gemm_flops_per_elem(p) * ne
+    assert 3 * dense_gemm_flops_per_elem(p) == dense_flops_per_elem(p)
 
 
 @pytest.mark.parametrize("flops, nbytes, t", [
@@ -82,6 +98,10 @@ def test_h100_peak_is_chosen_by_dtype():
     assert (f64.bound, f64.roof_flops) == ("compute", 67e12)
     assert (bf16.bound, bf16.roof_flops) == ("memory", 50 * 3.35e12)
     assert f64.fraction == pytest.approx(5e12 / 67e12)
+    # a measurement without its dtype, or with one the table lacks, is refused
+    for dtype in (None, torch.int8):
+        with pytest.raises(ValueError, match="dtype"):
+            place_measured(dtype=dtype, **kw)
 
 
 @pytest.mark.parametrize("p, refine, batch, assembly", [
