@@ -136,6 +136,30 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    the "baseline kernel" of phase 7, the PAop kernel of the first port
    (``csrc/pa_elasticity_baseline.cu``).
 
+9. training (``[train]`` lines, each beside the card's name and power
+   limit): (a) the flash backward kernel against its plain version in
+   float32 (1e-4 of max |plain|) and bfloat16 (2e-2 of max |plain| and per
+   row, see ``BWD_ROW_REL``) at S in {1, 77, 300, 1024}, G in {1, 2}, a
+   window, D in {16, 64, 128} and the training shape (4, 4096, 16, 8, 128)
+   bf16, bitwise repeatable; timed there in turns with SDPA's backward
+   (fwd+bwd minus fwd) and the plain version, beside its bound; (c)
+   ``train_loop`` of qwen3-1.7b at full width in bf16, B = 4 and S = 4096
+   (``SHAPES["train_4k"]``'s sequence, its global batch of 256 cut to 4),
+   batches from ``data/pipeline``, one warm-up step and 5 timed, with every
+   count zeroed just before and read just after each step: 56 flash forward
+   launches (28, and 28 in the remat recompute, all wgmma), 28 backward
+   calls, no plain call, every loss and grad norm finite; per step loss,
+   grad norm, lr, fenced step seconds, tokens/s and peak memory; model FLOPs
+   over the bf16 peak; one more step under ``torch.profiler`` by category;
+   the kernel on the q/k/v/o/dO that layers 0 and 27 gave it in the warm-up
+   step against its plain version; (b) at the reduced width in float32,
+   first-step gradients (1e-3 of max |CPU| a leaf) and three train steps'
+   losses (1e-4 relative) on the card against the CPU from one state; (d)
+   ``python -m repro_torch.launch.train --reduced --steps 6 --ckpt-every 3``
+   on the card uninterrupted, SIGKILLed after step 4, and rerun: it resumes
+   from step 3 with the same batches, and steps 4-6 and the final state are
+   bitwise the uninterrupted run's.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -143,6 +167,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -166,20 +191,25 @@ import torch  # noqa: E402
 from torch.profiler import record_function  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import get_config, get_reduced  # noqa: E402
+from repro_torch.configs import SHAPES, ShapeConfig, get_config, get_reduced  # noqa: E402
 from repro_torch.convert import lm_params  # noqa: E402
 from repro_torch.core.basis import basis_tables  # noqa: E402
 from repro_torch.core.flops import dense_gemm_flops_per_elem, paop_flops_per_elem  # noqa: E402
 from repro_torch.kernels.flash_attention import build as flash_build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import flash_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import flash_bwd_ref, flash_ref  # noqa: E402
 from repro_torch.kernels.pa_elasticity import build, ops  # noqa: E402
 from repro_torch.kernels.pa_elasticity.ref import paop_ref, probe_ref  # noqa: E402
 from repro_torch.launch.solve import solve_beam  # noqa: E402
 from repro_torch.launch.serve_solve import make_workload as serve_workload  # noqa: E402
 from repro_torch.launch.workload import make_workload  # noqa: E402
 from repro_torch.obs import MetricsRegistry, SpanRecorder, diff_snapshots  # noqa: E402
-from repro_torch.profiling import print_profile  # noqa: E402
+from repro_torch.profiling import device_time_by_category, print_profile  # noqa: E402
+from repro_torch.data.pipeline import make_batch  # noqa: E402
+from repro_torch.launch.train import train_loop  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
+from repro_torch.train.trainer import make_train_step, train_state_init  # noqa: E402
+from repro_torch.models.transformer import loss_fn, param_count  # noqa: E402
 from repro_torch.models import attention as attention_module  # noqa: E402
 from repro_torch.models.transformer import init_params  # noqa: E402
 from repro_torch.serve import elasticity_service  # noqa: E402
@@ -280,6 +310,49 @@ TABLE4 = {(MAIN_P, MAIN_REFINE): ("pa_baseline", "pa_sumfact_voigt", "paop_cuda"
           (2, 4): ("fa", "paop_cuda")}
 
 
+# Training (phase 9): qwen3-1.7b at full width in bf16, train_4k's sequence
+# with its global batch of 256 cut to 4 so that one card holds the step; one
+# warm-up step and 5 timed.
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_STEPS = "qwen3-1.7b", 4, 6
+TRAIN_SEQ = SHAPES["train_4k"].seq_len
+FLASH_TRAIN = (TRAIN_BATCH, TRAIN_SEQ, 16, 8, 128)  # (B, S, H, K, D)
+# The backward kernel against its plain version (B, S, H, K, D, window):
+# S = 1, 77, 300, 1024; G = 1, 2 (and MQA); a window; D = 16, 64, 128.
+BWD_CASES = [
+    (2, 1, 4, 2, 64, None),
+    (2, 77, 4, 2, 16, None),
+    (1, 77, 2, 1, 128, None),
+    (1, 300, 4, 4, 64, None),
+    (2, 300, 8, 4, 128, 48),
+    (1, 1024, 16, 8, 128, None),
+    (1, 1024, 8, 8, 64, 128),
+    (1, 1024, 4, 2, 16, 256),
+]
+# f32: 1e-4 of the largest |plain| of dq, dk, dv (reads ~5e-7).  bf16
+# also row by row: ||x - ref|| / (||ref|| + 1e-2 * rms row norm) over each
+# (b, s, head) row of D values, the rms over the rows of all three.  The
+# floor keeps rows whose exact gradient vanishes (dq and dk where a query
+# sees one key: P = 1 and dS = 0) from dividing by rounding noise.  P and dS rounded to bf16 as mma operands read ~5e-3
+# (of max and per row, bring-up run); a dropped or doubled tile of 64 of n
+# keys or queries reads about sqrt(64 / n), 0.125 at n = 4096.
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+BWD_ROW_REL, BWD_ROW_FLOOR = 2e-2, 1e-2
+# Card against CPU at the reduced width in f32 (phase 9b).
+TRAIN_SMALL_SHAPE = ShapeConfig("small", "train", 64, 2)
+TRAIN_SMALL_LOSS_REL, TRAIN_SMALL_GRAD_REL = 1e-4, 1e-3
+TRAIN_CLI = ["--reduced", "--steps", "6", "--ckpt-every", "3", "--log-every", "1"]
+TRAIN_LINE = re.compile(r"\[train\] step +(\d+) loss (\S+) gnorm (\S+) lr (\S+) .* tokens crc32 (\S+)")
+# Where a train step's device time goes (phase 9c's profile): kernels by
+# name, the optimizer by its record_function range.
+TRAIN_TOP_KERNELS = 6  # kernels listed per category
+TRAIN_CATEGORIES = {
+    "flash forward": r"flash_fwd",
+    "flash backward": r"bwd_(prep|dkdv|dq)_",
+    "GEMMs": r"gemm|nvjet|cutlass|xmma|cublas|sm80_|sm90_",
+    "CE": r"SoftMax|softmax|nll_loss|cross_entropy",
+}
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -306,7 +379,11 @@ def ptxas_summary(log: str, smem_bytes=None, pa_config=None) -> list[str]:
             f = re.search(r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", name)
             tc = re.search(r"flash_fwd_tc_kernelILi(\d+)ELi(\d+)E", name)
             wg = re.search(r"flash_fwd_wgmma_kernelILi(\d+)E", name)
-            if wg:
+            bw = re.search(r"(bwd_(?:prep|dkdv|dq)_(?:tc|fma))ILi(\d+)E", name)
+            if bw:
+                kind = "mma.sync, bf16" if bw.group(1).endswith("tc") else "FMA, f32"
+                name = f"flash_attention backward {bw.group(1)}<D={bw.group(2)}> ({kind})"
+            elif wg:
                 d = int(wg.group(1))
                 smem = f", {smem_bytes(d)} B dynamic shared memory" if smem_bytes else ""
                 name = f"flash_attention<bf16, D={d}, BQ=BK=128> (wgmma, TMA{smem})"
@@ -1334,6 +1411,325 @@ def ablation_phase(card: str) -> None:
     print(f"[ablation] phase wall {time.perf_counter() - t_phase} s ({card})")
 
 
+def bwd_inputs(B, S, H, K, D, dtype, gen) -> tuple:
+    """Unit-normal q, k, v and dO on the card, and the flash kernel's o."""
+    q, do = (torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype) for _ in range(2))
+    k, v = (torch.randn((B, S, K, D), generator=gen, device="cuda").to(dtype) for _ in range(2))
+    return q, k, v, flash_ops.flash_attention(q, k, v), do
+
+
+def bwd_errors(got, want) -> tuple[float, float, float]:
+    """Over dq, dk, dv: (max abs err, that over the largest |plain| of the
+    three, max row error as ``BWD_ROW_REL`` measures it, its floor from the
+    rows of all three).  The scales are the three gradients' together: at
+    S = 1 the exact dq and dk are 0 (one visible key: P = 1, dS = 0)."""
+    diffs = [(x.float() - ref.float()) for x, ref in zip(got, want)]
+    rows = [ref.float().norm(dim=-1) for ref in want]
+    scale = max(float(ref.float().abs().max()) for ref in want)
+    floor = BWD_ROW_FLOOR * float(torch.cat([r.flatten() for r in rows]).square().mean().sqrt())
+    abs_err = max(float(d.abs().max()) for d in diffs)
+    row = max(float((d.norm(dim=-1) / (r + floor)).max()) for d, r in zip(diffs, rows))
+    return abs_err, abs_err / max(scale, 1e-30), row
+
+
+def bwd_bound(q, k) -> tuple[float, str]:
+    """Least time for one backward: the larger of bytes over the memory
+    rate (q, k, v, o, dO read once, dq, dk, dv written once) and 2.5x the
+    causal forward's 4 B H D S(S+1)/2 operations over the dtype's peak."""
+    B, S, H, D = q.shape
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
+    flops = 2.5 * 4 * B * H * D * S * (S + 1) / 2
+    t_bytes = nbytes / MEM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[q.dtype]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def capture_bwd_inputs(calls: set[int]) -> tuple[list, object]:
+    """Wrap the backward wrapper to keep clones of the q, k, v, o, dO of the
+    given calls (0-based, in call order: the backward meets the last layer
+    first); returns the list and the wrapped function, to put back."""
+    kept, inner, seen = [], flash_ops.flash_attention_bwd, [0]
+
+    def keeping(q, k, v, o, do, *, window=None):
+        if seen[0] in calls:
+            kept.append((seen[0], *(t.detach().clone() for t in (q, k, v, o, do)), window))
+        seen[0] += 1
+        return inner(q, k, v, o, do, window=window)
+
+    flash_ops.flash_attention_bwd = keeping
+    return kept, inner
+
+
+def train_kernel_checks(gen, card: str) -> dict:
+    """Phase 9(a): the backward kernel against its plain version, then its
+    times at the training shape.  Returns the numbers of its JSON entry."""
+    bad = []
+    cases = [(c, dt) for c in BWD_CASES for dt in (torch.float32, torch.bfloat16)]
+    cases.append(((*FLASH_TRAIN, None), torch.bfloat16))
+    for (B, S, H, K, D, window), dt in cases:
+        q, k, v, _, do = bwd_inputs(B, S, H, K, D, dt, gen)
+        o = flash_ops.flash_attention(q, k, v, window=window)
+        got = flash_ops.flash_attention_bwd(q, k, v, o, do, window=window)
+        again = flash_ops.flash_attention_bwd(q, k, v, o, do, window=window)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        abs_err, rel, row = bwd_errors(got, flash_bwd_ref(q, k, v, o, do, window=window))
+        ok = bitwise and rel <= BWD_TOL[dt] and (dt != torch.bfloat16 or row <= BWD_ROW_REL)
+        print(f"[train] flash backward vs plain (B,S,H,K,D)=({B},{S},{H},{K},{D}) "
+              f"window={window} {str(dt)[6:]}: max abs err {abs_err:.3e}, of max |plain| "
+              f"{rel:.3e}, max row err {row:.3e}, bitwise repeat {bitwise} "
+              f"{'ok' if ok else 'OUT OF TOLERANCE'}")
+        if not ok:
+            bad.append(((B, S, H, K, D, window), str(dt), rel, row, bitwise))
+        del q, k, v, o, do, got, again
+    if bad:
+        raise SystemExit(f"flash backward kernel disagrees with its plain version: {bad}")
+    main_err = abs_err  # the last case is the training shape
+    torch.cuda.empty_cache()
+
+    # Times at the training shape, in turns: the kernel; SDPA's backward as
+    # its fwd+bwd minus its fwd, with enable_gqa=True and with k/v expanded
+    # to the query heads beforehand; the plain version apart (its S x S
+    # f32 intermediates).
+    q, k, v, o, do = bwd_inputs(*FLASH_TRAIN, torch.bfloat16, gen)
+    G = FLASH_TRAIN[2] // FLASH_TRAIN[3]
+    qs, ks, vs, dos = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    kx, vx = (t.repeat_interleave(G, dim=1) for t in (ks, vs))
+    for t in (qs, ks, vs, kx, vx):
+        t.requires_grad_(True)
+
+    def sdpa(kk, vv, gqa):
+        return F.scaled_dot_product_attention(qs, kk, vv, is_causal=True, enable_gqa=gqa)
+
+    t = event_ms({
+        "kernel": lambda: flash_ops.flash_attention_bwd(q, k, v, o, do),
+        "sdpa fwd": lambda: sdpa(ks, vs, True),
+        "sdpa fwd+bwd": lambda: torch.autograd.grad(sdpa(ks, vs, True), (qs, ks, vs), dos),
+        "sdpa expanded fwd": lambda: sdpa(kx, vx, False),
+        "sdpa expanded fwd+bwd": lambda: torch.autograd.grad(sdpa(kx, vx, False),
+                                                             (qs, kx, vx), dos),
+    }, n=10, rounds=5)
+    plain_ms = event_ms({"plain": lambda: flash_bwd_ref(q, k, v, o, do)}, n=1, rounds=3)["plain"]
+    lib_ms = t["sdpa fwd+bwd"] - t["sdpa fwd"]
+    lib_x_ms = t["sdpa expanded fwd+bwd"] - t["sdpa expanded fwd"]
+    bound_ms, bound_by = bwd_bound(q, k)
+    print(f"[train] flash backward (B,S,H,K,D)={FLASH_TRAIN} bf16, in turns, median of 5 rounds "
+          f"of 10: kernel {t['kernel']} ms; SDPA backward (enable_gqa) {lib_ms} ms "
+          f"(fwd+bwd {t['sdpa fwd+bwd']}, fwd {t['sdpa fwd']}); SDPA backward with k/v expanded "
+          f"beforehand {lib_x_ms} ms; plain {plain_ms} ms (median of 3); bound {bound_ms} ms "
+          f"({bound_by}): kernel {100 * bound_ms / t['kernel']}% of bound, "
+          f"{t['kernel'] / lib_ms}x SDPA's backward ({card})")
+    del q, k, v, o, do, qs, ks, vs, dos, kx, vx
+    torch.cuda.empty_cache()
+    return {"max_abs_err": main_err, "ms": t["kernel"], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def train_full_width(card: str) -> int:
+    """Phase 9(c): train_loop at full width, each step counted; returns
+    the backward kernel's launches over the run."""
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeConfig("train_4k, global batch 256 cut to 4", "train", TRAIN_SEQ, TRAIN_BATCH)
+    per_step = []
+
+    @contextlib.contextmanager
+    def counted(i):
+        reset_all_counts()
+        yield
+        per_step.append((all_counts(), dict(flash_ops.route_launches)))
+
+    kept, inner = capture_bwd_inputs({0, cfg.n_layers - 1})
+    try:
+        state, history = train_loop(cfg, shape, steps=TRAIN_STEPS, log_every=1, seed=SEED,
+                                    device="cuda", step_context=counted)
+    finally:
+        flash_ops.flash_attention_bwd = inner
+    L = cfg.n_layers
+    want = {"flash_attention": (2 * L, 0), "flash_attention_bwd": (L, 0)}
+    for i, (counts, routes) in enumerate(per_step):
+        got = {k: counts[k] for k in want}
+        print(f"[train] step {i + 1} counts (launches, plain_calls): {got}; flash forward "
+              f"routes {routes}")
+        if got != want or routes["wgmma"] != 2 * L:
+            raise SystemExit(f"train step {i + 1} did not run only through the flash kernels: "
+                             f"{got}, routes {routes}; expected {want}, {2 * L} on wgmma")
+    if len(per_step) != TRAIN_STEPS or not all(
+            np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in history):
+        raise SystemExit(f"train steps: {len(per_step)} counted, history {history}")
+
+    timed = history[1:]
+    N, T = param_count(state.params), TRAIN_BATCH * TRAIN_SEQ
+    B, S, H, K, D = FLASH_TRAIN
+    attn = 4 * B * H * D * S * (S + 1) / 2 * L  # causal forward, every layer
+    model_flops = 6 * N * T + 3 * attn
+    run_flops = 8 * N * T + (2 + 4) * attn  # remat's recompute; this backward's 4x
+    step_s = statistics.median(m["step_s"] for m in timed)
+    peak = PEAK_FLOPS[torch.bfloat16]
+    print(f"[train] {cfg.name} bf16 L={L} d={cfg.d_model} H={cfg.n_heads} K={cfg.n_kv_heads} "
+          f"hd={cfg.head_dim_} vocab={cfg.vocab} N={N}: B={TRAIN_BATCH} S={TRAIN_SEQ} "
+          f"(train_4k's sequence; its global batch 256 cut to {TRAIN_BATCH}); timed steps "
+          f"2-{TRAIN_STEPS}: step s {[m['step_s'] for m in timed]}, median {step_s} s, "
+          f"{T / step_s} tokens/s, peak {max(m['peak_gib'] for m in history)} GiB; warm-up "
+          f"step {history[0]['step_s']} s ({card})")
+    print(f"[train] model FLOPs a step 6NT + 3 x causal attention = {model_flops:.4e}: "
+          f"{model_flops / step_s / 1e12} TFLOP/s, MFU {100 * model_flops / step_s / peak}% of "
+          f"the {peak / 1e12:.0f} TFLOP/s bf16 dense peak; as run (remat, a 4x backward) "
+          f"{run_flops:.4e}: {run_flops / step_s / 1e12} TFLOP/s ({card})")
+
+    # One more step under torch.profiler: where its device time goes.
+    step_fn = make_train_step(cfg, AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=1))
+    batch = {k: torch.from_numpy(a).cuda() for k, a in
+             make_batch(cfg, shape, TRAIN_STEPS, SEED).items()}
+
+    def one_step():
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    ms, count, busy, top = device_time_by_category(one_step, TRAIN_CATEGORIES,
+                                                   {"AdamW": "train.optimizer"},
+                                                   other="elementwise/copies")
+    host_ms = (time.perf_counter() - t0) * 1e3
+    parts = ", ".join(f"{c} {ms[c]} ms ({100 * ms[c] / busy:.1f}%, x{count[c]})" for c in ms)
+    print(f"[train] profile of one step (under the profiler, host {host_ms} ms with its "
+          f"overhead): device busy {busy} ms: {parts} ({card})")
+    for c, rows in top.items():
+        for name, t, n in rows[:TRAIN_TOP_KERNELS]:
+            print(f"[train]   {c}: {t:9.3f} ms x{n:<5d} {name[:110]}")
+    del state, batch, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The kernel on the inputs layers 27 and 0 gave it in the warm-up step.
+    for call, q, k, v, o, do, window in kept:
+        got = flash_ops.flash_attention_bwd(q, k, v, o, do, window=window)
+        abs_err, rel, row = bwd_errors(got, flash_bwd_ref(q, k, v, o, do, window=window))
+        layer = L - 1 - call
+        ok = row <= BWD_ROW_REL
+        print(f"[train] flash backward vs plain, layer {layer}'s q/k/v/o/dO of the warm-up "
+              f"step {tuple(q.shape)} bf16: max abs err {abs_err:.3e}, of max |plain| "
+              f"{rel:.3e}, max row err {row:.3e} {'ok' if ok else 'OUT OF TOLERANCE'}")
+        if not ok:
+            raise SystemExit(f"flash backward kernel disagrees with its plain version on "
+                             f"layer {layer}'s training inputs: {row}")
+    if len(kept) != 2:
+        raise SystemExit(f"the warm-up step kept {len(kept)} layers' backward inputs, not 2")
+    del kept
+    torch.cuda.empty_cache()
+    return sum(c["flash_attention_bwd"][0] for c, _ in per_step)
+
+
+def train_small_check(card: str) -> None:
+    """Phase 9(b): the reduced qwen3 in f32, card against CPU from one
+    state: first-step gradients, then three train steps' losses."""
+    cfg = dataclasses.replace(get_reduced(TRAIN_ARCH), dtype="float32")
+    host = numpy_tree(init_params(torch.Generator().manual_seed(SEED), cfg))
+    opt = AdamWConfig(total_steps=3, warmup_steps=1)
+    batches = [make_batch(cfg, TRAIN_SMALL_SHAPE, i, SEED) for i in range(3)]
+    grads, losses = {}, {}
+    for dev in ("cuda", "cpu"):
+        reset_all_counts()
+        state = train_state_init(None, cfg, params=lm_params(host, cfg, device=dev))
+        b0 = {k: torch.from_numpy(a).to(dev) for k, a in batches[0].items()}
+        leaves = [p for _, p in flatten(state.params)]
+        grads[dev] = torch.autograd.grad(loss_fn(state.params, b0, cfg), leaves)
+        step = make_train_step(cfg, opt)
+        losses[dev] = []
+        for b in batches:
+            state, m = step(state, {k: torch.from_numpy(a).to(dev) for k, a in b.items()})
+            losses[dev].append(float(m["loss"]))
+        if dev == "cuda":
+            counts = all_counts()
+            if counts["flash_attention_bwd"][0] == 0 or any(
+                    counts[k][1] for k in ("flash_attention", "flash_attention_bwd")):
+                raise SystemExit(f"small train on the card did not run the kernels: {counts}")
+    grad_rel = max(float((g.cpu() - c).abs().max() / c.abs().max().clamp_min(1e-30))
+                   for g, c in zip(grads["cuda"], grads["cpu"]))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    print(f"[train] reduced f32 card vs CPU: first-step gradients max err {grad_rel:.3e} of "
+          f"max |CPU| (worst leaf), three steps' losses {losses['cuda']} vs {losses['cpu']}, "
+          f"max rel diff {loss_rel:.3e}")
+    if grad_rel > TRAIN_SMALL_GRAD_REL or loss_rel > TRAIN_SMALL_LOSS_REL:
+        raise SystemExit("small train on the card disagrees with the CPU")
+
+
+def flatten(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [kv for k in tree for kv in flatten(tree[k], f"{prefix}/{k}")]
+    return [(prefix, tree)]
+
+
+def train_cli_round_trip(card: str) -> None:
+    """Phase 9(d): the train CLI on the card uninterrupted, SIGKILLed after
+    step 4, and rerun; the rerun resumes from step 3 with the same batches,
+    and its steps and final checkpoint must be the uninterrupted run's."""
+    common = [sys.executable, "-m", "repro_torch.launch.train", "--device", "cuda", *TRAIN_CLI]
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    tmp = tempfile.mkdtemp()
+    walls = []
+
+    def run(*extra):
+        t0 = time.perf_counter()
+        out = subprocess.run(common + list(extra), cwd=tmp, env=env, capture_output=True,
+                             text=True, timeout=600)
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    def steps(out):
+        return {int(m[1]): m.groups()[1:] for m in map(TRAIN_LINE.match, out.splitlines()) if m}
+
+    def manifest(d):
+        with open(os.path.join(tmp, d, "step_000000006", "manifest.json")) as f:
+            return [(e["path"], e["crc32"]) for e in json.load(f)["leaves"]]
+
+    try:
+        a = run("--ckpt-dir", "a")
+        if a.returncode != 0:
+            raise SystemExit(f"train CLI (uninterrupted) failed:\n{a.stderr[-4000:]}")
+        b = run("--ckpt-dir", "b", "--kill-after-steps", "4")
+        if b.returncode != -signal.SIGKILL:
+            raise SystemExit(f"train CLI --kill-after-steps 4 ended with {b.returncode}:\n"
+                             f"{b.stderr[-4000:]}")
+        c = run("--ckpt-dir", "b")
+        if c.returncode != 0 or "resumed from checkpoint step 3" not in c.stdout:
+            raise SystemExit(f"train CLI rerun failed ({c.returncode}):\n{c.stdout[-2000:]}\n"
+                             f"{c.stderr[-4000:]}")
+        sa, sb, sc = steps(a.stdout), steps(b.stdout), steps(c.stdout)
+        batches = all(sa[i][3] == sc[i][3] for i in (4, 5, 6)) and sorted(sc) == [4, 5, 6]
+        same_steps = all(sa[i] == sb[i] for i in sb) and all(sa[i] == sc[i] for i in sc)
+        differ = [p for (p, x), (_, y) in zip(manifest("a"), manifest("b")) if x != y]
+        print(f"[train] train CLI {' '.join(TRAIN_CLI)} --device cuda: uninterrupted "
+              f"{walls[0]} s, SIGKILLed after step 4 {walls[1]} s, rerun {walls[2]} s (process "
+              f"walls); the rerun resumed from step 3, batches of steps 4-6 "
+              f"{'the same' if batches else 'DIFFERENT'} (tokens crc32), steps' loss, grad "
+              f"norm and lr {'bitwise equal' if same_steps else 'DIFFER'}, final checkpoint "
+              f"{'bitwise equal' if not differ else f'differs in {differ}'} ({card})")
+        print(f"[train]   uninterrupted {sa}; resumed {sc}")
+        if not batches or not same_steps or differ:
+            raise SystemExit("the resumed training run is not the uninterrupted one")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def train_phase(gen, card: str) -> dict:
+    """Training (phase 9); returns the backward kernel's JSON entry."""
+    t_phase = time.perf_counter()
+    entry = train_kernel_checks(gen, card)
+    launches = train_full_width(card)
+    train_small_check(card)
+    train_cli_round_trip(card)
+    print(f"[train] phase wall {time.perf_counter() - t_phase} s ({card})")
+    return {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:97",
+        "launches": launches,
+        **{k: entry[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")},
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1643,6 +2039,10 @@ def main() -> int:
     # ---- 8. the ablation: the paper's assembly ladder on the card
     ablation_phase(card)
 
+    # ---- 9. training: qwen3-1.7b at full width, bf16, through the flash
+    # forward and backward kernels
+    bwd_entry = train_phase(gen, card)
+
     kernels = [
         {
             "name": "pa_elasticity",
@@ -1683,6 +2083,7 @@ def main() -> int:
             "bound_by": flash_bound_by,
             "library_ms": flash_lib_ms,
         },
+        bwd_entry,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

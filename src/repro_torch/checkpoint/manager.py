@@ -19,16 +19,23 @@ manifest is missing or whose CRCs mismatch, so a job killed mid-save
 restarts from the previous complete checkpoint.  ``keep`` bounds disk
 use.
 
-Trees are nested dicts, lists and tuples; anything else is a leaf
-(torch tensors go to the host with ``.detach().cpu().numpy()``).  Leaf
+Trees are nested dicts, lists, tuples and dataclasses; anything else is a
+leaf (torch tensors go to the host with ``.detach().cpu().numpy()``).  Leaf
 paths are the strings ``jax.tree_util.keystr`` gives for the same tree
-(``['name']`` for a dict key, ``[i]`` for a sequence index), in the same
-order (dict keys sorted), and every leaf is recorded as replicated (a
-single-host gather layout).
+(``['name']`` for a dict key, ``[i]`` for a sequence index, ``.name`` for
+a field of a registered dataclass such as a ``TrainState``), in the same
+order (dict keys sorted, fields in declaration order), and every leaf is
+recorded as replicated (a single-host gather layout).
+
+bfloat16 leaves (numpy has no such dtype) are written as their 16-bit
+patterns, a ``uint16`` array, with ``"dtype": "bfloat16"`` in the manifest
+and the CRC over those bytes, and restored bitwise; every other leaf keeps
+the format above.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -42,6 +49,7 @@ import torch
 __all__ = ["CheckpointManager"]
 
 _MANIFEST = "manifest.json"
+_BF16 = "bfloat16"
 
 # The path of a single-level {"name": leaf} dict: ['name'].  Flat-dict
 # checkpoints (the serving-state layout repro_torch.serve.recovery
@@ -60,6 +68,11 @@ def _flatten_with_paths(tree, prefix: str = "") -> list[tuple[str, Any]]:
         for k in sorted(tree):
             out += _flatten_with_paths(tree[k], f"{prefix}[{k!r}]")
         return out
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        out = []
+        for f in dataclasses.fields(tree):
+            out += _flatten_with_paths(getattr(tree, f.name), f"{prefix}.{f.name}")
+        return out
     if isinstance(tree, (list, tuple)):
         out = []
         for i, v in enumerate(tree):
@@ -75,15 +88,25 @@ def _unflatten(like, leaves):
         return None
     if isinstance(like, dict):
         return {k: _unflatten(like[k], leaves) for k in sorted(like)}
+    if dataclasses.is_dataclass(like) and not isinstance(like, type):
+        return dataclasses.replace(like, **{f.name: _unflatten(getattr(like, f.name), leaves)
+                                            for f in dataclasses.fields(like)})
     if isinstance(like, (list, tuple)):
         return type(like)(_unflatten(v, leaves) for v in like)
     return next(leaves)
 
 
-def _host(leaf) -> np.ndarray:
+def _host(leaf) -> tuple[np.ndarray, str]:
+    """``(array, manifest dtype)``: a bfloat16 tensor as its uint16 bit
+    patterns, dtype ``"bfloat16"``."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16), _BF16
+        arr = t.numpy()
+    else:
+        arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
 
 
 def _crc32(arr: np.ndarray) -> int:
@@ -92,9 +115,16 @@ def _crc32(arr: np.ndarray) -> int:
     return zlib.crc32(np.ascontiguousarray(arr))
 
 
-def _cast_like(arr: np.ndarray, leaf):
-    """``arr`` in the dtype of the ``like`` leaf: a tensor of its dtype
-    on its device for a torch tensor, else a numpy array."""
+def _cast_like(arr: np.ndarray, leaf, dtype: str):
+    """``arr`` (of manifest dtype ``dtype``) in the dtype of the ``like``
+    leaf: a tensor of its dtype on its device for a torch tensor, else a
+    numpy array.  A bfloat16 leaf's bit patterns become a bfloat16 tensor
+    bit for bit."""
+    if dtype == _BF16:
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+        if isinstance(leaf, torch.Tensor):
+            return t.to(device=leaf.device, dtype=leaf.dtype)
+        arr = t.float().numpy()
     if isinstance(leaf, torch.Tensor):
         return torch.from_numpy(arr).to(device=leaf.device, dtype=leaf.dtype)
     tgt = np.asarray(leaf).dtype if hasattr(leaf, "dtype") else arr.dtype
@@ -115,7 +145,7 @@ class CheckpointManager:
 
         entries = []
         for i, (path, leaf) in enumerate(_flatten_with_paths(state)):
-            arr = _host(leaf)
+            arr, dtype = _host(leaf)
             fname = f"leaf_{i:05d}.npy"
             with open(os.path.join(tmp, fname), "wb") as f:
                 np.save(f, arr)
@@ -126,7 +156,7 @@ class CheckpointManager:
                     "path": path,
                     "file": fname,
                     "shape": list(arr.shape),
-                    "dtype": str(arr.dtype),
+                    "dtype": dtype,
                     "crc32": _crc32(arr),
                     "sharding": "replicated",  # single-host gather layout
                 }
@@ -185,7 +215,7 @@ class CheckpointManager:
         also its device)."""
         manifest, load = self._read(step)
         by_path = {e["path"]: e for e in manifest["leaves"]}
-        out = [_cast_like(load(by_path[path]), leaf)
+        out = [_cast_like(load(by_path[path]), leaf, by_path[path]["dtype"])
                for path, leaf in _flatten_with_paths(like)]
         return _unflatten(like, iter(out)), manifest["extra"]
 
@@ -199,7 +229,8 @@ class CheckpointManager:
         (:mod:`repro_torch.serve.recovery`), whose structure (how many
         flights, which prep leaves) is itself part of the checkpoint.
         Leaf names come from the manifest paths (``['name']`` for a flat
-        dict); non-flat paths are returned under their full path."""
+        dict); non-flat paths are returned under their full path.  A
+        bfloat16 leaf comes back as its uint16 bit patterns."""
         manifest, load = self._read(step)
         items: dict[str, np.ndarray] = {}
         for e in manifest["leaves"]:

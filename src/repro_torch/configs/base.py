@@ -1,7 +1,8 @@
 """Architecture configuration, copied from the reference's
 ``repro.configs.base`` so that the port imports nothing of it.
 
-``ArchConfig`` is the reference's dataclass field for field.  The registry
+``ArchConfig``, ``ShapeConfig`` and ``SHAPES`` are the reference's, field
+for field.  The registry
 knows every architecture id and alias of the reference, but holds only the
 ported ones: :func:`get_config` / :func:`get_reduced` of any other raise
 ``NotImplementedError`` naming ROADMAP.md, and never fall back to another
@@ -14,7 +15,8 @@ import dataclasses
 import importlib
 from typing import Optional
 
-__all__ = ["ArchConfig", "ARCH_IDS", "ALIASES", "PORTED", "get_config", "get_reduced"]
+__all__ = ["ArchConfig", "ShapeConfig", "SHAPES", "ARCH_IDS", "ALIASES", "PORTED",
+           "get_config", "get_reduced"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,6 +122,21 @@ class ArchConfig:
             + self.top_k * dense_mlp
         )
 
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str  # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
 
 ARCH_IDS = (
     "qwen15_32b",

@@ -3,7 +3,8 @@
 The solver has no learned weights.  Its state is the mesh, the material
 fields, the basis tables and the power iterations' start vectors, all of
 which the reference keeps as numpy arrays (or can hand over as such).
-The LM's state is its parameter pytree (:func:`lm_params`).  These
+The LM's state is its parameter pytree (:func:`lm_params`) and, in
+training, the optimizer's moments and step (:func:`train_state`).  These
 helpers rebuild them here, on a given device and dtype, so that both
 packages compute the same thing on the same inputs.  Nothing here imports
 the reference: a mesh is read by its attributes, parameters are numpy
@@ -20,7 +21,7 @@ import torch
 from repro_torch.fem.mesh import HexMesh
 from repro_torch.models.transformer import param_dtype, param_shapes
 
-__all__ = ["hex_mesh", "lm_params", "operator_data", "start_vectors"]
+__all__ = ["hex_mesh", "lm_params", "operator_data", "start_vectors", "train_state"]
 
 
 def hex_mesh(mesh) -> HexMesh:
@@ -95,3 +96,27 @@ def lm_params(params, cfg, *, device, dtype: torch.dtype | None = None) -> dict:
         return torch.from_numpy(a).to(device=device, dtype=dtype)
 
     return convert(params, param_shapes(cfg), "")
+
+
+def train_state(state, cfg, *, device, dtype: torch.dtype | None = None):
+    """The reference's ``TrainState`` (any object with ``params``,
+    ``opt_state`` = {"m", "v", "step"} and ``step``, leaves as numpy arrays,
+    e.g. ``jax.tree.map(np.asarray, state)``) as this package's
+    :class:`~repro_torch.train.trainer.TrainState` on ``device``: parameters
+    in ``dtype`` (default ``cfg.dtype``) and requiring grad, moments in
+    float32, steps as 0-d int32 tensors."""
+    from repro_torch.train.trainer import TrainState, _requires_grad
+
+    def step(a):
+        return torch.tensor(int(np.asarray(a)), dtype=torch.int32, device=device)
+
+    opt = state.opt_state
+    return TrainState(
+        params=_requires_grad(lm_params(state.params, cfg, device=device, dtype=dtype)),
+        opt_state={
+            "m": lm_params(opt["m"], cfg, device=device, dtype=torch.float32),
+            "v": lm_params(opt["v"], cfg, device=device, dtype=torch.float32),
+            "step": step(opt["step"]),
+        },
+        step=step(state.step),
+    )

@@ -1,7 +1,8 @@
 """Build and load the flash-attention kernel library.
 
-``csrc/flash_attention.cu`` (the mma_sync and fma routes) and
-``csrc/flash_attention_wgmma.cu`` (the wgmma route) are compiled at first
+``csrc/flash_attention.cu`` (the mma_sync and fma routes),
+``csrc/flash_attention_wgmma.cu`` (the wgmma route) and
+``csrc/flash_attention_bwd.cu`` (the backward) are compiled at first
 use with ``nvcc`` for ``sm_90a``, one process each, into one shared library
 with a plain C interface, loaded with ``ctypes``;
 :mod:`repro_torch.kernels.nvcc` does the build into ``_build/`` beside this
@@ -20,18 +21,23 @@ __all__ = ["KernelLibrary", "load", "BUILD_DIR", "SOURCES", "ENTRY_POINTS"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
-SOURCES = ("flash_attention.cu", "flash_attention_wgmma.cu")
-# (route, dtype name) -> C entry point
+SOURCES = ("flash_attention.cu", "flash_attention_wgmma.cu", "flash_attention_bwd.cu")
+# (route, dtype name) -> C entry point; route "bwd" is the backward
 ENTRY_POINTS = {
     ("wgmma", "bf16"): "flash_attention_wgmma_bf16",
     ("mma_sync", "bf16"): "flash_attention_mma_sync_bf16",
     ("fma", "bf16"): "flash_attention_fma_bf16",
     ("fma", "f32"): "flash_attention_fma_f32",
+    ("bwd", "bf16"): "flash_attention_bwd_bf16",
+    ("bwd", "f32"): "flash_attention_bwd_f32",
 }
 
 _P = ctypes.c_void_p
 # q, k, v, o; B, S, H, K, D, window; (b, s, h) strides of q, k, v, o; stream
 _ARGTYPES = [_P] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12 + [_P]
+# q, k, v, o, dO, dq, dk, dv, lse, delta; B, S, H, K, D, window; (b, s, h)
+# strides of q, k, v, o, dO, dq, dk, dv; stream
+_BWD_ARGTYPES = [_P] * 10 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 24 + [_P]
 
 
 class KernelLibrary:
@@ -42,9 +48,9 @@ class KernelLibrary:
         self.build_seconds = build_seconds  # 0.0 when loaded from _build/
         self.log = log  # nvcc/ptxas output of the build (registers, spills)
         lib = ctypes.CDLL(str(path))
-        for name in ENTRY_POINTS.values():
+        for (route, _), name in ENTRY_POINTS.items():
             fn = getattr(lib, name)
-            fn.argtypes = _ARGTYPES
+            fn.argtypes = _BWD_ARGTYPES if route == "bwd" else _ARGTYPES
             fn.restype = ctypes.c_int
         lib.flash_attention_wgmma_smem_bytes.argtypes = [ctypes.c_int]
         lib.flash_attention_wgmma_smem_bytes.restype = ctypes.c_int

@@ -23,6 +23,15 @@ Block sizes are the kernels' own compile-time constants; the reference's
 have no counterpart.  ``counts["flash_attention"]`` keeps ``launches`` and
 ``plain_calls``; ``route_launches`` counts the launches of each route
 beside it; :func:`reset_counts` zeroes both.
+
+The gradient: :func:`flash_attention_bwd` launches the backward kernel
+(``csrc/flash_attention_bwd.cu``, bf16 and float32, D in
+:data:`BWD_D`) for CUDA tensors or raises, and runs its plain version
+:func:`.ref.flash_bwd_ref` for CPU tensors; ``counts["flash_attention_bwd"]``
+counts it.  :class:`FlashAttention` is the ``torch.autograd.Function``
+that joins the two; :func:`flash_attention` enters it only when grad mode
+is on and an input requires grad, so inference (the serve path) never
+saves anything for a backward.
 """
 
 from __future__ import annotations
@@ -32,10 +41,12 @@ import dataclasses
 import torch
 
 from repro_torch.kernels.flash_attention import build
-from repro_torch.kernels.flash_attention.ref import flash_ref
+from repro_torch.kernels.flash_attention.ref import flash_bwd_ref, flash_ref
 
 __all__ = [
     "flash_attention",
+    "flash_attention_bwd",
+    "FlashAttention",
     "launch",
     "route",
     "counts",
@@ -43,10 +54,12 @@ __all__ = [
     "reset_counts",
     "ROUTES",
     "SUPPORTED_D",
+    "BWD_D",
     "KERNEL_DTYPES",
 ]
 
 SUPPORTED_D = (8, 16, 32, 64, 128)
+BWD_D = (16, 32, 64, 128)  # the backward kernel's instantiations
 KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 ROUTES = ("wgmma", "mma_sync", "fma")
 WGMMA_D = (64, 128)
@@ -58,7 +71,7 @@ class Counts:
     plain_calls: int = 0
 
 
-counts = {"flash_attention": Counts()}
+counts = {"flash_attention": Counts(), "flash_attention_bwd": Counts()}
 route_launches = dict.fromkeys(ROUTES, 0)
 
 
@@ -130,8 +143,18 @@ def _check_args(q, k, v, window) -> tuple[int, int, int, int, int]:
 def flash_attention(q, k, v, *, window=None):
     """Causal GQA attention. q (B, S, H, D); k/v (B, S, K, D), H = K * G,
     query head h = k * G + g.  Optional sliding window: position s sees
-    t with s - window < t <= s.  Returns (B, S, H, D) in q.dtype."""
+    t with s - window < t <= s.  Returns (B, S, H, D) in q.dtype.
+
+    Differentiable: with grad mode on and an input that requires grad it
+    goes through :class:`FlashAttention`, whose backward is
+    :func:`flash_attention_bwd`."""
     _check_args(q, k, v, window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, window)
+    return _forward(q, k, v, window)
+
+
+def _forward(q, k, v, window):
     if q.device.type == "cpu":
         counts["flash_attention"].plain_calls += 1
         return flash_ref(q, k, v, window=window)
@@ -147,7 +170,7 @@ def launch(name: str, q, k, v, *, window=None):
     B, S, H, K, D = _check_args(q, k, v, window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    entry = build.ENTRY_POINTS.get((name, KERNEL_DTYPES[q.dtype]))
+    entry = build.ENTRY_POINTS.get((name, KERNEL_DTYPES[q.dtype])) if name in ROUTES else None
     if entry is None:
         raise ValueError(f"flash_attention: no {name!r} kernel for {q.dtype}")
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
@@ -167,3 +190,77 @@ def launch(name: str, q, k, v, *, window=None):
     counts["flash_attention"].launches += 1
     route_launches[name] += 1
     return o
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its gradient: the forward is
+    :func:`flash_attention`'s (the kernel on the card, the plain version on
+    the CPU) and saves q, k, v and o; the backward is
+    :func:`flash_attention_bwd`.  There is no fallback: a backward kernel
+    that fails to build or launch raises."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window):
+        o = _forward(q, k, v, window)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.window = window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, window=ctx.window)
+        return dq, dk, dv, None
+
+
+def flash_attention_bwd(q, k, v, o, do, *, window=None):
+    """Gradient of :func:`flash_attention`: given q (B, S, H, D), k/v
+    (B, S, K, D), the forward's output o and the output gradient do (both
+    (B, S, H, D)), returns (dq, dk, dv) in the input dtype, accumulated in
+    f32, scale 1/sqrt(D) as in the forward.
+
+    CUDA tensors launch the backward kernel or raise; CPU tensors run
+    :func:`.ref.flash_bwd_ref`.  One call is one launch in
+    ``counts["flash_attention_bwd"]``; it runs three kernels of
+    ``csrc/flash_attention_bwd.cu`` in turn: ``bwd_prep`` (LSE and delta per
+    query row), ``bwd_dkdv`` (dk, dv per key tile), ``bwd_dq`` (dq per query
+    tile)."""
+    B, S, H, K, D = _check_args(q, k, v, window)
+    for name, t in {"o": o, "do": do}.items():
+        if t.dtype != q.dtype or t.device != q.device or t.shape != q.shape:
+            raise ValueError(
+                f"flash_attention_bwd: {name} is {tuple(t.shape)} {t.dtype} on {t.device}, "
+                f"expected {tuple(q.shape)} {q.dtype} on {q.device} like q"
+            )
+    if D not in BWD_D:
+        raise ValueError(
+            f"flash_attention_bwd: no kernel instantiation for head dim D = {D}; "
+            f"instantiated for D in {BWD_D} in float32 and bfloat16"
+        )
+    if q.device.type == "cpu":
+        counts["flash_attention_bwd"].plain_calls += 1
+        return flash_bwd_ref(q, k, v, o, do, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
+    ins = [t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v, o, do)]
+    dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, S, K, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if dq.numel() == 0:
+        return dq, dk, dv
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    kl = build.load()
+    fn = getattr(kl.lib, build.ENTRY_POINTS[("bwd", KERNEL_DTYPES[q.dtype])])
+    outs = (dq, dk, dv)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(
+            *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
+            lse.data_ptr(), delta.data_ptr(), B, S, H, K, D, window or 0,
+            *(st for t in (*ins, *outs) for st in t.stride()[:3]),
+            stream,
+        )
+    kl.check(err, f"flash_attention_bwd launch (B={B}, S={S}, H={H}, K={K}, D={D}, {q.dtype})")
+    counts["flash_attention_bwd"].launches += 1
+    return dq, dk, dv

@@ -1,6 +1,8 @@
-"""Plain PyTorch version of the flash-attention kernel: materialized causal
-(optionally sliding-window) GQA attention in float32, as the reference's
-oracle ``repro.kernels.flash_attention.ref.flash_ref`` computes it."""
+"""Plain PyTorch versions of the flash-attention kernels: materialized
+causal (optionally sliding-window) GQA attention in float32, as the
+reference's oracle ``repro.kernels.flash_attention.ref.flash_ref`` computes
+it, and its gradient (:func:`flash_bwd_ref`), the backward kernel's plain
+version."""
 
 from __future__ import annotations
 
@@ -8,7 +10,7 @@ import math
 
 import torch
 
-__all__ = ["flash_ref"]
+__all__ = ["flash_ref", "flash_bwd_ref"]
 
 
 def flash_ref(q, k, v, *, window=None):
@@ -18,18 +20,45 @@ def flash_ref(q, k, v, *, window=None):
     Computed in f32, returned in q.dtype.
     """
     B, S, H, D = q.shape
+    p = _probs(q, k, window)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return o.reshape(B, S, H, D).to(q.dtype)
+
+
+def _probs(q, k, window):
+    """Softmax probabilities (B, K, G, S, S) in f32 under the causal (and
+    window) mask."""
+    B, S, H, D = q.shape
     K = k.shape[2]
-    G = H // K
-    qf = q.float().reshape(B, S, K, G, D)
-    kf = k.float()
-    vf = v.float()
-    s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) / math.sqrt(D)
+    qf = q.float().reshape(B, S, K, H // K, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) / math.sqrt(D)
     pos = torch.arange(S, device=q.device)
     qpos, kpos = pos[:, None], pos[None, :]
     mask = qpos >= kpos
     if window is not None:
         mask &= (qpos - kpos) < window
-    s = s.masked_fill(~mask, -math.inf)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskd->bqkgd", p, vf)
-    return o.reshape(B, S, H, D).to(q.dtype)
+    return torch.softmax(s.masked_fill(~mask, -math.inf), dim=-1)
+
+
+def flash_bwd_ref(q, k, v, o, do, *, window=None):
+    """Gradient of :func:`flash_ref` at (q, k, v) for the output gradient
+    ``do``, given the forward's output ``o``.  q, o, do (B, S, H, D); k/v
+    (B, S, K, D).  Returns (dq, dk, dv) in the inputs' dtypes.
+
+    The materialized f32 formulas the backward kernel computes tile by tile:
+    P = softmax(q k^T / sqrt(D)) under the mask, dV = P^T dO,
+    delta = rowsum(dO o o), dS = P o (dO V^T - delta), dQ = dS K / sqrt(D),
+    dK = dS^T Q / sqrt(D)."""
+    B, S, H, D = q.shape
+    K = k.shape[2]
+    G = H // K
+    p = _probs(q, k, window)
+    qf = q.float().reshape(B, S, K, G, D)
+    dof = do.float().reshape(B, S, K, G, D)
+    delta = (dof * o.float().reshape(B, S, K, G, D)).sum(-1).permute(0, 2, 3, 1)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, v.float())
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()) / math.sqrt(D)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf) / math.sqrt(D)
+    return dq.reshape(B, S, H, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

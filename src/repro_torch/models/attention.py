@@ -8,7 +8,10 @@ Two paths, as in the reference:
   tiles, no S x S intermediate), on the CPU its plain version.  There is
   one path for every S; the reference's ``impl`` switch chooses between
   two XLA strategies (``full`` materialized, ``chunked`` online softmax)
-  for the same function, and the tests hold this one against both.
+  for the same function, and the tests hold this one against both.  In
+  training it is differentiable: its gradient is the flash backward
+  kernel (``FlashAttention``), where the reference takes XLA's autodiff
+  of those strategies.
 * :func:`decode_attention` -- a one-token query against a KV cache (dense,
   or a rolling sliding-window buffer), in plain PyTorch: the reference has
   no kernel for it either.

@@ -1,17 +1,18 @@
-"""Model assembly for the dense attention family: init, forward, prefill
-and single-token decode.
+"""Model assembly for the dense attention family: init, forward (the
+training path, with a rematerialized block loop and the chunked LM-head
+cross-entropy), prefill and single-token decode.
 
 Parameters are a dict of tensors with the reference's pytree layout:
 per-layer parameters are *stacked* along a leading layer axis under
 ``blocks``, and every weight keeps the reference's (in, out) orientation
 (``x @ w``), so carrying weights across (:func:`repro_torch.convert.lm_params`)
-is a copy.  The layer loop is a Python loop over views of the stacks (the
-reference's ``lax.scan``).
+is a copy.  The layer loop is a Python loop over the stacks unbound into
+per-layer views (the reference's ``lax.scan``); ``torch.unbind``'s gradient
+stacks the layers' gradients once.
 
 Ported: ``block_pattern == "attn"`` without experts, with RoPE positions.
 The other families (MoE, Mamba2/zamba2, xLSTM, M-RoPE, codebooks, vision)
-and the training path (``loss_fn``, ``chunked_ce_loss``) raise
-``NotImplementedError`` naming ROADMAP.md, Queue 1 item 11.
+raise ``NotImplementedError`` naming ROADMAP.md, Queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import (
     attention,
@@ -39,7 +42,12 @@ __all__ = [
     "param_count",
     "param_dtype",
     "param_shapes",
+    "AUX_LOSS_COEF",
+    "LOSS_CHUNK",
 ]
+
+AUX_LOSS_COEF = 0.01
+LOSS_CHUNK = 2048  # sequence chunk of the LM-head cross-entropy
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
@@ -84,7 +92,8 @@ def _attn_block_init(generator, cfg, dtype):
 
 
 def _attn_block_apply(p, x, cfg, positions):
-    """Pre-norm attention block. Returns (x, aux, kv)."""
+    """Pre-norm attention block. Returns (x, aux, kv); aux is 0.0 for the
+    dense family (no MoE balance loss)."""
     h, kv = attention(p["attn"], rmsnorm(x, p["attn_norm"], cfg.norm_eps), cfg, positions)
     x = x + h
     hn = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
@@ -115,6 +124,20 @@ def _stack(trees):
 def _layer(blocks, i: int):
     """Layer ``i``'s parameters: views into the stacked tensors."""
     return _tree_map(lambda a: a[i], blocks)
+
+
+def _unstack(blocks, n: int) -> list:
+    """Every layer's parameters, as views: one ``torch.unbind`` a stack, so
+    that the gradient of the stack is one ``torch.stack`` of the layers'
+    gradients (indexing a stack once a layer would give each layer's
+    gradient a zero-filled copy of the whole stack)."""
+    def walk(tree, i):
+        if isinstance(tree, dict):
+            return {k: walk(v, i) for k, v in tree.items()}
+        return tree[i]
+
+    unbound = _tree_map(torch.unbind, blocks)
+    return [walk(unbound, i) for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -195,24 +218,73 @@ def _head_weight(params, cfg):
 
 
 # ---------------------------------------------------------------------------
-# forward (no remat: inference and parity tests)
+# forward (training path): layer loop, remat per block
 # ---------------------------------------------------------------------------
-def forward(params, batch, cfg):
-    """Run the stack; returns (hidden (B, S, d), aux_loss 0.0)."""
+def _block_x(p, x, cfg, positions):
+    return _attn_block_apply(p, x, cfg, positions)[0]
+
+
+def forward(params, batch, cfg, *, remat: bool = True):
+    """Run the stack; returns (hidden (B, S, d), aux_loss 0.0).
+
+    With ``remat`` and grad mode on, each block runs under
+    ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, the
+    reference's ``jax.checkpoint`` per block: only the block's input is
+    kept, and its forward (flash kernel included) runs again in the
+    backward."""
     check_supported(cfg)
     x = _embed(params, batch, cfg)
     positions = _positions(batch, cfg)
-    for i in range(cfg.n_layers):
-        x, _, _ = _attn_block_apply(_layer(params["blocks"], i), x, cfg, positions)
+    rematted = remat and torch.is_grad_enabled()
+    for p in _unstack(params["blocks"], cfg.n_layers):
+        if rematted:
+            x = checkpoint(_block_x, p, x, cfg, positions, use_reentrant=False)
+        else:
+            x = _block_x(p, x, cfg, positions)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps), 0.0
 
 
-def chunked_ce_loss(*args, **kwargs):
-    raise _not_ported("chunked_ce_loss (the training slice)")
+# ---------------------------------------------------------------------------
+# LM head + cross-entropy, chunked over the sequence
+# ---------------------------------------------------------------------------
+def _ce_chunk(hc, head_w, lc):
+    """Summed CE of one chunk over its valid (label >= 0) positions; the
+    (B, c, V) logits in f32, as the reference."""
+    logits = (hc @ head_w).float()
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), lc.reshape(-1).long(),
+                           ignore_index=-1, reduction="sum")
 
 
-def loss_fn(*args, **kwargs):
-    raise _not_ported("loss_fn (the training slice)")
+def chunked_ce_loss(hidden, head_w, labels, chunk: int = LOSS_CHUNK):
+    """Mean next-token CE over valid (label >= 0) positions.
+
+    hidden (B, S, d); head_w (d, V); labels (B, S) already shifted by the
+    data pipeline (-1 = ignore).  Loops over S-chunks, each chunk's body
+    under checkpoint when grad mode is on, so the (B, c, V) float32 logits
+    exist only transiently in the forward and in the backward (saving
+    every chunk's logits would keep the whole (B, S, V) f32 tensor the
+    function exists to avoid)."""
+    B, S, d = hidden.shape
+    c = min(chunk, S)
+    if S % c:
+        raise ValueError(f"chunked_ce_loss: sequence {S} is not a multiple of the chunk {c}")
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, S, c):
+        hc, lc = hidden[:, i:i + c], labels[:, i:i + c]
+        if torch.is_grad_enabled():
+            tot = tot + checkpoint(_ce_chunk, hc, head_w, lc, use_reentrant=False)
+        else:
+            tot = tot + _ce_chunk(hc, head_w, lc)
+    cnt = (labels >= 0).sum()
+    return tot / torch.clamp(cnt, min=1)
+
+
+def loss_fn(params, batch, cfg, *, remat: bool = True):
+    """Scalar training loss: CE + AUX_LOSS_COEF * aux (aux is 0 for the
+    dense family)."""
+    hidden, aux = forward(params, batch, cfg, remat=remat)
+    ce = chunked_ce_loss(hidden, _head_weight(params, cfg), batch["labels"])
+    return ce + AUX_LOSS_COEF * aux
 
 
 # ---------------------------------------------------------------------------
@@ -260,8 +332,8 @@ def prefill(params, batch, cfg, max_len: int | None = None):
         # rolling window layout: position t of the last `size` lands in
         # slot t % size
         slots = torch.arange(S - size, S, device=x.device) % size
-    for i in range(cfg.n_layers):
-        x, _, (k, v) = _attn_block_apply(_layer(params["blocks"], i), x, cfg, positions)
+    for i, p in enumerate(_unstack(params["blocks"], cfg.n_layers)):
+        x, _, (k, v) = _attn_block_apply(p, x, cfg, positions)
         # In place: each layer's k/v go straight into the preallocated
         # (L, B, size, K, hd) cache; the reference stacks every layer's k/v
         # and then copies the stack into its cache.

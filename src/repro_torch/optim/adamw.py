@@ -1,0 +1,115 @@
+"""AdamW with decoupled weight decay, global-norm clipping and a
+warmup+cosine learning-rate schedule, on nested dicts of tensors (the
+reference's ``repro.optim.adamw`` on pytrees).
+
+Moments are float32 whatever the parameter dtype (bf16 training needs f32
+first and second moments); the moment trees mirror the parameter tree.
+:func:`adamw_update` works in place under ``torch.no_grad()``: parameters
+and moments are overwritten, which is the port's form of the reference's
+buffer donation (parameters and moments are the largest residents of the
+card's memory).  The schedule, the bias corrections and the clip scale
+stay 0-d tensors on the parameters' device, so a step makes no host sync.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+
+__all__ = [
+    "AdamWConfig",
+    "adamw_init",
+    "adamw_update",
+    "cosine_schedule",
+    "global_norm",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+
+
+def _tree_map(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def cosine_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
+    """Linear warmup then cosine decay to min_lr_ratio * lr, in f32 (a 0-d
+    tensor on ``step``'s device; a Python int gives one on the CPU)."""
+    step = torch.as_tensor(step).to(torch.float32)
+    warm = step / max(cfg.warmup_steps, 1)
+    t = (step - cfg.warmup_steps) / max(cfg.total_steps - cfg.warmup_steps, 1)
+    t = t.clamp(0.0, 1.0)
+    cos = cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * 0.5 * (1 + torch.cos(math.pi * t))
+    return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
+
+
+def adamw_init(params) -> dict[str, Any]:
+    """Zero f32 moments shaped like ``params`` and a 0-d int32 step, on the
+    parameters' device."""
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+    device = next(_leaves(params)).device
+    return {
+        "m": _tree_map(zeros, params),
+        "v": _tree_map(zeros, params),
+        "step": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, accumulated in f32."""
+    return torch.sqrt(sum(torch.linalg.vector_norm(x, dtype=torch.float32).square()
+                          for x in _leaves(tree)))
+
+
+@torch.no_grad()
+def adamw_update(cfg: AdamWConfig, params, grads, opt_state):
+    """One AdamW step, in place.  Returns (params, opt_state, metrics): the
+    same trees, updated, and ``{"grad_norm", "lr"}`` as 0-d tensors."""
+    step = opt_state["step"] + 1
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+    lr = cosine_schedule(cfg, step)
+    b1, b2 = cfg.beta1, cfg.beta2
+    stepf = step.to(torch.float32)
+    bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=stepf.device), stepf)
+    bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=stepf.device), stepf)
+
+    def upd(p, g, m, v):
+        g = g.to(torch.float32) * scale
+        m.mul_(b1).add_(g, alpha=1 - b1)
+        v.mul_(b2).addcmul_(g, g, value=1 - b2)
+        delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+        # decoupled weight decay on matrices only (ndim >= 2), the usual
+        # exemption for norms and biases.
+        if p.ndim >= 2:
+            delta.add_(p.to(torch.float32), alpha=cfg.weight_decay)
+        p.copy_(p.to(torch.float32) - lr * delta)
+
+    _tree_map(upd, params, grads, opt_state["m"], opt_state["v"])
+    opt_state["step"] = step
+    return params, opt_state, {"grad_norm": gnorm, "lr": lr}

@@ -1,12 +1,15 @@
-"""Per-phase profile of a run, shared by the launch CLIs (``--profile``)."""
+"""Per-phase profile of a run, shared by the launch CLIs (``--profile``),
+and the device time of a run by category of kernel."""
 
 from __future__ import annotations
+
+import re
 
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-__all__ = ["print_profile"]
+__all__ = ["print_profile", "device_time_by_category"]
 
 
 def print_profile(run, prefix: str, top: int = 8) -> None:
@@ -50,3 +53,47 @@ def print_profile(run, prefix: str, top: int = 8) -> None:
         for name, (us, n) in ranked[:top]:
             print(f"[profile]   {us / 1e3:9.3f} ms {100 * us / busy if busy else 0:5.1f}% "
                   f"x{n:<6d} {name[:100]}")
+
+
+def device_time_by_category(run, categories: dict[str, str],
+                            ranges: dict[str, str] | None = None,
+                            other: str = "other"):
+    """Run ``run()`` under torch.profiler and sum the device time of its
+    kernels and copies by category: ``({category: ms}, {category: count},
+    busy ms, {category: [(name, ms, count), ...] by ms})``.
+
+    A device event goes to the category of ``ranges`` (category ->
+    ``record_function`` name) whose host range saw the operator that
+    launched it (matched through the profiler's correlation ids, so a
+    kernel that runs after its range ended on the host still counts there);
+    else to the first category of ``categories`` (category -> regex) that
+    matches its name; else to ``other``."""
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        run()
+    events = prof.profiler.kineto_results.events()
+    cpu = [e for e in events if e.device_type() == DeviceType.CPU]
+    launched_at = {e.correlation_id(): e.start_ns() for e in cpu if e.correlation_id()}
+    spans = [(cat, e.start_ns(), e.start_ns() + e.duration_ns())
+             for cat, name in (ranges or {}).items() for e in cpu if e.name() == name]
+    patterns = [(cat, re.compile(rx)) for cat, rx in categories.items()]
+    order = [*(ranges or {}), *categories, other]
+    ms, count = dict.fromkeys(order, 0.0), dict.fromkeys(order, 0)
+    names: dict[str, dict[str, list]] = {c: {} for c in order}
+    for e in events:
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        t = launched_at.get(e.linked_correlation_id())
+        cat = next((c for c, lo, hi in spans if t is not None and lo <= t < hi), None)
+        if cat is None:
+            cat = next((c for c, rx in patterns if rx.search(e.name())), other)
+        ms[cat] += e.duration_ns() / 1e6
+        count[cat] += 1
+        acc = names[cat].setdefault(e.name(), [0.0, 0])
+        acc[0] += e.duration_ns() / 1e6
+        acc[1] += 1
+    top = {c: sorted(((n, t, k) for n, (t, k) in d.items()), key=lambda r: -r[1])
+           for c, d in names.items()}
+    return ms, count, sum(ms.values()), top

@@ -27,7 +27,7 @@ import torch
 from repro.checkpoint.manager import CheckpointManager as RefCheckpointManager
 from repro.fem.mesh import beam_hex as ref_beam_hex
 from repro.solvers.batched import BatchedGMGSolver as RefBatchedGMGSolver
-from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.checkpoint.manager import CheckpointManager, _flatten_with_paths
 from repro_torch.core.precision import resolve_precision
 from repro_torch.fem.mesh import beam_hex
 from repro_torch.solvers.batched import BatchedGMGSolver
@@ -120,6 +120,55 @@ def test_restore_casts_dtype(tmp_path):
     assert torch.equal(restored["w"], torch.ones((2, 2), dtype=torch.bfloat16))
     restored, _ = mgr.restore({"w": np.zeros((2, 2), np.float64)})
     assert restored["w"].dtype == np.float64
+
+
+def test_bf16_leaves_roundtrip_bitwise(tmp_path):
+    """bfloat16 tensors (numpy has no such dtype) are written as their
+    uint16 bit patterns with "bfloat16" in the manifest and restored bit
+    for bit, special values included; float32 leaves keep their format."""
+    w = torch.randn((3, 5), generator=torch.Generator().manual_seed(0)).bfloat16()
+    w[0, :4] = torch.tensor([float("inf"), -0.0, 1e-40, float("nan")]).bfloat16()
+    tree = {"w": w, "b": torch.arange(4, dtype=torch.float32)}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(7, tree)
+    leaves = _manifest(tmp_path)["leaves"]
+    assert [(e["path"], e["dtype"], e["shape"]) for e in leaves] == [
+        ("['b']", "float32", [4]), ("['w']", "bfloat16", [3, 5])]
+    restored, _ = mgr.restore({"w": torch.zeros((3, 5), dtype=torch.bfloat16),
+                               "b": torch.zeros(4)})
+    assert restored["w"].dtype == torch.bfloat16
+    assert torch.equal(restored["w"].view(torch.int16), w.view(torch.int16))
+    assert torch.equal(restored["b"], tree["b"])
+    items, _ = mgr.restore_items()
+    np.testing.assert_array_equal(items["w"], w.view(torch.int16).numpy().view(np.uint16))
+
+
+def test_bf16_train_state_matches_reference_layout(tmp_path):
+    """A bf16 TrainState (a dataclass tree): the port writes the
+    reference's manifest for the same state (paths, shapes, dtypes, crc32
+    over the same bytes), restores it bitwise, and reads the reference's
+    bf16 checkpoint bitwise."""
+    from repro.configs.base import get_reduced as ref_get_reduced
+    from repro.train.trainer import train_state_init as ref_train_state_init
+    from repro_torch.configs import get_reduced
+    from repro_torch.convert import train_state
+
+    cfg = get_reduced("qwen3-1.7b")
+    rstate = ref_train_state_init(jax.random.PRNGKey(0), ref_get_reduced("qwen3-1.7b"))
+    state = train_state(jax.tree.map(np.asarray, rstate), cfg, device="cpu")
+    assert state.params["embed"].dtype == torch.bfloat16
+    CheckpointManager(str(tmp_path / "port")).save(7, state)
+    RefCheckpointManager(str(tmp_path / "reference")).save(7, rstate)
+    assert _manifest(tmp_path / "port") == _manifest(tmp_path / "reference")
+    for src in ("port", "reference"):
+        restored, _ = CheckpointManager(str(tmp_path / src)).restore(state)
+        for (path, got), (_, want) in zip(_flatten_with_paths(restored),
+                                          _flatten_with_paths(state), strict=True):
+            assert got.dtype == want.dtype, path
+            assert torch.equal(got.detach().view(torch.uint8) if got.dtype == torch.bfloat16
+                               else got.detach(),
+                               want.detach().view(torch.uint8) if want.dtype == torch.bfloat16
+                               else want.detach()), path
 
 
 def test_stale_tmp_dirs_cleaned(tmp_path):

@@ -95,9 +95,17 @@ def test_unported_family_raises(change):
 
 
 def test_training_path_raises():
-    for fn in (transformer.loss_fn, transformer.chunked_ce_loss):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn()
+    """The training path of a family that is not ported raises, naming
+    ROADMAP.md; the dense family's is held against the reference in
+    tests/test_torch_train.py."""
+    cfg = _cfg(n_experts=4, top_k=2)
+    batch = {"tokens": torch.zeros((1, 8), dtype=torch.long),
+             "labels": torch.zeros((1, 8), dtype=torch.long)}
+    params = transformer.init_params(torch.Generator().manual_seed(0), _cfg())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        transformer.loss_fn(params, batch, cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        transformer.forward(params, batch, cfg)
 
 
 # ---------------------------------------------------------------------------
