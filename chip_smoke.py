@@ -209,7 +209,7 @@ from repro_torch.data.pipeline import make_batch  # noqa: E402
 from repro_torch.launch.train import train_loop  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.train.trainer import make_train_step, train_state_init  # noqa: E402
-from repro_torch.models.transformer import loss_fn, param_count  # noqa: E402
+from repro_torch.models.transformer import _leaves, loss_fn, param_count  # noqa: E402
 from repro_torch.models import attention as attention_module  # noqa: E402
 from repro_torch.models.transformer import init_params  # noqa: E402
 from repro_torch.serve import elasticity_service  # noqa: E402
@@ -1631,7 +1631,7 @@ def train_small_check(card: str) -> None:
         reset_all_counts()
         state = train_state_init(None, cfg, params=lm_params(host, cfg, device=dev))
         b0 = {k: torch.from_numpy(a).to(dev) for k, a in batches[0].items()}
-        leaves = [p for _, p in flatten(state.params)]
+        leaves = list(_leaves(state.params))
         grads[dev] = torch.autograd.grad(loss_fn(state.params, b0, cfg), leaves)
         step = make_train_step(cfg, opt)
         losses[dev] = []
@@ -1651,12 +1651,6 @@ def train_small_check(card: str) -> None:
           f"max rel diff {loss_rel:.3e}")
     if grad_rel > TRAIN_SMALL_GRAD_REL or loss_rel > TRAIN_SMALL_LOSS_REL:
         raise SystemExit("small train on the card disagrees with the CPU")
-
-
-def flatten(tree, prefix=""):
-    if isinstance(tree, dict):
-        return [kv for k in tree for kv in flatten(tree[k], f"{prefix}/{k}")]
-    return [(prefix, tree)]
 
 
 def train_cli_round_trip(card: str) -> None:

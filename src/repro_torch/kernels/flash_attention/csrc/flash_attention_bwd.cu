@@ -31,18 +31,27 @@
 //     inside the window), accumulates dK and dV in registers, writes once;
 //   * bwd_dq: one block per (b, h, q tile): loops over the visible k tiles.
 // bf16 runs every product on the tensor cores (mma.sync.m16n8k16, f32
-// accumulation; fragments as in flash_attention.cu), P and dS rounded to bf16
-// as the A operand; float32 runs them on the FMA units, one row a thread.
+// accumulation), P and dS rounded to bf16 as the A operand, exponentials by
+// the fast __expf (a few ulp of f32, far below bf16's rounding of P); float32
+// runs them on the FMA units with expf, one row a thread.
+//
+// The bf16 kernels: four warps, 64-row tiles in shared memory row-major with
+// rows padded by 8 bf16 (conflict-free ldmatrix); every fragment comes from
+// ldmatrix, the transposed operands (dO and Q for dV and dK, K for dQ) from
+// ldmatrix.trans on the same row-major tiles; the tile a block loops over
+// (K in prep and dq, the item's Q, dO, LSE and delta in dkdv) is double
+// buffered with cp.async, so its next tile copies in during this one's
+// products; blocks take their tile from blockIdx.y, so the longest causal
+// bands start first.
 //
 // What bounds it on this card: the products, 2.5x the causal forward's
 // 4 B H D S(S+1)/2 operations in the usual count; this design runs 4x (the
 // prep pass recomputes q k^T once more, and dkdv and dq both recompute P).
 // At the training shape (4, 4096, 16, 8, 128) bf16 that is 6.9e11 counted
 // operations (0.70 ms at the 989 TFLOP/s bf16 peak) against 0.34 GB of
-// tensors (0.10 ms at 3.35 TB/s): operations bound it.  Known costs left to
-// a redesign (wgmma, TMA, LSE from the forward): the transposed shared-memory
-// copies of Q, dO and K (ldmatrix.trans would avoid them), the fourth product,
-// and dkdv's causal load imbalance (tile 0 sees every q tile).
+// tensors (0.10 ms at 3.35 TB/s): operations bound it.  Left to a redesign
+// (wgmma, TMA, LSE from the forward): mma.sync's rate on Hopper, the fourth
+// product, and dkdv's causal load imbalance (tile 0 sees every q tile).
 //
 // Instantiated for D in {16, 32, 64, 128} in bfloat16 and float32.
 
@@ -60,7 +69,6 @@ using flash::kNegInf;
 
 constexpr int kThreads = 128;  // tensor-core kernels: 4 warps x 16 rows
 constexpr int kTile = 64;      // query and key rows of a tile
-constexpr int kTP = kTile + 8;  // bf16 pitch of a transposed tile's rows
 constexpr int kFT = 32;        // FMA kernels: rows of a tile = threads
 
 struct Strides {
@@ -111,12 +119,40 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ uint4 load8(const bf16* p, bool vec) {
-  if (vec) return *reinterpret_cast<const uint4*>(p);
+// Four 8x8 b16 matrices from shared memory, one row address a lane.
+__device__ __forceinline__ void ldsm4(uint32_t r[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm4_t(uint32_t r[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// 16 bytes global -> shared without the registers; zeros when !full.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(full ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(full ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// Wait for every committed copy group but the newest.
+__device__ __forceinline__ void cp_wait_prior() { asm volatile("cp.async.wait_group 1;\n" ::); }
+
+__device__ __forceinline__ uint4 load8(const bf16* p) {
   uint4 r;
   bf16* e = reinterpret_cast<bf16*>(&r);
 #pragma unroll
@@ -125,41 +161,51 @@ __device__ __forceinline__ uint4 load8(const bf16* p, bool vec) {
 }
 
 // kTile rows (positions row0 .. row0 + kTile - 1, zeros past S) of one head
-// of a (B, S, heads, D) tensor into shared memory, row-major with pitch P.
+// of a (B, S, heads, D) tensor into shared memory, row-major with pitch P:
+// asynchronous 16-byte copies when every row is 16-byte aligned, else
+// plain loads and stores (visible at the same barrier).
 template <int D, int P>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long long stride_s,
-                                          int row0, int S, bool vec) {
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, long long stride_s,
+                                           int row0, int S, bool vec) {
   for (int i = threadIdx.x; i < kTile * (D / 8); i += kThreads) {
     const int r = i / (D / 8), c8 = i % (D / 8);
-    uint4 x = make_uint4(0, 0, 0, 0);
-    if (row0 + r < S) x = load8(src + (row0 + r) * stride_s + c8 * 8, vec);
-    *reinterpret_cast<uint4*>(dst + r * P + c8 * 8) = x;
+    const bool live = row0 + r < S;
+    const bf16* g = src + (live ? row0 + r : 0) * stride_s + c8 * 8;
+    bf16* d = dst + r * P + c8 * 8;
+    if (vec) {
+      cp_async16(d, g, live);
+    } else {
+      *reinterpret_cast<uint4*>(d) = live ? load8(g) : make_uint4(0, 0, 0, 0);
+    }
   }
 }
 
-// The same rows transposed: dst[d * kTP + r].
-template <int D>
-__device__ __forceinline__ void load_rows_t(bf16* dst, const bf16* src, long long stride_s,
-                                            int row0, int S, bool vec) {
-  for (int i = threadIdx.x; i < kTile * (D / 8); i += kThreads) {
-    const int r = i % kTile, c8 = i / kTile;  // rows fastest: a warp's stores share rows
-    uint4 x = make_uint4(0, 0, 0, 0);
-    if (row0 + r < S) x = load8(src + (row0 + r) * stride_s + c8 * 8, vec);
-    const bf16* e = reinterpret_cast<const bf16*>(&x);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dst[(c8 * 8 + j) * kTP + r] = e[j];
+// kTile per-row floats (LSE or delta of one (b, h)), zeros past S.
+__device__ __forceinline__ void stage_vec(float* dst, const float* src, int row0, int S) {
+  for (int r = threadIdx.x; r < kTile; r += kThreads) {
+    const bool live = row0 + r < S;
+    cp_async4(dst + r, src + (live ? row0 + r : 0), live);
   }
 }
 
-// A fragment (rows r, r + 8; k-chunk kc) of a row-major tile of pitch P.
+// A fragment: rows r0 .. r0 + 15, columns c0 .. c0 + 15 of a row-major tile.
 template <int P>
-__device__ __forceinline__ void frag_a(uint32_t a[4], const bf16* tile, int r, int kc, int tq) {
-  const bf16* p0 = tile + r * P + kc * 16 + 2 * tq;
-  const bf16* p1 = p0 + 8 * P;
-  a[0] = lds32(p0);
-  a[1] = lds32(p1);
-  a[2] = lds32(p0 + 8);
-  a[3] = lds32(p1 + 8);
+__device__ __forceinline__ void lda(uint32_t a[4], const bf16* t, int r0, int c0, int lane) {
+  ldsm4(a, t + (r0 + (lane & 15)) * P + c0 + (lane >> 4) * 8);
+}
+
+// B fragments of n-tiles n0 and n0 + 8 ({b0, b1} each) for k-chunk k0 ..
+// k0 + 15, from a tile stored n-major ([n][k], as K for q k^T) ...
+template <int P>
+__device__ __forceinline__ void ldb_nk(uint32_t b[4], const bf16* t, int n0, int k0, int lane) {
+  ldsm4(b, t + (n0 + (lane & 7) + ((lane >> 4) << 3)) * P + k0 + ((lane >> 3) & 1) * 8);
+}
+
+// ... and from a tile stored k-major ([k][n], as K for dS K), transposed
+// on the way.
+template <int P>
+__device__ __forceinline__ void ldb_kn(uint32_t b[4], const bf16* t, int k0, int n0, int lane) {
+  ldsm4_t(b, t + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * P + n0 + (lane >> 4) * 8);
 }
 
 // Accumulator n-tiles 2j and 2j + 1 of a 16-row product, rounded to bf16,
@@ -173,17 +219,18 @@ __device__ __forceinline__ void acc_to_a(uint32_t a[4], float (*c)[4], int j) {
 
 template <int D>
 struct TcSmem {
-  static constexpr int P = D + 8;  // bf16 pitch of a row-major tile
+  static constexpr int P = D + 8;  // bf16 pitch of a tile's rows (conflict-free ldmatrix)
   static constexpr size_t kRowTile = kTile * P * sizeof(bf16);
-  static constexpr size_t kTTile = D * kTP * sizeof(bf16);
-  static constexpr size_t kPrep = 2 * kRowTile;
-  static constexpr size_t kDkdv = 4 * kRowTile + 2 * kTTile + 2 * kTile * sizeof(float);
-  static constexpr size_t kDq = 4 * kRowTile + kTTile;
+  static constexpr size_t kVec = kTile * sizeof(float);
+  static constexpr size_t kPrep = 3 * kRowTile;                 // Q, K x 2
+  static constexpr size_t kDkdv = 6 * kRowTile + 4 * kVec;     // K, V, (Q, dO) x 2, (LSE, delta) x 2
+  static constexpr size_t kDq = 6 * kRowTile;                   // Q, dO, (K, V) x 2
   static_assert(D % 16 == 0, "mma k-chunks of 16");
 };
 
 // ---------------------------------------------------------------------------
-// bwd_prep_tc: LSE and delta of one (b, h, q tile).
+// bwd_prep_tc: LSE and delta of one (b, h, q tile).  Warp w owns query rows
+// 16w + gq and 16w + gq + 8; K tiles double-buffered.
 // ---------------------------------------------------------------------------
 template <int D>
 __global__ void __launch_bounds__(kThreads) bwd_prep_tc(const BwdArgs<bf16> a) {
@@ -191,24 +238,31 @@ __global__ void __launch_bounds__(kThreads) bwd_prep_tc(const BwdArgs<bf16> a) {
   constexpr int P = C::P;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + kTile * P;
+  bf16* Kb = Qs + kTile * P;  // two K tiles
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, tq = lane & 3;
-  const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal bands first
-  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H, kh = h / a.G;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // longest causal bands first
+  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H, kh = h / a.G;
   const int q0 = qt * kTile;
   const int q_last = min(a.S, q0 + kTile) - 1;
+  int kv_begin = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  kv_begin = (kv_begin / kTile) * kTile;
+  const int n_tiles = (q_last - kv_begin) / kTile + 1;
+  const bf16* kbase = a.k + b * a.ks.b + kh * a.ks.h;
 
-  load_rows<D, P>(Qs, a.q + b * a.qs.b + h * a.qs.h, a.qs.s, q0, a.S, a.vec);
-  {  // delta = rowsum(dO o o), two threads a row
+  stage_rows<D, P>(Qs, a.q + b * a.qs.b + h * a.qs.h, a.qs.s, q0, a.S, a.vec);
+  stage_rows<D, P>(Kb, kbase, a.ks.s, kv_begin, a.S, a.vec);
+  cp_commit();
+  {  // delta = rowsum(dO o o), two threads a row, while the copies land
     const int r = tid >> 1, half = tid & 1, s = q0 + r;
     float acc = 0.f;
     if (s < a.S) {
       const bf16* op = a.o + b * a.os.b + s * a.os.s + h * a.os.h;
       const bf16* dp = a.dout + b * a.dos.b + s * a.dos.s + h * a.dos.h;
       for (int c8 = half * (D / 16); c8 < (half + 1) * (D / 16); ++c8) {
-        const uint4 ov = load8(op + c8 * 8, a.vec), dv = load8(dp + c8 * 8, a.vec);
+        const uint4 ov = a.vec ? *reinterpret_cast<const uint4*>(op + c8 * 8) : load8(op + c8 * 8);
+        const uint4 dv = a.vec ? *reinterpret_cast<const uint4*>(dp + c8 * 8) : load8(dp + c8 * 8);
         const bf16* oe = reinterpret_cast<const bf16*>(&ov);
         const bf16* de = reinterpret_cast<const bf16*>(&dv);
 #pragma unroll
@@ -218,30 +272,37 @@ __global__ void __launch_bounds__(kThreads) bwd_prep_tc(const BwdArgs<bf16> a) {
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     if (half == 0 && s < a.S) a.delta[row_index(b, h, a.H, a.S, s)] = acc;
   }
-  __syncthreads();
 
-  const int r0 = warp * 16 + gq;
-  const int qpos0 = q0 + r0 < a.S ? q0 + r0 : -1;
-  const int qpos1 = q0 + r0 + 8 < a.S ? q0 + r0 + 8 : -1;
+  const int r0 = warp * 16;
+  const int qpos0 = q0 + r0 + gq < a.S ? q0 + r0 + gq : -1;
+  const int qpos1 = q0 + r0 + gq + 8 < a.S ? q0 + r0 + gq + 8 : -1;
   uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) frag_a<P>(qf[kc], Qs, r0, kc, tq);
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
-  int kv_begin = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
-  kv_begin = (kv_begin / kTile) * kTile;
-  for (int kv0 = kv_begin; kv0 <= q_last; kv0 += kTile) {
-    __syncthreads();  // the previous K tile is no longer read
-    load_rows<D, P>(Ks, a.k + b * a.ks.b + kh * a.ks.h, a.ks.s, kv0, a.S, a.vec);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int kv0 = kv_begin + t * kTile;
+    if (t + 1 < n_tiles)
+      stage_rows<D, P>(Kb + ((t + 1) & 1) * kTile * P, kbase, a.ks.s, kv0 + kTile, a.S, a.vec);
+    cp_commit();
+    cp_wait_prior();
     __syncthreads();
+    if (t == 0) {
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc) lda<P>(qf[kc], Qs, r0, kc * 16, lane);
+    }
+    const bf16* Ks = Kb + (t & 1) * kTile * P;
     float s[kTile / 8][4];
 #pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const bf16* kp = Ks + (nt * 8 + gq) * P + 2 * tq;
+    for (int nt = 0; nt < kTile / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc)
-        mma_16816(s[nt], qf[kc], lds32(kp + kc * 16), lds32(kp + kc * 16 + 8));
+    for (int kc = 0; kc < D / 16; ++kc) {
+#pragma unroll
+      for (int np = 0; np < kTile / 16; ++np) {
+        uint32_t kb[4];
+        ldb_nk<P>(kb, Ks, np * 16, kc * 16, lane);
+        mma_16816(s[2 * np], qf[kc], kb[0], kb[1]);
+        mma_16816(s[2 * np + 1], qf[kc], kb[2], kb[3]);
+      }
     }
     float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
@@ -268,7 +329,7 @@ __global__ void __launch_bounds__(kThreads) bwd_prep_tc(const BwdArgs<bf16> a) {
       for (int e = 0; e < 4; ++e) {
         const int kpos = kv0 + nt * 8 + 2 * tq + (e & 1);
         const bool on = visible(e < 2 ? qpos0 : qpos1, kpos, a.window);
-        const float p = on ? expf(s[nt][e] - (e < 2 ? mn0 : mn1)) : 0.f;
+        const float p = on ? __expf(s[nt][e] - (e < 2 ? mn0 : mn1)) : 0.f;
         if (e < 2) sum0 += p; else sum1 += p;
       }
     }
@@ -277,10 +338,11 @@ __global__ void __launch_bounds__(kThreads) bwd_prep_tc(const BwdArgs<bf16> a) {
       sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
       sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
     }
-    l0 = l0 * expf(m0 - mn0) + sum0;
-    l1 = l1 * expf(m1 - mn1) + sum1;
+    l0 = l0 * __expf(m0 - mn0) + sum0;
+    l1 = l1 * __expf(m1 - mn1) + sum1;
     m0 = mn0;
     m1 = mn1;
+    __syncthreads();  // buffer t & 1 is free for tile t + 2
   }
   if (tq == 0) {
     if (qpos0 >= 0) a.lse[row_index(b, h, a.H, a.S, qpos0)] = m0 + logf(l0);
@@ -292,7 +354,9 @@ __global__ void __launch_bounds__(kThreads) bwd_prep_tc(const BwdArgs<bf16> a) {
 // bwd_dkdv_tc: dK and dV of one (b, kv head, k tile).  Warp w owns keys
 // 16w + gq and 16w + gq + 8 of the tile; it computes the transposed products
 // (keys as rows) S^T = K Q^T, dP^T = V dO^T, and accumulates
-// dV += P^T dO and dK += dS^T Q, 32 queries at a time.
+// dV += P^T dO and dK += dS^T Q, 32 queries at a time.  The (query head,
+// q tile) items are double-buffered: the next item's Q, dO, LSE and delta
+// copy in while this one computes.
 // ---------------------------------------------------------------------------
 template <int D>
 __global__ void __launch_bounds__(kThreads) bwd_dkdv_tc(const BwdArgs<bf16> a) {
@@ -302,99 +366,110 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_tc(const BwdArgs<bf16> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
   bf16* Vs = Ks + kTile * P;
-  bf16* Qs = Vs + kTile * P;
-  bf16* Ds = Qs + kTile * P;  // dO rows
-  bf16* Qt = Ds + kTile * P;  // Q transposed (d x query)
-  bf16* Dt = Qt + D * kTP;    // dO transposed
-  float* lse_s = reinterpret_cast<float*>(Dt + D * kTP);
-  float* del_s = lse_s + kTile;
+  // Two buffers of the item's Q, dO, LSE and delta: buffer u at
+  // Qb + u * kItem (bf16) and Vb + u * 2 * kTile (floats).
+  bf16* Qb = Vs + kTile * P;
+  constexpr int kItem = 2 * kTile * P;  // Q rows, then dO rows
+  float* Fb = reinterpret_cast<float*>(Qb + 2 * kItem);  // LSE, then delta
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, tq = lane & 3;
-  const int kt = blockIdx.x;  // tile 0 sees the most q tiles: it starts first
-  const int b = blockIdx.y / a.K, kh = blockIdx.y % a.K;
+  const int kt = blockIdx.y;  // tile 0 sees the most q tiles: its blocks start first
+  const int b = blockIdx.x / a.K, kh = blockIdx.x % a.K;
   const int kv0 = kt * kTile;
   const int kv_last = min(a.S, kv0 + kTile) - 1;
-
-  load_rows<D, P>(Ks, a.k + b * a.ks.b + kh * a.ks.h, a.ks.s, kv0, a.S, a.vec);
-  load_rows<D, P>(Vs, a.v + b * a.vs.b + kh * a.vs.h, a.vs.s, kv0, a.S, a.vec);
-
-  const int r0 = warp * 16 + gq;
-  const int kpos0 = kv0 + r0, kpos1 = kv0 + r0 + 8;
   const int qt_first = kv0 / kTile;
   const int q_end = a.window > 0 ? min(a.S - 1, kv_last + a.window - 1) : a.S - 1;
-  const int qt_last = q_end / kTile;
+  const int nq = q_end / kTile - qt_first + 1;
+  const int n_items = a.G * nq;  // item i: query head kh*G + i / nq, q tile qt_first + i % nq
 
+  auto stage_item = [&](int i, int buf) {
+    const int h = kh * a.G + i / nq, q0 = (qt_first + i % nq) * kTile;
+    bf16* qd = Qb + buf * kItem;
+    float* f = Fb + buf * 2 * kTile;
+    stage_rows<D, P>(qd, a.q + b * a.qs.b + h * a.qs.h, a.qs.s, q0, a.S, a.vec);
+    stage_rows<D, P>(qd + kTile * P, a.dout + b * a.dos.b + h * a.dos.h, a.dos.s, q0, a.S,
+                     a.vec);
+    stage_vec(f, a.lse + row_index(b, h, a.H, a.S, 0), q0, a.S);
+    stage_vec(f + kTile, a.delta + row_index(b, h, a.H, a.S, 0), q0, a.S);
+  };
+  stage_rows<D, P>(Ks, a.k + b * a.ks.b + kh * a.ks.h, a.ks.s, kv0, a.S, a.vec);
+  stage_rows<D, P>(Vs, a.v + b * a.vs.b + kh * a.vs.h, a.vs.s, kv0, a.S, a.vec);
+  stage_item(0, 0);
+  cp_commit();
+
+  const int r0 = warp * 16;
+  const int kpos0 = kv0 + r0 + gq, kpos1 = kpos0 + 8;
   float dk[D / 8][4], dv[D / 8][4];
 #pragma unroll
   for (int nd = 0; nd < D / 8; ++nd)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[nd][e] = dv[nd][e] = 0.f;
 
-  for (int g = 0; g < a.G; ++g) {
-    const int h = kh * a.G + g;
-    const bf16* qh = a.q + b * a.qs.b + h * a.qs.h;
-    const bf16* dh = a.dout + b * a.dos.b + h * a.dos.h;
-    for (int qt = qt_first; qt <= qt_last; ++qt) {
-      const int q0 = qt * kTile;
-      __syncthreads();  // the previous q tile is no longer read
-      load_rows<D, P>(Qs, qh, a.qs.s, q0, a.S, a.vec);
-      load_rows<D, P>(Ds, dh, a.dos.s, q0, a.S, a.vec);
-      load_rows_t<D>(Qt, qh, a.qs.s, q0, a.S, a.vec);
-      load_rows_t<D>(Dt, dh, a.dos.s, q0, a.S, a.vec);
-      for (int r = tid; r < kTile; r += kThreads) {
-        const bool live = q0 + r < a.S;
-        lse_s[r] = live ? a.lse[row_index(b, h, a.H, a.S, q0 + r)] : 0.f;
-        del_s[r] = live ? a.delta[row_index(b, h, a.H, a.S, q0 + r)] : 0.f;
-      }
-      __syncthreads();
+  for (int i = 0; i < n_items; ++i) {
+    if (i + 1 < n_items) stage_item(i + 1, (i + 1) & 1);
+    cp_commit();
+    cp_wait_prior();
+    __syncthreads();
+    const bf16* Qs = Qb + (i & 1) * kItem;
+    const bf16* Ds = Qs + kTile * P;  // dO
+    const float* lse_s = Fb + (i & 1) * 2 * kTile;
+    const float* del_s = lse_s + kTile;
+    const int q0 = (qt_first + i % nq) * kTile;
 
 #pragma unroll 1
-      for (int qc = 0; qc < kTile / kQC; ++qc) {
-        // S^T (16 keys x 32 queries) -> P^T
-        float p[kQC / 8][4], dp[kQC / 8][4];
+    for (int qc = 0; qc < kTile / kQC; ++qc) {
+      float p[kQC / 8][4], dp[kQC / 8][4];
 #pragma unroll
-        for (int nt = 0; nt < kQC / 8; ++nt)
+      for (int nt = 0; nt < kQC / 8; ++nt)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) p[nt][e] = dp[nt][e] = 0.f;
+        for (int e = 0; e < 4; ++e) p[nt][e] = dp[nt][e] = 0.f;
 #pragma unroll
-        for (int kc = 0; kc < D / 16; ++kc) {
-          uint32_t ka[4], va[4];
-          frag_a<P>(ka, Ks, r0, kc, tq);
-          frag_a<P>(va, Vs, r0, kc, tq);
+      for (int kc = 0; kc < D / 16; ++kc) {
+        uint32_t ka[4], va[4];
+        lda<P>(ka, Ks, r0, kc * 16, lane);
+        lda<P>(va, Vs, r0, kc * 16, lane);
 #pragma unroll
-          for (int nt = 0; nt < kQC / 8; ++nt) {
-            const int col = (qc * kQC + nt * 8 + gq) * P + kc * 16 + 2 * tq;
-            mma_16816(p[nt], ka, lds32(Qs + col), lds32(Qs + col + 8));
-            mma_16816(dp[nt], va, lds32(Ds + col), lds32(Ds + col + 8));
-          }
+        for (int np = 0; np < kQC / 16; ++np) {
+          uint32_t qb[4], db[4];
+          ldb_nk<P>(qb, Qs, qc * kQC + np * 16, kc * 16, lane);
+          ldb_nk<P>(db, Ds, qc * kQC + np * 16, kc * 16, lane);
+          mma_16816(p[2 * np], ka, qb[0], qb[1]);
+          mma_16816(p[2 * np + 1], ka, qb[2], qb[3]);
+          mma_16816(dp[2 * np], va, db[0], db[1]);
+          mma_16816(dp[2 * np + 1], va, db[2], db[3]);
         }
+      }
 #pragma unroll
-        for (int nt = 0; nt < kQC / 8; ++nt) {
+      for (int nt = 0; nt < kQC / 8; ++nt) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int qcol = qc * kQC + nt * 8 + 2 * tq + (e & 1);
-            const int qpos = q0 + qcol;
-            const bool on = qpos < a.S && visible(qpos, e < 2 ? kpos0 : kpos1, a.window);
-            p[nt][e] = on ? expf(p[nt][e] * a.scale - lse_s[qcol]) : 0.f;
-            dp[nt][e] = p[nt][e] * (dp[nt][e] - del_s[qcol]);  // now dS^T
-          }
+        for (int e = 0; e < 4; ++e) {
+          const int qcol = qc * kQC + nt * 8 + 2 * tq + (e & 1);
+          const int qpos = q0 + qcol;
+          const bool on = qpos < a.S && visible(qpos, e < 2 ? kpos0 : kpos1, a.window);
+          p[nt][e] = on ? __expf(p[nt][e] * a.scale - lse_s[qcol]) : 0.f;
+          dp[nt][e] = p[nt][e] * (dp[nt][e] - del_s[qcol]);  // now dS^T
         }
-        // dV += P^T dO, dK += dS^T Q: k-chunks of 16 queries
+      }
+      // dV += P^T dO, dK += dS^T Q: k-chunks of 16 queries
 #pragma unroll
-        for (int j = 0; j < kQC / 16; ++j) {
-          uint32_t pa[4], sa[4];
-          acc_to_a(pa, p, j);
-          acc_to_a(sa, dp, j);
+      for (int j = 0; j < kQC / 16; ++j) {
+        uint32_t pa[4], sa[4];
+        acc_to_a(pa, p, j);
+        acc_to_a(sa, dp, j);
 #pragma unroll
-          for (int nd = 0; nd < D / 8; ++nd) {
-            const int col = (nd * 8 + gq) * kTP + qc * kQC + j * 16 + 2 * tq;
-            mma_16816(dv[nd], pa, lds32(Dt + col), lds32(Dt + col + 8));
-            mma_16816(dk[nd], sa, lds32(Qt + col), lds32(Qt + col + 8));
-          }
+        for (int np = 0; np < D / 16; ++np) {
+          uint32_t db[4], qb[4];
+          ldb_kn<P>(db, Ds, qc * kQC + j * 16, np * 16, lane);
+          ldb_kn<P>(qb, Qs, qc * kQC + j * 16, np * 16, lane);
+          mma_16816(dv[2 * np], pa, db[0], db[1]);
+          mma_16816(dv[2 * np + 1], pa, db[2], db[3]);
+          mma_16816(dk[2 * np], sa, qb[0], qb[1]);
+          mma_16816(dk[2 * np + 1], sa, qb[2], qb[3]);
         }
       }
     }
+    __syncthreads();  // buffer i & 1 is free for item i + 2
   }
 
 #pragma unroll
@@ -415,8 +490,8 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_tc(const BwdArgs<bf16> a) {
 
 // ---------------------------------------------------------------------------
 // bwd_dq_tc: dQ of one (b, h, q tile).  Warp w owns query rows 16w + gq and
-// 16w + gq + 8; per visible k tile, 32 keys at a time: S = Q K^T,
-// dP = dO V^T, dS = P o (dP - delta), dQ += dS K.
+// 16w + gq + 8; per visible k tile (double-buffered), 32 keys at a time:
+// S = Q K^T, dP = dO V^T, dS = P o (dP - delta), dQ += dS K.
 // ---------------------------------------------------------------------------
 template <int D>
 __global__ void __launch_bounds__(kThreads) bwd_dq_tc(const BwdArgs<bf16> a) {
@@ -426,22 +501,29 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_tc(const BwdArgs<bf16> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* Ds = Qs + kTile * P;
-  bf16* Ks = Ds + kTile * P;
-  bf16* Vs = Ks + kTile * P;
-  bf16* Kt = Vs + kTile * P;  // K transposed (d x key)
+  bf16* Kb = Qs + 2 * kTile * P;  // buffer u: K at Kb + 2u tiles, V one tile after
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, tq = lane & 3;
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H, kh = h / a.G;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // longest causal bands first
+  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H, kh = h / a.G;
   const int q0 = qt * kTile;
   const int q_last = min(a.S, q0 + kTile) - 1;
+  int kv_begin = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  kv_begin = (kv_begin / kTile) * kTile;
+  const int n_tiles = (q_last - kv_begin) / kTile + 1;
+  const bf16* kbase = a.k + b * a.ks.b + kh * a.ks.h;
+  const bf16* vbase = a.v + b * a.vs.b + kh * a.vs.h;
 
-  load_rows<D, P>(Qs, a.q + b * a.qs.b + h * a.qs.h, a.qs.s, q0, a.S, a.vec);
-  load_rows<D, P>(Ds, a.dout + b * a.dos.b + h * a.dos.h, a.dos.s, q0, a.S, a.vec);
-  const int r0 = warp * 16 + gq;
-  const int qpos0 = q0 + r0 < a.S ? q0 + r0 : -1;
-  const int qpos1 = q0 + r0 + 8 < a.S ? q0 + r0 + 8 : -1;
+  stage_rows<D, P>(Qs, a.q + b * a.qs.b + h * a.qs.h, a.qs.s, q0, a.S, a.vec);
+  stage_rows<D, P>(Ds, a.dout + b * a.dos.b + h * a.dos.h, a.dos.s, q0, a.S, a.vec);
+  stage_rows<D, P>(Kb, kbase, a.ks.s, kv_begin, a.S, a.vec);
+  stage_rows<D, P>(Kb + kTile * P, vbase, a.vs.s, kv_begin, a.S, a.vec);
+  cp_commit();
+
+  const int r0 = warp * 16;
+  const int qpos0 = q0 + r0 + gq < a.S ? q0 + r0 + gq : -1;
+  const int qpos1 = q0 + r0 + gq + 8 < a.S ? q0 + r0 + gq + 8 : -1;
   const float lse0 = qpos0 >= 0 ? a.lse[row_index(b, h, a.H, a.S, qpos0)] : 0.f;
   const float lse1 = qpos1 >= 0 ? a.lse[row_index(b, h, a.H, a.S, qpos1)] : 0.f;
   const float del0 = qpos0 >= 0 ? a.delta[row_index(b, h, a.H, a.S, qpos0)] : 0.f;
@@ -451,16 +533,18 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_tc(const BwdArgs<bf16> a) {
 #pragma unroll
   for (int nd = 0; nd < D / 8; ++nd) dq[nd][0] = dq[nd][1] = dq[nd][2] = dq[nd][3] = 0.f;
 
-  const bf16* kbase = a.k + b * a.ks.b + kh * a.ks.h;
-  const bf16* vbase = a.v + b * a.vs.b + kh * a.vs.h;
-  int kv_begin = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
-  kv_begin = (kv_begin / kTile) * kTile;
-  for (int kv0 = kv_begin; kv0 <= q_last; kv0 += kTile) {
-    __syncthreads();  // the previous K and V tiles are no longer read
-    load_rows<D, P>(Ks, kbase, a.ks.s, kv0, a.S, a.vec);
-    load_rows<D, P>(Vs, vbase, a.vs.s, kv0, a.S, a.vec);
-    load_rows_t<D>(Kt, kbase, a.ks.s, kv0, a.S, a.vec);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int kv0 = kv_begin + t * kTile;
+    if (t + 1 < n_tiles) {
+      bf16* next = Kb + ((t + 1) & 1) * 2 * kTile * P;
+      stage_rows<D, P>(next, kbase, a.ks.s, kv0 + kTile, a.S, a.vec);
+      stage_rows<D, P>(next + kTile * P, vbase, a.vs.s, kv0 + kTile, a.S, a.vec);
+    }
+    cp_commit();
+    cp_wait_prior();
     __syncthreads();
+    const bf16* Ks = Kb + (t & 1) * 2 * kTile * P;
+    const bf16* Vs = Ks + kTile * P;
 
 #pragma unroll 1
     for (int kc2 = 0; kc2 < kTile / kKC; ++kc2) {
@@ -472,13 +556,17 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_tc(const BwdArgs<bf16> a) {
 #pragma unroll
       for (int kc = 0; kc < D / 16; ++kc) {
         uint32_t qa[4], da[4];
-        frag_a<P>(qa, Qs, r0, kc, tq);
-        frag_a<P>(da, Ds, r0, kc, tq);
+        lda<P>(qa, Qs, r0, kc * 16, lane);
+        lda<P>(da, Ds, r0, kc * 16, lane);
 #pragma unroll
-        for (int nt = 0; nt < kKC / 8; ++nt) {
-          const int col = (kc2 * kKC + nt * 8 + gq) * P + kc * 16 + 2 * tq;
-          mma_16816(p[nt], qa, lds32(Ks + col), lds32(Ks + col + 8));
-          mma_16816(dp[nt], da, lds32(Vs + col), lds32(Vs + col + 8));
+        for (int np = 0; np < kKC / 16; ++np) {
+          uint32_t kb[4], vb[4];
+          ldb_nk<P>(kb, Ks, kc2 * kKC + np * 16, kc * 16, lane);
+          ldb_nk<P>(vb, Vs, kc2 * kKC + np * 16, kc * 16, lane);
+          mma_16816(p[2 * np], qa, kb[0], kb[1]);
+          mma_16816(p[2 * np + 1], qa, kb[2], kb[3]);
+          mma_16816(dp[2 * np], da, vb[0], vb[1]);
+          mma_16816(dp[2 * np + 1], da, vb[2], vb[3]);
         }
       }
 #pragma unroll
@@ -487,7 +575,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_tc(const BwdArgs<bf16> a) {
         for (int e = 0; e < 4; ++e) {
           const int kpos = kv0 + kc2 * kKC + nt * 8 + 2 * tq + (e & 1);
           const bool on = visible(e < 2 ? qpos0 : qpos1, kpos, a.window);
-          p[nt][e] = on ? expf(p[nt][e] * a.scale - (e < 2 ? lse0 : lse1)) : 0.f;
+          p[nt][e] = on ? __expf(p[nt][e] * a.scale - (e < 2 ? lse0 : lse1)) : 0.f;
           dp[nt][e] = p[nt][e] * (dp[nt][e] - (e < 2 ? del0 : del1));  // now dS
         }
       }
@@ -496,12 +584,15 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_tc(const BwdArgs<bf16> a) {
         uint32_t sa[4];
         acc_to_a(sa, dp, j);
 #pragma unroll
-        for (int nd = 0; nd < D / 8; ++nd) {
-          const int col = (nd * 8 + gq) * kTP + kc2 * kKC + j * 16 + 2 * tq;
-          mma_16816(dq[nd], sa, lds32(Kt + col), lds32(Kt + col + 8));
+        for (int np = 0; np < D / 16; ++np) {
+          uint32_t kb[4];
+          ldb_kn<P>(kb, Ks, kc2 * kKC + j * 16, np * 16, lane);
+          mma_16816(dq[2 * np], sa, kb[0], kb[1]);
+          mma_16816(dq[2 * np + 1], sa, kb[2], kb[3]);
         }
       }
     }
+    __syncthreads();  // buffer t & 1 is free for tile t + 2
   }
 
 #pragma unroll
@@ -691,8 +782,10 @@ int allow_smem(Kernel kernel, size_t smem) {
 template <int D>
 int launch_tc(const BwdArgs<bf16>& a, cudaStream_t st) {
   using C = TcSmem<D>;
-  const dim3 grid_q((a.S + kTile - 1) / kTile, a.B * a.H);
-  const dim3 grid_k((a.S + kTile - 1) / kTile, a.B * a.K);
+  // tiles on y, (b, head) on x: blocks start in linear order, so the
+  // longest causal bands (y = 0) start first
+  const dim3 grid_q(a.B * a.H, (a.S + kTile - 1) / kTile);
+  const dim3 grid_k(a.B * a.K, (a.S + kTile - 1) / kTile);
   int err;
   if ((err = allow_smem(bwd_prep_tc<D>, C::kPrep))) return err;
   bwd_prep_tc<D><<<grid_q, kThreads, C::kPrep, st>>>(a);

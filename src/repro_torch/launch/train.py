@@ -37,7 +37,7 @@ import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import ShapeConfig, get_config, get_reduced
-from repro_torch.data.pipeline import TokenPipeline
+from repro_torch.data.pipeline import TokenPipeline, make_batch
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.distributed.elastic import StepWatchdog
 from repro_torch.optim.adamw import AdamWConfig
@@ -59,7 +59,6 @@ def train_loop(
     log_every: int = 10,
     watchdog_timeout: float = 3600.0,
     device=None,
-    remat: bool = True,
     kill_after_steps: int | None = None,
     step_context=None,
     profile: bool = False,
@@ -84,7 +83,7 @@ def train_loop(
             _requires_grad(state.params)
             print(f"[train] resumed from checkpoint step {start_step}", flush=True)
 
-    step_fn = make_train_step(cfg, opt, remat=remat)
+    step_fn = make_train_step(cfg, opt)
     pipe = TokenPipeline(cfg, shape, seed=seed, start_step=start_step)
     wd = StepWatchdog(watchdog_timeout)
     tokens = shape.global_batch * shape.seq_len
@@ -125,8 +124,8 @@ def train_loop(
     if mgr is not None:
         mgr.save(steps, state, extra={"arch": cfg.name})
     if profile:
-        host = next(TokenPipeline(cfg, shape, seed=seed, start_step=steps, prefetch=1))
-        batch = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in make_batch(cfg, shape, steps, seed).items()}
 
         def one_step():
             nonlocal state

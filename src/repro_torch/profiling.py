@@ -67,7 +67,8 @@ def device_time_by_category(run, categories: dict[str, str],
     launched it (matched through the profiler's correlation ids, so a
     kernel that runs after its range ended on the host still counts there);
     else to the first category of ``categories`` (category -> regex) that
-    matches its name; else to ``other``."""
+    matches its name; else to ``other``.  The ranges' own annotation
+    events on the device timeline are not counted."""
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
@@ -76,6 +77,7 @@ def device_time_by_category(run, categories: dict[str, str],
     events = prof.profiler.kineto_results.events()
     cpu = [e for e in events if e.device_type() == DeviceType.CPU]
     launched_at = {e.correlation_id(): e.start_ns() for e in cpu if e.correlation_id()}
+    annotations = {e.name() for e in cpu if e.is_user_annotation()}
     spans = [(cat, e.start_ns(), e.start_ns() + e.duration_ns())
              for cat, name in (ranges or {}).items() for e in cpu if e.name() == name]
     patterns = [(cat, re.compile(rx)) for cat, rx in categories.items()]
@@ -83,7 +85,10 @@ def device_time_by_category(run, categories: dict[str, str],
     ms, count = dict.fromkeys(order, 0.0), dict.fromkeys(order, 0)
     names: dict[str, dict[str, list]] = {c: {} for c in order}
     for e in events:
-        if e.device_type() != DeviceType.CUDA:
+        # a record_function range also shows on the device timeline as a
+        # user annotation spanning its kernels: not device time of its own
+        if (e.device_type() != DeviceType.CUDA or e.is_user_annotation()
+                or e.name() in annotations):
             continue
         t = launched_at.get(e.linked_correlation_id())
         cat = next((c for c, lo, hi in spans if t is not None and lo <= t < hi), None)
