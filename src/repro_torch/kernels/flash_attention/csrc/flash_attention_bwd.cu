@@ -91,7 +91,7 @@ struct BwdArgs {
   int window;  // <= 0: no window
   float scale;
   Strides qs, ks, vs, os, dos, dqs, dks, dvs;
-  bool vec;  // every bf16 row 16-byte aligned: 16-byte loads
+  bool vec;  // every row 16-byte aligned (the bf16 kernels' cp.async needs it)
 };
 
 __device__ __forceinline__ bool visible(int qpos, int kpos, int window) {
@@ -152,31 +152,17 @@ __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_grou
 // Wait for every committed copy group but the newest.
 __device__ __forceinline__ void cp_wait_prior() { asm volatile("cp.async.wait_group 1;\n" ::); }
 
-__device__ __forceinline__ uint4 load8(const bf16* p) {
-  uint4 r;
-  bf16* e = reinterpret_cast<bf16*>(&r);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) e[j] = p[j];
-  return r;
-}
-
 // kTile rows (positions row0 .. row0 + kTile - 1, zeros past S) of one head
-// of a (B, S, heads, D) tensor into shared memory, row-major with pitch P:
-// asynchronous 16-byte copies when every row is 16-byte aligned, else
-// plain loads and stores (visible at the same barrier).
+// of a (B, S, heads, D) tensor into shared memory, row-major with pitch P,
+// by asynchronous 16-byte copies (every row is 16-byte aligned: the entry
+// point refuses other inputs, and the wrapper copies them first).
 template <int D, int P>
 __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, long long stride_s,
-                                           int row0, int S, bool vec) {
+                                           int row0, int S) {
   for (int i = threadIdx.x; i < kTile * (D / 8); i += kThreads) {
     const int r = i / (D / 8), c8 = i % (D / 8);
     const bool live = row0 + r < S;
-    const bf16* g = src + (live ? row0 + r : 0) * stride_s + c8 * 8;
-    bf16* d = dst + r * P + c8 * 8;
-    if (vec) {
-      cp_async16(d, g, live);
-    } else {
-      *reinterpret_cast<uint4*>(d) = live ? load8(g) : make_uint4(0, 0, 0, 0);
-    }
+    cp_async16(dst + r * P + c8 * 8, src + (live ? row0 + r : 0) * stride_s + c8 * 8, live);
   }
 }
 
@@ -251,8 +237,8 @@ __global__ void __launch_bounds__(kThreads) bwd_prep_tc(const BwdArgs<bf16> a) {
   const int n_tiles = (q_last - kv_begin) / kTile + 1;
   const bf16* kbase = a.k + b * a.ks.b + kh * a.ks.h;
 
-  stage_rows<D, P>(Qs, a.q + b * a.qs.b + h * a.qs.h, a.qs.s, q0, a.S, a.vec);
-  stage_rows<D, P>(Kb, kbase, a.ks.s, kv_begin, a.S, a.vec);
+  stage_rows<D, P>(Qs, a.q + b * a.qs.b + h * a.qs.h, a.qs.s, q0, a.S);
+  stage_rows<D, P>(Kb, kbase, a.ks.s, kv_begin, a.S);
   cp_commit();
   {  // delta = rowsum(dO o o), two threads a row, while the copies land
     const int r = tid >> 1, half = tid & 1, s = q0 + r;
@@ -261,8 +247,8 @@ __global__ void __launch_bounds__(kThreads) bwd_prep_tc(const BwdArgs<bf16> a) {
       const bf16* op = a.o + b * a.os.b + s * a.os.s + h * a.os.h;
       const bf16* dp = a.dout + b * a.dos.b + s * a.dos.s + h * a.dos.h;
       for (int c8 = half * (D / 16); c8 < (half + 1) * (D / 16); ++c8) {
-        const uint4 ov = a.vec ? *reinterpret_cast<const uint4*>(op + c8 * 8) : load8(op + c8 * 8);
-        const uint4 dv = a.vec ? *reinterpret_cast<const uint4*>(dp + c8 * 8) : load8(dp + c8 * 8);
+        const uint4 ov = *reinterpret_cast<const uint4*>(op + c8 * 8);
+        const uint4 dv = *reinterpret_cast<const uint4*>(dp + c8 * 8);
         const bf16* oe = reinterpret_cast<const bf16*>(&ov);
         const bf16* de = reinterpret_cast<const bf16*>(&dv);
 #pragma unroll
@@ -282,7 +268,7 @@ __global__ void __launch_bounds__(kThreads) bwd_prep_tc(const BwdArgs<bf16> a) {
   for (int t = 0; t < n_tiles; ++t) {
     const int kv0 = kv_begin + t * kTile;
     if (t + 1 < n_tiles)
-      stage_rows<D, P>(Kb + ((t + 1) & 1) * kTile * P, kbase, a.ks.s, kv0 + kTile, a.S, a.vec);
+      stage_rows<D, P>(Kb + ((t + 1) & 1) * kTile * P, kbase, a.ks.s, kv0 + kTile, a.S);
     cp_commit();
     cp_wait_prior();
     __syncthreads();
@@ -387,14 +373,13 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_tc(const BwdArgs<bf16> a) {
     const int h = kh * a.G + i / nq, q0 = (qt_first + i % nq) * kTile;
     bf16* qd = Qb + buf * kItem;
     float* f = Fb + buf * 2 * kTile;
-    stage_rows<D, P>(qd, a.q + b * a.qs.b + h * a.qs.h, a.qs.s, q0, a.S, a.vec);
-    stage_rows<D, P>(qd + kTile * P, a.dout + b * a.dos.b + h * a.dos.h, a.dos.s, q0, a.S,
-                     a.vec);
+    stage_rows<D, P>(qd, a.q + b * a.qs.b + h * a.qs.h, a.qs.s, q0, a.S);
+    stage_rows<D, P>(qd + kTile * P, a.dout + b * a.dos.b + h * a.dos.h, a.dos.s, q0, a.S);
     stage_vec(f, a.lse + row_index(b, h, a.H, a.S, 0), q0, a.S);
     stage_vec(f + kTile, a.delta + row_index(b, h, a.H, a.S, 0), q0, a.S);
   };
-  stage_rows<D, P>(Ks, a.k + b * a.ks.b + kh * a.ks.h, a.ks.s, kv0, a.S, a.vec);
-  stage_rows<D, P>(Vs, a.v + b * a.vs.b + kh * a.vs.h, a.vs.s, kv0, a.S, a.vec);
+  stage_rows<D, P>(Ks, a.k + b * a.ks.b + kh * a.ks.h, a.ks.s, kv0, a.S);
+  stage_rows<D, P>(Vs, a.v + b * a.vs.b + kh * a.vs.h, a.vs.s, kv0, a.S);
   stage_item(0, 0);
   cp_commit();
 
@@ -515,10 +500,10 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_tc(const BwdArgs<bf16> a) {
   const bf16* kbase = a.k + b * a.ks.b + kh * a.ks.h;
   const bf16* vbase = a.v + b * a.vs.b + kh * a.vs.h;
 
-  stage_rows<D, P>(Qs, a.q + b * a.qs.b + h * a.qs.h, a.qs.s, q0, a.S, a.vec);
-  stage_rows<D, P>(Ds, a.dout + b * a.dos.b + h * a.dos.h, a.dos.s, q0, a.S, a.vec);
-  stage_rows<D, P>(Kb, kbase, a.ks.s, kv_begin, a.S, a.vec);
-  stage_rows<D, P>(Kb + kTile * P, vbase, a.vs.s, kv_begin, a.S, a.vec);
+  stage_rows<D, P>(Qs, a.q + b * a.qs.b + h * a.qs.h, a.qs.s, q0, a.S);
+  stage_rows<D, P>(Ds, a.dout + b * a.dos.b + h * a.dos.h, a.dos.s, q0, a.S);
+  stage_rows<D, P>(Kb, kbase, a.ks.s, kv_begin, a.S);
+  stage_rows<D, P>(Kb + kTile * P, vbase, a.vs.s, kv_begin, a.S);
   cp_commit();
 
   const int r0 = warp * 16;
@@ -537,8 +522,8 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_tc(const BwdArgs<bf16> a) {
     const int kv0 = kv_begin + t * kTile;
     if (t + 1 < n_tiles) {
       bf16* next = Kb + ((t + 1) & 1) * 2 * kTile * P;
-      stage_rows<D, P>(next, kbase, a.ks.s, kv0 + kTile, a.S, a.vec);
-      stage_rows<D, P>(next + kTile * P, vbase, a.vs.s, kv0 + kTile, a.S, a.vec);
+      stage_rows<D, P>(next, kbase, a.ks.s, kv0 + kTile, a.S);
+      stage_rows<D, P>(next + kTile * P, vbase, a.vs.s, kv0 + kTile, a.S);
     }
     cp_commit();
     cp_wait_prior();
@@ -878,6 +863,7 @@ int flash_attention_bwd_bf16(BWD_ARGS) {
   BWD_STRIDES;
   const auto a = make_args<bf16>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, S, H, K, D,
                                  window, st);
+  if (!a.vec) return flash::kErrRoute;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16: return launch_tc<16>(a, s);

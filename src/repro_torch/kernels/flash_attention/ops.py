@@ -242,7 +242,12 @@ def flash_attention_bwd(q, k, v, o, do, *, window=None):
         return flash_bwd_ref(q, k, v, o, do, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
-    ins = [t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v, o, do)]
+    # The kernels copy 16-byte rows asynchronously: an input whose base or
+    # (b, s, h) strides are not 16-byte multiples (a strided view) is copied
+    # to a fresh contiguous tensor first.
+    ins = [t if t.data_ptr() % 16 == 0 and t.stride(-1) == 1
+           and all(st * t.element_size() % 16 == 0 for st in t.stride()[:3])
+           else t.clone(memory_format=torch.contiguous_format) for t in (q, k, v, o, do)]
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, S, K, D), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)

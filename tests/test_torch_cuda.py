@@ -284,22 +284,25 @@ def _bwd_errors(got, want, floor=1e-2):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,H,K,D,window", [
-    (2, 1, 4, 2, 64, None),
-    (2, 77, 4, 2, 16, None),
-    (1, 300, 4, 4, 64, None),
-    (2, 130, 4, 2, 128, 48),
-    (1, 1024, 16, 8, 128, None),
-    (1, 200, 2, 1, 32, 64),
+@pytest.mark.parametrize("B,S,H,K,D,window,pad", [
+    (2, 1, 4, 2, 64, None, 0),
+    (2, 77, 4, 2, 16, None, 0),
+    (1, 300, 4, 4, 64, None, 0),
+    (2, 130, 4, 2, 128, 48, 0),
+    (1, 1024, 16, 8, 128, None, 0),
+    (1, 200, 2, 1, 32, 64, 0),
+    (2, 100, 8, 4, 64, None, 2),  # views of wider rows: copied before the kernel
 ])
-def test_flash_bwd_kernel_matches_plain_on_card(card, B, S, H, K, D, window, dtype):
+def test_flash_bwd_kernel_matches_plain_on_card(card, B, S, H, K, D, window, pad, dtype):
     """The backward kernel against its plain version: f32 to 1e-4 of max
     |plain|; bf16 to 2e-2 of max |plain| and 2e-2 per row (chip_smoke.py's
     tolerances and measures); bitwise repeatable; and autograd through flash_attention
     on the card runs it once."""
     g = torch.Generator(device=card).manual_seed(S + D)
-    q, do = (torch.randn((B, S, H, D), generator=g, device=card).to(dtype) for _ in range(2))
-    k, v = (torch.randn((B, S, K, D), generator=g, device=card).to(dtype) for _ in range(2))
+    q, do = (torch.randn((B, S, H, D + pad), generator=g, device=card).to(dtype)[..., :D]
+             for _ in range(2))
+    k, v = (torch.randn((B, S, K, D + pad), generator=g, device=card).to(dtype)[..., :D]
+            for _ in range(2))
     o = flash_ops.flash_attention(q, k, v, window=window)
     before = flash_ops.counts["flash_attention_bwd"].launches
     plain = flash_ops.counts["flash_attention_bwd"].plain_calls
