@@ -1,4 +1,4 @@
-"""Training driver and CLI, on the card by default (the reference's
+"""Training loop and CLI, on the card by default (the reference's
 ``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --steps 20
