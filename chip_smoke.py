@@ -139,9 +139,10 @@ Phases (any failure exits non-zero; no phase's exception is caught):
 9. training (``[train]`` lines, each beside the card's name and power
    limit): (a) the flash backward kernel against its plain version in
    float32 (1e-4 of max |plain|) and bfloat16 (2e-2 of max |plain| and per
-   row, see ``BWD_ROW_REL``) at S in {1, 77, 300, 1024}, G in {1, 2}, a
+   row, ``ref.flash_bwd_errors``) at S in {1, 77, 300, 1024}, G in {1, 2}, a
    window, D in {16, 64, 128} and the training shape (4, 4096, 16, 8, 128)
-   bf16, bitwise repeatable; timed there in turns with SDPA's backward
+   bf16, bitwise repeatable, each case's forward o first held against
+   ``flash_ref`` as phase 5 holds it; timed there in turns with SDPA's backward
    (fwd+bwd minus fwd) and the plain version, beside its bound; (c)
    ``train_loop`` of qwen3-1.7b at full width in bf16, B = 4 and S = 4096
    (``SHAPES["train_4k"]``'s sequence, its global batch of 256 cut to 4),
@@ -151,8 +152,9 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    calls, no plain call, every loss and grad norm finite; per step loss,
    grad norm, lr, fenced step seconds, tokens/s and peak memory; model FLOPs
    over the bf16 peak; one more step under ``torch.profiler`` by category;
-   the kernel on the q/k/v/o/dO that layers 0 and 27 gave it in the warm-up
-   step against its plain version; (b) at the reduced width in float32,
+   the forward's o (of the remat recompute) and the backward on the
+   q/k/v/o/dO that layers 0 and 27 gave them in the warm-up step against
+   their plain versions; (b) at the reduced width in float32,
    first-step gradients (1e-3 of max |CPU| a leaf) and three train steps'
    losses (1e-4 relative) on the card against the CPU from one state; (d)
    ``python -m repro_torch.launch.train --reduced --steps 6 --ckpt-every 3``
@@ -197,7 +199,8 @@ from repro_torch.core.basis import basis_tables  # noqa: E402
 from repro_torch.core.flops import dense_gemm_flops_per_elem, paop_flops_per_elem  # noqa: E402
 from repro_torch.kernels.flash_attention import build as flash_build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import flash_bwd_ref, flash_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    BWD_ROW_REL, BWD_TOL, flash_bwd_errors, flash_bwd_ref, flash_ref)
 from repro_torch.kernels.pa_elasticity import build, ops  # noqa: E402
 from repro_torch.kernels.pa_elasticity.ref import paop_ref, probe_ref  # noqa: E402
 from repro_torch.launch.solve import solve_beam  # noqa: E402
@@ -328,15 +331,10 @@ BWD_CASES = [
     (1, 1024, 8, 8, 64, 128),
     (1, 1024, 4, 2, 16, 256),
 ]
-# f32: 1e-4 of the largest |plain| of dq, dk, dv (reads ~5e-7).  bf16
-# also row by row: ||x - ref|| / (||ref|| + 1e-2 * rms row norm) over each
-# (b, s, head) row of D values, the rms over the rows of all three.  The
-# floor keeps rows whose exact gradient vanishes (dq and dk where a query
-# sees one key: P = 1 and dS = 0) from dividing by rounding noise.  P and dS rounded to bf16 as mma operands read ~5e-3
-# (of max and per row, bring-up run); a dropped or doubled tile of 64 of n
-# keys or queries reads about sqrt(64 / n), 0.125 at n = 4096.
-BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-BWD_ROW_REL, BWD_ROW_FLOOR = 2e-2, 1e-2
+# Tolerances and measure of a backward: ref.py's BWD_TOL, BWD_ROW_REL and
+# flash_bwd_errors (f32 1e-4 of max |plain|; bf16 2e-2 of max and per row).
+# The forward's o that each case feeds the backward is held to the forward
+# tolerances first (flash_check), at the training shape too.
 # Card against CPU at the reduced width in f32 (phase 9b).
 TRAIN_SMALL_SHAPE = ShapeConfig("small", "train", 64, 2)
 TRAIN_SMALL_LOSS_REL, TRAIN_SMALL_GRAD_REL = 1e-4, 1e-3
@@ -1418,20 +1416,6 @@ def bwd_inputs(B, S, H, K, D, dtype, gen) -> tuple:
     return q, k, v, flash_ops.flash_attention(q, k, v), do
 
 
-def bwd_errors(got, want) -> tuple[float, float, float]:
-    """Over dq, dk, dv: (max abs err, that over the largest |plain| of the
-    three, max row error as ``BWD_ROW_REL`` measures it, its floor from the
-    rows of all three).  The scales are the three gradients' together: at
-    S = 1 the exact dq and dk are 0 (one visible key: P = 1, dS = 0)."""
-    diffs = [(x.float() - ref.float()) for x, ref in zip(got, want)]
-    rows = [ref.float().norm(dim=-1) for ref in want]
-    scale = max(float(ref.float().abs().max()) for ref in want)
-    floor = BWD_ROW_FLOOR * float(torch.cat([r.flatten() for r in rows]).square().mean().sqrt())
-    abs_err = max(float(d.abs().max()) for d in diffs)
-    row = max(float((d.norm(dim=-1) / (r + floor)).max()) for d, r in zip(diffs, rows))
-    return abs_err, abs_err / max(scale, 1e-30), row
-
-
 def bwd_bound(q, k) -> tuple[float, str]:
     """Least time for one backward: the larger of bytes over the memory
     rate (q, k, v, o, dO read once, dq, dk, dv written once) and 2.5x the
@@ -1469,21 +1453,27 @@ def train_kernel_checks(gen, card: str) -> dict:
     for (B, S, H, K, D, window), dt in cases:
         q, k, v, _, do = bwd_inputs(B, S, H, K, D, dt, gen)
         o = flash_ops.flash_attention(q, k, v, window=window)
+        # The backward is held against a plain version given this same o,
+        # so the forward kernel's o is held against its own plain version.
+        o_err, o_row, o_ok = flash_check(o, flash_ref(q, k, v, window=window), dt)
         got = flash_ops.flash_attention_bwd(q, k, v, o, do, window=window)
         again = flash_ops.flash_attention_bwd(q, k, v, o, do, window=window)
         torch.cuda.synchronize()
         bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
-        abs_err, rel, row = bwd_errors(got, flash_bwd_ref(q, k, v, o, do, window=window))
-        ok = bitwise and rel <= BWD_TOL[dt] and (dt != torch.bfloat16 or row <= BWD_ROW_REL)
+        abs_err, rel, row = flash_bwd_errors(got, flash_bwd_ref(q, k, v, o, do, window=window))
+        ok = o_ok and bitwise and rel <= BWD_TOL[dt] and (dt != torch.bfloat16
+                                                          or row <= BWD_ROW_REL)
         print(f"[train] flash backward vs plain (B,S,H,K,D)=({B},{S},{H},{K},{D}) "
-              f"window={window} {str(dt)[6:]}: max abs err {abs_err:.3e}, of max |plain| "
+              f"window={window} {str(dt)[6:]}: forward o max abs err {o_err:.3e}, max row rel "
+              f"err {o_row:.3e}; backward max abs err {abs_err:.3e}, of max |plain| "
               f"{rel:.3e}, max row err {row:.3e}, bitwise repeat {bitwise} "
               f"{'ok' if ok else 'OUT OF TOLERANCE'}")
         if not ok:
-            bad.append(((B, S, H, K, D, window), str(dt), rel, row, bitwise))
+            bad.append(((B, S, H, K, D, window), str(dt), o_err, o_row, rel, row, bitwise))
         del q, k, v, o, do, got, again
     if bad:
-        raise SystemExit(f"flash backward kernel disagrees with its plain version: {bad}")
+        raise SystemExit(f"flash kernels disagree with their plain versions (forward o, "
+                         f"backward): {bad}")
     main_err = abs_err  # the last case is the training shape
     torch.cuda.empty_cache()
 
@@ -1600,18 +1590,23 @@ def train_full_width(card: str) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # The kernel on the inputs layers 27 and 0 gave it in the warm-up step.
+    # The kernels on the inputs layers 27 and 0 gave them in the warm-up
+    # step: the forward's o of the remat recompute against the plain forward
+    # on its own q, k, v (per row, as phase 6 holds real inputs), then the
+    # backward.
     for call, q, k, v, o, do, window in kept:
-        got = flash_ops.flash_attention_bwd(q, k, v, o, do, window=window)
-        abs_err, rel, row = bwd_errors(got, flash_bwd_ref(q, k, v, o, do, window=window))
         layer = L - 1 - call
-        ok = row <= BWD_ROW_REL
-        print(f"[train] flash backward vs plain, layer {layer}'s q/k/v/o/dO of the warm-up "
-              f"step {tuple(q.shape)} bf16: max abs err {abs_err:.3e}, of max |plain| "
+        o_err, o_row, _ = flash_check(o, flash_ref(q, k, v, window=window), q.dtype)
+        got = flash_ops.flash_attention_bwd(q, k, v, o, do, window=window)
+        abs_err, rel, row = flash_bwd_errors(got, flash_bwd_ref(q, k, v, o, do, window=window))
+        ok = o_row <= FLASH_ROW_REL and row <= BWD_ROW_REL
+        print(f"[train] flash forward and backward vs plain, layer {layer}'s q/k/v/o/dO of the "
+              f"warm-up step {tuple(q.shape)} bf16: forward o max abs err {o_err:.3e}, max row "
+              f"rel err {o_row:.3e}; backward max abs err {abs_err:.3e}, of max |plain| "
               f"{rel:.3e}, max row err {row:.3e} {'ok' if ok else 'OUT OF TOLERANCE'}")
         if not ok:
-            raise SystemExit(f"flash backward kernel disagrees with its plain version on "
-                             f"layer {layer}'s training inputs: {row}")
+            raise SystemExit(f"flash kernels disagree with their plain versions on layer "
+                             f"{layer}'s training inputs: forward {o_row}, backward {row}")
     if len(kept) != 2:
         raise SystemExit(f"the warm-up step kept {len(kept)} layers' backward inputs, not 2")
     del kept

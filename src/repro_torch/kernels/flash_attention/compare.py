@@ -16,8 +16,8 @@ pair of CUDA events, the versions in turns, and the median round and its
 causal TFLOP/s are printed.  The card's name and power limit come first.
 
 ``--backward`` does the same for ``flash_attention_bwd_bf16``: each build
-held against ``flash_bwd_ref`` with ``chip_smoke.py``'s bf16 measures (2e-2
-of the largest |plain| and per row), then timed at the training shapes
+held against ``flash_bwd_ref`` by ``ref.flash_bwd_errors``, as in
+``chip_smoke.py`` (bf16: 2e-2 of the largest |plain| and per row), then timed at the training shapes
 beside SDPA's backward (its fwd+bwd minus its fwd, ``enable_gqa=True``);
 TFLOP/s count 2.5x the causal forward.
 """
@@ -35,7 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import build, ops
-from repro_torch.kernels.flash_attention.ref import flash_bwd_ref, flash_ref
+from repro_torch.kernels.flash_attention.ref import (
+    BWD_ROW_REL, BWD_TOL, flash_bwd_errors, flash_bwd_ref, flash_ref)
 
 CHECK_SHAPES = [  # (B, S, H, K, D, window)
     (1, 1, 1, 1, 64, None), (3, 129, 6, 3, 128, 16), (1, 4096, 2, 1, 128, 1000),
@@ -60,30 +61,10 @@ def _entry(path: str, backward: bool = False):
 
 
 def _call_bwd(fn, q, k, v, o, do, window=None):
-    B, S, H, D = q.shape
-    K = k.shape[2]
-    dq = torch.empty_like(q)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
-    ts = (q, k, v, o, do, dq, dk, dv)
-    err = fn(*(t.data_ptr() for t in ts), lse.data_ptr(), delta.data_ptr(), B, S, H, K, D,
-             window or 0, *(st for t in ts for st in t.stride()[:3]),
-             torch.cuda.current_stream().cuda_stream)
+    err, grads = ops.call_bwd(fn, q, k, v, o, do, window=window)
     if err:
         raise RuntimeError(f"flash_attention_bwd_bf16 failed: error {err}")
-    return dq, dk, dv
-
-
-def _bwd_errors(got, want, floor=1e-2):
-    """chip_smoke.py's bf16 measures of a backward: max abs err over the
-    largest |plain| of dq, dk, dv, and the floored per-row error."""
-    rows = [r.float().norm(dim=-1) for r in want]
-    scale = max(float(r.float().abs().max()) for r in want)
-    fl = floor * float(torch.cat([r.flatten() for r in rows]).square().mean().sqrt())
-    diffs = [x.float() - r.float() for x, r in zip(got, want)]
-    return (max(float(d.abs().max()) for d in diffs) / scale,
-            max(float((d.norm(dim=-1) / (r + fl)).max()) for d, r in zip(diffs, rows)))
+    return grads
 
 
 def _backward(versions: dict, gen, rounds: int) -> int:
@@ -100,8 +81,8 @@ def _backward(versions: dict, gen, rounds: int) -> int:
         o = ops.flash_attention(q, k, v, window=window)
         want = flash_bwd_ref(q, k, v, o, do, window=window)
         for name, fn in versions.items():
-            rel, row = _bwd_errors(_call_bwd(fn, q, k, v, o, do, window), want)
-            ok = rel <= 2e-2 and row <= 2e-2
+            _, rel, row = flash_bwd_errors(_call_bwd(fn, q, k, v, o, do, window), want)
+            ok = rel <= BWD_TOL[torch.bfloat16] and row <= BWD_ROW_REL
             print(f"[check] backward {name} {(B, S, H, K, D, window)}: max abs err of max "
                   f"|plain| {rel:.3e}, max row err {row:.3e} {'ok' if ok else 'OUT OF TOLERANCE'}")
             if not ok:

@@ -46,6 +46,7 @@ from repro_torch.kernels.flash_attention.ref import flash_bwd_ref, flash_ref
 __all__ = [
     "flash_attention",
     "flash_attention_bwd",
+    "call_bwd",
     "FlashAttention",
     "launch",
     "route",
@@ -242,30 +243,39 @@ def flash_attention_bwd(q, k, v, o, do, *, window=None):
         return flash_bwd_ref(q, k, v, o, do, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
+    if q.numel() == 0:
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # The kernels copy 16-byte rows asynchronously: an input whose base or
     # (b, s, h) strides are not 16-byte multiples (a strided view) is copied
     # to a fresh contiguous tensor first.
     ins = [t if t.data_ptr() % 16 == 0 and t.stride(-1) == 1
            and all(st * t.element_size() % 16 == 0 for st in t.stride()[:3])
            else t.clone(memory_format=torch.contiguous_format) for t in (q, k, v, o, do)]
+    kl = build.load()
+    err, grads = call_bwd(getattr(kl.lib, build.ENTRY_POINTS[("bwd", KERNEL_DTYPES[q.dtype])]),
+                          *ins, window=window)
+    kl.check(err, f"flash_attention_bwd launch (B={B}, S={S}, H={H}, K={K}, D={D}, {q.dtype})")
+    counts["flash_attention_bwd"].launches += 1
+    return grads
+
+
+def call_bwd(fn, q, k, v, o, do, *, window=None) -> tuple[int, tuple]:
+    """Call the backward entry point ``fn`` of a built flash library (this
+    checkout's, or another build's in :mod:`.compare`) on non-empty CUDA
+    tensors whose rows are 16-byte aligned; returns its error code and
+    (dq, dk, dv).  Not counted: :func:`flash_attention_bwd` counts."""
+    B, S, H, D = q.shape
+    K = k.shape[2]
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, S, K, D), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    if dq.numel() == 0:
-        return dq, dk, dv
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
-    kl = build.load()
-    fn = getattr(kl.lib, build.ENTRY_POINTS[("bwd", KERNEL_DTYPES[q.dtype])])
-    outs = (dq, dk, dv)
+    ts = (q, k, v, o, do, dq, dk, dv)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
-            *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
-            lse.data_ptr(), delta.data_ptr(), B, S, H, K, D, window or 0,
-            *(st for t in (*ins, *outs) for st in t.stride()[:3]),
-            stream,
+            *(t.data_ptr() for t in ts), lse.data_ptr(), delta.data_ptr(),
+            B, S, H, K, D, window or 0, *(st for t in ts for st in t.stride()[:3]), stream,
         )
-    kl.check(err, f"flash_attention_bwd launch (B={B}, S={S}, H={H}, K={K}, D={D}, {q.dtype})")
-    counts["flash_attention_bwd"].launches += 1
-    return dq, dk, dv
+    return err, (dq, dk, dv)

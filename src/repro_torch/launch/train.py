@@ -12,9 +12,11 @@ the same batches (the pipeline is a pure function of the step counter).
 
 Flags are the reference CLI's, plus ``--device`` (default: the card; ``cpu``
 runs float32 through the plain PyTorch versions, as the reference does on a
-CPU backend), ``--profile`` (one more step under ``torch.profiler``),
-``--log-every`` and ``--kill-after-steps`` (SIGKILL after that many steps of
-this process, for restart tests).  One card: the reference's mesh and its
+CPU backend), ``--profile`` (the last step under ``torch.profiler``),
+``--log-every`` (the reference logs every 10th step and the last; a restart
+test compares every step's loss, so it asks for 1) and
+``--kill-after-steps`` (SIGKILL after that many steps of this process, for
+restart tests).  One card: the reference's mesh and its
 ``state_pspecs``/``batch_pspec`` have no counterpart (ROADMAP.md, Queue 1
 item 10), nor has its gradient-compression hook on the CLI.
 
@@ -37,7 +39,7 @@ import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import ShapeConfig, get_config, get_reduced
-from repro_torch.data.pipeline import TokenPipeline, make_batch
+from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.distributed.elastic import StepWatchdog
 from repro_torch.optim.adamw import AdamWConfig
@@ -68,8 +70,13 @@ def train_loop(
 
     step_context: optional ``i -> context manager`` entered around step
     ``i`` (0-based) inside its device fences, e.g. to count kernel
-    launches per step.  profile: after the last step, one more step (not
-    logged, not checkpointed) under ``torch.profiler``."""
+    launches per step.  profile: the last step runs under
+    ``torch.profiler`` and its phases are printed; it is logged and
+    checkpointed as any other, so the state returned is the state saved,
+    and its logged time includes the profiler's overhead.
+
+    log_every: the reference's interval; the CLI's ``--log-every 1`` prints
+    every step, which a kill/resume comparison of steps 4-6 needs."""
     device = resolve_device(device)
     opt = opt or AdamWConfig(total_steps=steps, warmup_steps=max(steps // 20, 1))
     state = train_state_init(torch.Generator(device=device).manual_seed(seed), cfg)
@@ -88,6 +95,16 @@ def train_loop(
     wd = StepWatchdog(watchdog_timeout)
     tokens = shape.global_batch * shape.seq_len
     history = []
+    metrics, step_s = None, 0.0
+
+    def one_step(batch):
+        nonlocal state, metrics, step_s
+        ts = time.perf_counter()
+        with torch.profiler.record_function("train.step"):
+            state, metrics = step_fn(state, batch)
+            synchronize(device)
+        step_s = time.perf_counter() - ts
+
     t0 = time.perf_counter()
     try:
         for i in range(start_step, steps):
@@ -96,12 +113,12 @@ def train_loop(
             if device.type == "cuda":
                 torch.cuda.reset_peak_memory_stats(device)
             synchronize(device)
-            ts = time.perf_counter()
             ctx = step_context(i) if step_context is not None else contextlib.nullcontext()
             with wd.step(), ctx:
-                state, metrics = step_fn(state, batch)
-                synchronize(device)
-            step_s = time.perf_counter() - ts
+                if profile and i + 1 == steps:
+                    print_profile(lambda: one_step(batch), prefix="train.")
+                else:
+                    one_step(batch)
             if (i + 1) % log_every == 0 or i + 1 == steps:
                 m = {k: float(v) for k, v in metrics.items()}
                 m.update(step=i + 1, wall_s=time.perf_counter() - t0, step_s=step_s,
@@ -123,17 +140,6 @@ def train_loop(
         pipe.close()
     if mgr is not None:
         mgr.save(steps, state, extra={"arch": cfg.name})
-    if profile:
-        batch = {k: torch.from_numpy(v).to(device)
-                 for k, v in make_batch(cfg, shape, steps, seed).items()}
-
-        def one_step():
-            nonlocal state
-            with torch.profiler.record_function("train.step"):
-                state, _ = step_fn(state, batch)
-                synchronize(device)
-
-        print_profile(one_step, prefix="train.")
     return state, history
 
 
@@ -153,9 +159,11 @@ def main(argv=None) -> None:
                     help="torch device (default: cuda; 'cpu' runs float32 through the "
                          "plain PyTorch versions)")
     ap.add_argument("--profile", action="store_true",
-                    help="after training, one more step under torch.profiler: host and "
-                         "device time of its phases per kernel")
-    ap.add_argument("--log-every", type=int, default=10)
+                    help="run the last step under torch.profiler: host and device time "
+                         "of its phases per kernel")
+    ap.add_argument("--log-every", type=int, default=10,
+                    help="print every n-th step and the last (default: the reference's 10; "
+                         "restart tests compare every step's loss with 1)")
     ap.add_argument("--kill-after-steps", type=int, default=None,
                     help="SIGKILL this process after that many of its steps (restart tests)")
     args = ap.parse_args(argv)

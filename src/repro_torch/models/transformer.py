@@ -121,11 +121,6 @@ def _stack(trees):
     return torch.stack(trees)
 
 
-def _layer(blocks, i: int):
-    """Layer ``i``'s parameters: views into the stacked tensors."""
-    return _tree_map(lambda a: a[i], blocks)
-
-
 def _unstack(blocks, n: int) -> list:
     """Every layer's parameters, as views: one ``torch.unbind`` a stack, so
     that the gradient of the stack is one ``torch.stack`` of the layers'
@@ -309,9 +304,9 @@ def decode_step(params, token, state, pos: int, cfg):
     """
     check_supported(cfg)
     x = _embed(params, {"tokens": token}, cfg)
-    for i in range(cfg.n_layers):
+    for i, p in enumerate(_unstack(params["blocks"], cfg.n_layers)):
         cache = {"k": state["k"][i], "v": state["v"][i]}  # views: written in place
-        x, _ = _attn_block_decode(_layer(params["blocks"], i), x, cfg, cache, pos)
+        x, _ = _attn_block_decode(p, x, cfg, cache, pos)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return (x @ _head_weight(params, cfg))[:, 0], state
 

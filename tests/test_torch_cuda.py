@@ -20,7 +20,8 @@ from repro_torch.core.basis import basis_tables
 from repro_torch.core.operators import ASSEMBLY_LEVELS, ElasticityOperator
 from repro_torch.fem.space import H1Space
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.kernels.flash_attention.ref import flash_bwd_ref, flash_ref
+from repro_torch.kernels.flash_attention.ref import (
+    BWD_ROW_REL, BWD_TOL, flash_bwd_errors, flash_bwd_ref, flash_ref)
 from repro_torch.kernels.pa_elasticity import build, ops
 from repro_torch.kernels.pa_elasticity.ref import paop_ref
 from repro_torch.launch.solve import solve_beam
@@ -269,19 +270,6 @@ def test_flash_kernel_matches_plain_on_card(card, B, S, H, K, D, window, dtype, 
         assert float((diff / ref.float().norm(dim=-1)).max()) <= 1e-2
 
 
-def _bwd_errors(got, want, floor=1e-2):
-    """(max abs err over the largest |plain| of dq, dk, dv; max over rows of
-    ||x - ref|| / (||ref|| + floor * rms row norm of all three)): the
-    scales are joint because dq and dk vanish where a query sees one key
-    (P = 1, dS = 0), as chip_smoke.py measures them."""
-    rows = [ref.float().norm(dim=-1) for ref in want]
-    scale = max(float(ref.float().abs().max()) for ref in want)
-    fl = floor * float(torch.cat([r.flatten() for r in rows]).square().mean().sqrt())
-    diffs = [x.float() - ref.float() for x, ref in zip(got, want)]
-    return (max(float(d.abs().max()) for d in diffs) / scale,
-            max(float((d.norm(dim=-1) / (r + fl)).max()) for d, r in zip(diffs, rows)))
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,H,K,D,window,pad", [
@@ -294,10 +282,10 @@ def _bwd_errors(got, want, floor=1e-2):
     (2, 100, 8, 4, 64, None, 2),  # views of wider rows: copied before the kernel
 ])
 def test_flash_bwd_kernel_matches_plain_on_card(card, B, S, H, K, D, window, pad, dtype):
-    """The backward kernel against its plain version: f32 to 1e-4 of max
-    |plain|; bf16 to 2e-2 of max |plain| and 2e-2 per row (chip_smoke.py's
-    tolerances and measures); bitwise repeatable; and autograd through flash_attention
-    on the card runs it once."""
+    """The backward kernel against its plain version, held as chip_smoke.py
+    holds it (``ref.flash_bwd_errors``: f32 to 1e-4 of max |plain|; bf16 to
+    2e-2 of max |plain| and 2e-2 per row); bitwise repeatable; and autograd
+    through flash_attention on the card runs it once."""
     g = torch.Generator(device=card).manual_seed(S + D)
     q, do = (torch.randn((B, S, H, D + pad), generator=g, device=card).to(dtype)[..., :D]
              for _ in range(2))
@@ -312,9 +300,9 @@ def test_flash_bwd_kernel_matches_plain_on_card(card, B, S, H, K, D, window, pad
     want = flash_bwd_ref(q, k, v, o, do, window=window)
     for x, like in zip(got, (q, k, v)):
         assert x.dtype == dtype and x.shape == like.shape
-    err, row = _bwd_errors(got, want)
-    assert err <= (1e-4 if dtype == torch.float32 else 2e-2)
-    assert dtype == torch.float32 or row <= 2e-2
+    _, err, row = flash_bwd_errors(got, want)
+    assert err <= BWD_TOL[dtype]
+    assert dtype == torch.float32 or row <= BWD_ROW_REL
     again = flash_ops.flash_attention_bwd(q, k, v, o, do, window=window)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]

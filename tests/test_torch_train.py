@@ -40,11 +40,13 @@ from repro.models import attention as ref_attention
 from repro.models import transformer as ref_tf
 from repro.optim import adamw as ref_adamw
 from repro.train import trainer as ref_trainer
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import base
 from repro_torch.convert import lm_params, train_state
 from repro_torch.data import pipeline
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import flash_bwd_ref, flash_ref
+from repro_torch.launch.train import train_loop
 from repro_torch.models import transformer
 from repro_torch.optim import adamw
 from repro_torch.train import trainer
@@ -326,6 +328,21 @@ def test_train_state_carries_the_references():
             assert a.dtype == torch.float32
             np.testing.assert_array_equal(a.numpy(), _get(rstate.opt_state[name], path))
     assert state.step.dtype == torch.int32 and int(state.step) == 0
+
+
+def test_profiled_last_step_is_the_state_returned_and_saved(tmp_path, capsys):
+    """With ``profile``, the last step runs under the profiler: it is logged
+    and checkpointed, and the state returned is the state saved."""
+    shape = base.ShapeConfig("t", "train", 16, 2)
+    state, history = train_loop(CFG, shape, steps=2, ckpt_dir=str(tmp_path), ckpt_every=1,
+                                log_every=1, device="cpu", profile=True)
+    assert "[profile] train.step" in capsys.readouterr().out
+    assert [m["step"] for m in history] == [1, 2] and int(state.step) == 2
+    saved, _, step = CheckpointManager(str(tmp_path)).restore_latest(
+        trainer.train_state_init(torch.Generator().manual_seed(1), CFG))
+    assert step == 2 and int(saved.step) == 2
+    for path, a in _paths(state.params):
+        torch.testing.assert_close(a.detach(), _get(saved.params, path), rtol=0, atol=0)
 
 
 # ---------------------------------------------------------------------------
