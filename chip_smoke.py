@@ -102,8 +102,9 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    kernel at (8, 2048, 16, 8, 128) bf16, beside their plain versions, a
    library call where one exists, and their bounds: rounds of back-to-back
    launches between one pair of CUDA events, the versions in turns (the
-   kernel, the baseline, the plain version; the wgmma kernel, SDPA, the
-   mma_sync kernel), the median round; then the host time per call of the
+   kernel, the baseline, the plain version; the wgmma kernel, the same
+   writing the LSE, SDPA, the mma_sync kernel), the median round; then the
+   host time per call of the
    wrappers (``time.perf_counter`` over back-to-back calls, no sync
    inside), with the probe's wrapper split into its parts;
 8. the ablation, the paper's assembly ladder on the card (``[ablation]``
@@ -137,30 +138,38 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    (``csrc/pa_elasticity_baseline.cu``).
 
 9. training (``[train]`` lines, each beside the card's name and power
-   limit): (a) the flash backward kernel against its plain version in
-   float32 (1e-4 of max |plain|) and bfloat16 (2e-2 of max |plain| and per
-   row, ``ref.flash_bwd_errors``) at S in {1, 77, 300, 1024}, G in {1, 2}, a
-   window, D in {16, 64, 128} and the training shape (4, 4096, 16, 8, 128)
-   bf16, bitwise repeatable, each case's forward o first held against
-   ``flash_ref`` as phase 5 holds it; timed there in turns with SDPA's backward
-   (fwd+bwd minus fwd) and the plain version, beside its bound; (c)
+   limit): (a) the flash backward routes against their plain version in
+   float32 (fma; 1e-4 of max |plain|) and bfloat16 (wgmma at D in {64, 128},
+   mma_sync at D in {16, 32}; 2e-2 of max |plain| and per row,
+   ``ref.flash_bwd_errors``) at S in {1, 77, 300, 1024}, G in {1, 2},
+   windows, and the training shape (4, 4096, 16, 8, 128) bf16 (there the
+   mma_sync route on the same inputs too), each case's route asserted,
+   bitwise repeatable, its forward o and LSE (every forward route's: fma,
+   mma_sync, wgmma) first held against ``flash_ref`` as phase 5 holds it and
+   against ``flash_lse`` (``ref.LSE_TOL``); then the wgmma and the mma_sync
+   backward on the same inputs, SDPA's backward (fwd+bwd minus fwd) and the
+   plain version timed in turns at the training shape, (8, 2048, 16, 8, 128)
+   and (4, 4096, 16, 8, 64), each beside its bound; (c)
    ``train_loop`` of qwen3-1.7b at full width in bf16, B = 4 and S = 4096
    (``SHAPES["train_4k"]``'s sequence, its global batch of 256 cut to 4),
    batches from ``data/pipeline``, one warm-up step and 5 timed, with every
    count zeroed just before and read just after each step: 56 flash forward
    launches (28, and 28 in the remat recompute, all wgmma), 28 backward
-   calls, no plain call, every loss and grad norm finite; per step loss,
-   grad norm, lr, fenced step seconds, tokens/s and peak memory; model FLOPs
-   over the bf16 peak; one more step under ``torch.profiler`` by category;
-   the forward's o (of the remat recompute) and the backward on the
-   q/k/v/o/dO that layers 0 and 27 gave them in the warm-up step against
-   their plain versions; (b) at the reduced width in float32,
-   first-step gradients (1e-3 of max |CPU| a leaf) and three train steps'
-   losses (1e-4 relative) on the card against the CPU from one state; (d)
-   ``python -m repro_torch.launch.train --reduced --steps 6 --ckpt-every 3``
-   on the card uninterrupted, SIGKILLed after step 4, and rerun: it resumes
-   from step 3 with the same batches, and steps 4-6 and the final state are
-   bitwise the uninterrupted run's.
+   launches, all wgmma, no plain call, every loss and grad norm finite; per
+   step loss, grad norm, lr, fenced step seconds, tokens/s and peak memory;
+   model FLOPs over the bf16 peak; one more step under ``torch.profiler`` by
+   category; the forward's o and LSE (of the remat recompute) and the
+   backward on the q/k/v/o/dO/LSE that layers 0 and 27 gave them in the
+   warm-up step against their plain versions; (b) at the reduced width in
+   float32, first-step gradients (1e-3 of max |CPU| a leaf) and three train
+   steps' losses (1e-4 relative) on the card against the CPU from one
+   state; (d) ``python -m repro_torch.launch.train --reduced --steps 6
+   --ckpt-every 3`` on the card uninterrupted, SIGKILLed after step 4, and
+   rerun: it resumes from step 3 with the same batches, and steps 4-6 and
+   the final state are bitwise the uninterrupted run's; (e) ``train_loop``
+   of that ``--reduced`` configuration in bf16 (head dim 16) at the CLI's
+   --seq 256 --batch 8, two steps, each counted: every flash forward and
+   backward launch on the mma_sync routes, no plain call.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -200,7 +209,7 @@ from repro_torch.core.flops import dense_gemm_flops_per_elem, paop_flops_per_ele
 from repro_torch.kernels.flash_attention import build as flash_build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
-    BWD_ROW_REL, BWD_TOL, flash_bwd_errors, flash_bwd_ref, flash_ref)
+    BWD_ROW_REL, BWD_TOL, LSE_TOL, flash_bwd_errors, flash_bwd_ref, flash_lse, flash_ref)
 from repro_torch.kernels.pa_elasticity import build, ops  # noqa: E402
 from repro_torch.kernels.pa_elasticity.ref import paop_ref, probe_ref  # noqa: E402
 from repro_torch.launch.solve import solve_beam  # noqa: E402
@@ -327,10 +336,18 @@ BWD_CASES = [
     (1, 77, 2, 1, 128, None),
     (1, 300, 4, 4, 64, None),
     (2, 300, 8, 4, 128, 48),
+    (1, 300, 4, 2, 32, 16),
     (1, 1024, 16, 8, 128, None),
     (1, 1024, 8, 8, 64, 128),
     (1, 1024, 4, 2, 16, 256),
 ]
+# The backward routes timed in turns (wgmma, mma_sync on the same inputs,
+# SDPA's backward, the plain version): the training shape, the serve shape
+# and the training shape at D = 64.
+BWD_TIME_SHAPES = [FLASH_TRAIN, (8, 2048, 16, 8, 128), (4, 4096, 16, 8, 64)]
+# The train CLI's --reduced configuration in bf16 (head dim 16, both flash
+# routes mma_sync) at its --seq and --batch defaults, counted in phase 9(e).
+TRAIN_REDUCED_SHAPE, TRAIN_REDUCED_STEPS = ShapeConfig("train CLI --reduced", "train", 256, 8), 2
 # Tolerances and measure of a backward: ref.py's BWD_TOL, BWD_ROW_REL and
 # flash_bwd_errors (f32 1e-4 of max |plain|; bf16 2e-2 of max and per row).
 # The forward's o that each case feeds the backward is held to the forward
@@ -345,7 +362,7 @@ TRAIN_LINE = re.compile(r"\[train\] step +(\d+) loss (\S+) gnorm (\S+) lr (\S+) 
 TRAIN_TOP_KERNELS = 6  # kernels listed per category
 TRAIN_CATEGORIES = {
     "flash forward": r"flash_fwd",
-    "flash backward": r"bwd_(prep|dkdv|dq)_",
+    "flash backward": r"bwd_(prep|dkdv|dq)",
     "GEMMs": r"gemm|nvjet|cutlass|xmma|cublas|sm80_|sm90_",
     "CE": r"SoftMax|softmax|nll_loss|cross_entropy",
 }
@@ -359,12 +376,13 @@ def card_line() -> str:
     return out[torch.cuda.current_device()] if len(out) > 1 else out[0]
 
 
-def ptxas_summary(log: str, smem_bytes=None, pa_config=None) -> list[str]:
+def ptxas_summary(log: str, smem_bytes=None, pa_config=None, bwd_smem_bytes=None) -> list[str]:
     """One line per kernel instantiation: registers and spills, the dynamic
-    shared memory ``smem_bytes(D)`` gives for the wgmma kernel, and for the
-    PAop kernels what ``pa_config(name, dtype, D)`` (``KernelLibrary.config``)
-    gives; then every ptxas warning that wgmma instructions were
-    serialized."""
+    shared memory ``smem_bytes(D)`` gives for the wgmma forward and
+    ``bwd_smem_bytes(which, D)`` for the wgmma backward's dkdv (0) and dq (1)
+    kernels, and for the PAop kernels what ``pa_config(name, dtype, D)``
+    (``KernelLibrary.config``) gives; then every ptxas warning that wgmma
+    instructions were serialized."""
     rows, name, spill = [], None, ""
     for line in log.splitlines():
         if re.search(r"wgmma.*serializ", line):
@@ -376,15 +394,26 @@ def ptxas_summary(log: str, smem_bytes=None, pa_config=None) -> list[str]:
             k = re.search(r"pa_elasticity_(baseline_)?kernelI([df])Li(\d+)E", name)
             f = re.search(r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", name)
             tc = re.search(r"flash_fwd_tc_kernelILi(\d+)ELi(\d+)E", name)
-            wg = re.search(r"flash_fwd_wgmma_kernelILi(\d+)E", name)
-            bw = re.search(r"(bwd_(?:prep|dkdv|dq)_(?:tc|fma))ILi(\d+)E", name)
+            wg = re.search(r"flash_fwd_wgmma_kernelILi(\d+)ELb([01])E", name)
+            bw = re.search(r"(bwd_(?:dkdv|dq)_(?:tc|fma))ILi(\d+)E", name)
+            bwg = re.search(r"bwd_(dkdv|dq)_wgmmaILi(\d+)E", name)
+            prep = re.search(r"bwd_prepI(f|13__nv_bfloat16)Li(\d+)E", name)
             if bw:
                 kind = "mma.sync, bf16" if bw.group(1).endswith("tc") else "FMA, f32"
                 name = f"flash_attention backward {bw.group(1)}<D={bw.group(2)}> ({kind})"
+            elif bwg:
+                d = int(bwg.group(2))
+                smem = (f", {bwd_smem_bytes(int(bwg.group(1) == 'dq'), d)} B dynamic shared "
+                        f"memory" if bwd_smem_bytes else "")
+                name = f"flash_attention backward bwd_{bwg.group(1)}_wgmma<D={d}> (wgmma, TMA{smem})"
+            elif prep:
+                dt = "f32" if prep.group(1) == "f" else "bf16"
+                name = f"flash_attention backward bwd_prep<{dt}, D={prep.group(2)}> (delta)"
             elif wg:
                 d = int(wg.group(1))
                 smem = f", {smem_bytes(d)} B dynamic shared memory" if smem_bytes else ""
-                name = f"flash_attention<bf16, D={d}, BQ=BK=128> (wgmma, TMA{smem})"
+                lse = ", writes the LSE" if wg.group(2) == "1" else ""
+                name = f"flash_attention<bf16, D={d}, BQ=BK=128> (wgmma, TMA{smem}{lse})"
             elif k:
                 kname = "pa_elasticity_baseline" if k.group(1) else "pa_elasticity"
                 dt = torch.float64 if k.group(2) == "d" else torch.float32
@@ -1409,11 +1438,21 @@ def ablation_phase(card: str) -> None:
     print(f"[ablation] phase wall {time.perf_counter() - t_phase} s ({card})")
 
 
-def bwd_inputs(B, S, H, K, D, dtype, gen) -> tuple:
-    """Unit-normal q, k, v and dO on the card, and the flash kernel's o."""
+def bwd_inputs(B, S, H, K, D, dtype, gen, window=None) -> tuple:
+    """Unit-normal q, k, v and dO on the card, and the flash kernel's o and
+    LSE: (q, k, v, o, lse, do)."""
     q, do = (torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype) for _ in range(2))
     k, v = (torch.randn((B, S, K, D), generator=gen, device="cuda").to(dtype) for _ in range(2))
-    return q, k, v, flash_ops.flash_attention(q, k, v), do
+    o, lse = flash_ops.launch(flash_ops.route(q, k, v), q, k, v, window=window, lse=True)
+    return q, k, v, o, lse, do
+
+
+def expected_bwd_route(dt, D: int) -> str:
+    """The backward route each (contiguous) case must launch: f32 fma, bf16
+    at D in {64, 128} wgmma, other bf16 mma_sync."""
+    if dt == torch.float32:
+        return "fma"
+    return "wgmma" if D in (64, 128) else "mma_sync"
 
 
 def bwd_bound(q, k) -> tuple[float, str]:
@@ -1429,95 +1468,125 @@ def bwd_bound(q, k) -> tuple[float, str]:
 
 
 def capture_bwd_inputs(calls: set[int]) -> tuple[list, object]:
-    """Wrap the backward wrapper to keep clones of the q, k, v, o, dO of the
-    given calls (0-based, in call order: the backward meets the last layer
-    first); returns the list and the wrapped function, to put back."""
+    """Wrap the backward wrapper to keep clones of the q, k, v, o, dO and
+    LSE of the given calls (0-based, in call order: the backward meets the
+    last layer first); returns the list and the wrapped function, to put
+    back."""
     kept, inner, seen = [], flash_ops.flash_attention_bwd, [0]
 
-    def keeping(q, k, v, o, do, *, window=None):
+    def keeping(q, k, v, o, do, *, lse=None, window=None):
         if seen[0] in calls:
-            kept.append((seen[0], *(t.detach().clone() for t in (q, k, v, o, do)), window))
+            kept.append((seen[0], *(t.detach().clone() for t in (q, k, v, o, do, lse)), window))
         seen[0] += 1
-        return inner(q, k, v, o, do, window=window)
+        return inner(q, k, v, o, do, lse=lse, window=window)
 
     flash_ops.flash_attention_bwd = keeping
     return kept, inner
 
 
-def train_kernel_checks(gen, card: str) -> dict:
-    """Phase 9(a): the backward kernel against its plain version, then its
-    times at the training shape.  Returns the numbers of its JSON entry."""
-    bad = []
+def train_kernel_checks(gen, card: str) -> dict[str, dict]:
+    """Phase 9(a): every backward case against its plain version, its route
+    asserted and the forward's o and LSE held first; then the wgmma and
+    mma_sync routes' times.  Returns the numbers of their JSON entries."""
+    bad, errs = [], {}
     cases = [(c, dt) for c in BWD_CASES for dt in (torch.float32, torch.bfloat16)]
     cases.append(((*FLASH_TRAIN, None), torch.bfloat16))
     for (B, S, H, K, D, window), dt in cases:
-        q, k, v, _, do = bwd_inputs(B, S, H, K, D, dt, gen)
-        o = flash_ops.flash_attention(q, k, v, window=window)
+        q, k, v, o, lse, do = bwd_inputs(B, S, H, K, D, dt, gen, window)
         # The backward is held against a plain version given this same o,
-        # so the forward kernel's o is held against its own plain version.
+        # so the forward kernel's o (and LSE) are held against theirs first.
         o_err, o_row, o_ok = flash_check(o, flash_ref(q, k, v, window=window), dt)
-        got = flash_ops.flash_attention_bwd(q, k, v, o, do, window=window)
-        again = flash_ops.flash_attention_bwd(q, k, v, o, do, window=window)
+        lse_err = float((lse - flash_lse(q, k, window=window)).abs().max())
+        want_route = expected_bwd_route(dt, D)
+        before = dict(flash_ops.bwd_route_launches)
+        got = flash_ops.flash_attention_bwd(q, k, v, o, do, lse=lse, window=window)
+        torch.cuda.synchronize()
+        moved = [r for r in flash_ops.BWD_ROUTES if flash_ops.bwd_route_launches[r] != before[r]]
+        again = flash_ops.flash_attention_bwd(q, k, v, o, do, lse=lse, window=window)
         torch.cuda.synchronize()
         bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
-        abs_err, rel, row = flash_bwd_errors(got, flash_bwd_ref(q, k, v, o, do, window=window))
-        ok = o_ok and bitwise and rel <= BWD_TOL[dt] and (dt != torch.bfloat16
-                                                          or row <= BWD_ROW_REL)
+        want = flash_bwd_ref(q, k, v, o, do, window=window)
+        abs_err, rel, row = flash_bwd_errors(got, want)
+        ok = (o_ok and lse_err <= LSE_TOL and moved == [want_route] and bitwise
+              and rel <= BWD_TOL[dt] and (dt != torch.bfloat16 or row <= BWD_ROW_REL))
         print(f"[train] flash backward vs plain (B,S,H,K,D)=({B},{S},{H},{K},{D}) "
               f"window={window} {str(dt)[6:]}: forward o max abs err {o_err:.3e}, max row rel "
-              f"err {o_row:.3e}; backward max abs err {abs_err:.3e}, of max |plain| "
-              f"{rel:.3e}, max row err {row:.3e}, bitwise repeat {bitwise} "
+              f"err {o_row:.3e}, LSE max abs err {lse_err:.3e}; backward route {moved} "
+              f"(expected {want_route}), max abs err {abs_err:.3e}, of max |plain| {rel:.3e}, "
+              f"max row err {row:.3e}, bitwise repeat {bitwise} "
               f"{'ok' if ok else 'OUT OF TOLERANCE'}")
         if not ok:
-            bad.append(((B, S, H, K, D, window), str(dt), o_err, o_row, rel, row, bitwise))
-        del q, k, v, o, do, got, again
+            bad.append(((B, S, H, K, D, window), str(dt), moved, o_err, o_row, lse_err, rel,
+                        row, bitwise))
+        if (B, S, H, K, D) == FLASH_TRAIN:
+            errs["wgmma"] = abs_err
+            # the mma_sync route on the same inputs: its JSON entry's error
+            sync = flash_ops.launch_bwd("mma_sync", q, k, v, o, do, lse)
+            errs["mma_sync"], s_rel, s_row = flash_bwd_errors(sync, want)
+            s_ok = s_rel <= BWD_TOL[dt] and s_row <= BWD_ROW_REL
+            print(f"[train] flash backward vs plain {FLASH_TRAIN} bf16, the mma_sync route on "
+                  f"the same inputs: max abs err {errs['mma_sync']:.3e}, of max |plain| "
+                  f"{s_rel:.3e}, max row err {s_row:.3e} {'ok' if s_ok else 'OUT OF TOLERANCE'}")
+            if not s_ok:
+                bad.append((FLASH_TRAIN, "mma_sync", s_rel, s_row))
+            del sync
+        del q, k, v, o, lse, do, got, again, want
     if bad:
-        raise SystemExit(f"flash kernels disagree with their plain versions (forward o, "
-                         f"backward): {bad}")
-    main_err = abs_err  # the last case is the training shape
+        raise SystemExit(f"flash kernels disagree with their plain versions (forward o and "
+                         f"LSE, backward): {bad}")
     torch.cuda.empty_cache()
 
-    # Times at the training shape, in turns: the kernel; SDPA's backward as
-    # its fwd+bwd minus its fwd, with enable_gqa=True and with k/v expanded
-    # to the query heads beforehand; the plain version apart (its S x S
-    # f32 intermediates).
-    q, k, v, o, do = bwd_inputs(*FLASH_TRAIN, torch.bfloat16, gen)
-    G = FLASH_TRAIN[2] // FLASH_TRAIN[3]
-    qs, ks, vs, dos = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
-    kx, vx = (t.repeat_interleave(G, dim=1) for t in (ks, vs))
-    for t in (qs, ks, vs, kx, vx):
-        t.requires_grad_(True)
+    # Times, in turns: the two bf16 routes on the same inputs; SDPA's
+    # backward as its fwd+bwd minus its fwd, with enable_gqa=True and with
+    # k/v expanded to the query heads beforehand; the plain version apart
+    # (its S x S f32 intermediates).
+    times = {}
+    for shape in BWD_TIME_SHAPES:
+        q, k, v, o, lse, do = bwd_inputs(*shape, torch.bfloat16, gen)
+        G = shape[2] // shape[3]
+        qs, ks, vs, dos = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+        kx, vx = (t.repeat_interleave(G, dim=1) for t in (ks, vs))
+        for t in (qs, ks, vs, kx, vx):
+            t.requires_grad_(True)
 
-    def sdpa(kk, vv, gqa):
-        return F.scaled_dot_product_attention(qs, kk, vv, is_causal=True, enable_gqa=gqa)
+        def sdpa(kk, vv, gqa):
+            return F.scaled_dot_product_attention(qs, kk, vv, is_causal=True, enable_gqa=gqa)
 
-    t = event_ms({
-        "kernel": lambda: flash_ops.flash_attention_bwd(q, k, v, o, do),
-        "sdpa fwd": lambda: sdpa(ks, vs, True),
-        "sdpa fwd+bwd": lambda: torch.autograd.grad(sdpa(ks, vs, True), (qs, ks, vs), dos),
-        "sdpa expanded fwd": lambda: sdpa(kx, vx, False),
-        "sdpa expanded fwd+bwd": lambda: torch.autograd.grad(sdpa(kx, vx, False),
-                                                             (qs, kx, vx), dos),
-    }, n=10, rounds=5)
-    plain_ms = event_ms({"plain": lambda: flash_bwd_ref(q, k, v, o, do)}, n=1, rounds=3)["plain"]
-    lib_ms = t["sdpa fwd+bwd"] - t["sdpa fwd"]
-    lib_x_ms = t["sdpa expanded fwd+bwd"] - t["sdpa expanded fwd"]
-    bound_ms, bound_by = bwd_bound(q, k)
-    print(f"[train] flash backward (B,S,H,K,D)={FLASH_TRAIN} bf16, in turns, median of 5 rounds "
-          f"of 10: kernel {t['kernel']} ms; SDPA backward (enable_gqa) {lib_ms} ms "
-          f"(fwd+bwd {t['sdpa fwd+bwd']}, fwd {t['sdpa fwd']}); SDPA backward with k/v expanded "
-          f"beforehand {lib_x_ms} ms; plain {plain_ms} ms (median of 3); bound {bound_ms} ms "
-          f"({bound_by}): kernel {100 * bound_ms / t['kernel']}% of bound, "
-          f"{t['kernel'] / lib_ms}x SDPA's backward ({card})")
-    del q, k, v, o, do, qs, ks, vs, dos, kx, vx
-    torch.cuda.empty_cache()
-    return {"max_abs_err": main_err, "ms": t["kernel"], "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+        t = event_ms({
+            "wgmma": lambda: flash_ops.launch_bwd("wgmma", q, k, v, o, do, lse),
+            "mma_sync": lambda: flash_ops.launch_bwd("mma_sync", q, k, v, o, do, lse),
+            "sdpa fwd": lambda: sdpa(ks, vs, True),
+            "sdpa fwd+bwd": lambda: torch.autograd.grad(sdpa(ks, vs, True), (qs, ks, vs), dos),
+            "sdpa expanded fwd": lambda: sdpa(kx, vx, False),
+            "sdpa expanded fwd+bwd": lambda: torch.autograd.grad(sdpa(kx, vx, False),
+                                                                 (qs, kx, vx), dos),
+        }, n=10, rounds=5)
+        t["plain"] = event_ms({"plain": lambda: flash_bwd_ref(q, k, v, o, do)}, n=1,
+                              rounds=3)["plain"]
+        t["library"] = t["sdpa fwd+bwd"] - t["sdpa fwd"]
+        lib_x_ms = t["sdpa expanded fwd+bwd"] - t["sdpa expanded fwd"]
+        t["bound_ms"], t["bound_by"] = bwd_bound(q, k)
+        print(f"[train] flash backward (B,S,H,K,D)={shape} bf16, in turns, median of 5 rounds "
+              f"of 10: wgmma {t['wgmma']} ms, mma_sync {t['mma_sync']} ms (wgmma "
+              f"{t['mma_sync'] / t['wgmma']}x faster); SDPA backward (enable_gqa) "
+              f"{t['library']} ms (fwd+bwd {t['sdpa fwd+bwd']}, fwd {t['sdpa fwd']}); SDPA "
+              f"backward with k/v expanded beforehand {lib_x_ms} ms; plain {t['plain']} ms "
+              f"(median of 3); bound {t['bound_ms']} ms ({t['bound_by']}): wgmma "
+              f"{100 * t['bound_ms'] / t['wgmma']}% of bound, {t['wgmma'] / t['library']}x "
+              f"SDPA's backward; mma_sync {100 * t['bound_ms'] / t['mma_sync']}% of bound "
+              f"({card})")
+        times[shape] = t
+        del q, k, v, o, lse, do, qs, ks, vs, dos, kx, vx
+        torch.cuda.empty_cache()
+    main = times[FLASH_TRAIN]
+    return {route: {"max_abs_err": errs[route], "ms": main[route], "plain_ms": main["plain"],
+                    "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                    "library_ms": main["library"]} for route in ("wgmma", "mma_sync")}
 
 
 def train_full_width(card: str) -> int:
     """Phase 9(c): train_loop at full width, each step counted; returns
-    the backward kernel's launches over the run."""
+    the wgmma backward's launches over the run."""
     cfg = get_config(TRAIN_ARCH)
     shape = ShapeConfig("train_4k, global batch 256 cut to 4", "train", TRAIN_SEQ, TRAIN_BATCH)
     per_step = []
@@ -1526,7 +1595,8 @@ def train_full_width(card: str) -> int:
     def counted(i):
         reset_all_counts()
         yield
-        per_step.append((all_counts(), dict(flash_ops.route_launches)))
+        per_step.append((all_counts(), dict(flash_ops.route_launches),
+                         dict(flash_ops.bwd_route_launches)))
 
     kept, inner = capture_bwd_inputs({0, cfg.n_layers - 1})
     try:
@@ -1536,13 +1606,14 @@ def train_full_width(card: str) -> int:
         flash_ops.flash_attention_bwd = inner
     L = cfg.n_layers
     want = {"flash_attention": (2 * L, 0), "flash_attention_bwd": (L, 0)}
-    for i, (counts, routes) in enumerate(per_step):
+    for i, (counts, routes, bwd_routes) in enumerate(per_step):
         got = {k: counts[k] for k in want}
         print(f"[train] step {i + 1} counts (launches, plain_calls): {got}; flash forward "
-              f"routes {routes}")
-        if got != want or routes["wgmma"] != 2 * L:
+              f"routes {routes}, backward routes {bwd_routes}")
+        if got != want or routes["wgmma"] != 2 * L or bwd_routes["wgmma"] != L:
             raise SystemExit(f"train step {i + 1} did not run only through the flash kernels: "
-                             f"{got}, routes {routes}; expected {want}, {2 * L} on wgmma")
+                             f"{got}, routes {routes}, backward routes {bwd_routes}; expected "
+                             f"{want}, {2 * L} forward and {L} backward on wgmma")
     if len(per_step) != TRAIN_STEPS or not all(
             np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in history):
         raise SystemExit(f"train steps: {len(per_step)} counted, history {history}")
@@ -1552,7 +1623,7 @@ def train_full_width(card: str) -> int:
     B, S, H, K, D = FLASH_TRAIN
     attn = 4 * B * H * D * S * (S + 1) / 2 * L  # causal forward, every layer
     model_flops = 6 * N * T + 3 * attn
-    run_flops = 8 * N * T + (2 + 4) * attn  # remat's recompute; this backward's 4x
+    run_flops = 8 * N * T + (2 + 3.5) * attn  # remat's recompute; this backward's 7 products
     step_s = statistics.median(m["step_s"] for m in timed)
     peak = PEAK_FLOPS[torch.bfloat16]
     print(f"[train] {cfg.name} bf16 L={L} d={cfg.d_model} H={cfg.n_heads} K={cfg.n_kv_heads} "
@@ -1563,7 +1634,8 @@ def train_full_width(card: str) -> int:
           f"step {history[0]['step_s']} s ({card})")
     print(f"[train] model FLOPs a step 6NT + 3 x causal attention = {model_flops:.4e}: "
           f"{model_flops / step_s / 1e12} TFLOP/s, MFU {100 * model_flops / step_s / peak}% of "
-          f"the {peak / 1e12:.0f} TFLOP/s bf16 dense peak; as run (remat, a 4x backward) "
+          f"the {peak / 1e12:.0f} TFLOP/s bf16 dense peak; as run (remat, a backward of 7 "
+          f"causal products) "
           f"{run_flops:.4e}: {run_flops / step_s / 1e12} TFLOP/s ({card})")
 
     # One more step under torch.profiler: where its device time goes.
@@ -1591,27 +1663,68 @@ def train_full_width(card: str) -> int:
     torch.cuda.empty_cache()
 
     # The kernels on the inputs layers 27 and 0 gave them in the warm-up
-    # step: the forward's o of the remat recompute against the plain forward
-    # on its own q, k, v (per row, as phase 6 holds real inputs), then the
-    # backward.
-    for call, q, k, v, o, do, window in kept:
+    # step: the forward's o and LSE of the remat recompute against the plain
+    # forward on its own q, k, v (o per row, as phase 6 holds real inputs),
+    # then the backward.
+    for call, q, k, v, o, do, lse, window in kept:
         layer = L - 1 - call
         o_err, o_row, _ = flash_check(o, flash_ref(q, k, v, window=window), q.dtype)
-        got = flash_ops.flash_attention_bwd(q, k, v, o, do, window=window)
+        lse_err = float((lse - flash_lse(q, k, window=window)).abs().max())
+        got = flash_ops.flash_attention_bwd(q, k, v, o, do, lse=lse, window=window)
         abs_err, rel, row = flash_bwd_errors(got, flash_bwd_ref(q, k, v, o, do, window=window))
-        ok = o_row <= FLASH_ROW_REL and row <= BWD_ROW_REL
-        print(f"[train] flash forward and backward vs plain, layer {layer}'s q/k/v/o/dO of the "
-              f"warm-up step {tuple(q.shape)} bf16: forward o max abs err {o_err:.3e}, max row "
-              f"rel err {o_row:.3e}; backward max abs err {abs_err:.3e}, of max |plain| "
-              f"{rel:.3e}, max row err {row:.3e} {'ok' if ok else 'OUT OF TOLERANCE'}")
+        ok = o_row <= FLASH_ROW_REL and lse_err <= LSE_TOL and row <= BWD_ROW_REL
+        print(f"[train] flash forward and backward vs plain, layer {layer}'s q/k/v/o/dO/LSE of "
+              f"the warm-up step {tuple(q.shape)} bf16: forward o max abs err {o_err:.3e}, max "
+              f"row rel err {o_row:.3e}, LSE max abs err {lse_err:.3e}; backward max abs err "
+              f"{abs_err:.3e}, of max |plain| {rel:.3e}, max row err {row:.3e} "
+              f"{'ok' if ok else 'OUT OF TOLERANCE'}")
         if not ok:
             raise SystemExit(f"flash kernels disagree with their plain versions on layer "
-                             f"{layer}'s training inputs: forward {o_row}, backward {row}")
+                             f"{layer}'s training inputs: forward {o_row}, LSE {lse_err}, "
+                             f"backward {row}")
     if len(kept) != 2:
         raise SystemExit(f"the warm-up step kept {len(kept)} layers' backward inputs, not 2")
     del kept
     torch.cuda.empty_cache()
-    return sum(c["flash_attention_bwd"][0] for c, _ in per_step)
+    return sum(b["wgmma"] for _, _, b in per_step)
+
+
+def train_reduced_bf16(card: str) -> int:
+    """Phase 9(e): train_loop of the train CLI's --reduced configuration on
+    the card in bf16 at its --seq and --batch defaults (head dim 16: every
+    flash call takes the mma_sync routes), each step counted: 2 L forward
+    and L backward launches on mma_sync, no plain call, finite losses.
+    Returns the mma_sync backward's launches over the run."""
+    cfg = get_reduced(TRAIN_ARCH)
+    per_step = []
+
+    @contextlib.contextmanager
+    def counted(i):
+        reset_all_counts()
+        yield
+        per_step.append((all_counts(), dict(flash_ops.route_launches),
+                         dict(flash_ops.bwd_route_launches)))
+
+    t0 = time.perf_counter()
+    _, history = train_loop(cfg, TRAIN_REDUCED_SHAPE, steps=TRAIN_REDUCED_STEPS, log_every=1,
+                            seed=SEED, device="cuda", step_context=counted)
+    wall = time.perf_counter() - t0
+    L = cfg.n_layers
+    want = ({"flash_attention": (2 * L, 0), "flash_attention_bwd": (L, 0)},
+            {**dict.fromkeys(flash_ops.ROUTES, 0), "mma_sync": 2 * L},
+            {**dict.fromkeys(flash_ops.BWD_ROUTES, 0), "mma_sync": L})
+    for i, (counts, routes, bwd_routes) in enumerate(per_step):
+        got = ({k: counts[k] for k in want[0]}, routes, bwd_routes)
+        print(f"[train] reduced {cfg.dtype} (D={cfg.head_dim_}, L={L}) "
+              f"{TRAIN_REDUCED_SHAPE.global_batch} x {TRAIN_REDUCED_SHAPE.seq_len} step {i + 1}: "
+              f"counts {got[0]}, forward routes {routes}, backward routes {bwd_routes}")
+        if got != want:
+            raise SystemExit(f"reduced train step {i + 1} did not run only through the mma_sync "
+                             f"flash kernels: {got}, expected {want}")
+    if len(per_step) != TRAIN_REDUCED_STEPS or not all(np.isfinite(m["loss"]) for m in history):
+        raise SystemExit(f"reduced train steps: {len(per_step)} counted, history {history}")
+    print(f"[train] reduced bf16 losses {[m['loss'] for m in history]}, {wall} s ({card})")
+    return sum(b["mma_sync"] for _, _, b in per_step)
 
 
 def train_small_check(card: str) -> None:
@@ -1700,23 +1813,28 @@ def train_cli_round_trip(card: str) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def train_phase(gen, card: str) -> dict:
-    """Training (phase 9); returns the backward kernel's JSON entry."""
+def train_phase(gen, card: str) -> list[dict]:
+    """Training (phase 9); returns the backward kernels' JSON entries: the
+    wgmma route (the full-width path's) and the mma_sync route (the reduced
+    bf16 path's)."""
     t_phase = time.perf_counter()
-    entry = train_kernel_checks(gen, card)
-    launches = train_full_width(card)
+    entries = train_kernel_checks(gen, card)
+    launches = {"wgmma": train_full_width(card)}
     train_small_check(card)
     train_cli_round_trip(card)
+    launches["mma_sync"] = train_reduced_bf16(card)
     print(f"[train] phase wall {time.perf_counter() - t_phase} s ({card})")
-    return {
-        "name": "flash_attention_bwd",
+    csrc = "src/repro_torch/kernels/flash_attention/csrc/"
+    return [{
+        "name": name,
         "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+        "source": csrc + source,
         "replaces": "src/repro/models/attention.py:97",
-        "launches": launches,
-        **{k: entry[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                 "library_ms")},
-    }
+        "launches": launches[route],
+        **entries[route],
+    } for name, route, source in (
+        ("flash_attention_bwd_wgmma", "wgmma", "flash_attention_bwd_wgmma.cu"),
+        ("flash_attention_bwd", "mma_sync", "flash_attention_bwd.cu"))]
 
 
 def main() -> int:
@@ -1737,10 +1855,12 @@ def main() -> int:
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         builds = [pool.submit(build.load), pool.submit(flash_build.load)]
         kl, fl = (b.result() for b in builds)
-    for lib, smem, cfg in ((kl, None, kl.config),
-                           (fl, fl.lib.flash_attention_wgmma_smem_bytes, None)):
+    for lib, smem, cfg, bwd_smem in (
+            (kl, None, kl.config, None),
+            (fl, fl.lib.flash_attention_wgmma_smem_bytes, None,
+             fl.lib.flash_attention_bwd_wgmma_smem_bytes)):
         print(f"[build] {lib.path.name}: {lib.build_seconds:.1f} s (0 = cached)")
-        for row in ptxas_summary(lib.log, smem, cfg):
+        for row in ptxas_summary(lib.log, smem, cfg, bwd_smem):
             print(row)
     px = torch.arange(8 * 128, dtype=torch.float32, device="cuda").reshape(8, 128)
     po = ops.probe(px)
@@ -1979,6 +2099,7 @@ def main() -> int:
     sdpa_args = [t.transpose(1, 2).contiguous() for t in flash_args]
     flash_t = event_ms({
         "wgmma": lambda: flash_ops.launch("wgmma", *flash_args),
+        "wgmma + LSE": lambda: flash_ops.launch("wgmma", *flash_args, lse=True),
         "sdpa": lambda: F.scaled_dot_product_attention(*sdpa_args, is_causal=True,
                                                        enable_gqa=True),
         "mma_sync": lambda: flash_ops.launch("mma_sync", *flash_args),
@@ -1987,8 +2108,10 @@ def main() -> int:
     flash_plain_ms = event_ms({"plain": lambda: flash_ref(*flash_args)}, n=3, rounds=3)["plain"]
     flash_bound_ms, flash_bound_by = flash_bound(*flash_args)
     print(f"[time] flash_attention (B,S,H,K,D)={FLASH_MAIN} bf16, in turns, median of 5 "
-          f"rounds of 20: wgmma kernel {flash_ms} ms, SDPA {flash_lib_ms} ms, mma_sync "
-          f"kernel {flash_old_ms} ms; plain {flash_plain_ms} ms (median of 3 rounds of 3); "
+          f"rounds of 20: wgmma kernel {flash_ms} ms, the same writing the LSE "
+          f"{flash_t['wgmma + LSE']} ms ({flash_t['wgmma + LSE'] / flash_ms}x), SDPA "
+          f"{flash_lib_ms} ms, mma_sync kernel {flash_old_ms} ms; plain {flash_plain_ms} ms "
+          f"(median of 3 rounds of 3); "
           f"bound {flash_bound_ms} ms ({flash_bound_by}): wgmma {100 * flash_bound_ms / flash_ms}% "
           f"of bound, {flash_ms / flash_lib_ms}x SDPA's time; mma_sync "
           f"{100 * flash_bound_ms / flash_old_ms}% of bound")
@@ -2030,7 +2153,7 @@ def main() -> int:
 
     # ---- 9. training: qwen3-1.7b at full width, bf16, through the flash
     # forward and backward kernels
-    bwd_entry = train_phase(gen, card)
+    bwd_entries = train_phase(gen, card)
 
     kernels = [
         {
@@ -2072,7 +2195,7 @@ def main() -> int:
             "bound_by": flash_bound_by,
             "library_ms": flash_lib_ms,
         },
-        bwd_entry,
+        *bwd_entries,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -83,11 +83,15 @@ def _flatten_with_paths(tree, prefix: str = "") -> list[tuple[str, Any]]:
 
 def _unflatten(like, leaves):
     """``like``'s structure with its leaves taken in order from the
-    iterator ``leaves``."""
+    iterator ``leaves`` (the flattened order: dict keys sorted).  Each dict
+    keeps ``like``'s key order, so a restored tree iterates as the tree that
+    was saved: a sum over its leaves in dict order (the optimizer's global
+    norm) rounds as it did before the restore."""
     if like is None:
         return None
     if isinstance(like, dict):
-        return {k: _unflatten(like[k], leaves) for k in sorted(like)}
+        out = {k: _unflatten(like[k], leaves) for k in sorted(like)}
+        return {k: out[k] for k in like}
     if dataclasses.is_dataclass(like) and not isinstance(like, type):
         return dataclasses.replace(like, **{f.name: _unflatten(getattr(like, f.name), leaves)
                                             for f in dataclasses.fields(like)})

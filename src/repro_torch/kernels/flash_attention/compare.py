@@ -1,5 +1,5 @@
 """Time this checkout's wgmma flash kernel (or, with ``--backward``, its
-backward kernel) against other builds of it, SDPA and the mma_sync kernel,
+backward routes) against other builds of it, SDPA and the mma_sync kernel,
 in turns, on one card.
 
     PYTHONPATH=src python -m repro_torch.kernels.flash_attention.compare [CHECKOUT ...]
@@ -12,14 +12,17 @@ and timed beside this checkout's.  Every build is first held against
 ``flash_ref`` (bf16: atol 3e-2 and a per-row relative error of 1e-2, as in
 ``chip_smoke.py``) on ragged, windowed, MHA and MQA shapes.  Then, per
 shape, each version runs in rounds of 20 back-to-back calls between one
-pair of CUDA events, the versions in turns, and the median round and its
-causal TFLOP/s are printed.  The card's name and power limit come first.
+pair of CUDA events, the versions in turns (the order reversed every other
+round), and the median round and its causal TFLOP/s are printed.  The card's name and power limit come first.
 
-``--backward`` does the same for ``flash_attention_bwd_bf16``: each build
-held against ``flash_bwd_ref`` by ``ref.flash_bwd_errors``, as in
-``chip_smoke.py`` (bf16: 2e-2 of the largest |plain| and per row), then timed at the training shapes
-beside SDPA's backward (its fwd+bwd minus its fwd, ``enable_gqa=True``);
-TFLOP/s count 2.5x the causal forward.
+``--backward`` does the same for the backward: this checkout's wgmma and
+mma_sync routes, and each other build's backward entry points, each bound
+by its own signature (a build with the wgmma route reads the forward's LSE;
+an earlier one computes its own).  Each is held against ``flash_bwd_ref`` by
+``ref.flash_bwd_errors``, as in ``chip_smoke.py`` (bf16: 2e-2 of the largest
+|plain| and per row), then timed at the training shapes beside SDPA's
+backward (its fwd+bwd minus its fwd, ``enable_gqa=True``); TFLOP/s count
+2.5x the causal forward, and the bound is that count over the bf16 peak.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import build, ops
+from repro_torch.launch.roofline import H100_SXM
 from repro_torch.kernels.flash_attention.ref import (
     BWD_ROW_REL, BWD_TOL, flash_bwd_errors, flash_bwd_ref, flash_ref)
 
@@ -52,22 +56,52 @@ BWD_CHECK_SHAPES = [
 BWD_TIME_SHAPES = [(4, 4096, 16, 8, 128), (8, 2048, 16, 8, 128), (4, 4096, 16, 8, 64)]
 
 
-def _entry(path: str, backward: bool = False):
+def _entry(path: str):
     lib = ctypes.CDLL(path)
-    fn = lib.flash_attention_bwd_bf16 if backward else lib.flash_attention_wgmma_bf16
-    fn.argtypes = build._BWD_ARGTYPES if backward else build._ARGTYPES
+    fn = lib.flash_attention_wgmma_bf16
+    fn.argtypes = build._ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
 
-def _call_bwd(fn, q, k, v, o, do, window=None):
-    err, grads = ops.call_bwd(fn, q, k, v, o, do, window=window)
-    if err:
-        raise RuntimeError(f"flash_attention_bwd_bf16 failed: error {err}")
-    return grads
+def _bwd_versions(label: str, path: str) -> dict:
+    """The bf16 backward entry points of the library at ``path``, as
+    callables (q, k, v, o, do, lse, window) -> (dq, dk, dv).  A build with
+    the wgmma route reads the forward's LSE and takes the scratch its
+    ``flash_attention_bwd_scratch_floats`` names; an earlier build's one
+    entry point has the same arguments but writes its own LSE and delta,
+    (B, H, S) each, and is given buffers of its own."""
+    lib = ctypes.CDLL(path)
+
+    def bound(fn, scratch=None):
+        fn.argtypes = build._BWD_ARGTYPES
+        fn.restype = ctypes.c_int
+
+        def call(q, k, v, o, do, lse, window=None):
+            B, S, H, _ = q.shape
+            lse_in = lse if scratch else torch.empty_like(lse)
+            err, grads = ops.call_bwd(fn, q, k, v, o, do, lse_in, window=window,
+                                      scratch_floats=scratch(B, H, S) if scratch else None)
+            if err:
+                raise RuntimeError(f"{label} backward failed: error {err}")
+            return grads
+        return call
+
+    if not hasattr(lib, "flash_attention_bwd_wgmma_bf16"):
+        return {f"{label} (own LSE)": bound(lib.flash_attention_bwd_bf16)}
+    scratch = lib.flash_attention_bwd_scratch_floats
+    scratch.argtypes = [ctypes.c_int] * 3
+    scratch.restype = ctypes.c_longlong
+    return {f"{label} {route}": bound(getattr(lib, build.BWD_ENTRY_POINTS[(route, "bf16")]),
+                                      scratch)
+            for route in ("wgmma", "mma_sync")}
 
 
-def _backward(versions: dict, gen, rounds: int) -> int:
+def _backward(paths: dict, gen, rounds: int) -> int:
+    versions = {}
+    for label, path in paths.items():
+        versions.update(_bwd_versions(label, path))
+
     def inputs(B, S, H, K, D):
         q, do = (torch.randn((B, S, H, D), generator=gen, device="cuda").bfloat16()
                  for _ in range(2))
@@ -78,10 +112,12 @@ def _backward(versions: dict, gen, rounds: int) -> int:
     bad = []
     for B, S, H, K, D, window in BWD_CHECK_SHAPES:
         q, k, v, do = inputs(B, S, H, K, D)
-        o = ops.flash_attention(q, k, v, window=window)
+        o, lse = ops.launch(ops.route(q, k, v), q, k, v, window=window, lse=True)
         want = flash_bwd_ref(q, k, v, o, do, window=window)
         for name, fn in versions.items():
-            _, rel, row = flash_bwd_errors(_call_bwd(fn, q, k, v, o, do, window), want)
+            if name.endswith(" wgmma") and ops.bwd_route(q, k, v) != "wgmma":
+                continue  # D outside the wgmma route's
+            _, rel, row = flash_bwd_errors(fn(q, k, v, o, do, lse, window), want)
             ok = rel <= BWD_TOL[torch.bfloat16] and row <= BWD_ROW_REL
             print(f"[check] backward {name} {(B, S, H, K, D, window)}: max abs err of max "
                   f"|plain| {rel:.3e}, max row err {row:.3e} {'ok' if ok else 'OUT OF TOLERANCE'}")
@@ -93,33 +129,42 @@ def _backward(versions: dict, gen, rounds: int) -> int:
         return 1
     for B, S, H, K, D in BWD_TIME_SHAPES:
         q, k, v, do = inputs(B, S, H, K, D)
-        o = ops.flash_attention(q, k, v)
+        o, lse = ops.launch("wgmma", q, k, v, lse=True)
         qs, ks, vs, dos = (t.transpose(1, 2).contiguous().requires_grad_(True)
                            for t in (q, k, v, do))
 
         def sdpa():
             return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
 
-        fns = {name: (lambda fn=fn: _call_bwd(fn, q, k, v, o, do)) for name, fn in versions.items()}
+        fns = {name: (lambda fn=fn: fn(q, k, v, o, do, lse)) for name, fn in versions.items()}
         fns["sdpa fwd"] = sdpa
         fns["sdpa fwd+bwd"] = lambda: torch.autograd.grad(sdpa(), (qs, ks, vs), dos)
         times = _in_turns(fns, rounds, n=10)
         times["sdpa bwd"] = times["sdpa fwd+bwd"] - times["sdpa fwd"]
         flops = 2.5 * 4 * B * H * D * S * (S + 1) / 2
+        bound = flops / H100_SXM.peak(torch.bfloat16) * 1e3
         for name, ms in times.items():
+            if name in ("sdpa fwd", "sdpa fwd+bwd"):  # not a backward's time
+                print(f"[time] backward {(B, S, H, K, D)} {name}: {ms} ms")
+                continue
             print(f"[time] backward {(B, S, H, K, D)} {name}: {ms} ms, "
-                  f"{flops / ms / 1e9:.1f} TFLOP/s")
+                  f"{flops / ms / 1e9:.1f} TFLOP/s, {100 * bound / ms:.1f}% of the "
+                  f"{bound:.4f} ms bound")
     return 0
 
 
 def _in_turns(fns: dict, rounds: int, n: int = 20) -> dict:
-    """Median over ``rounds`` of each callable's ms a call, in turns."""
+    """Median over ``rounds`` of each callable's ms a call, in turns, the
+    order reversed every other round: on an H100 the first callable of a
+    fixed order read ~1.5% slow at (8, 2048, 16, 8, 128) against a copy of
+    itself later in the round."""
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
     times = {name: [] for name in fns}
-    for _ in range(rounds):
-        for name, fn in fns.items():
+    order = list(fns.items())
+    for r in range(rounds):
+        for name, fn in order if r % 2 == 0 else order[::-1]:
             times[name].append(_round_ms(fn, n))
     return {name: statistics.median(t) for name, t in times.items()}
 
@@ -157,9 +202,9 @@ def _round_ms(fn, n: int = 20) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("checkouts", nargs="*", help="roots of other checkouts to compare")
-    ap.add_argument("--rounds", type=int, default=7)
+    ap.add_argument("--rounds", type=int, default=8)
     ap.add_argument("--backward", action="store_true",
-                    help="check and time the backward kernel instead of the forward")
+                    help="check and time the backward routes instead of the forward")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("compare: no CUDA device is available", file=sys.stderr)
@@ -169,12 +214,12 @@ def main(argv=None) -> int:
     with concurrent.futures.ThreadPoolExecutor(1 + len(args.checkouts)) as pool:
         here = pool.submit(build.load)
         others = [pool.submit(_build_at, root) for root in args.checkouts]
-        versions = {"this": _entry(str(here.result().path), args.backward)}
-        versions.update({root: _entry(f.result(), args.backward)
-                         for root, f in zip(args.checkouts, others)})
+        paths = {"this": str(here.result().path)}
+        paths.update({root: f.result() for root, f in zip(args.checkouts, others)})
     gen = torch.Generator(device="cuda").manual_seed(0)
     if args.backward:
-        return _backward(versions, gen, args.rounds)
+        return _backward(paths, gen, args.rounds)
+    versions = {label: _entry(path) for label, path in paths.items()}
 
     def inputs(B, S, H, K, D):
         return [torch.randn((B, S, n, D), generator=gen, device="cuda").to(torch.bfloat16)

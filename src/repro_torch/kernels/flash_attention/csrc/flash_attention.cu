@@ -18,7 +18,9 @@
 // tiles; masked scores are NEG_INF = -1e30 and their probabilities are 0
 // (mask-aware exp, never exp(NEG_INF - NEG_INF)); p is rounded to v's
 // dtype before the PV product, which accumulates in f32; the final divide
-// floors l at 1e-30.
+// floors l at 1e-30.  Given an LSE pointer, each kernel also writes every
+// real row's log-sum-exp of the scaled scores, m + log l (natural log, f32,
+// (B, H, S)): the backward's input (ref.py::flash_lse).
 //
 // What it does not carry over: the TPU wrapper's transpose of q into
 // (B*K, nq, G*Bq, D) tiles and its S % block == 0 tiling exist for the
@@ -100,6 +102,7 @@ struct Args {
   const T* k;
   const T* v;
   T* o;
+  float* lse;  // (B, H, S) natural-log LSE per row, or null: none
   int S, K, G;
   int group;   // query heads per block (GC <= kRows)
   int bq;      // query positions per block: kRows / group
@@ -297,6 +300,8 @@ __global__ void __launch_bounds__(kThreads)
     if (qpos < 0) continue;
     const int h = kh * a.G + g0 + r / a.bq;
     const float l = fmaxf(l_s[r], kMinL);
+    if (a.lse != nullptr && td == 0)
+      a.lse[(static_cast<long long>(b) * a.K * a.G + h) * a.S + qpos] = m_s[r] + logf(l);
     T* out = a.o + b * a.os.b + qpos * a.os.s + h * a.os.h;
 #pragma unroll
     for (int j = 0; j < C::kDM; ++j) out[td + C::kTD * j] = Num<T>::store(acc[i][j] / l);
@@ -541,6 +546,8 @@ __global__ void __launch_bounds__(kTcThreads)
     if (qpos < 0) continue;
     const int h = kh * a.G + g0 + r / a.bq;
     const float l = fmaxf(half ? l1 : l0, kMinL);
+    if (a.lse != nullptr && tq == 0)
+      a.lse[(static_cast<long long>(b) * a.K * a.G + h) * a.S + qpos] = (half ? m1 : m0) + logf(l);
     __nv_bfloat16* out = a.o + b * a.os.b + qpos * a.os.s + h * a.os.h + 2 * tq;
 #pragma unroll
     for (int nt = 0; nt < C::kNO; ++nt) {
@@ -567,8 +574,8 @@ int launch_tc(const Args<__nv_bfloat16>& a, int B, cudaStream_t stream) {
 }
 
 template <typename T>
-Args<T> make_args(const void* q, const void* k, const void* v, void* o, int S, int H, int K,
-                  int D, int window, long long qsb, long long qss, long long qsh,
+Args<T> make_args(const void* q, const void* k, const void* v, void* o, void* lse, int S, int H,
+                  int K, int D, int window, long long qsb, long long qss, long long qsh,
                   long long ksb, long long kss, long long ksh, long long vsb, long long vss,
                   long long vsh, long long osb, long long oss, long long osh) {
   Args<T> a;
@@ -576,6 +583,7 @@ Args<T> make_args(const void* q, const void* k, const void* v, void* o, int S, i
   a.k = static_cast<const T*>(k);
   a.v = static_cast<const T*>(v);
   a.o = static_cast<T*>(o);
+  a.lse = static_cast<float*>(lse);
   a.S = S;
   a.K = K;
   a.G = H / K;
@@ -632,28 +640,51 @@ extern "C" {
       long long ksb, long long kss, long long ksh, long long vsb,            \
       long long vss, long long vsh, long long osb, long long oss,            \
       long long osh, void *stream
+#define FLASH_ARGS_LSE                                                       \
+  const void *q, const void *k, const void *v, void *o, int B, int S, int H, \
+      int K, int D, int window, long long qsb, long long qss, long long qsh, \
+      long long ksb, long long kss, long long ksh, long long vsb,            \
+      long long vss, long long vsh, long long osb, long long oss,            \
+      long long osh, void *lse, void *stream
 #define FLASH_STRIDES \
   qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh
 
-int flash_attention_fma_f32(FLASH_ARGS) {
+// Entry points with an LSE output (FLASH_ARGS, then `lse`: a contiguous
+// f32 (B, H, S) buffer, or null), and the ones without it.
+int flash_attention_fma_lse_f32(FLASH_ARGS_LSE) {
   if (B <= 0 || S <= 0) return static_cast<int>(cudaSuccess);
   if (!valid(B, H, K)) return static_cast<int>(cudaErrorInvalidValue);
-  const auto a = make_args<float>(q, k, v, o, S, H, K, D, window, FLASH_STRIDES);
+  const auto a = make_args<float>(q, k, v, o, lse, S, H, K, D, window, FLASH_STRIDES);
   return run_fma(a, B, D, static_cast<cudaStream_t>(stream));
+}
+
+int flash_attention_fma_lse_bf16(FLASH_ARGS_LSE) {
+  if (B <= 0 || S <= 0) return static_cast<int>(cudaSuccess);
+  if (!valid(B, H, K)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto a = make_args<__nv_bfloat16>(q, k, v, o, lse, S, H, K, D, window, FLASH_STRIDES);
+  return run_fma(a, B, D, static_cast<cudaStream_t>(stream));
+}
+
+int flash_attention_mma_sync_lse_bf16(FLASH_ARGS_LSE) {
+  if (B <= 0 || S <= 0) return static_cast<int>(cudaSuccess);
+  if (!valid(B, H, K)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto a = make_args<__nv_bfloat16>(q, k, v, o, lse, S, H, K, D, window, FLASH_STRIDES);
+  return run_mma_sync(a, B, D, static_cast<cudaStream_t>(stream));
+}
+
+int flash_attention_fma_f32(FLASH_ARGS) {
+  return flash_attention_fma_lse_f32(q, k, v, o, B, S, H, K, D, window, FLASH_STRIDES, nullptr,
+                                     stream);
 }
 
 int flash_attention_fma_bf16(FLASH_ARGS) {
-  if (B <= 0 || S <= 0) return static_cast<int>(cudaSuccess);
-  if (!valid(B, H, K)) return static_cast<int>(cudaErrorInvalidValue);
-  const auto a = make_args<__nv_bfloat16>(q, k, v, o, S, H, K, D, window, FLASH_STRIDES);
-  return run_fma(a, B, D, static_cast<cudaStream_t>(stream));
+  return flash_attention_fma_lse_bf16(q, k, v, o, B, S, H, K, D, window, FLASH_STRIDES, nullptr,
+                                      stream);
 }
 
 int flash_attention_mma_sync_bf16(FLASH_ARGS) {
-  if (B <= 0 || S <= 0) return static_cast<int>(cudaSuccess);
-  if (!valid(B, H, K)) return static_cast<int>(cudaErrorInvalidValue);
-  const auto a = make_args<__nv_bfloat16>(q, k, v, o, S, H, K, D, window, FLASH_STRIDES);
-  return run_mma_sync(a, B, D, static_cast<cudaStream_t>(stream));
+  return flash_attention_mma_sync_lse_bf16(q, k, v, o, B, S, H, K, D, window, FLASH_STRIDES,
+                                           nullptr, stream);
 }
 
 const char* flash_error_string(int err) {

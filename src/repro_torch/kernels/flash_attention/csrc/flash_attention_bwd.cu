@@ -1,7 +1,11 @@
 // Causal GQA flash attention, backward: the gradient of flash_attention.cu /
 // flash_attention_wgmma.cu's function, hand-written for Hopper (sm_90a) and
 // bound to PyTorch through a plain C interface and ctypes (ops.py::
-// flash_attention_bwd, wired into autograd by ops.py::FlashAttention).
+// flash_attention_bwd, wired into autograd by ops.py::FlashAttention).  This
+// file holds the "mma_sync" (bf16) and "fma" (float32) routes of
+// ops.py::bwd_route, and the delta pass every route runs first; bf16 with
+// D in {64, 128} and 16-byte aligned rows takes the "wgmma" route
+// (flash_attention_bwd_wgmma.cu).
 //
 // Replaces: nothing on the TPU.  The reference trains through XLA's autodiff
 // of its pure-JAX attention (src/repro/models/attention.py:97,
@@ -10,10 +14,10 @@
 // so its gradient is one too.  Oracle: ref.py::flash_bwd_ref.
 //
 // What it computes.  For q, o, dO (B, S, H, D) and k, v (B, S, K, D), H = K*G,
-// query head h = k*G + g, scale = 1/sqrt(D), and the forward's causal (and
-// optional sliding-window) mask:
+// query head h = k*G + g, scale = 1/sqrt(D), the forward's causal (and
+// optional sliding-window) mask and its LSE (B, H, S), natural log:
 //
-//   P   = exp(scale * q k^T - LSE)        LSE = log sum exp over the row
+//   P   = exp(scale * q k^T - LSE)
 //   dV  = P^T dO                          delta = rowsum(dO o o)
 //   dS  = P o (dO V^T - delta)
 //   dQ  = scale * dS K,   dK = scale * dS^T Q
@@ -23,9 +27,8 @@
 //
 // Design: three kernels a call, no atomics and a fixed loop order, so the
 // result is bitwise repeatable (ROADMAP's rule for every reduction):
-//   * bwd_prep: one block per (b, h, q tile): LSE = m + log l by one online
-//     pass over the causal k tiles (the forward kernels keep no LSE), and
-//     delta; both to f32 (B, H, S) buffers;
+//   * bwd_prep: delta per query row, eight lanes a row, to an f32 buffer
+//     (the LSE comes from the forward kernel, which writes it beside o);
 //   * bwd_dkdv: one block per (b, kv head, k tile): loops over the G query
 //     heads of that kv head and over the q tiles that see the tile (causal,
 //     inside the window), accumulates dK and dV in registers, writes once;
@@ -39,19 +42,18 @@
 // rows padded by 8 bf16 (conflict-free ldmatrix); every fragment comes from
 // ldmatrix, the transposed operands (dO and Q for dV and dK, K for dQ) from
 // ldmatrix.trans on the same row-major tiles; the tile a block loops over
-// (K in prep and dq, the item's Q, dO, LSE and delta in dkdv) is double
+// (K and V in dq, the item's Q, dO, LSE and delta in dkdv) is double
 // buffered with cp.async, so its next tile copies in during this one's
 // products; blocks take their tile from blockIdx.y, so the longest causal
 // bands start first.
 //
 // What bounds it on this card: the products, 2.5x the causal forward's
-// 4 B H D S(S+1)/2 operations in the usual count; this design runs 4x (the
-// prep pass recomputes q k^T once more, and dkdv and dq both recompute P).
-// At the training shape (4, 4096, 16, 8, 128) bf16 that is 6.9e11 counted
-// operations (0.70 ms at the 989 TFLOP/s bf16 peak) against 0.34 GB of
-// tensors (0.10 ms at 3.35 TB/s): operations bound it.  Left to a redesign
-// (wgmma, TMA, LSE from the forward): mma.sync's rate on Hopper, the fourth
-// product, and dkdv's causal load imbalance (tile 0 sees every q tile).
+// 4 B H D S(S+1)/2 operations in the usual count; the mma_sync kernels run
+// 3.5x (dkdv and dq both recompute P).  At the training shape
+// (4, 4096, 16, 8, 128) bf16 that is 6.9e11 counted operations (0.70 ms at
+// the 989 TFLOP/s bf16 peak) against 0.34 GB of tensors (0.10 ms at
+// 3.35 TB/s): operations bound it.  mma.sync reaches a fraction of Hopper's
+// tensor-core rate; the wgmma route is the redesign.
 //
 // Instantiated for D in {16, 32, 64, 128} in bfloat16 and float32.
 
@@ -85,8 +87,8 @@ struct BwdArgs {
   T* dq;
   T* dk;
   T* dv;
-  float* lse;    // (B, H, S)
-  float* delta;  // (B, H, S)
+  const float* lse;  // (B, H, S): the forward's, natural log
+  float* delta;      // (B, H, S)
   int B, S, H, K, G;
   int window;  // <= 0: no window
   float scale;
@@ -208,133 +210,10 @@ struct TcSmem {
   static constexpr int P = D + 8;  // bf16 pitch of a tile's rows (conflict-free ldmatrix)
   static constexpr size_t kRowTile = kTile * P * sizeof(bf16);
   static constexpr size_t kVec = kTile * sizeof(float);
-  static constexpr size_t kPrep = 3 * kRowTile;                 // Q, K x 2
   static constexpr size_t kDkdv = 6 * kRowTile + 4 * kVec;     // K, V, (Q, dO) x 2, (LSE, delta) x 2
   static constexpr size_t kDq = 6 * kRowTile;                   // Q, dO, (K, V) x 2
   static_assert(D % 16 == 0, "mma k-chunks of 16");
 };
-
-// ---------------------------------------------------------------------------
-// bwd_prep_tc: LSE and delta of one (b, h, q tile).  Warp w owns query rows
-// 16w + gq and 16w + gq + 8; K tiles double-buffered.
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(kThreads) bwd_prep_tc(const BwdArgs<bf16> a) {
-  using C = TcSmem<D>;
-  constexpr int P = C::P;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Kb = Qs + kTile * P;  // two K tiles
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int qt = gridDim.y - 1 - blockIdx.y;  // longest causal bands first
-  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H, kh = h / a.G;
-  const int q0 = qt * kTile;
-  const int q_last = min(a.S, q0 + kTile) - 1;
-  int kv_begin = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
-  kv_begin = (kv_begin / kTile) * kTile;
-  const int n_tiles = (q_last - kv_begin) / kTile + 1;
-  const bf16* kbase = a.k + b * a.ks.b + kh * a.ks.h;
-
-  stage_rows<D, P>(Qs, a.q + b * a.qs.b + h * a.qs.h, a.qs.s, q0, a.S);
-  stage_rows<D, P>(Kb, kbase, a.ks.s, kv_begin, a.S);
-  cp_commit();
-  {  // delta = rowsum(dO o o), two threads a row, while the copies land
-    const int r = tid >> 1, half = tid & 1, s = q0 + r;
-    float acc = 0.f;
-    if (s < a.S) {
-      const bf16* op = a.o + b * a.os.b + s * a.os.s + h * a.os.h;
-      const bf16* dp = a.dout + b * a.dos.b + s * a.dos.s + h * a.dos.h;
-      for (int c8 = half * (D / 16); c8 < (half + 1) * (D / 16); ++c8) {
-        const uint4 ov = *reinterpret_cast<const uint4*>(op + c8 * 8);
-        const uint4 dv = *reinterpret_cast<const uint4*>(dp + c8 * 8);
-        const bf16* oe = reinterpret_cast<const bf16*>(&ov);
-        const bf16* de = reinterpret_cast<const bf16*>(&dv);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc += __bfloat162float(oe[j]) * __bfloat162float(de[j]);
-      }
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if (half == 0 && s < a.S) a.delta[row_index(b, h, a.H, a.S, s)] = acc;
-  }
-
-  const int r0 = warp * 16;
-  const int qpos0 = q0 + r0 + gq < a.S ? q0 + r0 + gq : -1;
-  const int qpos1 = q0 + r0 + gq + 8 < a.S ? q0 + r0 + gq + 8 : -1;
-  uint32_t qf[D / 16][4];
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int kv0 = kv_begin + t * kTile;
-    if (t + 1 < n_tiles)
-      stage_rows<D, P>(Kb + ((t + 1) & 1) * kTile * P, kbase, a.ks.s, kv0 + kTile, a.S);
-    cp_commit();
-    cp_wait_prior();
-    __syncthreads();
-    if (t == 0) {
-#pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc) lda<P>(qf[kc], Qs, r0, kc * 16, lane);
-    }
-    const bf16* Ks = Kb + (t & 1) * kTile * P;
-    float s[kTile / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-#pragma unroll
-      for (int np = 0; np < kTile / 16; ++np) {
-        uint32_t kb[4];
-        ldb_nk<P>(kb, Ks, np * 16, kc * 16, lane);
-        mma_16816(s[2 * np], qf[kc], kb[0], kb[1]);
-        mma_16816(s[2 * np + 1], qf[kc], kb[2], kb[3]);
-      }
-    }
-    float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kpos = kv0 + nt * 8 + 2 * tq + (e & 1);
-        const bool on = visible(e < 2 ? qpos0 : qpos1, kpos, a.window);
-        s[nt][e] = on ? s[nt][e] * a.scale : kNegInf;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-    }
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kpos = kv0 + nt * 8 + 2 * tq + (e & 1);
-        const bool on = visible(e < 2 ? qpos0 : qpos1, kpos, a.window);
-        const float p = on ? __expf(s[nt][e] - (e < 2 ? mn0 : mn1)) : 0.f;
-        if (e < 2) sum0 += p; else sum1 += p;
-      }
-    }
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
-      sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
-    }
-    l0 = l0 * __expf(m0 - mn0) + sum0;
-    l1 = l1 * __expf(m1 - mn1) + sum1;
-    m0 = mn0;
-    m1 = mn1;
-    __syncthreads();  // buffer t & 1 is free for tile t + 2
-  }
-  if (tq == 0) {
-    if (qpos0 >= 0) a.lse[row_index(b, h, a.H, a.S, qpos0)] = m0 + logf(l0);
-    if (qpos1 >= 0) a.lse[row_index(b, h, a.H, a.S, qpos1)] = m1 + logf(l1);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bwd_dkdv_tc: dK and dV of one (b, kv head, k tile).  Warp w owns keys
@@ -601,7 +480,6 @@ template <int D>
 struct FmaSmem {
   static constexpr int P = D + 1;
   static constexpr size_t kTileBytes = kFT * P * sizeof(float);
-  static constexpr size_t kPrep = 2 * kTileBytes;
   static constexpr size_t kDkdv = 6 * kTileBytes + 2 * kFT * sizeof(float);
   static constexpr size_t kDq = 5 * kTileBytes;
 };
@@ -622,42 +500,6 @@ __device__ __forceinline__ float dot_rows(const float* x, const float* y) {
 #pragma unroll 16
   for (int d = 0; d < D; ++d) s += x[d] * y[d];
   return s;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kFT) bwd_prep_fma(const BwdArgs<float> a) {
-  constexpr int P = D + 1;
-  extern __shared__ float fsm[];
-  float* Qs = fsm;
-  float* Ks = Qs + kFT * P;
-  const int i = threadIdx.x;
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H, kh = h / a.G;
-  const int q0 = qt * kFT;
-  const int q_last = min(a.S, q0 + kFT) - 1;
-  const int qpos = q0 + i < a.S ? q0 + i : -1;
-  load_rows_f32<D>(Qs, a.q + b * a.qs.b + h * a.qs.h, a.qs.s, q0, a.S);
-  if (qpos >= 0) {
-    const float* op = a.o + b * a.os.b + qpos * a.os.s + h * a.os.h;
-    const float* dp = a.dout + b * a.dos.b + qpos * a.dos.s + h * a.dos.h;
-    a.delta[row_index(b, h, a.H, a.S, qpos)] = dot_rows<D>(op, dp);
-  }
-  float m = kNegInf, l = 0.f;
-  int kv_begin = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
-  kv_begin = (kv_begin / kFT) * kFT;
-  for (int kv0 = kv_begin; kv0 <= q_last; kv0 += kFT) {
-    __syncthreads();
-    load_rows_f32<D>(Ks, a.k + b * a.ks.b + kh * a.ks.h, a.ks.s, kv0, a.S);
-    __syncthreads();
-    for (int c = 0; c < kFT; ++c) {
-      if (!visible(qpos, kv0 + c, a.window)) continue;
-      const float s = dot_rows<D>(Qs + i * P, Ks + c * P) * a.scale;
-      const float mn = fmaxf(m, s);
-      l = l * expf(m - mn) + expf(s - mn);
-      m = mn;
-    }
-  }
-  if (qpos >= 0) a.lse[row_index(b, h, a.H, a.S, qpos)] = m + logf(l);
 }
 
 template <int D>
@@ -754,6 +596,96 @@ __global__ void __launch_bounds__(kFT) bwd_dq_fma(const BwdArgs<float> a) {
 }
 
 // ---------------------------------------------------------------------------
+// bwd_prep: delta = rowsum(dO o o) in f32 for every row (b, h, s), eight
+// lanes a row in a fixed order, at (b H + h) pitch + s.  With lse2 (the
+// wgmma route) it also writes the forward's LSE in log2 units there, and
+// pads rows S .. pitch - 1 (delta 0, lse2 +inf: P = exp2(-inf) = 0).
+// ---------------------------------------------------------------------------
+template <typename T>
+struct PrepArgs {
+  const T* o;
+  const T* dout;
+  const float* lse;  // (B, H, S) natural log; read only with lse2
+  float* delta;      // (B, H, pitch)
+  float* lse2;       // (B, H, pitch) log2 units, or null
+  int S, H, pitch;
+  Strides os, dos;
+  bool vec;  // o and dO rows 16-byte aligned: 16-byte loads
+};
+
+constexpr int kPrepThreads = 256;
+constexpr int kPrepRows = kPrepThreads / 8;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kPrepThreads) bwd_prep(const PrepArgs<T> a) {
+  constexpr int kV = 16 / sizeof(T);  // elements of a 16-byte chunk
+  const int lane8 = threadIdx.x & 7;
+  const int s = blockIdx.x * kPrepRows + threadIdx.x / 8;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  float acc = 0.f;
+  if (s < a.S) {
+    const T* op = a.o + b * a.os.b + s * a.os.s + h * a.os.h;
+    const T* dp = a.dout + b * a.dos.b + s * a.dos.s + h * a.dos.h;
+    if (a.vec) {
+      for (int c = lane8; c < D / kV; c += 8) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(op + c * kV);
+        const uint4 dv = *reinterpret_cast<const uint4*>(dp + c * kV);
+        const T* oe = reinterpret_cast<const T*>(&ov);
+        const T* de = reinterpret_cast<const T*>(&dv);
+#pragma unroll
+        for (int j = 0; j < kV; ++j) acc += to_f32(oe[j]) * to_f32(de[j]);
+      }
+    } else {
+      for (int d = lane8; d < D; d += 8) acc += to_f32(op[d]) * to_f32(dp[d]);
+    }
+  }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 4);
+  if (lane8 == 0 && s < a.pitch) {
+    const long long row = static_cast<long long>(bh) * a.pitch + s;
+    a.delta[row] = acc;
+    if (a.lse2 != nullptr)
+      a.lse2[row] = s < a.S ? a.lse[static_cast<long long>(bh) * a.S + s] * 1.4426950408889634f
+                            : __int_as_float(0x7f800000);
+  }
+}
+
+template <typename T>
+int launch_prep(const PrepArgs<T>& p, int B, int D, cudaStream_t st) {
+  const dim3 grid((p.pitch + kPrepRows - 1) / kPrepRows, B * p.H);
+  switch (D) {
+    case 16: bwd_prep<T, 16><<<grid, kPrepThreads, 0, st>>>(p); break;
+    case 32: bwd_prep<T, 32><<<grid, kPrepThreads, 0, st>>>(p); break;
+    case 64: bwd_prep<T, 64><<<grid, kPrepThreads, 0, st>>>(p); break;
+    case 128: bwd_prep<T, 128><<<grid, kPrepThreads, 0, st>>>(p); break;
+    default: return flash::kErrRoute;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The delta pass of this file's kernels: pitch S, no log2 LSE.
+template <typename T>
+int launch_delta(const BwdArgs<T>& a, int D, cudaStream_t st) {
+  PrepArgs<T> p;
+  p.o = a.o;
+  p.dout = a.dout;
+  p.lse = a.lse;
+  p.delta = a.delta;
+  p.lse2 = nullptr;
+  p.S = a.S;
+  p.H = a.H;
+  p.pitch = a.S;
+  p.os = a.os;
+  p.dos = a.dos;
+  p.vec = a.vec;
+  return launch_prep(p, a.B, D, st);
+}
+
+// ---------------------------------------------------------------------------
 // Launch: prep, dkdv, dq on the caller's stream, each checked.
 // ---------------------------------------------------------------------------
 // Opt a kernel in to more than 48 KB of dynamic shared memory.
@@ -772,9 +704,7 @@ int launch_tc(const BwdArgs<bf16>& a, cudaStream_t st) {
   const dim3 grid_q(a.B * a.H, (a.S + kTile - 1) / kTile);
   const dim3 grid_k(a.B * a.K, (a.S + kTile - 1) / kTile);
   int err;
-  if ((err = allow_smem(bwd_prep_tc<D>, C::kPrep))) return err;
-  bwd_prep_tc<D><<<grid_q, kThreads, C::kPrep, st>>>(a);
-  if ((err = static_cast<int>(cudaGetLastError()))) return err;
+  if ((err = launch_delta(a, D, st))) return err;
   if ((err = allow_smem(bwd_dkdv_tc<D>, C::kDkdv))) return err;
   bwd_dkdv_tc<D><<<grid_k, kThreads, C::kDkdv, st>>>(a);
   if ((err = static_cast<int>(cudaGetLastError()))) return err;
@@ -789,9 +719,7 @@ int launch_fma(const BwdArgs<float>& a, cudaStream_t st) {
   const dim3 grid_q((a.S + kFT - 1) / kFT, a.B * a.H);
   const dim3 grid_k((a.S + kFT - 1) / kFT, a.B * a.K);
   int err;
-  if ((err = allow_smem(bwd_prep_fma<D>, C::kPrep))) return err;
-  bwd_prep_fma<D><<<grid_q, kFT, C::kPrep, st>>>(a);
-  if ((err = static_cast<int>(cudaGetLastError()))) return err;
+  if ((err = launch_delta(a, D, st))) return err;
   if ((err = allow_smem(bwd_dkdv_fma<D>, C::kDkdv))) return err;
   bwd_dkdv_fma<D><<<grid_k, kFT, C::kDkdv, st>>>(a);
   if ((err = static_cast<int>(cudaGetLastError()))) return err;
@@ -802,7 +730,8 @@ int launch_fma(const BwdArgs<float>& a, cudaStream_t st) {
 
 template <typename T>
 BwdArgs<T> make_args(const void* q, const void* k, const void* v, const void* o,
-                     const void* dout, void* dq, void* dk, void* dv, void* lse, void* delta,
+                     const void* dout, void* dq, void* dk, void* dv, const void* lse,
+                     void* delta,
                      int B, int S, int H, int K, int D, int window, const long long* st) {
   BwdArgs<T> a;
   a.q = static_cast<const T*>(q);
@@ -813,7 +742,7 @@ BwdArgs<T> make_args(const void* q, const void* k, const void* v, const void* o,
   a.dq = static_cast<T*>(dq);
   a.dk = static_cast<T*>(dk);
   a.dv = static_cast<T*>(dv);
-  a.lse = static_cast<float*>(lse);
+  a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<float*>(delta);
   a.B = B;
   a.S = S;
@@ -840,23 +769,39 @@ bool valid(int B, int H, int K) { return K > 0 && H % K == 0 && B * H <= 65535; 
 
 }  // namespace
 
+int flash::bwd_prep_bf16(const void* o, const void* dout, const float* lse, float* delta,
+                         float* lse2, int B, int S, int H, int D, long long osb, long long oss,
+                         long long osh, long long dosb, long long doss, long long dosh,
+                         void* stream) {
+  PrepArgs<bf16> p;
+  p.o = static_cast<const bf16*>(o);
+  p.dout = static_cast<const bf16*>(dout);
+  p.lse = lse;
+  p.delta = delta;
+  p.lse2 = lse2;
+  p.S = S;
+  p.H = H;
+  p.pitch = bwd_pitch(S);
+  p.os = {osb, oss, osh};
+  p.dos = {dosb, doss, dosh};
+  p.vec = (osb | oss | osh | dosb | doss | dosh) % 8 == 0 &&
+          reinterpret_cast<unsigned long long>(o) % 16 == 0 &&
+          reinterpret_cast<unsigned long long>(dout) % 16 == 0;
+  return launch_prep(p, B, D, static_cast<cudaStream_t>(stream));
+}
+
 extern "C" {
 
-#define BWD_ARGS                                                                      \
-  const void *q, const void *k, const void *v, const void *o, const void *dout,      \
-      void *dq, void *dk, void *dv, void *lse, void *delta, int B, int S, int H, int K, \
-      int D, int window, long long qsb, long long qss, long long qsh, long long ksb,  \
-      long long kss, long long ksh, long long vsb, long long vss, long long vsh,      \
-      long long osb, long long oss, long long osh, long long dosb, long long doss,    \
-      long long dosh, long long dqsb, long long dqss, long long dqsh, long long dksb, \
-      long long dkss, long long dksh, long long dvsb, long long dvss, long long dvsh, \
-      void *stream
 #define BWD_STRIDES                                                                  \
   const long long st[24] = {qsb,  qss,  qsh,  ksb,  kss,  ksh,  vsb,  vss,           \
                             vsh,  osb,  oss,  osh,  dosb, doss, dosh, dqsb,          \
                             dqss, dqsh, dksb, dkss, dksh, dvsb, dvss, dvsh}
 
-// One call runs bwd_prep, bwd_dkdv and bwd_dq (tensor-core kernels).
+// The backward entry points share one signature: lse is the forward's
+// (B, H, S) natural-log LSE (read), delta scratch of
+// flash_attention_bwd_scratch_floats(B, H, S) floats (written).
+//
+// One call runs bwd_prep, bwd_dkdv and bwd_dq (mma.sync kernels).
 int flash_attention_bwd_bf16(BWD_ARGS) {
   if (B <= 0 || S <= 0) return static_cast<int>(cudaSuccess);
   if (!valid(B, H, K)) return static_cast<int>(cudaErrorInvalidValue);
@@ -889,6 +834,12 @@ int flash_attention_bwd_f32(BWD_ARGS) {
     case 128: return launch_fma<128>(a, s);
     default: return flash::kErrRoute;
   }
+}
+
+// The delta (and the wgmma route's log2 LSE) scratch a backward call takes:
+// two f32 (B, H, S rounded up to 128) buffers.
+long long flash_attention_bwd_scratch_floats(int B, int H, int S) {
+  return 2LL * B * H * flash::bwd_pitch(S);
 }
 
 }  // extern "C"

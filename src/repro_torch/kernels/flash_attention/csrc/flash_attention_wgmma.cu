@@ -12,7 +12,10 @@
 //
 // with an f32 online softmax (running max m, sum l, accumulator acc), masked
 // scores NEG_INF and their probabilities 0, p rounded to bf16 before the PV
-// product, o = acc / max(l, 1e-30).
+// product, o = acc / max(l, 1e-30).  With an LSE pointer it also writes each
+// real row's log-sum-exp of the scaled scores, natural log, f32 (B, H, S):
+// (m + log2 l) ln 2 from the log2-unit m and l it already holds (the
+// backward's input, ref.py::flash_lse).
 //
 // What bounds it: the causal band's two products, 4 B H D S(S+1)/2
 // operations; at the serve shape (B, S, H, K, D) = (8, 2048, 16, 8, 128)
@@ -65,26 +68,22 @@
 // barriers (no gain at S = 2048 on an H100, PERF.md).  Not yet: dynamic
 // (LPT) scheduling of the work items, a TMA store of O.
 
-#include <cuda.h>  // CUtensorMap; the encoder comes through cudaGetDriverEntryPoint
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
 #include <cmath>
 #include <cstdint>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using flash::kMinL;
 using flash::kNegInf;
+using namespace flash::sm90;
 
 constexpr int kBQ = 128;          // query rows per CTA: two consumer warpgroups of 64
 constexpr int kBK = 128;          // keys per KV tile
 constexpr int kStages = 2;        // K/V ring depth
 constexpr int kThreads = 384;     // producer warpgroup + two consumer warpgroups
-constexpr int kBoxCols = 64;      // bf16 per 128-byte swizzled row
-constexpr int kRowBytes = 128;
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 static_assert(kBQ == kBK, "the diagonal tile is the q tile's own index");
@@ -115,142 +114,12 @@ struct Args {
   int n_q_tiles, n_items;  // n_items = n_q_tiles * B * H
   int window;              // <= 0: none
   float scale_log2;        // log2(e) / sqrt(D)
+  float* lse;              // (B, H, S) natural-log LSE per row, or null: none
 };
-
-// ---- PTX wrappers ----------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// Returns once the phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One 4-d box (64 d, 1 head, 128 positions, 1 batch) into shared memory;
-// completes on `bar`.  Positions past S are zero-filled.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int d0, int head, int pos, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(head), "r"(pos), "r"(batch)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor with the 128-byte swizzle.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of accumulator registers
-// across a wgmma fence, commit or wait.
-template <int R>
-__device__ __forceinline__ void pin(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define ACC8(i)                                                                   \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),   \
-      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define ACC32 ACC8(0), ACC8(8), ACC8(16), ACC8(24)
-#define ACC64 ACC32, ACC8(32), ACC8(40), ACC8(48), ACC8(56)
-#define REGS32                                                                      \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
-  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-#define REGS64                                                                      \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
-  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "   \
-  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "   \
-  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-
-// d (64 x 128 f32) (+)= A (64 x 16, K-major, shared) . B (128 x 16, K-major, shared)^T
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
-                                              int accumulate) {
-  asm volatile(
-      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS64
-      ", %64, %65, p, 1, 1, 0, 0;\n\t}"
-      : ACC64
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x N f32) += A (64 x 16 bf16, registers) . B (16 x N, MN-major, shared)
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db);
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS64
-      ", {%64, %65, %66, %67}, %68, 1, 1, 1, 1;"
-      : ACC64
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS32
-      ", {%32, %33, %34, %35}, %36, 1, 1, 1, 1;"
-      : ACC32
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // ---- the kernel ------------------------------------------------------------
 //
-// Accumulator layout of an m64nN wgmma (S and O alike): thread `lane` of
-// warp w of the warpgroup holds, for every 8-column group j, the columns
-// 8j + 2(lane % 4) + {0, 1} of row 16w + lane / 4 (d[4j], d[4j + 1]) and of
-// that row + 8 (d[4j + 2], d[4j + 3]).
+// S and O are m64nN wgmma accumulators (layout: hopper.cuh, pack_a).
 
 // The shared-memory addresses and barriers of one CTA.
 template <int D>
@@ -279,7 +148,8 @@ __device__ __forceinline__ void issue_qk(float (&sc)[kBK / 2], uint32_t q_rows, 
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t off = (kk / 4) * L::kBoxBytes + (kk % 4) * 32;
-    wgmma_ss_n128(sc, sw128_desc(q_rows + off, 16, 1024), sw128_desc(k + off, 16, 1024), kk > 0);
+    wgmma_ss<kBK>(sc, sw128_desc(q_rows + off, 16, 1024), sw128_desc(k + off, 16, 1024),
+                  kk > 0);
   }
   wg_commit();
 }
@@ -348,18 +218,6 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[kBK / 2], bool masked, 
   }
 }
 
-// p in bf16 as P's A fragments: S's 8-column groups 2kk and 2kk + 1 are
-// the fragment of keys 16kk .. 16kk + 15.
-__device__ __forceinline__ void pack_p(const float (&sc)[kBK / 2], uint32_t (&pf)[kBK / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) {
-    pf[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
-    pf[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-    pf[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-    pf[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
-  }
-}
-
 template <int D>
 __device__ __forceinline__ void rescale(float (&o)[D / 2], const float (&al)[2]) {
 #pragma unroll
@@ -369,15 +227,6 @@ __device__ __forceinline__ void rescale(float (&o)[D / 2], const float (&al)[2])
     o[4 * j + 2] *= al[1];
     o[4 * j + 3] *= al[1];
   }
-}
-
-// Keeps P's registers live (unwritten) until the wgmma group that reads
-// them has completed.
-__device__ __forceinline__ void hold(const uint32_t (&pf)[kBK / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk)
-#pragma unroll
-    for (int x = 0; x < 4; ++x) asm volatile("" ::"r"(pf[kk][x]) : "memory");
 }
 
 // One work item of the persistent grid: a 128-row q tile of one (batch,
@@ -402,7 +251,9 @@ __device__ __forceinline__ Item item_at(int idx, const Args& a) {
   return w;
 }
 
-template <int D>
+// kLse: write the LSE (a.lse); the serve path's instantiation has no LSE
+// code at all.
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
@@ -510,7 +361,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     pin(sc);
     release(sm.k_empty(t % kStages));
     softmax_tile(sc, masked(kv_first), kv_first, tq, qpos0, qpos1, a.window, c, m, l, al);
-    pack_p(sc, pf);
+    pack_a<kBK>(sc, pf);
     for (int i = 1; i < w.n_tiles; ++i) {
       const int tc = t + i, tp = tc - 1;
       const int s = tc % kStages, sp = tp % kStages;
@@ -530,7 +381,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       hold(pf);
       pin(o);
       release(sm.v_empty(sp));
-      pack_p(sc, pf);
+      pack_a<kBK>(sc, pf);
       rescale<D>(o, al);
     }
     const int tl = t + w.n_tiles - 1;
@@ -558,6 +409,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int r = 0; r < 2; ++r) {
       const int qpos = r ? qpos1 : qpos0;
       if (qpos >= a.S) continue;
+      if (kLse && tq == 0)
+        a.lse[(static_cast<long long>(w.b) * a.H + w.h) * a.S + qpos] =
+            (m[r] + log2f(l[r])) * 0.6931471805599453f;
       __nv_bfloat16* row = out + qpos * a.oss;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
@@ -569,108 +423,57 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---- host side ---------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, so that the library links
-// without -lcuda.
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// The map of a (B, S, heads, D) bf16 tensor: dims (D, heads, S, B), innermost
-// first, with the tensor's own strides; boxes of (64, 1, 128, 1).  A size-1
-// dimension's stride is never stepped over and is replaced by a packed one.
-bool encode(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B, int S, int heads, int D,
-            long long sb, long long ss, long long sh) {
-  if (heads == 1) sh = D;
-  if (S == 1) ss = heads * sh;
-  if (B == 1) sb = S * ss;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2, static_cast<cuuint64_t>(ss) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {kBoxCols, 1, kBK, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // One CTA per SM (or per work item, when there are fewer), each walking
 // the items blockIdx.x, blockIdx.x + gridDim.x, ...
 template <int D>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, const Args& a,
            cudaStream_t stream) {
   using L = Layout<D>;
-  auto kernel = flash_fwd_wgmma_kernel<D>;
-  cudaError_t err =
+  auto kernel =
+      a.lse != nullptr ? flash_fwd_wgmma_kernel<D, true> : flash_fwd_wgmma_kernel<D, false>;
+  const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int device = 0, sms = 0;
-  err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int sms = sm_count();
+  if (sms < 0) return -sms;
   kernel<<<a.n_items < sms ? a.n_items : sms, kThreads, L::kBytes, stream>>>(tq, tk, tv, a);
   return static_cast<int>(cudaGetLastError());
 }
-
-bool aligned16(const void* p) { return reinterpret_cast<unsigned long long>(p) % 16 == 0; }
 
 }  // namespace
 
 extern "C" {
 
-// Same arguments as flash_attention.cu's entry points: element strides of
-// the (b, s, h) dimensions of q, k, v and o, the last dimension contiguous.
-int flash_attention_wgmma_bf16(const void* q, const void* k, const void* v, void* o, int B, int S,
-                               int H, int K, int D, int window, long long qsb, long long qss,
-                               long long qsh, long long ksb, long long kss, long long ksh,
-                               long long vsb, long long vss, long long vsh, long long osb,
-                               long long oss, long long osh, void* stream) {
+// Same arguments as flash_attention.cu's entry points (element strides of
+// the (b, s, h) dimensions of q, k, v and o, the last dimension
+// contiguous), and `lse`: a contiguous f32 (B, H, S) buffer for each row's
+// natural-log LSE, or null for none.
+int flash_attention_wgmma_lse_bf16(const void* q, const void* k, const void* v, void* o, int B,
+                                   int S, int H, int K, int D, int window, long long qsb,
+                                   long long qss, long long qsh, long long ksb, long long kss,
+                                   long long ksh, long long vsb, long long vss, long long vsh,
+                                   long long osb, long long oss, long long osh, void* lse,
+                                   void* stream) {
   if (B <= 0 || S <= 0) return static_cast<int>(cudaSuccess);
   const long long n_q_tiles = (S + kBQ - 1) / kBQ;
   if (K <= 0 || H % K != 0 || n_q_tiles * B * H > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  // ops.py::route's test: base pointers, and the strides of every dimension
-  // of more than one element, on 16 bytes (8 bf16).
-  const auto tma_ok = [&](const void* p, int heads, long long sb, long long ss, long long sh) {
-    const auto dim_ok = [](int n, long long st) { return n == 1 || (st > 0 && st % 8 == 0); };
-    return aligned16(p) && dim_ok(B, sb) && dim_ok(S, ss) && dim_ok(heads, sh);
-  };
-  if ((D != 64 && D != 128) || !tma_ok(q, H, qsb, qss, qsh) || !tma_ok(k, K, ksb, kss, ksh) ||
-      !tma_ok(v, K, vsb, vss, vsh))
+  if ((D != 64 && D != 128) || !tma_ok(q, B, S, H, qsb, qss, qsh) ||
+      !tma_ok(k, B, S, K, ksb, kss, ksh) || !tma_ok(v, B, S, K, vsb, vss, vsh))
     return flash::kErrRoute;
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return flash::kErrNoEncoder;
   CUtensorMap tq, tk, tv;
-  if (!encode(enc, &tq, q, B, S, H, D, qsb, qss, qsh) ||
-      !encode(enc, &tk, k, B, S, K, D, ksb, kss, ksh) ||
-      !encode(enc, &tv, v, B, S, K, D, vsb, vss, vsh))
+  if (!encode(enc, &tq, q, B, S, H, D, qsb, qss, qsh, kBQ) ||
+      !encode(enc, &tk, k, B, S, K, D, ksb, kss, ksh, kBK) ||
+      !encode(enc, &tv, v, B, S, K, D, vsb, vss, vsh, kBK))
     return flash::kErrTensorMap;
   Args a;
   a.o = static_cast<__nv_bfloat16*>(o);
   a.osb = osb;
   a.oss = oss;
   a.osh = osh;
+  a.lse = static_cast<float*>(lse);
   a.B = B;
   a.S = S;
   a.H = H;
@@ -682,6 +485,16 @@ int flash_attention_wgmma_bf16(const void* q, const void* k, const void* v, void
   a.scale_log2 = static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(D)));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return D == 128 ? launch<128>(tq, tk, tv, a, st) : launch<64>(tq, tk, tv, a, st);
+}
+
+// The same without the LSE (the serve path).
+int flash_attention_wgmma_bf16(const void* q, const void* k, const void* v, void* o, int B, int S,
+                               int H, int K, int D, int window, long long qsb, long long qss,
+                               long long qsh, long long ksb, long long kss, long long ksh,
+                               long long vsb, long long vss, long long vsh, long long osb,
+                               long long oss, long long osh, void* stream) {
+  return flash_attention_wgmma_lse_bf16(q, k, v, o, B, S, H, K, D, window, qsb, qss, qsh, ksb,
+                                        kss, ksh, vsb, vss, vsh, osb, oss, osh, nullptr, stream);
 }
 
 // Dynamic shared memory of one CTA of the D instantiation, for reports.

@@ -24,11 +24,25 @@ have no counterpart.  ``counts["flash_attention"]`` keeps ``launches`` and
 ``plain_calls``; ``route_launches`` counts the launches of each route
 beside it; :func:`reset_counts` zeroes both.
 
-The gradient: :func:`flash_attention_bwd` launches the backward kernel
-(``csrc/flash_attention_bwd.cu``, bf16 and float32, D in
-:data:`BWD_D`) for CUDA tensors or raises, and runs its plain version
-:func:`.ref.flash_bwd_ref` for CPU tensors; ``counts["flash_attention_bwd"]``
-counts it.  :class:`FlashAttention` is the ``torch.autograd.Function``
+With ``lse=True`` a forward also returns each row's log-sum-exp (f32
+(B, H, S), natural log; :func:`.ref.flash_lse` on the CPU): every route's
+kernel writes it beside o.  The serve path never asks for it.
+
+The gradient: :func:`flash_attention_bwd` takes the forward's LSE and, for
+CUDA tensors, launches the backward route :func:`bwd_route` picks, from
+dtype, head dim and alignment alone, or raises:
+
+* ``"wgmma"``: bf16, D in {64, 128}, q, k, v 16-byte aligned as for the
+  forward (``csrc/flash_attention_bwd_wgmma.cu``: TMA, wgmma, a persistent
+  warp-specialised pipeline);
+* ``"mma_sync"``: other bf16 with D in :data:`BWD_D`
+  (``csrc/flash_attention_bwd.cu``);
+* ``"fma"``: float32 (same file).
+
+Each call first runs the delta pass.  CPU tensors run
+:func:`.ref.flash_bwd_ref`, which needs no LSE.
+``counts["flash_attention_bwd"]`` counts calls and ``bwd_route_launches``
+each route's.  :class:`FlashAttention` is the ``torch.autograd.Function``
 that joins the two; :func:`flash_attention` enters it only when grad mode
 is on and an input requires grad, so inference (the serve path) never
 saves anything for a backward.
@@ -41,7 +55,7 @@ import dataclasses
 import torch
 
 from repro_torch.kernels.flash_attention import build
-from repro_torch.kernels.flash_attention.ref import flash_bwd_ref, flash_ref
+from repro_torch.kernels.flash_attention.ref import flash_bwd_ref, flash_lse, flash_ref
 
 __all__ = [
     "flash_attention",
@@ -49,11 +63,15 @@ __all__ = [
     "call_bwd",
     "FlashAttention",
     "launch",
+    "launch_bwd",
     "route",
+    "bwd_route",
     "counts",
     "route_launches",
+    "bwd_route_launches",
     "reset_counts",
     "ROUTES",
+    "BWD_ROUTES",
     "SUPPORTED_D",
     "BWD_D",
     "KERNEL_DTYPES",
@@ -63,6 +81,7 @@ SUPPORTED_D = (8, 16, 32, 64, 128)
 BWD_D = (16, 32, 64, 128)  # the backward kernel's instantiations
 KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 ROUTES = ("wgmma", "mma_sync", "fma")
+BWD_ROUTES = ("wgmma", "mma_sync", "fma")
 WGMMA_D = (64, 128)
 
 
@@ -74,6 +93,7 @@ class Counts:
 
 counts = {"flash_attention": Counts(), "flash_attention_bwd": Counts()}
 route_launches = dict.fromkeys(ROUTES, 0)
+bwd_route_launches = dict.fromkeys(BWD_ROUTES, 0)
 
 
 def reset_counts() -> None:
@@ -81,6 +101,8 @@ def reset_counts() -> None:
         c.launches = c.plain_calls = 0
     for r in ROUTES:
         route_launches[r] = 0
+    for r in BWD_ROUTES:
+        bwd_route_launches[r] = 0
 
 
 def _aligned16(t: torch.Tensor) -> bool:
@@ -102,6 +124,17 @@ def route(q, k, v) -> str:
     if q.dtype == torch.float32 or D < 16:
         return "fma"
     if D in WGMMA_D and all(_aligned16(t) for t in (q, k, v)):
+        return "wgmma"
+    return "mma_sync"
+
+
+def bwd_route(q, k, v) -> str:
+    """The backward kernel that :func:`flash_attention_bwd` launches for
+    these (checked) tensors: one of :data:`BWD_ROUTES`, from dtype, head dim
+    and layout alone; the forward's alignment test on q, k, v."""
+    if q.dtype == torch.float32:
+        return "fma"
+    if q.shape[-1] in WGMMA_D and all(_aligned16(t) for t in (q, k, v)):
         return "wgmma"
     return "mma_sync"
 
@@ -155,28 +188,32 @@ def flash_attention(q, k, v, *, window=None):
     return _forward(q, k, v, window)
 
 
-def _forward(q, k, v, window):
+def _forward(q, k, v, window, lse=False):
     if q.device.type == "cpu":
         counts["flash_attention"].plain_calls += 1
-        return flash_ref(q, k, v, window=window)
-    return launch(route(q, k, v), q, k, v, window=window)
+        o = flash_ref(q, k, v, window=window)
+        return (o, flash_lse(q, k, window=window)) if lse else o
+    return launch(route(q, k, v), q, k, v, window=window, lse=lse)
 
 
-def launch(name: str, q, k, v, *, window=None):
+def launch(name: str, q, k, v, *, window=None, lse=False):
     """Launch the kernel of route ``name`` on CUDA tensors and count it.
     :func:`flash_attention` passes :func:`route`'s answer; a caller may name
     another route that takes these inputs (``"mma_sync"`` takes every bf16
     input with D >= 16, ``"fma"`` every input) to time it beside the first.
-    Raises if the kernel refuses them."""
+    With ``lse`` returns (o, the f32 (B, H, S) LSE).  Raises if the kernel
+    refuses them."""
     B, S, H, K, D = _check_args(q, k, v, window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    entry = build.ENTRY_POINTS.get((name, KERNEL_DTYPES[q.dtype])) if name in ROUTES else None
+    table = build.LSE_ENTRY_POINTS if lse else build.ENTRY_POINTS
+    entry = table.get((name, KERNEL_DTYPES[q.dtype])) if name in ROUTES else None
     if entry is None:
         raise ValueError(f"flash_attention: no {name!r} kernel for {q.dtype}")
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    lse_t = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if lse else None
     if o.numel() == 0:
-        return o
+        return (o, lse_t) if lse else o
     kl = build.load()
     fn = getattr(kl.lib, entry)
     with torch.cuda.device(q.device):
@@ -185,47 +222,46 @@ def launch(name: str, q, k, v, *, window=None):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             B, S, H, K, D, window or 0,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-            stream,
+            *((lse_t.data_ptr(),) if lse else ()), stream,
         )
     kl.check(err, f"flash_attention {name} launch (B={B}, S={S}, H={H}, K={K}, D={D}, {q.dtype})")
     counts["flash_attention"].launches += 1
     route_launches[name] += 1
-    return o
+    return (o, lse_t) if lse else o
 
 
 class FlashAttention(torch.autograd.Function):
     """Flash attention with its gradient: the forward is
     :func:`flash_attention`'s (the kernel on the card, the plain version on
-    the CPU) and saves q, k, v and o; the backward is
-    :func:`flash_attention_bwd`.  There is no fallback: a backward kernel
-    that fails to build or launch raises."""
+    the CPU) and saves q, k, v, o and the LSE it writes beside o; the
+    backward is :func:`flash_attention_bwd`.  Under remat the forward runs
+    again in the recompute, and that run's LSE is the one saved.  There is
+    no fallback: a backward kernel that fails to build or launch raises."""
 
     @staticmethod
     def forward(ctx, q, k, v, window):
-        o = _forward(q, k, v, window)
-        ctx.save_for_backward(q, k, v, o)
+        o, lse = _forward(q, k, v, window, lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.window = window
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, window=ctx.window)
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, lse=lse, window=ctx.window)
         return dq, dk, dv, None
 
 
-def flash_attention_bwd(q, k, v, o, do, *, window=None):
+def flash_attention_bwd(q, k, v, o, do, *, lse=None, window=None):
     """Gradient of :func:`flash_attention`: given q (B, S, H, D), k/v
-    (B, S, K, D), the forward's output o and the output gradient do (both
-    (B, S, H, D)), returns (dq, dk, dv) in the input dtype, accumulated in
-    f32, scale 1/sqrt(D) as in the forward.
+    (B, S, K, D), the forward's output o, the output gradient do (both
+    (B, S, H, D)) and the forward's LSE (f32 (B, H, S), natural log),
+    returns (dq, dk, dv) in the input dtype, accumulated in f32, scale
+    1/sqrt(D) as in the forward.
 
-    CUDA tensors launch the backward kernel or raise; CPU tensors run
-    :func:`.ref.flash_bwd_ref`.  One call is one launch in
-    ``counts["flash_attention_bwd"]``; it runs three kernels of
-    ``csrc/flash_attention_bwd.cu`` in turn: ``bwd_prep`` (LSE and delta per
-    query row), ``bwd_dkdv`` (dk, dv per key tile), ``bwd_dq`` (dq per query
-    tile)."""
+    CUDA tensors launch the route of :func:`bwd_route` or raise (a missing
+    ``lse`` too); CPU tensors run :func:`.ref.flash_bwd_ref`, which needs no
+    LSE.  One call is one launch in ``counts["flash_attention_bwd"]``."""
     B, S, H, K, D = _check_args(q, k, v, window)
     for name, t in {"o": o, "do": do}.items():
         if t.dtype != q.dtype or t.device != q.device or t.shape != q.shape:
@@ -241,41 +277,64 @@ def flash_attention_bwd(q, k, v, o, do, *, window=None):
     if q.device.type == "cpu":
         counts["flash_attention_bwd"].plain_calls += 1
         return flash_bwd_ref(q, k, v, o, do, window=window)
+    return launch_bwd(bwd_route(q, k, v), q, k, v, o, do, lse, window=window)
+
+
+def launch_bwd(name: str, q, k, v, o, do, lse, *, window=None):
+    """Launch the backward route ``name`` on CUDA tensors and count it.
+    :func:`flash_attention_bwd` passes :func:`bwd_route`'s answer; a caller
+    may name ``"mma_sync"`` for bf16 inputs the wgmma route takes, to time
+    it beside the first.  Raises if the route refuses the inputs."""
+    B, S, H, K, D = _check_args(q, k, v, window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
+    if lse is None or lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, S) \
+            or lse.device != q.device:
+        raise ValueError(
+            f"flash_attention_bwd: lse must be the forward's float32 (B, H, S) = "
+            f"({B}, {H}, {S}) on {q.device}, got "
+            f"{None if lse is None else (tuple(lse.shape), lse.dtype, lse.device)}"
+        )
+    entry = build.BWD_ENTRY_POINTS.get((name, KERNEL_DTYPES[q.dtype]))
+    if entry is None or D not in BWD_D:
+        raise ValueError(f"flash_attention_bwd: no {name!r} backward for {q.dtype}, D = {D}")
     if q.numel() == 0:
         return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # The kernels copy 16-byte rows asynchronously: an input whose base or
     # (b, s, h) strides are not 16-byte multiples (a strided view) is copied
-    # to a fresh contiguous tensor first.
+    # to a fresh contiguous tensor first; the LSE is read as (B, H, S).
     ins = [t if t.data_ptr() % 16 == 0 and t.stride(-1) == 1
            and all(st * t.element_size() % 16 == 0 for st in t.stride()[:3])
            else t.clone(memory_format=torch.contiguous_format) for t in (q, k, v, o, do)]
     kl = build.load()
-    err, grads = call_bwd(getattr(kl.lib, build.ENTRY_POINTS[("bwd", KERNEL_DTYPES[q.dtype])]),
-                          *ins, window=window)
-    kl.check(err, f"flash_attention_bwd launch (B={B}, S={S}, H={H}, K={K}, D={D}, {q.dtype})")
+    err, grads = call_bwd(getattr(kl.lib, entry), *ins, lse.contiguous(), window=window,
+                          scratch_floats=kl.lib.flash_attention_bwd_scratch_floats(B, H, S))
+    kl.check(err, f"flash_attention_bwd {name} launch (B={B}, S={S}, H={H}, K={K}, D={D}, "
+                  f"{q.dtype})")
     counts["flash_attention_bwd"].launches += 1
+    bwd_route_launches[name] += 1
     return grads
 
 
-def call_bwd(fn, q, k, v, o, do, *, window=None) -> tuple[int, tuple]:
+def call_bwd(fn, q, k, v, o, do, lse, *, window=None, scratch_floats=None) -> tuple[int, tuple]:
     """Call the backward entry point ``fn`` of a built flash library (this
     checkout's, or another build's in :mod:`.compare`) on non-empty CUDA
     tensors whose rows are 16-byte aligned; returns its error code and
-    (dq, dk, dv).  Not counted: :func:`flash_attention_bwd` counts."""
+    (dq, dk, dv).  ``lse`` is passed as the entry's LSE argument and
+    ``scratch_floats`` sizes its delta scratch (default (B, H, S), what a
+    build that computes its own LSE writes into both).  Not counted:
+    :func:`flash_attention_bwd` counts."""
     B, S, H, D = q.shape
     K = k.shape[2]
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, S, K, D), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
+    scratch = torch.empty(scratch_floats or B * H * S, dtype=torch.float32, device=q.device)
     ts = (q, k, v, o, do, dq, dk, dv)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
-            *(t.data_ptr() for t in ts), lse.data_ptr(), delta.data_ptr(),
+            *(t.data_ptr() for t in ts[:8]), lse.data_ptr(), scratch.data_ptr(),
             B, S, H, K, D, window or 0, *(st for t in ts for st in t.stride()[:3]), stream,
         )
     return err, (dq, dk, dv)

@@ -1,8 +1,16 @@
 """Plain PyTorch versions of the flash-attention kernels: materialized
 causal (optionally sliding-window) GQA attention in float32, as the
 reference's oracle ``repro.kernels.flash_attention.ref.flash_ref`` computes
-it, and its gradient (:func:`flash_bwd_ref`), the backward kernel's plain
-version, with the measure a backward is held to (:func:`flash_bwd_errors`)."""
+it, its per-row log-sum-exp (:func:`flash_lse`, the forward kernels' second
+output), and its gradient (:func:`flash_bwd_ref`), the backward kernels'
+plain version, with the measure a backward is held to
+(:func:`flash_bwd_errors`).
+
+The LSE convention, kernels and plain version alike: the natural log of the
+sum of exp of the scaled scores q . k / sqrt(D) over the visible keys, in
+float32, (B, H, S).  The wgmma forward keeps its running max in log2 units
+and converts on the way out; the wgmma backward converts back to log2 units
+in its delta pass."""
 
 from __future__ import annotations
 
@@ -10,8 +18,8 @@ import math
 
 import torch
 
-__all__ = ["flash_ref", "flash_bwd_ref", "flash_bwd_errors", "BWD_TOL", "BWD_ROW_REL",
-           "BWD_ROW_FLOOR"]
+__all__ = ["flash_ref", "flash_lse", "flash_bwd_ref", "flash_bwd_errors", "BWD_TOL",
+           "BWD_ROW_REL", "BWD_ROW_FLOOR", "LSE_TOL"]
 
 # A backward (dq, dk, dv) against flash_bwd_ref, on unit-normal inputs.
 # f32: 1e-4 of the largest |plain| of the three (reads ~5e-7 on an H100).
@@ -24,6 +32,11 @@ __all__ = ["flash_ref", "flash_bwd_ref", "flash_bwd_errors", "BWD_TOL", "BWD_ROW
 # sqrt(64 / n), 0.125 at n = 4096.
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 BWD_ROW_REL, BWD_ROW_FLOOR = 2e-2, 1e-2
+# A forward kernel's LSE against flash_lse, absolute (the LSE of unit-normal
+# inputs is O(1-10)): the kernels' f32 scores differ from the plain einsum's
+# by summation order (~1e-6), and the wgmma kernel's log2-unit round trip
+# and ex2.approx add a few ulp.  A dropped key of n moves it by ~1/n.
+LSE_TOL = 1e-4
 
 
 def flash_ref(q, k, v, *, window=None):
@@ -33,14 +46,21 @@ def flash_ref(q, k, v, *, window=None):
     Computed in f32, returned in q.dtype.
     """
     B, S, H, D = q.shape
-    p = _probs(q, k, window)
+    p = torch.softmax(_scores(q, k, window), dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return o.reshape(B, S, H, D).to(q.dtype)
 
 
-def _probs(q, k, window):
-    """Softmax probabilities (B, K, G, S, S) in f32 under the causal (and
-    window) mask."""
+def flash_lse(q, k, *, window=None):
+    """Per-row log-sum-exp of the scaled, masked scores: (B, H, S) float32,
+    natural log, query head h = k * G + g as in :func:`flash_ref`."""
+    B, S, H, _ = q.shape
+    return torch.logsumexp(_scores(q, k, window), dim=-1).reshape(B, H, S)
+
+
+def _scores(q, k, window):
+    """Scaled scores (B, K, G, S, S) in f32, -inf where the causal (and
+    window) mask hides a key."""
     B, S, H, D = q.shape
     K = k.shape[2]
     qf = q.float().reshape(B, S, K, H // K, D)
@@ -50,22 +70,23 @@ def _probs(q, k, window):
     mask = qpos >= kpos
     if window is not None:
         mask &= (qpos - kpos) < window
-    return torch.softmax(s.masked_fill(~mask, -math.inf), dim=-1)
+    return s.masked_fill(~mask, -math.inf)
 
 
 def flash_bwd_ref(q, k, v, o, do, *, window=None):
     """Gradient of :func:`flash_ref` at (q, k, v) for the output gradient
     ``do``, given the forward's output ``o``.  q, o, do (B, S, H, D); k/v
-    (B, S, K, D).  Returns (dq, dk, dv) in the inputs' dtypes.
+    (B, S, K, D).  Returns (dq, dk, dv) in the inputs' dtypes.  It takes no
+    LSE: P is the softmax of the scores, recomputed here.
 
-    The materialized f32 formulas the backward kernel computes tile by tile:
+    The materialized f32 formulas the backward kernels compute tile by tile:
     P = softmax(q k^T / sqrt(D)) under the mask, dV = P^T dO,
     delta = rowsum(dO o o), dS = P o (dO V^T - delta), dQ = dS K / sqrt(D),
     dK = dS^T Q / sqrt(D)."""
     B, S, H, D = q.shape
     K = k.shape[2]
     G = H // K
-    p = _probs(q, k, window)
+    p = torch.softmax(_scores(q, k, window), dim=-1)
     qf = q.float().reshape(B, S, K, G, D)
     dof = do.float().reshape(B, S, K, G, D)
     delta = (dof * o.float().reshape(B, S, K, G, D)).sum(-1).permute(0, 2, 3, 1)

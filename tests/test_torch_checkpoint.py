@@ -122,6 +122,25 @@ def test_restore_casts_dtype(tmp_path):
     assert restored["w"].dtype == np.float64
 
 
+def test_restore_keeps_the_like_trees_key_order(tmp_path):
+    """A restored dict iterates in its ``like``'s key order (the order a
+    fresh train state was built in), not the sorted order the leaves are
+    stored in: the optimizer sums its global norm over the leaves in dict
+    order, and a resumed run must round it as the uninterrupted one did."""
+    like = {"embed": torch.zeros(2), "blocks": {"wq": torch.zeros(3), "attn_norm": torch.zeros(1)},
+            "final_norm": torch.zeros(1)}
+    tree = {k: (v + 1 if torch.is_tensor(v) else {kk: vv + 2 for kk, vv in v.items()})
+            for k, v in like.items()}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, tree)
+    restored, _ = mgr.restore(like)
+    assert list(restored) == ["embed", "blocks", "final_norm"]
+    assert list(restored["blocks"]) == ["wq", "attn_norm"]
+    assert all(torch.equal(a, b) for a, b in zip(
+        [restored["embed"], *restored["blocks"].values(), restored["final_norm"]],
+        [tree["embed"], *tree["blocks"].values(), tree["final_norm"]]))
+
+
 def test_bf16_leaves_roundtrip_bitwise(tmp_path):
     """bfloat16 tensors (numpy has no such dtype) are written as their
     uint16 bit patterns with "bfloat16" in the manifest and restored bit

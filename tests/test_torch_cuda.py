@@ -21,7 +21,7 @@ from repro_torch.core.operators import ASSEMBLY_LEVELS, ElasticityOperator
 from repro_torch.fem.space import H1Space
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import (
-    BWD_ROW_REL, BWD_TOL, flash_bwd_errors, flash_bwd_ref, flash_ref)
+    BWD_ROW_REL, BWD_TOL, LSE_TOL, flash_bwd_errors, flash_bwd_ref, flash_lse, flash_ref)
 from repro_torch.kernels.pa_elasticity import build, ops
 from repro_torch.kernels.pa_elasticity.ref import paop_ref
 from repro_torch.launch.solve import solve_beam
@@ -270,6 +270,47 @@ def test_flash_kernel_matches_plain_on_card(card, B, S, H, K, D, window, dtype, 
         assert float((diff / ref.float().norm(dim=-1)).max()) <= 1e-2
 
 
+def _bwd_inputs(card, B, S, H, K, D, dtype, pad=0, seed=0):
+    """q, k, v, dO on the card (views of rows D + pad wide), and the forward
+    kernel's o and LSE on them."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    q, do = (torch.randn((B, S, H, D + pad), generator=g, device=card).to(dtype)[..., :D]
+             for _ in range(2))
+    k, v = (torch.randn((B, S, K, D + pad), generator=g, device=card).to(dtype)[..., :D]
+            for _ in range(2))
+    return q, k, v, do
+
+
+def _check_bwd(q, k, v, do, window, want_route):
+    """The backward route ``want_route`` on these inputs against its plain
+    version (``ref.flash_bwd_errors``: f32 to 1e-4 of max |plain|; bf16 to
+    2e-2 of max |plain| and 2e-2 per row), bitwise repeated, counted once on
+    its route; the forward's o and LSE first held against theirs."""
+    dtype = q.dtype
+    assert flash_ops.bwd_route(q, k, v) == want_route
+    o, lse = flash_ops.launch(flash_ops.route(q, k, v), q, k, v, window=window, lse=True)
+    torch.cuda.synchronize()
+    assert float((lse - flash_lse(q, k, window=window)).abs().max()) <= LSE_TOL
+    before = flash_ops.counts["flash_attention_bwd"].launches
+    plain = flash_ops.counts["flash_attention_bwd"].plain_calls
+    routes = dict(flash_ops.bwd_route_launches)
+    got = flash_ops.flash_attention_bwd(q, k, v, o, do, lse=lse, window=window)
+    torch.cuda.synchronize()
+    assert flash_ops.counts["flash_attention_bwd"].launches == before + 1
+    routes[want_route] += 1
+    assert flash_ops.bwd_route_launches == routes
+    want = flash_bwd_ref(q, k, v, o, do, window=window)
+    for x, like in zip(got, (q, k, v)):
+        assert x.dtype == dtype and x.shape == like.shape
+    _, err, row = flash_bwd_errors(got, want)
+    assert err <= BWD_TOL[dtype]
+    assert dtype == torch.float32 or row <= BWD_ROW_REL
+    again = flash_ops.flash_attention_bwd(q, k, v, o, do, lse=lse, window=window)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert flash_ops.counts["flash_attention_bwd"].plain_calls == plain
+    return got
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,H,K,D,window,pad", [
@@ -282,33 +323,80 @@ def test_flash_kernel_matches_plain_on_card(card, B, S, H, K, D, window, dtype, 
     (2, 100, 8, 4, 64, None, 2),  # views of wider rows: copied before the kernel
 ])
 def test_flash_bwd_kernel_matches_plain_on_card(card, B, S, H, K, D, window, pad, dtype):
-    """The backward kernel against its plain version, held as chip_smoke.py
-    holds it (``ref.flash_bwd_errors``: f32 to 1e-4 of max |plain|; bf16 to
-    2e-2 of max |plain| and 2e-2 per row); bitwise repeatable; and autograd
-    through flash_attention on the card runs it once."""
-    g = torch.Generator(device=card).manual_seed(S + D)
-    q, do = (torch.randn((B, S, H, D + pad), generator=g, device=card).to(dtype)[..., :D]
-             for _ in range(2))
-    k, v = (torch.randn((B, S, K, D + pad), generator=g, device=card).to(dtype)[..., :D]
-            for _ in range(2))
-    o = flash_ops.flash_attention(q, k, v, window=window)
-    before = flash_ops.counts["flash_attention_bwd"].launches
-    plain = flash_ops.counts["flash_attention_bwd"].plain_calls
-    got = flash_ops.flash_attention_bwd(q, k, v, o, do, window=window)
-    torch.cuda.synchronize()
-    assert flash_ops.counts["flash_attention_bwd"].launches == before + 1
-    want = flash_bwd_ref(q, k, v, o, do, window=window)
-    for x, like in zip(got, (q, k, v)):
-        assert x.dtype == dtype and x.shape == like.shape
-    _, err, row = flash_bwd_errors(got, want)
-    assert err <= BWD_TOL[dtype]
-    assert dtype == torch.float32 or row <= BWD_ROW_REL
-    again = flash_ops.flash_attention_bwd(q, k, v, o, do, window=window)
-    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    """Each backward route against its plain version (``_check_bwd``): f32
+    on fma; bf16 on wgmma where D in {64, 128} and the rows are aligned,
+    else on mma_sync (D in {16, 32}, unaligned views); and autograd through
+    flash_attention on the card runs the same kernels once."""
+    q, k, v, do = _bwd_inputs(card, B, S, H, K, D, dtype, pad, seed=S + D)
+    want = ("fma" if dtype == torch.float32 else
+            "wgmma" if D in (64, 128) and pad == 0 else "mma_sync")
+    got = _check_bwd(q, k, v, do, window, want)
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
     auto = torch.autograd.grad(flash_ops.flash_attention(*leaves, window=window), leaves, do)
     assert all(torch.equal(a, b) for a, b in zip(auto, got))
-    assert flash_ops.counts["flash_attention_bwd"].plain_calls == plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("B,S,H,K,window", [
+    (2, 1, 4, 2, None), (2, 77, 4, 2, None), (1, 300, 4, 2, None),  # ragged S, G = 2
+    (2, 77, 4, 4, 16), (1, 300, 4, 4, 48), (1, 300, 4, 2, 16),  # windows, G = 1 and 2
+    (1, 1024, 16, 8, None),
+])
+def test_flash_bwd_wgmma_matches_plain_on_card(card, B, S, H, K, D, window):
+    """The wgmma backward route against its plain version, bitwise repeated,
+    at ragged S, G in {1, 2}, windows {16, 48} and (1, 1024, 16, 8, D)."""
+    _check_bwd(*_bwd_inputs(card, B, S, H, K, D, torch.bfloat16, seed=S * D + H), window,
+               "wgmma")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32])
+@pytest.mark.parametrize("pad", [0, 8])  # 8: bf16 rows 16-byte aligned, still D < 64
+def test_flash_bwd_mma_sync_small_d_on_card(card, D, pad):
+    """The mma_sync backward route keeps D in {16, 32}, aligned or not."""
+    _check_bwd(*_bwd_inputs(card, 2, 150, 4, 2, D, torch.bfloat16, pad, seed=D), 48, "mma_sync")
+
+
+@pytest.mark.cuda
+def test_flash_bwd_mma_sync_on_wgmma_inputs(card):
+    """launch_bwd names the mma_sync route on inputs the wgmma route takes
+    (the timing comparison's path): both within tolerance of the plain
+    version, and of each other."""
+    q, k, v, do = _bwd_inputs(card, 1, 300, 8, 4, 128, torch.bfloat16, seed=7)
+    o, lse = flash_ops.launch("wgmma", q, k, v, lse=True)
+    want = flash_bwd_ref(q, k, v, o, do)
+    for name in flash_ops.BWD_ROUTES[:2]:
+        got = flash_ops.launch_bwd(name, q, k, v, o, do, lse)
+        _, err, row = flash_bwd_errors(got, want)
+        assert err <= BWD_TOL[torch.bfloat16] and row <= BWD_ROW_REL, name
+
+
+@pytest.mark.cuda
+def test_flash_bwd_refuses_a_missing_lse(card):
+    q, k, v, do = _bwd_inputs(card, 1, 64, 4, 2, 64, torch.bfloat16)
+    o = flash_ops.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="lse must be"):
+        flash_ops.flash_attention_bwd(q, k, v, o, do)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,dtype,D,pad", [
+    ("wgmma", torch.bfloat16, 128, 0), ("wgmma", torch.bfloat16, 64, 0),
+    ("mma_sync", torch.bfloat16, 128, 0), ("mma_sync", torch.bfloat16, 16, 2),
+    ("fma", torch.float32, 128, 0), ("fma", torch.float32, 16, 0), ("fma", torch.bfloat16, 8, 0),
+])
+@pytest.mark.parametrize("S,window", [(1, None), (77, None), (300, 48), (1000, None)])
+def test_flash_forward_lse_on_card(card, route, dtype, D, pad, S, window):
+    """Every forward route's LSE against the plain LSE (``ref.LSE_TOL``),
+    and its o bitwise the o of the same route without the LSE."""
+    q, k, v, _ = _bwd_inputs(card, 2, S, 4, 2, D, dtype, pad, seed=S + D)
+    o, lse = flash_ops.launch(route, q, k, v, window=window, lse=True)
+    o_plain = flash_ops.launch(route, q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert lse.shape == (2, 4, S) and lse.dtype == torch.float32
+    assert float((lse - flash_lse(q, k, window=window)).abs().max()) <= LSE_TOL
+    assert torch.equal(o, o_plain)
 
 
 @pytest.mark.cuda

@@ -17,9 +17,13 @@ algorithm: :func:`wgmma_emulation` repeats it in numpy (128-row q tiles,
 band, masks only on the diagonal and window-edge tiles, exp2 with
 log2(e) folded into the scale, p rounded to the inputs' dtype, zero-filled
 loads past S) and is held against ``flash_ref`` and the reference kernel;
-``ops.route``, which picks the kernel, is pure Python and tested here.
+its LSE output, (m + log2 l) ln 2 from the log2-unit running max and sum, is
+held against the plain LSE ``ref.flash_lse``, which is held against
+``jax.nn.logsumexp`` of the reference's masked scores.  ``ops.route``, which
+picks the kernel, is pure Python and tested here.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,7 +32,7 @@ import torch
 from repro.kernels.flash_attention.ops import flash_attention as ref_flash_attention
 from repro.kernels.flash_attention.ref import flash_ref as ref_flash_ref
 from repro_torch.kernels.flash_attention import ops
-from repro_torch.kernels.flash_attention.ref import flash_ref
+from repro_torch.kernels.flash_attention.ref import LSE_TOL, flash_lse, flash_ref
 
 ATOL = {"f32": 2e-5, "bf16": 3e-2}
 NEG_INF = np.float32(-1e30)
@@ -192,7 +196,8 @@ def _band(q0, S, window):
 def wgmma_emulation(q, k, v, window=None, round_p=_round_bf16):
     """numpy version of ``flash_fwd_wgmma_kernel``'s arithmetic on inputs
     already in the kernel's dtype (f32 arrays).  Returns (o in f32 before
-    the output rounding, {q tile: masked KV tiles})."""
+    the output rounding, {q tile: masked KV tiles}, the LSE (B, H, S) it
+    writes)."""
     B, S, H, D = q.shape
     G = H // k.shape[2]
     nq = -(-S // BQ)
@@ -203,6 +208,7 @@ def wgmma_emulation(q, k, v, window=None, round_p=_round_bf16):
     vh = np.repeat(vp.transpose(0, 2, 1, 3), G, axis=1)
     c = np.float32(LOG2E / np.sqrt(D))
     o = np.zeros((B, H, nq * BQ, D), np.float32)
+    lse = np.zeros((B, H, nq * BQ), np.float32)
     masked_tiles = {}
     for qt in reversed(range(nq)):  # longest causal bands first
         q0 = qt * BQ
@@ -231,13 +237,15 @@ def wgmma_emulation(q, k, v, window=None, round_p=_round_bf16):
             l = l * alpha + p.sum(-1)
             acc = acc * alpha[..., None] + round_p(p) @ vh[:, :, kv0:kv0 + BK]
             m = m_new
-        o[:, :, q0:q0 + BQ] = acc / np.maximum(l, np.float32(1e-30))[..., None]
-    return o.transpose(0, 2, 1, 3)[:, :S], masked_tiles
+        l = np.maximum(l, np.float32(1e-30))
+        o[:, :, q0:q0 + BQ] = acc / l[..., None]
+        lse[:, :, q0:q0 + BQ] = (m + np.log2(l)) * np.float32(np.log(2.0))
+    return o.transpose(0, 2, 1, 3)[:, :S], masked_tiles, lse[:, :, :S]
 
 
 def _emulate(arrays, dtype_name, window=None):
     rnd = ROUND[dtype_name]
-    o, _ = wgmma_emulation(*(rnd(a) for a in arrays), window=window, round_p=rnd)
+    o, _, _ = wgmma_emulation(*(rnd(a) for a in arrays), window=window, round_p=rnd)
     return rnd(o)
 
 
@@ -279,6 +287,48 @@ def test_wgmma_emulation_ragged_s(S, H, K, D, window, dtype_name):
     o = _emulate(arrays, dtype_name, window)
     np.testing.assert_allclose(o, _flash_ref_np(arrays, dtype_name, window),
                                atol=ATOL[dtype_name])
+
+
+@pytest.mark.parametrize("dtype_name", ["f32", "bf16"])
+@pytest.mark.parametrize("S,H,K,D,window", [
+    (1, 4, 2, 64, None), (77, 4, 2, 64, 16), (300, 4, 4, 128, None), (300, 4, 2, 64, 48),
+])
+def test_wgmma_emulation_lse_matches_plain(S, H, K, D, window, dtype_name):
+    """The forward kernel's LSE, (m + log2 l) ln 2 in f32, against the plain
+    LSE on the same (dtype-rounded) inputs, to ``ref.LSE_TOL``."""
+    rnd = ROUND[dtype_name]
+    arrays = [rnd(a) for a in _inputs(2, S, H, K, D, seed=8)]
+    _, _, lse = wgmma_emulation(*arrays, window=window, round_p=rnd)
+    q, k = (torch.from_numpy(a) for a in arrays[:2])
+    np.testing.assert_allclose(lse, flash_lse(q, k, window=window).numpy(), rtol=0,
+                               atol=LSE_TOL)
+
+
+@pytest.mark.parametrize("S,G,window", [(1, 1, None), (33, 2, None), (33, 2, 5), (64, 1, 16)])
+def test_plain_lse_matches_jax_logsumexp(S, G, window):
+    """``ref.flash_lse`` (natural log, (B, H, S)) against
+    ``jax.nn.logsumexp`` over the reference's masked scores (its
+    ``flash_ref``'s: scaled by 1/sqrt(D), -inf outside the causal band and
+    the window), f32."""
+    B, K, D = 2, 2, 16
+    q, k, _ = _inputs(B, S, K * G, K, D, seed=9)
+    qpos, kpos = np.arange(S)[:, None], np.arange(S)[None, :]
+    mask = qpos >= kpos
+    if window:
+        mask &= qpos - kpos < window
+    s = jnp.einsum("bqkgd,bskd->bkgqs", jnp.asarray(q).reshape(B, S, K, G, D),
+                   jnp.asarray(k)) / jnp.sqrt(jnp.float32(D))
+    want = jax.nn.logsumexp(jnp.where(mask, s, -jnp.inf), axis=-1).reshape(B, K * G, S)
+    got = flash_lse(torch.from_numpy(q), torch.from_numpy(k), window=window)
+    assert got.dtype == torch.float32 and got.shape == (B, K * G, S)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+
+
+def test_cpu_forward_with_lse_is_the_plain_pair():
+    q, k, v = (torch.from_numpy(a) for a in _inputs(1, 20, 4, 2, 16, seed=10))
+    o, lse = ops._forward(q, k, v, 7, lse=True)
+    assert torch.equal(o, flash_ref(q, k, v, window=7))
+    assert torch.equal(lse, flash_lse(q, k, window=7))
 
 
 @pytest.mark.parametrize("window", [None, 1, 16, 48, 128, 129, 300])
