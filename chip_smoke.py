@@ -169,7 +169,12 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    the final state are bitwise the uninterrupted run's; (e) ``train_loop``
    of that ``--reduced`` configuration in bf16 (head dim 16) at the CLI's
    --seq 256 --batch 8, two steps, each counted: every flash forward and
-   backward launch on the mma_sync routes, no plain call.
+   backward launch on the mma_sync routes, no plain call; the forward's o
+   and LSE and the backward (route asserted, bitwise repeated) on the
+   inputs the first and last layers gave the backward in step 1, against
+   their plain versions; the mma_sync backward timed on the last layer's,
+   beside SDPA's backward, the plain version and the bound: its JSON
+   entry's numbers, all at this shape.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -280,6 +285,7 @@ FLASH_CASES = [
     (2, 300, 8, 1, 128, 128),
     (1, 384, 8, 2, 64, 48),
     (2, 2048, 4, 2, 64, None),
+    (8, 256, 4, 2, 16, None),  # the train CLI's --reduced model (phase 9e)
 ]
 # The serve path: qwen3-1.7b, 8 requests of 2048 prompt tokens, 32 new.
 SERVE_ARCH, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = "qwen3-1.7b", 8, 2048, 32
@@ -340,13 +346,16 @@ BWD_CASES = [
     (1, 1024, 16, 8, 128, None),
     (1, 1024, 8, 8, 64, 128),
     (1, 1024, 4, 2, 16, 256),
+    (8, 256, 4, 2, 16, None),  # the train CLI's --reduced model (phase 9e)
 ]
 # The backward routes timed in turns (wgmma, mma_sync on the same inputs,
 # SDPA's backward, the plain version): the training shape, the serve shape
 # and the training shape at D = 64.
 BWD_TIME_SHAPES = [FLASH_TRAIN, (8, 2048, 16, 8, 128), (4, 4096, 16, 8, 64)]
 # The train CLI's --reduced configuration in bf16 (head dim 16, both flash
-# routes mma_sync) at its --seq and --batch defaults, counted in phase 9(e).
+# routes mma_sync) at its --seq and --batch defaults, counted in phase 9(e);
+# the mma_sync backward's JSON entry is timed and held at its shape, on the
+# inputs the run gave it.
 TRAIN_REDUCED_SHAPE, TRAIN_REDUCED_STEPS = ShapeConfig("train CLI --reduced", "train", 256, 8), 2
 # Tolerances and measure of a backward: ref.py's BWD_TOL, BWD_ROW_REL and
 # flash_bwd_errors (f32 1e-4 of max |plain|; bf16 2e-2 of max and per row).
@@ -1487,7 +1496,8 @@ def capture_bwd_inputs(calls: set[int]) -> tuple[list, object]:
 def train_kernel_checks(gen, card: str) -> dict[str, dict]:
     """Phase 9(a): every backward case against its plain version, its route
     asserted and the forward's o and LSE held first; then the wgmma and
-    mma_sync routes' times.  Returns the numbers of their JSON entries."""
+    mma_sync routes' times.  Returns the numbers of the wgmma route's JSON
+    entry, at the training shape."""
     bad, errs = [], {}
     cases = [(c, dt) for c in BWD_CASES for dt in (torch.float32, torch.bfloat16)]
     cases.append(((*FLASH_TRAIN, None), torch.bfloat16))
@@ -1520,12 +1530,12 @@ def train_kernel_checks(gen, card: str) -> dict[str, dict]:
                         row, bitwise))
         if (B, S, H, K, D) == FLASH_TRAIN:
             errs["wgmma"] = abs_err
-            # the mma_sync route on the same inputs: its JSON entry's error
+            # the mma_sync route on the same inputs, which it is timed on
             sync = flash_ops.launch_bwd("mma_sync", q, k, v, o, do, lse)
-            errs["mma_sync"], s_rel, s_row = flash_bwd_errors(sync, want)
+            s_err, s_rel, s_row = flash_bwd_errors(sync, want)
             s_ok = s_rel <= BWD_TOL[dt] and s_row <= BWD_ROW_REL
             print(f"[train] flash backward vs plain {FLASH_TRAIN} bf16, the mma_sync route on "
-                  f"the same inputs: max abs err {errs['mma_sync']:.3e}, of max |plain| "
+                  f"the same inputs: max abs err {s_err:.3e}, of max |plain| "
                   f"{s_rel:.3e}, max row err {s_row:.3e} {'ok' if s_ok else 'OUT OF TOLERANCE'}")
             if not s_ok:
                 bad.append((FLASH_TRAIN, "mma_sync", s_rel, s_row))
@@ -1536,52 +1546,60 @@ def train_kernel_checks(gen, card: str) -> dict[str, dict]:
                          f"LSE, backward): {bad}")
     torch.cuda.empty_cache()
 
-    # Times, in turns: the two bf16 routes on the same inputs; SDPA's
-    # backward as its fwd+bwd minus its fwd, with enable_gqa=True and with
-    # k/v expanded to the query heads beforehand; the plain version apart
-    # (its S x S f32 intermediates).
     times = {}
     for shape in BWD_TIME_SHAPES:
         q, k, v, o, lse, do = bwd_inputs(*shape, torch.bfloat16, gen)
-        G = shape[2] // shape[3]
-        qs, ks, vs, dos = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
-        kx, vx = (t.repeat_interleave(G, dim=1) for t in (ks, vs))
-        for t in (qs, ks, vs, kx, vx):
-            t.requires_grad_(True)
-
-        def sdpa(kk, vv, gqa):
-            return F.scaled_dot_product_attention(qs, kk, vv, is_causal=True, enable_gqa=gqa)
-
-        t = event_ms({
-            "wgmma": lambda: flash_ops.launch_bwd("wgmma", q, k, v, o, do, lse),
-            "mma_sync": lambda: flash_ops.launch_bwd("mma_sync", q, k, v, o, do, lse),
-            "sdpa fwd": lambda: sdpa(ks, vs, True),
-            "sdpa fwd+bwd": lambda: torch.autograd.grad(sdpa(ks, vs, True), (qs, ks, vs), dos),
-            "sdpa expanded fwd": lambda: sdpa(kx, vx, False),
-            "sdpa expanded fwd+bwd": lambda: torch.autograd.grad(sdpa(kx, vx, False),
-                                                                 (qs, kx, vx), dos),
-        }, n=10, rounds=5)
-        t["plain"] = event_ms({"plain": lambda: flash_bwd_ref(q, k, v, o, do)}, n=1,
-                              rounds=3)["plain"]
-        t["library"] = t["sdpa fwd+bwd"] - t["sdpa fwd"]
-        lib_x_ms = t["sdpa expanded fwd+bwd"] - t["sdpa expanded fwd"]
-        t["bound_ms"], t["bound_by"] = bwd_bound(q, k)
+        t = bwd_times(q, k, v, o, do, lse, ("wgmma", "mma_sync"))
         print(f"[train] flash backward (B,S,H,K,D)={shape} bf16, in turns, median of 5 rounds "
               f"of 10: wgmma {t['wgmma']} ms, mma_sync {t['mma_sync']} ms (wgmma "
               f"{t['mma_sync'] / t['wgmma']}x faster); SDPA backward (enable_gqa) "
               f"{t['library']} ms (fwd+bwd {t['sdpa fwd+bwd']}, fwd {t['sdpa fwd']}); SDPA "
-              f"backward with k/v expanded beforehand {lib_x_ms} ms; plain {t['plain']} ms "
-              f"(median of 3); bound {t['bound_ms']} ms ({t['bound_by']}): wgmma "
-              f"{100 * t['bound_ms'] / t['wgmma']}% of bound, {t['wgmma'] / t['library']}x "
-              f"SDPA's backward; mma_sync {100 * t['bound_ms'] / t['mma_sync']}% of bound "
-              f"({card})")
+              f"backward with k/v expanded beforehand {t['library expanded']} ms; plain "
+              f"{t['plain']} ms (median of 3); bound {t['bound_ms']} ms ({t['bound_by']}): "
+              f"wgmma {100 * t['bound_ms'] / t['wgmma']}% of bound, "
+              f"{t['wgmma'] / t['library']}x SDPA's backward; mma_sync "
+              f"{100 * t['bound_ms'] / t['mma_sync']}% of bound ({card})")
         times[shape] = t
-        del q, k, v, o, lse, do, qs, ks, vs, dos, kx, vx
+        del q, k, v, o, lse, do
         torch.cuda.empty_cache()
-    main = times[FLASH_TRAIN]
-    return {route: {"max_abs_err": errs[route], "ms": main[route], "plain_ms": main["plain"],
-                    "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-                    "library_ms": main["library"]} for route in ("wgmma", "mma_sync")}
+    return bwd_entry(times[FLASH_TRAIN], "wgmma", errs["wgmma"])
+
+
+def bwd_times(q, k, v, o, do, lse, routes) -> dict:
+    """The named backward routes on these inputs, in turns with SDPA's
+    backward as its fwd+bwd minus its fwd (``library``: enable_gqa=True;
+    ``library expanded``: k/v expanded to the query heads beforehand), median
+    of 5 rounds of 10; the plain version apart (its S x S f32
+    intermediates), median of 3; and the bound."""
+    G = q.shape[2] // k.shape[2]
+    qs, ks, vs, dos = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    kx, vx = (t.repeat_interleave(G, dim=1) for t in (ks, vs))
+    for t in (qs, ks, vs, kx, vx):
+        t.requires_grad_(True)
+
+    def sdpa(kk, vv, gqa):
+        return F.scaled_dot_product_attention(qs, kk, vv, is_causal=True, enable_gqa=gqa)
+
+    t = event_ms({
+        **{r: functools.partial(flash_ops.launch_bwd, r, q, k, v, o, do, lse) for r in routes},
+        "sdpa fwd": lambda: sdpa(ks, vs, True),
+        "sdpa fwd+bwd": lambda: torch.autograd.grad(sdpa(ks, vs, True), (qs, ks, vs), dos),
+        "sdpa expanded fwd": lambda: sdpa(kx, vx, False),
+        "sdpa expanded fwd+bwd": lambda: torch.autograd.grad(sdpa(kx, vx, False),
+                                                             (qs, kx, vx), dos),
+    }, n=10, rounds=5)
+    t["plain"] = event_ms({"plain": lambda: flash_bwd_ref(q, k, v, o, do)}, n=1,
+                          rounds=3)["plain"]
+    t["library"] = t["sdpa fwd+bwd"] - t["sdpa fwd"]
+    t["library expanded"] = t["sdpa expanded fwd+bwd"] - t["sdpa expanded fwd"]
+    t["bound_ms"], t["bound_by"] = bwd_bound(q, k)
+    return t
+
+
+def bwd_entry(t: dict, route: str, max_abs_err: float) -> dict:
+    """A backward route's numbers for its JSON entry, from :func:`bwd_times`."""
+    return {"max_abs_err": max_abs_err, "ms": t[route], "plain_ms": t["plain"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library"]}
 
 
 def train_full_width(card: str) -> int:
@@ -1689,13 +1707,19 @@ def train_full_width(card: str) -> int:
     return sum(b["wgmma"] for _, _, b in per_step)
 
 
-def train_reduced_bf16(card: str) -> int:
+def train_reduced_bf16(card: str) -> dict:
     """Phase 9(e): train_loop of the train CLI's --reduced configuration on
     the card in bf16 at its --seq and --batch defaults (head dim 16: every
     flash call takes the mma_sync routes), each step counted: 2 L forward
     and L backward launches on mma_sync, no plain call, finite losses.
-    Returns the mma_sync backward's launches over the run."""
+    Then the forward's o and LSE and the backward on the q/k/v/o/dO/LSE
+    that the first and last layers gave the backward in step 1, against
+    their plain versions, the route asserted and bitwise repeated; and the
+    mma_sync backward timed on the last layer's.  Returns the mma_sync
+    backward's JSON entry: its launches over the run, its error, times and
+    bound at this shape."""
     cfg = get_reduced(TRAIN_ARCH)
+    L = cfg.n_layers
     per_step = []
 
     @contextlib.contextmanager
@@ -1705,11 +1729,14 @@ def train_reduced_bf16(card: str) -> int:
         per_step.append((all_counts(), dict(flash_ops.route_launches),
                          dict(flash_ops.bwd_route_launches)))
 
+    kept, inner = capture_bwd_inputs({0, L - 1})
     t0 = time.perf_counter()
-    _, history = train_loop(cfg, TRAIN_REDUCED_SHAPE, steps=TRAIN_REDUCED_STEPS, log_every=1,
-                            seed=SEED, device="cuda", step_context=counted)
+    try:
+        _, history = train_loop(cfg, TRAIN_REDUCED_SHAPE, steps=TRAIN_REDUCED_STEPS,
+                                log_every=1, seed=SEED, device="cuda", step_context=counted)
+    finally:
+        flash_ops.flash_attention_bwd = inner
     wall = time.perf_counter() - t0
-    L = cfg.n_layers
     want = ({"flash_attention": (2 * L, 0), "flash_attention_bwd": (L, 0)},
             {**dict.fromkeys(flash_ops.ROUTES, 0), "mma_sync": 2 * L},
             {**dict.fromkeys(flash_ops.BWD_ROUTES, 0), "mma_sync": L})
@@ -1724,7 +1751,42 @@ def train_reduced_bf16(card: str) -> int:
     if len(per_step) != TRAIN_REDUCED_STEPS or not all(np.isfinite(m["loss"]) for m in history):
         raise SystemExit(f"reduced train steps: {len(per_step)} counted, history {history}")
     print(f"[train] reduced bf16 losses {[m['loss'] for m in history]}, {wall} s ({card})")
-    return sum(b["mma_sync"] for _, _, b in per_step)
+
+    if len(kept) != 2:
+        raise SystemExit(f"the reduced run kept {len(kept)} layers' backward inputs, not 2")
+    errs = []
+    for call, q, k, v, o, do, lse, window in kept:
+        o_err, o_row, _ = flash_check(o, flash_ref(q, k, v, window=window), q.dtype)
+        lse_err = float((lse - flash_lse(q, k, window=window)).abs().max())
+        before = dict(flash_ops.bwd_route_launches)
+        got = flash_ops.flash_attention_bwd(q, k, v, o, do, lse=lse, window=window)
+        torch.cuda.synchronize()
+        moved = [r for r in flash_ops.BWD_ROUTES if flash_ops.bwd_route_launches[r] != before[r]]
+        again = flash_ops.flash_attention_bwd(q, k, v, o, do, lse=lse, window=window)
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        abs_err, rel, row = flash_bwd_errors(got, flash_bwd_ref(q, k, v, o, do, window=window))
+        ok = (o_row <= FLASH_ROW_REL and lse_err <= LSE_TOL and moved == ["mma_sync"]
+              and bitwise and rel <= BWD_TOL[q.dtype] and row <= BWD_ROW_REL)
+        print(f"[train] reduced bf16 flash forward and backward vs plain, layer {L - 1 - call}'s "
+              f"q/k/v/o/dO/LSE of step 1 {tuple(q.shape)}: forward o max abs err {o_err:.3e}, "
+              f"max row rel err {o_row:.3e}, LSE max abs err {lse_err:.3e}; backward route "
+              f"{moved}, max abs err {abs_err:.3e}, of max |plain| {rel:.3e}, max row err "
+              f"{row:.3e}, bitwise repeat {bitwise} {'ok' if ok else 'OUT OF TOLERANCE'}")
+        if not ok:
+            raise SystemExit(f"flash kernels disagree with their plain versions on the reduced "
+                             f"run's layer {L - 1 - call}: forward {o_row}, LSE {lse_err}, "
+                             f"route {moved}, backward {rel} / {row}, bitwise {bitwise}")
+        errs.append(abs_err)
+    _, q, k, v, o, do, lse, _ = kept[0]  # the last layer, which the backward meets first
+    t = bwd_times(q, k, v, o, do, lse, ("mma_sync",))
+    print(f"[train] reduced bf16 flash backward {tuple(q.shape)} (layer {L - 1}'s inputs), in "
+          f"turns, median of 5 rounds of 10: mma_sync {t['mma_sync']} ms; SDPA backward "
+          f"(enable_gqa) {t['library']} ms, with k/v expanded beforehand "
+          f"{t['library expanded']} ms; plain {t['plain']} ms (median of 3); bound "
+          f"{t['bound_ms']} ms ({t['bound_by']}): mma_sync "
+          f"{100 * t['bound_ms'] / t['mma_sync']}% of bound ({card})")
+    return {"launches": sum(b["mma_sync"] for _, _, b in per_step),
+            **bwd_entry(t, "mma_sync", max(errs))}
 
 
 def train_small_check(card: str) -> None:
@@ -1815,14 +1877,14 @@ def train_cli_round_trip(card: str) -> None:
 
 def train_phase(gen, card: str) -> list[dict]:
     """Training (phase 9); returns the backward kernels' JSON entries: the
-    wgmma route (the full-width path's) and the mma_sync route (the reduced
-    bf16 path's)."""
+    wgmma route (the full-width path's, at the training shape) and the
+    mma_sync route (the reduced bf16 path's, at its shape)."""
     t_phase = time.perf_counter()
-    entries = train_kernel_checks(gen, card)
-    launches = {"wgmma": train_full_width(card)}
+    entries = {"wgmma": train_kernel_checks(gen, card)}
+    entries["wgmma"]["launches"] = train_full_width(card)
     train_small_check(card)
     train_cli_round_trip(card)
-    launches["mma_sync"] = train_reduced_bf16(card)
+    entries["mma_sync"] = train_reduced_bf16(card)
     print(f"[train] phase wall {time.perf_counter() - t_phase} s ({card})")
     csrc = "src/repro_torch/kernels/flash_attention/csrc/"
     return [{
@@ -1830,7 +1892,6 @@ def train_phase(gen, card: str) -> list[dict]:
         "route": "cuda",
         "source": csrc + source,
         "replaces": "src/repro/models/attention.py:97",
-        "launches": launches[route],
         **entries[route],
     } for name, route, source in (
         ("flash_attention_bwd_wgmma", "wgmma", "flash_attention_bwd_wgmma.cu"),

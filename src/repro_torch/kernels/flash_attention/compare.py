@@ -23,6 +23,14 @@ an earlier one computes its own).  Each is held against ``flash_bwd_ref`` by
 |plain| and per row), then timed at the training shapes beside SDPA's
 backward (its fwd+bwd minus its fwd, ``enable_gqa=True``); TFLOP/s count
 2.5x the causal forward, and the bound is that count over the bf16 peak.
+
+``--sass REGEX`` instead compares the machine code: for each kernel whose
+mangled name matches, paired across builds by its ``ILi<D>E`` head dim and
+``Lb1`` LSE flag (a build without the flag pairs as ``Lb0``), each build's
+``cuobjdump -res-usage`` line, its SASS instruction count, and how many
+lines of a diff against this checkout's SASS differ, in full and in opcodes
+alone (addresses, encodings and operands dropped).  ``cuobjdump`` is taken
+from beside ``nvcc``.
 """
 
 from __future__ import annotations
@@ -30,6 +38,9 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import ctypes
+import difflib
+import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -37,6 +48,7 @@ import sys
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import nvcc
 from repro_torch.kernels.flash_attention import build, ops
 from repro_torch.launch.roofline import H100_SXM
 from repro_torch.kernels.flash_attention.ref import (
@@ -153,6 +165,66 @@ def _backward(paths: dict, gen, rounds: int) -> int:
     return 0
 
 
+def _cuobjdump(*args: str) -> str:
+    tool = pathlib.Path(nvcc.nvcc_path()).with_name("cuobjdump")
+    return subprocess.run([str(tool), *args], capture_output=True, text=True, check=True).stdout
+
+
+def _kernel_key(name: str) -> tuple[str, str]:
+    d = re.search(r"ILi(\d+)E", name)
+    return (d[1] if d else "?"), ("Lb1" if "Lb1E" in name else "Lb0")
+
+
+def _sass(path: str, pattern: str) -> dict[tuple, tuple[str, list[str]]]:
+    """Each matching kernel of the library at ``path``: key -> (its
+    ``-res-usage`` line, its SASS instructions without addresses)."""
+    usage, name = {}, None
+    for line in _cuobjdump("-res-usage", path).splitlines():
+        m = re.match(r"\s*Function (\S+):", line)
+        if m:
+            name = m[1]
+        elif name and "REG:" in line:
+            usage[name] = line.strip()
+            name = None
+    funcs, name = {}, None
+    for line in _cuobjdump("-sass", path).splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m[1] if re.search(pattern, m[1]) else None
+            if name:
+                funcs[name] = []
+        elif name and (m := re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)):
+            funcs[name].append(m[1])
+    return {_kernel_key(n): (usage.get(n, "no -res-usage line"), ins) for n, ins in funcs.items()}
+
+
+def _compare_sass(paths: dict, pattern: str) -> int:
+    codes = {label: _sass(path, pattern) for label, path in paths.items()}
+    here = codes.pop("this")
+    if not here:
+        print(f"compare: no kernel matches {pattern!r}", file=sys.stderr)
+        return 1
+    for key, (usage, ins) in sorted(here.items()):
+        print(f"[sass] D={key[0]} {key[1]} this: {len(ins)} instructions; {usage}")
+        for label, funcs in codes.items():
+            if key not in funcs:
+                print(f"[sass] D={key[0]} {key[1]} {label}: no such kernel")
+                continue
+            o_usage, o_ins = funcs[key]
+            full = sum(1 for d in difflib.unified_diff(ins, o_ins, lineterm="", n=0)
+                       if d[:1] in "+-" and d[:3] not in ("+++", "---"))
+            ops_a, ops_b = ([next(t for t in i.split() if t[0] != "@") for i in x]
+                            for x in (ins, o_ins))
+            opc = sum(1 for d in difflib.unified_diff(ops_a, ops_b, lineterm="", n=0)
+                      if d[:1] in "+-" and d[:3] not in ("+++", "---"))
+            print(f"[sass] D={key[0]} {key[1]} {label}: {len(o_ins)} instructions; "
+                  f"{o_usage}; lines differing from this: {full} in full, {opc} in opcodes")
+            shown = [d for d in difflib.unified_diff(ins, o_ins, "this", label, lineterm="", n=0)]
+            for d in shown[:60]:
+                print(f"[sass]   {d}")
+    return 0
+
+
 def _in_turns(fns: dict, rounds: int, n: int = 20) -> dict:
     """Median over ``rounds`` of each callable's ms a call, in turns, the
     order reversed every other round: on an H100 the first callable of a
@@ -205,6 +277,8 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=8)
     ap.add_argument("--backward", action="store_true",
                     help="check and time the backward routes instead of the forward")
+    ap.add_argument("--sass", metavar="REGEX",
+                    help="compare the machine code of the matching kernels instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("compare: no CUDA device is available", file=sys.stderr)
@@ -216,6 +290,8 @@ def main(argv=None) -> int:
         others = [pool.submit(_build_at, root) for root in args.checkouts]
         paths = {"this": str(here.result().path)}
         paths.update({root: f.result() for root, f in zip(args.checkouts, others)})
+    if args.sass:
+        return _compare_sass(paths, args.sass)
     gen = torch.Generator(device="cuda").manual_seed(0)
     if args.backward:
         return _backward(paths, gen, args.rounds)

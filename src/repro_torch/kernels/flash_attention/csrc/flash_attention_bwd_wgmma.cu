@@ -1,8 +1,9 @@
 // Causal GQA flash attention, backward, in bfloat16 for Hopper (sm_90a):
 // TMA loads, wgmma products, a warp-specialised producer/consumer pipeline,
 // as in the forward (flash_attention_wgmma.cu).  The "wgmma" route of
-// ops.py::bwd_route (bf16, D in {64, 128}, 16-byte aligned pointers and
-// strides); flash_attention_bwd.cu keeps the other inputs.
+// ops.py::bwd_route (bf16, D in {64, 128}; ops.py::launch_bwd copies an
+// input whose pointer or strides are off 16 bytes first);
+// flash_attention_bwd.cu keeps the other inputs.
 //
 // Replaces: nothing on the TPU.  It is the gradient of the Pallas kernel
 // src/repro/kernels/flash_attention/flash_attention.py:42 (_kernel), whose
@@ -664,7 +665,8 @@ int flash_attention_bwd_wgmma_bf16(BWD_ARGS) {
   if (K <= 0 || H % K != 0 || n_rows > 65535 ||
       (S + kDqRows - 1LL) / kDqRows * n_rows > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  // ops.py::bwd_route's test on q, k, v; dO is read by TMA too.
+  // The TMA maps' layout test on q, k, v and dO (ops.py::launch_bwd copies
+  // an input that fails it).
   if ((D != 64 && D != 128) || !tma_ok(q, B, S, H, qsb, qss, qsh) ||
       !tma_ok(k, B, S, K, ksb, kss, ksh) || !tma_ok(v, B, S, K, vsb, vss, vsh) ||
       !tma_ok(dout, B, S, H, dosb, doss, dosh))

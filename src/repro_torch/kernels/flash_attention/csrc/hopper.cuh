@@ -262,7 +262,7 @@ inline bool encode_rows_f32(EncodeTiled enc, CUtensorMap* map, const void* ptr, 
 
 inline bool aligned16(const void* p) { return reinterpret_cast<unsigned long long>(p) % 16 == 0; }
 
-// The wgmma route's layout test (ops.py::route / bwd_route): base pointer,
+// The wgmma routes' layout test (ops.py::_aligned16): base pointer,
 // and the (element) strides of every dimension of more than one element, on
 // 16 bytes (8 bf16).
 inline bool tma_ok(const void* p, int B, int S, int heads, long long sb, long long ss,

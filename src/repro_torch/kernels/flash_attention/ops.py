@@ -30,16 +30,17 @@ kernel writes it beside o.  The serve path never asks for it.
 
 The gradient: :func:`flash_attention_bwd` takes the forward's LSE and, for
 CUDA tensors, launches the backward route :func:`bwd_route` picks, from
-dtype, head dim and alignment alone, or raises:
+dtype and head dim alone, or raises:
 
-* ``"wgmma"``: bf16, D in {64, 128}, q, k, v 16-byte aligned as for the
-  forward (``csrc/flash_attention_bwd_wgmma.cu``: TMA, wgmma, a persistent
-  warp-specialised pipeline);
+* ``"wgmma"``: bf16, D in {64, 128} (``csrc/flash_attention_bwd_wgmma.cu``:
+  TMA, wgmma, a persistent warp-specialised pipeline);
 * ``"mma_sync"``: other bf16 with D in :data:`BWD_D`
   (``csrc/flash_attention_bwd.cu``);
 * ``"fma"``: float32 (same file).
 
-Each call first runs the delta pass.  CPU tensors run
+An input whose base or strides are off 16 bytes is copied to a contiguous
+tensor before any route, so alignment picks none.  Each call first runs the
+delta pass.  CPU tensors run
 :func:`.ref.flash_bwd_ref`, which needs no LSE.
 ``counts["flash_attention_bwd"]`` counts calls and ``bwd_route_launches``
 each route's.  :class:`FlashAttention` is the ``torch.autograd.Function``
@@ -81,7 +82,7 @@ SUPPORTED_D = (8, 16, 32, 64, 128)
 BWD_D = (16, 32, 64, 128)  # the backward kernel's instantiations
 KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 ROUTES = ("wgmma", "mma_sync", "fma")
-BWD_ROUTES = ("wgmma", "mma_sync", "fma")
+BWD_ROUTES = ROUTES  # the backward's routes have the forward's names
 WGMMA_D = (64, 128)
 
 
@@ -116,27 +117,27 @@ def _aligned16(t: torch.Tensor) -> bool:
                for n, st in zip(t.shape[:-1], t.stride()[:-1]))
 
 
-def route(q, k, v) -> str:
-    """The kernel that :func:`flash_attention` launches for these (checked)
-    CUDA or CPU tensors: one of :data:`ROUTES`, from shape, dtype and
-    layout alone."""
+def _route(q, aligned: bool) -> str:
     D = q.shape[-1]
     if q.dtype == torch.float32 or D < 16:
         return "fma"
-    if D in WGMMA_D and all(_aligned16(t) for t in (q, k, v)):
-        return "wgmma"
-    return "mma_sync"
+    return "wgmma" if D in WGMMA_D and aligned else "mma_sync"
+
+
+def route(q, k, v) -> str:
+    """The kernel that :func:`flash_attention` launches for these (checked)
+    CUDA or CPU tensors: one of :data:`ROUTES`, from shape, dtype and
+    layout alone.  The forward reads its inputs in place, so the wgmma
+    route's TMA maps need q, k, v 16-byte aligned."""
+    return _route(q, all(_aligned16(t) for t in (q, k, v)))
 
 
 def bwd_route(q, k, v) -> str:
     """The backward kernel that :func:`flash_attention_bwd` launches for
-    these (checked) tensors: one of :data:`BWD_ROUTES`, from dtype, head dim
-    and layout alone; the forward's alignment test on q, k, v."""
-    if q.dtype == torch.float32:
-        return "fma"
-    if q.shape[-1] in WGMMA_D and all(_aligned16(t) for t in (q, k, v)):
-        return "wgmma"
-    return "mma_sync"
+    these (checked) tensors: one of :data:`BWD_ROUTES`, from dtype and head
+    dim alone (D in :data:`BWD_D`).  :func:`launch_bwd` copies an input
+    that is not 16-byte aligned first, so every layout may take wgmma."""
+    return _route(q, True)
 
 
 def _check_args(q, k, v, window) -> tuple[int, int, int, int, int]:
@@ -262,6 +263,14 @@ def flash_attention_bwd(q, k, v, o, do, *, lse=None, window=None):
     CUDA tensors launch the route of :func:`bwd_route` or raise (a missing
     ``lse`` too); CPU tensors run :func:`.ref.flash_bwd_ref`, which needs no
     LSE.  One call is one launch in ``counts["flash_attention_bwd"]``."""
+    dims = _check_bwd_args(q, k, v, o, do, window)
+    if q.device.type == "cpu":
+        counts["flash_attention_bwd"].plain_calls += 1
+        return flash_bwd_ref(q, k, v, o, do, window=window)
+    return _launch_bwd(bwd_route(q, k, v), dims, q, k, v, o, do, lse, window)
+
+
+def _check_bwd_args(q, k, v, o, do, window) -> tuple[int, int, int, int, int]:
     B, S, H, K, D = _check_args(q, k, v, window)
     for name, t in {"o": o, "do": do}.items():
         if t.dtype != q.dtype or t.device != q.device or t.shape != q.shape:
@@ -274,18 +283,20 @@ def flash_attention_bwd(q, k, v, o, do, *, lse=None, window=None):
             f"flash_attention_bwd: no kernel instantiation for head dim D = {D}; "
             f"instantiated for D in {BWD_D} in float32 and bfloat16"
         )
-    if q.device.type == "cpu":
-        counts["flash_attention_bwd"].plain_calls += 1
-        return flash_bwd_ref(q, k, v, o, do, window=window)
-    return launch_bwd(bwd_route(q, k, v), q, k, v, o, do, lse, window=window)
+    return B, S, H, K, D
 
 
 def launch_bwd(name: str, q, k, v, o, do, lse, *, window=None):
     """Launch the backward route ``name`` on CUDA tensors and count it.
-    :func:`flash_attention_bwd` passes :func:`bwd_route`'s answer; a caller
-    may name ``"mma_sync"`` for bf16 inputs the wgmma route takes, to time
-    it beside the first.  Raises if the route refuses the inputs."""
-    B, S, H, K, D = _check_args(q, k, v, window)
+    :func:`flash_attention_bwd` launches :func:`bwd_route`'s answer; a
+    caller may name ``"mma_sync"`` for bf16 inputs the wgmma route takes,
+    to time it beside the first.  Raises if the route refuses the inputs."""
+    return _launch_bwd(name, _check_bwd_args(q, k, v, o, do, window), q, k, v, o, do, lse,
+                       window)
+
+
+def _launch_bwd(name, dims, q, k, v, o, do, lse, window):
+    B, S, H, K, D = dims
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
     if lse is None or lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, S) \
@@ -296,16 +307,15 @@ def launch_bwd(name: str, q, k, v, o, do, lse, *, window=None):
             f"{None if lse is None else (tuple(lse.shape), lse.dtype, lse.device)}"
         )
     entry = build.BWD_ENTRY_POINTS.get((name, KERNEL_DTYPES[q.dtype]))
-    if entry is None or D not in BWD_D:
+    if entry is None:
         raise ValueError(f"flash_attention_bwd: no {name!r} backward for {q.dtype}, D = {D}")
     if q.numel() == 0:
         return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # The kernels copy 16-byte rows asynchronously: an input whose base or
-    # (b, s, h) strides are not 16-byte multiples (a strided view) is copied
-    # to a fresh contiguous tensor first; the LSE is read as (B, H, S).
-    ins = [t if t.data_ptr() % 16 == 0 and t.stride(-1) == 1
-           and all(st * t.element_size() % 16 == 0 for st in t.stride()[:3])
-           else t.clone(memory_format=torch.contiguous_format) for t in (q, k, v, o, do)]
+    # The kernels read 16-byte rows (cp.async, TMA boxes): an input that
+    # fails the wgmma route's layout test (a strided view, a broadcast) is
+    # copied to a fresh contiguous tensor first; the LSE is read as (B, H, S).
+    ins = [t if _aligned16(t) else t.clone(memory_format=torch.contiguous_format)
+           for t in (q, k, v, o, do)]
     kl = build.load()
     err, grads = call_bwd(getattr(kl.lib, entry), *ins, lse.contiguous(), window=window,
                           scratch_floats=kl.lib.flash_attention_bwd_scratch_floats(B, H, S))

@@ -324,12 +324,12 @@ def _check_bwd(q, k, v, do, window, want_route):
 ])
 def test_flash_bwd_kernel_matches_plain_on_card(card, B, S, H, K, D, window, pad, dtype):
     """Each backward route against its plain version (``_check_bwd``): f32
-    on fma; bf16 on wgmma where D in {64, 128} and the rows are aligned,
-    else on mma_sync (D in {16, 32}, unaligned views); and autograd through
+    on fma; bf16 on wgmma where D in {64, 128} (unaligned views copied
+    first), else on mma_sync (D in {16, 32}); and autograd through
     flash_attention on the card runs the same kernels once."""
     q, k, v, do = _bwd_inputs(card, B, S, H, K, D, dtype, pad, seed=S + D)
     want = ("fma" if dtype == torch.float32 else
-            "wgmma" if D in (64, 128) and pad == 0 else "mma_sync")
+            "wgmma" if D in (64, 128) else "mma_sync")
     got = _check_bwd(q, k, v, do, window, want)
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
     auto = torch.autograd.grad(flash_ops.flash_attention(*leaves, window=window), leaves, do)
@@ -352,19 +352,20 @@ def test_flash_bwd_wgmma_matches_plain_on_card(card, B, S, H, K, D, window):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [16, 32])
-@pytest.mark.parametrize("pad", [0, 8])  # 8: bf16 rows 16-byte aligned, still D < 64
+@pytest.mark.parametrize("pad", [0, 2, 8])  # 2: rows off 16 bytes; 8: aligned, still D < 64
 def test_flash_bwd_mma_sync_small_d_on_card(card, D, pad):
     """The mma_sync backward route keeps D in {16, 32}, aligned or not."""
     _check_bwd(*_bwd_inputs(card, 2, 150, 4, 2, D, torch.bfloat16, pad, seed=D), 48, "mma_sync")
 
 
 @pytest.mark.cuda
-def test_flash_bwd_mma_sync_on_wgmma_inputs(card):
+@pytest.mark.parametrize("pad", [0, 2])  # 2: views copied before either route
+def test_flash_bwd_mma_sync_on_wgmma_inputs(card, pad):
     """launch_bwd names the mma_sync route on inputs the wgmma route takes
     (the timing comparison's path): both within tolerance of the plain
-    version, and of each other."""
-    q, k, v, do = _bwd_inputs(card, 1, 300, 8, 4, 128, torch.bfloat16, seed=7)
-    o, lse = flash_ops.launch("wgmma", q, k, v, lse=True)
+    version."""
+    q, k, v, do = _bwd_inputs(card, 1, 300, 8, 4, 128, torch.bfloat16, pad, seed=7)
+    o, lse = flash_ops.launch(flash_ops.route(q, k, v), q, k, v, lse=True)
     want = flash_bwd_ref(q, k, v, o, do)
     for name in flash_ops.BWD_ROUTES[:2]:
         got = flash_ops.launch_bwd(name, q, k, v, o, do, lse)

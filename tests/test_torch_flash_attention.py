@@ -432,3 +432,50 @@ def test_build_hash_covers_every_csrc_file(tmp_path):
         digest = nvcc._digest(csrc, build.SOURCES)
         assert digest != first, name
         first = digest
+
+
+_RES_USAGE = """Resource usage:
+ Function _ZN5flash4sm9022flash_fwd_wgmma_kernelILi128ELb0EEEv4Args:
+  REG:168 STACK:0 SHARED:0 LOCAL:0 CONSTANT[0]:976 TEXTURE:0 SURFACE:0 SAMPLER:0
+ Function _ZN5flash4sm9022flash_fwd_wgmma_kernelILi128ELb1EEEv4Args:
+  REG:170 STACK:0 SHARED:0 LOCAL:0 CONSTANT[0]:984 TEXTURE:0 SURFACE:0 SAMPLER:0
+"""
+_SASS = """	code for sm_90a
+		Function : _ZN5flash4sm9022flash_fwd_wgmma_kernelILi128ELb0EEEv4Args
+        /*0000*/                   LDC R1, c[0x0][0x28] ;              /* 0x00000a00ff017b82 */
+                                                                       /* 0x000fe20000000800 */
+        /*0010*/              @!P0 BRA 0x200 ;                         /* 0x0000000000007947 */
+        /*0020*/                   EXIT ;                              /* 0x000000000000794d */
+		Function : _ZN5flash4sm9022flash_fwd_wgmma_kernelILi128ELb1EEEv4Args
+        /*0000*/                   EXIT ;                              /* 0x000000000000794d */
+		Function : _Z10bwd_prep_kv
+        /*0000*/                   EXIT ;                              /* 0x000000000000794d */
+"""
+
+
+def test_compare_sass_pairs_kernels_across_builds(monkeypatch, capsys):
+    """``compare.py --sass`` pairs kernels by head dim and LSE flag (an
+    earlier build's ``<D>`` instantiation as the no-LSE one) and counts the
+    SASS lines that differ, in full and in opcodes alone."""
+    from repro_torch.kernels.flash_attention import compare
+
+    def cuobjdump(flag, path):
+        text = _RES_USAGE if flag == "-res-usage" else _SASS
+        if path == "earlier":  # one template parameter, a branch target moved
+            text = text.replace("ILi128ELb0EE", "ILi128EE").replace("0x200", "0x210")
+        return text
+
+    monkeypatch.setattr(compare, "_cuobjdump", cuobjdump)
+    code = compare._sass("this", "flash_fwd_wgmma")
+    assert sorted(code) == [("128", "Lb0"), ("128", "Lb1")]
+    assert code["128", "Lb0"] == ("REG:168 STACK:0 SHARED:0 LOCAL:0 CONSTANT[0]:976 TEXTURE:0 "
+                                  "SURFACE:0 SAMPLER:0",
+                                  ["LDC R1, c[0x0][0x28]", "@!P0 BRA 0x200", "EXIT"])
+    assert compare._compare_sass({"this": "this", "earlier": "earlier"}, "flash_fwd_wgmma") == 0
+    out = capsys.readouterr().out
+    assert ("[sass] D=128 Lb0 earlier: 3 instructions; REG:168 STACK:0 SHARED:0 LOCAL:0 "
+            "CONSTANT[0]:976 TEXTURE:0 SURFACE:0 SAMPLER:0; lines differing from this: 2 in "
+            "full, 0 in opcodes") in out
+    assert "[sass]   +@!P0 BRA 0x210" in out
+    assert "[sass] D=128 Lb1 earlier: 1 instructions" in out
+    assert compare._compare_sass({"this": "this"}, "no_such_kernel") == 1

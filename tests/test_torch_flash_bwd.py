@@ -312,14 +312,15 @@ def _view(shape, dtype, pad=0, offset=0):
     (torch.bfloat16, 32, "contiguous", "mma_sync"),
     (torch.bfloat16, 64, "contiguous", "wgmma"),
     (torch.bfloat16, 128, "contiguous", "wgmma"),
-    (torch.bfloat16, 128, "pad=2", "mma_sync"),  # rows 260 B apart
-    (torch.bfloat16, 64, "pad=2", "mma_sync"),
+    (torch.bfloat16, 128, "pad=2", "wgmma"),  # rows 260 B apart: copied first
+    (torch.bfloat16, 64, "pad=2", "wgmma"),
+    (torch.bfloat16, 16, "pad=2", "mma_sync"),
     (torch.bfloat16, 32, "pad=8", "mma_sync"),  # aligned, D outside wgmma's
     (torch.float32, 128, "pad=2", "fma"),
     (torch.bfloat16, 128, "pad=8", "wgmma"),  # rows 272 B apart
-    (torch.bfloat16, 128, "offset=1", "mma_sync"),  # base pointer 2 B off
+    (torch.bfloat16, 128, "offset=1", "wgmma"),  # base pointer 2 B off: copied
     (torch.bfloat16, 64, "heads-major", "wgmma"),  # (B, H, S, D) transposed
-    (torch.bfloat16, 128, "k broadcast over B", "mma_sync"),  # a 0 stride
+    (torch.bfloat16, 128, "k broadcast over B", "wgmma"),  # a 0 stride: copied
     (torch.bfloat16, 128, "B=S=1 odd strides", "wgmma"),  # size-1 dims' strides
 ])
 def test_bwd_route(dtype, D, layout, want):
