@@ -25,7 +25,8 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    2e-5) and bfloat16 (atol 3e-2, and 1e-2 per-row relative) at the
    shapes of ``tests/test_flash_kernel.py``, windows {16, 48, 128},
    ragged S in {1, 7, 100, 1000}, the wgmma route's D = 64 and 128 cases,
-   and the serve path's (8, 2048, 16, 8, 128), each case asserting which
+   phase 10's (H, K, D) (query groups of 4, 7 and 8; MHA at D = 128 and
+   64), and the serve path's (8, 2048, 16, 8, 128), each case asserting which
    route (``ops.route``: wgmma, mma_sync or fma) launched;
 4. the solve path: ``solve_beam(4, 4, precision="f64", device="cuda")`` on
    the 2-material beam (32,768 elements, 6,502,275 DoFs) with every
@@ -94,9 +95,10 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    and no plain call, all 28 on the wgmma route.  A 2-token warm-up at
    the same shapes, its prompts
    left-padded to 2048, keeps the q/k/v that the first and the last
-   layer give the kernel, and the kernel's output on them is held
-   against the plain version (1e-2 per-row relative); a reduced float32
-   qwen3 must give the same tokens and logits on the card as on the CPU;
+   layer give the kernel, and once the engine is freed the kernel's output
+   on them is held against the plain version (1e-2 per-row relative); a
+   reduced float32 qwen3 must give the same tokens and logits on the card
+   as on the CPU;
 7. time the PAop apply at p in {2, 4, 8} (NE=32768, f64; p=4 is the
    fine level of the solve) beside the baseline kernel, and the flash
    kernel at (8, 2048, 16, 8, 128) bf16, beside their plain versions, a
@@ -174,7 +176,32 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    inputs the first and last layers gave the backward in step 1, against
    their plain versions; the mma_sync backward timed on the last layer's,
    beside SDPA's backward, the plain version and the bound: its JSON
-   entry's numbers, all at this shape.
+   entry's numbers, all at this shape;
+10. the attention families without experts (``[serve]``, ``[train]``,
+   ``[compression]`` and ``[time]`` lines, each beside the card's name and
+   power limit): granite-8b, qwen3-32b, qwen1.5-32b, qwen2-vl-7b and
+   musicgen-medium at full width in bf16, each served through the same
+   counted run as phase 6 (``serve_full_width``): ``ServeEngine`` draws the
+   seeded weights on the card (``init_params``' peak must stay within the
+   weights plus one leaf's f32 draw), 2048 prompt tokens and 32 new for the
+   largest batch of (8, 4, 2, 1) whose reckoned peak (weights, KV cache,
+   prefill transients; printed) leaves 3 GB of the free memory (qwen1.5-32b's
+   MHA cache cuts it to 2), n_layers wgmma flash launches per prefill batch
+   and no plain call, and the kernel held against its plain version on the
+   warm-up's first and last layers' q/k/v (qwen2-vl-7b with zero vision
+   embeddings over 256 positions and M-RoPE; musicgen-medium with (2048, 4)
+   codebook prompts); each reduced configuration in f32 on the card against
+   the CPU (tokens and logits as phase 6; first-step gradients and three
+   steps' losses as 9(b)); musicgen-medium trained at full width as 9(c)
+   (B = 4 by the printed reckoning, S = 4096; 96 forward and 48 backward
+   launches a step, all wgmma at D = 64, no plain call; MFU through
+   ``launch/roofline.py::model_flops_estimate``); gradient compression
+   (``int8_compress`` and ``topk_compress`` on the card bitwise as on the
+   CPU; one reduced train step with an int8 ``grad_transform``, card
+   against CPU: loss, levels, parameters); the wgmma forward at each serve
+   shape beside SDPA, the plain version and the bound, and the backward at
+   musicgen's training shape beside SDPA's backward.  The wall time of each
+   phase is printed (``[wall]`` lines).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -188,6 +215,7 @@ import dataclasses
 import functools
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -226,7 +254,10 @@ from repro_torch.data.pipeline import make_batch  # noqa: E402
 from repro_torch.launch.train import train_loop  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.train.trainer import make_train_step, train_state_init  # noqa: E402
-from repro_torch.models.transformer import _leaves, loss_fn, param_count  # noqa: E402
+from repro_torch.models.transformer import (  # noqa: E402
+    LOSS_CHUNK, _leaves, _tree_map, loss_fn, param_shapes)
+from repro_torch.distributed.compression import (  # noqa: E402
+    int8_compress, int8_decompress, topk_compress)
 from repro_torch.models import attention as attention_module  # noqa: E402
 from repro_torch.models.transformer import init_params  # noqa: E402
 from repro_torch.serve import elasticity_service  # noqa: E402
@@ -245,7 +276,7 @@ from repro_torch.configs.elasticity import ELASTICITY_SHAPES  # noqa: E402
 from repro_torch.core.fa import fa_memory_bytes  # noqa: E402
 from repro_torch.core.operators import ASSEMBLY_LEVELS, ElasticityOperator  # noqa: E402
 from repro_torch.fem.space import H1Space  # noqa: E402
-from repro_torch.launch.roofline import H100_SXM, place_measured  # noqa: E402
+from repro_torch.launch.roofline import H100_SXM, model_flops_estimate, place_measured  # noqa: E402
 from repro_torch.obs.throughput import operator_throughput  # noqa: E402
 
 # H100 SXM data sheet: HBM3 rate, and the peak rates used for the bound
@@ -286,6 +317,13 @@ FLASH_CASES = [
     (1, 384, 8, 2, 64, 48),
     (2, 2048, 4, 2, 64, None),
     (8, 256, 4, 2, 16, None),  # the train CLI's --reduced model (phase 9e)
+    # phase 10's (H, K, D): granite-8b (G = 4), qwen3-32b (G = 8), qwen1.5-32b
+    # (MHA), qwen2-vl-7b (G = 7), musicgen-medium (MHA at D = 64)
+    (1, 300, 32, 8, 128, None),
+    (2, 200, 64, 8, 128, None),
+    (1, 300, 40, 40, 128, None),
+    (2, 300, 28, 4, 128, 128),
+    (2, 300, 24, 24, 64, None),
 ]
 # The serve path: qwen3-1.7b, 8 requests of 2048 prompt tokens, 32 new.
 SERVE_ARCH, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = "qwen3-1.7b", 8, 2048, 32
@@ -347,6 +385,12 @@ BWD_CASES = [
     (1, 1024, 8, 8, 64, 128),
     (1, 1024, 4, 2, 16, 256),
     (8, 256, 4, 2, 16, None),  # the train CLI's --reduced model (phase 9e)
+    # phase 10's (H, K, D), as FLASH_CASES
+    (1, 300, 32, 8, 128, None),
+    (1, 200, 64, 8, 128, None),
+    (1, 300, 40, 40, 128, None),
+    (1, 300, 28, 4, 128, 48),
+    (2, 300, 24, 24, 64, None),
 ]
 # The backward routes timed in turns (wgmma, mma_sync on the same inputs,
 # SDPA's backward, the plain version): the training shape, the serve shape
@@ -366,6 +410,20 @@ TRAIN_SMALL_SHAPE = ShapeConfig("small", "train", 64, 2)
 TRAIN_SMALL_LOSS_REL, TRAIN_SMALL_GRAD_REL = 1e-4, 1e-3
 TRAIN_CLI = ["--reduced", "--steps", "6", "--ckpt-every", "3", "--log-every", "1"]
 TRAIN_LINE = re.compile(r"\[train\] step +(\d+) loss (\S+) gnorm (\S+) lr (\S+) .* tokens crc32 (\S+)")
+# Phase 10: the attention families without experts at full width in bf16.
+# Each serves SERVE_PROMPT + SERVE_NEW tokens to the largest batch of
+# SLICE_BATCHES whose reckoned peak (weights, KV cache, prefill's largest
+# transients) leaves SLICE_SPARE bytes of the card's free memory (qwen1.5-32b's
+# MHA cache cuts its batch); each reduced configuration holds card against
+# CPU; musicgen-medium also trains at full width, train_4k's sequence with its
+# global batch of 256 cut to the largest of SLICE_TRAIN_BATCHES that fits.
+SLICE_ARCHS = ("granite-8b", "qwen3-32b", "qwen1.5-32b", "qwen2-vl-7b", "musicgen-medium")
+SLICE_BATCHES, SLICE_SPARE = (8, 4, 2, 1), 3e9
+SLICE_TRAIN_ARCH, SLICE_TRAIN_BATCHES = "musicgen-medium", (4, 2, 1)
+# Gradient compression on the card: int8 and top-k of one tensor bitwise as
+# on the CPU, and one reduced-width train step with int8 compression from
+# one state (losses and parameters to 1e-4).
+COMPRESS_REL, COMPRESS_TOPK_FRAC = 1e-4, 0.01
 # Where a train step's device time goes (phase 9c's profile): kernels by
 # name, the optimizer by its record_function range.
 TRAIN_TOP_KERNELS = 6  # kernels listed per category
@@ -375,6 +433,16 @@ TRAIN_CATEGORIES = {
     "GEMMs": r"gemm|nvjet|cutlass|xmma|cublas|sm80_|sm90_",
     "CE": r"SoftMax|softmax|nll_loss|cross_entropy",
 }
+
+
+_WALL = [time.perf_counter()]
+
+
+def wall(phase: str) -> None:
+    """Print the wall seconds since the last call (or the start)."""
+    now = time.perf_counter()
+    print(f"[wall] phase {phase}: {now - _WALL[0]} s", flush=True)
+    _WALL[0] = now
 
 
 def card_line() -> str:
@@ -609,6 +677,133 @@ def numpy_tree(tree):
     if isinstance(tree, dict):
         return {k: numpy_tree(v) for k, v in tree.items()}
     return tree.cpu().numpy()
+
+
+def serve_full_width(cfg, batch: int, rng, card: str) -> dict[str, tuple[int, int]]:
+    """A serve path at full width in bf16, counted (phases 6 and 10): the
+    engine draws seeded random weights on the card (the init's peak memory
+    against the weights' bytes is printed: each stacked leaf is allocated
+    once), then ``batch`` requests of SERVE_PROMPT prompt tokens (codebook
+    models: (SERVE_PROMPT, n_cb)) generate SERVE_NEW greedy tokens each,
+    with every count zeroed just before and read just after: n_layers flash
+    launches per prefill batch, all on wgmma, no plain call.  A 2-token
+    warm-up at the same shapes (cuBLAS's first calls pick their kernels),
+    its prompts cut to 2048 - 32 i tokens so that the batch is left-padded
+    to 2048, keeps the q/k/v that the first and the last layer give the
+    kernel (after qk-norm and (M-)RoPE, as the model gives them); once the
+    engine is freed, the kernel's output on them is held against the plain
+    version (1e-2 per-row relative).  Returns the counted run's counts."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, max_len=SERVE_PROMPT + SERVE_NEW + 8, max_batch=batch, seed=SEED,
+                      device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - base
+    shapes = param_shapes(cfg)
+    weights = 2 * sum(math.prod(sh) for sh in _leaves(shapes))
+    # the largest transient: a top-level leaf's f32 draw, or one layer's f32
+    # draw of a stacked leaf beside its bf16 cast
+    transient = max([4 * math.prod(shapes[k]) for k in ("embed", "lm_head") if k in shapes]
+                    + [6 * math.prod(sh[1:]) for sh in _leaves(shapes["blocks"])])
+    print(f"[serve] {cfg.name} init_params on the card: {init_s} s, peak "
+          f"{init_peak / 1e9:.3f} GB over the weights' {weights / 1e9:.3f} GB (the largest "
+          f"transient, one leaf's draw: {transient / 1e9:.3f} GB) ({card})")
+    if init_peak > weights + transient + 2**28:
+        raise SystemExit(f"{cfg.name}: init_params peaked at {init_peak} B, above the weights "
+                         f"{weights} B and one leaf's draw {transient} B")
+    cb = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab, (SERVE_PROMPT,) + cb).astype(np.int32),
+                    max_new_tokens=SERVE_NEW) for _ in range(batch)]
+    kept, inner = capture_flash_inputs({0, cfg.n_layers - 1})
+    try:
+        eng.generate([Request(prompt=r.prompt[32 * i:], max_new_tokens=2)
+                      for i, r in enumerate(reqs)])
+    finally:
+        attention_module.flash_attention = inner
+    if len(kept) != 2:
+        raise SystemExit(f"serve warm-up kept the q/k/v of {len(kept)} layers, expected 2")
+    eng.stats = ServeStats()
+    logits_seen = record_logits(eng)
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    eng.generate(reqs)
+    serve_counts = all_counts()
+    serve_routes = dict(flash_ops.route_launches)
+    st = eng.stats
+    print(f"[serve] {cfg.name} {cfg.dtype} L={cfg.n_layers} d={cfg.d_model} "
+          f"H={cfg.n_heads} K={cfg.n_kv_heads} hd={cfg.head_dim_} vocab={cfg.vocab}"
+          f"{f' codebooks={cfg.n_codebooks}' if cfg.n_codebooks else ''}"
+          f"{f' vision tokens={cfg.n_vision_tokens}' if cfg.n_vision_tokens else ''}: "
+          f"{len(reqs)} requests x {SERVE_PROMPT} prompt tokens, {SERVE_NEW} new")
+    print(f"[serve] {cfg.name} prefill {st.prefill_s} s ({st.prompt_tokens / st.prefill_s} "
+          f"prompt tok/s, {st.prefill_batches} batches), decode {st.decode_s} s "
+          f"({st.decode_tokens / st.decode_s} decode tok/s, {st.decode_steps} steps), "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+    print(f"[serve] {cfg.name} counts (launches, plain_calls): {serve_counts}; flash "
+          f"launches per route: {serve_routes}")
+    launches, plain = serve_counts["flash_attention"]
+    want_routes = {**dict.fromkeys(flash_ops.ROUTES, 0), "wgmma": cfg.n_layers * st.prefill_batches}
+    if launches != cfg.n_layers * st.prefill_batches or plain != 0 or serve_routes != want_routes:
+        raise SystemExit(f"{cfg.name} serve path did not run only through the wgmma flash "
+                         f"kernel: launches={launches} plain_calls={plain} routes={serve_routes}, "
+                         f"expected {cfg.n_layers} x {st.prefill_batches} batches on wgmma")
+    toks = [np.asarray(r.out_tokens) for r in reqs]
+    if any(t.shape != (SERVE_NEW,) + cb or not ((0 <= t) & (t < cfg.vocab)).all() for t in toks):
+        raise SystemExit(f"{cfg.name} serve path: a request did not get {SERVE_NEW} tokens "
+                         f"in [0, vocab)")
+    if not all(np.isfinite(lg).all() for lg in logits_seen):
+        raise SystemExit(f"{cfg.name} serve path: non-finite logits")
+    print(f"[serve] {cfg.name} req0 tokens: {reqs[0].out_tokens[:8]}...")
+    del eng, logits_seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    for layer, q, k, v, window in kept:
+        o = flash_ops.flash_attention(q, k, v, window=window)
+        ref = flash_ref(q, k, v, window=window)
+        # The model's values are not unit-normal: only the per-row check.
+        real_err, real_rel, _ = flash_check(o, ref, q.dtype)
+        ok = real_rel <= FLASH_ROW_REL
+        print(f"[flash vs plain] {cfg.name} serve layer {layer} q/k/v {tuple(q.shape)} "
+              f"{str(q.dtype)[6:]}: max abs err {real_err:.3e} (max |ref| "
+              f"{float(ref.float().abs().max()):.3e}), max row rel err {real_rel:.3e} "
+              f"{'ok' if ok else 'OUT OF TOLERANCE'}")
+        if not ok:
+            raise SystemExit(f"flash kernel disagrees with its plain version on {cfg.name} "
+                             f"layer {layer}'s prefill q/k/v: {real_rel}")
+        del o, ref
+    del kept
+    torch.cuda.empty_cache()
+    return serve_counts
+
+
+def small_serve_check(arch: str, rng) -> None:
+    """The reduced configuration of ``arch`` in f32 on the card against the
+    CPU, same weights: greedy tokens equal, logits within SMALL_SERVE_REL of
+    max |logit| (prompts lengthened by the VLM's vision positions)."""
+    small_cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+    weights = numpy_tree(init_params(torch.Generator().manual_seed(SEED), small_cfg))
+    cb = (small_cfg.n_codebooks,) if small_cfg.n_codebooks else ()
+    prompts = [rng.integers(0, small_cfg.vocab, (n + small_cfg.n_vision_tokens,) + cb)
+               .astype(np.int32) for n in SMALL_SERVE_PROMPTS]
+    small = {}
+    for dev in ("cuda", "cpu"):
+        seng = ServeEngine(small_cfg, params=lm_params(weights, small_cfg, device=dev),
+                           max_len=32, max_batch=4, device=dev)
+        seen = record_logits(seng)
+        sreqs = [Request(prompt=p, max_new_tokens=6) for p in prompts]
+        seng.generate(sreqs)
+        small[dev] = ([r.out_tokens for r in sreqs], seen)
+    (tok_gpu, lg_gpu), (tok_cpu, lg_cpu) = small["cuda"], small["cpu"]
+    lg_rel = max(float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(lg_gpu, lg_cpu))
+    print(f"[small serve] {small_cfg.name} f32, {len(prompts)} requests, max_batch 4: tokens "
+          f"{'equal' if tok_gpu == tok_cpu else 'DIFFER'}, max logit diff {lg_rel:.3e} "
+          f"of max |logit|")
+    if tok_gpu != tok_cpu or lg_rel > SMALL_SERVE_REL:
+        raise SystemExit(f"small serve of {small_cfg.name} on the card disagrees with the CPU")
 
 
 def batched_scenarios() -> tuple[list, np.ndarray, np.ndarray]:
@@ -1602,11 +1797,12 @@ def bwd_entry(t: dict, route: str, max_abs_err: float) -> dict:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library"]}
 
 
-def train_full_width(card: str) -> int:
-    """Phase 9(c): train_loop at full width, each step counted; returns
-    the wgmma backward's launches over the run."""
-    cfg = get_config(TRAIN_ARCH)
-    shape = ShapeConfig("train_4k, global batch 256 cut to 4", "train", TRAIN_SEQ, TRAIN_BATCH)
+def train_full_width(card: str, arch: str = TRAIN_ARCH, batch: int = TRAIN_BATCH) -> int:
+    """Phase 9(c) (and 10 for musicgen-medium): train_loop at full width in
+    bf16, train_4k's sequence with its batch cut to ``batch``, each step
+    counted; returns the wgmma backward's launches over the run."""
+    cfg = get_config(arch)
+    shape = ShapeConfig(f"train_4k, global batch 256 cut to {batch}", "train", TRAIN_SEQ, batch)
     per_step = []
 
     @contextlib.contextmanager
@@ -1637,16 +1833,17 @@ def train_full_width(card: str) -> int:
         raise SystemExit(f"train steps: {len(per_step)} counted, history {history}")
 
     timed = history[1:]
-    N, T = param_count(state.params), TRAIN_BATCH * TRAIN_SEQ
-    B, S, H, K, D = FLASH_TRAIN
+    N, T = cfg.n_active_params(), batch * TRAIN_SEQ
+    B, S, H, D = batch, TRAIN_SEQ, cfg.n_heads, cfg.head_dim_
     attn = 4 * B * H * D * S * (S + 1) / 2 * L  # causal forward, every layer
-    model_flops = 6 * N * T + 3 * attn
+    model_flops = model_flops_estimate(arch, shape) + 3 * attn  # 6 N T + 3 x attention
     run_flops = 8 * N * T + (2 + 3.5) * attn  # remat's recompute; this backward's 7 products
     step_s = statistics.median(m["step_s"] for m in timed)
     peak = PEAK_FLOPS[torch.bfloat16]
     print(f"[train] {cfg.name} bf16 L={L} d={cfg.d_model} H={cfg.n_heads} K={cfg.n_kv_heads} "
-          f"hd={cfg.head_dim_} vocab={cfg.vocab} N={N}: B={TRAIN_BATCH} S={TRAIN_SEQ} "
-          f"(train_4k's sequence; its global batch 256 cut to {TRAIN_BATCH}); timed steps "
+          f"hd={cfg.head_dim_} vocab={cfg.vocab}"
+          f"{f' codebooks={cfg.n_codebooks}' if cfg.n_codebooks else ''} N={N}: B={batch} "
+          f"S={TRAIN_SEQ} (train_4k's sequence; its global batch 256 cut to {batch}); timed steps "
           f"2-{TRAIN_STEPS}: step s {[m['step_s'] for m in timed]}, median {step_s} s, "
           f"{T / step_s} tokens/s, peak {max(m['peak_gib'] for m in history)} GiB; warm-up "
           f"step {history[0]['step_s']} s ({card})")
@@ -1789,10 +1986,11 @@ def train_reduced_bf16(card: str) -> dict:
             **bwd_entry(t, "mma_sync", max(errs))}
 
 
-def train_small_check(card: str) -> None:
-    """Phase 9(b): the reduced qwen3 in f32, card against CPU from one
-    state: first-step gradients, then three train steps' losses."""
-    cfg = dataclasses.replace(get_reduced(TRAIN_ARCH), dtype="float32")
+def train_small_check(card: str, arch: str = TRAIN_ARCH) -> None:
+    """Phase 9(b) (and 10 for each of its architectures): the reduced
+    configuration in f32, card against CPU from one state: first-step
+    gradients, then three train steps' losses."""
+    cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
     host = numpy_tree(init_params(torch.Generator().manual_seed(SEED), cfg))
     opt = AdamWConfig(total_steps=3, warmup_steps=1)
     batches = [make_batch(cfg, TRAIN_SMALL_SHAPE, i, SEED) for i in range(3)]
@@ -1816,11 +2014,11 @@ def train_small_check(card: str) -> None:
     grad_rel = max(float((g.cpu() - c).abs().max() / c.abs().max().clamp_min(1e-30))
                    for g, c in zip(grads["cuda"], grads["cpu"]))
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
-    print(f"[train] reduced f32 card vs CPU: first-step gradients max err {grad_rel:.3e} of "
+    print(f"[train] {cfg.name} f32 card vs CPU: first-step gradients max err {grad_rel:.3e} of "
           f"max |CPU| (worst leaf), three steps' losses {losses['cuda']} vs {losses['cpu']}, "
           f"max rel diff {loss_rel:.3e}")
     if grad_rel > TRAIN_SMALL_GRAD_REL or loss_rel > TRAIN_SMALL_LOSS_REL:
-        raise SystemExit("small train on the card disagrees with the CPU")
+        raise SystemExit(f"small train of {cfg.name} on the card disagrees with the CPU")
 
 
 def train_cli_round_trip(card: str) -> None:
@@ -1898,6 +2096,186 @@ def train_phase(gen, card: str) -> list[dict]:
         ("flash_attention_bwd", "mma_sync", "flash_attention_bwd.cu"))]
 
 
+def serve_batch_cut(cfg, card: str) -> int:
+    """The largest batch of SLICE_BATCHES whose reckoned peak fits the card's
+    free memory with SLICE_SPARE to spare: the bf16 weights, the KV cache
+    (L x 2 x K x hd x 2 B a token, SERVE_PROMPT + SERVE_NEW + 8 tokens a row)
+    and prefill's largest transients (about 3 x tokens x d_ff x 2 B); each
+    candidate's reckoning is printed."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    weights = 2 * sum(math.prod(sh) for sh in _leaves(param_shapes(cfg)))
+    per_token = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim_ * 2
+    for B in SLICE_BATCHES:
+        cache = per_token * B * (SERVE_PROMPT + SERVE_NEW + 8)
+        transient = 3 * B * SERVE_PROMPT * cfg.d_ff * 2
+        need = weights + cache + transient
+        fits = need + SLICE_SPARE <= free
+        print(f"[serve] {cfg.name} batch {B}: weights {weights / 1e9:.2f} GB + KV cache "
+              f"{cache / 1e9:.2f} GB + prefill transients {transient / 1e9:.2f} GB = "
+              f"{need / 1e9:.2f} GB; {free / 1e9:.2f} GB free of {total / 1e9:.2f} GB, "
+              f"{(free - need) / 1e9:.2f} GB to spare: {'fits' if fits else 'does not fit'} "
+              f"({SLICE_SPARE / 1e9:.0f} GB wanted) ({card})")
+        if fits:
+            return B
+    raise SystemExit(f"{cfg.name}: not even batch 1 fits the card")
+
+
+def train_batch_cut(cfg, card: str) -> int:
+    """The largest batch of SLICE_TRAIN_BATCHES whose reckoned training peak
+    fits the card's free memory with SLICE_SPARE to spare: bf16 parameters
+    and gradients and f32 AdamW moments (12 B a parameter), every block's
+    input kept under remat, one block's recompute (its MLP's three (T, d_ff)
+    and its attention's four (T, H hd) bf16 tensors) and a loss chunk's f32
+    logits three times (logits, softmax, gradient)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    n = sum(math.prod(sh) for sh in _leaves(param_shapes(cfg)))
+    for B in SLICE_TRAIN_BATCHES:
+        T = B * TRAIN_SEQ
+        state = 12 * n
+        saved = cfg.n_layers * T * cfg.d_model * 2
+        block = 3 * T * cfg.d_ff * 2 + 4 * T * cfg.n_heads * cfg.head_dim_ * 2
+        ce = 3 * B * min(LOSS_CHUNK, TRAIN_SEQ) * cfg.vocab * 4
+        need = state + saved + block + ce
+        fits = need + SLICE_SPARE <= free
+        print(f"[train] {cfg.name} batch {B} x {TRAIN_SEQ}: state {state / 1e9:.2f} GB + remat "
+              f"inputs {saved / 1e9:.2f} GB + one block {block / 1e9:.2f} GB + loss chunk "
+              f"{ce / 1e9:.2f} GB = {need / 1e9:.2f} GB; {free / 1e9:.2f} GB free: "
+              f"{'fits' if fits else 'does not fit'} ({card})")
+        if fits:
+            return B
+    raise SystemExit(f"{cfg.name}: not even batch 1 trains on the card")
+
+
+def compression_check(card: str) -> None:
+    """Gradient compression on the card: int8_compress and topk_compress of
+    one tensor equal the same calls on the CPU bitwise; then one reduced
+    f32 train step with int8 compression (make_train_step's grad_transform,
+    what train_loop(compression=) hands it) from one state on the card and
+    on the CPU: losses to COMPRESS_REL; the int8 levels equal except where
+    the two gradients straddle a rounding boundary (at most one level
+    apart; counted); the parameters to COMPRESS_REL of a leaf's max on the
+    elements whose levels agree."""
+    g = torch.randn((257, 129), generator=torch.Generator().manual_seed(SEED))
+    g[0, :3] = torch.tensor([0.5, -0.5, 1.5]) * g.abs().max() / 127.0  # near half levels
+    (qc, sc), (qh, sh) = int8_compress(g.cuda()), int8_compress(g)
+    (tc, mc), (th, mh) = topk_compress(g.cuda(), COMPRESS_TOPK_FRAC), topk_compress(
+        g, COMPRESS_TOPK_FRAC)
+    same = (torch.equal(qc.cpu(), qh) and torch.equal(sc.cpu(), sh) and torch.equal(tc.cpu(), th)
+            and torch.equal(mc.cpu(), mh))
+    print(f"[compression] int8_compress and topk_compress (frac {COMPRESS_TOPK_FRAC}) of a "
+          f"(257, 129) f32 tensor on the card vs the CPU: {'bitwise equal' if same else 'DIFFER'}")
+    if not same:
+        raise SystemExit("gradient compression on the card differs from the CPU")
+
+    cfg = dataclasses.replace(get_reduced(TRAIN_ARCH), dtype="float32")
+    host = numpy_tree(init_params(torch.Generator().manual_seed(SEED), cfg))
+    batch = make_batch(cfg, TRAIN_SMALL_SHAPE, 0, SEED)
+    opt = AdamWConfig(total_steps=3, warmup_steps=1)
+    def int8_roundtrip(levels):
+        """A stateless grads -> grads int8 round trip that keeps each leaf's
+        levels in ``levels``."""
+        def one(t):
+            q, scale = int8_compress(t)
+            levels.append(q.cpu())
+            return int8_decompress(q, scale).to(t.dtype)
+        return lambda grads: _tree_map(one, grads)
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        levels = []
+        state = train_state_init(None, cfg, params=lm_params(host, cfg, device=dev))
+        step = make_train_step(cfg, opt, grad_transform=int8_roundtrip(levels))
+        state, m = step(state, {k: torch.from_numpy(a).to(dev) for k, a in batch.items()})
+        out[dev] = (float(m["loss"]), levels, [p.detach().cpu() for p in _leaves(state.params)])
+    (loss_c, lv_c, p_c), (loss_h, lv_h, p_h) = out["cuda"], out["cpu"]
+    moved = sum(int((a != b).sum()) for a, b in zip(lv_c, lv_h))
+    apart = max(int((a.int() - b.int()).abs().max()) for a, b in zip(lv_c, lv_h))
+    p_err = max(float(((pc - ph).abs() * (a == b)).max() / ph.abs().max().clamp_min(1e-30))
+                for pc, ph, a, b in zip(p_c, p_h, lv_c, lv_h))
+    loss_rel = abs(loss_c - loss_h) / abs(loss_h)
+    n = sum(a.numel() for a in lv_h)
+    print(f"[compression] reduced {cfg.name} f32, one train step with int8 compression, card "
+          f"vs CPU: loss {loss_c!r} vs {loss_h!r} (rel {loss_rel:.3e}); int8 levels differ at "
+          f"{moved} of {n} elements (at most {apart} apart: gradients on either side of a "
+          f"rounding boundary); parameters where the levels agree max err {p_err:.3e} of max "
+          f"|CPU| (worst leaf) ({card})")
+    if loss_rel > COMPRESS_REL or p_err > COMPRESS_REL or apart > 1 or moved > n // 1000:
+        raise SystemExit("the compressed train step on the card disagrees with the CPU")
+
+
+def flash_serve_times(shapes: list, card: str) -> None:
+    """The wgmma forward at each phase 10 serve shape (B, 2048, H, K, D)
+    bf16, in turns with SDPA (median of 5 rounds of 10), the plain version
+    apart (median of 3 rounds of 1), beside the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for name, (B, S, H, K, D) in shapes:
+        args = flash_inputs(B, S, H, K, D, torch.bfloat16, gen)
+        if flash_ops.route(*args) != "wgmma":
+            raise SystemExit(f"{name}'s timing inputs do not take the wgmma route")
+        sdpa_args = [t.transpose(1, 2).contiguous() for t in args]
+        t = event_ms({
+            "wgmma": lambda: flash_ops.launch("wgmma", *args),
+            "sdpa": lambda: F.scaled_dot_product_attention(*sdpa_args, is_causal=True,
+                                                           enable_gqa=True),
+        }, n=10, rounds=5)
+        plain = event_ms({"plain": lambda: flash_ref(*args)}, n=1, rounds=3)["plain"]
+        bound_ms, bound_by = flash_bound(*args)
+        print(f"[time] flash_attention {name} serve shape (B,S,H,K,D)=({B},{S},{H},{K},{D}) "
+              f"bf16, in turns, median of 5 rounds of 10: wgmma {t['wgmma']} ms, SDPA "
+              f"{t['sdpa']} ms ({t['wgmma'] / t['sdpa']}x SDPA's time), plain {plain} ms; bound "
+              f"{bound_ms} ms ({bound_by}): {100 * bound_ms / t['wgmma']}% of bound ({card})")
+        del args, sdpa_args
+        torch.cuda.empty_cache()
+
+
+def slice_phase(card: str) -> None:
+    """Phase 10: granite-8b, qwen3-32b, qwen1.5-32b, qwen2-vl-7b and
+    musicgen-medium at full width, each served with its batch cut printed
+    and counted (``serve_full_width``), each reduced configuration card
+    against CPU (serve and train); musicgen-medium trained at full width
+    (``train_full_width``); gradient compression; the forward timed at each
+    serve shape and the backward at musicgen's training shape."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 10)
+    shapes = []
+    for arch in SLICE_ARCHS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        B = serve_batch_cut(cfg, card)
+        serve_full_width(cfg, B, rng, card)
+        small_serve_check(arch, rng)
+        train_small_check(card, arch)
+        shapes.append((cfg.name, (B, SERVE_PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_)))
+        print(f"[serve] {cfg.name} wall {time.perf_counter() - t0} s ({card})")
+    cfg = get_config(SLICE_TRAIN_ARCH)
+    B = train_batch_cut(cfg, card)
+    train_full_width(card, SLICE_TRAIN_ARCH, B)
+    compression_check(card)
+    flash_serve_times(shapes, card)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    shape = (B, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_)
+    q, k, v, o, lse, do = bwd_inputs(*shape, torch.bfloat16, gen)
+    want = flash_bwd_ref(q, k, v, o, do)
+    _, rel, row = flash_bwd_errors(flash_ops.flash_attention_bwd(q, k, v, o, do, lse=lse), want)
+    del want
+    t = bwd_times(q, k, v, o, do, lse, ("wgmma", "mma_sync"))
+    print(f"[train] flash backward {cfg.name} training shape (B,S,H,K,D)={shape} bf16: of max "
+          f"|plain| {rel:.3e}, max row err {row:.3e}; in turns, median of 5 rounds of 10: wgmma "
+          f"{t['wgmma']} ms, mma_sync {t['mma_sync']} ms; SDPA backward {t['library']} ms; "
+          f"plain {t['plain']} ms; bound {t['bound_ms']} ms ({t['bound_by']}): wgmma "
+          f"{100 * t['bound_ms'] / t['wgmma']}% of bound, {t['wgmma'] / t['library']}x SDPA's "
+          f"backward ({card})")
+    if rel > BWD_TOL[torch.bfloat16] or row > BWD_ROW_REL:
+        raise SystemExit(f"the backward disagrees with its plain version at {shape}")
+    del q, k, v, o, lse, do
+    torch.cuda.empty_cache()
+    print(f"[slice] phase wall {time.perf_counter() - t_phase} s ({card})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1929,6 +2307,7 @@ def main() -> int:
     if probe_err != 0.0:
         raise SystemExit(f"probe kernel disagrees with 2*x: {probe_err}")
     print(f"[probe] o = 2x on (8, 128) f32: max abs err {probe_err}")
+    wall("1-2 (card, build, probe)")
 
     # ---- 3. kernel vs plain on the card
     main_shapes = [
@@ -1982,6 +2361,7 @@ def main() -> int:
         raise SystemExit(f"flash kernel disagrees with its plain version: {bad}")
     flash_main_err = flash_err  # the last case is the serve path's shape
     del q, k, v, o
+    wall("3 (kernels vs plain)")
 
     # ---- 4. the solve path, counted
     reset_all_counts()
@@ -2027,105 +2407,31 @@ def main() -> int:
         raise SystemExit("small solve on the card disagrees with the CPU")
     del small_gpu, small_cpu
     torch.cuda.empty_cache()
+    wall("4 (solve)")
 
     # ---- 5. the batched solve path, counted
     batch_counts, batch_iters = batched_phase()
     small_batched_check()
     torch.cuda.empty_cache()
+    wall("5 (batched solve)")
 
     # ---- 5b. the solve service, counted
     fixed, t_fixed = service_phase(batch_iters)
     small_service_check()
     torch.cuda.empty_cache()
+    wall("5b (service)")
 
     # ---- 5c. recovery, counted
     recovery_phase(fixed, t_fixed, card)
     del fixed
+    wall("5c (recovery)")
 
     # ---- 6. the serve path, counted: qwen3-1.7b at full width, bf16
-    cfg = get_config(SERVE_ARCH)
-    eng = ServeEngine(cfg, max_len=SERVE_PROMPT + SERVE_NEW + 8,
-                      max_batch=SERVE_REQUESTS, seed=SEED, device="cuda")
     rng = np.random.default_rng(SEED)
-    reqs = [Request(prompt=rng.integers(0, cfg.vocab, (SERVE_PROMPT,)).astype(np.int32),
-                    max_new_tokens=SERVE_NEW) for _ in range(SERVE_REQUESTS)]
-    # Warm-up at the same shapes (cuBLAS's first calls pick their kernels),
-    # so that the counted run's times are steady-state ones.  Its prompts
-    # are cut to 2048 - 32 i tokens, so the batch is left-padded to 2048;
-    # the q/k/v of the first and the last layer's prefill are kept and the
-    # kernel is held against its plain version on them (after qk-norm and
-    # RoPE, as the model gives them).
-    kept, inner = capture_flash_inputs({0, cfg.n_layers - 1})
-    eng.generate([Request(prompt=r.prompt[32 * i:], max_new_tokens=2)
-                  for i, r in enumerate(reqs)])
-    attention_module.flash_attention = inner
-    if len(kept) != 2:
-        raise SystemExit(f"serve warm-up kept the q/k/v of {len(kept)} layers, expected 2")
-    for layer, q, k, v, window in kept:
-        o = flash_ops.flash_attention(q, k, v, window=window)
-        ref = flash_ref(q, k, v, window=window)
-        # The model's values are not unit-normal: only the per-row check.
-        real_err, real_rel, _ = flash_check(o, ref, q.dtype)
-        ok = real_rel <= FLASH_ROW_REL
-        print(f"[flash vs plain] serve layer {layer} q/k/v {tuple(q.shape)} {str(q.dtype)[6:]}: "
-              f"max abs err {real_err:.3e} (max |ref| {float(ref.float().abs().max()):.3e}), "
-              f"max row rel err {real_rel:.3e} {'ok' if ok else 'OUT OF TOLERANCE'}")
-        if not ok:
-            raise SystemExit(f"flash kernel disagrees with its plain version on layer "
-                             f"{layer}'s prefill q/k/v: {real_rel}")
-    del kept, q, k, v, o, ref
-    eng.stats = ServeStats()
-    logits_seen = record_logits(eng)
-    torch.cuda.reset_peak_memory_stats()
-    reset_all_counts()
-    eng.generate(reqs)
-    serve_counts = all_counts()
-    serve_routes = dict(flash_ops.route_launches)
-    st = eng.stats
-    print(f"[serve] {cfg.name} {cfg.dtype} L={cfg.n_layers} d={cfg.d_model} "
-          f"H={cfg.n_heads} K={cfg.n_kv_heads} hd={cfg.head_dim_} vocab={cfg.vocab}: "
-          f"{len(reqs)} requests x {SERVE_PROMPT} prompt tokens, {SERVE_NEW} new")
-    print(f"[serve] prefill {st.prefill_s} s ({st.prompt_tokens / st.prefill_s} prompt "
-          f"tok/s, {st.prefill_batches} batches), decode {st.decode_s} s "
-          f"({st.decode_tokens / st.decode_s} decode tok/s, {st.decode_steps} steps), "
-          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"[serve] counts (launches, plain_calls): {serve_counts}; flash launches per "
-          f"route: {serve_routes}")
-    launches, plain = serve_counts["flash_attention"]
-    want_routes = {**dict.fromkeys(flash_ops.ROUTES, 0), "wgmma": cfg.n_layers * st.prefill_batches}
-    if launches != cfg.n_layers * st.prefill_batches or plain != 0 or serve_routes != want_routes:
-        raise SystemExit(f"serve path did not run only through the wgmma flash kernel: "
-                         f"launches={launches} plain_calls={plain} routes={serve_routes}, "
-                         f"expected {cfg.n_layers} x {st.prefill_batches} batches on wgmma")
-    if any(len(r.out_tokens) != SERVE_NEW or not all(0 <= t < cfg.vocab for t in r.out_tokens)
-           for r in reqs):
-        raise SystemExit("serve path: a request did not get 32 tokens in [0, vocab)")
-    if not all(np.isfinite(lg).all() for lg in logits_seen):
-        raise SystemExit("serve path: non-finite logits")
-    print(f"[serve] req0 tokens: {reqs[0].out_tokens}")
-    del eng, logits_seen
-    torch.cuda.empty_cache()
-
+    serve_counts = serve_full_width(get_config(SERVE_ARCH), SERVE_REQUESTS, rng, card)
     # A reduced qwen3 in f32 on the card against the CPU, same weights.
-    small_cfg = dataclasses.replace(get_reduced(SERVE_ARCH), dtype="float32")
-    weights = numpy_tree(init_params(torch.Generator().manual_seed(SEED), small_cfg))
-    prompts = [rng.integers(0, small_cfg.vocab, (n,)).astype(np.int32)
-               for n in SMALL_SERVE_PROMPTS]
-    small = {}
-    for dev in ("cuda", "cpu"):
-        seng = ServeEngine(small_cfg, params=lm_params(weights, small_cfg, device=dev),
-                           max_len=32, max_batch=4, device=dev)
-        seen = record_logits(seng)
-        sreqs = [Request(prompt=p, max_new_tokens=6) for p in prompts]
-        seng.generate(sreqs)
-        small[dev] = ([r.out_tokens for r in sreqs], seen)
-    (tok_gpu, lg_gpu), (tok_cpu, lg_cpu) = small["cuda"], small["cpu"]
-    lg_rel = max(float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(lg_gpu, lg_cpu))
-    print(f"[small serve] reduced f32, {len(prompts)} requests, max_batch 4: tokens "
-          f"{'equal' if tok_gpu == tok_cpu else 'DIFFER'}, max logit diff {lg_rel:.3e} "
-          f"of max |logit|")
-    if tok_gpu != tok_cpu or lg_rel > SMALL_SERVE_REL:
-        raise SystemExit("small serve on the card disagrees with the CPU")
+    small_serve_check(SERVE_ARCH, rng)
+    wall("6 (serve)")
 
     # ---- 7. time the PAop apply (kernel, baseline, plain) and the flash kernel
     ne = main_shapes[-1][1]
@@ -2208,13 +2514,21 @@ def main() -> int:
     probe_bound = 2 * px.numel() * px.element_size() / MEM_BYTES_PER_S * 1e3
     print(f"[time] probe (8, 128) f32, in turns, median of 5 rounds of 100: kernel "
           f"{probe_ms} ms, plain {probe_plain_ms} ms, torch.mul {probe_lib_ms} ms")
+    wall("7 (times)")
 
     # ---- 8. the ablation: the paper's assembly ladder on the card
     ablation_phase(card)
+    wall("8 (ablation)")
 
     # ---- 9. training: qwen3-1.7b at full width, bf16, through the flash
     # forward and backward kernels
     bwd_entries = train_phase(gen, card)
+    wall("9 (training)")
+
+    # ---- 10. the attention families without experts at full width, and
+    # gradient compression
+    slice_phase(card)
+    wall("10 (granite-8b, qwen3-32b, qwen1.5-32b, qwen2-vl-7b, musicgen-medium)")
 
     kernels = [
         {

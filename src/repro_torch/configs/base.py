@@ -168,7 +168,8 @@ ALIASES = {
 
 
 # The architectures whose configuration module this package holds.
-PORTED = ("qwen3_17b",)
+PORTED = ("qwen3_17b", "granite_8b", "qwen15_32b", "qwen3_32b", "qwen2_vl_7b",
+          "musicgen_medium")
 
 
 def _module(arch: str):

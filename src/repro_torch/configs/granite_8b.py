@@ -1,0 +1,31 @@
+"""Granite-8B-Code [dense]: 36L d_model=4096 32H (GQA kv=8) d_ff=14336
+vocab=49152 — llama-architecture code model.  [arXiv:2405.04324; hf]"""
+
+import dataclasses
+
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="granite-8b",
+    family="dense",
+    n_layers=36,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=14336,
+    vocab=49152,
+    rope_theta=1e7,
+)
+
+
+def reduced() -> ArchConfig:
+    return dataclasses.replace(
+        CONFIG,
+        name="granite-8b-reduced",
+        n_layers=2,
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=2,
+        d_ff=128,
+        vocab=256,
+    )

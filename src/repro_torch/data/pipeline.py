@@ -11,8 +11,10 @@ is non-trivial.  The batches are bitwise the reference's.
 batch; it stands where the reference's ``batch_spec`` returns
 ``jax.ShapeDtypeStruct``s for its dry-run.  :func:`make_batch`
 materializes a batch on the host; :class:`TokenPipeline` wraps it in a
-prefetching iterator.  The VLM stub's ``vision_embeds`` waits for its
-family (ROADMAP.md, Queue 1 item 11).
+prefetching iterator.  The VLM stub's batches also carry ``vision_embeds``
+(B, n_vision_tokens, d_model); numpy has no bfloat16, so a bfloat16
+configuration gets them as float32 arrays that hold the reference's
+bfloat16 values exactly (round to nearest, ties to even).
 """
 
 from __future__ import annotations
@@ -28,17 +30,25 @@ __all__ = ["batch_shapes", "make_batch", "TokenPipeline"]
 
 def batch_shapes(cfg, shape) -> dict[str, tuple[tuple[int, ...], np.dtype]]:
     """Shapes/dtypes of one global batch for (arch cfg, ShapeConfig)."""
-    if cfg.n_vision_tokens:
-        raise NotImplementedError(
-            "vision_embeds batches are not ported to repro_torch yet; see "
-            "ROADMAP.md, Queue 1 item 11"
-        )
     B, S = shape.global_batch, shape.seq_len
     tok_shape = (B, S, cfg.n_codebooks) if cfg.n_codebooks else (B, S)
-    return {
+    out = {
         "tokens": (tok_shape, np.dtype(np.int32)),
         "labels": (tok_shape, np.dtype(np.int32)),
     }
+    if cfg.n_vision_tokens:
+        dtype = np.dtype(np.float32 if cfg.dtype == "bfloat16" else cfg.dtype)
+        out["vision_embeds"] = ((B, cfg.n_vision_tokens, cfg.d_model), dtype)
+    return out
+
+
+def _round_to_bfloat16(a: np.ndarray) -> np.ndarray:
+    """float32 -> the nearest bfloat16 value (ties to even), as float32;
+    finite inputs."""
+    bits = a.view(np.uint32)
+    bits = (bits + np.uint32(0x7FFF) + ((bits >> np.uint32(16)) & np.uint32(1))) & np.uint32(
+        0xFFFF0000)
+    return bits.view(np.float32)
 
 
 def _zipf_tokens(rng: np.random.Generator, shape, vocab: int) -> np.ndarray:
@@ -64,7 +74,8 @@ def make_batch(cfg, shape, step: int, seed: int = 0, shard=None) -> dict[str, np
             raise ValueError(f"global batch {B} does not split into {count} shards")
         rows = rows[idx * (B // count) : (idx + 1) * (B // count)]
 
-    tok_shape, _ = batch_shapes(cfg, shape)["tokens"]
+    shapes = batch_shapes(cfg, shape)
+    tok_shape, _ = shapes["tokens"]
     per_row = tok_shape[1:]
     toks = np.empty((len(rows),) + per_row, np.int32)
     for i, r in enumerate(rows):
@@ -78,9 +89,17 @@ def make_batch(cfg, shape, step: int, seed: int = 0, shard=None) -> dict[str, np
         )
         toks[i] = np.where(mask, topic, t)
 
-    # next-token labels; -1 masks the last position.
+    # next-token labels; -1 masks the last position (and the vision prefix).
     labels = np.concatenate([toks[:, 1:], np.full_like(toks[:, :1], -1)], axis=1)
-    return {"tokens": toks, "labels": labels}
+    out = {"tokens": toks}
+    if cfg.n_vision_tokens:
+        labels[:, : cfg.n_vision_tokens] = -1
+        rng = np.random.default_rng(np.random.SeedSequence([seed, step, 1 << 20]))
+        v = rng.standard_normal((len(rows), cfg.n_vision_tokens, cfg.d_model), np.float32)
+        out["vision_embeds"] = (_round_to_bfloat16(v) if cfg.dtype == "bfloat16"
+                                else v.astype(shapes["vision_embeds"][1]))
+    out["labels"] = labels
+    return out
 
 
 class TokenPipeline:

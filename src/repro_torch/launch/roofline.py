@@ -1,4 +1,5 @@
-"""Roofline placement of a measured operator apply.
+"""Roofline placement of a measured operator apply, and the model FLOPs of
+an LM cell.
 
 A :class:`HardwareSpec` holds a card's memory rate and peak arithmetic
 rates; :func:`place_measured` puts one measured apply (its analytic
@@ -11,6 +12,10 @@ would misplace every f64 row.
 its full 700 W (dense rates, no sparsity), the constants ``chip_smoke.py``
 bounds the kernels with.  A card set to a lower power limit reaches less;
 every measured row names its card.
+
+:func:`model_flops_estimate` is the reference's useful-FLOPs count (6 N T
+for training, 2 N T for prefill, 2 N a row for decode, N the active
+parameters); MFU divides it by a step's time and the peak.
 """
 
 from __future__ import annotations
@@ -19,7 +24,10 @@ import dataclasses
 
 import torch
 
-__all__ = ["HardwareSpec", "H100_SXM", "MeasuredPlacement", "place_measured"]
+from repro_torch.configs.base import SHAPES, ShapeConfig, get_config
+
+__all__ = ["HardwareSpec", "H100_SXM", "MeasuredPlacement", "place_measured",
+           "model_flops_estimate"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,3 +112,21 @@ def place_measured(
         bound="memory" if oi * hw.hbm_bw < peak else "compute",
         hw=hw,
     )
+
+
+def model_flops_estimate(arch: str, shape: str | ShapeConfig, meta: dict | None = None) -> float:
+    """Useful FLOPs of one step of ``shape`` (a ``SHAPES`` name, or a
+    ``ShapeConfig`` such as a cut batch): 6 N T to train, 2 N T to prefill,
+    2 N a row to decode, N = ``n_active_params()`` and T = seq_len x
+    global_batch.  ``arch == "elasticity"``: ``meta``'s ``flops_per_elem``
+    x ``nelem`` (0 where absent), as in the reference."""
+    if arch == "elasticity":
+        meta = meta or {}
+        return meta.get("flops_per_elem", 0.0) * meta.get("nelem", 0)
+    n = get_config(arch).n_active_params()
+    shape = SHAPES[shape] if isinstance(shape, str) else shape
+    if shape.kind == "train":
+        return 6.0 * n * shape.seq_len * shape.global_batch
+    if shape.kind == "prefill":
+        return 2.0 * n * shape.seq_len * shape.global_batch
+    return 2.0 * n * shape.global_batch  # decode: one token per row

@@ -4,8 +4,12 @@ card by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 8 \
         --prompt-len 2048 --new-tokens 32
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-medium --reduced --device cpu
 
-Flags and defaults are the reference CLI's (``repro.launch.serve``), plus
+``--arch`` takes any ported architecture (``configs.base.PORTED``); a
+codebook model's prompts are (prompt_len, n_codebooks), as in the
+reference CLI, and a VLM's prompts must be at least its
+``n_vision_tokens`` long.  Flags and defaults are the reference CLI's (``repro.launch.serve``), plus
 ``--device`` (``cpu`` switches the configuration to float32, as the
 reference does on a CPU backend) and ``--profile``.  Prints the
 reference's ``[serve]`` line, then prefill and decode times (host clock
@@ -29,9 +33,10 @@ from repro_torch.serve.engine import Request, ServeEngine
 
 def _requests(args, cfg) -> list[Request]:
     rng = np.random.default_rng(args.seed)
+    shape = (args.prompt_len,) + ((cfg.n_codebooks,) if cfg.n_codebooks else ())
     return [
         Request(
-            prompt=rng.integers(0, cfg.vocab, (args.prompt_len,)).astype(np.int32),
+            prompt=rng.integers(0, cfg.vocab, shape).astype(np.int32),
             max_new_tokens=args.new_tokens,
             temperature=args.temperature,
         )

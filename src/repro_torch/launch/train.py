@@ -5,8 +5,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train --steps 6 --batch 4 --seq 4096
 
 A real (allocated, stepped) training loop: the deterministic data pipeline,
-remat per block, AdamW, atomic checkpoints with restart and the step
-watchdog.  Kill the process at any step and rerun the same command with
+remat per block, AdamW, atomic checkpoints with restart, the step watchdog
+and optional gradient compression.  Kill the process at any step and rerun the same command with
 the same ``--ckpt-dir``: it resumes from the last complete checkpoint with
 the same batches (the pipeline is a pure function of the step counter).
 
@@ -18,7 +18,8 @@ test compares every step's loss, so it asks for 1) and
 ``--kill-after-steps`` (SIGKILL after that many steps of this process, for
 restart tests).  One card: the reference's mesh and its
 ``state_pspecs``/``batch_pspec`` have no counterpart (ROADMAP.md, Queue 1
-item 10), nor has its gradient-compression hook on the CLI.
+item 10).  Gradient compression is ``train_loop``'s ``compression=``, as in
+the reference, whose CLI has no flag for it either.
 
 Each logged step prints its loss (the exact float), grad norm, learning
 rate, the step's time on the host clock between device fences, tokens/s,
@@ -58,6 +59,7 @@ def train_loop(
     ckpt_every: int = 50,
     seed: int = 0,
     opt: AdamWConfig | None = None,
+    compression=None,
     log_every: int = 10,
     watchdog_timeout: float = 3600.0,
     device=None,
@@ -67,6 +69,11 @@ def train_loop(
 ):
     """Train; returns (final state, list of metric dicts of the logged
     steps).
+
+    compression: optional stateless grads -> grads callable (e.g. built
+    from :mod:`repro_torch.distributed.compression`), applied to the
+    gradient tree before the optimizer (``make_train_step``'s
+    ``grad_transform``).
 
     step_context: optional ``i -> context manager`` entered around step
     ``i`` (0-based) inside its device fences, e.g. to count kernel
@@ -90,7 +97,7 @@ def train_loop(
             _requires_grad(state.params)
             print(f"[train] resumed from checkpoint step {start_step}", flush=True)
 
-    step_fn = make_train_step(cfg, opt)
+    step_fn = make_train_step(cfg, opt, grad_transform=compression)
     pipe = TokenPipeline(cfg, shape, seed=seed, start_step=start_step)
     wd = StepWatchdog(watchdog_timeout)
     tokens = shape.global_batch * shape.seq_len

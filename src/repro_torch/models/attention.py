@@ -17,8 +17,9 @@ Two paths, as in the reference:
   no kernel for it either.
 
 KV heads stay folded (B, S, K, hd) with queries grouped (K, G): query head
-h = k * G + g.  Positions are RoPE's; M-RoPE and sinusoidal embeddings wait
-for their families (``models.transformer.check_supported`` rejects them).
+h = k * G + g.  Positions rotate q and k by RoPE ((B, S) positions) or
+M-RoPE ((3, B, S)); sinusoidal positions are added at the embedding and
+leave q and k alone.
 """
 
 from __future__ import annotations
@@ -28,31 +29,12 @@ import math
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.common import dense_init, rmsnorm
-from repro_torch.models.rope import apply_rope
+from repro_torch.models.common import rmsnorm
+from repro_torch.models.rope import apply_mrope, apply_rope
 
-__all__ = ["attn_init", "attention", "decode_attention", "init_kv_cache"]
+__all__ = ["attention", "decode_attention", "init_kv_cache"]
 
 NEG_INF = -1e30
-
-
-def attn_init(generator: torch.Generator, cfg, dtype):
-    d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    dev = generator.device
-    p = {
-        "wq": dense_init(generator, (d, H * hd), dtype),
-        "wk": dense_init(generator, (d, K * hd), dtype),
-        "wv": dense_init(generator, (d, K * hd), dtype),
-        "wo": dense_init(generator, (H * hd, d), dtype),
-    }
-    if cfg.qkv_bias:
-        p["bq"] = torch.zeros((H * hd,), dtype=dtype, device=dev)
-        p["bk"] = torch.zeros((K * hd,), dtype=dtype, device=dev)
-        p["bv"] = torch.zeros((K * hd,), dtype=dtype, device=dev)
-    if cfg.qk_norm:
-        p["q_norm"] = torch.ones((hd,), dtype=dtype, device=dev)
-        p["k_norm"] = torch.ones((hd,), dtype=dtype, device=dev)
-    return p
 
 
 def _qkv(params, x, cfg, positions):
@@ -69,8 +51,13 @@ def _qkv(params, x, cfg, positions):
     if cfg.qk_norm:
         q = rmsnorm(q, params["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, params["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.pos_embed == "mrope":
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    elif cfg.pos_embed == "rope":
+        pos2 = positions if positions.ndim == 2 else positions[0]
+        q = apply_rope(q, pos2, cfg.rope_theta)
+        k = apply_rope(k, pos2, cfg.rope_theta)
     return q, k, v
 
 
@@ -96,9 +83,11 @@ def init_kv_cache(cfg, batch: int, max_len: int, dtype, device=None):
     }
 
 
-def decode_attention(params, x, cfg, cache, pos: int):
+def decode_attention(params, x, cfg, cache, pos: int, rope_pos: int | None = None):
     """One-token step: x (B, 1, d); cache k/v (B, C, K, hd); pos the number
-    of tokens already in the cache.
+    of tokens already in the cache; ``rope_pos`` the rotary position when it
+    is not the cache slot's (M-RoPE's text positions are offset by the
+    vision grid's extent).
 
     Returns (out (B, 1, d), cache).  The new k/v are written into
     ``cache`` in place (the reference returns an updated copy).  Under SWA
@@ -108,7 +97,10 @@ def decode_attention(params, x, cfg, cache, pos: int):
     B = x.shape[0]
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     G = H // K
-    positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    positions = torch.full((B, 1), pos if rope_pos is None else rope_pos, dtype=torch.long,
+                           device=x.device)
+    if cfg.pos_embed == "mrope":
+        positions = positions.expand(3, B, 1)
     q, k_new, v_new = _qkv(params, x, cfg, positions)
 
     size = cache["k"].shape[1]

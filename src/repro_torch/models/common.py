@@ -1,8 +1,4 @@
-"""Shared building blocks: norms, MLPs, init helpers.
-
-``sinusoidal_positions`` waits for the audio family (ROADMAP.md, Queue 1
-item 11).
-"""
+"""Shared building blocks: norms, MLPs, sinusoidal positions, init helpers."""
 
 from __future__ import annotations
 
@@ -11,7 +7,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["dense_init", "rmsnorm", "mlp_init", "mlp_apply"]
+__all__ = ["dense_init", "rmsnorm", "mlp_apply", "sinusoidal_positions"]
 
 
 def dense_init(generator: torch.Generator, shape, dtype, scale: float | None = None):
@@ -21,7 +17,7 @@ def dense_init(generator: torch.Generator, shape, dtype, scale: float | None = N
     std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     t = torch.empty(shape, dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (std * t).to(dtype)
+    return t.mul_(std).to(dtype)
 
 
 def rmsnorm(x, scale, eps: float = 1e-6):
@@ -32,21 +28,6 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     return (y * scale.float()).to(x.dtype)
 
 
-def mlp_init(generator: torch.Generator, d_model: int, d_ff: int, mlp_type: str, dtype):
-    if mlp_type == "swiglu":
-        return {
-            "w_gate": dense_init(generator, (d_model, d_ff), dtype),
-            "w_up": dense_init(generator, (d_model, d_ff), dtype),
-            "w_down": dense_init(generator, (d_ff, d_model), dtype),
-        }
-    if mlp_type == "gelu":
-        return {
-            "w_up": dense_init(generator, (d_model, d_ff), dtype),
-            "w_down": dense_init(generator, (d_ff, d_model), dtype),
-        }
-    raise ValueError(mlp_type)
-
-
 def mlp_apply(params, x, mlp_type: str):
     """Weights in the reference's (in, out) orientation: ``x @ w``."""
     if mlp_type == "swiglu":
@@ -55,3 +36,13 @@ def mlp_apply(params, x, mlp_type: str):
         # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(x @ params["w_up"], approximate="tanh")
     return h @ params["w_down"]
+
+
+def sinusoidal_positions(positions, d_model: int, dtype):
+    """Classic transformer sinusoidal embeddings (sin half, then cos half);
+    positions (..., S) int -> (..., S, d_model), angles in f32."""
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)

@@ -1,14 +1,16 @@
-"""Rotary position embeddings (standard RoPE).
+"""Rotary position embeddings: standard RoPE and Qwen2-VL's M-RoPE.
 
-``apply_mrope`` (Qwen2-VL's M-RoPE) waits for the VLM configuration
-(ROADMAP.md, Queue 1 item 11).
+M-RoPE splits the head-dim half-pairs into (t, h, w) sections; each
+section's rotation angle takes its coordinate from a (3, B, S) position
+tensor.  With the same coordinate in all three (text-only input) it is
+RoPE.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["rope_frequencies", "apply_rope"]
+__all__ = ["rope_frequencies", "apply_rope", "apply_mrope"]
 
 
 def rope_frequencies(head_dim: int, theta: float, dtype=torch.float32, device=None):
@@ -28,5 +30,21 @@ def apply_rope(x, positions, theta: float):
     freqs = rope_frequencies(x.shape[-1], theta, device=x.device)
     ang = positions[..., None].float() * freqs  # (B, S, half)
     cos = torch.cos(ang)[..., None, :].to(x.dtype)  # (B, S, 1, half)
+    sin = torch.sin(ang)[..., None, :].to(x.dtype)
+    return _rotate(x, cos, sin)
+
+
+def apply_mrope(x, positions3, theta: float, sections: tuple[int, ...]):
+    """x: (B, S, H, hd); positions3: (3, B, S) int; ``sections`` sum to
+    hd // 2 and give each frequency slot its coordinate (t, h or w)."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {sections} do not sum to head_dim // 2 = {half}")
+    freqs = rope_frequencies(x.shape[-1], theta, device=x.device)
+    sec_id = torch.repeat_interleave(torch.arange(len(sections), device=x.device),
+                                     torch.tensor(sections, device=x.device))
+    pos = positions3[sec_id]  # (half, B, S): each slot's coordinate
+    ang = torch.movedim(pos, 0, -1).float() * freqs  # (B, S, half)
+    cos = torch.cos(ang)[..., None, :].to(x.dtype)
     sin = torch.sin(ang)[..., None, :].to(x.dtype)
     return _rotate(x, cos, sin)

@@ -10,13 +10,22 @@ is a copy.  The layer loop is a Python loop over the stacks unbound into
 per-layer views (the reference's ``lax.scan``); ``torch.unbind``'s gradient
 stacks the layers' gradients once.
 
-Ported: ``block_pattern == "attn"`` without experts, with RoPE positions.
-The other families (MoE, Mamba2/zamba2, xLSTM, M-RoPE, codebooks, vision)
-raise ``NotImplementedError`` naming ROADMAP.md, Queue 1 item 11.
+Ported: ``block_pattern == "attn"`` without experts, with RoPE, M-RoPE
+(the VLM stub: ``vision_embeds`` over the first ``n_vision_tokens``
+positions, laid out on a (t, h, w) grid) or sinusoidal positions, and with
+one token stream or ``n_codebooks`` of them (summed embeddings, one head a
+codebook, the CE averaged over codebooks).  MoE and the recurrent block
+patterns (Mamba2/zamba2, xLSTM) raise ``NotImplementedError`` naming
+ROADMAP.md, Queue 1 item 11.
+
+Inputs are dicts: ``tokens`` (B, S) integer (codebooks: (B, S, n_cb)),
+``labels`` shaped like the tokens with -1 masking a position, and for the
+VLM ``vision_embeds`` (B, n_vision_tokens, d_model).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
@@ -25,11 +34,15 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import (
     attention,
-    attn_init,
     decode_attention,
     init_kv_cache,
 )
-from repro_torch.models.common import dense_init, mlp_apply, mlp_init, rmsnorm
+from repro_torch.models.common import (
+    dense_init,
+    mlp_apply,
+    rmsnorm,
+    sinusoidal_positions,
+)
 
 __all__ = [
     "init_params",
@@ -65,32 +78,16 @@ def _not_ported(what: str) -> NotImplementedError:
 
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for a configuration outside the
-    ported family (dense attention stack with RoPE)."""
+    ported families (the attention stack without experts)."""
     if cfg.block_pattern != "attn":
         raise _not_ported(f"block_pattern={cfg.block_pattern!r}")
-    for what, present in (
-        ("MoE (n_experts > 0)", cfg.is_moe),
-        (f"pos_embed={cfg.pos_embed!r}", cfg.pos_embed != "rope"),
-        ("codebook heads (n_codebooks > 0)", cfg.n_codebooks),
-        ("vision tokens (n_vision_tokens > 0)", cfg.n_vision_tokens),
-    ):
-        if present:
-            raise _not_ported(what)
+    if cfg.is_moe:
+        raise _not_ported("MoE (n_experts > 0)")
 
 
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
-def _attn_block_init(generator, cfg, dtype):
-    dev = generator.device
-    return {
-        "attn_norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
-        "attn": attn_init(generator, cfg, dtype),
-        "mlp_norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
-        "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype),
-    }
-
-
 def _attn_block_apply(p, x, cfg, positions):
     """Pre-norm attention block. Returns (x, aux, kv); aux is 0.0 for the
     dense family (no MoE balance loss)."""
@@ -101,8 +98,10 @@ def _attn_block_apply(p, x, cfg, positions):
 
 
 def _attn_block_decode(p, x, cfg, cache, pos: int):
+    # M-RoPE: text tokens past the vision prefix sit at t = h = w = pos - nv + g
+    rope_pos = pos - cfg.n_vision_tokens + _grid(cfg) if cfg.pos_embed == "mrope" else None
     h, cache = decode_attention(
-        p["attn"], rmsnorm(x, p["attn_norm"], cfg.norm_eps), cfg, cache, pos
+        p["attn"], rmsnorm(x, p["attn_norm"], cfg.norm_eps), cfg, cache, pos, rope_pos
     )
     x = x + h
     hn = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
@@ -113,12 +112,6 @@ def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
-
-
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
 
 
 def _unstack(blocks, n: int) -> list:
@@ -138,20 +131,43 @@ def _unstack(blocks, n: int) -> list:
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
+# The stacked leaves drawn from the generator, in the order of one layer's
+# draws (the attention's, then the MLP's); the others are ones (norms) or
+# zeros (biases).
+_DRAWN = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
+          ("mlp", "w_gate"), ("mlp", "w_up"), ("mlp", "w_down"))
+
+
 def init_params(generator: torch.Generator, cfg) -> dict:
     """Seeded random parameters on ``generator``'s device, in ``cfg.dtype``.
 
-    The draws differ from the reference's (a torch Generator is not a JAX
-    key); tests carry the reference's parameters across instead."""
+    Each stacked leaf is allocated once, (L,) + shape, and layer i's draw
+    goes into its slice, layer by layer in ``_DRAWN``'s order; so the
+    weights are never held twice, and the largest transient is one leaf's
+    float32 draw.  The draws differ from the reference's (a torch Generator
+    is not a JAX key); tests carry the reference's parameters across
+    instead."""
     check_supported(cfg)
-    dtype = param_dtype(cfg)
-    params: dict[str, Any] = {
-        "embed": dense_init(generator, (cfg.vocab, cfg.d_model), dtype),
-        "blocks": _stack([_attn_block_init(generator, cfg, dtype) for _ in range(cfg.n_layers)]),
-        "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=generator.device),
-    }
-    if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(generator, (cfg.d_model, cfg.vocab), dtype)
+    dtype, dev = param_dtype(cfg), generator.device
+    shapes = param_shapes(cfg)
+    params: dict[str, Any] = {"embed": dense_init(generator, shapes["embed"], dtype)}
+    blocks = _tree_map(lambda shape: torch.empty(shape, dtype=dtype, device=dev),
+                       shapes["blocks"])
+    for name in ("attn_norm", "mlp_norm"):
+        blocks[name].fill_(1)
+    for name, leaf in blocks["attn"].items():
+        if name in ("bq", "bk", "bv"):
+            leaf.zero_()
+        elif name in ("q_norm", "k_norm"):
+            leaf.fill_(1)
+    drawn = [blocks[group][name] for group, name in _DRAWN if name in blocks[group]]
+    for i in range(cfg.n_layers):
+        for leaf in drawn:
+            leaf[i].copy_(dense_init(generator, leaf.shape[1:], dtype))
+    params["blocks"] = blocks
+    params["final_norm"] = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
+    if "lm_head" in shapes:
+        params["lm_head"] = dense_init(generator, shapes["lm_head"], dtype)
     return params
 
 
@@ -167,16 +183,16 @@ def param_shapes(cfg) -> dict:
         attn.update(bq=(L, H * hd), bk=(L, K * hd), bv=(L, K * hd))
     if cfg.qk_norm:
         attn.update(q_norm=(L, hd), k_norm=(L, hd))
-    mlp = {"w_up": (L, d, f), "w_down": (L, f, d)}
-    if cfg.mlp_type == "swiglu":
-        mlp["w_gate"] = (L, d, f)
+    mlp = {"w_gate": (L, d, f)} if cfg.mlp_type == "swiglu" else {}
+    mlp.update(w_up=(L, d, f), w_down=(L, f, d))
+    cb = (cfg.n_codebooks,) if cfg.n_codebooks else ()
     shapes: dict[str, Any] = {
-        "embed": (V, d),
+        "embed": cb + (V, d),
         "blocks": {"attn_norm": (L, d), "attn": attn, "mlp_norm": (L, d), "mlp": mlp},
         "final_norm": (d,),
     }
-    if not cfg.tie_embeddings:
-        shapes["lm_head"] = (d, V)
+    if cfg.n_codebooks or not cfg.tie_embeddings:
+        shapes["lm_head"] = cb + (d, V)
     return shapes
 
 
@@ -196,18 +212,54 @@ def _leaves(tree):
 # embedding / positions / head
 # ---------------------------------------------------------------------------
 def _embed(params, batch, cfg):
-    return params["embed"][batch["tokens"]]
+    """Token embeddings (codebooks: their sum), the vision embeddings over
+    the first ``n_vision_tokens`` positions, and sinusoidal positions."""
+    tokens = batch["tokens"]
+    if cfg.n_codebooks:
+        x = params["embed"][0][tokens[..., 0]]
+        for c in range(1, cfg.n_codebooks):
+            x = x + params["embed"][c][tokens[..., c]]
+    else:
+        x = params["embed"][tokens]
+    S = tokens.shape[1]
+    if cfg.n_vision_tokens and "vision_embeds" in batch:
+        nv = cfg.n_vision_tokens
+        if S < nv:
+            raise ValueError(f"{S} positions cannot hold the {nv} vision tokens")
+        x = torch.cat([batch["vision_embeds"].to(x.dtype), x[:, nv:]], dim=1)
+    if cfg.pos_embed == "sinusoidal":
+        pos = torch.arange(S, device=x.device)[None]
+        x = x + sinusoidal_positions(pos, cfg.d_model, x.dtype)
+    return x
+
+
+def _grid(cfg) -> int:
+    """Side of the VLM stub's square patch grid: isqrt(n_vision_tokens)."""
+    return max(math.isqrt(max(cfg.n_vision_tokens, 1)), 1)
 
 
 def _positions(batch, cfg):
-    """Position ids (B, S) for RoPE."""
+    """Position ids: (B, S) for RoPE, (3, B, S) t/h/w for M-RoPE.
+
+    M-RoPE (the VLM stub): the first ``n_vision_tokens`` positions form a
+    g x g patch grid at t = 0; text tokens advance all three coordinates
+    together from the grid's extent g (Qwen2-VL's convention)."""
     B, S = batch["tokens"].shape[:2]
-    pos = torch.arange(S, dtype=torch.long, device=batch["tokens"].device)
-    return pos[None].expand(B, S)
+    i = torch.arange(S, dtype=torch.long, device=batch["tokens"].device)
+    if cfg.pos_embed != "mrope":
+        return i[None].expand(B, S)
+    nv, g = cfg.n_vision_tokens, _grid(cfg)
+    is_vis = i < nv
+    text = i - nv + g
+    t = torch.where(is_vis, 0, text)
+    h = torch.where(is_vis, i // g, text)
+    w = torch.where(is_vis, i % g, text)
+    return torch.stack([t, h, w])[:, None, :].expand(3, B, S)
 
 
 def _head_weight(params, cfg):
-    if cfg.tie_embeddings:
+    """(d, V), or (n_cb, d, V) with codebooks."""
+    if cfg.tie_embeddings and not cfg.n_codebooks:
         return params["embed"].T
     return params["lm_head"]
 
@@ -275,11 +327,28 @@ def chunked_ce_loss(hidden, head_w, labels, chunk: int = LOSS_CHUNK):
 
 
 def loss_fn(params, batch, cfg, *, remat: bool = True):
-    """Scalar training loss: CE + AUX_LOSS_COEF * aux (aux is 0 for the
-    dense family)."""
+    """Scalar training loss: CE (averaged over codebooks) + AUX_LOSS_COEF *
+    aux (aux is 0 without experts)."""
     hidden, aux = forward(params, batch, cfg, remat=remat)
-    ce = chunked_ce_loss(hidden, _head_weight(params, cfg), batch["labels"])
+    w = _head_weight(params, cfg)
+    if cfg.n_codebooks:
+        ce = 0.0
+        for cb in range(cfg.n_codebooks):
+            ce = ce + chunked_ce_loss(hidden, w[cb], batch["labels"][..., cb])
+        ce = ce / cfg.n_codebooks
+    else:
+        ce = chunked_ce_loss(hidden, w, batch["labels"])
     return ce + AUX_LOSS_COEF * aux
+
+
+def _logits(x, w):
+    """The head on x (B, d) or (B, 1, d): (B, V), or (B, n_cb, V) with
+    codebooks' heads w (n_cb, d, V)."""
+    if x.ndim == 3:
+        x = x[:, 0]
+    if w.ndim == 3:
+        return torch.einsum("bd,cdv->bcv", x, w)
+    return x @ w
 
 
 # ---------------------------------------------------------------------------
@@ -298,22 +367,29 @@ def init_decode_state(cfg, batch: int, max_len: int, device=None):
 def decode_step(params, token, state, pos: int, cfg):
     """One decode step.
 
-    token: (B, 1) int; pos: number of tokens already in the state.
-    Returns (logits (B, V), state); the state's caches are updated in
-    place and returned.
+    token: (B, 1) int (codebooks: (B, 1, n_cb)); pos: number of tokens
+    already in the state.  Returns (logits (B, V) (codebooks: (B, n_cb,
+    V)), state); the state's caches are updated in place and returned.
     """
     check_supported(cfg)
     x = _embed(params, {"tokens": token}, cfg)
+    if cfg.pos_embed == "sinusoidal":
+        # _embed added position 0's embedding; put pos's in its place
+        dev = x.device
+        x = x - sinusoidal_positions(torch.zeros((1, 1), dtype=torch.long, device=dev),
+                                     cfg.d_model, x.dtype)
+        x = x + sinusoidal_positions(torch.full((1, 1), pos, dtype=torch.long, device=dev),
+                                     cfg.d_model, x.dtype)
     for i, p in enumerate(_unstack(params["blocks"], cfg.n_layers)):
         cache = {"k": state["k"][i], "v": state["v"][i]}  # views: written in place
         x, _ = _attn_block_decode(p, x, cfg, cache, pos)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return (x @ _head_weight(params, cfg))[:, 0], state
+    return _logits(x, _head_weight(params, cfg)), state
 
 
 def prefill(params, batch, cfg, max_len: int | None = None):
-    """Process a full prompt; returns (last-position logits (B, V), decode
-    state)."""
+    """Process a full prompt; returns (last-position logits (B, V), or
+    (B, n_cb, V) with codebooks, and the decode state)."""
     check_supported(cfg)
     B, S = batch["tokens"].shape[:2]
     max_len = max_len or S
@@ -338,4 +414,4 @@ def prefill(params, batch, cfg, max_len: int | None = None):
             else:
                 state[name][i, :, :S] = t.to(state[name].dtype)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return x[:, -1] @ _head_weight(params, cfg), state
+    return _logits(x[:, -1], _head_weight(params, cfg)), state

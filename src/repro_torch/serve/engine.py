@@ -9,7 +9,11 @@ The port of the reference's ``repro.serve.engine``, with its semantics:
 * finished rows (EOS or budget) are retired at the end of their batch and
   the next batch is formed from the queue (generational batching);
 * sampling happens on the host in numpy, greedy or with temperature from
-  ``np.random.default_rng(seed)``, so greedy tokens match the reference's.
+  ``np.random.default_rng(seed)``, so greedy tokens match the reference's;
+* a codebook model (musicgen) takes (S, n_cb) prompts, samples each
+  codebook of a row, and appends a list of n_cb tokens a step to
+  ``out_tokens``; a VLM batch gets zero ``vision_embeds`` over its first
+  ``n_vision_tokens`` positions, as in the reference.
 
 The decode step updates the KV cache in place (the reference donates it to
 XLA for the same effect).  ``stats`` keeps the time spent in prefill and in
@@ -28,14 +32,20 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.device import resolve_device, synchronize
-from repro_torch.models.transformer import check_supported, decode_step, init_params, prefill
+from repro_torch.models.transformer import (
+    check_supported,
+    decode_step,
+    init_params,
+    param_dtype,
+    prefill,
+)
 
 __all__ = ["ServeEngine", "Request", "ServeStats"]
 
 
 @dataclasses.dataclass
 class Request:
-    prompt: np.ndarray  # (S,) int32
+    prompt: np.ndarray  # (S,) int32, or (S, n_cb) for codebook models
     max_new_tokens: int = 32
     temperature: float = 0.0
     eos_id: int | None = None
@@ -76,14 +86,19 @@ class ServeEngine:
 
     # -- sampling -----------------------------------------------------------
     def _sample(self, logits: np.ndarray, temps: np.ndarray) -> np.ndarray:
+        """logits (B, V) or (B, n_cb, V), a row's temperature for each of
+        its codebooks; rows (and codebooks) drawn in order."""
         out = np.empty(logits.shape[:-1], np.int32)
-        for i, (row, t) in enumerate(zip(logits, temps)):
+        flat = out.reshape(-1)
+        tf = np.broadcast_to(temps.reshape(-1, *([1] * (logits.ndim - 2))),
+                             logits.shape[:-1]).reshape(-1)
+        for i, (row, t) in enumerate(zip(logits.reshape(-1, logits.shape[-1]), tf)):
             if t <= 0:
-                out[i] = int(np.argmax(row))
+                flat[i] = int(np.argmax(row))
             else:
                 p = np.exp((row - row.max()) / t)
                 p /= p.sum()
-                out[i] = int(self._rng.choice(len(row), p=p))
+                flat[i] = int(self._rng.choice(len(row), p=p))
         return out
 
     @staticmethod
@@ -106,7 +121,7 @@ class ServeEngine:
         S = max(max(len(r.prompt) for r in batch), 2)
         # left-pad prompts to a common length (pads attend causally but
         # positions stay dense, as in the reference)
-        toks = np.zeros((B, S), np.int32)
+        toks = np.zeros((B, S) + ((cfg.n_codebooks,) if cfg.n_codebooks else ()), np.int32)
         for i, r in enumerate(batch):
             toks[i, S - len(r.prompt):] = r.prompt
         temps = np.array([r.temperature for r in batch])
@@ -116,6 +131,9 @@ class ServeEngine:
         t0 = time.perf_counter()
         with record_function("serve.prefill"):
             feed = {"tokens": torch.as_tensor(toks, device=dev).long()}
+            if cfg.n_vision_tokens:
+                feed["vision_embeds"] = torch.zeros((B, cfg.n_vision_tokens, cfg.d_model),
+                                                    dtype=param_dtype(cfg), device=dev)
             logits, state = prefill(self.params, feed, cfg, max_len=self.max_len)
             cur = self._sample(self._host(logits), temps)
         t1 = time.perf_counter()
@@ -123,12 +141,12 @@ class ServeEngine:
         st.prompt_tokens += sum(len(r.prompt) for r in batch)
         st.prefill_batches += 1
         for i, r in enumerate(batch):
-            r.out_tokens.append(int(cur[i]))
+            r.out_tokens.append(cur[i].tolist())
 
         pos = S
         with record_function("serve.decode"):
             for _ in range(budget - 1):
-                tok = torch.as_tensor(cur.reshape(B, 1), device=dev).long()
+                tok = torch.as_tensor(cur.reshape((B, 1) + cur.shape[1:]), device=dev).long()
                 logits, state = decode_step(self.params, tok, state, pos, cfg)
                 pos += 1
                 cur = self._sample(self._host(logits), temps)
@@ -136,7 +154,7 @@ class ServeEngine:
                 for i, r in enumerate(batch):
                     if r.done:
                         continue
-                    t = int(cur[i])
+                    t = cur[i].tolist()
                     r.out_tokens.append(t)
                     st.decode_tokens += 1
                     if len(r.out_tokens) >= r.max_new_tokens or (

@@ -59,10 +59,10 @@ def make_train_step(
     """Returns train_step(state, batch) -> (state, metrics) with metrics
     ``loss``, ``grad_norm`` and ``lr`` as 0-d tensors on the device.
 
-    batch: ``tokens`` and ``labels`` (B, S) integer tensors on the
-    parameters' device.  grad_transform: optional hook applied to the
-    gradient tree before the optimizer (where gradient compression plugs
-    in; ROADMAP.md, Queue 1 item 11)."""
+    batch: ``tokens`` and ``labels`` integer tensors on the parameters'
+    device (and ``vision_embeds`` for the VLM).  grad_transform: optional
+    hook applied to the gradient tree before the optimizer (where gradient
+    compression, :mod:`repro_torch.distributed.compression`, plugs in)."""
 
     def train_step(state: TrainState, batch):
         leaves = list(_leaves(state.params))

@@ -245,6 +245,11 @@ def _flash_route(dtype, D, pad):
     (1, 2048, 4, 2, 128, None),
     (1, 300, 8, 8, 128, None),  # MHA
     (2, 300, 8, 1, 128, None),  # MQA
+    # query groups of 7 (qwen2-vl-7b, 28 / 4) and 8 (qwen3-32b, 64 / 8)
+    (2, 300, 28, 4, 128, None),
+    (1, 1000, 28, 4, 128, 128),
+    (2, 300, 64, 8, 128, None),
+    (1, 77, 64, 8, 128, None),
 ])
 @pytest.mark.parametrize("pad", [0, 2])  # 2: row strides no multiple of 8
 def test_flash_kernel_matches_plain_on_card(card, B, S, H, K, D, window, dtype, pad):
@@ -342,10 +347,12 @@ def test_flash_bwd_kernel_matches_plain_on_card(card, B, S, H, K, D, window, pad
     (2, 1, 4, 2, None), (2, 77, 4, 2, None), (1, 300, 4, 2, None),  # ragged S, G = 2
     (2, 77, 4, 4, 16), (1, 300, 4, 4, 48), (1, 300, 4, 2, 16),  # windows, G = 1 and 2
     (1, 1024, 16, 8, None),
+    (2, 77, 28, 4, None), (1, 300, 28, 4, 48),  # G = 7 (qwen2-vl-7b)
+    (1, 300, 64, 8, None), (2, 77, 64, 8, 16),  # G = 8 (qwen3-32b)
 ])
 def test_flash_bwd_wgmma_matches_plain_on_card(card, B, S, H, K, D, window):
     """The wgmma backward route against its plain version, bitwise repeated,
-    at ragged S, G in {1, 2}, windows {16, 48} and (1, 1024, 16, 8, D)."""
+    at ragged S, G in {1, 2, 7, 8}, windows {16, 48} and (1, 1024, 16, 8, D)."""
     _check_bwd(*_bwd_inputs(card, B, S, H, K, D, torch.bfloat16, seed=S * D + H), window,
                "wgmma")
 

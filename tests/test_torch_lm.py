@@ -1,11 +1,15 @@
 """The port's LM modules vs the reference on the same numpy-made inputs.
 
 Reduced qwen3-1.7b in float32 (2 layers, d_model 64, 4 query heads over 2
-KV heads, head_dim 16), with the reference's parameters carried across by
+KV heads, head_dim 16), and every other ported architecture's reduced
+configuration (granite-8b, qwen1.5-32b, qwen3-32b, qwen2-vl-7b with M-RoPE
+and vision tokens, musicgen-medium with sinusoidal positions and 4
+codebooks), with the reference's parameters carried across by
 ``repro_torch.convert.lm_params``.  Tolerances, float32 throughout:
 
 * norms, RoPE, MLP: rtol 1e-5 / atol 1e-6 (same arithmetic, other
-  summation order);
+  summation order); M-RoPE and sinusoidal positions: 1e-6 of max
+  |reference| (f32 sin/cos of the same angles);
 * attention and model logits: max |port - reference| <= 1e-4 of the
   largest |reference| value (the serve tolerance of chip_smoke.py; the two differ
   by f32 rounding in matmuls and the softmax);
@@ -13,6 +17,7 @@ KV heads, head_dim 16), with the reference's parameters carried across by
 """
 
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -33,8 +38,8 @@ from repro_torch.models import attention, common, rope, transformer
 REL = 1e-4
 
 
-def _cfg(**kw):
-    return dataclasses.replace(base.get_reduced("qwen3-1.7b"), dtype="float32", **kw)
+def _cfg(arch="qwen3-1.7b", **kw):
+    return dataclasses.replace(base.get_reduced(arch), dtype="float32", **kw)
 
 
 def _ref_cfg(cfg):
@@ -60,8 +65,12 @@ def _close(port, ref, rel=REL):
 # ---------------------------------------------------------------------------
 # configuration
 # ---------------------------------------------------------------------------
-def test_config_is_the_references():
-    for name in ("qwen3-1.7b", "qwen3_17b"):
+ALIAS = {arch: alias for alias, arch in base.ALIASES.items()}
+
+
+@pytest.mark.parametrize("arch", base.PORTED)
+def test_config_is_the_references(arch):
+    for name in (arch, ALIAS[arch]):
         assert dataclasses.asdict(base.get_config(name)) == dataclasses.asdict(
             ref_base.get_config(name))
         assert dataclasses.asdict(base.get_reduced(name)) == dataclasses.asdict(
@@ -69,7 +78,7 @@ def test_config_is_the_references():
     assert base.ARCH_IDS == ref_base.ARCH_IDS and base.ALIASES == ref_base.ALIASES
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "xlstm_125m", "qwen2-vl-7b", "elasticity"])
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "xlstm_125m", "olmoe-1b-7b", "elasticity"])
 def test_unported_arch_raises(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         base.get_config(arch)
@@ -83,8 +92,8 @@ def test_unknown_arch_raises():
 @pytest.mark.parametrize("change", [
     {"n_experts": 4, "top_k": 2},
     {"block_pattern": "mamba2"},
-    {"pos_embed": "sinusoidal"},
-    {"n_codebooks": 4},
+    {"block_pattern": "xlstm"},
+    {"block_pattern": "zamba2"},
 ])
 def test_unported_family_raises(change):
     cfg = _cfg(**change)
@@ -135,6 +144,39 @@ def test_apply_rope():
                                rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(rope.rope_frequencies(16, 1e6).numpy(),
                                ref_rope.rope_frequencies(16, 1e6), rtol=1e-6)
+
+
+def test_apply_mrope():
+    """M-RoPE against the reference on (t, h, w) positions that differ
+    (the VLM stub's grid), and equal to RoPE where all three agree."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 12, 4, 16)).astype(np.float32)
+    pos3 = rng.integers(0, 50, (3, 2, 12)).astype(np.int32)
+    ref = np.asarray(ref_rope.apply_mrope(jnp.asarray(x), jnp.asarray(pos3), 1e6, (2, 3, 3)))
+    got = rope.apply_mrope(_t(x), _t(pos3).long(), 1e6, (2, 3, 3)).numpy()
+    assert float(np.abs(got - ref).max()) <= 1e-6 * float(np.abs(ref).max())
+    same = np.broadcast_to(pos3[:1], pos3.shape)
+    np.testing.assert_array_equal(rope.apply_mrope(_t(x), _t(same).long(), 1e6, (2, 3, 3)),
+                                  rope.apply_rope(_t(x), _t(pos3[0]).long(), 1e6))
+    with pytest.raises(ValueError, match="sum to head_dim"):
+        rope.apply_mrope(_t(x), _t(pos3).long(), 1e6, (2, 3, 2))
+
+
+def test_sinusoidal_positions():
+    """Against the reference to 1e-6 where the angle is small.  The angle is
+    position x frequency in f32, and XLA's f32 exp gives 6 of the 32
+    frequencies at d = 64 one ulp off the correctly rounded value that
+    torch.exp gives; so at position p the two may differ by p ulps of the
+    frequency (2**-23 for frequencies <= 1), which is the bound held at the
+    larger positions."""
+    pos = np.array([[0, 1, 7, 100, 2047]], np.int32)
+    for d in (64, 1536):
+        ref = np.asarray(ref_common.sinusoidal_positions(jnp.asarray(pos), d, jnp.float32))
+        got = common.sinusoidal_positions(_t(pos).long(), d, torch.float32).numpy()
+        assert got.shape == ref.shape == (1, 5, d)
+        err = np.abs(got - ref).max(axis=-1)[0]
+        assert (err[:3] <= 1e-6).all(), err
+        assert (err <= 1e-6 + pos[0] * 2.0**-23).all(), err
 
 
 @pytest.mark.parametrize("mlp_type", ["swiglu", "gelu"])
@@ -222,23 +264,115 @@ def test_init_params_layout():
     assert transformer.param_count(params) == ref_tf.param_count(ref)
 
 
+def _stacked_init_before(generator, cfg):
+    """init_params as it was before each stacked leaf was allocated once:
+    every layer's tensors drawn, then stacked (kept here as the reference
+    for the draws' order and values)."""
+    dtype, dev = transformer.param_dtype(cfg), generator.device
+    d, H, K, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, cfg.d_ff
+
+    def draw(shape):
+        t = torch.empty(shape, dtype=torch.float32, device=dev)
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        return ((1.0 / math.sqrt(shape[0])) * t).to(dtype)
+
+    def ones(n):
+        return torch.ones((n,), dtype=dtype, device=dev)
+
+    def layer():
+        attn = {"wq": draw((d, H * hd)), "wk": draw((d, K * hd)), "wv": draw((d, K * hd)),
+                "wo": draw((H * hd, d))}
+        if cfg.qkv_bias:
+            attn.update(bq=0 * ones(H * hd), bk=0 * ones(K * hd), bv=0 * ones(K * hd))
+        if cfg.qk_norm:
+            attn.update(q_norm=ones(hd), k_norm=ones(hd))
+        mlp = {"w_gate": draw((d, f))} if cfg.mlp_type == "swiglu" else {}
+        mlp.update(w_up=draw((d, f)), w_down=draw((f, d)))
+        return {"attn_norm": ones(d), "attn": attn, "mlp_norm": ones(d), "mlp": mlp}
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return torch.stack(trees)
+
+    params = {"embed": draw((cfg.vocab, d)),
+              "blocks": stack([layer() for _ in range(cfg.n_layers)]), "final_norm": ones(d)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = draw((d, cfg.vocab))
+    return params
+
+
+def _with_paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _with_paths(v, prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+@pytest.mark.parametrize("arch", base.PORTED)
+def test_init_params_allocates_once_and_draws_as_before(arch):
+    """Every stacked leaf is its own (L,) + shape allocation, the layout is
+    the reference's, and the draws are bitwise those of the stacking
+    algorithm the port had before (both dtypes; qwen3-1.7b's seeded
+    parameters therefore did not change)."""
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(base.get_reduced(arch), dtype=dtype)
+        params = transformer.init_params(torch.Generator().manual_seed(3), cfg)
+        got = list(_with_paths(params))
+        ref = _np_tree(ref_tf.init_params(jax.random.PRNGKey(0), _ref_cfg(cfg)))
+        assert transformer._tree_map(lambda a: tuple(a.shape), params) == jax.tree.map(
+            lambda a: a.shape, ref)
+        assert len({t.untyped_storage().data_ptr() for _, t in got}) == len(got)
+        if cfg.n_codebooks:  # the codebook layout has no earlier algorithm
+            continue
+        want = list(_with_paths(_stacked_init_before(torch.Generator().manual_seed(3), cfg)))
+        assert [p for p, _ in got] == [p for p, _ in want]
+        for (path, a), (_, b) in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), path
+
+
 def _models(cfg, seed=0):
     rcfg = _ref_cfg(cfg)
     ref = ref_tf.init_params(jax.random.PRNGKey(seed), rcfg)
     return rcfg, ref, lm_params(_np_tree(ref), cfg, device="cpu")
 
 
-@pytest.mark.parametrize("window,S,max_len", [(None, 12, 20), (8, 12, 20), (8, 6, 20)])
-def test_prefill_and_decode_match_reference(window, S, max_len):
+def _batch(cfg, toks, rng):
+    """Port and reference batches of these tokens; the VLM's also carry
+    vision embeddings (unit normal, from ``rng``)."""
+    port, ref = {"tokens": _t(toks).long()}, {"tokens": jnp.asarray(toks)}
+    if cfg.n_vision_tokens:
+        v = rng.standard_normal((toks.shape[0], cfg.n_vision_tokens, cfg.d_model))
+        port["vision_embeds"] = _t(v.astype(np.float32))
+        ref["vision_embeds"] = jnp.asarray(v, jnp.float32)
+    return port, ref
+
+
+# qwen3-1.7b at three cache layouts (their ids as before), and every other
+# ported architecture with a dense cache
+PREFILL_CASES = [pytest.param("qwen3-1.7b", *c, id="-".join(map(str, c)))
+                 for c in [(None, 12, 20), (8, 12, 20), (8, 6, 20)]]
+PREFILL_CASES += [pytest.param(a, None, 12, 20, id=f"{a}-None-12-20")
+                  for a in base.PORTED if a != "qwen3_17b"]
+
+
+@pytest.mark.parametrize("arch,window,S,max_len", PREFILL_CASES)
+def test_prefill_and_decode_match_reference(arch, window, S, max_len):
     """window=8 with S=12 prefills past the window (the rolling cache's
-    slot = pos % size layout); S=6 stays inside it."""
-    cfg = _cfg(sliding_window=window)
+    slot = pos % size layout); S=6 stays inside it.  qwen2-vl-7b prefills
+    with vision embeddings over its first 8 positions and decodes at
+    M-RoPE's text positions; musicgen-medium takes (B, S, 4) codebook
+    tokens and gives (B, 4, V) logits."""
+    cfg = _cfg(arch, sliding_window=window)
     rcfg, ref, port = _models(cfg)
-    toks = np.random.default_rng(4).integers(0, cfg.vocab, (2, S + 3)).astype(np.int32)
-    logits, state = transformer.prefill(port, {"tokens": _t(toks[:, :S]).long()}, cfg,
-                                        max_len=max_len)
-    rlogits, rstate = ref_tf.prefill(ref, {"tokens": jnp.asarray(toks[:, :S])}, rcfg,
-                                     max_len=max_len)
+    rng = np.random.default_rng(4)
+    cb = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    toks = rng.integers(0, cfg.vocab, (2, S + 3) + cb).astype(np.int32)
+    feed, rfeed = _batch(cfg, toks[:, :S], rng)
+    logits, state = transformer.prefill(port, feed, cfg, max_len=max_len)
+    rlogits, rstate = ref_tf.prefill(ref, rfeed, rcfg, max_len=max_len)
+    assert tuple(logits.shape) == rlogits.shape == (2,) + cb + (cfg.vocab,)
     _close(logits, rlogits)
     for name in ("k", "v"):
         assert tuple(state[name].shape) == rstate[name].shape
@@ -249,6 +383,7 @@ def test_prefill_and_decode_match_reference(window, S, max_len):
                                                 pos, cfg)
         rlogits, rstate = ref_tf.decode_step(ref, jnp.asarray(toks[:, pos:pos + 1]), rstate,
                                              jnp.int32(pos), rcfg)
+        assert tuple(logits.shape) == rlogits.shape
         _close(logits, rlogits)
         for name in ("k", "v"):
             _close(state[name], rstate[name])

@@ -78,6 +78,40 @@ def test_greedy_tokens_match_reference():
         assert (margin > 2 * REL * np.abs(logits).max(axis=-1)).all(), margin
 
 
+@pytest.mark.parametrize("arch", [a for a in base.PORTED if a != "qwen3_17b"])
+def test_greedy_tokens_match_reference_every_arch(arch):
+    """Every other ported architecture's reduced configuration through both
+    engines (two batches, greedy): the same tokens, with the same top-2
+    margin check on every live row.  qwen2-vl-7b's batches get zero vision
+    embeddings over their first 8 positions (its prompts are at least 8
+    long); musicgen-medium's prompts are (S, 4) and each step appends a
+    list of 4 tokens."""
+    cfg = dataclasses.replace(base.get_reduced(arch), dtype="float32")
+    rcfg = ref_base.ArchConfig(**dataclasses.asdict(cfg))
+    ref_params = ref_init_params(jax.random.PRNGKey(0), rcfg)
+    rng = np.random.default_rng(1)
+    cb = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    prompts = [rng.integers(0, cfg.vocab, (n + 4,) + cb).astype(np.int32) for n in PROMPT_LENS]
+    ref_eng = RefServeEngine(rcfg, params=ref_params, max_len=32, max_batch=4)
+    ref_reqs = [RefRequest(prompt=p.copy(), max_new_tokens=n) for p, n in zip(prompts, NEW_TOKENS)]
+    ref_eng.generate(ref_reqs)
+    eng = ServeEngine(cfg, params=lm_params(jax.tree.map(np.asarray, ref_params), cfg,
+                                            device="cpu"), max_len=32, max_batch=4, device="cpu")
+    seen = []
+    sample = eng._sample
+    eng._sample = lambda logits, temps: (seen.append(logits.copy()), sample(logits, temps))[1]
+    reqs = [Request(prompt=p.copy(), max_new_tokens=n) for p, n in zip(prompts, NEW_TOKENS)]
+    eng.generate(reqs)
+    assert [r.out_tokens for r in reqs] == [r.out_tokens for r in ref_reqs]
+    if cb:
+        assert all(len(t) == cfg.n_codebooks for r in reqs for t in r.out_tokens)
+    for logits in seen:
+        assert logits.shape[1:] == cb + (cfg.vocab,)
+        top2 = np.sort(logits, axis=-1)[..., -2:]
+        margin = top2[..., 1] - top2[..., 0]
+        assert (margin > 2 * REL * np.abs(logits).max(axis=-1)).all(), margin
+
+
 def test_temperature_sampling_is_seeded():
     cfg = _cfg()
     params = lm_params(

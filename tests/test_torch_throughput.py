@@ -18,7 +18,8 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro.configs import elasticity as ref_cfg
 from repro.core.flops import dense_flops_per_elem as ref_dense_flops
-from repro.launch.roofline import V5E, place_measured as ref_place
+from repro.launch.roofline import V5E, model_flops_estimate as ref_model_flops
+from repro.launch.roofline import place_measured as ref_place
 from repro.obs import throughput as ref_tp
 from repro_torch.configs import elasticity as cfg
 from repro_torch.core.flops import dense_flops_per_elem, dense_gemm_flops_per_elem
@@ -26,7 +27,9 @@ from repro_torch.core.pa_baseline import dense_grad_table
 from repro_torch.core.operators import ElasticityOperator
 from repro_torch.fem.mesh import beam_hex
 from repro_torch.fem.space import H1Space
-from repro_torch.launch.roofline import H100_SXM, HardwareSpec, place_measured
+from repro_torch.configs.base import PORTED, SHAPES, ShapeConfig
+from repro_torch.launch.roofline import (
+    H100_SXM, HardwareSpec, model_flops_estimate, place_measured)
 from repro_torch.obs import model_flops_per_elem, operator_throughput, streaming_bytes_per_elem
 
 MODEL_KEYS = ("p", "refine", "batch", "assembly", "dtype", "precision_policy", "ndof",
@@ -147,3 +150,24 @@ def test_elasticity_config_matches_reference():
             for k, s in cfg.ELASTICITY_SHAPES.items()}
     assert ndof["beam_p8_6m"] == 6_502_275 and ndof["beam_p8_51m"] == 51_171_075
     assert ndof["beam_p2_6m"] == 6_502_275
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_model_flops_estimate_matches_reference(arch):
+    """6 N T to train, 2 N T to prefill, 2 N a row to decode (N the
+    active parameters), equal to the reference's for every SHAPES entry; a
+    ShapeConfig with a cut batch scales with it."""
+    for name, shape in SHAPES.items():
+        assert model_flops_estimate(arch, name, {}) == ref_model_flops(arch, name, {})
+        cut = dataclasses.replace(shape, global_batch=4)
+        assert model_flops_estimate(arch, cut) == ref_model_flops(arch, name, {}) * 4 / (
+            shape.global_batch)
+    assert model_flops_estimate(arch, ShapeConfig("t", "train", 4096, 4)) == (
+        6.0 * 4096 * 4 * ref_model_flops(arch, "decode_32k", {}) / 2.0 / 128)
+
+
+def test_model_flops_estimate_of_elasticity():
+    meta = {"flops_per_elem": 1234.5, "nelem": 32768}
+    assert model_flops_estimate("elasticity", "train_4k", meta) == ref_model_flops(
+        "elasticity", "train_4k", meta) == 1234.5 * 32768
+    assert model_flops_estimate("elasticity", "train_4k", {}) == 0.0
