@@ -200,8 +200,32 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    CPU; one reduced train step with an int8 ``grad_transform``, card
    against CPU: loss, levels, parameters); the wgmma forward at each serve
    shape beside SDPA, the plain version and the bound, and the backward at
-   musicgen's training shape beside SDPA's backward.  The wall time of each
-   phase is printed (``[wall]`` lines).
+   musicgen's training shape beside SDPA's backward;
+11. the mixtures of experts (``[serve]``, ``[train]``, ``[moe]`` and
+   ``[time]`` lines, each beside the card's name and power limit):
+   olmoe-1b-7b at full width and depth in bf16 served as phase 10 (8 x 2048
+   prompt tokens + 32 new; the batch reckoning counts the MoE's capacity
+   buffers, assignment rows and one-hot, ``ffn_transients``); mixtral-8x7b
+   at full width with its layers cut to the most that a printed reckoning
+   fits for both of its request sets, served 8 x 2048 + 32 and 1 x 8192 +
+   32 (past its 4096 window: the wgmma forward applies the window, prefill
+   fills the rolling cache, decode runs past it), each counted (n_layers
+   wgmma launches a prefill batch, 0 plain, the kernel held against its
+   plain version on the first and last layers' q/k/v); each reduced
+   configuration in f32 card against CPU (tokens and logits, first-step
+   gradients and three steps' losses, every layer's expert ids and, at
+   capacity factor 0.25, its dropped assignments identical) and
+   ``moe_apply`` forward and backward on the card under sync debug mode
+   "error"; one reduced olmoe train step in bf16, at capacity factors 1.25
+   and 0.25, twice from one state: bitwise equal loss, gradients,
+   parameters and moments; olmoe-1b-7b trained as 9(c) with its layers cut
+   by a printed reckoning (B = 4, S = 4096; 2L forward and L backward
+   launches a step, all wgmma, 0 plain; the profile with the MoE dispatch
+   and combine as entries of their own); the wgmma forward at (8, 2048, 16,
+   16, 128), (8, 2048, 32, 8, 128) and (1, 8192, 32, 8, 128) window 4096
+   beside SDPA (a band mask under the window), the plain version and the
+   bound, and the backward at (4, 4096, 16, 16, 128) beside SDPA's
+   backward.  The wall time of each phase is printed (``[wall]`` lines).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -259,6 +283,8 @@ from repro_torch.models.transformer import (  # noqa: E402
 from repro_torch.distributed.compression import (  # noqa: E402
     int8_compress, int8_decompress, topk_compress)
 from repro_torch.models import attention as attention_module  # noqa: E402
+from repro_torch.models import moe as moe_module  # noqa: E402
+from repro_torch.models.transformer import forward as model_forward  # noqa: E402
 from repro_torch.models.transformer import init_params  # noqa: E402
 from repro_torch.serve import elasticity_service  # noqa: E402
 from repro_torch.serve.chunk_policy import SchedulerTrace, make_chunk_policy  # noqa: E402
@@ -420,6 +446,22 @@ TRAIN_LINE = re.compile(r"\[train\] step +(\d+) loss (\S+) gnorm (\S+) lr (\S+) 
 SLICE_ARCHS = ("granite-8b", "qwen3-32b", "qwen1.5-32b", "qwen2-vl-7b", "musicgen-medium")
 SLICE_BATCHES, SLICE_SPARE = (8, 4, 2, 1), 3e9
 SLICE_TRAIN_ARCH, SLICE_TRAIN_BATCHES = "musicgen-medium", (4, 2, 1)
+# Phase 11: the mixtures of experts at full width in bf16.  olmoe-1b-7b serves
+# 8 x (SERVE_PROMPT + SERVE_NEW) at full depth; mixtral-8x7b's 93 GB of weights
+# do not fit the card, so its layers are cut to the most that the printed
+# reckoning fits (with SLICE_SPARE to spare) for both of its request sets, 8 x
+# (SERVE_PROMPT + SERVE_NEW) and 1 x (MOE_LONG_PROMPT + SERVE_NEW), the second
+# past its 4096-token window.  olmoe-1b-7b trains at train_4k's sequence, its
+# global batch cut to MOE_TRAIN_BATCH and its layers to the most that fit.
+# Each reduced configuration holds card against CPU, also at MOE_DROP_CF,
+# where assignments are dropped; a reduced train step repeats bitwise.
+MOE_SERVE_ARCH, MOE_CUT_ARCH, MOE_LONG_PROMPT = "olmoe-1b-7b", "mixtral-8x7b", 8192
+MOE_TRAIN_ARCH, MOE_TRAIN_BATCH, MOE_DROP_CF = "olmoe-1b-7b", 4, 0.25
+# The flash kernels at the new shapes: (name, (B, S, H, K, D), window).
+MOE_FLASH_TIMES = [("olmoe-1b-7b", (8, SERVE_PROMPT, 16, 16, 128), None),
+                   ("mixtral-8x7b", (8, SERVE_PROMPT, 32, 8, 128), None),
+                   ("mixtral-8x7b", (1, MOE_LONG_PROMPT, 32, 8, 128), 4096)]
+MOE_BWD_SHAPE = (MOE_TRAIN_BATCH, TRAIN_SEQ, 16, 16, 128)
 # Gradient compression on the card: int8 and top-k of one tensor bitwise as
 # on the CPU, and one reduced-width train step with int8 compression from
 # one state (losses and parameters to 1e-4).
@@ -624,13 +666,21 @@ def flash_inputs(B, S, H, K, D, dtype, gen, pad: int = 0) -> tuple:
     return q[..., :D], k[..., :D], v[..., :D]
 
 
-def flash_bound(q, k, v) -> tuple[float, str]:
+def band_pairs(S: int, window=None) -> int:
+    """(query, key) pairs a causal call scores: S(S+1)/2, or under a window
+    W each query's min(i + 1, W) keys."""
+    if window is None or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def flash_bound(q, k, v, window=None) -> tuple[float, str]:
     """Least time for one causal call: the larger of bytes over the memory
-    rate (q, k, v read once, o written once) and the causal band's
-    operations, 4 B H D S(S+1)/2, over the dtype's peak rate."""
+    rate (q, k, v read once, o written once) and the band's operations,
+    4 B H D x its (query, key) pairs, over the dtype's peak rate."""
     B, S, H, D = q.shape
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    flops = 4 * B * H * D * S * (S + 1) / 2
+    flops = 4 * B * H * D * band_pairs(S, window)
     t_bytes = nbytes / MEM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[q.dtype]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
@@ -679,17 +729,18 @@ def numpy_tree(tree):
     return tree.cpu().numpy()
 
 
-def serve_full_width(cfg, batch: int, rng, card: str) -> dict[str, tuple[int, int]]:
-    """A serve path at full width in bf16, counted (phases 6 and 10): the
-    engine draws seeded random weights on the card (the init's peak memory
-    against the weights' bytes is printed: each stacked leaf is allocated
-    once), then ``batch`` requests of SERVE_PROMPT prompt tokens (codebook
-    models: (SERVE_PROMPT, n_cb)) generate SERVE_NEW greedy tokens each,
+def serve_full_width(cfg, batch: int, rng, card: str,
+                     prompt: int = SERVE_PROMPT) -> dict[str, tuple[int, int]]:
+    """A serve path at full width in bf16, counted (phases 6, 10 and 11):
+    the engine draws seeded random weights on the card (the init's peak
+    memory against the weights' bytes is printed: each stacked leaf is
+    allocated once), then ``batch`` requests of ``prompt`` tokens (codebook
+    models: (prompt, n_cb)) generate SERVE_NEW greedy tokens each,
     with every count zeroed just before and read just after: n_layers flash
     launches per prefill batch, all on wgmma, no plain call.  A 2-token
     warm-up at the same shapes (cuBLAS's first calls pick their kernels),
-    its prompts cut to 2048 - 32 i tokens so that the batch is left-padded
-    to 2048, keeps the q/k/v that the first and the last layer give the
+    its prompts cut to ``prompt`` - 32 i tokens so that the batch is
+    left-padded to ``prompt``, keeps the q/k/v that the first and the last layer give the
     kernel (after qk-norm and (M-)RoPE, as the model gives them); once the
     engine is freed, the kernel's output on them is held against the plain
     version (1e-2 per-row relative).  Returns the counted run's counts."""
@@ -698,7 +749,7 @@ def serve_full_width(cfg, batch: int, rng, card: str) -> dict[str, tuple[int, in
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    eng = ServeEngine(cfg, max_len=SERVE_PROMPT + SERVE_NEW + 8, max_batch=batch, seed=SEED,
+    eng = ServeEngine(cfg, max_len=prompt + SERVE_NEW + 8, max_batch=batch, seed=SEED,
                       device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -716,7 +767,7 @@ def serve_full_width(cfg, batch: int, rng, card: str) -> dict[str, tuple[int, in
         raise SystemExit(f"{cfg.name}: init_params peaked at {init_peak} B, above the weights "
                          f"{weights} B and one leaf's draw {transient} B")
     cb = (cfg.n_codebooks,) if cfg.n_codebooks else ()
-    reqs = [Request(prompt=rng.integers(0, cfg.vocab, (SERVE_PROMPT,) + cb).astype(np.int32),
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab, (prompt,) + cb).astype(np.int32),
                     max_new_tokens=SERVE_NEW) for _ in range(batch)]
     kept, inner = capture_flash_inputs({0, cfg.n_layers - 1})
     try:
@@ -737,8 +788,10 @@ def serve_full_width(cfg, batch: int, rng, card: str) -> dict[str, tuple[int, in
     print(f"[serve] {cfg.name} {cfg.dtype} L={cfg.n_layers} d={cfg.d_model} "
           f"H={cfg.n_heads} K={cfg.n_kv_heads} hd={cfg.head_dim_} vocab={cfg.vocab}"
           f"{f' codebooks={cfg.n_codebooks}' if cfg.n_codebooks else ''}"
-          f"{f' vision tokens={cfg.n_vision_tokens}' if cfg.n_vision_tokens else ''}: "
-          f"{len(reqs)} requests x {SERVE_PROMPT} prompt tokens, {SERVE_NEW} new")
+          f"{f' vision tokens={cfg.n_vision_tokens}' if cfg.n_vision_tokens else ''}"
+          f"{f' experts={cfg.n_experts} top_k={cfg.top_k} d_ff={cfg.d_ff}' if cfg.is_moe else ''}"
+          f"{f' window={cfg.sliding_window}' if cfg.sliding_window else ''}: "
+          f"{len(reqs)} requests x {prompt} prompt tokens, {SERVE_NEW} new")
     print(f"[serve] {cfg.name} prefill {st.prefill_s} s ({st.prompt_tokens / st.prefill_s} "
           f"prompt tok/s, {st.prefill_batches} batches), decode {st.decode_s} s "
           f"({st.decode_tokens / st.decode_s} decode tok/s, {st.decode_steps} steps), "
@@ -1797,11 +1850,14 @@ def bwd_entry(t: dict, route: str, max_abs_err: float) -> dict:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library"]}
 
 
-def train_full_width(card: str, arch: str = TRAIN_ARCH, batch: int = TRAIN_BATCH) -> int:
-    """Phase 9(c) (and 10 for musicgen-medium): train_loop at full width in
-    bf16, train_4k's sequence with its batch cut to ``batch``, each step
-    counted; returns the wgmma backward's launches over the run."""
-    cfg = get_config(arch)
+def train_full_width(card: str, arch: str = TRAIN_ARCH, batch: int = TRAIN_BATCH,
+                     cfg=None) -> int:
+    """Phase 9(c) (and 10 for musicgen-medium, 11 for olmoe-1b-7b): train_loop
+    at full width in bf16, train_4k's sequence with its batch cut to
+    ``batch``, each step counted; ``cfg``: the architecture's configuration
+    with its layers cut (default: all of them).  Returns the wgmma
+    backward's launches over the run."""
+    cfg = cfg or get_config(arch)
     shape = ShapeConfig(f"train_4k, global batch 256 cut to {batch}", "train", TRAIN_SEQ, batch)
     per_step = []
 
@@ -1836,13 +1892,15 @@ def train_full_width(card: str, arch: str = TRAIN_ARCH, batch: int = TRAIN_BATCH
     N, T = cfg.n_active_params(), batch * TRAIN_SEQ
     B, S, H, D = batch, TRAIN_SEQ, cfg.n_heads, cfg.head_dim_
     attn = 4 * B * H * D * S * (S + 1) / 2 * L  # causal forward, every layer
-    model_flops = model_flops_estimate(arch, shape) + 3 * attn  # 6 N T + 3 x attention
+    model_flops = model_flops_estimate(cfg, shape) + 3 * attn  # 6 N T + 3 x attention
     run_flops = 8 * N * T + (2 + 3.5) * attn  # remat's recompute; this backward's 7 products
     step_s = statistics.median(m["step_s"] for m in timed)
     peak = PEAK_FLOPS[torch.bfloat16]
     print(f"[train] {cfg.name} bf16 L={L} d={cfg.d_model} H={cfg.n_heads} K={cfg.n_kv_heads} "
           f"hd={cfg.head_dim_} vocab={cfg.vocab}"
-          f"{f' codebooks={cfg.n_codebooks}' if cfg.n_codebooks else ''} N={N}: B={batch} "
+          f"{f' codebooks={cfg.n_codebooks}' if cfg.n_codebooks else ''}"
+          f"{f' experts={cfg.n_experts} top_k={cfg.top_k} (N active)' if cfg.is_moe else ''} "
+          f"N={N}: B={batch} "
           f"S={TRAIN_SEQ} (train_4k's sequence; its global batch 256 cut to {batch}); timed steps "
           f"2-{TRAIN_STEPS}: step s {[m['step_s'] for m in timed]}, median {step_s} s, "
           f"{T / step_s} tokens/s, peak {max(m['peak_gib'] for m in history)} GiB; warm-up "
@@ -1863,8 +1921,10 @@ def train_full_width(card: str, arch: str = TRAIN_ARCH, batch: int = TRAIN_BATCH
         torch.cuda.synchronize()
 
     t0 = time.perf_counter()
-    ms, count, busy, top = device_time_by_category(one_step, TRAIN_CATEGORIES,
-                                                   {"AdamW": "train.optimizer"},
+    ranges = {"AdamW": "train.optimizer"}
+    if cfg.is_moe:  # the forward's ranges, their recompute and their backward
+        ranges.update({"MoE dispatch": "moe.dispatch", "MoE combine": "moe.combine"})
+    ms, count, busy, top = device_time_by_category(one_step, TRAIN_CATEGORIES, ranges,
                                                    other="elementwise/copies")
     host_ms = (time.perf_counter() - t0) * 1e3
     parts = ", ".join(f"{c} {ms[c]} ms ({100 * ms[c] / busy:.1f}%, x{count[c]})" for c in ms)
@@ -2100,7 +2160,7 @@ def serve_batch_cut(cfg, card: str) -> int:
     """The largest batch of SLICE_BATCHES whose reckoned peak fits the card's
     free memory with SLICE_SPARE to spare: the bf16 weights, the KV cache
     (L x 2 x K x hd x 2 B a token, SERVE_PROMPT + SERVE_NEW + 8 tokens a row)
-    and prefill's largest transients (about 3 x tokens x d_ff x 2 B); each
+    and prefill's largest transients (:func:`ffn_transients`); each
     candidate's reckoning is printed."""
     gc.collect()
     torch.cuda.empty_cache()
@@ -2109,7 +2169,7 @@ def serve_batch_cut(cfg, card: str) -> int:
     per_token = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim_ * 2
     for B in SLICE_BATCHES:
         cache = per_token * B * (SERVE_PROMPT + SERVE_NEW + 8)
-        transient = 3 * B * SERVE_PROMPT * cfg.d_ff * 2
+        transient = ffn_transients(cfg, B, SERVE_PROMPT)
         need = weights + cache + transient
         fits = need + SLICE_SPARE <= free
         print(f"[serve] {cfg.name} batch {B}: weights {weights / 1e9:.2f} GB + KV cache "
@@ -2208,28 +2268,63 @@ def compression_check(card: str) -> None:
 
 
 def flash_serve_times(shapes: list, card: str) -> None:
-    """The wgmma forward at each phase 10 serve shape (B, 2048, H, K, D)
-    bf16, in turns with SDPA (median of 5 rounds of 10), the plain version
-    apart (median of 3 rounds of 1), beside the bound."""
+    """The wgmma forward at each serve shape (name, (B, S, H, K, D),
+    window) bf16, held against the plain version, then in turns with SDPA
+    (median of 5 rounds of 10; under a window SDPA takes the band as a
+    boolean mask), the plain version apart (median of 3 rounds of 1),
+    beside the bound."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    for name, (B, S, H, K, D) in shapes:
+    for name, (B, S, H, K, D), window in shapes:
         args = flash_inputs(B, S, H, K, D, torch.bfloat16, gen)
         if flash_ops.route(*args) != "wgmma":
             raise SystemExit(f"{name}'s timing inputs do not take the wgmma route")
+        err, row, ok = flash_check(flash_ops.flash_attention(*args, window=window),
+                                   flash_ref(*args, window=window), torch.bfloat16)
+        if not ok:
+            raise SystemExit(f"the wgmma forward disagrees with its plain version at {name}'s "
+                             f"serve shape: {err}, row {row}")
         sdpa_args = [t.transpose(1, 2).contiguous() for t in args]
+        sdpa_kw = {"is_causal": True}
+        if window is not None:
+            i = torch.arange(S, device="cuda")
+            sdpa_kw = {"attn_mask": (i[:, None] >= i[None]) & (i[:, None] - i[None] < window)}
         t = event_ms({
-            "wgmma": lambda: flash_ops.launch("wgmma", *args),
-            "sdpa": lambda: F.scaled_dot_product_attention(*sdpa_args, is_causal=True,
-                                                           enable_gqa=True),
+            "wgmma": lambda: flash_ops.launch("wgmma", *args, window=window),
+            "sdpa": lambda: F.scaled_dot_product_attention(*sdpa_args, enable_gqa=True,
+                                                           **sdpa_kw),
         }, n=10, rounds=5)
-        plain = event_ms({"plain": lambda: flash_ref(*args)}, n=1, rounds=3)["plain"]
-        bound_ms, bound_by = flash_bound(*args)
+        plain = event_ms({"plain": lambda: flash_ref(*args, window=window)}, n=1,
+                         rounds=3)["plain"]
+        bound_ms, bound_by = flash_bound(*args, window=window)
         print(f"[time] flash_attention {name} serve shape (B,S,H,K,D)=({B},{S},{H},{K},{D}) "
-              f"bf16, in turns, median of 5 rounds of 10: wgmma {t['wgmma']} ms, SDPA "
+              f"window={window} bf16 (max abs err {err:.3e}, max row rel err {row:.3e}), in "
+              f"turns, median of 5 rounds of 10: wgmma {t['wgmma']} ms, SDPA "
               f"{t['sdpa']} ms ({t['wgmma'] / t['sdpa']}x SDPA's time), plain {plain} ms; bound "
               f"{bound_ms} ms ({bound_by}): {100 * bound_ms / t['wgmma']}% of bound ({card})")
-        del args, sdpa_args
+        del args, sdpa_args, sdpa_kw
         torch.cuda.empty_cache()
+
+
+def bwd_time_at(name: str, shape: tuple, card: str) -> None:
+    """The backward at a training shape on unit-normal inputs: held against
+    its plain version, then timed (:func:`bwd_times`) beside SDPA's
+    backward, the plain version and the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v, o, lse, do = bwd_inputs(*shape, torch.bfloat16, gen)
+    want = flash_bwd_ref(q, k, v, o, do)
+    _, rel, row = flash_bwd_errors(flash_ops.flash_attention_bwd(q, k, v, o, do, lse=lse), want)
+    del want
+    t = bwd_times(q, k, v, o, do, lse, ("wgmma", "mma_sync"))
+    print(f"[train] flash backward {name} training shape (B,S,H,K,D)={shape} bf16: of max "
+          f"|plain| {rel:.3e}, max row err {row:.3e}; in turns, median of 5 rounds of 10: wgmma "
+          f"{t['wgmma']} ms, mma_sync {t['mma_sync']} ms; SDPA backward {t['library']} ms; "
+          f"plain {t['plain']} ms; bound {t['bound_ms']} ms ({t['bound_by']}): wgmma "
+          f"{100 * t['bound_ms'] / t['wgmma']}% of bound, {t['wgmma'] / t['library']}x SDPA's "
+          f"backward ({card})")
+    if rel > BWD_TOL[torch.bfloat16] or row > BWD_ROW_REL:
+        raise SystemExit(f"the backward disagrees with its plain version at {shape}")
+    del q, k, v, o, lse, do
+    torch.cuda.empty_cache()
 
 
 def slice_phase(card: str) -> None:
@@ -2249,31 +2344,237 @@ def slice_phase(card: str) -> None:
         serve_full_width(cfg, B, rng, card)
         small_serve_check(arch, rng)
         train_small_check(card, arch)
-        shapes.append((cfg.name, (B, SERVE_PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_)))
+        shapes.append((cfg.name, (B, SERVE_PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_),
+                       None))
         print(f"[serve] {cfg.name} wall {time.perf_counter() - t0} s ({card})")
     cfg = get_config(SLICE_TRAIN_ARCH)
     B = train_batch_cut(cfg, card)
     train_full_width(card, SLICE_TRAIN_ARCH, B)
     compression_check(card)
     flash_serve_times(shapes, card)
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    shape = (B, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_)
-    q, k, v, o, lse, do = bwd_inputs(*shape, torch.bfloat16, gen)
-    want = flash_bwd_ref(q, k, v, o, do)
-    _, rel, row = flash_bwd_errors(flash_ops.flash_attention_bwd(q, k, v, o, do, lse=lse), want)
-    del want
-    t = bwd_times(q, k, v, o, do, lse, ("wgmma", "mma_sync"))
-    print(f"[train] flash backward {cfg.name} training shape (B,S,H,K,D)={shape} bf16: of max "
-          f"|plain| {rel:.3e}, max row err {row:.3e}; in turns, median of 5 rounds of 10: wgmma "
-          f"{t['wgmma']} ms, mma_sync {t['mma_sync']} ms; SDPA backward {t['library']} ms; "
-          f"plain {t['plain']} ms; bound {t['bound_ms']} ms ({t['bound_by']}): wgmma "
-          f"{100 * t['bound_ms'] / t['wgmma']}% of bound, {t['wgmma'] / t['library']}x SDPA's "
-          f"backward ({card})")
-    if rel > BWD_TOL[torch.bfloat16] or row > BWD_ROW_REL:
-        raise SystemExit(f"the backward disagrees with its plain version at {shape}")
-    del q, k, v, o, lse, do
-    torch.cuda.empty_cache()
+    bwd_time_at(cfg.name, (B, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_), card)
     print(f"[slice] phase wall {time.perf_counter() - t_phase} s ({card})")
+
+
+def ffn_transients(cfg, B: int, S: int) -> int:
+    """Bytes of a prefill's largest transients in one block at (B, S), bf16.
+    A dense MLP: its three (B S, d_ff) tensors.  An MoE
+    (:mod:`repro_torch.models.moe`): the (E, B, cap + 1) buffers (its
+    input and output rows, d each; the expert intermediates g, u, silu(g)
+    and h, d_ff each), the B S k assignment rows (expanded, masked,
+    gathered, weighted: d each) and the one-hot and its exclusive cumsum
+    (bool and two int32 per assignment and expert)."""
+    if not cfg.is_moe:
+        return 3 * B * S * cfg.d_ff * 2
+    E, k, d = cfg.n_experts, cfg.top_k, cfg.d_model
+    buffers = B * E * (moe_module.capacity(cfg, S) + 1) * (2 * d + 4 * cfg.d_ff) * 2
+    return buffers + 4 * B * S * k * d * 2 + B * S * k * E * 9
+
+
+def serve_layer_cut(cfg, request_sets: list, card: str):
+    """``cfg`` with the most layers (at most its own) whose reckoned serve
+    peak fits the card's free memory with SLICE_SPARE to spare for every
+    (batch, prompt) of ``request_sets``: the bf16 weights, and the larger of
+    the init's largest transient (one stacked leaf's f32 draw beside its
+    bf16 cast) and the KV cache (a rolling window's slots under SWA) plus
+    the prefill's transients (:func:`ffn_transients`); each candidate's
+    reckoning is printed."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    per_slot = 2 * cfg.n_kv_heads * cfg.head_dim_ * 2  # k and v of one layer, bf16
+    for L in range(cfg.n_layers, 0, -1):
+        cut = dataclasses.replace(cfg, n_layers=L)
+        shapes = param_shapes(cut)
+        weights = 2 * sum(math.prod(sh) for sh in _leaves(shapes))
+        init = max([4 * math.prod(shapes[k]) for k in ("embed", "lm_head") if k in shapes]
+                   + [6 * math.prod(sh[1:]) for sh in _leaves(shapes["blocks"])])
+        needs = []
+        for B, prompt in request_sets:
+            slots = prompt + SERVE_NEW + 8
+            if cfg.sliding_window:
+                slots = min(slots, cfg.sliding_window)
+            cache = L * per_slot * B * slots
+            needs.append((B, prompt, cache, ffn_transients(cut, B, prompt)))
+        need = weights + max([init] + [c + t for _, _, c, t in needs])
+        fits = need + SLICE_SPARE <= free
+        sets = "; ".join(f"{B} x {prompt}: KV cache {c / 1e9:.2f} GB + prefill transients "
+                         f"{t / 1e9:.2f} GB" for B, prompt, c, t in needs)
+        print(f"[serve] {cfg.name} {L} of {cfg.n_layers} layers: weights {weights / 1e9:.2f} GB "
+              f"+ the larger of init's transient {init / 1e9:.2f} GB and ({sets}) = "
+              f"{need / 1e9:.2f} GB; {free / 1e9:.2f} GB free of {total / 1e9:.2f} GB: "
+              f"{'fits' if fits else 'does not fit'} ({SLICE_SPARE / 1e9:.0f} GB spare "
+              f"wanted) ({card})")
+        if fits:
+            return cut
+    raise SystemExit(f"{cfg.name}: not even one layer serves on the card")
+
+
+def train_layer_cut(cfg, batch: int, card: str):
+    """``cfg`` with the most layers (at most its own) whose reckoned training
+    peak at ``batch`` x TRAIN_SEQ fits the card's free memory with
+    SLICE_SPARE to spare: bf16 parameters and gradients and f32 AdamW moments
+    (12 B a parameter), the largest stacked leaf's gradient once more (the
+    layers' gradients are stacked at the end of the backward), every block's
+    input kept under remat, one block's recompute and backward (its FFN
+    transients, whose buffers the backward frees as it consumes them, and
+    its attention's four (T, H hd) bf16 tensors) and a loss chunk's f32
+    logits three times (logits, softmax, gradient).  AdamW
+    updates a large stacked leaf one layer at a time (its f32 temporaries
+    are a layer's, not counted).  Each candidate is printed."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    T = batch * TRAIN_SEQ
+    for L in range(cfg.n_layers, 0, -1):
+        cut = dataclasses.replace(cfg, n_layers=L)
+        shapes = param_shapes(cut)
+        n = sum(math.prod(sh) for sh in _leaves(shapes))
+        state = 12 * n
+        stack = 2 * max(math.prod(sh) for sh in _leaves(shapes["blocks"]))
+        saved = L * T * cfg.d_model * 2
+        block = ffn_transients(cut, batch, TRAIN_SEQ) + 4 * T * cfg.n_heads * cfg.head_dim_ * 2
+        ce = 3 * batch * min(LOSS_CHUNK, TRAIN_SEQ) * cfg.vocab * 4
+        need = state + stack + saved + block + ce
+        fits = need + SLICE_SPARE <= free
+        print(f"[train] {cfg.name} {L} of {cfg.n_layers} layers, batch {batch} x {TRAIN_SEQ}: "
+              f"state {state / 1e9:.2f} GB ({n} parameters) + stacked gradient "
+              f"{stack / 1e9:.2f} GB + remat inputs {saved / 1e9:.2f} GB + one block "
+              f"{block / 1e9:.2f} GB + loss chunk {ce / 1e9:.2f} GB = {need / 1e9:.2f} GB; "
+              f"{free / 1e9:.2f} GB free of {total / 1e9:.2f} GB: "
+              f"{'fits' if fits else 'does not fit'} ({card})")
+        if fits:
+            return cut
+    raise SystemExit(f"{cfg.name}: not even one layer trains on the card")
+
+
+def record_routes() -> tuple[list, object]:
+    """Wrap the MoE module's router to keep each call's expert ids (on the
+    host); returns the list and the wrapped function, to put back."""
+    kept, inner = [], moe_module.route
+
+    def keeping(params, x, cfg):
+        out = inner(params, x, cfg)
+        kept.append(out[2].cpu())
+        return out
+
+    moe_module.route = keeping
+    return kept, inner
+
+
+def moe_small_check(arch: str, card: str) -> None:
+    """The reduced configuration of ``arch`` in f32, card against CPU from
+    one set of weights, at its capacity factor and at MOE_DROP_CF (where
+    assignments are dropped): a forward of a TRAIN_SMALL_SHAPE batch gives
+    every layer's expert ids and dropped assignments identical, and hidden
+    states within SMALL_SERVE_REL of max.  Then one moe_apply forward and
+    backward on the card under ``torch.cuda.set_sync_debug_mode("error")``:
+    the MoE path makes no host sync."""
+    for cf in (get_reduced(arch).capacity_factor, MOE_DROP_CF):
+        cfg = dataclasses.replace(get_reduced(arch), dtype="float32", capacity_factor=cf)
+        host = numpy_tree(init_params(torch.Generator().manual_seed(SEED), cfg))
+        tokens = make_batch(cfg, TRAIN_SMALL_SHAPE, 0, SEED)["tokens"]
+        cap = moe_module.capacity(cfg, tokens.shape[1])
+        out = {}
+        for dev in ("cuda", "cpu"):
+            kept, inner = record_routes()
+            try:
+                with torch.no_grad():
+                    hidden, _ = model_forward(lm_params(host, cfg, device=dev),
+                                              {"tokens": torch.from_numpy(tokens).to(dev)}, cfg)
+            finally:
+                moe_module.route = inner
+            drops = [(~moe_module.slots(ids, cfg.n_experts, cap)[2]).nonzero().tolist()
+                     for ids in kept]
+            out[dev] = (hidden.cpu(), kept, drops)
+        (h_c, ids_c, dr_c), (h_h, ids_h, dr_h) = out["cuda"], out["cpu"]
+        same_ids = len(ids_c) == cfg.n_layers and all(
+            torch.equal(a, b) for a, b in zip(ids_c, ids_h))
+        rel = float((h_c - h_h).abs().max() / h_h.abs().max())
+        n_drop = [len(d) for d in dr_h]
+        print(f"[moe] {cfg.name} f32 capacity factor {cf} (cap {cap} of {tokens.shape[1]} "
+              f"tokens x top {cfg.top_k} over {cfg.n_experts} experts a row), card vs CPU: "
+              f"expert ids of each layer {'identical' if same_ids else 'DIFFER'}, dropped "
+              f"assignments a layer {n_drop} {'identical' if dr_c == dr_h else 'DIFFER'}, "
+              f"hidden max diff {rel:.3e} of max ({card})")
+        if not same_ids or dr_c != dr_h or rel > SMALL_SERVE_REL:
+            raise SystemExit(f"the MoE of {cfg.name} on the card disagrees with the CPU")
+        if cf == MOE_DROP_CF and not any(n_drop):
+            raise SystemExit(f"{cfg.name} at capacity factor {cf} dropped no assignment")
+    params = {k: v.cuda().requires_grad_(True) for k, v in
+              moe_module.moe_init(torch.Generator().manual_seed(SEED), cfg, torch.float32).items()}
+    x = torch.randn((2, 64, cfg.d_model), device="cuda", requires_grad=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, aux = moe_module.moe_apply(params, x, cfg)
+        grads = torch.autograd.grad(y.square().sum() + aux, [x, *params.values()])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print(f"[moe] {cfg.name} moe_apply forward and backward on the card under sync debug mode "
+          f"'error': no host sync ({len(grads)} gradients)")
+
+
+def moe_repeat_check(card: str) -> None:
+    """One reduced MoE_TRAIN_ARCH train step in bf16, at its capacity factor
+    and at MOE_DROP_CF, run twice on the card from one state: the loss, the
+    gradients, and the updated parameters and moments bitwise equal."""
+    for cf in (get_reduced(MOE_TRAIN_ARCH).capacity_factor, MOE_DROP_CF):
+        cfg = dataclasses.replace(get_reduced(MOE_TRAIN_ARCH), capacity_factor=cf)
+        host = numpy_tree(_tree_map(lambda t: t.float(),
+                                    init_params(torch.Generator().manual_seed(SEED), cfg)))
+        batch = {k: torch.from_numpy(a).cuda()
+                 for k, a in make_batch(cfg, TRAIN_SMALL_SHAPE, 0, SEED).items()}
+        step = make_train_step(cfg, AdamWConfig(total_steps=3, warmup_steps=1))
+        runs = []
+        for _ in range(2):
+            state = train_state_init(None, cfg, params=lm_params(host, cfg, device="cuda"))
+            grads = torch.autograd.grad(loss_fn(state.params, batch, cfg),
+                                        list(_leaves(state.params)))
+            state, m = step(state, batch)
+            runs.append([m["loss"], *grads, *_leaves(state.params), *_leaves(state.opt_state)])
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        print(f"[moe] {cfg.name} bf16 capacity factor {cf}: one train step twice from one "
+              f"state, loss {float(runs[0][0])!r}: loss, gradients, parameters and moments "
+              f"{'bitwise equal' if same else 'DIFFER'} ({card})")
+        if not same:
+            raise SystemExit(f"an MoE train step of {cfg.name} is not bitwise repeatable")
+
+
+def moe_phase(card: str) -> None:
+    """Phase 11: olmoe-1b-7b served at full width and depth, mixtral-8x7b at
+    full width with its layers cut (8 x 2048 and 1 x 8192 past its window),
+    each counted (``serve_full_width``); each reduced configuration card
+    against CPU (serve, train, routing and drops); olmoe-1b-7b trained at
+    full width with its layers cut (``train_full_width``); a reduced MoE
+    train step repeated bitwise; the flash kernels timed at the new shapes."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 11)
+    t0 = time.perf_counter()
+    cfg = get_config(MOE_SERVE_ARCH)
+    serve_full_width(cfg, serve_batch_cut(cfg, card), rng, card)
+    print(f"[serve] {cfg.name} wall {time.perf_counter() - t0} s ({card})")
+    t0 = time.perf_counter()
+    full = get_config(MOE_CUT_ARCH)
+    cfg = serve_layer_cut(full, [(SERVE_REQUESTS, SERVE_PROMPT), (1, MOE_LONG_PROMPT)], card)
+    print(f"[serve] {cfg.name} layers cut {full.n_layers} -> {cfg.n_layers} by the reckoning "
+          f"above ({card})")
+    serve_full_width(cfg, SERVE_REQUESTS, rng, card)
+    serve_full_width(cfg, 1, rng, card, prompt=MOE_LONG_PROMPT)
+    print(f"[serve] {cfg.name} wall {time.perf_counter() - t0} s ({card})")
+    t0 = time.perf_counter()
+    for arch in (MOE_SERVE_ARCH, MOE_CUT_ARCH):
+        small_serve_check(arch, rng)
+        train_small_check(card, arch)
+        moe_small_check(arch, card)
+    moe_repeat_check(card)
+    print(f"[moe] card against CPU and the bitwise repeat: wall {time.perf_counter() - t0} s "
+          f"({card})")
+    cfg = train_layer_cut(get_config(MOE_TRAIN_ARCH), MOE_TRAIN_BATCH, card)
+    train_full_width(card, MOE_TRAIN_ARCH, MOE_TRAIN_BATCH, cfg=cfg)
+    flash_serve_times(MOE_FLASH_TIMES, card)
+    bwd_time_at(MOE_TRAIN_ARCH, MOE_BWD_SHAPE, card)
+    print(f"[moe] phase wall {time.perf_counter() - t_phase} s ({card})")
 
 
 def main() -> int:
@@ -2529,6 +2830,10 @@ def main() -> int:
     # gradient compression
     slice_phase(card)
     wall("10 (granite-8b, qwen3-32b, qwen1.5-32b, qwen2-vl-7b, musicgen-medium)")
+
+    # ---- 11. the mixtures of experts: olmoe-1b-7b and mixtral-8x7b
+    moe_phase(card)
+    wall("11 (olmoe-1b-7b, mixtral-8x7b)")
 
     kernels = [
         {

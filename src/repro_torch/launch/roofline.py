@@ -24,7 +24,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.configs.base import SHAPES, ShapeConfig, get_config
+from repro_torch.configs.base import SHAPES, ArchConfig, ShapeConfig, get_config
 
 __all__ = ["HardwareSpec", "H100_SXM", "MeasuredPlacement", "place_measured",
            "model_flops_estimate"]
@@ -114,16 +114,19 @@ def place_measured(
     )
 
 
-def model_flops_estimate(arch: str, shape: str | ShapeConfig, meta: dict | None = None) -> float:
+def model_flops_estimate(arch: str | ArchConfig, shape: str | ShapeConfig,
+                         meta: dict | None = None) -> float:
     """Useful FLOPs of one step of ``shape`` (a ``SHAPES`` name, or a
     ``ShapeConfig`` such as a cut batch): 6 N T to train, 2 N T to prefill,
-    2 N a row to decode, N = ``n_active_params()`` and T = seq_len x
-    global_batch.  ``arch == "elasticity"``: ``meta``'s ``flops_per_elem``
-    x ``nelem`` (0 where absent), as in the reference."""
+    2 N a row to decode, N = ``n_active_params()`` (an MoE counts top_k of
+    its n_experts) and T = seq_len x global_batch.  ``arch`` is an
+    architecture id or an ``ArchConfig`` (such as one with its layers cut).
+    ``arch == "elasticity"``: ``meta``'s ``flops_per_elem`` x ``nelem`` (0
+    where absent), as in the reference."""
     if arch == "elasticity":
         meta = meta or {}
         return meta.get("flops_per_elem", 0.0) * meta.get("nelem", 0)
-    n = get_config(arch).n_active_params()
+    n = (arch if isinstance(arch, ArchConfig) else get_config(arch)).n_active_params()
     shape = SHAPES[shape] if isinstance(shape, str) else shape
     if shape.kind == "train":
         return 6.0 * n * shape.seq_len * shape.global_batch

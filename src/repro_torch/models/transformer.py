@@ -1,5 +1,5 @@
-"""Model assembly for the dense attention family: init, forward (the
-training path, with a rematerialized block loop and the chunked LM-head
+"""Model assembly for the attention family: init, forward (the training
+path, with a rematerialized block loop and the chunked LM-head
 cross-entropy), prefill and single-token decode.
 
 Parameters are a dict of tensors with the reference's pytree layout:
@@ -10,13 +10,14 @@ is a copy.  The layer loop is a Python loop over the stacks unbound into
 per-layer views (the reference's ``lax.scan``); ``torch.unbind``'s gradient
 stacks the layers' gradients once.
 
-Ported: ``block_pattern == "attn"`` without experts, with RoPE, M-RoPE
-(the VLM stub: ``vision_embeds`` over the first ``n_vision_tokens``
-positions, laid out on a (t, h, w) grid) or sinusoidal positions, and with
-one token stream or ``n_codebooks`` of them (summed embeddings, one head a
-codebook, the CE averaged over codebooks).  MoE and the recurrent block
-patterns (Mamba2/zamba2, xLSTM) raise ``NotImplementedError`` naming
-ROADMAP.md, Queue 1 item 11.
+Ported: ``block_pattern == "attn"``, with a dense MLP or a mixture of
+experts (:mod:`repro_torch.models.moe`, whose auxiliary loss the forward
+sums over the layers), with RoPE, M-RoPE (the VLM stub: ``vision_embeds``
+over the first ``n_vision_tokens`` positions, laid out on a (t, h, w)
+grid) or sinusoidal positions, and with one token stream or
+``n_codebooks`` of them (summed embeddings, one head a codebook, the CE
+averaged over codebooks).  The recurrent block patterns (Mamba2/zamba2,
+xLSTM) raise ``NotImplementedError`` naming ROADMAP.md, Queue 1 item 11.
 
 Inputs are dicts: ``tokens`` (B, S) integer (codebooks: (B, S, n_cb)),
 ``labels`` shaped like the tokens with -1 masking a position, and for the
@@ -43,6 +44,8 @@ from repro_torch.models.common import (
     rmsnorm,
     sinusoidal_positions,
 )
+from repro_torch.models.moe import DRAWN as MOE_DRAWN
+from repro_torch.models.moe import moe_apply, moe_shapes
 
 __all__ = [
     "init_params",
@@ -78,23 +81,28 @@ def _not_ported(what: str) -> NotImplementedError:
 
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for a configuration outside the
-    ported families (the attention stack without experts)."""
+    ported families (the attention stack, dense or with experts)."""
     if cfg.block_pattern != "attn":
         raise _not_ported(f"block_pattern={cfg.block_pattern!r}")
-    if cfg.is_moe:
-        raise _not_ported("MoE (n_experts > 0)")
 
 
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
+def _ffn(p, hn, cfg):
+    """The block's MLP or its mixture of experts: (out, aux), aux 0.0 for a
+    dense MLP (no balance loss)."""
+    if cfg.is_moe:
+        return moe_apply(p["moe"], hn, cfg)
+    return mlp_apply(p["mlp"], hn, cfg.mlp_type), 0.0
+
+
 def _attn_block_apply(p, x, cfg, positions):
-    """Pre-norm attention block. Returns (x, aux, kv); aux is 0.0 for the
-    dense family (no MoE balance loss)."""
+    """Pre-norm attention block. Returns (x, aux, kv)."""
     h, kv = attention(p["attn"], rmsnorm(x, p["attn_norm"], cfg.norm_eps), cfg, positions)
     x = x + h
-    hn = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], hn, cfg.mlp_type), 0.0, kv
+    m, aux = _ffn(p, rmsnorm(x, p["mlp_norm"], cfg.norm_eps), cfg)
+    return x + m, aux, kv
 
 
 def _attn_block_decode(p, x, cfg, cache, pos: int):
@@ -104,8 +112,8 @@ def _attn_block_decode(p, x, cfg, cache, pos: int):
         p["attn"], rmsnorm(x, p["attn_norm"], cfg.norm_eps), cfg, cache, pos, rope_pos
     )
     x = x + h
-    hn = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], hn, cfg.mlp_type), cache
+    m, _ = _ffn(p, rmsnorm(x, p["mlp_norm"], cfg.norm_eps), cfg)
+    return x + m, cache
 
 
 def _tree_map(fn, tree):
@@ -132,10 +140,11 @@ def _unstack(blocks, n: int) -> list:
 # init
 # ---------------------------------------------------------------------------
 # The stacked leaves drawn from the generator, in the order of one layer's
-# draws (the attention's, then the MLP's); the others are ones (norms) or
-# zeros (biases).
+# draws (the attention's, then the MLP's or the experts'); the others are
+# ones (norms) or zeros (biases).
 _DRAWN = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
-          ("mlp", "w_gate"), ("mlp", "w_up"), ("mlp", "w_down"))
+          ("mlp", "w_gate"), ("mlp", "w_up"), ("mlp", "w_down"),
+          *(("moe", name) for name in MOE_DRAWN))
 
 
 def init_params(generator: torch.Generator, cfg) -> dict:
@@ -160,7 +169,8 @@ def init_params(generator: torch.Generator, cfg) -> dict:
             leaf.zero_()
         elif name in ("q_norm", "k_norm"):
             leaf.fill_(1)
-    drawn = [blocks[group][name] for group, name in _DRAWN if name in blocks[group]]
+    drawn = [blocks[group][name] for group, name in _DRAWN
+             if group in blocks and name in blocks[group]]
     for i in range(cfg.n_layers):
         for leaf in drawn:
             leaf[i].copy_(dense_init(generator, leaf.shape[1:], dtype))
@@ -183,14 +193,15 @@ def param_shapes(cfg) -> dict:
         attn.update(bq=(L, H * hd), bk=(L, K * hd), bv=(L, K * hd))
     if cfg.qk_norm:
         attn.update(q_norm=(L, hd), k_norm=(L, hd))
-    mlp = {"w_gate": (L, d, f)} if cfg.mlp_type == "swiglu" else {}
-    mlp.update(w_up=(L, d, f), w_down=(L, f, d))
+    blocks: dict[str, Any] = {"attn_norm": (L, d), "attn": attn, "mlp_norm": (L, d)}
+    if cfg.is_moe:
+        blocks["moe"] = {name: (L,) + sh for name, sh in moe_shapes(cfg).items()}
+    else:
+        mlp = {"w_gate": (L, d, f)} if cfg.mlp_type == "swiglu" else {}
+        mlp.update(w_up=(L, d, f), w_down=(L, f, d))
+        blocks["mlp"] = mlp
     cb = (cfg.n_codebooks,) if cfg.n_codebooks else ()
-    shapes: dict[str, Any] = {
-        "embed": cb + (V, d),
-        "blocks": {"attn_norm": (L, d), "attn": attn, "mlp_norm": (L, d), "mlp": mlp},
-        "final_norm": (d,),
-    }
+    shapes: dict[str, Any] = {"embed": cb + (V, d), "blocks": blocks, "final_norm": (d,)}
     if cfg.n_codebooks or not cfg.tie_embeddings:
         shapes["lm_head"] = cb + (d, V)
     return shapes
@@ -268,11 +279,16 @@ def _head_weight(params, cfg):
 # forward (training path): layer loop, remat per block
 # ---------------------------------------------------------------------------
 def _block_x(p, x, cfg, positions):
-    return _attn_block_apply(p, x, cfg, positions)[0]
+    """(x, aux) of one block: under remat, aux is recomputed and
+    differentiated with the block."""
+    x, aux, _ = _attn_block_apply(p, x, cfg, positions)
+    return x, aux
 
 
 def forward(params, batch, cfg, *, remat: bool = True):
-    """Run the stack; returns (hidden (B, S, d), aux_loss 0.0).
+    """Run the stack; returns (hidden (B, S, d), aux_loss): the MoE
+    balance losses summed over the layers in f32 (0.0 without experts),
+    as the reference's scan carry sums them.
 
     With ``remat`` and grad mode on, each block runs under
     ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, the
@@ -283,12 +299,14 @@ def forward(params, batch, cfg, *, remat: bool = True):
     x = _embed(params, batch, cfg)
     positions = _positions(batch, cfg)
     rematted = remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device) if cfg.is_moe else 0.0
     for p in _unstack(params["blocks"], cfg.n_layers):
         if rematted:
-            x = checkpoint(_block_x, p, x, cfg, positions, use_reentrant=False)
+            x, a = checkpoint(_block_x, p, x, cfg, positions, use_reentrant=False)
         else:
-            x = _block_x(p, x, cfg, positions)
-    return rmsnorm(x, params["final_norm"], cfg.norm_eps), 0.0
+            x, a = _block_x(p, x, cfg, positions)
+        aux = aux + a
+    return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
 
 
 # ---------------------------------------------------------------------------

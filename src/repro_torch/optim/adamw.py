@@ -9,6 +9,12 @@ and moments are overwritten, which is the port's form of the reference's
 buffer donation (parameters and moments are the largest residents of the
 card's memory).  The schedule, the bias corrections and the clip scale
 stay 0-d tensors on the parameters' device, so a step makes no host sync.
+The update is elementwise, so a leaf of more than ``SLICE_ELEMS`` elements
+is updated in chunks along its leading axis (as many rows as fit
+``SLICE_ELEMS``, at least one: a stacked leaf's layer): the same values,
+with the f32 temporaries of one chunk instead of the leaf's (five f32
+copies of an MoE's stacked expert weights would take more memory than the
+weights and both moments).
 """
 
 from __future__ import annotations
@@ -25,7 +31,10 @@ __all__ = [
     "adamw_update",
     "cosine_schedule",
     "global_norm",
+    "SLICE_ELEMS",
 ]
+
+SLICE_ELEMS = 1 << 26
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,16 +108,25 @@ def adamw_update(cfg: AdamWConfig, params, grads, opt_state):
     bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=stepf.device), stepf)
     bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=stepf.device), stepf)
 
-    def upd(p, g, m, v):
+    def upd_part(p, g, m, v, decay: bool):
         g = g.to(torch.float32) * scale
         m.mul_(b1).add_(g, alpha=1 - b1)
         v.mul_(b2).addcmul_(g, g, value=1 - b2)
         delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        # decoupled weight decay on matrices only (ndim >= 2), the usual
-        # exemption for norms and biases.
-        if p.ndim >= 2:
+        if decay:
             delta.add_(p.to(torch.float32), alpha=cfg.weight_decay)
         p.copy_(p.to(torch.float32) - lr * delta)
+
+    def upd(p, g, m, v):
+        # decoupled weight decay on matrices only (ndim >= 2 of the whole
+        # leaf), the usual exemption for norms and biases.
+        decay = p.ndim >= 2
+        if p.numel() <= SLICE_ELEMS or p.ndim < 2:
+            upd_part(p, g, m, v, decay)
+            return
+        rows = max(SLICE_ELEMS // (p.numel() // p.shape[0]), 1)
+        for i in range(0, p.shape[0], rows):
+            upd_part(p[i:i + rows], g[i:i + rows], m[i:i + rows], v[i:i + rows], decay)
 
     _tree_map(upd, params, grads, opt_state["m"], opt_state["v"])
     opt_state["step"] = step

@@ -65,7 +65,10 @@ def device_time_by_category(run, categories: dict[str, str],
     A device event goes to the category of ``ranges`` (category ->
     ``record_function`` name) whose host range saw the operator that
     launched it (matched through the profiler's correlation ids, so a
-    kernel that runs after its range ended on the host still counts there);
+    kernel that runs after its range ended on the host still counts there),
+    or whose range saw the forward operator of the autograd node that
+    launched it (matched through the node's sequence number and forward
+    thread: the backward of what ran inside a range counts there too);
     else to the first category of ``categories`` (category -> regex) that
     matches its name; else to ``other``.  The ranges' own annotation
     events on the device timeline are not counted."""
@@ -80,6 +83,7 @@ def device_time_by_category(run, categories: dict[str, str],
     annotations = {e.name() for e in cpu if e.is_user_annotation()}
     spans = [(cat, e.start_ns(), e.start_ns() + e.duration_ns())
              for cat, name in (ranges or {}).items() for e in cpu if e.name() == name]
+    backward = _backward_categories(cpu, spans) if spans else {}
     patterns = [(cat, re.compile(rx)) for cat, rx in categories.items()]
     order = [*(ranges or {}), *categories, other]
     ms, count = dict.fromkeys(order, 0.0), dict.fromkeys(order, 0)
@@ -91,7 +95,9 @@ def device_time_by_category(run, categories: dict[str, str],
                 or e.name() in annotations):
             continue
         t = launched_at.get(e.linked_correlation_id())
-        cat = next((c for c, lo, hi in spans if t is not None and lo <= t < hi), None)
+        cat = backward.get(e.linked_correlation_id())
+        if cat is None:
+            cat = next((c for c, lo, hi in spans if t is not None and lo <= t < hi), None)
         if cat is None:
             cat = next((c for c, rx in patterns if rx.search(e.name())), other)
         ms[cat] += e.duration_ns() / 1e6
@@ -102,3 +108,50 @@ def device_time_by_category(run, categories: dict[str, str],
     top = {c: sorted(((n, t, k) for n, (t, k) in d.items()), key=lambda r: -r[1])
            for c, d in names.items()}
     return ms, count, sum(ms.values()), top
+
+
+_NODE = "autograd::engine::evaluate_function: "
+
+
+def _backward_categories(cpu, spans) -> dict:
+    """{correlation id of a launch: category} for the launches whose
+    innermost enclosing autograd-recorded operator (sequence number >= 0,
+    on the launching thread) is the backward node of a forward operator
+    that ran inside one of ``spans`` (category, start, end).  A node shows
+    as ``evaluate_function: XBackward0`` around ``XBackward0``, both with
+    the node's sequence number; the operators inside run without grad
+    (sequence number -1), those of a remat recompute with grad."""
+    forward = {}
+    for e in cpu:
+        if e.sequence_nr() >= 0 and not e.name().startswith(_NODE):
+            t = e.start_ns()
+            cat = next((c for c, lo, hi in spans if lo <= t < hi), None)
+            if cat is not None:
+                forward.setdefault((e.sequence_nr(), e.start_thread_id()), cat)
+    if not forward:
+        return {}
+    # per thread, in time order: the recorded operators (they nest, so a
+    # stack holds the open ones) and the launches
+    items = []
+    for e in cpu:
+        if e.sequence_nr() >= 0:
+            items.append((e.start_thread_id(), e.start_ns(), 0, e))
+        elif e.correlation_id():
+            items.append((e.start_thread_id(), e.start_ns(), 1, e))
+    items.sort(key=lambda it: it[:3])
+    out, stack, thread = {}, [], None  # stack: (end, node key or None)
+    for tid, t, kind, e in items:
+        if tid != thread:
+            stack, thread = [], tid
+        while stack and stack[-1][0] <= t:
+            stack.pop()
+        if kind == 0:
+            key = None
+            if e.name().startswith(_NODE):
+                key = (e.sequence_nr(), e.fwd_thread_id())
+            elif stack and stack[-1][1] and stack[-1][1][0] == e.sequence_nr():
+                key = stack[-1][1]  # the node's own event inside evaluate_function
+            stack.append((e.start_ns() + e.duration_ns(), key))
+        elif stack and stack[-1][1] in forward:
+            out[e.correlation_id()] = forward[stack[-1][1]]
+    return out

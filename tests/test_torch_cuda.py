@@ -26,6 +26,7 @@ from repro_torch.kernels.pa_elasticity import build, ops
 from repro_torch.kernels.pa_elasticity.ref import paop_ref
 from repro_torch.launch.solve import solve_beam
 from repro_torch.fem.mesh import beam_hex
+from repro_torch.models import moe
 from repro_torch.models.transformer import init_params
 from repro_torch.obs.throughput import operator_throughput
 from repro_torch.serve import elasticity_service
@@ -637,3 +638,83 @@ def test_throughput_row_on_card(card):
     assert 0 < row["placement"]["fraction"] < 1
     plain = operator_throughput(4, 2, assembly="pa_baseline", device=card, repeats=1)
     assert plain["route"] == "plain" and plain["placement"]["bound"] == "compute"
+
+
+def _moe_cfg(arch, **kw):
+    return dataclasses.replace(get_reduced(arch), dtype="float32", **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cf", [1.25, 0.25])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mixtral-8x7b"])
+def test_moe_on_card_matches_cpu(card, arch, cf):
+    """moe_apply at the reduced width in f32, card against CPU: the same
+    expert ids and dropped assignments, y to 1e-5 of max |y|, aux to 1e-6."""
+    cfg = _moe_cfg(arch, capacity_factor=cf)
+    p = moe.moe_init(torch.Generator().manual_seed(1), cfg, torch.float32)
+    x = torch.randn((2, 64, cfg.d_model), generator=torch.Generator().manual_seed(2))
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        xd, pd = x.to(dev), {k: v.to(dev) for k, v in p.items()}
+        _, _, idx = moe.route(pd, xd, cfg)
+        keep = moe.slots(idx, cfg.n_experts, moe.capacity(cfg, x.shape[1]))[2]
+        y, aux = moe.moe_apply(pd, xd, cfg)
+        out[dev.type] = (idx.cpu(), keep.cpu(), y.cpu(), float(aux))
+    (ic, kc, yc, ac), (ih, kh, yh, ah) = out["cuda"], out["cpu"]
+    assert torch.equal(ic, ih) and torch.equal(kc, kh)
+    assert cf > 1 or bool((~kh).any())  # at 0.25 some assignments are dropped
+    assert float((yc - yh).abs().max()) <= 1e-5 * float(yh.abs().max())
+    assert abs(ac - ah) <= 1e-6 * abs(ah)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_train_step_is_bitwise_repeatable_on_card(card, dtype):
+    """One reduced olmoe-1b-7b train step at capacity factor 0.25 (so that
+    assignments are dropped), run twice from one state: the same loss,
+    gradients and updated parameters, bit for bit."""
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models.transformer import _leaves, loss_fn
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import make_train_step, train_state_init
+
+    cfg = dataclasses.replace(get_reduced("olmoe-1b-7b"), dtype=dtype, capacity_factor=0.25)
+    host = init_params(torch.Generator().manual_seed(0), cfg)
+    batch = {k: torch.from_numpy(a).to(card)
+             for k, a in make_batch(cfg, ShapeConfig("t", "train", 64, 2), 0).items()}
+    step = make_train_step(cfg, AdamWConfig(total_steps=3, warmup_steps=1))
+    runs = []
+    for _ in range(2):
+        state = train_state_init(None, cfg, params=lm_params(_numpy(host), cfg, device=card))
+        leaves = list(_leaves(state.params))
+        grads = torch.autograd.grad(loss_fn(state.params, batch, cfg), leaves)
+        state, m = step(state, batch)
+        runs.append((m["loss"], grads, [p.detach().clone() for p in _leaves(state.params)]))
+    (l0, g0, p0), (l1, g1, p1) = runs
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+
+
+def _numpy(t):
+    return {k: _numpy(v) for k, v in t.items()} if isinstance(t, dict) else t.float().numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mixtral-8x7b"])
+def test_small_moe_serve_on_card_matches_cpu(card, arch):
+    """The reduced MoE configurations in f32 served on the card and on the
+    CPU from the same weights: the same greedy tokens."""
+    cfg = _moe_cfg(arch)
+    arrays = _numpy(init_params(torch.Generator().manual_seed(0), cfg))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, (n,)).astype(np.int32) for n in (5, 9, 3, 12, 7)]
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        eng = ServeEngine(cfg, params=lm_params(arrays, cfg, device=dev), max_len=32,
+                          max_batch=4, device=dev)
+        reqs = [Request(prompt=p, max_new_tokens=6) for p in prompts]
+        eng.generate(reqs)
+        out[dev.type] = [r.out_tokens for r in reqs]
+    assert out["cuda"] == out["cpu"]

@@ -78,7 +78,7 @@ def test_config_is_the_references(arch):
     assert base.ARCH_IDS == ref_base.ARCH_IDS and base.ALIASES == ref_base.ALIASES
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "xlstm_125m", "olmoe-1b-7b", "elasticity"])
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm_125m", "zamba2_27b", "elasticity"])
 def test_unported_arch_raises(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         base.get_config(arch)
@@ -90,7 +90,7 @@ def test_unknown_arch_raises():
 
 
 @pytest.mark.parametrize("change", [
-    {"n_experts": 4, "top_k": 2},
+    {"block_pattern": "zamba2", "shared_attn_every": 2, "ssm_state": 16},
     {"block_pattern": "mamba2"},
     {"block_pattern": "xlstm"},
     {"block_pattern": "zamba2"},
@@ -107,7 +107,7 @@ def test_training_path_raises():
     """The training path of a family that is not ported raises, naming
     ROADMAP.md; the dense family's is held against the reference in
     tests/test_torch_train.py."""
-    cfg = _cfg(n_experts=4, top_k=2)
+    cfg = _cfg(block_pattern="mamba2")
     batch = {"tokens": torch.zeros((1, 8), dtype=torch.long),
              "labels": torch.zeros((1, 8), dtype=torch.long)}
     params = transformer.init_params(torch.Generator().manual_seed(0), _cfg())
@@ -286,6 +286,11 @@ def _stacked_init_before(generator, cfg):
             attn.update(bq=0 * ones(H * hd), bk=0 * ones(K * hd), bv=0 * ones(K * hd))
         if cfg.qk_norm:
             attn.update(q_norm=ones(hd), k_norm=ones(hd))
+        if cfg.is_moe:  # the reference's moe_init: fan-in E for the experts
+            E = cfg.n_experts
+            return {"attn_norm": ones(d), "attn": attn, "mlp_norm": ones(d),
+                    "moe": {"router": draw((d, E)), "w_gate": draw((E, d, f)),
+                            "w_up": draw((E, d, f)), "w_down": draw((E, f, d))}}
         mlp = {"w_gate": draw((d, f))} if cfg.mlp_type == "swiglu" else {}
         mlp.update(w_up=draw((d, f)), w_down=draw((f, d)))
         return {"attn_norm": ones(d), "attn": attn, "mlp_norm": ones(d), "mlp": mlp}
@@ -349,18 +354,22 @@ def _batch(cfg, toks, rng):
     return port, ref
 
 
-# qwen3-1.7b at three cache layouts (their ids as before), and every other
-# ported architecture with a dense cache
+# qwen3-1.7b at three cache layouts (their ids as before), every other
+# ported architecture with a dense cache, and mixtral-8x7b with its own
+# window (32 at the reduced width) prefilled past it
 PREFILL_CASES = [pytest.param("qwen3-1.7b", *c, id="-".join(map(str, c)))
                  for c in [(None, 12, 20), (8, 12, 20), (8, 6, 20)]]
 PREFILL_CASES += [pytest.param(a, None, 12, 20, id=f"{a}-None-12-20")
-                  for a in base.PORTED if a != "qwen3_17b"]
+                  for a in base.PORTED if a not in ("qwen3_17b", "mixtral_8x7b")]
+PREFILL_CASES.append(pytest.param("mixtral_8x7b", 32, 40, 48, id="mixtral_8x7b-32-40-48"))
 
 
 @pytest.mark.parametrize("arch,window,S,max_len", PREFILL_CASES)
 def test_prefill_and_decode_match_reference(arch, window, S, max_len):
     """window=8 with S=12 prefills past the window (the rolling cache's
-    slot = pos % size layout); S=6 stays inside it.  qwen2-vl-7b prefills
+    slot = pos % size layout); S=6 stays inside it; mixtral-8x7b's window
+    of 32 at S=40 as well.  The MoE architectures dispatch each prompt row
+    at the capacity of S tokens and each decode step at that of one.  qwen2-vl-7b prefills
     with vision embeddings over its first 8 positions and decodes at
     M-RoPE's text positions; musicgen-medium takes (B, S, 4) codebook
     tokens and gives (B, 4, V) logits."""

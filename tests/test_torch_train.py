@@ -214,6 +214,31 @@ def test_adamw_update_matches_reference(grad_scale):
     assert int(topt["step"]) == int(ropt["step"]) == 3
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adamw_update_by_slices_is_bitwise_the_whole_leafs(dtype, monkeypatch):
+    """A leaf above SLICE_ELEMS is updated in chunks of its leading axis
+    (one layer of a stacked leaf; several rows of an embedding): parameters
+    and moments bitwise those of the whole-leaf update, weight decay still
+    decided by the leaf's ndim (a stacked (L, d) norm decays, as in the
+    reference)."""
+    g = torch.Generator().manual_seed(0)
+    params = {"w": torch.randn((3, 40, 30), generator=g).to(dtype),
+              "norm": torch.randn((3, 16), generator=g).to(dtype),
+              "embed": torch.randn((25, 4), generator=g).to(dtype),
+              "b": torch.randn((20,), generator=g).to(dtype)}
+    grads = [{k: torch.randn(v.shape, generator=g).to(dtype) for k, v in params.items()}
+             for _ in range(3)]
+    out = []
+    for limit in (adamw.SLICE_ELEMS, 10):
+        monkeypatch.setattr(adamw, "SLICE_ELEMS", limit)
+        p = {k: v.clone() for k, v in params.items()}
+        opt = adamw.adamw_init(p)
+        for gr in grads:
+            adamw.adamw_update(OPT, p, gr, opt)
+        out.append([p[k] for k in p] + [opt[n][k] for n in ("m", "v") for k in p])
+    assert all(torch.equal(a, b) for a, b in zip(*out))
+
+
 # ---------------------------------------------------------------------------
 # the flash backward's plain version
 # ---------------------------------------------------------------------------
@@ -273,6 +298,12 @@ def _reduced(arch):
     return dataclasses.replace(base.get_reduced(arch), dtype="float32")
 
 
+# The reference's loss and gradients as one compiled program (op-by-op
+# dispatch compiles each primitive at each shape, about twice the time).
+_ref_value_and_grad = jax.jit(jax.value_and_grad(ref_tf.loss_fn), static_argnums=(2,),
+                              static_argnames=("remat",))
+
+
 # qwen3-1.7b's cases keep their ids; every other ported architecture's
 # reduced configuration with and without remat
 LOSS_CASES = [pytest.param("qwen3_17b", r, id=str(r)) for r in (True, False)]
@@ -288,8 +319,7 @@ def test_loss_and_grads_match_reference(arch, remat):
     rcfg, ref, port = _models(cfg)
     shape = base.ShapeConfig("t", "train", 64, 2)
     batch = pipeline.make_batch(cfg, shape, 1)
-    rloss, rgrads = jax.value_and_grad(ref_tf.loss_fn)(
-        ref, jax.tree.map(jnp.asarray, batch), rcfg, remat=remat)
+    rloss, rgrads = _ref_value_and_grad(ref, jax.tree.map(jnp.asarray, batch), rcfg, remat=remat)
     flash_ops.reset_counts()
     loss = transformer.loss_fn(port, {k: _t(v) for k, v in batch.items()}, cfg, remat=remat)
     leaves = [a for _, a in _paths(port)]
