@@ -1850,14 +1850,11 @@ def bwd_entry(t: dict, route: str, max_abs_err: float) -> dict:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library"]}
 
 
-def train_full_width(card: str, arch: str = TRAIN_ARCH, batch: int = TRAIN_BATCH,
-                     cfg=None) -> int:
+def train_full_width(card: str, cfg, batch: int) -> int:
     """Phase 9(c) (and 10 for musicgen-medium, 11 for olmoe-1b-7b): train_loop
-    at full width in bf16, train_4k's sequence with its batch cut to
-    ``batch``, each step counted; ``cfg``: the architecture's configuration
-    with its layers cut (default: all of them).  Returns the wgmma
-    backward's launches over the run."""
-    cfg = cfg or get_config(arch)
+    of ``cfg`` (at full width, its layers possibly cut) in bf16, train_4k's
+    sequence with its batch cut to ``batch``, each step counted.  Returns
+    the wgmma backward's launches over the run."""
     shape = ShapeConfig(f"train_4k, global batch 256 cut to {batch}", "train", TRAIN_SEQ, batch)
     per_step = []
 
@@ -2139,7 +2136,7 @@ def train_phase(gen, card: str) -> list[dict]:
     mma_sync route (the reduced bf16 path's, at its shape)."""
     t_phase = time.perf_counter()
     entries = {"wgmma": train_kernel_checks(gen, card)}
-    entries["wgmma"]["launches"] = train_full_width(card)
+    entries["wgmma"]["launches"] = train_full_width(card, get_config(TRAIN_ARCH), TRAIN_BATCH)
     train_small_check(card)
     train_cli_round_trip(card)
     entries["mma_sync"] = train_reduced_bf16(card)
@@ -2156,58 +2153,108 @@ def train_phase(gen, card: str) -> list[dict]:
         ("flash_attention_bwd", "mma_sync", "flash_attention_bwd.cu"))]
 
 
-def serve_batch_cut(cfg, card: str) -> int:
-    """The largest batch of SLICE_BATCHES whose reckoned peak fits the card's
-    free memory with SLICE_SPARE to spare: the bf16 weights, the KV cache
-    (L x 2 x K x hd x 2 B a token, SERVE_PROMPT + SERVE_NEW + 8 tokens a row)
-    and prefill's largest transients (:func:`ffn_transients`); each
-    candidate's reckoning is printed."""
+def first_fit(tag: str, candidates, reckon, card: str):
+    """The first of ``candidates`` ((label, value) pairs, largest first)
+    whose reckoned peak fits the card's free memory with SLICE_SPARE to
+    spare; ``reckon(value)`` gives the peak in bytes and its terms, printed
+    for each candidate tried."""
     gc.collect()
     torch.cuda.empty_cache()
     free, total = torch.cuda.mem_get_info()
-    weights = 2 * sum(math.prod(sh) for sh in _leaves(param_shapes(cfg)))
-    per_token = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim_ * 2
-    for B in SLICE_BATCHES:
-        cache = per_token * B * (SERVE_PROMPT + SERVE_NEW + 8)
-        transient = ffn_transients(cfg, B, SERVE_PROMPT)
-        need = weights + cache + transient
+    for label, value in candidates:
+        need, terms = reckon(value)
         fits = need + SLICE_SPARE <= free
-        print(f"[serve] {cfg.name} batch {B}: weights {weights / 1e9:.2f} GB + KV cache "
-              f"{cache / 1e9:.2f} GB + prefill transients {transient / 1e9:.2f} GB = "
-              f"{need / 1e9:.2f} GB; {free / 1e9:.2f} GB free of {total / 1e9:.2f} GB, "
-              f"{(free - need) / 1e9:.2f} GB to spare: {'fits' if fits else 'does not fit'} "
-              f"({SLICE_SPARE / 1e9:.0f} GB wanted) ({card})")
+        print(f"[{tag}] {label}: {terms} = {need / 1e9:.2f} GB; {free / 1e9:.2f} GB free of "
+              f"{total / 1e9:.2f} GB, {(free - need) / 1e9:.2f} GB to spare: "
+              f"{'fits' if fits else 'does not fit'} ({SLICE_SPARE / 1e9:.0f} GB wanted) ({card})")
         if fits:
-            return B
-    raise SystemExit(f"{cfg.name}: not even batch 1 fits the card")
+            return value
+    raise SystemExit(f"{label}: does not fit the card, nor does any larger candidate")
+
+
+def serve_reckoning(cfg, request_sets: list) -> tuple[int, str]:
+    """The reckoned serve peak of ``cfg`` for every (batch, prompt) of
+    ``request_sets``, in bytes, and its printed terms: the bf16 weights, and
+    the larger of the init's largest transient (one stacked leaf's f32 draw
+    beside its bf16 cast, or the embedding's f32 draw) and the KV cache
+    (L x 2 x K x hd x 2 B a slot; prompt + SERVE_NEW + 8 slots a row, a
+    rolling window's under SWA) plus the prefill's transients
+    (:func:`ffn_transients`)."""
+    shapes = param_shapes(cfg)
+    weights = 2 * sum(math.prod(sh) for sh in _leaves(shapes))
+    init = max([4 * math.prod(shapes[k]) for k in ("embed", "lm_head") if k in shapes]
+               + [6 * math.prod(sh[1:]) for sh in _leaves(shapes["blocks"])])
+    per_slot = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim_ * 2
+    needs = []
+    for B, prompt in request_sets:
+        slots = prompt + SERVE_NEW + 8
+        if cfg.sliding_window:
+            slots = min(slots, cfg.sliding_window)
+        needs.append((B, prompt, per_slot * B * slots, ffn_transients(cfg, B, prompt)))
+    sets = "; ".join(f"{B} x {prompt}: KV cache {c / 1e9:.2f} GB + prefill transients "
+                     f"{t / 1e9:.2f} GB" for B, prompt, c, t in needs)
+    need = weights + max([init] + [c + t for _, _, c, t in needs])
+    return need, (f"weights {weights / 1e9:.2f} GB + the larger of init's transient "
+                  f"{init / 1e9:.2f} GB and ({sets})")
+
+
+def train_reckoning(cfg, batch: int) -> tuple[int, str]:
+    """The reckoned training peak of ``cfg`` at ``batch`` x TRAIN_SEQ, in
+    bytes, and its printed terms: bf16 parameters and gradients and f32
+    AdamW moments (12 B a parameter), the largest stacked leaf's gradient
+    once more (the layers' gradients are stacked at the end of the
+    backward), every block's input kept under remat, one block's recompute
+    and backward (its FFN transients, :func:`ffn_transients`, whose buffers
+    the backward frees as it consumes them, and its attention's four
+    (T, H hd) bf16 tensors) and a loss chunk's f32 logits three times
+    (logits, softmax, gradient).  AdamW updates a large leaf in chunks of
+    its leading axis (its f32 temporaries are a chunk's, not counted)."""
+    shapes = param_shapes(cfg)
+    T = batch * TRAIN_SEQ
+    n = sum(math.prod(sh) for sh in _leaves(shapes))
+    state = 12 * n
+    stack = 2 * max(math.prod(sh) for sh in _leaves(shapes["blocks"]))
+    saved = cfg.n_layers * T * cfg.d_model * 2
+    block = ffn_transients(cfg, batch, TRAIN_SEQ) + 4 * T * cfg.n_heads * cfg.head_dim_ * 2
+    ce = 3 * batch * min(LOSS_CHUNK, TRAIN_SEQ) * cfg.vocab * 4
+    return state + stack + saved + block + ce, (
+        f"state {state / 1e9:.2f} GB ({n} parameters) + stacked gradient {stack / 1e9:.2f} GB "
+        f"+ remat inputs {saved / 1e9:.2f} GB + one block {block / 1e9:.2f} GB + loss chunk "
+        f"{ce / 1e9:.2f} GB")
+
+
+def serve_batch_cut(cfg, card: str) -> int:
+    """The largest batch of SLICE_BATCHES whose :func:`serve_reckoning` at
+    SERVE_PROMPT fits the card."""
+    return first_fit("serve", ((f"{cfg.name} batch {B}", B) for B in SLICE_BATCHES),
+                     lambda B: serve_reckoning(cfg, [(B, SERVE_PROMPT)]), card)
 
 
 def train_batch_cut(cfg, card: str) -> int:
-    """The largest batch of SLICE_TRAIN_BATCHES whose reckoned training peak
-    fits the card's free memory with SLICE_SPARE to spare: bf16 parameters
-    and gradients and f32 AdamW moments (12 B a parameter), every block's
-    input kept under remat, one block's recompute (its MLP's three (T, d_ff)
-    and its attention's four (T, H hd) bf16 tensors) and a loss chunk's f32
-    logits three times (logits, softmax, gradient)."""
-    gc.collect()
-    torch.cuda.empty_cache()
-    free, total = torch.cuda.mem_get_info()
-    n = sum(math.prod(sh) for sh in _leaves(param_shapes(cfg)))
-    for B in SLICE_TRAIN_BATCHES:
-        T = B * TRAIN_SEQ
-        state = 12 * n
-        saved = cfg.n_layers * T * cfg.d_model * 2
-        block = 3 * T * cfg.d_ff * 2 + 4 * T * cfg.n_heads * cfg.head_dim_ * 2
-        ce = 3 * B * min(LOSS_CHUNK, TRAIN_SEQ) * cfg.vocab * 4
-        need = state + saved + block + ce
-        fits = need + SLICE_SPARE <= free
-        print(f"[train] {cfg.name} batch {B} x {TRAIN_SEQ}: state {state / 1e9:.2f} GB + remat "
-              f"inputs {saved / 1e9:.2f} GB + one block {block / 1e9:.2f} GB + loss chunk "
-              f"{ce / 1e9:.2f} GB = {need / 1e9:.2f} GB; {free / 1e9:.2f} GB free: "
-              f"{'fits' if fits else 'does not fit'} ({card})")
-        if fits:
-            return B
-    raise SystemExit(f"{cfg.name}: not even batch 1 trains on the card")
+    """The largest batch of SLICE_TRAIN_BATCHES whose
+    :func:`train_reckoning` fits the card."""
+    return first_fit("train", ((f"{cfg.name} batch {B} x {TRAIN_SEQ}", B)
+                               for B in SLICE_TRAIN_BATCHES),
+                     lambda B: train_reckoning(cfg, B), card)
+
+
+def layer_cuts(cfg):
+    """(label, ``cfg`` with L layers) for L from its own count down to 1."""
+    return ((f"{cfg.name} {L} of {cfg.n_layers} layers", dataclasses.replace(cfg, n_layers=L))
+            for L in range(cfg.n_layers, 0, -1))
+
+
+def serve_layer_cut(cfg, request_sets: list, card: str):
+    """``cfg`` with the most layers whose :func:`serve_reckoning` for every
+    (batch, prompt) of ``request_sets`` fits the card."""
+    return first_fit("serve", layer_cuts(cfg), lambda cut: serve_reckoning(cut, request_sets),
+                     card)
+
+
+def train_layer_cut(cfg, batch: int, card: str):
+    """``cfg`` with the most layers whose :func:`train_reckoning` at
+    ``batch`` fits the card."""
+    return first_fit("train", layer_cuts(cfg), lambda cut: train_reckoning(cut, batch), card)
 
 
 def compression_check(card: str) -> None:
@@ -2349,7 +2396,7 @@ def slice_phase(card: str) -> None:
         print(f"[serve] {cfg.name} wall {time.perf_counter() - t0} s ({card})")
     cfg = get_config(SLICE_TRAIN_ARCH)
     B = train_batch_cut(cfg, card)
-    train_full_width(card, SLICE_TRAIN_ARCH, B)
+    train_full_width(card, cfg, B)
     compression_check(card)
     flash_serve_times(shapes, card)
     bwd_time_at(cfg.name, (B, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_), card)
@@ -2369,83 +2416,6 @@ def ffn_transients(cfg, B: int, S: int) -> int:
     E, k, d = cfg.n_experts, cfg.top_k, cfg.d_model
     buffers = B * E * (moe_module.capacity(cfg, S) + 1) * (2 * d + 4 * cfg.d_ff) * 2
     return buffers + 4 * B * S * k * d * 2 + B * S * k * E * 9
-
-
-def serve_layer_cut(cfg, request_sets: list, card: str):
-    """``cfg`` with the most layers (at most its own) whose reckoned serve
-    peak fits the card's free memory with SLICE_SPARE to spare for every
-    (batch, prompt) of ``request_sets``: the bf16 weights, and the larger of
-    the init's largest transient (one stacked leaf's f32 draw beside its
-    bf16 cast) and the KV cache (a rolling window's slots under SWA) plus
-    the prefill's transients (:func:`ffn_transients`); each candidate's
-    reckoning is printed."""
-    gc.collect()
-    torch.cuda.empty_cache()
-    free, total = torch.cuda.mem_get_info()
-    per_slot = 2 * cfg.n_kv_heads * cfg.head_dim_ * 2  # k and v of one layer, bf16
-    for L in range(cfg.n_layers, 0, -1):
-        cut = dataclasses.replace(cfg, n_layers=L)
-        shapes = param_shapes(cut)
-        weights = 2 * sum(math.prod(sh) for sh in _leaves(shapes))
-        init = max([4 * math.prod(shapes[k]) for k in ("embed", "lm_head") if k in shapes]
-                   + [6 * math.prod(sh[1:]) for sh in _leaves(shapes["blocks"])])
-        needs = []
-        for B, prompt in request_sets:
-            slots = prompt + SERVE_NEW + 8
-            if cfg.sliding_window:
-                slots = min(slots, cfg.sliding_window)
-            cache = L * per_slot * B * slots
-            needs.append((B, prompt, cache, ffn_transients(cut, B, prompt)))
-        need = weights + max([init] + [c + t for _, _, c, t in needs])
-        fits = need + SLICE_SPARE <= free
-        sets = "; ".join(f"{B} x {prompt}: KV cache {c / 1e9:.2f} GB + prefill transients "
-                         f"{t / 1e9:.2f} GB" for B, prompt, c, t in needs)
-        print(f"[serve] {cfg.name} {L} of {cfg.n_layers} layers: weights {weights / 1e9:.2f} GB "
-              f"+ the larger of init's transient {init / 1e9:.2f} GB and ({sets}) = "
-              f"{need / 1e9:.2f} GB; {free / 1e9:.2f} GB free of {total / 1e9:.2f} GB: "
-              f"{'fits' if fits else 'does not fit'} ({SLICE_SPARE / 1e9:.0f} GB spare "
-              f"wanted) ({card})")
-        if fits:
-            return cut
-    raise SystemExit(f"{cfg.name}: not even one layer serves on the card")
-
-
-def train_layer_cut(cfg, batch: int, card: str):
-    """``cfg`` with the most layers (at most its own) whose reckoned training
-    peak at ``batch`` x TRAIN_SEQ fits the card's free memory with
-    SLICE_SPARE to spare: bf16 parameters and gradients and f32 AdamW moments
-    (12 B a parameter), the largest stacked leaf's gradient once more (the
-    layers' gradients are stacked at the end of the backward), every block's
-    input kept under remat, one block's recompute and backward (its FFN
-    transients, whose buffers the backward frees as it consumes them, and
-    its attention's four (T, H hd) bf16 tensors) and a loss chunk's f32
-    logits three times (logits, softmax, gradient).  AdamW
-    updates a large stacked leaf one layer at a time (its f32 temporaries
-    are a layer's, not counted).  Each candidate is printed."""
-    gc.collect()
-    torch.cuda.empty_cache()
-    free, total = torch.cuda.mem_get_info()
-    T = batch * TRAIN_SEQ
-    for L in range(cfg.n_layers, 0, -1):
-        cut = dataclasses.replace(cfg, n_layers=L)
-        shapes = param_shapes(cut)
-        n = sum(math.prod(sh) for sh in _leaves(shapes))
-        state = 12 * n
-        stack = 2 * max(math.prod(sh) for sh in _leaves(shapes["blocks"]))
-        saved = L * T * cfg.d_model * 2
-        block = ffn_transients(cut, batch, TRAIN_SEQ) + 4 * T * cfg.n_heads * cfg.head_dim_ * 2
-        ce = 3 * batch * min(LOSS_CHUNK, TRAIN_SEQ) * cfg.vocab * 4
-        need = state + stack + saved + block + ce
-        fits = need + SLICE_SPARE <= free
-        print(f"[train] {cfg.name} {L} of {cfg.n_layers} layers, batch {batch} x {TRAIN_SEQ}: "
-              f"state {state / 1e9:.2f} GB ({n} parameters) + stacked gradient "
-              f"{stack / 1e9:.2f} GB + remat inputs {saved / 1e9:.2f} GB + one block "
-              f"{block / 1e9:.2f} GB + loss chunk {ce / 1e9:.2f} GB = {need / 1e9:.2f} GB; "
-              f"{free / 1e9:.2f} GB free of {total / 1e9:.2f} GB: "
-              f"{'fits' if fits else 'does not fit'} ({card})")
-        if fits:
-            return cut
-    raise SystemExit(f"{cfg.name}: not even one layer trains on the card")
 
 
 def record_routes() -> tuple[list, object]:
@@ -2571,7 +2541,7 @@ def moe_phase(card: str) -> None:
     print(f"[moe] card against CPU and the bitwise repeat: wall {time.perf_counter() - t0} s "
           f"({card})")
     cfg = train_layer_cut(get_config(MOE_TRAIN_ARCH), MOE_TRAIN_BATCH, card)
-    train_full_width(card, MOE_TRAIN_ARCH, MOE_TRAIN_BATCH, cfg=cfg)
+    train_full_width(card, cfg, MOE_TRAIN_BATCH)
     flash_serve_times(MOE_FLASH_TIMES, card)
     bwd_time_at(MOE_TRAIN_ARCH, MOE_BWD_SHAPE, card)
     print(f"[moe] phase wall {time.perf_counter() - t_phase} s ({card})")

@@ -121,9 +121,6 @@ def adamw_update(cfg: AdamWConfig, params, grads, opt_state):
         # decoupled weight decay on matrices only (ndim >= 2 of the whole
         # leaf), the usual exemption for norms and biases.
         decay = p.ndim >= 2
-        if p.numel() <= SLICE_ELEMS or p.ndim < 2:
-            upd_part(p, g, m, v, decay)
-            return
         rows = max(SLICE_ELEMS // (p.numel() // p.shape[0]), 1)
         for i in range(0, p.shape[0], rows):
             upd_part(p[i:i + rows], g[i:i + rows], m[i:i + rows], v[i:i + rows], decay)

@@ -13,6 +13,8 @@ import functools
 import numpy as np
 import pytest
 import torch
+from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.configs import get_reduced
 from repro_torch.convert import lm_params
@@ -29,6 +31,7 @@ from repro_torch.fem.mesh import beam_hex
 from repro_torch.models import moe
 from repro_torch.models.transformer import init_params
 from repro_torch.obs.throughput import operator_throughput
+from repro_torch.profiling import device_time_by_category
 from repro_torch.serve import elasticity_service
 from repro_torch.serve.elasticity_service import ElasticityService, SolveRequest
 from repro_torch.serve.recovery import ServiceRecovery
@@ -638,6 +641,52 @@ def test_throughput_row_on_card(card):
     assert 0 < row["placement"]["fraction"] < 1
     plain = operator_throughput(4, 2, assembly="pa_baseline", device=card, repeats=1)
     assert plain["route"] == "plain" and plain["placement"]["bound"] == "compute"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_device_time_by_category_puts_backward_in_its_range(card, remat):
+    """tanh(a * b) inside a record_function range, its result through exp
+    and a sum outside it, then the backward.  The range's category gets the
+    range's forward launches, under checkpoint their recompute too, and
+    the launches of their backward (each count measured on its own, without
+    ranges); every other launch of the run falls to ``other``."""
+    g = torch.Generator(device=card).manual_seed(0)
+    a, b = (torch.randn((1024, 1024), device=card, generator=g).requires_grad_()
+            for _ in range(2))
+
+    def inside(x, y):
+        with record_function("test.inside"):
+            return torch.tanh(x * y)
+
+    def run():
+        # the whole recompute, not stopped once the saved tensors exist
+        with set_checkpoint_early_stop(False):
+            h = checkpoint(inside, a, b, use_reentrant=False) if remat else inside(a, b)
+            torch.exp(h).sum().backward()
+        torch.cuda.synchronize()
+
+    def launches(fn, ranges=None):
+        a.grad = b.grad = None
+        return device_time_by_category(fn, {}, ranges)[1]
+
+    def forward():
+        with torch.no_grad():
+            inside(a, b)
+        torch.cuda.synchronize()
+
+    run()  # warm-up: the first launches of a kernel are not what is measured
+    n_fwd = launches(forward)["other"]
+    h = inside(a, b)
+    dh = torch.ones_like(h)
+    n_bwd = launches(lambda: (torch.autograd.backward(h, dh), torch.cuda.synchronize()))["other"]
+    total = launches(run)["other"]
+    count = launches(run, {"inside": "test.inside"})
+    assert n_fwd >= 2 and n_bwd >= 3
+    assert count["inside"] == n_fwd * (1 + remat) + n_bwd, (n_fwd, n_bwd, count)
+    assert count["other"] == total - count["inside"] > 0, (total, count)
+    torch.testing.assert_close(a.grad, b * torch.exp(torch.tanh(a * b))
+                               * (1 - torch.tanh(a * b) ** 2))
 
 
 def _moe_cfg(arch, **kw):
