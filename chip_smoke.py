@@ -27,7 +27,10 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    ragged S in {1, 7, 100, 1000}, the wgmma route's D = 64 and 128 cases,
    phase 10's (H, K, D) (query groups of 4, 7 and 8; MHA at D = 128 and
    64), and the serve path's (8, 2048, 16, 8, 128), each case asserting which
-   route (``ops.route``: wgmma, mma_sync or fma) launched;
+   route (``ops.route``: wgmma, mma_sync or fma) launched; and at phase 12's
+   head dim of 80 in bf16, (8, 2048, 32, 32, 80), (4, 4096, 32, 32, 80) and
+   (2, 333, 32, 32, 80): the mma_sync forward (and its LSE) and backward
+   (bitwise repeated) against their plain versions, routes asserted;
 4. the solve path: ``solve_beam(4, 4, precision="f64", device="cuda")`` on
    the 2-material beam (32,768 elements, 6,502,275 DoFs) with every
    kernel count zeroed just before and read just after; it must converge
@@ -225,7 +228,27 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    16, 128), (8, 2048, 32, 8, 128) and (1, 8192, 32, 8, 128) window 4096
    beside SDPA (a band mask under the window), the plain version and the
    bound, and the backward at (4, 4096, 16, 16, 128) beside SDPA's
-   backward.  The wall time of each phase is printed (``[wall]`` lines).
+   backward;
+12. Mamba2 and the zamba2 hybrid (``[serve]``, ``[train]``, ``[ssm]`` and
+   ``[time]`` lines, each beside the card's name and power limit):
+   zamba2-2.7b (54 Mamba2 layers, a weight-shared attention+MLP block after
+   each group of 6, head dim 80) at full width and depth in bf16, served as
+   phase 10 (8 x 2048 prompt tokens + 32 new, the batch from the printed
+   reckoning: weights, shared KV cache, Mamba2 states, the chunked scan's
+   transients), counted: 9 mma_sync flash launches a prefill batch, 0
+   plain, the kernel held against its plain version on the first and last
+   shared applications' q/k/v; its reduced configuration and a reduced
+   plain Mamba2 stack in f32 card against CPU (tokens and logits,
+   first-step gradients and three steps' losses); a reduced zamba2 forward
+   and backward under sync debug mode "error"; a reduced bf16 zamba2 step
+   twice from one state, bitwise; zamba2-2.7b trained as 9(c) (B = 4, S =
+   4096, layers cut only by the printed reckoning; 18 forward and 9
+   backward flash launches a step on mma_sync, 0 plain; MFU counting every
+   application of the shared block; the profile with the scan and the conv
+   as entries of their own); the mma_sync forward at (8, 2048, 32, 32, 80)
+   and (4, 4096, 32, 32, 80) beside SDPA, the plain version and the bound,
+   and the backward at (4, 4096, 32, 32, 80) beside SDPA's backward.  The
+   wall time of each phase is printed (``[wall]`` lines).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -279,11 +302,12 @@ from repro_torch.launch.train import train_loop  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.train.trainer import make_train_step, train_state_init  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
-    LOSS_CHUNK, _leaves, _tree_map, loss_fn, param_shapes)
+    LOSS_CHUNK, _leaves, _tree_map, attention_layers, loss_fn, param_shapes)
 from repro_torch.distributed.compression import (  # noqa: E402
     int8_compress, int8_decompress, topk_compress)
 from repro_torch.models import attention as attention_module  # noqa: E402
 from repro_torch.models import moe as moe_module  # noqa: E402
+from repro_torch.models import ssm as ssm_module  # noqa: E402
 from repro_torch.models.transformer import forward as model_forward  # noqa: E402
 from repro_torch.models.transformer import init_params  # noqa: E402
 from repro_torch.serve import elasticity_service  # noqa: E402
@@ -462,6 +486,17 @@ MOE_FLASH_TIMES = [("olmoe-1b-7b", (8, SERVE_PROMPT, 16, 16, 128), None),
                    ("mixtral-8x7b", (8, SERVE_PROMPT, 32, 8, 128), None),
                    ("mixtral-8x7b", (1, MOE_LONG_PROMPT, 32, 8, 128), 4096)]
 MOE_BWD_SHAPE = (MOE_TRAIN_BATCH, TRAIN_SEQ, 16, 16, 128)
+# Phase 12: zamba2-2.7b (Mamba2 with a shared attention block every 6
+# layers) at full width and depth in bf16, served 8 x (SERVE_PROMPT +
+# SERVE_NEW) and trained at train_4k's sequence, its global batch cut to
+# SSM_TRAIN_BATCH; its reduced configuration and a reduced plain Mamba2
+# stack card against CPU; a reduced zamba2 step repeated bitwise.  Its
+# head dim of 80 (2560 / 32) takes the mma_sync flash routes: held in phase
+# 3 at the serve and training shapes and a ragged S, timed at the first two.
+SSM_ARCH, SSM_TRAIN_BATCH = "zamba2-2.7b", 4
+D80_SERVE = (SERVE_REQUESTS, SERVE_PROMPT, 32, 32, 80)  # (B, S, H, K, D)
+D80_TRAIN = (SSM_TRAIN_BATCH, TRAIN_SEQ, 32, 32, 80)
+D80_SHAPES = [D80_SERVE, D80_TRAIN, (2, 333, 32, 32, 80)]
 # Gradient compression on the card: int8 and top-k of one tensor bitwise as
 # on the CPU, and one reduced-width train step with int8 compression from
 # one state (losses and parameters to 1e-4).
@@ -729,21 +764,47 @@ def numpy_tree(tree):
     return tree.cpu().numpy()
 
 
+def init_transient(shapes) -> int:
+    """init_params' largest transient in bytes: a top-level leaf's f32 draw
+    (the embedding, the head; zamba2's shared block's weights beside their
+    bf16 cast), or one layer's f32 draw of a stacked leaf beside its bf16
+    cast."""
+    return max([4 * math.prod(shapes[k]) for k in ("embed", "lm_head") if k in shapes]
+               + [6 * math.prod(sh) for sh in _leaves(shapes.get("shared", {}))]
+               + [6 * math.prod(sh[1:]) for sh in _leaves(shapes["blocks"])])
+
+
+def ssm_line(cfg) -> str:
+    """The Mamba2 widths of a recurrent configuration, for its [serve] and
+    [train] lines."""
+    if cfg.block_pattern == "attn":
+        return ""
+    d_in = cfg.ssm_expand * cfg.d_model
+    shared = (f", a shared attention block every {cfg.shared_attn_every} layers"
+              if cfg.block_pattern == "zamba2" else "")
+    return (f" {cfg.block_pattern}: d_inner={d_in} ssm heads={d_in // cfg.ssm_head_dim} "
+            f"head dim={cfg.ssm_head_dim} state={cfg.ssm_state} conv={cfg.conv_width} "
+            f"chunk={cfg.chunk_size}{shared}")
+
+
 def serve_full_width(cfg, batch: int, rng, card: str,
                      prompt: int = SERVE_PROMPT) -> dict[str, tuple[int, int]]:
-    """A serve path at full width in bf16, counted (phases 6, 10 and 11):
-    the engine draws seeded random weights on the card (the init's peak
+    """A serve path at full width in bf16, counted (phases 6, 10, 11 and
+    12): the engine draws seeded random weights on the card (the init's peak
     memory against the weights' bytes is printed: each stacked leaf is
     allocated once), then ``batch`` requests of ``prompt`` tokens (codebook
     models: (prompt, n_cb)) generate SERVE_NEW greedy tokens each,
-    with every count zeroed just before and read just after: n_layers flash
-    launches per prefill batch, all on wgmma, no plain call.  A 2-token
-    warm-up at the same shapes (cuBLAS's first calls pick their kernels),
-    its prompts cut to ``prompt`` - 32 i tokens so that the batch is
-    left-padded to ``prompt``, keeps the q/k/v that the first and the last layer give the
-    kernel (after qk-norm and (M-)RoPE, as the model gives them); once the
-    engine is freed, the kernel's output on them is held against the plain
-    version (1e-2 per-row relative).  Returns the counted run's counts."""
+    with every count zeroed just before and read just after: one flash
+    launch per attention block (``attention_layers``: n_layers, or zamba2's
+    n_groups shared applications) per prefill batch, all on the route of
+    the head dim (wgmma at 64 and 128, mma_sync at zamba2's 80), no plain
+    call.  A 2-token warm-up at the same shapes (cuBLAS's first calls pick
+    their kernels), its prompts cut to ``prompt`` - 32 i tokens so that the
+    batch is left-padded to ``prompt``, keeps the q/k/v that the first and
+    the last attention block give the kernel (after qk-norm and (M-)RoPE,
+    as the model gives them); once the engine is freed, the kernel's output
+    on them is held against the plain version (1e-2 per-row relative).
+    Returns the counted run's counts."""
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -756,10 +817,7 @@ def serve_full_width(cfg, batch: int, rng, card: str,
     init_peak = torch.cuda.max_memory_allocated() - base
     shapes = param_shapes(cfg)
     weights = 2 * sum(math.prod(sh) for sh in _leaves(shapes))
-    # the largest transient: a top-level leaf's f32 draw, or one layer's f32
-    # draw of a stacked leaf beside its bf16 cast
-    transient = max([4 * math.prod(shapes[k]) for k in ("embed", "lm_head") if k in shapes]
-                    + [6 * math.prod(sh[1:]) for sh in _leaves(shapes["blocks"])])
+    transient = init_transient(shapes)
     print(f"[serve] {cfg.name} init_params on the card: {init_s} s, peak "
           f"{init_peak / 1e9:.3f} GB over the weights' {weights / 1e9:.3f} GB (the largest "
           f"transient, one leaf's draw: {transient / 1e9:.3f} GB) ({card})")
@@ -769,14 +827,15 @@ def serve_full_width(cfg, batch: int, rng, card: str,
     cb = (cfg.n_codebooks,) if cfg.n_codebooks else ()
     reqs = [Request(prompt=rng.integers(0, cfg.vocab, (prompt,) + cb).astype(np.int32),
                     max_new_tokens=SERVE_NEW) for _ in range(batch)]
-    kept, inner = capture_flash_inputs({0, cfg.n_layers - 1})
+    n_attn, route = attention_layers(cfg), expected_route(torch.bfloat16, cfg.head_dim_, 0)
+    kept, inner = capture_flash_inputs({0, n_attn - 1})
     try:
         eng.generate([Request(prompt=r.prompt[32 * i:], max_new_tokens=2)
                       for i, r in enumerate(reqs)])
     finally:
         attention_module.flash_attention = inner
     if len(kept) != 2:
-        raise SystemExit(f"serve warm-up kept the q/k/v of {len(kept)} layers, expected 2")
+        raise SystemExit(f"serve warm-up kept the q/k/v of {len(kept)} blocks, expected 2")
     eng.stats = ServeStats()
     logits_seen = record_logits(eng)
     torch.cuda.reset_peak_memory_stats()
@@ -790,7 +849,8 @@ def serve_full_width(cfg, batch: int, rng, card: str,
           f"{f' codebooks={cfg.n_codebooks}' if cfg.n_codebooks else ''}"
           f"{f' vision tokens={cfg.n_vision_tokens}' if cfg.n_vision_tokens else ''}"
           f"{f' experts={cfg.n_experts} top_k={cfg.top_k} d_ff={cfg.d_ff}' if cfg.is_moe else ''}"
-          f"{f' window={cfg.sliding_window}' if cfg.sliding_window else ''}: "
+          f"{f' window={cfg.sliding_window}' if cfg.sliding_window else ''}"
+          f"{ssm_line(cfg)}: "
           f"{len(reqs)} requests x {prompt} prompt tokens, {SERVE_NEW} new")
     print(f"[serve] {cfg.name} prefill {st.prefill_s} s ({st.prompt_tokens / st.prefill_s} "
           f"prompt tok/s, {st.prefill_batches} batches), decode {st.decode_s} s "
@@ -799,11 +859,11 @@ def serve_full_width(cfg, batch: int, rng, card: str,
     print(f"[serve] {cfg.name} counts (launches, plain_calls): {serve_counts}; flash "
           f"launches per route: {serve_routes}")
     launches, plain = serve_counts["flash_attention"]
-    want_routes = {**dict.fromkeys(flash_ops.ROUTES, 0), "wgmma": cfg.n_layers * st.prefill_batches}
-    if launches != cfg.n_layers * st.prefill_batches or plain != 0 or serve_routes != want_routes:
-        raise SystemExit(f"{cfg.name} serve path did not run only through the wgmma flash "
+    want_routes = {**dict.fromkeys(flash_ops.ROUTES, 0), route: n_attn * st.prefill_batches}
+    if launches != n_attn * st.prefill_batches or plain != 0 or serve_routes != want_routes:
+        raise SystemExit(f"{cfg.name} serve path did not run only through the {route} flash "
                          f"kernel: launches={launches} plain_calls={plain} routes={serve_routes}, "
-                         f"expected {cfg.n_layers} x {st.prefill_batches} batches on wgmma")
+                         f"expected {n_attn} x {st.prefill_batches} batches on {route}")
     toks = [np.asarray(r.out_tokens) for r in reqs]
     if any(t.shape != (SERVE_NEW,) + cb or not ((0 <= t) & (t < cfg.vocab)).all() for t in toks):
         raise SystemExit(f"{cfg.name} serve path: a request did not get {SERVE_NEW} tokens "
@@ -820,24 +880,26 @@ def serve_full_width(cfg, batch: int, rng, card: str,
         # The model's values are not unit-normal: only the per-row check.
         real_err, real_rel, _ = flash_check(o, ref, q.dtype)
         ok = real_rel <= FLASH_ROW_REL
-        print(f"[flash vs plain] {cfg.name} serve layer {layer} q/k/v {tuple(q.shape)} "
+        print(f"[flash vs plain] {cfg.name} serve attention block {layer} q/k/v "
+              f"{tuple(q.shape)} "
               f"{str(q.dtype)[6:]}: max abs err {real_err:.3e} (max |ref| "
               f"{float(ref.float().abs().max()):.3e}), max row rel err {real_rel:.3e} "
               f"{'ok' if ok else 'OUT OF TOLERANCE'}")
         if not ok:
             raise SystemExit(f"flash kernel disagrees with its plain version on {cfg.name} "
-                             f"layer {layer}'s prefill q/k/v: {real_rel}")
+                             f"attention block {layer}'s prefill q/k/v: {real_rel}")
         del o, ref
     del kept
     torch.cuda.empty_cache()
     return serve_counts
 
 
-def small_serve_check(arch: str, rng) -> None:
-    """The reduced configuration of ``arch`` in f32 on the card against the
-    CPU, same weights: greedy tokens equal, logits within SMALL_SERVE_REL of
-    max |logit| (prompts lengthened by the VLM's vision positions)."""
-    small_cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+def small_serve_check(arch: str, rng, **change) -> None:
+    """The reduced configuration of ``arch`` (with ``change``'s fields) in
+    f32 on the card against the CPU, same weights: greedy tokens equal,
+    logits within SMALL_SERVE_REL of max |logit| (prompts lengthened by the
+    VLM's vision positions)."""
+    small_cfg = dataclasses.replace(get_reduced(arch), dtype="float32", **change)
     weights = numpy_tree(init_params(torch.Generator().manual_seed(SEED), small_cfg))
     cb = (small_cfg.n_codebooks,) if small_cfg.n_codebooks else ()
     prompts = [rng.integers(0, small_cfg.vocab, (n + small_cfg.n_vision_tokens,) + cb)
@@ -1851,10 +1913,14 @@ def bwd_entry(t: dict, route: str, max_abs_err: float) -> dict:
 
 
 def train_full_width(card: str, cfg, batch: int) -> int:
-    """Phase 9(c) (and 10 for musicgen-medium, 11 for olmoe-1b-7b): train_loop
-    of ``cfg`` (at full width, its layers possibly cut) in bf16, train_4k's
-    sequence with its batch cut to ``batch``, each step counted.  Returns
-    the wgmma backward's launches over the run."""
+    """Phase 9(c) (and 10 for musicgen-medium, 11 for olmoe-1b-7b, 12 for
+    zamba2-2.7b): train_loop of ``cfg`` (at full width, its layers possibly
+    cut) in bf16, train_4k's sequence with its batch cut to ``batch``, each
+    step counted: 2n forward and n backward flash launches for n attention
+    blocks (zamba2: n groups, each group rematerialized around its
+    rematerialized Mamba2 layers, so its shared block runs in the forward
+    and in the group's recompute), all on the head dim's routes.  Returns
+    the backward's launches over the run."""
     shape = ShapeConfig(f"train_4k, global batch 256 cut to {batch}", "train", TRAIN_SEQ, batch)
     per_step = []
 
@@ -1865,22 +1931,25 @@ def train_full_width(card: str, cfg, batch: int) -> int:
         per_step.append((all_counts(), dict(flash_ops.route_launches),
                          dict(flash_ops.bwd_route_launches)))
 
-    kept, inner = capture_bwd_inputs({0, cfg.n_layers - 1})
+    L, n = cfg.n_layers, attention_layers(cfg)
+    route = expected_route(torch.bfloat16, cfg.head_dim_, 0)
+    bwd_route = expected_bwd_route(torch.bfloat16, cfg.head_dim_)
+    kept, inner = capture_bwd_inputs({0, n - 1})
     try:
         state, history = train_loop(cfg, shape, steps=TRAIN_STEPS, log_every=1, seed=SEED,
                                     device="cuda", step_context=counted)
     finally:
         flash_ops.flash_attention_bwd = inner
-    L = cfg.n_layers
-    want = {"flash_attention": (2 * L, 0), "flash_attention_bwd": (L, 0)}
+    want = {"flash_attention": (2 * n, 0), "flash_attention_bwd": (n, 0)}
     for i, (counts, routes, bwd_routes) in enumerate(per_step):
         got = {k: counts[k] for k in want}
         print(f"[train] step {i + 1} counts (launches, plain_calls): {got}; flash forward "
               f"routes {routes}, backward routes {bwd_routes}")
-        if got != want or routes["wgmma"] != 2 * L or bwd_routes["wgmma"] != L:
+        if got != want or routes[route] != 2 * n or bwd_routes[bwd_route] != n:
             raise SystemExit(f"train step {i + 1} did not run only through the flash kernels: "
                              f"{got}, routes {routes}, backward routes {bwd_routes}; expected "
-                             f"{want}, {2 * L} forward and {L} backward on wgmma")
+                             f"{want}, {2 * n} forward on {route} and {n} backward on "
+                             f"{bwd_route}")
     if len(per_step) != TRAIN_STEPS or not all(
             np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in history):
         raise SystemExit(f"train steps: {len(per_step)} counted, history {history}")
@@ -1888,21 +1957,35 @@ def train_full_width(card: str, cfg, batch: int) -> int:
     timed = history[1:]
     N, T = cfg.n_active_params(), batch * TRAIN_SEQ
     B, S, H, D = batch, TRAIN_SEQ, cfg.n_heads, cfg.head_dim_
-    attn = 4 * B * H * D * S * (S + 1) / 2 * L  # causal forward, every layer
-    model_flops = model_flops_estimate(cfg, shape) + 3 * attn  # 6 N T + 3 x attention
-    run_flops = 8 * N * T + (2 + 3.5) * attn  # remat's recompute; this backward's 7 products
+    shapes = param_shapes(cfg)
+    # zamba2: the shared block's parameters, which 6NT counts once for its n
+    # applications, and the Mamba2 stack's, which nested remat runs forward
+    # three times
+    n_shared = sum(math.prod(sh) for sh in _leaves(shapes.get("shared", {})))
+    n_mamba = sum(math.prod(sh) for sh in _leaves(shapes["blocks"])) if n_shared else 0
+    attn = 4 * B * H * D * S * (S + 1) / 2 * n  # causal forward, every attention block
+    # 6 N T + 6 (n - 1) N_shared T (zamba2) + 3 x attention
+    model_flops = model_flops_estimate(cfg, shape) + 6 * (n - 1) * n_shared * T + 3 * attn
+    # as run: remat's recompute (8 N T), zamba2's second recompute of every
+    # Mamba2 layer and its shared block's other applications; this
+    # backward's 7 products
+    run_flops = (8 * N * T + 2 * n_mamba * T + 8 * (n - 1) * n_shared * T
+                 + (2 + 3.5) * attn)
+    formula = ("6NT + 6 (n-1) N_shared T + 3 x causal attention, n = "
+               f"{n} applications of the {n_shared} shared parameters" if n_shared
+               else "6NT + 3 x causal attention")
     step_s = statistics.median(m["step_s"] for m in timed)
     peak = PEAK_FLOPS[torch.bfloat16]
     print(f"[train] {cfg.name} bf16 L={L} d={cfg.d_model} H={cfg.n_heads} K={cfg.n_kv_heads} "
           f"hd={cfg.head_dim_} vocab={cfg.vocab}"
           f"{f' codebooks={cfg.n_codebooks}' if cfg.n_codebooks else ''}"
-          f"{f' experts={cfg.n_experts} top_k={cfg.top_k} (N active)' if cfg.is_moe else ''} "
-          f"N={N}: B={batch} "
+          f"{f' experts={cfg.n_experts} top_k={cfg.top_k} (N active)' if cfg.is_moe else ''}"
+          f"{ssm_line(cfg)} N={N}: B={batch} "
           f"S={TRAIN_SEQ} (train_4k's sequence; its global batch 256 cut to {batch}); timed steps "
           f"2-{TRAIN_STEPS}: step s {[m['step_s'] for m in timed]}, median {step_s} s, "
           f"{T / step_s} tokens/s, peak {max(m['peak_gib'] for m in history)} GiB; warm-up "
           f"step {history[0]['step_s']} s ({card})")
-    print(f"[train] model FLOPs a step 6NT + 3 x causal attention = {model_flops:.4e}: "
+    print(f"[train] model FLOPs a step {formula} = {model_flops:.4e}: "
           f"{model_flops / step_s / 1e12} TFLOP/s, MFU {100 * model_flops / step_s / peak}% of "
           f"the {peak / 1e12:.0f} TFLOP/s bf16 dense peak; as run (remat, a backward of 7 "
           f"causal products) "
@@ -1921,6 +2004,8 @@ def train_full_width(card: str, cfg, batch: int) -> int:
     ranges = {"AdamW": "train.optimizer"}
     if cfg.is_moe:  # the forward's ranges, their recompute and their backward
         ranges.update({"MoE dispatch": "moe.dispatch", "MoE combine": "moe.combine"})
+    if cfg.block_pattern != "attn":
+        ranges.update({"Mamba2 SSD": "mamba.ssd", "Mamba2 conv": "mamba.conv"})
     ms, count, busy, top = device_time_by_category(one_step, TRAIN_CATEGORIES, ranges,
                                                    other="elementwise/copies")
     host_ms = (time.perf_counter() - t0) * 1e3
@@ -1928,37 +2013,38 @@ def train_full_width(card: str, cfg, batch: int) -> int:
     print(f"[train] profile of one step (under the profiler, host {host_ms} ms with its "
           f"overhead): device busy {busy} ms: {parts} ({card})")
     for c, rows in top.items():
-        for name, t, n in rows[:TRAIN_TOP_KERNELS]:
-            print(f"[train]   {c}: {t:9.3f} ms x{n:<5d} {name[:110]}")
+        for name, t, calls in rows[:TRAIN_TOP_KERNELS]:
+            print(f"[train]   {c}: {t:9.3f} ms x{calls:<5d} {name[:110]}")
     del state, batch, step_fn
     gc.collect()
     torch.cuda.empty_cache()
 
-    # The kernels on the inputs layers 27 and 0 gave them in the warm-up
-    # step: the forward's o and LSE of the remat recompute against the plain
-    # forward on its own q, k, v (o per row, as phase 6 holds real inputs),
-    # then the backward.
+    # The kernels on the inputs the last and first attention blocks gave
+    # them in the warm-up step: the forward's o and LSE of the remat
+    # recompute against the plain forward on its own q, k, v (o per row, as
+    # phase 6 holds real inputs), then the backward.
     for call, q, k, v, o, do, lse, window in kept:
-        layer = L - 1 - call
+        layer = n - 1 - call
         o_err, o_row, _ = flash_check(o, flash_ref(q, k, v, window=window), q.dtype)
         lse_err = float((lse - flash_lse(q, k, window=window)).abs().max())
         got = flash_ops.flash_attention_bwd(q, k, v, o, do, lse=lse, window=window)
         abs_err, rel, row = flash_bwd_errors(got, flash_bwd_ref(q, k, v, o, do, window=window))
         ok = o_row <= FLASH_ROW_REL and lse_err <= LSE_TOL and row <= BWD_ROW_REL
-        print(f"[train] flash forward and backward vs plain, layer {layer}'s q/k/v/o/dO/LSE of "
+        print(f"[train] flash forward and backward vs plain, attention block {layer}'s "
+              f"q/k/v/o/dO/LSE of "
               f"the warm-up step {tuple(q.shape)} bf16: forward o max abs err {o_err:.3e}, max "
               f"row rel err {o_row:.3e}, LSE max abs err {lse_err:.3e}; backward max abs err "
               f"{abs_err:.3e}, of max |plain| {rel:.3e}, max row err {row:.3e} "
               f"{'ok' if ok else 'OUT OF TOLERANCE'}")
         if not ok:
-            raise SystemExit(f"flash kernels disagree with their plain versions on layer "
-                             f"{layer}'s training inputs: forward {o_row}, LSE {lse_err}, "
+            raise SystemExit(f"flash kernels disagree with their plain versions on attention "
+                             f"block {layer}'s training inputs: forward {o_row}, LSE {lse_err}, "
                              f"backward {row}")
     if len(kept) != 2:
-        raise SystemExit(f"the warm-up step kept {len(kept)} layers' backward inputs, not 2")
+        raise SystemExit(f"the warm-up step kept {len(kept)} blocks' backward inputs, not 2")
     del kept
     torch.cuda.empty_cache()
-    return sum(b["wgmma"] for _, _, b in per_step)
+    return sum(b[bwd_route] for _, _, b in per_step)
 
 
 def train_reduced_bf16(card: str) -> dict:
@@ -2043,11 +2129,13 @@ def train_reduced_bf16(card: str) -> dict:
             **bwd_entry(t, "mma_sync", max(errs))}
 
 
-def train_small_check(card: str, arch: str = TRAIN_ARCH) -> None:
-    """Phase 9(b) (and 10 for each of its architectures): the reduced
-    configuration in f32, card against CPU from one state: first-step
-    gradients, then three train steps' losses."""
-    cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+def train_small_check(card: str, arch: str = TRAIN_ARCH, **change) -> None:
+    """Phase 9(b) (and 10-12 for each of their architectures): the reduced
+    configuration (with ``change``'s fields) in f32, card against CPU from
+    one state: first-step gradients, then three train steps' losses; on the
+    card the flash kernels launched (where the model has attention), no
+    plain call."""
+    cfg = dataclasses.replace(get_reduced(arch), dtype="float32", **change)
     host = numpy_tree(init_params(torch.Generator().manual_seed(SEED), cfg))
     opt = AdamWConfig(total_steps=3, warmup_steps=1)
     batches = [make_batch(cfg, TRAIN_SMALL_SHAPE, i, SEED) for i in range(3)]
@@ -2065,7 +2153,7 @@ def train_small_check(card: str, arch: str = TRAIN_ARCH) -> None:
             losses[dev].append(float(m["loss"]))
         if dev == "cuda":
             counts = all_counts()
-            if counts["flash_attention_bwd"][0] == 0 or any(
+            if (counts["flash_attention_bwd"][0] == 0) != (attention_layers(cfg) == 0) or any(
                     counts[k][1] for k in ("flash_attention", "flash_attention_bwd")):
                 raise SystemExit(f"small train on the card did not run the kernels: {counts}")
     grad_rel = max(float((g.cpu() - c).abs().max() / c.abs().max().clamp_min(1e-30))
@@ -2175,23 +2263,25 @@ def first_fit(tag: str, candidates, reckon, card: str):
 def serve_reckoning(cfg, request_sets: list) -> tuple[int, str]:
     """The reckoned serve peak of ``cfg`` for every (batch, prompt) of
     ``request_sets``, in bytes, and its printed terms: the bf16 weights, and
-    the larger of the init's largest transient (one stacked leaf's f32 draw
-    beside its bf16 cast, or the embedding's f32 draw) and the KV cache
-    (L x 2 x K x hd x 2 B a slot; prompt + SERVE_NEW + 8 slots a row, a
-    rolling window's under SWA) plus the prefill's transients
-    (:func:`ffn_transients`)."""
+    the larger of the init's largest transient (:func:`init_transient`) and
+    the decode state (the KV cache, n x 2 x K x hd x 2 B a slot for n
+    attention blocks, prompt + SERVE_NEW + 8 slots a row, a rolling
+    window's under SWA; and the Mamba2 states,
+    :func:`recurrent_state_bytes`) plus the prefill's transients
+    (:func:`prefill_transients`)."""
     shapes = param_shapes(cfg)
     weights = 2 * sum(math.prod(sh) for sh in _leaves(shapes))
-    init = max([4 * math.prod(shapes[k]) for k in ("embed", "lm_head") if k in shapes]
-               + [6 * math.prod(sh[1:]) for sh in _leaves(shapes["blocks"])])
-    per_slot = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim_ * 2
+    init = init_transient(shapes)
+    per_slot = attention_layers(cfg) * 2 * cfg.n_kv_heads * cfg.head_dim_ * 2
     needs = []
     for B, prompt in request_sets:
         slots = prompt + SERVE_NEW + 8
         if cfg.sliding_window:
             slots = min(slots, cfg.sliding_window)
-        needs.append((B, prompt, per_slot * B * slots, ffn_transients(cfg, B, prompt)))
-    sets = "; ".join(f"{B} x {prompt}: KV cache {c / 1e9:.2f} GB + prefill transients "
+        needs.append((B, prompt, per_slot * B * slots + recurrent_state_bytes(cfg, B),
+                      prefill_transients(cfg, B, prompt)))
+    state = "KV cache and Mamba2 states" if cfg.block_pattern != "attn" else "KV cache"
+    sets = "; ".join(f"{B} x {prompt}: {state} {c / 1e9:.2f} GB + prefill transients "
                      f"{t / 1e9:.2f} GB" for B, prompt, c, t in needs)
     need = weights + max([init] + [c + t for _, _, c, t in needs])
     return need, (f"weights {weights / 1e9:.2f} GB + the larger of init's transient "
@@ -2206,16 +2296,29 @@ def train_reckoning(cfg, batch: int) -> tuple[int, str]:
     backward), every block's input kept under remat, one block's recompute
     and backward (its FFN transients, :func:`ffn_transients`, whose buffers
     the backward frees as it consumes them, and its attention's four
-    (T, H hd) bf16 tensors) and a loss chunk's f32 logits three times
-    (logits, softmax, gradient).  AdamW updates a large leaf in chunks of
-    its leading axis (its f32 temporaries are a chunk's, not counted)."""
+    (T, H hd) bf16 tensors; a Mamba2 layer's, :func:`mamba_transients`;
+    zamba2 keeps every group's input, and in a group's backward its layers'
+    inputs, its shared block's and one Mamba2 layer's transients) and a loss
+    chunk's f32 logits three times (logits, softmax, gradient).  AdamW
+    updates a large leaf in chunks of its leading axis (its f32 temporaries
+    are a chunk's, not counted)."""
     shapes = param_shapes(cfg)
     T = batch * TRAIN_SEQ
     n = sum(math.prod(sh) for sh in _leaves(shapes))
     state = 12 * n
     stack = 2 * max(math.prod(sh) for sh in _leaves(shapes["blocks"]))
-    saved = cfg.n_layers * T * cfg.d_model * 2
-    block = ffn_transients(cfg, batch, TRAIN_SEQ) + 4 * T * cfg.n_heads * cfg.head_dim_ * 2
+    attn = ffn_transients(cfg, batch, TRAIN_SEQ) + 4 * T * cfg.n_heads * cfg.head_dim_ * 2
+    if cfg.block_pattern == "attn":
+        saved, block = cfg.n_layers * T * cfg.d_model * 2, attn
+    elif cfg.block_pattern == "mamba2":
+        saved, block = cfg.n_layers * T * cfg.d_model * 2, mamba_transients(cfg, batch,
+                                                                            TRAIN_SEQ, True)
+    else:
+        # zamba2's nested remat: every group's input, and in one group's
+        # backward its layers' inputs, its shared block's activations and
+        # one Mamba2 layer's recompute and backward
+        saved = (attention_layers(cfg) + cfg.shared_attn_every) * T * cfg.d_model * 2
+        block = attn + mamba_transients(cfg, batch, TRAIN_SEQ, True)
     ce = 3 * batch * min(LOSS_CHUNK, TRAIN_SEQ) * cfg.vocab * 4
     return state + stack + saved + block + ce, (
         f"state {state / 1e9:.2f} GB ({n} parameters) + stacked gradient {stack / 1e9:.2f} GB "
@@ -2239,9 +2342,11 @@ def train_batch_cut(cfg, card: str) -> int:
 
 
 def layer_cuts(cfg):
-    """(label, ``cfg`` with L layers) for L from its own count down to 1."""
+    """(label, ``cfg`` with L layers) for L from its own count down to 1
+    (zamba2: down by whole groups of ``shared_attn_every``)."""
+    step = cfg.shared_attn_every if cfg.block_pattern == "zamba2" else 1
     return ((f"{cfg.name} {L} of {cfg.n_layers} layers", dataclasses.replace(cfg, n_layers=L))
-            for L in range(cfg.n_layers, 0, -1))
+            for L in range(cfg.n_layers, 0, -step))
 
 
 def serve_layer_cut(cfg, request_sets: list, card: str):
@@ -2403,6 +2508,39 @@ def slice_phase(card: str) -> None:
     print(f"[slice] phase wall {time.perf_counter() - t_phase} s ({card})")
 
 
+def recurrent_state_bytes(cfg, B: int) -> int:
+    """Bytes of the Mamba2 decode states of every layer at batch B: ssm (B,
+    H, N, P) f32 and conv (B, W - 1, C) bf16 a layer (0 for attention)."""
+    if cfg.block_pattern == "attn":
+        return 0
+    d_in, N = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+    return cfg.n_layers * B * (d_in * N * 4 + (cfg.conv_width - 1) * (d_in + 2 * N) * 2)
+
+
+def mamba_transients(cfg, B: int, S: int, train: bool = False) -> int:
+    """Bytes of one Mamba2 layer's largest transients at (B, S): its bf16
+    in_proj output, three f32 (B, S, d_inner) tensors (the inputs, x dt, y)
+    and the chunked scan's (B, S / Q, H, Q, Q) f32 blocks: the decay and its
+    product with the scores (three with the masked difference at prefill;
+    in a backward also their saved copies and three gradients, five)."""
+    d_in, N = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+    H = d_in // cfg.ssm_head_dim
+    Q = ssm_module.chunk_len(S, cfg.chunk_size)
+    block = B * (S // Q) * H * Q * Q * 4
+    return B * S * (2 * d_in + 2 * N + H) * 2 + 3 * B * S * d_in * 4 + (5 if train else 3) * block
+
+
+def prefill_transients(cfg, B: int, S: int) -> int:
+    """Bytes of a prefill's largest transients in one block at (B, S): the
+    FFN's (:func:`ffn_transients`) or a Mamba2 layer's
+    (:func:`mamba_transients`), the larger for zamba2."""
+    if cfg.block_pattern == "attn":
+        return ffn_transients(cfg, B, S)
+    if cfg.block_pattern == "mamba2":
+        return mamba_transients(cfg, B, S)
+    return max(ffn_transients(cfg, B, S), mamba_transients(cfg, B, S))
+
+
 def ffn_transients(cfg, B: int, S: int) -> int:
     """Bytes of a prefill's largest transients in one block at (B, S), bf16.
     A dense MLP: its three (B S, d_ff) tensors.  An MoE
@@ -2485,30 +2623,38 @@ def moe_small_check(arch: str, card: str) -> None:
           f"'error': no host sync ({len(grads)} gradients)")
 
 
+def repeat_check(cfg, tag: str, card: str) -> None:
+    """One train step of ``cfg`` (reduced, bf16) run twice on the card from
+    one state: the loss, the gradients, and the updated parameters and
+    moments bitwise equal."""
+    host = numpy_tree(_tree_map(lambda t: t.float(),
+                                init_params(torch.Generator().manual_seed(SEED), cfg)))
+    batch = {k: torch.from_numpy(a).cuda()
+             for k, a in make_batch(cfg, TRAIN_SMALL_SHAPE, 0, SEED).items()}
+    step = make_train_step(cfg, AdamWConfig(total_steps=3, warmup_steps=1))
+    runs = []
+    for _ in range(2):
+        state = train_state_init(None, cfg, params=lm_params(host, cfg, device="cuda"))
+        grads = torch.autograd.grad(loss_fn(state.params, batch, cfg),
+                                    list(_leaves(state.params)))
+        state, m = step(state, batch)
+        runs.append([m["loss"], *grads, *_leaves(state.params), *_leaves(state.opt_state)])
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    cf = f" capacity factor {cfg.capacity_factor}" if cfg.is_moe else ""
+    print(f"[{tag}] {cfg.name} {cfg.dtype}{cf}: one train step twice from one state, loss "
+          f"{float(runs[0][0])!r}: loss, gradients, parameters and moments "
+          f"{'bitwise equal' if same else 'DIFFER'} ({card})")
+    if not same:
+        raise SystemExit(f"a train step of {cfg.name} is not bitwise repeatable")
+
+
 def moe_repeat_check(card: str) -> None:
     """One reduced MoE_TRAIN_ARCH train step in bf16, at its capacity factor
-    and at MOE_DROP_CF, run twice on the card from one state: the loss, the
-    gradients, and the updated parameters and moments bitwise equal."""
+    and at MOE_DROP_CF, run twice on the card from one state
+    (:func:`repeat_check`)."""
     for cf in (get_reduced(MOE_TRAIN_ARCH).capacity_factor, MOE_DROP_CF):
-        cfg = dataclasses.replace(get_reduced(MOE_TRAIN_ARCH), capacity_factor=cf)
-        host = numpy_tree(_tree_map(lambda t: t.float(),
-                                    init_params(torch.Generator().manual_seed(SEED), cfg)))
-        batch = {k: torch.from_numpy(a).cuda()
-                 for k, a in make_batch(cfg, TRAIN_SMALL_SHAPE, 0, SEED).items()}
-        step = make_train_step(cfg, AdamWConfig(total_steps=3, warmup_steps=1))
-        runs = []
-        for _ in range(2):
-            state = train_state_init(None, cfg, params=lm_params(host, cfg, device="cuda"))
-            grads = torch.autograd.grad(loss_fn(state.params, batch, cfg),
-                                        list(_leaves(state.params)))
-            state, m = step(state, batch)
-            runs.append([m["loss"], *grads, *_leaves(state.params), *_leaves(state.opt_state)])
-        same = all(torch.equal(a, b) for a, b in zip(*runs))
-        print(f"[moe] {cfg.name} bf16 capacity factor {cf}: one train step twice from one "
-              f"state, loss {float(runs[0][0])!r}: loss, gradients, parameters and moments "
-              f"{'bitwise equal' if same else 'DIFFER'} ({card})")
-        if not same:
-            raise SystemExit(f"an MoE train step of {cfg.name} is not bitwise repeatable")
+        repeat_check(dataclasses.replace(get_reduced(MOE_TRAIN_ARCH), capacity_factor=cf),
+                     "moe", card)
 
 
 def moe_phase(card: str) -> None:
@@ -2545,6 +2691,162 @@ def moe_phase(card: str) -> None:
     flash_serve_times(MOE_FLASH_TIMES, card)
     bwd_time_at(MOE_TRAIN_ARCH, MOE_BWD_SHAPE, card)
     print(f"[moe] phase wall {time.perf_counter() - t_phase} s ({card})")
+
+
+def d80_kernel_checks(gen) -> dict:
+    """Phase 3 at zamba2-2.7b's head dim: at each of D80_SHAPES in bf16, the
+    forward (route asserted mma_sync; FLASH_ATOL and FLASH_ROW_REL), its o
+    bitwise that of the LSE-writing launch and its LSE (``ref.LSE_TOL``),
+    then the backward on that o and LSE (route asserted mma_sync, bitwise
+    repeated; ``ref.flash_bwd_errors``' bf16 limits), against their plain
+    versions.  Returns {("fwd" | "bwd", shape): max abs err}."""
+    errs, bad = {}, []
+    for shape in D80_SHAPES:
+        dt = torch.bfloat16
+        q, k, v = flash_inputs(*shape, dt, gen)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
+        before = dict(flash_ops.route_launches)
+        o = flash_ops.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        moved = [r for r in flash_ops.ROUTES if flash_ops.route_launches[r] != before[r]]
+        f_err, f_row, f_ok = flash_check(o, flash_ref(q, k, v), dt)
+        o_lse, lse = flash_ops.launch("mma_sync", q, k, v, lse=True)
+        lse_err = float((lse - flash_lse(q, k)).abs().max())
+        before = dict(flash_ops.bwd_route_launches)
+        got = flash_ops.flash_attention_bwd(q, k, v, o, do, lse=lse)
+        torch.cuda.synchronize()
+        b_moved = [r for r in flash_ops.BWD_ROUTES
+                   if flash_ops.bwd_route_launches[r] != before[r]]
+        again = flash_ops.flash_attention_bwd(q, k, v, o, do, lse=lse)
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        b_err, rel, row = flash_bwd_errors(got, flash_bwd_ref(q, k, v, o, do))
+        ok = (moved == ["mma_sync"] and f_ok and torch.equal(o, o_lse) and lse_err <= LSE_TOL
+              and b_moved == ["mma_sync"] and bitwise and rel <= BWD_TOL[dt]
+              and row <= BWD_ROW_REL)
+        print(f"[flash vs plain] (B,S,H,K,D)={shape} bf16 (zamba2-2.7b's head dim): forward "
+              f"route {moved}, max abs err {f_err:.3e}, max row rel err {f_row:.3e}, LSE max abs "
+              f"err {lse_err:.3e}; backward route {b_moved}, max abs err {b_err:.3e}, of max "
+              f"|plain| {rel:.3e}, max row err {row:.3e}, bitwise repeat {bitwise} "
+              f"{'ok' if ok else 'OUT OF TOLERANCE'}")
+        if not ok:
+            bad.append((shape, moved, f_err, f_row, lse_err, b_moved, rel, row, bitwise))
+        errs[("fwd", shape)], errs[("bwd", shape)] = f_err, b_err
+        del q, k, v, do, o, o_lse, lse, got, again
+        torch.cuda.empty_cache()
+    if bad:
+        raise SystemExit(f"the mma_sync flash kernels disagree with their plain versions at "
+                         f"D = 80: {bad}")
+    return errs
+
+
+def ssm_sync_check(card: str) -> None:
+    """A reduced zamba2 forward and backward (loss_fn: the chunked scan's
+    loop, the nested remat, the shared block's flash kernels) on the card
+    in bf16 under ``torch.cuda.set_sync_debug_mode("error")``: no host
+    sync, finite gradients."""
+    cfg = get_reduced(SSM_ARCH)
+    params = init_params(torch.Generator(device="cuda").manual_seed(SEED), cfg)
+    leaves = [t.requires_grad_(True) for t in _leaves(params)]
+    batch = {k: torch.from_numpy(a).cuda()
+             for k, a in make_batch(cfg, TRAIN_SMALL_SHAPE, 0, SEED).items()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grads = torch.autograd.grad(loss_fn(params, batch, cfg), leaves)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    print(f"[ssm] {cfg.name} bf16 loss and gradients on the card under sync debug mode "
+          f"'error': no host sync, {len(grads)} gradients, finite {finite} ({card})")
+    if not finite:
+        raise SystemExit(f"{cfg.name}: non-finite gradients on the card")
+
+
+def d80_times(card: str) -> tuple[dict, dict]:
+    """The mma_sync forward at D80_SERVE and D80_TRAIN in turns with SDPA
+    (median of 5 rounds of 10), the plain version apart (median of 3 rounds
+    of 1), beside the bound; then the mma_sync backward at D80_TRAIN
+    (:func:`bwd_times`: SDPA's backward, the plain version, the bound).
+    Returns ({shape: forward numbers}, backward numbers)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    fwd = {}
+    for shape in (D80_SERVE, D80_TRAIN):
+        args = flash_inputs(*shape, torch.bfloat16, gen)
+        if flash_ops.route(*args) != "mma_sync":
+            raise SystemExit(f"{shape}'s timing inputs do not take the mma_sync route")
+        sdpa_args = [t.transpose(1, 2).contiguous() for t in args]
+        t = event_ms({
+            "mma_sync": lambda: flash_ops.launch("mma_sync", *args),
+            "sdpa": lambda: F.scaled_dot_product_attention(*sdpa_args, is_causal=True),
+        }, n=10, rounds=5)
+        t["plain"] = event_ms({"plain": lambda: flash_ref(*args)}, n=1, rounds=3)["plain"]
+        t["bound_ms"], t["bound_by"] = flash_bound(*args)
+        print(f"[time] flash_attention mma_sync (B,S,H,K,D)={shape} bf16, in turns, median of 5 "
+              f"rounds of 10: mma_sync {t['mma_sync']} ms, SDPA {t['sdpa']} ms "
+              f"({t['mma_sync'] / t['sdpa']}x SDPA's time), plain {t['plain']} ms (median of "
+              f"3); bound {t['bound_ms']} ms ({t['bound_by']}): "
+              f"{100 * t['bound_ms'] / t['mma_sync']}% of bound ({card})")
+        fwd[shape] = t
+        del args, sdpa_args
+        torch.cuda.empty_cache()
+    q, k, v, o, lse, do = bwd_inputs(*D80_TRAIN, torch.bfloat16, gen)
+    t = bwd_times(q, k, v, o, do, lse, ("mma_sync",))
+    print(f"[time] flash backward mma_sync (B,S,H,K,D)={D80_TRAIN} bf16, in turns, median of 5 "
+          f"rounds of 10: mma_sync {t['mma_sync']} ms; SDPA backward {t['library']} ms (fwd+bwd "
+          f"{t['sdpa fwd+bwd']}, fwd {t['sdpa fwd']}); plain {t['plain']} ms (median of 3); "
+          f"bound {t['bound_ms']} ms ({t['bound_by']}): {100 * t['bound_ms'] / t['mma_sync']}% of "
+          f"bound, {t['mma_sync'] / t['library']}x SDPA's backward ({card})")
+    del q, k, v, o, lse, do
+    torch.cuda.empty_cache()
+    return fwd, t
+
+
+def ssm_phase(card: str, d80_errs: dict) -> list[dict]:
+    """Phase 12: zamba2-2.7b served at full width and depth (its batch from
+    the printed reckoning, counted: ``serve_full_width``); its reduced
+    configuration and a reduced plain Mamba2 stack card against CPU (serve,
+    train); a reduced zamba2 forward and backward with no host sync and a
+    reduced bf16 step repeated bitwise; zamba2-2.7b trained at full width
+    (layers cut only by the printed reckoning; ``train_full_width``); the
+    D = 80 flash kernels timed.  Returns their JSON entries."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 12)
+    cfg = get_config(SSM_ARCH)
+    serve_counts = serve_full_width(cfg, serve_batch_cut(cfg, card), rng, card)
+    print(f"[serve] {cfg.name} wall {time.perf_counter() - t_phase} s ({card})")
+    t0 = time.perf_counter()
+    for change in ({}, {"block_pattern": "mamba2"}):
+        small_serve_check(SSM_ARCH, rng, **change)
+        train_small_check(card, SSM_ARCH, **change)
+    ssm_sync_check(card)
+    repeat_check(get_reduced(SSM_ARCH), "ssm", card)
+    print(f"[ssm] card against CPU, no host sync, the bitwise repeat: wall "
+          f"{time.perf_counter() - t0} s ({card})")
+    t0 = time.perf_counter()
+    cut = train_layer_cut(cfg, SSM_TRAIN_BATCH, card)
+    print(f"[train] {cfg.name} layers {cfg.n_layers} -> {cut.n_layers} by the reckoning above "
+          f"({card})")
+    bwd_launches = train_full_width(card, cut, SSM_TRAIN_BATCH)
+    print(f"[train] {cfg.name} wall {time.perf_counter() - t0} s ({card})")
+    t0 = time.perf_counter()
+    fwd, bwd = d80_times(card)
+    print(f"[time] D = 80 wall {time.perf_counter() - t0} s ({card})")
+    print(f"[ssm] phase wall {time.perf_counter() - t_phase} s ({card})")
+    csrc = "src/repro_torch/kernels/flash_attention/csrc/"
+    serve_t = fwd[D80_SERVE]
+    return [
+        {"name": "flash_attention_mma_sync_d80", "route": "cuda",
+         "source": csrc + "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:42",
+         "launches": serve_counts["flash_attention"][0],
+         "max_abs_err": d80_errs[("fwd", D80_SERVE)], "ms": serve_t["mma_sync"],
+         "plain_ms": serve_t["plain"], "bound_ms": serve_t["bound_ms"],
+         "bound_by": serve_t["bound_by"], "library_ms": serve_t["sdpa"]},
+        {"name": "flash_attention_bwd_mma_sync_d80", "route": "cuda",
+         "source": csrc + "flash_attention_bwd.cu",
+         "replaces": "src/repro/models/attention.py:97",
+         "launches": bwd_launches, **bwd_entry(bwd, "mma_sync", d80_errs[("bwd", D80_TRAIN)])},
+    ]
 
 
 def main() -> int:
@@ -2632,6 +2934,8 @@ def main() -> int:
         raise SystemExit(f"flash kernel disagrees with its plain version: {bad}")
     flash_main_err = flash_err  # the last case is the serve path's shape
     del q, k, v, o
+    torch.cuda.empty_cache()
+    d80_errs = d80_kernel_checks(gen)
     wall("3 (kernels vs plain)")
 
     # ---- 4. the solve path, counted
@@ -2805,6 +3109,11 @@ def main() -> int:
     moe_phase(card)
     wall("11 (olmoe-1b-7b, mixtral-8x7b)")
 
+    # ---- 12. Mamba2 and the zamba2 hybrid: zamba2-2.7b at full width and
+    # depth, the flash kernels at its head dim of 80
+    d80_entries = ssm_phase(card, d80_errs)
+    wall("12 (zamba2-2.7b, Mamba2)")
+
     kernels = [
         {
             "name": "pa_elasticity",
@@ -2846,6 +3155,7 @@ def main() -> int:
             "library_ms": flash_lib_ms,
         },
         *bwd_entries,
+        *d80_entries,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

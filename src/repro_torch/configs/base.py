@@ -169,7 +169,7 @@ ALIASES = {
 
 # The architectures whose configuration module this package holds.
 PORTED = ("qwen3_17b", "granite_8b", "qwen15_32b", "qwen3_32b", "qwen2_vl_7b",
-          "musicgen_medium", "olmoe_1b_7b", "mixtral_8x7b")
+          "musicgen_medium", "olmoe_1b_7b", "mixtral_8x7b", "zamba2_27b")
 
 
 def _module(arch: str):

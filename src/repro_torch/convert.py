@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.fem.mesh import HexMesh
-from repro_torch.models.transformer import param_dtype, param_shapes
+from repro_torch.models.transformer import leaf_dtype, param_dtype, param_shapes
 
 __all__ = ["hex_mesh", "lm_params", "operator_data", "start_vectors", "train_state"]
 
@@ -72,15 +72,16 @@ def start_vectors(
 def lm_params(params, cfg, *, device, dtype: torch.dtype | None = None) -> dict:
     """The reference's ``init_params`` pytree for ``cfg`` (nested dicts of
     arrays, e.g. ``jax.tree.map(np.asarray, params)``), as this package's
-    parameters on ``device`` in ``dtype`` (default: ``cfg.dtype``).
+    parameters on ``device`` in ``dtype`` (default: ``cfg.dtype``, with a
+    Mamba2 mixer's ``a_log``, ``d_skip`` and ``dt_bias`` in float32, as the
+    reference keeps them).
 
-    Covers the stacked ``blocks`` (leading layer axis), ``embed``,
-    ``final_norm`` and, when the embeddings are not tied, ``lm_head``.
-    Every key and shape is checked against :func:`param_shapes`.  bfloat16
-    arrays (numpy's ``ml_dtypes`` extension) pass through float32, which
-    holds them exactly.
+    Covers the stacked ``blocks`` (leading layer axis), zamba2's unstacked
+    ``shared`` block, ``embed``, ``final_norm`` and, when the embeddings are
+    not tied, ``lm_head``.  Every key and shape is checked against
+    :func:`param_shapes`.  bfloat16 arrays (numpy's ``ml_dtypes`` extension)
+    pass through float32, which holds them exactly.
     """
-    dtype = dtype or param_dtype(cfg)
 
     def convert(tree, shapes, path):
         if isinstance(shapes, dict):
@@ -93,7 +94,8 @@ def lm_params(params, cfg, *, device, dtype: torch.dtype | None = None) -> dict:
             raise ValueError(f"lm_params: {path} has shape {a.shape}, expected {shapes}")
         if a.dtype.kind != "f":
             a = a.astype(np.float32)
-        return torch.from_numpy(a).to(device=device, dtype=dtype)
+        return torch.from_numpy(a).to(device=device, dtype=dtype or leaf_dtype(
+            path.rsplit("/", 1)[-1], param_dtype(cfg)))
 
     return convert(params, param_shapes(cfg), "")
 

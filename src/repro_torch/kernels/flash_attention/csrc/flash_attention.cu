@@ -3,8 +3,8 @@
 // and "fma" routes of ops.py::route.  bf16 with D in {64, 128} and 16-byte
 // aligned pointers and strides takes the "wgmma" route instead
 // (flash_attention_wgmma.cu); this file keeps the inputs that route does
-// not take: bf16 at D in {16, 32}, or with unaligned rows (mma_sync), and
-// float32 or bf16 at D = 8 (fma).
+// not take: bf16 at D in {16, 32, 80}, or with unaligned rows (mma_sync),
+// and float32 or bf16 at D = 8 (fma).
 //
 // Replaces: src/repro/kernels/flash_attention/flash_attention.py::_kernel
 // (launched by flash_attention_pallas, wrapped by ops.py::flash_attention;
@@ -50,7 +50,14 @@
 //     over 16 threads of 8 values (FMA path) or over a quad of lanes in
 //     mma fragments (tensor-core path); shared memory rows are padded
 //     against bank conflicts.
-// Instantiated for D in {8, 16, 32, 64, 128} in float32 and bfloat16.
+// Instantiated for D in {8, 16, 32, 64, 128} in float32 and bfloat16 (FMA
+// kernel), and for D in {16, 32, 64, 80, 128} in bfloat16 (tensor-core
+// kernel).  D = 80 is zamba2-2.7b's head dim (2560 / 32): 5 k-chunks of
+// Q K^T and 10 n-tiles of O; its rows of 88 bf16 (176 bytes) keep the
+// 16-byte stores and make the fragment loads of 8 rows x 4 lanes hit 32
+// distinct banks (row r starts at bank 12 r mod 32).  The FMA kernel's
+// accumulator tiling (kTD = D / 8 threads a row dividing 256) has no
+// D = 80 instantiation; f32 at D = 80 lies on no path and raises.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -327,7 +334,7 @@ int launch(const Args<T>& a, int B, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core path: bfloat16 with D in {16, 32, 64, 128}.
+// Tensor-core path: bfloat16 with D in {16, 32, 64, 80, 128}.
 //
 // The same block and row mapping as the FMA kernel (kRows rows of (query
 // head, position), the KV band walked tile by tile), with both products on
@@ -623,6 +630,7 @@ int run_mma_sync(const Args<__nv_bfloat16>& a, int B, int D, cudaStream_t st) {
     case 16: return launch_tc<16>(a, B, st);
     case 32: return launch_tc<32>(a, B, st);
     case 64: return launch_tc<64>(a, B, st);
+    case 80: return launch_tc<80>(a, B, st);
     case 128: return launch_tc<128>(a, B, st);
     default: return flash::kErrRoute;
   }

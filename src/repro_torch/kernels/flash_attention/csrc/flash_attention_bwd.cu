@@ -54,7 +54,13 @@
 // 3.35 TB/s): operations bound it.  mma.sync reaches a fraction of Hopper's
 // tensor-core rate; the wgmma route is the redesign.
 //
-// Instantiated for D in {16, 32, 64, 128} in bfloat16 and float32.
+// Instantiated for D in {16, 32, 64, 80, 128} in bfloat16 and D in {16, 32,
+// 64, 128} in float32.  At D = 80 (zamba2-2.7b's head dim) a tile row is 88
+// bf16 (176 bytes: 16-byte cp.async rows and ldmatrix row addresses, the 8
+// rows of an 8x8 matrix on distinct banks), the products take 5 k-chunks and
+// 5 n-tile pairs (D / 8 = 10 accumulator n-tiles, an even count, which the
+// paired ldmatrix loads need); f32 at D = 80 lies on no path (the forward's
+// FMA kernel has no D = 80 tiling to write its LSE) and raises.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -211,7 +217,7 @@ struct TcSmem {
   static constexpr size_t kVec = kTile * sizeof(float);
   static constexpr size_t kDkdv = 6 * kRowTile + 4 * kVec;     // K, V, (Q, dO) x 2, (LSE, delta) x 2
   static constexpr size_t kDq = 6 * kRowTile;                   // Q, dO, (K, V) x 2
-  static_assert(D % 16 == 0, "mma k-chunks of 16");
+  static_assert(D % 16 == 0, "mma k-chunks of 16 and n-tile pairs of 16");
 };
 
 // ---------------------------------------------------------------------------
@@ -660,6 +666,7 @@ int launch_prep(const PrepArgs<T>& p, int B, int D, cudaStream_t st) {
     case 16: bwd_prep<T, 16><<<grid, kPrepThreads, 0, st>>>(p); break;
     case 32: bwd_prep<T, 32><<<grid, kPrepThreads, 0, st>>>(p); break;
     case 64: bwd_prep<T, 64><<<grid, kPrepThreads, 0, st>>>(p); break;
+    case 80: bwd_prep<T, 80><<<grid, kPrepThreads, 0, st>>>(p); break;
     case 128: bwd_prep<T, 128><<<grid, kPrepThreads, 0, st>>>(p); break;
     default: return flash::kErrRoute;
   }
@@ -813,6 +820,7 @@ int flash_attention_bwd_bf16(BWD_ARGS) {
     case 16: return launch_tc<16>(a, s);
     case 32: return launch_tc<32>(a, s);
     case 64: return launch_tc<64>(a, s);
+    case 80: return launch_tc<80>(a, s);
     case 128: return launch_tc<128>(a, s);
     default: return flash::kErrRoute;
   }

@@ -14,9 +14,13 @@ pointer alignment and strides alone (never from a failed launch):
 * ``"wgmma"``: bf16, D in {64, 128}, every base pointer and (b, s, h)
   stride 16-byte aligned: TMA loads, wgmma products, a warp-specialised
   pipeline (``csrc/flash_attention_wgmma.cu``);
-* ``"mma_sync"``: other bf16 with D >= 16: ``mma.sync`` tensor-core kernel
+* ``"mma_sync"``: other bf16 with D >= 16 (D in {16, 32, 64, 80, 128}; 80 is
+  zamba2-2.7b's head dim): ``mma.sync`` tensor-core kernel
   (``csrc/flash_attention.cu``);
-* ``"fma"``: float32, and bf16 at D = 8: the FMA-unit kernel (same file).
+* ``"fma"``: float32, and bf16 at D = 8: the FMA-unit kernel (same file),
+  D in :data:`FMA_D`.  It has no D = 80 tiling: float32 at D = 80 raises
+  on the card, naming the route that takes D = 80 (bf16 on mma_sync), and
+  never switches to another route.
 
 Block sizes are the kernels' own compile-time constants; the reference's
 ``pick_block`` and its ``S % block == 0`` requirement are TPU tiling and
@@ -36,7 +40,8 @@ dtype and head dim alone, or raises:
   TMA, wgmma, a persistent warp-specialised pipeline);
 * ``"mma_sync"``: other bf16 with D in :data:`BWD_D`
   (``csrc/flash_attention_bwd.cu``);
-* ``"fma"``: float32 (same file).
+* ``"fma"``: float32 (same file), D in :data:`FMA_D` but 8; float32 at
+  D = 80 raises, as in the forward.
 
 An input whose base or strides are off 16 bytes is copied to a contiguous
 tensor before any route, so alignment picks none.  Each call first runs the
@@ -74,12 +79,14 @@ __all__ = [
     "ROUTES",
     "BWD_ROUTES",
     "SUPPORTED_D",
+    "FMA_D",
     "BWD_D",
     "KERNEL_DTYPES",
 ]
 
-SUPPORTED_D = (8, 16, 32, 64, 128)
-BWD_D = (16, 32, 64, 128)  # the backward kernel's instantiations
+SUPPORTED_D = (8, 16, 32, 64, 80, 128)
+FMA_D = (8, 16, 32, 64, 128)  # the FMA kernels' instantiations (f32; bf16 at D = 8)
+BWD_D = (16, 32, 64, 80, 128)  # the backward kernels' instantiations
 KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 ROUTES = ("wgmma", "mma_sync", "fma")
 BWD_ROUTES = ROUTES  # the backward's routes have the forward's names
@@ -138,6 +145,16 @@ def bwd_route(q, k, v) -> str:
     dim alone (D in :data:`BWD_D`).  :func:`launch_bwd` copies an input
     that is not 16-byte aligned first, so every layout may take wgmma."""
     return _route(q, True)
+
+
+def _check_fma(name: str, D: int, what: str) -> None:
+    """Refuse the fma route at a head dim it has no tiling for (D = 80),
+    naming the route that takes it."""
+    if name == "fma" and D not in FMA_D:
+        raise ValueError(
+            f"{what}: the fma route (float32) has no instantiation for head dim D = {D} "
+            f"(it takes D in {FMA_D}); D = {D} is instantiated for bfloat16 on the mma_sync "
+            f"route only")
 
 
 def _check_args(q, k, v, window) -> tuple[int, int, int, int, int]:
@@ -207,6 +224,7 @@ def launch(name: str, q, k, v, *, window=None, lse=False):
     B, S, H, K, D = _check_args(q, k, v, window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check_fma(name, D, "flash_attention")
     table = build.LSE_ENTRY_POINTS if lse else build.ENTRY_POINTS
     entry = table.get((name, KERNEL_DTYPES[q.dtype])) if name in ROUTES else None
     if entry is None:
@@ -306,6 +324,7 @@ def _launch_bwd(name, dims, q, k, v, o, do, lse, window):
             f"({B}, {H}, {S}) on {q.device}, got "
             f"{None if lse is None else (tuple(lse.shape), lse.dtype, lse.device)}"
         )
+    _check_fma(name, D, "flash_attention_bwd")
     entry = build.BWD_ENTRY_POINTS.get((name, KERNEL_DTYPES[q.dtype]))
     if entry is None:
         raise ValueError(f"flash_attention_bwd: no {name!r} backward for {q.dtype}, D = {D}")

@@ -16,8 +16,17 @@ sums over the layers), with RoPE, M-RoPE (the VLM stub: ``vision_embeds``
 over the first ``n_vision_tokens`` positions, laid out on a (t, h, w)
 grid) or sinusoidal positions, and with one token stream or
 ``n_codebooks`` of them (summed embeddings, one head a codebook, the CE
-averaged over codebooks).  The recurrent block patterns (Mamba2/zamba2,
-xLSTM) raise ``NotImplementedError`` naming ROADMAP.md, Queue 1 item 11.
+averaged over codebooks).
+
+Also ported: the recurrent stacks of Mamba2 mixers
+(:mod:`repro_torch.models.ssm`), ``block_pattern == "mamba2"`` (a plain
+stack) and ``"zamba2"`` (groups of ``shared_attn_every`` Mamba2 layers, one
+weight-shared attention+MLP block, unstacked under ``shared``, applied
+after each group: 9 applications of one set of attention weights at 54
+layers).  Under remat each Mamba2 layer is rematerialized inside a
+rematerialized group, as in the reference, so a group's attention runs
+twice in a train step's forward (the forward and the group's recompute).
+xLSTM raises ``NotImplementedError`` naming ROADMAP.md, Queue 1 item 11.
 
 Inputs are dicts: ``tokens`` (B, S) integer (codebooks: (B, S, n_cb)),
 ``labels`` shaped like the tokens with -1 masking a position, and for the
@@ -44,6 +53,7 @@ from repro_torch.models.common import (
     rmsnorm,
     sinusoidal_positions,
 )
+from repro_torch.models import ssm as _ssm
 from repro_torch.models.moe import DRAWN as MOE_DRAWN
 from repro_torch.models.moe import moe_apply, moe_shapes
 
@@ -57,7 +67,10 @@ __all__ = [
     "chunked_ce_loss",
     "param_count",
     "param_dtype",
+    "leaf_dtype",
     "param_shapes",
+    "attention_layers",
+    "check_supported",
     "AUX_LOSS_COEF",
     "LOSS_CHUNK",
 ]
@@ -81,9 +94,23 @@ def _not_ported(what: str) -> NotImplementedError:
 
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for a configuration outside the
-    ported families (the attention stack, dense or with experts)."""
-    if cfg.block_pattern != "attn":
+    ported families (the attention stack, dense or with experts, and the
+    Mamba2 and zamba2 stacks), ``ValueError`` for a zamba2 whose layers do
+    not split into its groups."""
+    if cfg.block_pattern not in ("attn", "mamba2", "zamba2"):
         raise _not_ported(f"block_pattern={cfg.block_pattern!r}")
+    if cfg.block_pattern == "zamba2" and (
+            cfg.shared_attn_every < 1 or cfg.n_layers % cfg.shared_attn_every):
+        raise ValueError("zamba2 requires n_layers % shared_attn_every == 0")
+
+
+def attention_layers(cfg) -> int:
+    """How many attention blocks a forward applies: every layer of the
+    attention stack, one a group of zamba2 (the shared block), none in a
+    Mamba2 stack."""
+    if cfg.block_pattern == "zamba2":
+        return cfg.n_layers // cfg.shared_attn_every
+    return cfg.n_layers if cfg.block_pattern == "attn" else 0
 
 
 # ---------------------------------------------------------------------------
@@ -116,6 +143,21 @@ def _attn_block_decode(p, x, cfg, cache, pos: int):
     return x + m, cache
 
 
+def _mamba_block_apply(p, x, cfg):
+    """Pre-norm Mamba2 block. Returns (x, state)."""
+    h, state = _ssm.mamba2_apply(p["mixer"], rmsnorm(x, p["norm"], cfg.norm_eps), cfg)
+    return x + h, state
+
+
+def _mamba_block_x(p, x, cfg):
+    return _mamba_block_apply(p, x, cfg)[0]
+
+
+def _mamba_block_decode(p, x, cfg, state):
+    h, state = _ssm.mamba2_decode(p["mixer"], rmsnorm(x, p["norm"], cfg.norm_eps), cfg, state)
+    return x + h, state
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
@@ -139,69 +181,111 @@ def _unstack(blocks, n: int) -> list:
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-# The stacked leaves drawn from the generator, in the order of one layer's
-# draws (the attention's, then the MLP's or the experts'); the others are
-# ones (norms) or zeros (biases).
-_DRAWN = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
-          ("mlp", "w_gate"), ("mlp", "w_up"), ("mlp", "w_down"),
-          *(("moe", name) for name in MOE_DRAWN))
+# The leaves drawn from the generator, in the order of one block's draws,
+# with their init scale (None: 1/sqrt(fan_in)): an attention block's (the
+# attention's, then the MLP's or the experts'), a Mamba2 block's; the
+# others are the constants of :func:`_constant`.
+_DRAWN = (("attn", "wq", None), ("attn", "wk", None), ("attn", "wv", None),
+          ("attn", "wo", None), ("mlp", "w_gate", None), ("mlp", "w_up", None),
+          ("mlp", "w_down", None), *(("moe", name, None) for name in MOE_DRAWN),
+          *(("mixer", name, scale) for name, scale in _ssm.DRAWN))
+_ONES = ("attn_norm", "mlp_norm", "q_norm", "k_norm", "norm")
+
+
+def _constant(name: str) -> float:
+    """The value of a leaf that is not drawn: norms are ones, biases zeros,
+    and a Mamba2 mixer's constants are the reference's."""
+    if name in _ssm.CONSTANTS:
+        return _ssm.CONSTANTS[name]
+    return 1.0 if name in _ONES else 0.0
+
+
+def leaf_dtype(name: str, dtype: torch.dtype) -> torch.dtype:
+    """A leaf's dtype in a model of ``dtype``: a Mamba2 mixer's ``a_log``,
+    ``d_skip`` and ``dt_bias`` stay float32."""
+    return torch.float32 if name in _ssm.F32_PARAMS else dtype
+
+
+def _init_block(generator, shapes: dict, dtype, n: int | None) -> dict:
+    """A block's parameters: each leaf allocated once ((n,) + shape when
+    stacked over n layers), the constants filled, then the drawn leaves,
+    layer by layer in ``_DRAWN``'s order (so the weights are never held
+    twice, and the largest transient is one layer's float32 draw)."""
+    dev = generator.device
+
+    def alloc(tree, name=None):
+        if isinstance(tree, dict):
+            return {k: alloc(v, k) for k, v in tree.items()}
+        return torch.full(tree, _constant(name), dtype=leaf_dtype(name, dtype), device=dev)
+
+    block = alloc(shapes)
+    drawn = [(block[group][name], scale) for group, name, scale in _DRAWN
+             if group in block and name in block[group]]
+    for i in range(n or 1):
+        for leaf, scale in drawn:
+            part = leaf[i] if n else leaf
+            part.copy_(dense_init(generator, part.shape, dtype, scale))
+    return block
 
 
 def init_params(generator: torch.Generator, cfg) -> dict:
-    """Seeded random parameters on ``generator``'s device, in ``cfg.dtype``.
+    """Seeded random parameters on ``generator``'s device, in ``cfg.dtype``
+    (a Mamba2 mixer's ``a_log``, ``d_skip`` and ``dt_bias`` in float32).
 
     Each stacked leaf is allocated once, (L,) + shape, and layer i's draw
     goes into its slice, layer by layer in ``_DRAWN``'s order; so the
     weights are never held twice, and the largest transient is one leaf's
-    float32 draw.  The draws differ from the reference's (a torch Generator
-    is not a JAX key); tests carry the reference's parameters across
-    instead."""
+    float32 draw.  zamba2's shared block is drawn after the stack.  The
+    draws differ from the reference's (a torch Generator is not a JAX key);
+    tests carry the reference's parameters across instead."""
     check_supported(cfg)
     dtype, dev = param_dtype(cfg), generator.device
     shapes = param_shapes(cfg)
     params: dict[str, Any] = {"embed": dense_init(generator, shapes["embed"], dtype)}
-    blocks = _tree_map(lambda shape: torch.empty(shape, dtype=dtype, device=dev),
-                       shapes["blocks"])
-    for name in ("attn_norm", "mlp_norm"):
-        blocks[name].fill_(1)
-    for name, leaf in blocks["attn"].items():
-        if name in ("bq", "bk", "bv"):
-            leaf.zero_()
-        elif name in ("q_norm", "k_norm"):
-            leaf.fill_(1)
-    drawn = [blocks[group][name] for group, name in _DRAWN
-             if group in blocks and name in blocks[group]]
-    for i in range(cfg.n_layers):
-        for leaf in drawn:
-            leaf[i].copy_(dense_init(generator, leaf.shape[1:], dtype))
-    params["blocks"] = blocks
+    params["blocks"] = _init_block(generator, shapes["blocks"], dtype, cfg.n_layers)
+    if "shared" in shapes:
+        params["shared"] = _init_block(generator, shapes["shared"], dtype, None)
     params["final_norm"] = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
     if "lm_head" in shapes:
         params["lm_head"] = dense_init(generator, shapes["lm_head"], dtype)
     return params
 
 
+def _attn_block_shapes(cfg, lead: tuple) -> dict:
+    """An attention block's shapes, each with ``lead`` in front ((L,) for
+    the stack, () for zamba2's shared block)."""
+    d, f = cfg.d_model, cfg.d_ff
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    attn = {"wq": (d, H * hd), "wk": (d, K * hd), "wv": (d, K * hd), "wo": (H * hd, d)}
+    if cfg.qkv_bias:
+        attn.update(bq=(H * hd,), bk=(K * hd,), bv=(K * hd,))
+    if cfg.qk_norm:
+        attn.update(q_norm=(hd,), k_norm=(hd,))
+    block: dict[str, Any] = {"attn_norm": (d,), "attn": attn, "mlp_norm": (d,)}
+    if cfg.is_moe:
+        block["moe"] = moe_shapes(cfg)
+    else:
+        mlp = {"w_gate": (d, f)} if cfg.mlp_type == "swiglu" else {}
+        mlp.update(w_up=(d, f), w_down=(f, d))
+        block["mlp"] = mlp
+    return _tree_map(lambda sh: lead + sh, block)
+
+
 def param_shapes(cfg) -> dict:
     """The shape of every parameter, in the layout of :func:`init_params`
     (and of the reference's ``init_params`` pytree)."""
     check_supported(cfg)
-    L, d, f, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
-    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    attn = {"wq": (L, d, H * hd), "wk": (L, d, K * hd), "wv": (L, d, K * hd),
-            "wo": (L, H * hd, d)}
-    if cfg.qkv_bias:
-        attn.update(bq=(L, H * hd), bk=(L, K * hd), bv=(L, K * hd))
-    if cfg.qk_norm:
-        attn.update(q_norm=(L, hd), k_norm=(L, hd))
-    blocks: dict[str, Any] = {"attn_norm": (L, d), "attn": attn, "mlp_norm": (L, d)}
-    if cfg.is_moe:
-        blocks["moe"] = {name: (L,) + sh for name, sh in moe_shapes(cfg).items()}
+    L, d, V = cfg.n_layers, cfg.d_model, cfg.vocab
+    if cfg.block_pattern == "attn":
+        blocks = _attn_block_shapes(cfg, (L,))
     else:
-        mlp = {"w_gate": (L, d, f)} if cfg.mlp_type == "swiglu" else {}
-        mlp.update(w_up=(L, d, f), w_down=(L, f, d))
-        blocks["mlp"] = mlp
+        blocks = {"norm": (L, d),
+                  "mixer": {k: (L,) + sh for k, sh in _ssm.mamba2_shapes(cfg).items()}}
     cb = (cfg.n_codebooks,) if cfg.n_codebooks else ()
-    shapes: dict[str, Any] = {"embed": cb + (V, d), "blocks": blocks, "final_norm": (d,)}
+    shapes: dict[str, Any] = {"embed": cb + (V, d), "blocks": blocks}
+    if cfg.block_pattern == "zamba2":
+        shapes["shared"] = _attn_block_shapes(cfg, ())
+    shapes["final_norm"] = (d,)
     if cfg.n_codebooks or not cfg.tie_embeddings:
         shapes["lm_head"] = cb + (d, V)
     return shapes
@@ -285,6 +369,19 @@ def _block_x(p, x, cfg, positions):
     return x, aux
 
 
+def _remat(rematted: bool, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``rematted``."""
+    return checkpoint(fn, *args, use_reentrant=False) if rematted else fn(*args)
+
+
+def _zamba_group(layers, shared, x, cfg, positions, rematted: bool):
+    """One zamba2 group: its Mamba2 layers (each rematerialized when
+    ``rematted``), then the shared attention block."""
+    for p in layers:
+        x = _remat(rematted, _mamba_block_x, p, x, cfg)
+    return _attn_block_apply(shared, x, cfg, positions)[0]
+
+
 def forward(params, batch, cfg, *, remat: bool = True):
     """Run the stack; returns (hidden (B, S, d), aux_loss): the MoE
     balance losses summed over the layers in f32 (0.0 without experts),
@@ -294,18 +391,27 @@ def forward(params, batch, cfg, *, remat: bool = True):
     ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, the
     reference's ``jax.checkpoint`` per block: only the block's input is
     kept, and its forward (flash kernel included) runs again in the
-    backward."""
+    backward.  zamba2 nests it as the reference does: each group is
+    rematerialized, and inside it each Mamba2 layer; the group's recompute
+    keeps its layers' inputs and its shared block's activations."""
     check_supported(cfg)
     x = _embed(params, batch, cfg)
     positions = _positions(batch, cfg)
     rematted = remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device) if cfg.is_moe else 0.0
-    for p in _unstack(params["blocks"], cfg.n_layers):
-        if rematted:
-            x, a = checkpoint(_block_x, p, x, cfg, positions, use_reentrant=False)
-        else:
-            x, a = _block_x(p, x, cfg, positions)
-        aux = aux + a
+    layers = _unstack(params["blocks"], cfg.n_layers)
+    if cfg.block_pattern == "attn":
+        for p in layers:
+            x, a = _remat(rematted, _block_x, p, x, cfg, positions)
+            aux = aux + a
+    elif cfg.block_pattern == "mamba2":
+        for p in layers:
+            x = _remat(rematted, _mamba_block_x, p, x, cfg)
+    else:
+        every = cfg.shared_attn_every
+        for g in range(cfg.n_layers // every):
+            x = _remat(rematted, _zamba_group, layers[g * every:(g + 1) * every],
+                       params["shared"], x, cfg, positions, rematted)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
 
 
@@ -372,14 +478,32 @@ def _logits(x, w):
 # ---------------------------------------------------------------------------
 # serving: prefill + single-token decode with explicit state
 # ---------------------------------------------------------------------------
+def _stacked_zeros(one: dict, n: int) -> dict:
+    return {name: torch.zeros((n,) + a.shape, dtype=a.dtype, device=a.device)
+            for name, a in one.items()}
+
+
 def init_decode_state(cfg, batch: int, max_len: int, device=None):
-    """KV cache of every layer, stacked: k/v (L, B, size, K, hd)."""
+    """The decode state of every layer, stacked on a leading axis.  The
+    attention stack: its KV cache, k/v (L, B, size, K, hd).  Mamba2: ssm
+    (L, B, H, N, P) f32 and conv (L, B, W - 1, C).  zamba2: ``{"mamba":
+    that, "shared_kv": the shared block's k/v (n_groups, B, max_len, K,
+    hd)}``."""
     check_supported(cfg)
-    one = init_kv_cache(cfg, batch, max_len, param_dtype(cfg), device)
-    return {
-        name: torch.zeros((cfg.n_layers,) + a.shape, dtype=a.dtype, device=a.device)
-        for name, a in one.items()
-    }
+    dtype = param_dtype(cfg)
+    if cfg.block_pattern == "attn":
+        return _stacked_zeros(init_kv_cache(cfg, batch, max_len, dtype, device), cfg.n_layers)
+    mamba = _stacked_zeros(_ssm.init_mamba2_state(cfg, batch, dtype, device), cfg.n_layers)
+    if cfg.block_pattern == "mamba2":
+        return mamba
+    return {"mamba": mamba, "shared_kv": _stacked_zeros(
+        init_kv_cache(cfg, batch, max_len, dtype, device), attention_layers(cfg))}
+
+
+def _set_state(stack: dict, i: int, state: dict) -> None:
+    """Write one layer's state into slice i of the stacked state, in place."""
+    for name, t in state.items():
+        stack[name][i].copy_(t)
 
 
 def decode_step(params, token, state, pos: int, cfg):
@@ -387,7 +511,8 @@ def decode_step(params, token, state, pos: int, cfg):
 
     token: (B, 1) int (codebooks: (B, 1, n_cb)); pos: number of tokens
     already in the state.  Returns (logits (B, V) (codebooks: (B, n_cb,
-    V)), state); the state's caches are updated in place and returned.
+    V)), state); the state (caches, Mamba2 states) is updated in place and
+    returned.
     """
     check_supported(cfg)
     x = _embed(params, {"tokens": token}, cfg)
@@ -398,9 +523,20 @@ def decode_step(params, token, state, pos: int, cfg):
                                      cfg.d_model, x.dtype)
         x = x + sinusoidal_positions(torch.full((1, 1), pos, dtype=torch.long, device=dev),
                                      cfg.d_model, x.dtype)
-    for i, p in enumerate(_unstack(params["blocks"], cfg.n_layers)):
-        cache = {"k": state["k"][i], "v": state["v"][i]}  # views: written in place
-        x, _ = _attn_block_decode(p, x, cfg, cache, pos)
+    layers = _unstack(params["blocks"], cfg.n_layers)
+    if cfg.block_pattern == "attn":
+        for i, p in enumerate(layers):
+            cache = {"k": state["k"][i], "v": state["v"][i]}  # views: written in place
+            x, _ = _attn_block_decode(p, x, cfg, cache, pos)
+    else:
+        mamba = state["mamba"] if cfg.block_pattern == "zamba2" else state
+        for i, p in enumerate(layers):
+            x, st = _mamba_block_decode(p, x, cfg, {k: t[i] for k, t in mamba.items()})
+            _set_state(mamba, i, st)
+            if cfg.block_pattern == "zamba2" and (i + 1) % cfg.shared_attn_every == 0:
+                g = i // cfg.shared_attn_every
+                cache = {k: t[g] for k, t in state["shared_kv"].items()}
+                x, _ = _attn_block_decode(params["shared"], x, cfg, cache, pos)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return _logits(x, _head_weight(params, cfg)), state
 
@@ -414,22 +550,54 @@ def prefill(params, batch, cfg, max_len: int | None = None):
     x = _embed(params, batch, cfg)
     positions = _positions(batch, cfg)
     state = init_decode_state(cfg, B, max_len, x.device)
+    if cfg.block_pattern == "attn":
+        x = _attn_prefill(params, x, cfg, positions, state)
+    else:
+        x = _recurrent_prefill(params, x, cfg, positions, state)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return _logits(x[:, -1], _head_weight(params, cfg)), state
+
+
+def _attn_prefill(params, x, cfg, positions, state):
+    """The attention stack over the prompt; each layer's k/v go straight
+    into the preallocated (L, B, size, K, hd) cache, in place (the
+    reference stacks every layer's k/v, then copies the stack into its
+    cache).  Returns the hidden states."""
+    S = x.shape[1]
     size = state["k"].shape[2]
     if S > size and not cfg.sliding_window:
-        raise ValueError(f"prompt of {S} tokens does not fit a cache of max_len={max_len}")
+        raise ValueError(f"prompt of {S} tokens does not fit a cache of {size} slots")
     if cfg.sliding_window and S > size:
         # rolling window layout: position t of the last `size` lands in
         # slot t % size
         slots = torch.arange(S - size, S, device=x.device) % size
     for i, p in enumerate(_unstack(params["blocks"], cfg.n_layers)):
         x, _, (k, v) = _attn_block_apply(p, x, cfg, positions)
-        # In place: each layer's k/v go straight into the preallocated
-        # (L, B, size, K, hd) cache; the reference stacks every layer's k/v
-        # and then copies the stack into its cache.
         for name, t in (("k", k), ("v", v)):
             if cfg.sliding_window and S > size:
                 state[name][i][:, slots] = t[:, S - size:].to(state[name].dtype)
             else:
                 state[name][i, :, :S] = t.to(state[name].dtype)
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return _logits(x[:, -1], _head_weight(params, cfg)), state
+    return x
+
+
+def _recurrent_prefill(params, x, cfg, positions, state):
+    """The Mamba2 (and zamba2) stack over the prompt in one pass: each
+    layer's final ssm state and conv tail go into the preallocated stacked
+    state, and each zamba2 group's shared-block k/v into its slice of the
+    shared cache, in place.  Returns the hidden states."""
+    S = x.shape[1]
+    zamba = cfg.block_pattern == "zamba2"
+    mamba = state["mamba"] if zamba else state
+    if zamba and S > state["shared_kv"]["k"].shape[2]:
+        raise ValueError(f"prompt of {S} tokens does not fit a cache of "
+                         f"{state['shared_kv']['k'].shape[2]} slots")
+    for i, p in enumerate(_unstack(params["blocks"], cfg.n_layers)):
+        x, st = _mamba_block_apply(p, x, cfg)
+        _set_state(mamba, i, st)
+        if zamba and (i + 1) % cfg.shared_attn_every == 0:
+            g = i // cfg.shared_attn_every
+            x, _, kv = _attn_block_apply(params["shared"], x, cfg, positions)
+            for name, t in zip(("k", "v"), kv):
+                state["shared_kv"][name][g, :, :S] = t.to(state["shared_kv"][name].dtype)
+    return x

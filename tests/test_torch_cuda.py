@@ -384,6 +384,79 @@ def test_flash_bwd_mma_sync_on_wgmma_inputs(card, pad):
         assert err <= BWD_TOL[torch.bfloat16] and row <= BWD_ROW_REL, name
 
 
+# zamba2-2.7b's head dim, 80 (2560 / 32): bf16 only, on the mma_sync routes
+D80_CASES = [
+    (2, 1, 4, 2, None), (2, 77, 4, 2, None), (1, 300, 8, 8, None),  # ragged S, G = 2, MHA
+    (2, 130, 4, 2, 48), (1, 300, 8, 1, 16),  # windows, MQA
+    (1, 1024, 32, 32, None), (2, 333, 32, 32, None),  # zamba2's (H, K), a ragged S
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,K,window", D80_CASES)
+@pytest.mark.parametrize("pad", [0, 2, 8])  # 2: rows off 16 bytes; 8: aligned views
+def test_flash_kernel_d80_matches_plain_on_card(card, B, S, H, K, window, pad):
+    """bf16 at D = 80 takes the mma_sync forward, aligned or not, within the
+    bf16 tolerances of ``test_flash_kernel_matches_plain_on_card``."""
+    test_flash_kernel_matches_plain_on_card(card, B, S, H, K, 80, window, torch.bfloat16, pad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,K,window", D80_CASES)
+@pytest.mark.parametrize("pad", [0, 2])  # 2: views copied before the kernel
+def test_flash_bwd_d80_matches_plain_on_card(card, B, S, H, K, window, pad):
+    """bf16 at D = 80 takes the mma_sync backward (``_check_bwd``: the
+    forward's LSE first, bitwise repeated), and autograd through
+    flash_attention runs the same kernels."""
+    q, k, v, do = _bwd_inputs(card, B, S, H, K, 80, torch.bfloat16, pad, seed=S + H)
+    got = _check_bwd(q, k, v, do, window, "mma_sync")
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    auto = torch.autograd.grad(flash_ops.flash_attention(*leaves, window=window), leaves, do)
+    assert all(torch.equal(a, b) for a, b in zip(auto, got))
+
+
+@pytest.mark.cuda
+def test_flash_d80_float32_raises_naming_the_route(card):
+    """float32 at D = 80 lies on no path: the fma routes have no D = 80
+    tiling, and both directions raise, naming the route that takes D = 80,
+    without launching anything."""
+    q, k, v, do = _bwd_inputs(card, 1, 64, 4, 2, 80, torch.float32)
+    launches = {n: c.launches for n, c in flash_ops.counts.items()}
+    with pytest.raises(ValueError, match="mma_sync route only"):
+        flash_ops.flash_attention(q, k, v)
+    lse = torch.zeros((1, 4, 64), device=card)
+    with pytest.raises(ValueError, match="mma_sync route only"):
+        flash_ops.flash_attention_bwd(q, k, v, q, do, lse=lse)
+    assert {n: c.launches for n, c in flash_ops.counts.items()} == launches
+
+
+@pytest.mark.cuda
+def test_zamba2_forward_backward_makes_no_host_sync(card):
+    """A reduced zamba2 forward and backward (the chunked SSD's loop, the
+    nested remat, the shared block's flash kernels) on the card under
+    ``torch.cuda.set_sync_debug_mode("error")``, in bf16 and f32: no host
+    sync, and finite gradients."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models.transformer import _leaves, loss_fn
+
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(get_reduced("zamba2-2.7b"), dtype=dtype)
+        params = init_params(torch.Generator(device=card).manual_seed(0), cfg)
+        leaves = list(_leaves(params))
+        for t in leaves:
+            t.requires_grad_(True)
+        batch = {k: torch.from_numpy(a).to(card)
+                 for k, a in make_batch(cfg, ShapeConfig("t", "train", 64, 2), 0).items()}
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            grads = torch.autograd.grad(loss_fn(params, batch, cfg), leaves)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
 @pytest.mark.cuda
 def test_flash_bwd_refuses_a_missing_lse(card):
     q, k, v, do = _bwd_inputs(card, 1, 64, 4, 2, 64, torch.bfloat16)
@@ -396,6 +469,7 @@ def test_flash_bwd_refuses_a_missing_lse(card):
 @pytest.mark.parametrize("route,dtype,D,pad", [
     ("wgmma", torch.bfloat16, 128, 0), ("wgmma", torch.bfloat16, 64, 0),
     ("mma_sync", torch.bfloat16, 128, 0), ("mma_sync", torch.bfloat16, 16, 2),
+    ("mma_sync", torch.bfloat16, 80, 0),
     ("fma", torch.float32, 128, 0), ("fma", torch.float32, 16, 0), ("fma", torch.bfloat16, 8, 0),
 ])
 @pytest.mark.parametrize("S,window", [(1, None), (77, None), (300, 48), (1000, None)])
