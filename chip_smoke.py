@@ -29,8 +29,10 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    64), and the serve path's (8, 2048, 16, 8, 128), each case asserting which
    route (``ops.route``: wgmma, mma_sync or fma) launched; and at phase 12's
    head dim of 80 in bf16, (8, 2048, 32, 32, 80), (4, 4096, 32, 32, 80) and
-   (2, 333, 32, 32, 80): the mma_sync forward (and its LSE) and backward
-   (bitwise repeated) against their plain versions, routes asserted;
+   (2, 333, 32, 32, 80): the wgmma forward (its o bitwise that of the
+   LSE-writing launch, and its LSE) and backward (bitwise repeated)
+   against their plain versions, routes asserted wgmma, and the kept
+   mma_sync kernels launched by name on the same inputs, both ways;
 4. the solve path: ``solve_beam(4, 4, precision="f64", device="cuda")`` on
    the 2-material beam (32,768 elements, 6,502,275 DoFs) with every
    kernel count zeroed just before and read just after; it must converge
@@ -144,7 +146,7 @@ Phases (any failure exits non-zero; no phase's exception is caught):
 
 9. training (``[train]`` lines, each beside the card's name and power
    limit): (a) the flash backward routes against their plain version in
-   float32 (fma; 1e-4 of max |plain|) and bfloat16 (wgmma at D in {64, 128},
+   float32 (fma; 1e-4 of max |plain|) and bfloat16 (wgmma at D in {64, 80, 128},
    mma_sync at D in {16, 32}; 2e-2 of max |plain| and per row,
    ``ref.flash_bwd_errors``) at S in {1, 77, 300, 1024}, G in {1, 2},
    windows, and the training shape (4, 4096, 16, 8, 128) bf16 (there the
@@ -235,19 +237,21 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    each group of 6, head dim 80) at full width and depth in bf16, served as
    phase 10 (8 x 2048 prompt tokens + 32 new, the batch from the printed
    reckoning: weights, shared KV cache, Mamba2 states, the chunked scan's
-   transients), counted: 9 mma_sync flash launches a prefill batch, 0
-   plain, the kernel held against its plain version on the first and last
+   transients), counted: 9 wgmma flash launches a prefill batch, 0
+   mma_sync, 0 plain, the kernel held against its plain version on the first and last
    shared applications' q/k/v; its reduced configuration and a reduced
    plain Mamba2 stack in f32 card against CPU (tokens and logits,
    first-step gradients and three steps' losses); a reduced zamba2 forward
-   and backward under sync debug mode "error"; a reduced bf16 zamba2 step
-   twice from one state, bitwise; zamba2-2.7b trained as 9(c) (B = 4, S =
+   and backward under sync debug mode "error" and a reduced bf16 zamba2
+   step twice from one state, bitwise, counted together (head dim 16: the
+   mma_sync routes); zamba2-2.7b trained as 9(c) (B = 4, S =
    4096, layers cut only by the printed reckoning; 18 forward and 9
-   backward flash launches a step on mma_sync, 0 plain; MFU counting every
-   application of the shared block; the profile with the scan and the conv
-   as entries of their own); the mma_sync forward at (8, 2048, 32, 32, 80)
-   and (4, 4096, 32, 32, 80) beside SDPA, the plain version and the bound,
-   and the backward at (4, 4096, 32, 32, 80) beside SDPA's backward.  The
+   backward flash launches a step on wgmma, 0 mma_sync, 0 plain; MFU
+   counting every application of the shared block; the profile with the
+   scan and the conv as entries of their own); the wgmma and mma_sync
+   forwards at (8, 2048, 32, 32, 80) and (4, 4096, 32, 32, 80) in turns
+   with SDPA, beside the plain version and the bound, and both backwards
+   at (4, 4096, 32, 32, 80) beside SDPA's backward.  The
    wall time of each phase is printed (``[wall]`` lines).
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -491,8 +495,9 @@ MOE_BWD_SHAPE = (MOE_TRAIN_BATCH, TRAIN_SEQ, 16, 16, 128)
 # SERVE_NEW) and trained at train_4k's sequence, its global batch cut to
 # SSM_TRAIN_BATCH; its reduced configuration and a reduced plain Mamba2
 # stack card against CPU; a reduced zamba2 step repeated bitwise.  Its
-# head dim of 80 (2560 / 32) takes the mma_sync flash routes: held in phase
-# 3 at the serve and training shapes and a ragged S, timed at the first two.
+# head dim of 80 (2560 / 32) takes the wgmma flash routes: held in phase 3
+# at the serve and training shapes and a ragged S (the mma_sync kernels
+# too, launched by name), both routes timed at the first two.
 SSM_ARCH, SSM_TRAIN_BATCH = "zamba2-2.7b", 4
 D80_SERVE = (SERVE_REQUESTS, SERVE_PROMPT, 32, 32, 80)  # (B, S, H, K, D)
 D80_TRAIN = (SSM_TRAIN_BATCH, TRAIN_SEQ, 32, 32, 80)
@@ -680,9 +685,10 @@ def reset_all_counts() -> None:
 
 
 def expected_route(dt, D: int, pad: int) -> str:
-    """The flash kernel each case must launch: bf16 at D in {64, 128} with
-    16-byte rows takes wgmma, other bf16 at D >= 16 mma_sync, the rest fma."""
-    if dt == torch.bfloat16 and D in (64, 128) and pad == 0:
+    """The flash kernel each case must launch: bf16 at D in {64, 80, 128}
+    with 16-byte rows takes wgmma, other bf16 at D >= 16 mma_sync, the rest
+    fma."""
+    if dt == torch.bfloat16 and D in flash_ops.WGMMA_D and pad == 0:
         return "wgmma"
     return "mma_sync" if dt == torch.bfloat16 and D >= 16 else "fma"
 
@@ -797,7 +803,7 @@ def serve_full_width(cfg, batch: int, rng, card: str,
     with every count zeroed just before and read just after: one flash
     launch per attention block (``attention_layers``: n_layers, or zamba2's
     n_groups shared applications) per prefill batch, all on the route of
-    the head dim (wgmma at 64 and 128, mma_sync at zamba2's 80), no plain
+    the head dim (wgmma at 64, 80 (zamba2's) and 128), no plain
     call.  A 2-token warm-up at the same shapes (cuBLAS's first calls pick
     their kernels), its prompts cut to ``prompt`` - 32 i tokens so that the
     batch is left-padded to ``prompt``, keeps the q/k/v that the first and
@@ -1767,11 +1773,11 @@ def bwd_inputs(B, S, H, K, D, dtype, gen, window=None) -> tuple:
 
 
 def expected_bwd_route(dt, D: int) -> str:
-    """The backward route each (contiguous) case must launch: f32 fma, bf16
-    at D in {64, 128} wgmma, other bf16 mma_sync."""
+    """The backward route each case must launch: f32 fma, bf16 at D in
+    {64, 80, 128} wgmma, other bf16 mma_sync."""
     if dt == torch.float32:
         return "fma"
-    return "wgmma" if D in (64, 128) else "mma_sync"
+    return "wgmma" if D in flash_ops.WGMMA_D else "mma_sync"
 
 
 def bwd_bound(q, k) -> tuple[float, str]:
@@ -2695,23 +2701,26 @@ def moe_phase(card: str) -> None:
 
 def d80_kernel_checks(gen) -> dict:
     """Phase 3 at zamba2-2.7b's head dim: at each of D80_SHAPES in bf16, the
-    forward (route asserted mma_sync; FLASH_ATOL and FLASH_ROW_REL), its o
+    forward (route asserted wgmma; FLASH_ATOL and FLASH_ROW_REL), its o
     bitwise that of the LSE-writing launch and its LSE (``ref.LSE_TOL``),
-    then the backward on that o and LSE (route asserted mma_sync, bitwise
+    then the backward on that o and LSE (route asserted wgmma, bitwise
     repeated; ``ref.flash_bwd_errors``' bf16 limits), against their plain
-    versions.  Returns {("fwd" | "bwd", shape): max abs err}."""
+    versions; then the kept mma_sync kernels, launched by name on the same
+    inputs, under the same limits.  Returns {(route, "fwd" | "bwd", shape):
+    max abs err}."""
     errs, bad = {}, []
+    dt = torch.bfloat16
     for shape in D80_SHAPES:
-        dt = torch.bfloat16
         q, k, v = flash_inputs(*shape, dt, gen)
         do = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
+        ref, lse_ref = flash_ref(q, k, v), flash_lse(q, k)
         before = dict(flash_ops.route_launches)
         o = flash_ops.flash_attention(q, k, v)
         torch.cuda.synchronize()
         moved = [r for r in flash_ops.ROUTES if flash_ops.route_launches[r] != before[r]]
-        f_err, f_row, f_ok = flash_check(o, flash_ref(q, k, v), dt)
-        o_lse, lse = flash_ops.launch("mma_sync", q, k, v, lse=True)
-        lse_err = float((lse - flash_lse(q, k)).abs().max())
+        f_err, f_row, f_ok = flash_check(o, ref, dt)
+        o_lse, lse = flash_ops.launch("wgmma", q, k, v, lse=True)
+        lse_err = float((lse - lse_ref).abs().max())
         before = dict(flash_ops.bwd_route_launches)
         got = flash_ops.flash_attention_bwd(q, k, v, o, do, lse=lse)
         torch.cuda.synchronize()
@@ -2719,23 +2728,43 @@ def d80_kernel_checks(gen) -> dict:
                    if flash_ops.bwd_route_launches[r] != before[r]]
         again = flash_ops.flash_attention_bwd(q, k, v, o, do, lse=lse)
         bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
-        b_err, rel, row = flash_bwd_errors(got, flash_bwd_ref(q, k, v, o, do))
-        ok = (moved == ["mma_sync"] and f_ok and torch.equal(o, o_lse) and lse_err <= LSE_TOL
-              and b_moved == ["mma_sync"] and bitwise and rel <= BWD_TOL[dt]
+        want = flash_bwd_ref(q, k, v, o, do)
+        b_err, rel, row = flash_bwd_errors(got, want)
+        ok = (moved == ["wgmma"] and f_ok and torch.equal(o, o_lse) and lse_err <= LSE_TOL
+              and b_moved == ["wgmma"] and bitwise and rel <= BWD_TOL[dt]
               and row <= BWD_ROW_REL)
         print(f"[flash vs plain] (B,S,H,K,D)={shape} bf16 (zamba2-2.7b's head dim): forward "
               f"route {moved}, max abs err {f_err:.3e}, max row rel err {f_row:.3e}, LSE max abs "
-              f"err {lse_err:.3e}; backward route {b_moved}, max abs err {b_err:.3e}, of max "
-              f"|plain| {rel:.3e}, max row err {row:.3e}, bitwise repeat {bitwise} "
-              f"{'ok' if ok else 'OUT OF TOLERANCE'}")
+              f"err {lse_err:.3e}, o bitwise that of the LSE launch {torch.equal(o, o_lse)}; "
+              f"backward route {b_moved}, max abs err {b_err:.3e}, of max |plain| {rel:.3e}, max "
+              f"row err {row:.3e}, bitwise repeat {bitwise} {'ok' if ok else 'OUT OF TOLERANCE'}")
         if not ok:
             bad.append((shape, moved, f_err, f_row, lse_err, b_moved, rel, row, bitwise))
-        errs[("fwd", shape)], errs[("bwd", shape)] = f_err, b_err
-        del q, k, v, do, o, o_lse, lse, got, again
+        errs[("wgmma", "fwd", shape)], errs[("wgmma", "bwd", shape)] = f_err, b_err
+        del o, o_lse, got, again
+        # the kept mma_sync kernels at D = 80, by name, on the same inputs
+        s_o, s_lse = flash_ops.launch("mma_sync", q, k, v, lse=True)
+        s_same = torch.equal(s_o, flash_ops.launch("mma_sync", q, k, v))
+        sf_err, sf_row, sf_ok = flash_check(s_o, ref, dt)
+        s_lse_err = float((s_lse - lse_ref).abs().max())
+        sb_err, s_rel, s_row = flash_bwd_errors(
+            flash_ops.launch_bwd("mma_sync", q, k, v, s_o, do, s_lse),
+            flash_bwd_ref(q, k, v, s_o, do))
+        s_ok = (sf_ok and s_same and s_lse_err <= LSE_TOL and s_rel <= BWD_TOL[dt]
+                and s_row <= BWD_ROW_REL)
+        print(f"[flash vs plain] (B,S,H,K,D)={shape} bf16, the mma_sync kernels by name: "
+              f"forward max abs err {sf_err:.3e}, max row rel err {sf_row:.3e}, LSE max abs err "
+              f"{s_lse_err:.3e}, o bitwise that of the LSE launch {s_same}; backward max abs err "
+              f"{sb_err:.3e}, of max |plain| {s_rel:.3e}, max row err {s_row:.3e} "
+              f"{'ok' if s_ok else 'OUT OF TOLERANCE'}")
+        if not s_ok:
+            bad.append((shape, "mma_sync", sf_err, sf_row, s_lse_err, s_same, s_rel, s_row))
+        errs[("mma_sync", "fwd", shape)], errs[("mma_sync", "bwd", shape)] = sf_err, sb_err
+        del q, k, v, do, ref, lse_ref, lse, want, s_o, s_lse
         torch.cuda.empty_cache()
     if bad:
-        raise SystemExit(f"the mma_sync flash kernels disagree with their plain versions at "
-                         f"D = 80: {bad}")
+        raise SystemExit(f"the flash kernels disagree with their plain versions at D = 80: "
+                         f"{bad}")
     return errs
 
 
@@ -2763,39 +2792,43 @@ def ssm_sync_check(card: str) -> None:
 
 
 def d80_times(card: str) -> tuple[dict, dict]:
-    """The mma_sync forward at D80_SERVE and D80_TRAIN in turns with SDPA
-    (median of 5 rounds of 10), the plain version apart (median of 3 rounds
-    of 1), beside the bound; then the mma_sync backward at D80_TRAIN
+    """The wgmma and mma_sync forwards at D80_SERVE and D80_TRAIN in turns
+    with SDPA (median of 5 rounds of 10), the plain version apart (median
+    of 3 rounds of 1), beside the bound; then both backwards at D80_TRAIN
     (:func:`bwd_times`: SDPA's backward, the plain version, the bound).
     Returns ({shape: forward numbers}, backward numbers)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     fwd = {}
     for shape in (D80_SERVE, D80_TRAIN):
         args = flash_inputs(*shape, torch.bfloat16, gen)
-        if flash_ops.route(*args) != "mma_sync":
-            raise SystemExit(f"{shape}'s timing inputs do not take the mma_sync route")
+        if flash_ops.route(*args) != "wgmma":
+            raise SystemExit(f"{shape}'s timing inputs do not take the wgmma route")
         sdpa_args = [t.transpose(1, 2).contiguous() for t in args]
         t = event_ms({
+            "wgmma": lambda: flash_ops.launch("wgmma", *args),
             "mma_sync": lambda: flash_ops.launch("mma_sync", *args),
             "sdpa": lambda: F.scaled_dot_product_attention(*sdpa_args, is_causal=True),
         }, n=10, rounds=5)
         t["plain"] = event_ms({"plain": lambda: flash_ref(*args)}, n=1, rounds=3)["plain"]
         t["bound_ms"], t["bound_by"] = flash_bound(*args)
-        print(f"[time] flash_attention mma_sync (B,S,H,K,D)={shape} bf16, in turns, median of 5 "
-              f"rounds of 10: mma_sync {t['mma_sync']} ms, SDPA {t['sdpa']} ms "
-              f"({t['mma_sync'] / t['sdpa']}x SDPA's time), plain {t['plain']} ms (median of "
-              f"3); bound {t['bound_ms']} ms ({t['bound_by']}): "
-              f"{100 * t['bound_ms'] / t['mma_sync']}% of bound ({card})")
+        print(f"[time] flash_attention (B,S,H,K,D)={shape} bf16, in turns, median of 5 rounds "
+              f"of 10: wgmma {t['wgmma']} ms ({100 * t['bound_ms'] / t['wgmma']}% of bound, "
+              f"{t['wgmma'] / t['sdpa']}x SDPA's time), mma_sync {t['mma_sync']} ms "
+              f"({100 * t['bound_ms'] / t['mma_sync']}% of bound; wgmma "
+              f"{t['mma_sync'] / t['wgmma']}x faster), SDPA {t['sdpa']} ms, plain {t['plain']} "
+              f"ms (median of 3); bound {t['bound_ms']} ms ({t['bound_by']}) ({card})")
         fwd[shape] = t
         del args, sdpa_args
         torch.cuda.empty_cache()
     q, k, v, o, lse, do = bwd_inputs(*D80_TRAIN, torch.bfloat16, gen)
-    t = bwd_times(q, k, v, o, do, lse, ("mma_sync",))
-    print(f"[time] flash backward mma_sync (B,S,H,K,D)={D80_TRAIN} bf16, in turns, median of 5 "
-          f"rounds of 10: mma_sync {t['mma_sync']} ms; SDPA backward {t['library']} ms (fwd+bwd "
+    t = bwd_times(q, k, v, o, do, lse, ("wgmma", "mma_sync"))
+    print(f"[time] flash backward (B,S,H,K,D)={D80_TRAIN} bf16, in turns, median of 5 rounds of "
+          f"10: wgmma {t['wgmma']} ms ({100 * t['bound_ms'] / t['wgmma']}% of bound, "
+          f"{t['wgmma'] / t['library']}x SDPA's backward), mma_sync {t['mma_sync']} ms "
+          f"({100 * t['bound_ms'] / t['mma_sync']}% of bound; wgmma "
+          f"{t['mma_sync'] / t['wgmma']}x faster); SDPA backward {t['library']} ms (fwd+bwd "
           f"{t['sdpa fwd+bwd']}, fwd {t['sdpa fwd']}); plain {t['plain']} ms (median of 3); "
-          f"bound {t['bound_ms']} ms ({t['bound_by']}): {100 * t['bound_ms'] / t['mma_sync']}% of "
-          f"bound, {t['mma_sync'] / t['library']}x SDPA's backward ({card})")
+          f"bound {t['bound_ms']} ms ({t['bound_by']}) ({card})")
     del q, k, v, o, lse, do
     torch.cuda.empty_cache()
     return fwd, t
@@ -2806,9 +2839,12 @@ def ssm_phase(card: str, d80_errs: dict) -> list[dict]:
     the printed reckoning, counted: ``serve_full_width``); its reduced
     configuration and a reduced plain Mamba2 stack card against CPU (serve,
     train); a reduced zamba2 forward and backward with no host sync and a
-    reduced bf16 step repeated bitwise; zamba2-2.7b trained at full width
-    (layers cut only by the printed reckoning; ``train_full_width``); the
-    D = 80 flash kernels timed.  Returns their JSON entries."""
+    reduced bf16 step repeated bitwise, counted together (head dim 16: only
+    the mma_sync routes); zamba2-2.7b trained at full width (layers cut only
+    by the printed reckoning; ``train_full_width``); the D = 80 flash
+    kernels timed.  Returns their JSON entries: the wgmma kernels with the
+    full-width launches, the mma_sync ones (the route of no full-width path
+    since the wgmma kernels took D = 80) with the reduced runs'."""
     t_phase = time.perf_counter()
     rng = np.random.default_rng(SEED + 12)
     cfg = get_config(SSM_ARCH)
@@ -2818,8 +2854,20 @@ def ssm_phase(card: str, d80_errs: dict) -> list[dict]:
     for change in ({}, {"block_pattern": "mamba2"}):
         small_serve_check(SSM_ARCH, rng, **change)
         train_small_check(card, SSM_ARCH, **change)
+    reset_all_counts()
     ssm_sync_check(card)
     repeat_check(get_reduced(SSM_ARCH), "ssm", card)
+    reduced = (all_counts(), dict(flash_ops.route_launches), dict(flash_ops.bwd_route_launches))
+    print(f"[ssm] reduced bf16 zamba2 (head dim {get_reduced(SSM_ARCH).head_dim_}), the sync "
+          f"check and the repeated step: counts (launches, plain_calls) "
+          f"{ {k: reduced[0][k] for k in flash_ops.counts} }; flash routes {reduced[1]}, "
+          f"backward routes {reduced[2]} ({card})")
+    on_sync = (reduced[1]["mma_sync"], reduced[2]["mma_sync"])
+    if (min(on_sync) == 0 or sum(reduced[1].values()) != on_sync[0]
+            or sum(reduced[2].values()) != on_sync[1]
+            or any(reduced[0][k][1] for k in flash_ops.counts)):
+        raise SystemExit(f"the reduced zamba2 runs did not run only through the mma_sync flash "
+                         f"kernels: {reduced}")
     print(f"[ssm] card against CPU, no host sync, the bitwise repeat: wall "
           f"{time.perf_counter() - t0} s ({card})")
     t0 = time.perf_counter()
@@ -2834,19 +2882,21 @@ def ssm_phase(card: str, d80_errs: dict) -> list[dict]:
     print(f"[ssm] phase wall {time.perf_counter() - t_phase} s ({card})")
     csrc = "src/repro_torch/kernels/flash_attention/csrc/"
     serve_t = fwd[D80_SERVE]
-    return [
-        {"name": "flash_attention_mma_sync_d80", "route": "cuda",
-         "source": csrc + "flash_attention.cu",
+    launches = {"wgmma": (serve_counts["flash_attention"][0], bwd_launches),
+                "mma_sync": on_sync}
+    return [entry for route, fwd_src, bwd_src in (
+        ("wgmma", "flash_attention_wgmma.cu", "flash_attention_bwd_wgmma.cu"),
+        ("mma_sync", "flash_attention.cu", "flash_attention_bwd.cu"))
+        for entry in (
+        {"name": f"flash_attention_{route}_d80", "route": "cuda", "source": csrc + fwd_src,
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:42",
-         "launches": serve_counts["flash_attention"][0],
-         "max_abs_err": d80_errs[("fwd", D80_SERVE)], "ms": serve_t["mma_sync"],
+         "launches": launches[route][0],
+         "max_abs_err": d80_errs[(route, "fwd", D80_SERVE)], "ms": serve_t[route],
          "plain_ms": serve_t["plain"], "bound_ms": serve_t["bound_ms"],
          "bound_by": serve_t["bound_by"], "library_ms": serve_t["sdpa"]},
-        {"name": "flash_attention_bwd_mma_sync_d80", "route": "cuda",
-         "source": csrc + "flash_attention_bwd.cu",
-         "replaces": "src/repro/models/attention.py:97",
-         "launches": bwd_launches, **bwd_entry(bwd, "mma_sync", d80_errs[("bwd", D80_TRAIN)])},
-    ]
+        {"name": f"flash_attention_bwd_{route}_d80", "route": "cuda", "source": csrc + bwd_src,
+         "replaces": "src/repro/models/attention.py:97", "launches": launches[route][1],
+         **bwd_entry(bwd, route, d80_errs[(route, "bwd", D80_TRAIN)])})]
 
 
 def main() -> int:

@@ -1,10 +1,10 @@
 // Causal GQA flash attention (forward), hand-written for Hopper (sm_90a),
 // bound to PyTorch through a plain C interface and ctypes: the "mma_sync"
-// and "fma" routes of ops.py::route.  bf16 with D in {64, 128} and 16-byte
-// aligned pointers and strides takes the "wgmma" route instead
+// and "fma" routes of ops.py::route.  bf16 with D in {64, 80, 128} and
+// 16-byte aligned pointers and strides takes the "wgmma" route instead
 // (flash_attention_wgmma.cu); this file keeps the inputs that route does
-// not take: bf16 at D in {16, 32, 80}, or with unaligned rows (mma_sync),
-// and float32 or bf16 at D = 8 (fma).
+// not take: bf16 at D in {16, 32}, or at 64, 80 or 128 with unaligned rows
+// (mma_sync), and float32 or bf16 at D = 8 (fma).
 //
 // Replaces: src/repro/kernels/flash_attention/flash_attention.py::_kernel
 // (launched by flash_attention_pallas, wrapped by ops.py::flash_attention;
@@ -52,8 +52,9 @@
 //     against bank conflicts.
 // Instantiated for D in {8, 16, 32, 64, 128} in float32 and bfloat16 (FMA
 // kernel), and for D in {16, 32, 64, 80, 128} in bfloat16 (tensor-core
-// kernel).  D = 80 is zamba2-2.7b's head dim (2560 / 32): 5 k-chunks of
-// Q K^T and 10 n-tiles of O; its rows of 88 bf16 (176 bytes) keep the
+// kernel).  D = 80 is zamba2-2.7b's head dim (2560 / 32), which the main
+// path runs on the wgmma route; here it serves unaligned rows and callers
+// that name the route: 5 k-chunks of Q K^T and 10 n-tiles of O; its rows of 88 bf16 (176 bytes) keep the
 // 16-byte stores and make the fragment loads of 8 rows x 4 lanes hit 32
 // distinct banks (row r starts at bank 12 r mod 32).  The FMA kernel's
 // accumulator tiling (kTD = D / 8 threads a row dividing 256) has no

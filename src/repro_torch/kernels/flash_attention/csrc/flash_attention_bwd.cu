@@ -4,7 +4,9 @@
 // flash_attention_bwd, wired into autograd by ops.py::FlashAttention).  This
 // file holds the "mma_sync" (bf16) and "fma" (float32) routes of
 // ops.py::bwd_route, and the delta pass every route runs first; bf16 with
-// D in {64, 128} takes the "wgmma" route (flash_attention_bwd_wgmma.cu).
+// D in {64, 80, 128} takes the "wgmma" route (flash_attention_bwd_wgmma.cu),
+// so the mma_sync route runs bf16 at D in {16, 32}, and at 64, 80 and 128
+// only for a caller that names it.
 //
 // Replaces: nothing on the TPU.  The reference trains through XLA's autodiff
 // of its pure-JAX attention (src/repro/models/attention.py:97,

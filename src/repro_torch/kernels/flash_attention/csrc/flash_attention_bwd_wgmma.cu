@@ -1,7 +1,7 @@
 // Causal GQA flash attention, backward, in bfloat16 for Hopper (sm_90a):
 // TMA loads, wgmma products, a warp-specialised producer/consumer pipeline,
 // as in the forward (flash_attention_wgmma.cu).  The "wgmma" route of
-// ops.py::bwd_route (bf16, D in {64, 128}; ops.py::launch_bwd copies an
+// ops.py::bwd_route (bf16, D in {64, 80, 128}; ops.py::launch_bwd copies an
 // input whose pointer or strides are off 16 bytes first);
 // flash_attention_bwd.cu keeps the other inputs.
 //
@@ -46,11 +46,12 @@
 //     in registers, dS packed to bf16 as the register-A operand of
 //     dQ += dS K (m64nD, K MN-major).  S and dP of tile j + 1 are issued
 //     with dQ of tile j, and dS of tile j + 1 is formed while that runs.
-//     64-key tiles: S, dP and dQ take 32 + 32 + 64 registers, dS 16; at
-//     128 keys the three accumulators alone would take 192.
+//     64-key tiles: S, dP and dQ take 32 + 32 + 64 registers at D = 128
+//     (D = 80: 32 + 32 + 40), dS 16; at 128 keys the three accumulators
+//     alone would take 192.
 //   * bwd_dkdv: an item is (128-key tile, b, kv head); each consumer
-//     warpgroup owns 64 keys and keeps dK and dV (2 x 64 registers) for
-//     the whole item.  K and V load once an item; Q, dO, LSE2 and delta of
+//     warpgroup owns 64 keys and keeps dK and dV (2 x 64 registers at
+//     D = 128, 2 x 40 at D = 80) for the whole item.  K and V load once an item; Q, dO, LSE2 and delta of
 //     each 64-query step come through a 2-stage ring.  The steps run the G
 //     query heads of the kv head in turn, each over the query steps that
 //     see the key tile (causal, inside the window).  Per step:
@@ -65,7 +66,16 @@
 //     keys past S come back zero-filled from TMA and are masked or carry
 //     P = 0 through the padded LSE; they are not stored.
 //
-// Instantiated for D in {64, 128}.
+//   * D = 80 (zamba2-2.7b's head dim): each row of a Q, K, V or dO tile is
+//     a 64-column box under the 128-byte swizzle and a 16-column box
+//     (32-byte rows) under the 32-byte swizzle (hopper.cuh, TileBoxes),
+//     since an MN-major operand under the 128-byte swizzle spans whole
+//     64-column atoms.  The products over D (S, dP, S^T, dP^T) run 4
+//     k-steps on the first box and a fifth on the second; each k-step of
+//     those into D (dQ, dV, dK) is an n64 product on the first box and an
+//     n16 product on the second.  No product spans padding.
+//
+// Instantiated for D in {64, 80, 128}.
 
 #include <cmath>
 #include <cstdint>
@@ -116,27 +126,44 @@ __device__ __forceinline__ uint32_t parity(int t, int stages) {
 
 // Issue acc = A B^T over D: A (this warpgroup's 64 rows) and B (N rows),
 // both K-major 128-byte swizzled tiles of D / 64 boxes, `a_box` and `b_box`
-// bytes apart; D / 16 k-steps 32 bytes apart inside a box row.  Not
+// bytes apart; 4 k-steps a box, 32 bytes apart inside a box row.  At D = 80
+// a fifth k-step reads the 16-column boxes under the 32-byte swizzle
+// (`a_tail`: A's rows of it, `b_tail`; 8-row stride 256 B).  Not
 // committed.  The caller pins the accumulator and fences first.
 template <int N, int D>
-__device__ __forceinline__ void issue_ss(float (&acc)[N / 2], uint32_t a, int a_box, uint32_t b,
-                                         int b_box) {
+__device__ __forceinline__ void issue_ss(float (&acc)[N / 2], uint32_t a, uint32_t a_tail,
+                                         int a_box, uint32_t b, uint32_t b_tail, int b_box) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < 4 * (D / kBoxCols); ++kk) {
     const uint32_t col = (kk % 4) * 32;
     wgmma_ss<N>(acc, sw128_desc(a + (kk / 4) * a_box + col, 16, 1024),
                 sw128_desc(b + (kk / 4) * b_box + col, 16, 1024), kk > 0);
   }
+  if constexpr (D % kBoxCols != 0)
+    wgmma_ss<N>(acc, sw32_desc(a_tail, 16, 8 * kTailRowBytes),
+                sw32_desc(b_tail, 16, 8 * kTailRowBytes), 1);
 }
 
 // Issue acc += A B: A from registers (64 x 16 k-steps), B a 16-row k-step
-// apart MN-major tile of D columns in boxes `b_box` bytes apart.  Not
-// committed.
+// apart MN-major tile of D columns in boxes `b_box` bytes apart.  At D = 80
+// each k-step is an n64 product on the 64-column box and an n16 product on
+// the 16-column box at `b_tail` (16 rows 512 B apart, the 8-row stride
+// 256 B) into the accumulator's columns 0-63 and 64-79.  Not committed.
 template <int KS, int D>
 __device__ __forceinline__ void issue_rs(float (&acc)[D / 2], const uint32_t (&f)[KS][4],
-                                         uint32_t b, int b_box) {
+                                         uint32_t b, uint32_t b_tail, int b_box) {
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) wgmma_rs<D>(acc, f[kk], sw128_desc(b + kk * 16 * kRowBytes, b_box, 1024));
+  for (int kk = 0; kk < KS; ++kk) {
+    if constexpr (D % kBoxCols == 0) {
+      wgmma_rs<D>(acc, f[kk], sw128_desc(b + kk * 16 * kRowBytes, b_box, 1024));
+    } else {
+      wgmma_rs<kBoxCols>(acc_cols<0, kBoxCols>(acc), f[kk],
+                         sw128_desc(b + kk * 16 * kRowBytes, b_box, 1024));
+      wgmma_rs<kTailCols>(acc_cols<kBoxCols, kTailCols>(acc), f[kk],
+                          sw32_desc(b_tail + kk * 16 * kTailRowBytes, b_box,
+                                    8 * kTailRowBytes));
+    }
+  }
 }
 
 // ============================================================================
@@ -145,11 +172,16 @@ __device__ __forceinline__ void issue_rs(float (&acc)[D / 2], const uint32_t (&f
 
 template <int D>
 struct DqLayout {
-  static constexpr int kBoxes = D / kBoxCols;
-  static constexpr int kRowBox = kDqRows * kRowBytes;  // one box of an item's 128 rows
-  static constexpr int kKeyBox = kDqKeys * kRowBytes;  // one box of a 64-key tile
-  static constexpr int kQTile = kBoxes * kRowBox;      // Q or dO of an item
-  static constexpr int kKTile = kBoxes * kKeyBox;      // K or V tile
+  using QT = TileBoxes<D, kDqRows>;
+  using KT = TileBoxes<D, kDqKeys>;
+  static constexpr int kBoxes = QT::kFull;
+  static constexpr bool kTail = QT::kTail;             // D = 80: a 16-column box a tile
+  static constexpr int kRowBox = QT::kBox;             // one box of an item's 128 rows
+  static constexpr int kKeyBox = KT::kBox;             // one box of a 64-key tile
+  static constexpr int kQTile = QT::kBytes;            // Q or dO of an item
+  static constexpr int kKTile = KT::kBytes;            // K or V tile
+  static constexpr int kQTail = QT::kTailOff;          // the 16-column box of Q, dO
+  static constexpr int kKTail = KT::kTailOff;          // and of K, V
   static constexpr int kSlot = 2 * kQTile;             // Q then dO
   static constexpr int kK = kDqSlots * kSlot;         // K of stage s at kK + s * kStage
   static constexpr int kStage = 2 * kKTile;            // K then V
@@ -226,7 +258,11 @@ template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
                  const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
-                 const Args a, const int n_q_tiles, const int n_items) {
+                 const __grid_constant__ CUtensorMap tm_q1,
+                 const __grid_constant__ CUtensorMap tm_do1,
+                 const __grid_constant__ CUtensorMap tm_k1,
+                 const __grid_constant__ CUtensorMap tm_v1, const Args a, const int n_q_tiles,
+                 const int n_items) {
   using L = DqLayout<D>;
   extern __shared__ unsigned char smem_raw[];
   const DqSmem<D> sm{(smem_addr(smem_raw) + 1023u) & ~1023u};
@@ -266,6 +302,12 @@ __global__ void __launch_bounds__(kThreads, 1)
           tma_load(sm.dout(slot) + x * L::kRowBox, &tm_do, sm.q_full(slot), x * kBoxCols, w.h,
                    w.q0, w.b);
         }
+        if constexpr (L::kTail) {
+          tma_load(sm.q(slot) + L::kQTail, &tm_q1, sm.q_full(slot), L::kBoxes * kBoxCols, w.h,
+                   w.q0, w.b);
+          tma_load(sm.dout(slot) + L::kQTail, &tm_do1, sm.q_full(slot), L::kBoxes * kBoxCols,
+                   w.h, w.q0, w.b);
+        }
         for (int i = 0; i < w.n_tiles; ++i, ++t) {
           const int s = t % kDqStages;
           const uint32_t free_parity = parity(t, kDqStages) ^ 1;
@@ -275,11 +317,17 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
           for (int x = 0; x < L::kBoxes; ++x)
             tma_load(sm.k(s) + x * L::kKeyBox, &tm_k, sm.k_full(s), x * kBoxCols, kh, kv0, w.b);
+          if constexpr (L::kTail)
+            tma_load(sm.k(s) + L::kKTail, &tm_k1, sm.k_full(s), L::kBoxes * kBoxCols, kh, kv0,
+                     w.b);
           mbar_wait(sm.v_empty(s), free_parity);
           mbar_expect_tx(sm.v_full(s), L::kKTile);
 #pragma unroll
           for (int x = 0; x < L::kBoxes; ++x)
             tma_load(sm.v(s) + x * L::kKeyBox, &tm_v, sm.v_full(s), x * kBoxCols, kh, kv0, w.b);
+          if constexpr (L::kTail)
+            tma_load(sm.v(s) + L::kKTail, &tm_v1, sm.v_full(s), L::kBoxes * kBoxCols, kh, kv0,
+                     w.b);
         }
       }
     }
@@ -312,6 +360,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float dl[2] = {a.delta[rb + qpos0], a.delta[rb + qpos1]};
     const uint32_t q_rows = sm.q(slot) + cw * 64 * kRowBytes;
     const uint32_t do_rows = sm.dout(slot) + cw * 64 * kRowBytes;
+    const uint32_t q_tail = sm.q(slot) + L::kQTail + cw * 64 * kTailRowBytes;  // D = 80
+    const uint32_t do_tail = sm.dout(slot) + L::kQTail + cw * 64 * kTailRowBytes;
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
     mbar_wait(sm.q_full(slot), parity(n, kDqSlots));
@@ -325,8 +375,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       pin(sc);
       pin(dp);
       wg_fence();
-      issue_ss<kDqKeys, D>(sc, q_rows, L::kRowBox, sm.k(s), L::kKeyBox);
-      issue_ss<kDqKeys, D>(dp, do_rows, L::kRowBox, sm.v(s), L::kKeyBox);
+      issue_ss<kDqKeys, D>(sc, q_rows, q_tail, L::kRowBox, sm.k(s), sm.k(s) + L::kKTail,
+                           L::kKeyBox);
+      issue_ss<kDqKeys, D>(dp, do_rows, do_tail, L::kRowBox, sm.v(s), sm.v(s) + L::kKTail,
+                           L::kKeyBox);
       wg_commit();
       wg_wait<0>();
       pin(sc);
@@ -346,10 +398,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       pin(dp);
       pin(dqa);
       wg_fence();
-      issue_ss<kDqKeys, D>(sc, q_rows, L::kRowBox, sm.k(s), L::kKeyBox);
-      issue_ss<kDqKeys, D>(dp, do_rows, L::kRowBox, sm.v(s), L::kKeyBox);
+      issue_ss<kDqKeys, D>(sc, q_rows, q_tail, L::kRowBox, sm.k(s), sm.k(s) + L::kKTail,
+                           L::kKeyBox);
+      issue_ss<kDqKeys, D>(dp, do_rows, do_tail, L::kRowBox, sm.v(s), sm.v(s) + L::kKTail,
+                           L::kKeyBox);
       wg_commit();
-      issue_rs<kDqKeys / 16, D>(dqa, dsf, sm.k(sp), L::kKeyBox);
+      issue_rs<kDqKeys / 16, D>(dqa, dsf, sm.k(sp), sm.k(sp) + L::kKTail, L::kKeyBox);
       wg_commit();
       wg_wait<1>();  // S and dP of tile i are done; dQ of tile i - 1 may still run
       pin(sc);
@@ -365,7 +419,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int tl = t + w.n_tiles - 1;
     pin(dqa);
     wg_fence();
-    issue_rs<kDqKeys / 16, D>(dqa, dsf, sm.k(tl % kDqStages), L::kKeyBox);
+    issue_rs<kDqKeys / 16, D>(dqa, dsf, sm.k(tl % kDqStages),
+                              sm.k(tl % kDqStages) + L::kKTail, L::kKeyBox);
     wg_commit();
     wg_wait<0>();
     hold(dsf);
@@ -395,11 +450,16 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 template <int D>
 struct KvLayout {
-  static constexpr int kBoxes = D / kBoxCols;
-  static constexpr int kKeyBox = kKvKeys * kRowBytes;  // one box of an item's 128 keys
-  static constexpr int kQBox = kKvQ * kRowBytes;       // one box of a 64-query step
-  static constexpr int kKTile = kBoxes * kKeyBox;      // K or V of an item
-  static constexpr int kQTile = kBoxes * kQBox;        // Q or dO of a step
+  using KT = TileBoxes<D, kKvKeys>;
+  using QT = TileBoxes<D, kKvQ>;
+  static constexpr int kBoxes = KT::kFull;
+  static constexpr bool kTail = KT::kTail;             // D = 80: a 16-column box a tile
+  static constexpr int kKeyBox = KT::kBox;             // one box of an item's 128 keys
+  static constexpr int kQBox = QT::kBox;               // one box of a 64-query step
+  static constexpr int kKTile = KT::kBytes;            // K or V of an item
+  static constexpr int kQTile = QT::kBytes;            // Q or dO of a step
+  static constexpr int kKTail = KT::kTailOff;          // the 16-column box of K, V
+  static constexpr int kQTail = QT::kTailOff;          // and of Q, dO
   static constexpr int kV = kKTile;
   static constexpr int kRing = 2 * kKTile;
   // Q, dO, LSE2 (kKvQ floats), delta (kKvQ floats), rounded up to the
@@ -457,7 +517,11 @@ __global__ void __launch_bounds__(kThreads, 1)
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
                    const __grid_constant__ CUtensorMap tm_lse2,
-                   const __grid_constant__ CUtensorMap tm_delta, const Args a,
+                   const __grid_constant__ CUtensorMap tm_delta,
+                   const __grid_constant__ CUtensorMap tm_q1,
+                   const __grid_constant__ CUtensorMap tm_do1,
+                   const __grid_constant__ CUtensorMap tm_k1,
+                   const __grid_constant__ CUtensorMap tm_v1, const Args a,
                    const int n_items) {
   using L = KvLayout<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -491,6 +555,12 @@ __global__ void __launch_bounds__(kThreads, 1)
           tma_load(sm.k() + x * L::kKeyBox, &tm_k, sm.kv_full(), x * kBoxCols, w.kh, w.kv0, w.b);
           tma_load(sm.v() + x * L::kKeyBox, &tm_v, sm.kv_full(), x * kBoxCols, w.kh, w.kv0, w.b);
         }
+        if constexpr (L::kTail) {
+          tma_load(sm.k() + L::kKTail, &tm_k1, sm.kv_full(), L::kBoxes * kBoxCols, w.kh, w.kv0,
+                   w.b);
+          tma_load(sm.v() + L::kKTail, &tm_v1, sm.kv_full(), L::kBoxes * kBoxCols, w.kh, w.kv0,
+                   w.b);
+        }
         for (int g = 0; g < a.G; ++g) {
           const int h = w.kh * a.G + g;
           const int row = w.b * a.H + h;
@@ -504,6 +574,12 @@ __global__ void __launch_bounds__(kThreads, 1)
               tma_load(sm.q(s) + x * L::kQBox, &tm_q, sm.qd_full(s), x * kBoxCols, h, q0, w.b);
               tma_load(sm.dout(s) + x * L::kQBox, &tm_do, sm.qd_full(s), x * kBoxCols, h, q0,
                        w.b);
+            }
+            if constexpr (L::kTail) {
+              tma_load(sm.q(s) + L::kQTail, &tm_q1, sm.qd_full(s), L::kBoxes * kBoxCols, h, q0,
+                       w.b);
+              tma_load(sm.dout(s) + L::kQTail, &tm_do1, sm.qd_full(s), L::kBoxes * kBoxCols, h,
+                       q0, w.b);
             }
             tma_load_2d(sm.lse2(s), &tm_lse2, sm.qd_full(s), q0, row);
             tma_load_2d(sm.delta(s), &tm_delta, sm.qd_full(s), q0, row);
@@ -523,6 +599,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float c = a.scale_log2;
   const uint32_t k_rows = sm.k() + cw * 64 * kRowBytes;
   const uint32_t v_rows = sm.v() + cw * 64 * kRowBytes;
+  const uint32_t k_tail = sm.k() + L::kKTail + cw * 64 * kTailRowBytes;  // D = 80
+  const uint32_t v_tail = sm.v() + L::kKTail + cw * 64 * kTailRowBytes;
 
   float dva[D / 2], dka[D / 2];
   float st[kKvQ / 2], dpt[kKvQ / 2];
@@ -547,9 +625,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         pin(st);
         pin(dpt);
         wg_fence();
-        issue_ss<kKvQ, D>(st, k_rows, L::kKeyBox, sm.q(s), L::kQBox);
+        issue_ss<kKvQ, D>(st, k_rows, k_tail, L::kKeyBox, sm.q(s), sm.q(s) + L::kQTail,
+                          L::kQBox);
         wg_commit();
-        issue_ss<kKvQ, D>(dpt, v_rows, L::kKeyBox, sm.dout(s), L::kQBox);
+        issue_ss<kKvQ, D>(dpt, v_rows, v_tail, L::kKeyBox, sm.dout(s), sm.dout(s) + L::kQTail,
+                          L::kQBox);
         wg_commit();
         // this thread's query columns 8 jj + 2 tq + {0, 1}: LSE2 and delta
         const float* lse_s = reinterpret_cast<const float*>(smem + (sm.lse2(s) - sm.base));
@@ -574,7 +654,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         pack_a<kKvQ>(st, pf);
         pin(dva);
         wg_fence();
-        issue_rs<kKvQ / 16, D>(dva, pf, sm.dout(s), L::kQBox);  // dV += P^T dO
+        issue_rs<kKvQ / 16, D>(dva, pf, sm.dout(s), sm.dout(s) + L::kQTail,
+                               L::kQBox);  // dV += P^T dO
         wg_commit();
         wg_wait<1>();  // dP^T is done; dV may still run
         pin(dpt);
@@ -588,7 +669,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         pack_a<kKvQ>(dpt, sf);
         pin(dka);
         wg_fence();
-        issue_rs<kKvQ / 16, D>(dka, sf, sm.q(s), L::kQBox);  // dK += dS^T Q
+        issue_rs<kKvQ / 16, D>(dka, sf, sm.q(s), sm.q(s) + L::kQTail,
+                               L::kQBox);  // dK += dS^T Q
         wg_commit();
         wg_wait<0>();
         hold(pf);
@@ -626,9 +708,13 @@ int allow_smem(Kernel kernel, int bytes) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
+// The "1" maps: the 16-column boxes at d = 64 under the 32-byte swizzle
+// (D = 80; copies of the 64-column maps, unread, at D = 64 and 128).
 struct Maps {
   CUtensorMap q128, do128, k64, v64;                // bwd_dq
   CUtensorMap q64, do64, k128, v128, lse2, delta;   // bwd_dkdv
+  CUtensorMap q128_1, do128_1, k64_1, v64_1;        // bwd_dq, D = 80
+  CUtensorMap q64_1, do64_1, k128_1, v128_1;        // bwd_dkdv, D = 80
 };
 
 template <int D>
@@ -640,14 +726,16 @@ int launch(const Maps& m, const Args& a, cudaStream_t st) {
   auto dkdv = bwd_dkdv_wgmma<D>;
   if ((err = allow_smem(dkdv, KvLayout<D>::kBytes))) return err;
   dkdv<<<n_k_items < sms ? n_k_items : sms, kThreads, KvLayout<D>::kBytes, st>>>(
-      m.q64, m.do64, m.k128, m.v128, m.lse2, m.delta, a, n_k_items);
+      m.q64, m.do64, m.k128, m.v128, m.lse2, m.delta, m.q64_1, m.do64_1, m.k128_1, m.v128_1, a,
+      n_k_items);
   if ((err = static_cast<int>(cudaGetLastError()))) return err;
   const int n_q_tiles = (a.S + kDqRows - 1) / kDqRows;
   const int n_q_items = n_q_tiles * a.B * a.H;
   auto dq = bwd_dq_wgmma<D>;
   if ((err = allow_smem(dq, DqLayout<D>::kBytes))) return err;
   dq<<<n_q_items < sms ? n_q_items : sms, kThreads, DqLayout<D>::kBytes, st>>>(
-      m.q128, m.do128, m.k64, m.v64, a, n_q_tiles, n_q_items);
+      m.q128, m.do128, m.k64, m.v64, m.q128_1, m.do128_1, m.k64_1, m.v64_1, a, n_q_tiles,
+      n_q_items);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -667,7 +755,7 @@ int flash_attention_bwd_wgmma_bf16(BWD_ARGS) {
     return static_cast<int>(cudaErrorInvalidValue);
   // The TMA maps' layout test on q, k, v and dO (ops.py::launch_bwd copies
   // an input that fails it).
-  if ((D != 64 && D != 128) || !tma_ok(q, B, S, H, qsb, qss, qsh) ||
+  if ((D != 64 && D != 80 && D != 128) || !tma_ok(q, B, S, H, qsb, qss, qsh) ||
       !tma_ok(k, B, S, K, ksb, kss, ksh) || !tma_ok(v, B, S, K, vsb, vss, vsh) ||
       !tma_ok(dout, B, S, H, dosb, doss, dosh))
     return flash::kErrRoute;
@@ -688,6 +776,28 @@ int flash_attention_bwd_wgmma_bf16(BWD_ARGS) {
       !encode_rows_f32(enc, &m.lse2, lse2, n_rows, pitch, kKvQ) ||
       !encode_rows_f32(enc, &m.delta, delta_buf, n_rows, pitch, kKvQ))
     return flash::kErrTensorMap;
+  if (D == 80) {
+    const int c = kTailCols;
+    const auto sw = CU_TENSOR_MAP_SWIZZLE_32B;
+    if (!encode(enc, &m.q128_1, q, B, S, H, D, qsb, qss, qsh, kDqRows, c, sw) ||
+        !encode(enc, &m.do128_1, dout, B, S, H, D, dosb, doss, dosh, kDqRows, c, sw) ||
+        !encode(enc, &m.k64_1, k, B, S, K, D, ksb, kss, ksh, kDqKeys, c, sw) ||
+        !encode(enc, &m.v64_1, v, B, S, K, D, vsb, vss, vsh, kDqKeys, c, sw) ||
+        !encode(enc, &m.q64_1, q, B, S, H, D, qsb, qss, qsh, kKvQ, c, sw) ||
+        !encode(enc, &m.do64_1, dout, B, S, H, D, dosb, doss, dosh, kKvQ, c, sw) ||
+        !encode(enc, &m.k128_1, k, B, S, K, D, ksb, kss, ksh, kKvKeys, c, sw) ||
+        !encode(enc, &m.v128_1, v, B, S, K, D, vsb, vss, vsh, kKvKeys, c, sw))
+      return flash::kErrTensorMap;
+  } else {
+    m.q128_1 = m.q128;
+    m.do128_1 = m.do128;
+    m.k64_1 = m.k64;
+    m.v64_1 = m.v64;
+    m.q64_1 = m.q64;
+    m.do64_1 = m.do64;
+    m.k128_1 = m.k128;
+    m.v128_1 = m.v128;
+  }
   int err = flash::bwd_prep_bf16(o, dout, static_cast<const float*>(lse), delta_buf, lse2, B, S,
                                  H, D, osb, oss, osh, dosb, doss, dosh, stream);
   if (err) return err;
@@ -717,15 +827,21 @@ int flash_attention_bwd_wgmma_bf16(BWD_ARGS) {
   a.scale_log2 = static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(D)));
   a.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D == 128 ? launch<128>(m, a, st) : launch<64>(m, a, st);
+  return D == 128 ? launch<128>(m, a, st) : D == 80 ? launch<80>(m, a, st) : launch<64>(m, a, st);
 }
 
 // Dynamic shared memory of one CTA of bwd_dkdv (which = 0) or bwd_dq
 // (which = 1) at head dim D, for reports.
 int flash_attention_bwd_wgmma_smem_bytes(int which, int D) {
-  if (D != 64 && D != 128) return 0;
-  if (which == 0) return D == 128 ? KvLayout<128>::kBytes : KvLayout<64>::kBytes;
-  return D == 128 ? DqLayout<128>::kBytes : DqLayout<64>::kBytes;
+  if (which == 0)
+    return D == 128 ? KvLayout<128>::kBytes
+           : D == 80 ? KvLayout<80>::kBytes
+           : D == 64 ? KvLayout<64>::kBytes
+                     : 0;
+  return D == 128 ? DqLayout<128>::kBytes
+         : D == 80 ? DqLayout<80>::kBytes
+         : D == 64 ? DqLayout<64>::kBytes
+                   : 0;
 }
 
 }  // extern "C"

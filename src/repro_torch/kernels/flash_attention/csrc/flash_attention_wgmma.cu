@@ -4,9 +4,9 @@
 //
 // Replaces: src/repro/kernels/flash_attention/flash_attention.py::_kernel
 // (launched at :131 by flash_attention_pallas; oracle ref.py::flash_ref),
-// for bf16 q/k/v with D in {64, 128} and 16-byte aligned base pointers and
-// strides (ops.py::route sends other inputs to flash_attention.cu).  Same
-// function and numerics:
+// for bf16 q/k/v with D in {64, 80, 128} and 16-byte aligned base pointers
+// and strides (ops.py::route sends other inputs to flash_attention.cu; 80 is
+// zamba2-2.7b's head dim).  Same function and numerics:
 //
 //   o[b, s, k*G + g, :] = softmax_{t <= s, s - t < window}(q . k_t / sqrt(D)) . V
 //
@@ -52,8 +52,9 @@
 //     tile j are issued together, and the softmax of tile j+1 runs while
 //     P V of tile j is on the tensor cores.
 //   * Tiles: BQ = BK = 128.  At D = 128 a stage of K and V is 64 KB; two
-//     stages plus two Q tiles take 192 KB of the 227 KB.  The O and S
-//     accumulators and P take 64 + 64 + 32 registers per consumer thread,
+//     stages plus two Q tiles take 192 KB of the 227 KB (D = 80: 20 KB a
+//     tile, 120 KB).  The O and S accumulators and P take 64 + 64 + 32
+//     registers per consumer thread at D = 128 (D = 80: 40 + 64 + 32),
 //     inside 240.  BK = 64 would halve S but double the barrier round trips
 //     and softmax reductions per key; 128 fits, so 128.
 //   * Shared tiles are TMA boxes of 64 bf16 (128 bytes) x 128 rows with
@@ -61,6 +62,14 @@
 //     descriptors use the same swizzle: K-major (Q, K) with the 8-row
 //     stride 1024 B, stepping 32 B per k16 inside a box; MN-major (V)
 //     with the 8-key stride 1024 B and the 64-column box stride 16 KB.
+//   * D = 80: a row is one such box and one of 16 bf16 (32 bytes) x 128
+//     rows with the 32-byte swizzle (hopper.cuh, TileBoxes): an MN-major
+//     operand under the 128-byte swizzle spans whole 64-column atoms, and
+//     the 32-byte swizzle's atom is 16 columns.  Q K^T runs 4 k-steps on
+//     the first box and a fifth on the second (8-row stride 256 B); each
+//     k-step of P V is an n64 product on the first box and an n16 product
+//     on the second (8-key stride 256 B), into the accumulator's columns
+//     0-63 and 64-79.  Every product still spans only the real columns.
 //   * Rows and keys past S come back zero-filled from TMA; the causal
 //     mask of the diagonal tile, the only tile that can hold such keys,
 //     excludes them for every real row; rows past S are not stored.
@@ -91,9 +100,12 @@ static_assert(kProducerRegs * 128 + kConsumerRegs * 256 <= 65536, "register file
 
 template <int D>
 struct Layout {
-  static constexpr int kBoxes = D / kBoxCols;          // 128-byte boxes per row
-  static constexpr int kBoxBytes = kBK * kRowBytes;    // one box of 128 rows: 16 KB
-  static constexpr int kTileBytes = kBoxes * kBoxBytes;  // Q, one K or one V tile
+  using Tile = TileBoxes<D, kBK>;                   // Q, one K or one V tile
+  static constexpr int kBoxes = Tile::kFull;        // 128-byte boxes per row
+  static constexpr int kBoxBytes = Tile::kBox;      // one box of 128 rows: 16 KB
+  static constexpr bool kTail = Tile::kTail;        // D = 80: a 32-byte box of 128 rows,
+  static constexpr int kTailOff = Tile::kTailOff;   // 4 KB, after the 64-column box
+  static constexpr int kTileBytes = Tile::kBytes;   // what a tile's loads bring
   static constexpr int kQ = 0;                         // Q of slot s at kQ + s * kTileBytes
   static constexpr int kK = 2 * kTileBytes;            // K of stage s at kK + s * kStage
   static constexpr int kStage = 2 * kTileBytes;        // K then V
@@ -103,7 +115,6 @@ struct Layout {
   static constexpr int kBars = 4 + 4 * kStages;
   // + 1024: the dynamic buffer is aligned up to the swizzle atom
   static constexpr int kBytes = kBar + 8 * kBars + 1024;
-  static_assert(D % kBoxCols == 0, "D is a multiple of 64");
   static_assert(kBytes <= 232448, "shared memory of one CTA");
 };
 
@@ -138,31 +149,49 @@ struct Smem {
   __device__ uint32_t v_empty(int s) const { return bar(4 + 3 * kStages + s); }
 };
 
-// Issue S = Q K^T for this warpgroup's 64 rows: D / 16 k-steps, 32 bytes
-// apart inside a 128-byte box row; committed as one wgmma group.  The
-// caller pins the accumulators and fences first: no instruction but
-// wgmma may write a wgmma's registers while its group is in flight.
+// Issue S = Q K^T for this warpgroup's 64 rows: 4 k-steps a 64-column box,
+// 32 bytes apart inside a 128-byte box row; at D = 80 a fifth on the
+// 16-column box (q_tail: this warpgroup's rows of it; 8-row stride 256 B).
+// Committed as one wgmma group.  The caller pins the accumulators and
+// fences first: no instruction but wgmma may write a wgmma's registers
+// while its group is in flight.
 template <int D>
-__device__ __forceinline__ void issue_qk(float (&sc)[kBK / 2], uint32_t q_rows, uint32_t k) {
+__device__ __forceinline__ void issue_qk(float (&sc)[kBK / 2], uint32_t q_rows, uint32_t q_tail,
+                                         uint32_t k) {
   using L = Layout<D>;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < 4 * L::kBoxes; ++kk) {
     const uint32_t off = (kk / 4) * L::kBoxBytes + (kk % 4) * 32;
     wgmma_ss<kBK>(sc, sw128_desc(q_rows + off, 16, 1024), sw128_desc(k + off, 16, 1024),
                   kk > 0);
   }
+  if constexpr (L::kTail)
+    wgmma_ss<kBK>(sc, sw32_desc(q_tail, 16, 8 * kTailRowBytes),
+                  sw32_desc(k + L::kTailOff, 16, 8 * kTailRowBytes), 1);
   wg_commit();
 }
 
 // Issue O += P V: 16 keys per k-step, 2 KB apart; V read MN-major with the
-// 64-column boxes 16 KB apart; committed as one wgmma group.
+// 64-column boxes 16 KB apart; committed as one wgmma group.  At D = 80 each
+// k-step is an n64 product on the 64-column box and an n16 product on the
+// 16-column box (16 keys 512 B apart, the 8-key stride 256 B) into the
+// accumulator's last 8 floats.
 template <int D>
 __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pf)[kBK / 16][4],
                                          uint32_t v) {
   using L = Layout<D>;
 #pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk)
-    wgmma_rs<D>(o, pf[kk], sw128_desc(v + kk * 16 * kRowBytes, L::kBoxBytes, 1024));
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    if constexpr (!L::kTail) {
+      wgmma_rs<D>(o, pf[kk], sw128_desc(v + kk * 16 * kRowBytes, L::kBoxBytes, 1024));
+    } else {
+      wgmma_rs<kBoxCols>(acc_cols<0, kBoxCols>(o), pf[kk],
+                         sw128_desc(v + kk * 16 * kRowBytes, L::kBoxBytes, 1024));
+      wgmma_rs<kTailCols>(acc_cols<kBoxCols, kTailCols>(o), pf[kk],
+                          sw32_desc(v + L::kTailOff + kk * 16 * kTailRowBytes, L::kBoxBytes,
+                                    8 * kTailRowBytes));
+    }
+  }
   wg_commit();
 }
 
@@ -257,7 +286,10 @@ template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
-                           const __grid_constant__ CUtensorMap tm_v, const Args a) {
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_q1,
+                           const __grid_constant__ CUtensorMap tm_k1,
+                           const __grid_constant__ CUtensorMap tm_v1, const Args a) {
   using L = Layout<D>;
   extern __shared__ unsigned char smem_raw[];
   const Smem<D> sm{(smem_addr(smem_raw) + 1023u) & ~1023u};
@@ -296,6 +328,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int x = 0; x < L::kBoxes; ++x)
           tma_load(sm.q(slot) + x * L::kBoxBytes, &tm_q, sm.q_full(slot), x * kBoxCols, w.h,
                    w.q0, w.b);
+        if constexpr (L::kTail)
+          tma_load(sm.q(slot) + L::kTailOff, &tm_q1, sm.q_full(slot), L::kBoxes * kBoxCols, w.h,
+                   w.q0, w.b);
         for (int i = 0; i < w.n_tiles; ++i, ++t) {
           const int s = t % kStages;
           const uint32_t free_parity = ((t / kStages) & 1) ^ 1;
@@ -306,11 +341,17 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int x = 0; x < L::kBoxes; ++x)
             tma_load(sm.k(s) + x * L::kBoxBytes, &tm_k, sm.k_full(s), x * kBoxCols, kh, kv0,
                      w.b);
+          if constexpr (L::kTail)
+            tma_load(sm.k(s) + L::kTailOff, &tm_k1, sm.k_full(s), L::kBoxes * kBoxCols, kh, kv0,
+                     w.b);
           mbar_wait(sm.v_empty(s), free_parity);
           mbar_expect_tx(sm.v_full(s), L::kTileBytes);
 #pragma unroll
           for (int x = 0; x < L::kBoxes; ++x)
             tma_load(sm.v(s) + x * L::kBoxBytes, &tm_v, sm.v_full(s), x * kBoxCols, kh, kv0,
+                     w.b);
+          if constexpr (L::kTail)
+            tma_load(sm.v(s) + L::kTailOff, &tm_v1, sm.v_full(s), L::kBoxes * kBoxCols, kh, kv0,
                      w.b);
         }
       }
@@ -340,6 +381,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int slot = n & 1;
     const int qpos0 = w.q0 + row0, qpos1 = qpos0 + 8;
     const uint32_t q_rows = sm.q(slot) + cw * 64 * kRowBytes;
+    const uint32_t q_tail = sm.q(slot) + L::kTailOff + cw * 64 * kTailRowBytes;  // D = 80
     const auto masked = [&](int kv0) {  // the diagonal tile and window-edge tiles
       return kv0 + kBK - 1 > w.q0 || (a.window > 0 && kv0 <= w.q0 + kBQ - 1 - a.window);
     };
@@ -356,7 +398,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_wait(sm.k_full(t % kStages), full_parity(t));
     pin(sc);
     wg_fence();
-    issue_qk<D>(sc, q_rows, sm.k(t % kStages));
+    issue_qk<D>(sc, q_rows, q_tail, sm.k(t % kStages));
     wg_wait<0>();
     pin(sc);
     release(sm.k_empty(t % kStages));
@@ -371,7 +413,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       pin(sc);
       pin(o);
       wg_fence();
-      issue_qk<D>(sc, q_rows, sm.k(s));
+      issue_qk<D>(sc, q_rows, q_tail, sm.k(s));
       issue_pv<D>(o, pf, sm.v(sp));
       wg_wait<1>();  // S of tile i is done; P V of tile i - 1 may still run
       pin(sc);
@@ -425,8 +467,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // One CTA per SM (or per work item, when there are fewer), each walking
 // the items blockIdx.x, blockIdx.x + gridDim.x, ...
+// tq1, tk1, tv1: the 16-column boxes' maps (D = 80; unread at 64 and 128).
 template <int D>
-int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, const Args& a,
+int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+           const CUtensorMap& tq1, const CUtensorMap& tk1, const CUtensorMap& tv1, const Args& a,
            cudaStream_t stream) {
   using L = Layout<D>;
   auto kernel =
@@ -436,7 +480,8 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, 
   if (err != cudaSuccess) return static_cast<int>(err);
   const int sms = sm_count();
   if (sms < 0) return -sms;
-  kernel<<<a.n_items < sms ? a.n_items : sms, kThreads, L::kBytes, stream>>>(tq, tk, tv, a);
+  kernel<<<a.n_items < sms ? a.n_items : sms, kThreads, L::kBytes, stream>>>(tq, tk, tv, tq1,
+                                                                             tk1, tv1, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -458,16 +503,27 @@ int flash_attention_wgmma_lse_bf16(const void* q, const void* k, const void* v, 
   const long long n_q_tiles = (S + kBQ - 1) / kBQ;
   if (K <= 0 || H % K != 0 || n_q_tiles * B * H > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  if ((D != 64 && D != 128) || !tma_ok(q, B, S, H, qsb, qss, qsh) ||
+  if ((D != 64 && D != 80 && D != 128) || !tma_ok(q, B, S, H, qsb, qss, qsh) ||
       !tma_ok(k, B, S, K, ksb, kss, ksh) || !tma_ok(v, B, S, K, vsb, vss, vsh))
     return flash::kErrRoute;
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return flash::kErrNoEncoder;
-  CUtensorMap tq, tk, tv;
+  CUtensorMap tq, tk, tv, tq1, tk1, tv1;
   if (!encode(enc, &tq, q, B, S, H, D, qsb, qss, qsh, kBQ) ||
       !encode(enc, &tk, k, B, S, K, D, ksb, kss, ksh, kBK) ||
       !encode(enc, &tv, v, B, S, K, D, vsb, vss, vsh, kBK))
     return flash::kErrTensorMap;
+  if (D == 80) {  // the 16-column boxes at d = 64, under the 32-byte swizzle
+    const auto sw32 = CU_TENSOR_MAP_SWIZZLE_32B;
+    if (!encode(enc, &tq1, q, B, S, H, D, qsb, qss, qsh, kBQ, kTailCols, sw32) ||
+        !encode(enc, &tk1, k, B, S, K, D, ksb, kss, ksh, kBK, kTailCols, sw32) ||
+        !encode(enc, &tv1, v, B, S, K, D, vsb, vss, vsh, kBK, kTailCols, sw32))
+      return flash::kErrTensorMap;
+  } else {
+    tq1 = tq;
+    tk1 = tk;
+    tv1 = tv;
+  }
   Args a;
   a.o = static_cast<__nv_bfloat16*>(o);
   a.osb = osb;
@@ -484,7 +540,9 @@ int flash_attention_wgmma_lse_bf16(const void* q, const void* k, const void* v, 
   // log2(e) / sqrt(D), rounded once from double
   a.scale_log2 = static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(D)));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D == 128 ? launch<128>(tq, tk, tv, a, st) : launch<64>(tq, tk, tv, a, st);
+  return D == 128  ? launch<128>(tq, tk, tv, tq1, tk1, tv1, a, st)
+         : D == 80 ? launch<80>(tq, tk, tv, tq1, tk1, tv1, a, st)
+                   : launch<64>(tq, tk, tv, tq1, tk1, tv1, a, st);
 }
 
 // The same without the LSE (the serve path).
@@ -499,7 +557,10 @@ int flash_attention_wgmma_bf16(const void* q, const void* k, const void* v, void
 
 // Dynamic shared memory of one CTA of the D instantiation, for reports.
 int flash_attention_wgmma_smem_bytes(int D) {
-  return D == 128 ? Layout<128>::kBytes : D == 64 ? Layout<64>::kBytes : 0;
+  return D == 128 ? Layout<128>::kBytes
+         : D == 80 ? Layout<80>::kBytes
+         : D == 64 ? Layout<64>::kBytes
+                   : 0;
 }
 
 }  // extern "C"

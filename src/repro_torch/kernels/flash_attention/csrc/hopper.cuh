@@ -1,8 +1,14 @@
 // Hopper (sm_90a) building blocks of the wgmma flash kernels
 // (flash_attention_wgmma.cu, the forward; flash_attention_bwd_wgmma.cu, the
 // backward): mbarriers, TMA loads through tensor maps, wgmma shared-memory
-// descriptors with the 128-byte swizzle, the wgmma products the kernels
-// issue, and the host side that encodes a tensor map.
+// descriptors with the 128-byte and the 32-byte swizzle, the wgmma products
+// the kernels issue, and the host side that encodes a tensor map.
+//
+// The shared layout of a (rows x D) bf16 tile: D / 64 boxes of rows x 64
+// columns (128-byte rows, 128-byte swizzle), and at D = 80 a last box of
+// rows x 16 columns (32-byte rows, 32-byte swizzle): the 128-byte swizzle's
+// MN-major wgmma operand spans whole 64-column atoms, so a 16-column
+// remainder takes the swizzle whose atom is 16 columns wide.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap; the encoder comes through cudaGetDriverEntryPoint
@@ -15,6 +21,22 @@ namespace flash::sm90 {
 
 constexpr int kBoxCols = 64;  // bf16 per 128-byte swizzled row of a box
 constexpr int kRowBytes = 128;
+constexpr int kTailCols = 16;  // bf16 per 32-byte swizzled row of D = 80's last box
+constexpr int kTailRowBytes = 32;
+
+// The boxes of a (Rows x D) bf16 tile in shared memory: kFull boxes of
+// Rows x 64 columns (kBox bytes each), then, where D % 64 = 16, one box of
+// Rows x 16 columns at kTailOff.  Every box starts on 1024 bytes.
+template <int D, int Rows>
+struct TileBoxes {
+  static constexpr int kFull = D / kBoxCols;
+  static constexpr bool kTail = D % kBoxCols != 0;
+  static constexpr int kBox = Rows * kRowBytes;
+  static constexpr int kTailOff = kFull * kBox;
+  static constexpr int kBytes = kTailOff + (kTail ? Rows * kTailRowBytes : 0);
+  static_assert(D % kBoxCols == 0 || D % kBoxCols == kTailCols, "D is 64 k or 64 k + 16");
+  static_assert(kBytes % 1024 == 0, "boxes on the 128-byte swizzle's 1024-byte atom");
+};
 
 // ---- PTX wrappers ----------------------------------------------------------
 
@@ -49,8 +71,8 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
-// One 4-d box (64 d, 1 head, rows positions, 1 batch) into shared memory;
-// completes on `bar`.  Positions past S are zero-filled.
+// One 4-d box (the map's box width of d, 1 head, rows positions, 1 batch)
+// into shared memory; completes on `bar`.  Positions past S are zero-filled.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                          int d0, int head, int pos, int batch) {
   asm volatile(
@@ -75,6 +97,16 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
          (1ull << 62);
+}
+
+// wgmma shared-memory descriptor with the 32-byte swizzle (layout type 3):
+// an atom is 8 rows of 32 bytes.  K-major, `sbo` steps 8 rows; MN-major
+// (16 columns a row), `sbo` steps 8 rows of K and `lbo` would step the next
+// 16 columns, which an n16 product never reads.
+__device__ __forceinline__ uint64_t sw32_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (3ull << 62);
 }
 
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
@@ -169,6 +201,25 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, 1, 1, 1, 1;"
+      : FLASH_ACC8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// Columns [Off, Off + N) of an accumulator as an m64nN accumulator of its
+// own: an m64nD accumulator is its 8-column groups in order, so at D = 80
+// the first 32 floats are columns 0-63 and the last 8 columns 64-79.
+template <int Off, int N, int R>
+__device__ __forceinline__ float (&acc_cols(float (&d)[R]))[N / 2] {
+  static_assert(Off % 16 == 0 && (Off + N) / 2 <= R, "whole 16-column steps inside d");
+  return *reinterpret_cast<float(*)[N / 2]>(d + Off / 2);
+}
+
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
@@ -227,11 +278,15 @@ inline EncodeTiled encoder() {
 }
 
 // The map of a (B, S, heads, D) bf16 tensor: dims (D, heads, S, B), innermost
-// first, with the tensor's own strides (elements); boxes of (64, 1, rows, 1)
-// with the 128-byte swizzle.  A size-1 dimension's stride is never stepped
-// over and is replaced by a packed one.
+// first, with the tensor's own strides (elements); boxes of (box_cols, 1,
+// rows, 1) under `swizzle`: (64, ...) with the 128-byte swizzle for the
+// 64-column boxes, (16, ...) with the 32-byte swizzle for D = 80's last box,
+// loaded at d = 64 and ending at the row's end.  A size-1 dimension's stride
+// is never stepped over and is replaced by a packed one.
 inline bool encode(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B, int S, int heads,
-                   int D, long long sb, long long ss, long long sh, int rows) {
+                   int D, long long sb, long long ss, long long sh, int rows,
+                   int box_cols = kBoxCols,
+                   CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   if (heads == 1) sh = D;
   if (S == 1) ss = heads * sh;
   if (B == 1) sb = S * ss;
@@ -239,10 +294,11 @@ inline bool encode(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B, in
                               static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2, static_cast<cuuint64_t>(ss) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {kBoxCols, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols), 1,
+                             static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

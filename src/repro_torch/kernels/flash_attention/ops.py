@@ -11,16 +11,17 @@
 Which kernel runs is :func:`route`'s answer, from dtype, head dim,
 pointer alignment and strides alone (never from a failed launch):
 
-* ``"wgmma"``: bf16, D in {64, 128}, every base pointer and (b, s, h)
-  stride 16-byte aligned: TMA loads, wgmma products, a warp-specialised
-  pipeline (``csrc/flash_attention_wgmma.cu``);
-* ``"mma_sync"``: other bf16 with D >= 16 (D in {16, 32, 64, 80, 128}; 80 is
-  zamba2-2.7b's head dim): ``mma.sync`` tensor-core kernel
+* ``"wgmma"``: bf16, D in :data:`WGMMA_D` = {64, 80, 128} (80 is
+  zamba2-2.7b's head dim), every base pointer and (b, s, h) stride 16-byte
+  aligned: TMA loads, wgmma products, a warp-specialised pipeline
+  (``csrc/flash_attention_wgmma.cu``);
+* ``"mma_sync"``: other bf16 with D >= 16 (D in {16, 32}, and 64, 80 or 128
+  with unaligned rows): ``mma.sync`` tensor-core kernel
   (``csrc/flash_attention.cu``);
 * ``"fma"``: float32, and bf16 at D = 8: the FMA-unit kernel (same file),
   D in :data:`FMA_D`.  It has no D = 80 tiling: float32 at D = 80 raises
-  on the card, naming the route that takes D = 80 (bf16 on mma_sync), and
-  never switches to another route.
+  on the card, naming the routes that take D = 80 (bf16 on wgmma and
+  mma_sync), and never switches to another route.
 
 Block sizes are the kernels' own compile-time constants; the reference's
 ``pick_block`` and its ``S % block == 0`` requirement are TPU tiling and
@@ -36,10 +37,12 @@ The gradient: :func:`flash_attention_bwd` takes the forward's LSE and, for
 CUDA tensors, launches the backward route :func:`bwd_route` picks, from
 dtype and head dim alone, or raises:
 
-* ``"wgmma"``: bf16, D in {64, 128} (``csrc/flash_attention_bwd_wgmma.cu``:
-  TMA, wgmma, a persistent warp-specialised pipeline);
-* ``"mma_sync"``: other bf16 with D in :data:`BWD_D`
-  (``csrc/flash_attention_bwd.cu``);
+* ``"wgmma"``: bf16, D in :data:`WGMMA_D` = {64, 80, 128}
+  (``csrc/flash_attention_bwd_wgmma.cu``: TMA, wgmma, a persistent
+  warp-specialised pipeline);
+* ``"mma_sync"``: other bf16 with D in :data:`BWD_D` (16 and 32)
+  (``csrc/flash_attention_bwd.cu``; a caller may name it at any D in
+  :data:`BWD_D`);
 * ``"fma"``: float32 (same file), D in :data:`FMA_D` but 8; float32 at
   D = 80 raises, as in the forward.
 
@@ -81,6 +84,7 @@ __all__ = [
     "SUPPORTED_D",
     "FMA_D",
     "BWD_D",
+    "WGMMA_D",
     "KERNEL_DTYPES",
 ]
 
@@ -90,7 +94,7 @@ BWD_D = (16, 32, 64, 80, 128)  # the backward kernels' instantiations
 KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 ROUTES = ("wgmma", "mma_sync", "fma")
 BWD_ROUTES = ROUTES  # the backward's routes have the forward's names
-WGMMA_D = (64, 128)
+WGMMA_D = (64, 80, 128)  # the wgmma kernels' instantiations (both directions)
 
 
 @dataclasses.dataclass
@@ -149,12 +153,12 @@ def bwd_route(q, k, v) -> str:
 
 def _check_fma(name: str, D: int, what: str) -> None:
     """Refuse the fma route at a head dim it has no tiling for (D = 80),
-    naming the route that takes it."""
+    naming the routes that take it."""
     if name == "fma" and D not in FMA_D:
         raise ValueError(
             f"{what}: the fma route (float32) has no instantiation for head dim D = {D} "
-            f"(it takes D in {FMA_D}); D = {D} is instantiated for bfloat16 on the mma_sync "
-            f"route only")
+            f"(it takes D in {FMA_D}); D = {D} is instantiated for bfloat16 on the wgmma and "
+            f"mma_sync routes only")
 
 
 def _check_args(q, k, v, window) -> tuple[int, int, int, int, int]:

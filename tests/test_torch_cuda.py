@@ -220,9 +220,10 @@ FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # tests/test_flash_ker
 
 
 def _flash_route(dtype, D, pad):
-    """The kernel ops.route must pick: bf16 at D in {64, 128} with 16-byte
-    rows takes wgmma, other bf16 at D >= 16 mma_sync, the rest fma."""
-    if dtype == torch.bfloat16 and D in (64, 128) and pad == 0:
+    """The kernel ops.route must pick: bf16 at D in {64, 80, 128} with
+    16-byte rows (pad 0 or 8) takes wgmma, other bf16 at D >= 16 mma_sync,
+    the rest fma."""
+    if dtype == torch.bfloat16 and D in (64, 80, 128) and pad in (0, 8):
         return "wgmma"
     return "mma_sync" if dtype == torch.bfloat16 and D >= 16 else "fma"
 
@@ -333,12 +334,12 @@ def _check_bwd(q, k, v, do, window, want_route):
 ])
 def test_flash_bwd_kernel_matches_plain_on_card(card, B, S, H, K, D, window, pad, dtype):
     """Each backward route against its plain version (``_check_bwd``): f32
-    on fma; bf16 on wgmma where D in {64, 128} (unaligned views copied
+    on fma; bf16 on wgmma where D in {64, 80, 128} (unaligned views copied
     first), else on mma_sync (D in {16, 32}); and autograd through
     flash_attention on the card runs the same kernels once."""
     q, k, v, do = _bwd_inputs(card, B, S, H, K, D, dtype, pad, seed=S + D)
     want = ("fma" if dtype == torch.float32 else
-            "wgmma" if D in (64, 128) else "mma_sync")
+            "wgmma" if D in (64, 80, 128) else "mma_sync")
     got = _check_bwd(q, k, v, do, window, want)
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
     auto = torch.autograd.grad(flash_ops.flash_attention(*leaves, window=window), leaves, do)
@@ -384,7 +385,8 @@ def test_flash_bwd_mma_sync_on_wgmma_inputs(card, pad):
         assert err <= BWD_TOL[torch.bfloat16] and row <= BWD_ROW_REL, name
 
 
-# zamba2-2.7b's head dim, 80 (2560 / 32): bf16 only, on the mma_sync routes
+# zamba2-2.7b's head dim, 80 (2560 / 32): bf16 only, on the wgmma routes
+# (the forward of unaligned rows on mma_sync)
 D80_CASES = [
     (2, 1, 4, 2, None), (2, 77, 4, 2, None), (1, 300, 8, 8, None),  # ragged S, G = 2, MHA
     (2, 130, 4, 2, 48), (1, 300, 8, 1, 16),  # windows, MQA
@@ -396,8 +398,9 @@ D80_CASES = [
 @pytest.mark.parametrize("B,S,H,K,window", D80_CASES)
 @pytest.mark.parametrize("pad", [0, 2, 8])  # 2: rows off 16 bytes; 8: aligned views
 def test_flash_kernel_d80_matches_plain_on_card(card, B, S, H, K, window, pad):
-    """bf16 at D = 80 takes the mma_sync forward, aligned or not, within the
-    bf16 tolerances of ``test_flash_kernel_matches_plain_on_card``."""
+    """bf16 at D = 80 takes the wgmma forward on 16-byte rows (pad 0 and 8)
+    and the mma_sync forward on unaligned ones (pad 2), within the bf16
+    tolerances of ``test_flash_kernel_matches_plain_on_card``."""
     test_flash_kernel_matches_plain_on_card(card, B, S, H, K, 80, window, torch.bfloat16, pad)
 
 
@@ -405,14 +408,53 @@ def test_flash_kernel_d80_matches_plain_on_card(card, B, S, H, K, window, pad):
 @pytest.mark.parametrize("B,S,H,K,window", D80_CASES)
 @pytest.mark.parametrize("pad", [0, 2])  # 2: views copied before the kernel
 def test_flash_bwd_d80_matches_plain_on_card(card, B, S, H, K, window, pad):
-    """bf16 at D = 80 takes the mma_sync backward (``_check_bwd``: the
-    forward's LSE first, bitwise repeated), and autograd through
-    flash_attention runs the same kernels."""
+    """bf16 at D = 80 takes the wgmma backward, aligned or not (unaligned
+    views copied first; ``_check_bwd``: the forward's LSE first, bitwise
+    repeated), and autograd through flash_attention runs the same kernels."""
     q, k, v, do = _bwd_inputs(card, B, S, H, K, 80, torch.bfloat16, pad, seed=S + H)
-    got = _check_bwd(q, k, v, do, window, "mma_sync")
+    got = _check_bwd(q, k, v, do, window, "wgmma")
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
     auto = torch.autograd.grad(flash_ops.flash_attention(*leaves, window=window), leaves, do)
     assert all(torch.equal(a, b) for a, b in zip(auto, got))
+
+
+@pytest.mark.cuda
+def test_flash_d80_one_tile_layout_on_card(card):
+    """One 128-row tile at D = 80 (B = H = K = 1), v's column d one where
+    key t has t % 80 == d: each output column sums the probabilities of its
+    own keys, so a column of the 16-column box read out of order, or one
+    box's columns put in the other's place, shows at once.  Forward (wgmma,
+    its LSE) and backward against their plain versions."""
+    g = torch.Generator(device=card).manual_seed(80)
+    q, k, do = (torch.randn((1, 128, 1, 80), generator=g, device=card).to(torch.bfloat16)
+                for _ in range(3))
+    t = torch.arange(128, device=card)
+    v = (t[:, None] % 80 == torch.arange(80, device=card)[None]).to(torch.bfloat16)
+    v = v.reshape(1, 128, 1, 80)
+    assert flash_ops.route(q, k, v) == "wgmma"
+    o, lse = flash_ops.launch("wgmma", q, k, v, lse=True)
+    torch.cuda.synchronize()
+    ref = flash_ref(q, k, v)
+    torch.testing.assert_close(o.float(), ref.float(), rtol=0, atol=FLASH_ATOL[torch.bfloat16])
+    assert float((lse - flash_lse(q, k)).abs().max()) <= LSE_TOL
+    _check_bwd(q, k, v, do, None, "wgmma")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pad", [0, 2])
+def test_flash_d80_mma_sync_by_name_on_card(card, pad):
+    """The kept mma_sync kernels at D = 80, launched by name on inputs the
+    wgmma routes take (and on unaligned views), forward with its LSE and
+    backward, against their plain versions."""
+    q, k, v, do = _bwd_inputs(card, 2, 333, 8, 4, 80, torch.bfloat16, pad, seed=pad)
+    o, lse = flash_ops.launch("mma_sync", q, k, v, lse=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), flash_ref(q, k, v).float(), rtol=0,
+                               atol=FLASH_ATOL[torch.bfloat16])
+    assert float((lse - flash_lse(q, k)).abs().max()) <= LSE_TOL
+    got = flash_ops.launch_bwd("mma_sync", q, k, v, o, do, lse)
+    _, err, row = flash_bwd_errors(got, flash_bwd_ref(q, k, v, o, do))
+    assert err <= BWD_TOL[torch.bfloat16] and row <= BWD_ROW_REL
 
 
 @pytest.mark.cuda
@@ -422,10 +464,10 @@ def test_flash_d80_float32_raises_naming_the_route(card):
     without launching anything."""
     q, k, v, do = _bwd_inputs(card, 1, 64, 4, 2, 80, torch.float32)
     launches = {n: c.launches for n, c in flash_ops.counts.items()}
-    with pytest.raises(ValueError, match="mma_sync route only"):
+    with pytest.raises(ValueError, match="wgmma and mma_sync routes only"):
         flash_ops.flash_attention(q, k, v)
     lse = torch.zeros((1, 4, 64), device=card)
-    with pytest.raises(ValueError, match="mma_sync route only"):
+    with pytest.raises(ValueError, match="wgmma and mma_sync routes only"):
         flash_ops.flash_attention_bwd(q, k, v, q, do, lse=lse)
     assert {n: c.launches for n, c in flash_ops.counts.items()} == launches
 
@@ -469,7 +511,7 @@ def test_flash_bwd_refuses_a_missing_lse(card):
 @pytest.mark.parametrize("route,dtype,D,pad", [
     ("wgmma", torch.bfloat16, 128, 0), ("wgmma", torch.bfloat16, 64, 0),
     ("mma_sync", torch.bfloat16, 128, 0), ("mma_sync", torch.bfloat16, 16, 2),
-    ("mma_sync", torch.bfloat16, 80, 0),
+    ("mma_sync", torch.bfloat16, 80, 0), ("wgmma", torch.bfloat16, 80, 0),
     ("fma", torch.float32, 128, 0), ("fma", torch.float32, 16, 0), ("fma", torch.bfloat16, 8, 0),
 ])
 @pytest.mark.parametrize("S,window", [(1, None), (77, None), (300, 48), (1000, None)])

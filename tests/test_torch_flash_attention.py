@@ -256,7 +256,7 @@ def _flash_ref_np(arrays, dtype_name, window=None):
 
 
 @pytest.mark.parametrize("dtype_name", ["f32", "bf16"])
-@pytest.mark.parametrize("B,S,H,K,D", SHAPES + [(1, 384, 4, 2, 128)])
+@pytest.mark.parametrize("B,S,H,K,D", SHAPES + [(1, 384, 4, 2, 128), (2, 320, 4, 4, 80)])
 def test_wgmma_emulation_matches_reference(B, S, H, K, D, dtype_name):
     arrays = _inputs(B, S, H, K, D, seed=5)
     o = _emulate(arrays, dtype_name)
@@ -280,7 +280,7 @@ def test_wgmma_emulation_sliding_window(B, S, H, K, D, window, dtype_name):
 @pytest.mark.parametrize("dtype_name", ["f32", "bf16"])
 @pytest.mark.parametrize("S,H,K,D,window", [
     (1, 16, 8, 128, None), (7, 16, 8, 128, None), (100, 16, 8, 128, None),
-    (1000, 4, 2, 64, None), (1000, 4, 2, 128, 128),
+    (1000, 4, 2, 64, None), (1000, 4, 2, 128, 128), (333, 4, 4, 80, None),
 ])
 def test_wgmma_emulation_ragged_s(S, H, K, D, window, dtype_name):
     arrays = _inputs(1, S, H, K, D, seed=7)
@@ -292,6 +292,7 @@ def test_wgmma_emulation_ragged_s(S, H, K, D, window, dtype_name):
 @pytest.mark.parametrize("dtype_name", ["f32", "bf16"])
 @pytest.mark.parametrize("S,H,K,D,window", [
     (1, 4, 2, 64, None), (77, 4, 2, 64, 16), (300, 4, 4, 128, None), (300, 4, 2, 64, 48),
+    (300, 4, 4, 80, None),
 ])
 def test_wgmma_emulation_lse_matches_plain(S, H, K, D, window, dtype_name):
     """The forward kernel's LSE, (m + log2 l) ln 2 in f32, against the plain
@@ -377,6 +378,11 @@ def _view(shape, dtype, pad=0, offset=0):
     (torch.bfloat16, 64, "heads-major", "wgmma"),  # (B, H, S, D) transposed
     (torch.bfloat16, 128, "k broadcast over B", "mma_sync"),  # a 0 stride
     (torch.bfloat16, 128, "B=S=1 odd strides", "wgmma"),  # size-1 dims' strides
+    # zamba2-2.7b's head dim: rows of 160 B, 164 B (off 16 bytes), 176 B
+    (torch.bfloat16, 80, "contiguous", "wgmma"),
+    (torch.bfloat16, 80, "pad=2", "mma_sync"),
+    (torch.bfloat16, 80, "pad=8", "wgmma"),
+    (torch.bfloat16, 80, "heads-major", "wgmma"),
 ])
 def test_route(dtype, D, layout, want):
     B, S, H, K = 2, 16, 4, 2

@@ -207,6 +207,8 @@ def _case(B, S, H, K, D, dtype_name, seed):
     (300, 4, 4, 128, 48),
     (300, 4, 2, 64, 16),
     (300, 4, 2, 64, 48),
+    (300, 4, 4, 80, None),  # zamba2-2.7b's head dim, G = 1
+    (77, 4, 2, 80, 16),
 ])
 def test_wgmma_bwd_emulation_matches_plain_and_reference(S, H, K, D, window, dtype_name):
     q, k, v, do = _case(2, S, H, K, D, dtype_name, seed=S + H * K + (window or 0))
@@ -322,6 +324,10 @@ def _view(shape, dtype, pad=0, offset=0):
     (torch.bfloat16, 64, "heads-major", "wgmma"),  # (B, H, S, D) transposed
     (torch.bfloat16, 128, "k broadcast over B", "wgmma"),  # a 0 stride: copied
     (torch.bfloat16, 128, "B=S=1 odd strides", "wgmma"),  # size-1 dims' strides
+    # zamba2-2.7b's head dim: every layout takes wgmma (unaligned ones copied)
+    (torch.bfloat16, 80, "contiguous", "wgmma"),
+    (torch.bfloat16, 80, "pad=2", "wgmma"),
+    (torch.bfloat16, 80, "offset=1", "wgmma"),
 ])
 def test_bwd_route(dtype, D, layout, want):
     B, S, H, K = 2, 16, 4, 2

@@ -358,12 +358,12 @@ def test_zamba2_prefill_writes_the_shared_cache_in_place():
 
 def test_flash_head_dim_80():
     """zamba2-2.7b's head dim (2560 / 32 = 80): the plain version runs for
-    CPU tensors in both directions; bf16 routes to mma_sync (forward and
-    backward); the fma route (float32) refuses D = 80 naming the route
-    that takes it."""
+    CPU tensors in both directions; aligned bf16 routes to wgmma (forward
+    and backward), an unaligned bf16 view to the mma_sync forward; the fma
+    route (float32) refuses D = 80 naming the routes that take it."""
     assert base.get_config("zamba2-2.7b").head_dim_ == 80
     assert 80 in flash_ops.SUPPORTED_D and 80 in flash_ops.BWD_D
-    assert 80 not in flash_ops.FMA_D and 80 not in flash_ops.WGMMA_D
+    assert 80 in flash_ops.WGMMA_D and 80 not in flash_ops.FMA_D
     gen = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn((1, 9, 4, 80), generator=gen) for _ in range(3))
     flash_ops.reset_counts()
@@ -373,7 +373,10 @@ def test_flash_head_dim_80():
     assert flash_ops.counts["flash_attention"].plain_calls == 1
     assert flash_ops.counts["flash_attention_bwd"].plain_calls == 1
     qb, kb, vb = (t.bfloat16() for t in (q, k, v))
-    assert flash_ops.route(qb, kb, vb) == flash_ops.bwd_route(qb, kb, vb) == "mma_sync"
+    assert flash_ops.route(qb, kb, vb) == flash_ops.bwd_route(qb, kb, vb) == "wgmma"
+    qu = torch.zeros((1, 9, 4, 82), dtype=torch.bfloat16)[..., :80]  # rows 164 B apart
+    assert flash_ops.route(qu, kb, vb) == "mma_sync"
+    assert flash_ops.bwd_route(qu, kb, vb) == "wgmma"
     assert flash_ops.route(q, k, v) == "fma"
-    with pytest.raises(ValueError, match="mma_sync route only"):
+    with pytest.raises(ValueError, match="wgmma and mma_sync routes only"):
         flash_ops._check_fma("fma", 80, "flash_attention")
