@@ -251,8 +251,25 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    scan and the conv as entries of their own); the wgmma and mma_sync
    forwards at (8, 2048, 32, 32, 80) and (4, 4096, 32, 32, 80) in turns
    with SDPA, beside the plain version and the bound, and both backwards
-   at (4, 4096, 32, 32, 80) beside SDPA's backward.  The
-   wall time of each phase is printed (``[wall]`` lines).
+   at (4, 4096, 32, 32, 80) beside SDPA's backward;
+13. xLSTM (``[serve]``, ``[train]`` and ``[xlstm]`` lines, each beside the
+   card's name and power limit): xlstm-125m (12 layers at d_model 768, 4
+   heads; sLSTM blocks at 5 and 11, mLSTM blocks elsewhere at d_inner 1536,
+   head dim 384, chunk 256) at full width and depth in bf16, served as
+   phase 10 (8 x 2048 prompt tokens + 32 new, the batch from the printed
+   reckoning: weights, the mLSTM's matrix memories and the sLSTM's carries,
+   the chunked scan's transients), counted: no flash launch and no plain
+   call; its reduced configuration in f32 card against CPU (tokens and
+   logits, first-step gradients and three steps' losses); a reduced
+   forward and backward under sync debug mode "error" and a reduced bf16
+   step twice from one state, bitwise, counted together (no launch);
+   xlstm-125m trained as 9(c) at S = 4096, its global batch of 256 cut to
+   the largest of (64, 32, 16, 8, 4) that the printed reckoning fits (0
+   flash launches; MFU through ``model_flops_estimate`` and, beside it,
+   with N counted from the parameters built plus the mLSTM's chunked
+   products; the profile with ``xlstm.mlstm`` and ``xlstm.slstm`` as
+   entries of their own; the device's idle share).  The wall time of each
+   phase is printed (``[wall]`` lines).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -502,6 +519,17 @@ SSM_ARCH, SSM_TRAIN_BATCH = "zamba2-2.7b", 4
 D80_SERVE = (SERVE_REQUESTS, SERVE_PROMPT, 32, 32, 80)  # (B, S, H, K, D)
 D80_TRAIN = (SSM_TRAIN_BATCH, TRAIN_SEQ, 32, 32, 80)
 D80_SHAPES = [D80_SERVE, D80_TRAIN, (2, 333, 32, 32, 80)]
+# Phase 13: xlstm-125m (mLSTM blocks, sLSTM at 5 and 11) at full width and
+# depth in bf16, served 8 x (SERVE_PROMPT + SERVE_NEW) and trained at
+# train_4k's sequence, its global batch of 256 cut to the largest of
+# XLSTM_TRAIN_BATCHES that the printed reckoning fits; its reduced
+# configuration card against CPU; a reduced step with no host sync and one
+# repeated bitwise.  No attention: no flash launch anywhere.
+XLSTM_ARCH, XLSTM_TRAIN_BATCHES = "xlstm-125m", (64, 32, 16, 8, 4)
+# The sLSTM's gradient at full width overflows f32 past ~1,000 positions, in
+# the reference too (ROADMAP Queue 3): the S = 4096 run times the step, and
+# a short run at XLSTM_FINITE_SEQ holds the losses finite and falling.
+XLSTM_FINITE_SEQ, XLSTM_FINITE_BATCH, XLSTM_FINITE_STEPS = 256, 32, 4
 # Gradient compression on the card: int8 and top-k of one tensor bitwise as
 # on the CPU, and one reduced-width train step with int8 compression from
 # one state (losses and parameters to 1e-4).
@@ -765,8 +793,12 @@ def record_logits(eng: ServeEngine) -> list:
 
 
 def numpy_tree(tree):
+    """A tree of tensors (dicts; the xLSTM's list of blocks, in index order)
+    as the same tree of numpy arrays."""
     if isinstance(tree, dict):
         return {k: numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [numpy_tree(v) for v in tree]
     return tree.cpu().numpy()
 
 
@@ -774,18 +806,23 @@ def init_transient(shapes) -> int:
     """init_params' largest transient in bytes: a top-level leaf's f32 draw
     (the embedding, the head; zamba2's shared block's weights beside their
     bf16 cast), or one layer's f32 draw of a stacked leaf beside its bf16
-    cast."""
+    cast (the xLSTM's list of blocks: a block's leaf, unstacked)."""
+    per_layer = (lambda sh: sh) if isinstance(shapes["blocks"], list) else (lambda sh: sh[1:])
     return max([4 * math.prod(shapes[k]) for k in ("embed", "lm_head") if k in shapes]
                + [6 * math.prod(sh) for sh in _leaves(shapes.get("shared", {}))]
-               + [6 * math.prod(sh[1:]) for sh in _leaves(shapes["blocks"])])
+               + [6 * math.prod(per_layer(sh)) for sh in _leaves(shapes["blocks"])])
 
 
 def ssm_line(cfg) -> str:
-    """The Mamba2 widths of a recurrent configuration, for its [serve] and
-    [train] lines."""
+    """The Mamba2 (or xLSTM) widths of a recurrent configuration, for its
+    [serve] and [train] lines."""
     if cfg.block_pattern == "attn":
         return ""
     d_in = cfg.ssm_expand * cfg.d_model
+    if cfg.block_pattern == "xlstm":
+        return (f" xlstm: sLSTM at {cfg.slstm_indices} (head dim {cfg.d_model // cfg.n_heads}), "
+                f"mLSTM elsewhere (d_inner={d_in}, {cfg.n_heads} heads of {d_in // cfg.n_heads}, "
+                f"conv={cfg.conv_width}, chunk={cfg.chunk_size})")
     shared = (f", a shared attention block every {cfg.shared_attn_every} layers"
               if cfg.block_pattern == "zamba2" else "")
     return (f" {cfg.block_pattern}: d_inner={d_in} ssm heads={d_in // cfg.ssm_head_dim} "
@@ -801,8 +838,8 @@ def serve_full_width(cfg, batch: int, rng, card: str,
     allocated once), then ``batch`` requests of ``prompt`` tokens (codebook
     models: (prompt, n_cb)) generate SERVE_NEW greedy tokens each,
     with every count zeroed just before and read just after: one flash
-    launch per attention block (``attention_layers``: n_layers, or zamba2's
-    n_groups shared applications) per prefill batch, all on the route of
+    launch per attention block (``attention_layers``: n_layers, zamba2's
+    n_groups shared applications, none for xLSTM) per prefill batch, all on the route of
     the head dim (wgmma at 64, 80 (zamba2's) and 128), no plain
     call.  A 2-token warm-up at the same shapes (cuBLAS's first calls pick
     their kernels), its prompts cut to ``prompt`` - 32 i tokens so that the
@@ -840,8 +877,9 @@ def serve_full_width(cfg, batch: int, rng, card: str,
                       for i, r in enumerate(reqs)])
     finally:
         attention_module.flash_attention = inner
-    if len(kept) != 2:
-        raise SystemExit(f"serve warm-up kept the q/k/v of {len(kept)} blocks, expected 2")
+    if len(kept) != min(n_attn, 2):
+        raise SystemExit(f"serve warm-up kept the q/k/v of {len(kept)} blocks, expected "
+                         f"{min(n_attn, 2)}")
     eng.stats = ServeStats()
     logits_seen = record_logits(eng)
     torch.cuda.reset_peak_memory_stats()
@@ -1918,15 +1956,21 @@ def bwd_entry(t: dict, route: str, max_abs_err: float) -> dict:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library"]}
 
 
-def train_full_width(card: str, cfg, batch: int) -> int:
+def train_full_width(card: str, cfg, batch: int, finite_grads: bool = True) -> int:
     """Phase 9(c) (and 10 for musicgen-medium, 11 for olmoe-1b-7b, 12 for
-    zamba2-2.7b): train_loop of ``cfg`` (at full width, its layers possibly
-    cut) in bf16, train_4k's sequence with its batch cut to ``batch``, each
-    step counted: 2n forward and n backward flash launches for n attention
-    blocks (zamba2: n groups, each group rematerialized around its
-    rematerialized Mamba2 layers, so its shared block runs in the forward
-    and in the group's recompute), all on the head dim's routes.  Returns
-    the backward's launches over the run."""
+    zamba2-2.7b, 13 for xlstm-125m): train_loop of ``cfg`` (at full width,
+    its layers possibly cut) in bf16, train_4k's sequence with its batch
+    cut to ``batch``, each step counted: 2n forward and n backward flash
+    launches for n attention blocks (zamba2: n groups, each group
+    rematerialized around its rematerialized Mamba2 layers, so its shared
+    block runs in the forward and in the group's recompute; xLSTM: none),
+    all on the head dim's routes.  A profiled step follows: its device time
+    by category and by range (the Mamba2 and xLSTM recurrences as entries
+    of their own), and the device's idle share.  Every step's loss and
+    gradient norm must be finite; with ``finite_grads`` False (xlstm-125m
+    at S = 4096, whose sLSTM gradient overflows f32 in the reference too,
+    ROADMAP Queue 3) the first loss must be finite and the gradient norms
+    are printed.  Returns the backward's launches over the run."""
     shape = ShapeConfig(f"train_4k, global batch 256 cut to {batch}", "train", TRAIN_SEQ, batch)
     per_step = []
 
@@ -1956,9 +2000,15 @@ def train_full_width(card: str, cfg, batch: int) -> int:
                              f"{got}, routes {routes}, backward routes {bwd_routes}; expected "
                              f"{want}, {2 * n} forward on {route} and {n} backward on "
                              f"{bwd_route}")
-    if len(per_step) != TRAIN_STEPS or not all(
-            np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in history):
+    finite = [np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in history]
+    if len(per_step) != TRAIN_STEPS or not (all(finite) if finite_grads
+                                            else np.isfinite(history[0]["loss"])):
         raise SystemExit(f"train steps: {len(per_step)} counted, history {history}")
+    if not all(finite):
+        print(f"[train] {cfg.name} at S = {TRAIN_SEQ}: first loss {history[0]['loss']!r}; "
+              f"gradient norms {[m['grad_norm'] for m in history]}: not finite, as the "
+              f"reference's sLSTM gradient at this width and length (ROADMAP Queue 3); the "
+              f"steps after it run on non-finite parameters ({card})")
 
     timed = history[1:]
     N, T = cfg.n_active_params(), batch * TRAIN_SEQ
@@ -1996,6 +2046,22 @@ def train_full_width(card: str, cfg, batch: int) -> int:
           f"the {peak / 1e12:.0f} TFLOP/s bf16 dense peak; as run (remat, a backward of 7 "
           f"causal products) "
           f"{run_flops:.4e}: {run_flops / step_s / 1e12} TFLOP/s ({card})")
+    if cfg.block_pattern == "xlstm":
+        # n_params() (model_flops_estimate's N) leaves out wq/wk/wv and the
+        # sLSTM's own shapes: N counted from the parameters built, and the
+        # mLSTM's chunked products, (4Q + 4 dh) d_inner a token a layer's
+        # forward (scores and their product with v over a chunk of Q, C q
+        # and the chunk-end k v^T update)
+        n_built = sum(math.prod(sh) for sh in _leaves(shapes))
+        n_mlstm = cfg.n_layers - len(cfg.slstm_indices)
+        d_in = cfg.ssm_expand * cfg.d_model
+        dh, Q = d_in // cfg.n_heads, ssm_module.chunk_len(TRAIN_SEQ, cfg.chunk_size)
+        built_flops = (6 * n_built + 3 * n_mlstm * (4 * Q + 4 * dh) * d_in) * T
+        print(f"[train] {cfg.name} model FLOPs a step counted from the parameters built: "
+              f"6 N T + 3 x {n_mlstm} mLSTM layers x (4Q + 4 dh) d_inner T, N = {n_built} "
+              f"(n_params() counts {cfg.n_params()}), Q = {Q}, dh = {dh}, d_inner = {d_in}: "
+              f"{built_flops:.4e}: {built_flops / step_s / 1e12} TFLOP/s, MFU "
+              f"{100 * built_flops / step_s / peak}% ({card})")
 
     # One more step under torch.profiler: where its device time goes.
     step_fn = make_train_step(cfg, AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=1))
@@ -2010,14 +2076,19 @@ def train_full_width(card: str, cfg, batch: int) -> int:
     ranges = {"AdamW": "train.optimizer"}
     if cfg.is_moe:  # the forward's ranges, their recompute and their backward
         ranges.update({"MoE dispatch": "moe.dispatch", "MoE combine": "moe.combine"})
-    if cfg.block_pattern != "attn":
+    if cfg.block_pattern in ("mamba2", "zamba2"):
         ranges.update({"Mamba2 SSD": "mamba.ssd", "Mamba2 conv": "mamba.conv"})
+    if cfg.block_pattern == "xlstm":
+        ranges.update({"mLSTM chunk scan": "xlstm.mlstm", "sLSTM recurrence": "xlstm.slstm"})
     ms, count, busy, top = device_time_by_category(one_step, TRAIN_CATEGORIES, ranges,
                                                    other="elementwise/copies")
     host_ms = (time.perf_counter() - t0) * 1e3
     parts = ", ".join(f"{c} {ms[c]} ms ({100 * ms[c] / busy:.1f}%, x{count[c]})" for c in ms)
     print(f"[train] profile of one step (under the profiler, host {host_ms} ms with its "
           f"overhead): device busy {busy} ms: {parts} ({card})")
+    print(f"[train] {cfg.name} device idle share of a step: {1 - busy / (step_s * 1e3)} (the "
+          f"profiled step's busy {busy} ms over the timed steps' median {step_s} s; over the "
+          f"profiled step's own {host_ms} ms: {1 - busy / host_ms}) ({card})")
     for c, rows in top.items():
         for name, t, calls in rows[:TRAIN_TOP_KERNELS]:
             print(f"[train]   {c}: {t:9.3f} ms x{calls:<5d} {name[:110]}")
@@ -2046,8 +2117,9 @@ def train_full_width(card: str, cfg, batch: int) -> int:
             raise SystemExit(f"flash kernels disagree with their plain versions on attention "
                              f"block {layer}'s training inputs: forward {o_row}, LSE {lse_err}, "
                              f"backward {row}")
-    if len(kept) != 2:
-        raise SystemExit(f"the warm-up step kept {len(kept)} blocks' backward inputs, not 2")
+    if len(kept) != min(n, 2):
+        raise SystemExit(f"the warm-up step kept {len(kept)} blocks' backward inputs, not "
+                         f"{min(n, 2)}")
     del kept
     torch.cuda.empty_cache()
     return sum(b[bwd_route] for _, _, b in per_step)
@@ -2286,7 +2358,8 @@ def serve_reckoning(cfg, request_sets: list) -> tuple[int, str]:
             slots = min(slots, cfg.sliding_window)
         needs.append((B, prompt, per_slot * B * slots + recurrent_state_bytes(cfg, B),
                       prefill_transients(cfg, B, prompt)))
-    state = "KV cache and Mamba2 states" if cfg.block_pattern != "attn" else "KV cache"
+    state = {"attn": "KV cache", "xlstm": "xLSTM states"}.get(cfg.block_pattern,
+                                                             "KV cache and Mamba2 states")
     sets = "; ".join(f"{B} x {prompt}: {state} {c / 1e9:.2f} GB + prefill transients "
                      f"{t / 1e9:.2f} GB" for B, prompt, c, t in needs)
     need = weights + max([init] + [c + t for _, _, c, t in needs])
@@ -2304,8 +2377,11 @@ def train_reckoning(cfg, batch: int) -> tuple[int, str]:
     the backward frees as it consumes them, and its attention's four
     (T, H hd) bf16 tensors; a Mamba2 layer's, :func:`mamba_transients`;
     zamba2 keeps every group's input, and in a group's backward its layers'
-    inputs, its shared block's and one Mamba2 layer's transients) and a loss
-    chunk's f32 logits three times (logits, softmax, gradient).  AdamW
+    inputs, its shared block's and one Mamba2 layer's transients; xLSTM
+    keeps each mLSTM block's input and all that each sLSTM layer's loop
+    saves, :func:`slstm_saved` (its blocks are not rematerialized), and runs
+    one mLSTM layer's recompute and backward, :func:`mlstm_transients`) and
+    a loss chunk's f32 logits three times (logits, softmax, gradient).  AdamW
     updates a large leaf in chunks of its leading axis (its f32 temporaries
     are a chunk's, not counted)."""
     shapes = param_shapes(cfg)
@@ -2319,6 +2395,11 @@ def train_reckoning(cfg, batch: int) -> tuple[int, str]:
     elif cfg.block_pattern == "mamba2":
         saved, block = cfg.n_layers * T * cfg.d_model * 2, mamba_transients(cfg, batch,
                                                                             TRAIN_SEQ, True)
+    elif cfg.block_pattern == "xlstm":
+        n_s = len(cfg.slstm_indices)
+        saved = ((cfg.n_layers - n_s) * T * cfg.d_model * 2
+                 + n_s * slstm_saved(cfg, batch, TRAIN_SEQ))
+        block = mlstm_transients(cfg, batch, TRAIN_SEQ, True)
     else:
         # zamba2's nested remat: every group's input, and in one group's
         # backward its layers' inputs, its shared block's activations and
@@ -2328,8 +2409,8 @@ def train_reckoning(cfg, batch: int) -> tuple[int, str]:
     ce = 3 * batch * min(LOSS_CHUNK, TRAIN_SEQ) * cfg.vocab * 4
     return state + stack + saved + block + ce, (
         f"state {state / 1e9:.2f} GB ({n} parameters) + stacked gradient {stack / 1e9:.2f} GB "
-        f"+ remat inputs {saved / 1e9:.2f} GB + one block {block / 1e9:.2f} GB + loss chunk "
-        f"{ce / 1e9:.2f} GB")
+        f"+ kept between blocks {saved / 1e9:.2f} GB + one block {block / 1e9:.2f} GB + loss "
+        f"chunk {ce / 1e9:.2f} GB")
 
 
 def serve_batch_cut(cfg, card: str) -> int:
@@ -2339,11 +2420,11 @@ def serve_batch_cut(cfg, card: str) -> int:
                      lambda B: serve_reckoning(cfg, [(B, SERVE_PROMPT)]), card)
 
 
-def train_batch_cut(cfg, card: str) -> int:
-    """The largest batch of SLICE_TRAIN_BATCHES whose
-    :func:`train_reckoning` fits the card."""
+def train_batch_cut(cfg, card: str, batches=SLICE_TRAIN_BATCHES) -> int:
+    """The largest batch of ``batches`` whose :func:`train_reckoning` fits
+    the card."""
     return first_fit("train", ((f"{cfg.name} batch {B} x {TRAIN_SEQ}", B)
-                               for B in SLICE_TRAIN_BATCHES),
+                               for B in batches),
                      lambda B: train_reckoning(cfg, B), card)
 
 
@@ -2515,12 +2596,50 @@ def slice_phase(card: str) -> None:
 
 
 def recurrent_state_bytes(cfg, B: int) -> int:
-    """Bytes of the Mamba2 decode states of every layer at batch B: ssm (B,
-    H, N, P) f32 and conv (B, W - 1, C) bf16 a layer (0 for attention)."""
+    """Bytes of the recurrent decode states of every layer at batch B (0 for
+    attention).  Mamba2: ssm (B, H, N, P) f32 and conv (B, W - 1, C) bf16 a
+    layer.  xLSTM: an mLSTM layer's C (B, H, dh, dh), n (B, H, dh) and m
+    (B, H) f32 and its conv tail (B, W - 1, d_inner) bf16; an sLSTM layer's
+    four (B, H, dh) f32."""
     if cfg.block_pattern == "attn":
         return 0
     d_in, N = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+    if cfg.block_pattern == "xlstm":
+        H, dh = cfg.n_heads, d_in // cfg.n_heads
+        n_s = len(cfg.slstm_indices)
+        mlstm = B * (H * dh * dh + H * dh + H) * 4 + B * (cfg.conv_width - 1) * d_in * 2
+        return (cfg.n_layers - n_s) * mlstm + n_s * 4 * B * cfg.d_model * 4
     return cfg.n_layers * B * (d_in * N * 4 + (cfg.conv_width - 1) * (d_in + 2 * N) * 2)
+
+
+def mlstm_transients(cfg, B: int, S: int, train: bool = False) -> int:
+    """Bytes of one mLSTM layer's largest transients at (B, S): the bf16
+    up-projection, conv and q/k/v (8 (B, S, d_inner)); the f32 copies of
+    q (twice: cast and scaled), k and v, the weighted keys, the two parts of
+    the numerator and h (7 (B, S, d_inner) f32, twice in a backward for
+    their gradients); the chunked scan's (B, S / Q, H, Q, Q) f32 blocks (the
+    log weights, their stabilized difference, its exponential, the scores and
+    their product: 5, 8 in a backward) and the chunks' incoming C states (B,
+    S / Q, H, dh, dh) f32 (the loop's list and its stack: 2, 3 in a
+    backward)."""
+    d_in, H = cfg.ssm_expand * cfg.d_model, cfg.n_heads
+    dh = d_in // H
+    Q = ssm_module.chunk_len(S, cfg.chunk_size)
+    block = B * (S // Q) * H * Q * Q * 4
+    states = B * (S // Q) * H * dh * dh * 4
+    rows = B * S * d_in
+    if train:
+        return 16 * rows + 56 * rows + 8 * block + 3 * states
+    return 16 * rows + 28 * rows + 5 * block + 2 * states
+
+
+def slstm_saved(cfg, B: int, S: int) -> int:
+    """Bytes that one sLSTM layer's position loop keeps for its backward at
+    (B, S): 17 (B, d) f32 tensors a step (the pre-activations, four wide;
+    the gates, their activations and the stabilizer's terms; the carries),
+    the f32 input projections (B, S, 4 d) and the stacked h (B, S, d)
+    f32."""
+    return S * 17 * B * cfg.d_model * 4 + B * S * 5 * cfg.d_model * 4
 
 
 def mamba_transients(cfg, B: int, S: int, train: bool = False) -> int:
@@ -2538,10 +2657,13 @@ def mamba_transients(cfg, B: int, S: int, train: bool = False) -> int:
 
 def prefill_transients(cfg, B: int, S: int) -> int:
     """Bytes of a prefill's largest transients in one block at (B, S): the
-    FFN's (:func:`ffn_transients`) or a Mamba2 layer's
-    (:func:`mamba_transients`), the larger for zamba2."""
+    FFN's (:func:`ffn_transients`), a Mamba2 layer's
+    (:func:`mamba_transients`), the larger for zamba2, or an mLSTM layer's
+    (:func:`mlstm_transients`)."""
     if cfg.block_pattern == "attn":
         return ffn_transients(cfg, B, S)
+    if cfg.block_pattern == "xlstm":
+        return mlstm_transients(cfg, B, S)
     if cfg.block_pattern == "mamba2":
         return mamba_transients(cfg, B, S)
     return max(ffn_transients(cfg, B, S), mamba_transients(cfg, B, S))
@@ -2768,12 +2890,13 @@ def d80_kernel_checks(gen) -> dict:
     return errs
 
 
-def ssm_sync_check(card: str) -> None:
-    """A reduced zamba2 forward and backward (loss_fn: the chunked scan's
-    loop, the nested remat, the shared block's flash kernels) on the card
-    in bf16 under ``torch.cuda.set_sync_debug_mode("error")``: no host
-    sync, finite gradients."""
-    cfg = get_reduced(SSM_ARCH)
+def ssm_sync_check(card: str, arch: str = SSM_ARCH, tag: str = "ssm") -> None:
+    """A reduced zamba2 (or ``arch``'s) forward and backward (loss_fn: the
+    chunked scan's loop, the nested remat, the shared block's flash kernels;
+    xLSTM's chunk and position loops) on the card in bf16 under
+    ``torch.cuda.set_sync_debug_mode("error")``: no host sync, finite
+    gradients."""
+    cfg = get_reduced(arch)
     params = init_params(torch.Generator(device="cuda").manual_seed(SEED), cfg)
     leaves = [t.requires_grad_(True) for t in _leaves(params)]
     batch = {k: torch.from_numpy(a).cuda()
@@ -2785,7 +2908,7 @@ def ssm_sync_check(card: str) -> None:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     finite = all(bool(torch.isfinite(g).all()) for g in grads)
-    print(f"[ssm] {cfg.name} bf16 loss and gradients on the card under sync debug mode "
+    print(f"[{tag}] {cfg.name} bf16 loss and gradients on the card under sync debug mode "
           f"'error': no host sync, {len(grads)} gradients, finite {finite} ({card})")
     if not finite:
         raise SystemExit(f"{cfg.name}: non-finite gradients on the card")
@@ -2897,6 +3020,67 @@ def ssm_phase(card: str, d80_errs: dict) -> list[dict]:
         {"name": f"flash_attention_bwd_{route}_d80", "route": "cuda", "source": csrc + bwd_src,
          "replaces": "src/repro/models/attention.py:97", "launches": launches[route][1],
          **bwd_entry(bwd, route, d80_errs[(route, "bwd", D80_TRAIN)])})]
+
+
+def xlstm_finite_train(card: str, cfg) -> None:
+    """xlstm-125m at full width and depth in bf16 trained XLSTM_FINITE_STEPS
+    steps at S = XLSTM_FINITE_SEQ, where the sLSTM's gradient stays within
+    f32 (in the reference too), its batch XLSTM_FINITE_BATCH: every loss and
+    gradient norm finite, the loss going down, no flash call."""
+    shape = ShapeConfig(f"S = {XLSTM_FINITE_SEQ}", "train", XLSTM_FINITE_SEQ,
+                        XLSTM_FINITE_BATCH)
+    reset_all_counts()
+    _, history = train_loop(cfg, shape, steps=XLSTM_FINITE_STEPS, log_every=1, seed=SEED,
+                            device="cuda")
+    counts = all_counts()
+    losses = [m["loss"] for m in history]
+    norms = [m["grad_norm"] for m in history]
+    print(f"[train] {cfg.name} bf16 B={XLSTM_FINITE_BATCH} S={XLSTM_FINITE_SEQ}: losses "
+          f"{losses}, gradient norms {norms}, step s {[m['step_s'] for m in history]}; counts "
+          f"{counts} ({card})")
+    if not (all(np.isfinite(losses)) and all(np.isfinite(norms)) and losses[-1] < losses[0]
+            and all(c == (0, 0) for c in counts.values())):
+        raise SystemExit(f"{cfg.name} at S = {XLSTM_FINITE_SEQ}: non-finite or rising losses, "
+                         f"or a kernel launched: {history}, {counts}")
+
+
+def xlstm_phase(card: str) -> None:
+    """Phase 13: xlstm-125m served at full width and depth (its batch from
+    the printed reckoning, counted: ``serve_full_width``, no flash call);
+    its reduced configuration card against CPU (serve, train); a reduced
+    forward and backward with no host sync and a reduced bf16 step repeated
+    bitwise, counted together (no flash call); xlstm-125m trained at full
+    width and depth, its batch the largest of XLSTM_TRAIN_BATCHES that the
+    printed reckoning fits (``train_full_width``: both MFU figures, the
+    profile with the mLSTM and sLSTM recurrences as entries of their own,
+    the idle share)."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 13)
+    cfg = get_config(XLSTM_ARCH)
+    serve_counts = serve_full_width(cfg, serve_batch_cut(cfg, card), rng, card)
+    print(f"[serve] {cfg.name} wall {time.perf_counter() - t_phase} s ({card})")
+    t0 = time.perf_counter()
+    small_serve_check(XLSTM_ARCH, rng)
+    train_small_check(card, XLSTM_ARCH)
+    reset_all_counts()
+    ssm_sync_check(card, XLSTM_ARCH, "xlstm")
+    repeat_check(get_reduced(XLSTM_ARCH), "xlstm", card)
+    reduced = all_counts()
+    print(f"[xlstm] reduced {get_reduced(XLSTM_ARCH).name}: card against CPU, the sync check "
+          f"and the repeated step; the last two counted (launches, plain_calls): {reduced}; "
+          f"wall {time.perf_counter() - t0} s ({card})")
+    if any(c != (0, 0) for c in [*reduced.values(), *serve_counts.values()]):
+        raise SystemExit(f"the xLSTM runs launched a kernel or ran a plain version: serve "
+                         f"{serve_counts}, reduced {reduced}")
+    t0 = time.perf_counter()
+    train_full_width(card, cfg, train_batch_cut(cfg, card, XLSTM_TRAIN_BATCHES),
+                     finite_grads=False)
+    print(f"[train] {cfg.name} wall {time.perf_counter() - t0} s ({card})")
+    t0 = time.perf_counter()
+    xlstm_finite_train(card, cfg)
+    print(f"[train] {cfg.name} at S = {XLSTM_FINITE_SEQ} wall {time.perf_counter() - t0} s "
+          f"({card})")
+    print(f"[xlstm] phase wall {time.perf_counter() - t_phase} s ({card})")
 
 
 def main() -> int:
@@ -3163,6 +3347,10 @@ def main() -> int:
     # depth, the flash kernels at its head dim of 80
     d80_entries = ssm_phase(card, d80_errs)
     wall("12 (zamba2-2.7b, Mamba2)")
+
+    # ---- 13. xLSTM: xlstm-125m at full width and depth, served and trained
+    xlstm_phase(card)
+    wall("13 (xlstm-125m)")
 
     kernels = [
         {

@@ -2,11 +2,10 @@
 ``repro.configs.base`` so that the port imports nothing of it.
 
 ``ArchConfig``, ``ShapeConfig`` and ``SHAPES`` are the reference's, field
-for field.  The registry
-knows every architecture id and alias of the reference, but holds only the
-ported ones: :func:`get_config` / :func:`get_reduced` of any other raise
-``NotImplementedError`` naming ROADMAP.md, and never fall back to another
-configuration.
+for field.  The registry knows every architecture id and alias of the
+reference, and holds each one's configuration module (``elasticity``'s is
+the solver's :class:`~repro_torch.configs.elasticity.ElasticityConfig`);
+an unknown id raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -167,20 +166,15 @@ ALIASES = {
 }
 
 
-# The architectures whose configuration module this package holds.
+# The language-model architectures (every id of ARCH_IDS but elasticity).
 PORTED = ("qwen3_17b", "granite_8b", "qwen15_32b", "qwen3_32b", "qwen2_vl_7b",
-          "musicgen_medium", "olmoe_1b_7b", "mixtral_8x7b", "zamba2_27b")
+          "musicgen_medium", "olmoe_1b_7b", "mixtral_8x7b", "zamba2_27b", "xlstm_125m")
 
 
 def _module(arch: str):
     arch = ALIASES.get(arch, arch).replace("-", "_")
     if arch not in ARCH_IDS:
         raise ValueError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
-    if arch not in PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported to repro_torch yet (ported: {PORTED}); "
-            f"see ROADMAP.md, Queue 1 item 11"
-        )
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

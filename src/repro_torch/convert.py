@@ -76,9 +76,10 @@ def lm_params(params, cfg, *, device, dtype: torch.dtype | None = None) -> dict:
     Mamba2 mixer's ``a_log``, ``d_skip`` and ``dt_bias`` in float32, as the
     reference keeps them).
 
-    Covers the stacked ``blocks`` (leading layer axis), zamba2's unstacked
-    ``shared`` block, ``embed``, ``final_norm`` and, when the embeddings are
-    not tied, ``lm_head``.  Every key and shape is checked against
+    Covers the stacked ``blocks`` (leading layer axis; the xLSTM's list of
+    per-layer blocks, walked in index order), zamba2's unstacked ``shared``
+    block, ``embed``, ``final_norm`` and, when the embeddings are not tied,
+    ``lm_head``.  Every key, length and shape is checked against
     :func:`param_shapes`.  bfloat16 arrays (numpy's ``ml_dtypes`` extension)
     pass through float32, which holds them exactly.
     """
@@ -89,6 +90,11 @@ def lm_params(params, cfg, *, device, dtype: torch.dtype | None = None) -> dict:
                 keys = sorted(tree) if isinstance(tree, Mapping) else type(tree).__name__
                 raise ValueError(f"lm_params: {path or 'params'} has {keys}, expected {sorted(shapes)}")
             return {k: convert(tree[k], shapes[k], f"{path}/{k}".lstrip("/")) for k in shapes}
+        if isinstance(shapes, list):
+            if not isinstance(tree, Sequence) or len(tree) != len(shapes):
+                got = len(tree) if isinstance(tree, Sequence) else type(tree).__name__
+                raise ValueError(f"lm_params: {path} has {got} blocks, expected {len(shapes)}")
+            return [convert(t, sh, f"{path}/{i}") for i, (t, sh) in enumerate(zip(tree, shapes))]
         a = np.array(tree)  # a writable copy for torch.from_numpy
         if a.shape != shapes:
             raise ValueError(f"lm_params: {path} has shape {a.shape}, expected {shapes}")

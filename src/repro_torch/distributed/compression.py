@@ -53,17 +53,23 @@ def topk_compress(g: torch.Tensor, frac: float = 0.01) -> tuple[torch.Tensor, to
 
 
 def _map_pairs(fn: Callable, a, b):
-    """fn over the leaves of two trees of one structure, each call giving
-    a pair; returns the two trees of the pairs' halves."""
+    """fn over the leaves of two trees of one structure (dicts, lists,
+    tuples), each call giving a pair; returns the two trees of the pairs'
+    halves."""
     if isinstance(a, dict):
         pairs = {k: _map_pairs(fn, a[k], b[k]) for k in a}
         return {k: p[0] for k, p in pairs.items()}, {k: p[1] for k, p in pairs.items()}
+    if isinstance(a, (list, tuple)):
+        pairs = [_map_pairs(fn, x, y) for x, y in zip(a, b)]
+        return type(a)(p[0] for p in pairs), type(a)(p[1] for p in pairs)
     return fn(a, b)
 
 
 def _zeros_like_f32(tree):
     if isinstance(tree, dict):
         return {k: _zeros_like_f32(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zeros_like_f32(v) for v in tree)
     return torch.zeros(tree.shape, dtype=torch.float32, device=tree.device)
 
 

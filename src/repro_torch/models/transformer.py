@@ -26,7 +26,16 @@ after each group: 9 applications of one set of attention weights at 54
 layers).  Under remat each Mamba2 layer is rematerialized inside a
 rematerialized group, as in the reference, so a group's attention runs
 twice in a train step's forward (the forward and the group's recompute).
-xLSTM raises ``NotImplementedError`` naming ROADMAP.md, Queue 1 item 11.
+
+And the xLSTM stack (:mod:`repro_torch.models.xlstm`), ``block_pattern ==
+"xlstm"``: heterogeneous blocks, so ``blocks`` is a Python *list* of
+per-layer dicts, as in the reference: an sLSTM block (its leaves at the
+top, its norm after the recurrence, no pre-norm) at each index of
+``slstm_indices``, else ``{"norm", "mixer"}``, a pre-norm mLSTM block.
+Its decode state is a list too: the sLSTM's (c, n, h, m) tuple or the
+mLSTM's dict, a layer.  The reference's forward takes no remat for it;
+here each mLSTM block is rematerialized under ``remat`` (the same values;
+a full-width step needs it), the sLSTM blocks are not.
 
 Inputs are dicts: ``tokens`` (B, S) integer (codebooks: (B, S, n_cb)),
 ``labels`` shaped like the tokens with -1 masking a position, and for the
@@ -54,6 +63,7 @@ from repro_torch.models.common import (
     sinusoidal_positions,
 )
 from repro_torch.models import ssm as _ssm
+from repro_torch.models import xlstm as _xl
 from repro_torch.models.moe import DRAWN as MOE_DRAWN
 from repro_torch.models.moe import moe_apply, moe_shapes
 
@@ -86,19 +96,12 @@ def param_dtype(cfg) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet; see ROADMAP.md, Queue 1 item 11"
-    )
-
-
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for a configuration outside the
-    ported families (the attention stack, dense or with experts, and the
-    Mamba2 and zamba2 stacks), ``ValueError`` for a zamba2 whose layers do
-    not split into its groups."""
-    if cfg.block_pattern not in ("attn", "mamba2", "zamba2"):
-        raise _not_ported(f"block_pattern={cfg.block_pattern!r}")
+    """Raise ``ValueError`` for an unknown ``block_pattern`` (as the
+    reference's ``init_params`` does) and for a zamba2 whose layers do not
+    split into its groups."""
+    if cfg.block_pattern not in ("attn", "mamba2", "zamba2", "xlstm"):
+        raise ValueError(cfg.block_pattern)
     if cfg.block_pattern == "zamba2" and (
             cfg.shared_attn_every < 1 or cfg.n_layers % cfg.shared_attn_every):
         raise ValueError("zamba2 requires n_layers % shared_attn_every == 0")
@@ -107,7 +110,7 @@ def check_supported(cfg) -> None:
 def attention_layers(cfg) -> int:
     """How many attention blocks a forward applies: every layer of the
     attention stack, one a group of zamba2 (the shared block), none in a
-    Mamba2 stack."""
+    Mamba2 or xLSTM stack."""
     if cfg.block_pattern == "zamba2":
         return cfg.n_layers // cfg.shared_attn_every
     return cfg.n_layers if cfg.block_pattern == "attn" else 0
@@ -158,9 +161,36 @@ def _mamba_block_decode(p, x, cfg, state):
     return x + h, state
 
 
+def _xlstm_block_apply(p, x, cfg, slstm: bool):
+    """An sLSTM block (no pre-norm: its norm is inside, after the
+    recurrence) or a pre-norm mLSTM block, with its residual. Returns (x,
+    state)."""
+    if slstm:
+        h, state = _xl.slstm_apply(p, x, cfg)
+    else:
+        h, state = _xl.mlstm_apply(p["mixer"], rmsnorm(x, p["norm"], cfg.norm_eps), cfg)
+    return x + h, state
+
+
+def _xlstm_block_x(p, x, cfg, slstm: bool):
+    return _xlstm_block_apply(p, x, cfg, slstm)[0]
+
+
+def _xlstm_block_decode(p, x, cfg, state, slstm: bool):
+    if slstm:
+        h, state = _xl.slstm_decode(p, x, cfg, state)
+    else:
+        h, state = _xl.mlstm_decode(p["mixer"], rmsnorm(x, p["norm"], cfg.norm_eps), cfg, state)
+    return x + h, state
+
+
 def _tree_map(fn, tree):
+    """``fn`` over the leaves of nested dicts and lists (a tuple is a leaf:
+    the shape trees' leaves are tuples)."""
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
     return fn(tree)
 
 
@@ -184,11 +214,14 @@ def _unstack(blocks, n: int) -> list:
 # The leaves drawn from the generator, in the order of one block's draws,
 # with their init scale (None: 1/sqrt(fan_in)): an attention block's (the
 # attention's, then the MLP's or the experts'), a Mamba2 block's; the
-# others are the constants of :func:`_constant`.
+# others are the constants of :func:`_constant`.  An xLSTM block draws
+# from its own table (group None: a leaf at the top of the block).
 _DRAWN = (("attn", "wq", None), ("attn", "wk", None), ("attn", "wv", None),
           ("attn", "wo", None), ("mlp", "w_gate", None), ("mlp", "w_up", None),
           ("mlp", "w_down", None), *(("moe", name, None) for name in MOE_DRAWN),
           *(("mixer", name, scale) for name, scale in _ssm.DRAWN))
+_XLSTM_DRAWN = {"mlstm": tuple(("mixer", name, scale) for name, scale in _xl.DRAWN["mlstm"]),
+                "slstm": tuple((None, name, scale) for name, scale in _xl.DRAWN["slstm"])}
 _ONES = ("attn_norm", "mlp_norm", "q_norm", "k_norm", "norm")
 
 
@@ -202,14 +235,15 @@ def _constant(name: str) -> float:
 
 def leaf_dtype(name: str, dtype: torch.dtype) -> torch.dtype:
     """A leaf's dtype in a model of ``dtype``: a Mamba2 mixer's ``a_log``,
-    ``d_skip`` and ``dt_bias`` stay float32."""
-    return torch.float32 if name in _ssm.F32_PARAMS else dtype
+    ``d_skip`` and ``dt_bias`` and the xLSTM's gate biases ``b_gates`` and
+    ``b`` stay float32."""
+    return torch.float32 if name in _ssm.F32_PARAMS + _xl.F32_PARAMS else dtype
 
 
-def _init_block(generator, shapes: dict, dtype, n: int | None) -> dict:
+def _init_block(generator, shapes: dict, dtype, n: int | None, table=_DRAWN) -> dict:
     """A block's parameters: each leaf allocated once ((n,) + shape when
     stacked over n layers), the constants filled, then the drawn leaves,
-    layer by layer in ``_DRAWN``'s order (so the weights are never held
+    layer by layer in ``table``'s order (so the weights are never held
     twice, and the largest transient is one layer's float32 draw)."""
     dev = generator.device
 
@@ -219,8 +253,9 @@ def _init_block(generator, shapes: dict, dtype, n: int | None) -> dict:
         return torch.full(tree, _constant(name), dtype=leaf_dtype(name, dtype), device=dev)
 
     block = alloc(shapes)
-    drawn = [(block[group][name], scale) for group, name, scale in _DRAWN
-             if group in block and name in block[group]]
+    drawn = [(block[group][name] if group else block[name], scale)
+             for group, name, scale in table
+             if (group in block and name in block[group]) or (group is None and name in block)]
     for i in range(n or 1):
         for leaf, scale in drawn:
             part = leaf[i] if n else leaf
@@ -236,13 +271,21 @@ def init_params(generator: torch.Generator, cfg) -> dict:
     goes into its slice, layer by layer in ``_DRAWN``'s order; so the
     weights are never held twice, and the largest transient is one leaf's
     float32 draw.  zamba2's shared block is drawn after the stack.  The
-    draws differ from the reference's (a torch Generator is not a JAX key);
-    tests carry the reference's parameters across instead."""
+    xLSTM's list of blocks is drawn block by block, each in its mixer's
+    order (``xlstm.DRAWN``).  The draws differ from the reference's (a
+    torch Generator is not a JAX key); tests carry the reference's
+    parameters across instead."""
     check_supported(cfg)
     dtype, dev = param_dtype(cfg), generator.device
     shapes = param_shapes(cfg)
     params: dict[str, Any] = {"embed": dense_init(generator, shapes["embed"], dtype)}
-    params["blocks"] = _init_block(generator, shapes["blocks"], dtype, cfg.n_layers)
+    if cfg.block_pattern == "xlstm":
+        params["blocks"] = [
+            _init_block(generator, sh, dtype, None,
+                        _XLSTM_DRAWN["slstm" if i in cfg.slstm_indices else "mlstm"])
+            for i, sh in enumerate(shapes["blocks"])]
+    else:
+        params["blocks"] = _init_block(generator, shapes["blocks"], dtype, cfg.n_layers)
     if "shared" in shapes:
         params["shared"] = _init_block(generator, shapes["shared"], dtype, None)
     params["final_norm"] = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
@@ -278,6 +321,9 @@ def param_shapes(cfg) -> dict:
     L, d, V = cfg.n_layers, cfg.d_model, cfg.vocab
     if cfg.block_pattern == "attn":
         blocks = _attn_block_shapes(cfg, (L,))
+    elif cfg.block_pattern == "xlstm":
+        blocks = [_xl.slstm_shapes(cfg) if i in cfg.slstm_indices
+                  else {"norm": (d,), "mixer": _xl.mlstm_shapes(cfg)} for i in range(L)]
     else:
         blocks = {"norm": (L, d),
                   "mixer": {k: (L,) + sh for k, sh in _ssm.mamba2_shapes(cfg).items()}}
@@ -296,8 +342,14 @@ def param_count(params) -> int:
 
 
 def _leaves(tree):
+    """The leaves of nested dicts, lists and tuples, in insertion and index
+    order; a tuple of ints (a shape, in :func:`param_shapes`) is a leaf."""
     if isinstance(tree, dict):
         for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list) or (
+            isinstance(tree, tuple) and not all(isinstance(s, int) for s in tree)):
+        for v in tree:
             yield from _leaves(v)
     else:
         yield tree
@@ -393,12 +445,21 @@ def forward(params, batch, cfg, *, remat: bool = True):
     kept, and its forward (flash kernel included) runs again in the
     backward.  zamba2 nests it as the reference does: each group is
     rematerialized, and inside it each Mamba2 layer; the group's recompute
-    keeps its layers' inputs and its shared block's activations."""
+    keeps its layers' inputs and its shared block's activations.  Each mLSTM
+    block is rematerialized on its own; an sLSTM block is not: its position
+    loop saves a few (B, d) tensors a position, and a recompute would run
+    its thousands of small kernels again.  The reference's forward takes no
+    remat for xLSTM: the values are the same."""
     check_supported(cfg)
     x = _embed(params, batch, cfg)
     positions = _positions(batch, cfg)
     rematted = remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device) if cfg.is_moe else 0.0
+    if cfg.block_pattern == "xlstm":
+        for i, p in enumerate(params["blocks"]):
+            slstm = i in cfg.slstm_indices
+            x = _remat(rematted and not slstm, _xlstm_block_x, p, x, cfg, slstm)
+        return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
     layers = _unstack(params["blocks"], cfg.n_layers)
     if cfg.block_pattern == "attn":
         for p in layers:
@@ -488,9 +549,14 @@ def init_decode_state(cfg, batch: int, max_len: int, device=None):
     attention stack: its KV cache, k/v (L, B, size, K, hd).  Mamba2: ssm
     (L, B, H, N, P) f32 and conv (L, B, W - 1, C).  zamba2: ``{"mamba":
     that, "shared_kv": the shared block's k/v (n_groups, B, max_len, K,
-    hd)}``."""
+    hd)}``.  xLSTM: a list, a layer's state each (the sLSTM's (c, n, h, m)
+    tuple, the mLSTM's {"C", "n", "m", "conv"})."""
     check_supported(cfg)
     dtype = param_dtype(cfg)
+    if cfg.block_pattern == "xlstm":
+        return [_xl.init_slstm_state(cfg, batch, dtype, device) if i in cfg.slstm_indices
+                else _xl.init_mlstm_state(cfg, batch, dtype, device)
+                for i in range(cfg.n_layers)]
     if cfg.block_pattern == "attn":
         return _stacked_zeros(init_kv_cache(cfg, batch, max_len, dtype, device), cfg.n_layers)
     mamba = _stacked_zeros(_ssm.init_mamba2_state(cfg, batch, dtype, device), cfg.n_layers)
@@ -511,8 +577,8 @@ def decode_step(params, token, state, pos: int, cfg):
 
     token: (B, 1) int (codebooks: (B, 1, n_cb)); pos: number of tokens
     already in the state.  Returns (logits (B, V) (codebooks: (B, n_cb,
-    V)), state); the state (caches, Mamba2 states) is updated in place and
-    returned.
+    V)), state); the state (caches, Mamba2 states; the xLSTM's list, whose
+    entries are replaced) is updated in place and returned.
     """
     check_supported(cfg)
     x = _embed(params, {"tokens": token}, cfg)
@@ -523,6 +589,11 @@ def decode_step(params, token, state, pos: int, cfg):
                                      cfg.d_model, x.dtype)
         x = x + sinusoidal_positions(torch.full((1, 1), pos, dtype=torch.long, device=dev),
                                      cfg.d_model, x.dtype)
+    if cfg.block_pattern == "xlstm":
+        for i, p in enumerate(params["blocks"]):
+            x, state[i] = _xlstm_block_decode(p, x, cfg, state[i], i in cfg.slstm_indices)
+        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        return _logits(x, _head_weight(params, cfg)), state
     layers = _unstack(params["blocks"], cfg.n_layers)
     if cfg.block_pattern == "attn":
         for i, p in enumerate(layers):
@@ -585,7 +656,12 @@ def _recurrent_prefill(params, x, cfg, positions, state):
     """The Mamba2 (and zamba2) stack over the prompt in one pass: each
     layer's final ssm state and conv tail go into the preallocated stacked
     state, and each zamba2 group's shared-block k/v into its slice of the
-    shared cache, in place.  Returns the hidden states."""
+    shared cache, in place; the xLSTM's final states replace the entries of
+    its list.  Returns the hidden states."""
+    if cfg.block_pattern == "xlstm":
+        for i, p in enumerate(params["blocks"]):
+            x, state[i] = _xlstm_block_apply(p, x, cfg, i in cfg.slstm_indices)
+        return x
     S = x.shape[1]
     zamba = cfg.block_pattern == "zamba2"
     mamba = state["mamba"] if zamba else state

@@ -51,14 +51,21 @@ class AdamWConfig:
 
 
 def _tree_map(fn, *trees):
+    """``fn`` over the leaves of trees of one structure: nested dicts (in
+    the first tree's key order), lists and tuples (in index order)."""
     if isinstance(trees[0], dict):
         return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    if isinstance(trees[0], (list, tuple)):
+        return type(trees[0])(_tree_map(fn, *(t[i] for t in trees)) for i in range(len(trees[0])))
     return fn(*trees)
 
 
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
             yield from _leaves(v)
     else:
         yield tree

@@ -3,6 +3,7 @@ and the device time of a run by category of kernel."""
 
 from __future__ import annotations
 
+import bisect
 import re
 
 import torch
@@ -83,7 +84,8 @@ def device_time_by_category(run, categories: dict[str, str],
     annotations = {e.name() for e in cpu if e.is_user_annotation()}
     spans = [(cat, e.start_ns(), e.start_ns() + e.duration_ns())
              for cat, name in (ranges or {}).items() for e in cpu if e.name() == name]
-    backward = _backward_categories(cpu, spans) if spans else {}
+    in_span = _span_lookup(spans)
+    backward = _backward_categories(cpu, in_span) if spans else {}
     patterns = [(cat, re.compile(rx)) for cat, rx in categories.items()]
     order = [*(ranges or {}), *categories, other]
     ms, count = dict.fromkeys(order, 0.0), dict.fromkeys(order, 0)
@@ -96,8 +98,8 @@ def device_time_by_category(run, categories: dict[str, str],
             continue
         t = launched_at.get(e.linked_correlation_id())
         cat = backward.get(e.linked_correlation_id())
-        if cat is None:
-            cat = next((c for c, lo, hi in spans if t is not None and lo <= t < hi), None)
+        if cat is None and t is not None:
+            cat = in_span(t)
         if cat is None:
             cat = next((c for c, rx in patterns if rx.search(e.name())), other)
         ms[cat] += e.duration_ns() / 1e6
@@ -113,19 +115,45 @@ def device_time_by_category(run, categories: dict[str, str],
 _NODE = "autograd::engine::evaluate_function: "
 
 
-def _backward_categories(cpu, spans) -> dict:
+def _span_lookup(spans):
+    """``t -> the first category of spans ((category, start, end), grouped
+    by category) with a span holding t, or None``, by bisection: a run of a
+    million operators meets each of its events once."""
+    tables = {}
+    for cat, lo, hi in spans:
+        tables.setdefault(cat, []).append((lo, hi))
+    index = []
+    for cat, rows in tables.items():
+        rows.sort()
+        reach, top = [], float("-inf")  # the furthest end of the spans so far
+        for _, hi in rows:
+            top = max(top, hi)
+            reach.append(top)
+        index.append((cat, [lo for lo, _ in rows], reach))
+
+    def find(t):
+        for cat, starts, reach in index:
+            i = bisect.bisect_right(starts, t) - 1
+            if i >= 0 and reach[i] > t:
+                return cat
+        return None
+
+    return find
+
+
+def _backward_categories(cpu, in_span) -> dict:
     """{correlation id of a launch: category} for the launches whose
     innermost enclosing autograd-recorded operator (sequence number >= 0,
     on the launching thread) is the backward node of a forward operator
-    that ran inside one of ``spans`` (category, start, end).  A node shows
+    that ran inside a span of a category (``in_span``, of
+    :func:`_span_lookup`).  A node shows
     as ``evaluate_function: XBackward0`` around ``XBackward0``, both with
     the node's sequence number; the operators inside run without grad
     (sequence number -1), those of a remat recompute with grad."""
     forward = {}
     for e in cpu:
         if e.sequence_nr() >= 0 and not e.name().startswith(_NODE):
-            t = e.start_ns()
-            cat = next((c for c, lo, hi in spans if lo <= t < hi), None)
+            cat = in_span(e.start_ns())
             if cat is not None:
                 forward.setdefault((e.sequence_nr(), e.start_thread_id()), cat)
     if not forward:

@@ -82,6 +82,10 @@ def make_train_step(
 
 
 def _rebuild(like, leaves):
+    """``like``'s structure (dicts, lists, tuples) with its leaves taken in
+    order from the iterator ``leaves``."""
     if isinstance(like, dict):
         return {k: _rebuild(v, leaves) for k, v in like.items()}
+    if isinstance(like, (list, tuple)):
+        return type(like)(_rebuild(v, leaves) for v in like)
     return next(leaves)

@@ -500,6 +500,60 @@ def test_zamba2_forward_backward_makes_no_host_sync(card):
 
 
 @pytest.mark.cuda
+def test_xlstm_forward_backward_makes_no_host_sync(card):
+    """A reduced xLSTM forward and backward (the mLSTM's chunk loop, the
+    sLSTM's position loop, each block rematerialized) on the card under
+    ``torch.cuda.set_sync_debug_mode("error")``, in bf16 and f32: no host
+    sync, finite gradients, no flash call."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models.transformer import _leaves, loss_fn
+
+    flash_ops.reset_counts()
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(get_reduced("xlstm-125m"), dtype=dtype)
+        params = init_params(torch.Generator(device=card).manual_seed(0), cfg)
+        leaves = list(_leaves(params))
+        for t in leaves:
+            t.requires_grad_(True)
+        batch = {k: torch.from_numpy(a).to(card)
+                 for k, a in make_batch(cfg, ShapeConfig("t", "train", 64, 2), 0).items()}
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            grads = torch.autograd.grad(loss_fn(params, batch, cfg), leaves)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert all(bool(torch.isfinite(g).all()) for g in grads)
+    assert all(c.launches == c.plain_calls == 0 for c in flash_ops.counts.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+def test_xlstm_layer_on_card_matches_cpu(card, kind):
+    """One mLSTM or sLSTM layer at the reduced width in f32 (the mLSTM at
+    L = 48 in 3 chunks of 16), card against CPU from the same weights and
+    inputs: the output, each leaf of the final state and the input's
+    gradient to 1e-5 of max |CPU|."""
+    from repro_torch.models import xlstm
+    from repro_torch.models.transformer import _leaves
+
+    cfg = dataclasses.replace(get_reduced("xlstm-125m"), dtype="float32")
+    init, apply = ((xlstm.mlstm_init, xlstm.mlstm_apply) if kind == "mlstm"
+                   else (xlstm.slstm_init, xlstm.slstm_apply))
+    p = init(torch.Generator().manual_seed(1), cfg, torch.float32)
+    x = torch.randn((2, 48, cfg.d_model), generator=torch.Generator().manual_seed(2))
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        xd = x.to(dev).requires_grad_(True)
+        y, state = apply({k: v.to(dev) for k, v in p.items()}, xd, cfg)
+        (gx,) = torch.autograd.grad(y.square().sum(), [xd])
+        out[dev.type] = [t.detach().cpu() for t in (y, gx, *_leaves(state))]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
 def test_flash_bwd_refuses_a_missing_lse(card):
     q, k, v, do = _bwd_inputs(card, 1, 64, 4, 2, 64, torch.bfloat16)
     o = flash_ops.flash_attention(q, k, v)

@@ -80,8 +80,14 @@ def test_config_is_the_references(arch):
 
 @pytest.mark.parametrize("arch", ["xlstm-125m", "xlstm_125m", "elasticity"])
 def test_unported_arch_raises(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        base.get_config(arch)
+    """The ids that the registry once refused (the last LM architecture,
+    by its alias and its id, and the solver's own configuration) now give
+    the reference's configurations: ``elasticity``'s ``ElasticityConfig``
+    and its reduced one, xlstm-125m's ``ArchConfig``s."""
+    for get in ("get_config", "get_reduced"):
+        got, want = getattr(base, get)(arch), getattr(ref_base, get)(arch)
+        assert type(got).__name__ == type(want).__name__
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
 def test_unknown_arch_raises():
@@ -90,27 +96,31 @@ def test_unknown_arch_raises():
 
 
 @pytest.mark.parametrize("change", [
-    {"block_pattern": "xlstm"},
+    {"block_pattern": "rwkv"},
 ])
 def test_unported_family_raises(change):
+    """An unknown block pattern raises ValueError, as the reference's
+    init_params does (every pattern of the reference is ported)."""
     cfg = _cfg(**change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="rwkv"):
+        ref_tf.init_params(jax.random.PRNGKey(0), _ref_cfg(cfg))
+    with pytest.raises(ValueError, match="rwkv"):
         transformer.init_params(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="rwkv"):
         transformer.init_decode_state(cfg, 1, 8)
 
 
 def test_training_path_raises():
-    """The training path of a family that is not ported raises, naming
-    ROADMAP.md; the dense family's is held against the reference in
+    """The training path of an unknown block pattern raises ValueError;
+    every ported family's is held against the reference in
     tests/test_torch_train.py."""
-    cfg = _cfg(block_pattern="xlstm")
+    cfg = _cfg(block_pattern="rwkv")
     batch = {"tokens": torch.zeros((1, 8), dtype=torch.long),
              "labels": torch.zeros((1, 8), dtype=torch.long)}
     params = transformer.init_params(torch.Generator().manual_seed(0), _cfg())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="rwkv"):
         transformer.loss_fn(params, batch, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="rwkv"):
         transformer.forward(params, batch, cfg)
 
 
@@ -308,6 +318,9 @@ def _with_paths(tree, prefix=()):
     if isinstance(tree, dict):
         for k, v in tree.items():
             yield from _with_paths(v, prefix + (k,))
+    elif isinstance(tree, list):  # the xLSTM's list of blocks
+        for i, v in enumerate(tree):
+            yield from _with_paths(v, prefix + (i,))
     else:
         yield prefix, tree
 
@@ -394,16 +407,22 @@ def test_prefill_and_decode_match_reference(arch, window, S, max_len):
         _close_state(state, rstate)
 
 
+def _key(key):
+    """A jax path entry's dict key or sequence index."""
+    return key.key if hasattr(key, "key") else key.idx
+
+
 def _close_state(state, rstate):
     """Every leaf of a decode state (the KV cache's k/v; zamba2's Mamba2
-    ssm/conv states and shared k/v) to REL of its max |reference|, shapes
-    equal, the leaves the reference's."""
+    ssm/conv states and shared k/v; the xLSTM's list of per-layer states)
+    to REL of its max |reference|, shapes equal, the leaves the
+    reference's."""
     leaves = jax.tree_util.tree_leaves_with_path(rstate)
     assert len(leaves) == len(list(transformer._leaves(state)))
     for path, a in leaves:
         t = state
         for key in path:
-            t = t[key.key]
+            t = t[_key(key)]
         assert tuple(t.shape) == a.shape, path
         _close(t, a)
 

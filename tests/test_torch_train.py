@@ -81,6 +81,9 @@ def _paths(tree, prefix=()):
     if isinstance(tree, dict):
         for k, v in tree.items():
             yield from _paths(v, prefix + (k,))
+    elif isinstance(tree, list):  # the xLSTM's list of blocks
+        for i, v in enumerate(tree):
+            yield from _paths(v, prefix + (i,))
     else:
         yield prefix, tree
 
