@@ -268,8 +268,28 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    flash launches; MFU through ``model_flops_estimate`` and, beside it,
    with N counted from the parameters built plus the mLSTM's chunked
    products; the profile with ``xlstm.mlstm`` and ``xlstm.slstm`` as
-   entries of their own; the device's idle share).  The wall time of each
-   phase is printed (``[wall]`` lines).
+   entries of their own; the device's idle share).
+14. the solver side over a scenario mesh of virtual devices on the card
+   (repeated ``cuda:0`` entries; ``[dd]``, ``[mesh batched]``, ``[mesh
+   service]``, ``[mesh restore]`` and ``[mesh cli]`` lines): (a) the
+   domain-decomposed PAop (``core/paop_dd.py``) at beam_p8_51m (51.17M
+   DoFs, f32) on 4 devices, a 2x2 grid of 64x8x16 elements a shard, held
+   to the global ``paop_cuda`` apply, counted (4 PAop launches an apply, no
+   plain call), and timed beside the card's name and power limit: the DD
+   apply fenced, the halo rounds' share by CUDA events, the global apply;
+   the shards queue on one card, so no number says anything of traffic
+   between cards; (b) the DD in f64 at phase 4's size on 1, 2 and 4
+   devices at rtol 1e-11; (c) phase 5's batch with ``mesh`` of 2 and 4
+   devices against the unsharded solver (iterations, flags, solutions to
+   1e-12 of max |x|, host syncs of prepare and of every chunk equal) and
+   each one's ``solve()`` wall time; (d) phase 5b's service on 2 devices,
+   generational and continuous, against the unsharded runs, then a
+   checkpoint on 2 devices restored onto 1 (to 1e-12 of max |x|; whether
+   bitwise is printed) and a 3-row flight restored onto 2 (the re-bucket
+   branch: the row kept in place bitwise, the moved row within 1e-12);
+   (e) ``serve_solve --devices`` past the
+   host's cards raises, naming the count.  The wall time of each phase is
+   printed (``[wall]`` lines).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -277,6 +297,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -338,7 +359,10 @@ from repro_torch.serve.recovery import ServiceRecovery  # noqa: E402
 from repro_torch.checkpoint.manager import _crc32  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine, ServeStats  # noqa: E402
 from repro_torch.core.geometry import MATERIALS_BEAM  # noqa: E402
-from repro_torch.solvers.batched import BatchedGMGSolver  # noqa: E402
+from repro_torch.solvers.batched import BatchedGMGSolver, bpcg_result  # noqa: E402
+from repro_torch.core.paop_dd import SlabDecomposition  # noqa: E402
+from repro_torch.distributed.sharding import gather_scenario  # noqa: E402
+from repro_torch.serve.elasticity_service import SolveRequest  # noqa: E402
 from repro_torch.solvers.coarse import (  # noqa: E402
     assembled_coarse_matrix, cholesky_solver, make_coarse_solver, probe_coarse_matrix)
 from repro_torch.solvers.gmg import hierarchy_spaces  # noqa: E402
@@ -534,6 +558,19 @@ XLSTM_FINITE_SEQ, XLSTM_FINITE_BATCH, XLSTM_FINITE_STEPS = 256, 32, 4
 # on the CPU, and one reduced-width train step with int8 compression from
 # one state (losses and parameters to 1e-4).
 COMPRESS_REL, COMPRESS_TOPK_FRAC = 1e-4, 0.01
+# Phase 14: the solver side over a scenario mesh of virtual devices on the
+# one card (repeated "cuda:0" entries).  (a) the DD at the paper's 51.17M
+# DoFs in f32 on DD_SHARDS shards, held to the global operator within
+# DD_F32_TOL of max |y| (the two sum each shared node's element
+# contributions in different orders); (b) in f64 at phase 4's size on
+# DD_F64_SHARDS shards at tests/test_paop_dd.py's rtol; (c) phase 5's batch
+# and (d) phase 5b's service on MESH_SIZES virtual devices, solutions within
+# MESH_X_REL of max |x| and residuals within MESH_NORM_RTOL of the unsharded
+# runs'; the sharded chunks counted in chunks of MESH_CHUNK iterations.
+DD_SHAPE, DD_SHARDS, DD_F32_TOL, DD_F64_SHARDS, DD_F64_RTOL = "beam_p8_51m", 4, 1e-5, (1, 2, 4), 1e-11
+MESH_SIZES, MESH_CHUNK, MESH_X_REL, MESH_NORM_RTOL = (2, 4), 8, 1e-12, 1e-8
+# (d)'s restores at a small size: p=2, refine=1, chunks of 2.
+MESH_RESTORE_P, MESH_RESTORE_REFINE = 2, 1
 # Where a train step's device time goes (phase 9c's profile): kernels by
 # name, the optimizer by its record_function range.
 TRAIN_TOP_KERNELS = 6  # kernels listed per category
@@ -977,9 +1014,10 @@ def batched_scenarios() -> tuple[list, np.ndarray, np.ndarray]:
     return dicts[:half] + fields[half:], trs, tols
 
 
-def count_syncs(fn):
-    """(fn(), the host syncs it made): the synchronizing CUDA operations
-    that ``torch.cuda.set_sync_debug_mode("warn")`` reports while it runs."""
+def sync_sites(fn):
+    """(fn(), {"file:line": count}): the synchronizing CUDA operations that
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports while it runs, by the
+    Python line that made each."""
     with warnings.catch_warnings(record=True) as seen:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -987,7 +1025,15 @@ def count_syncs(fn):
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return out, sum("synchroniz" in str(w.message) for w in seen)
+    return out, collections.Counter(
+        f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+        for w in seen if "synchroniz" in str(w.message))
+
+
+def count_syncs(fn):
+    """(fn(), the host syncs it made), as :func:`sync_sites` counts them."""
+    out, sites = sync_sites(fn)
+    return out, sum(sites.values())
 
 
 def small_batched_check() -> None:
@@ -1263,7 +1309,8 @@ def service_phase(batch_iters: list[int]) -> tuple[list, float]:
     the adaptive chunk policy (the adaptive run with host syncs counted),
     and a continuous run under torch.profiler with a fencing
     SpanRecorder.  Returns the continuous fixed run's reports and wall
-    seconds (phase 5c's undisturbed run)."""
+    seconds (phase 5c's undisturbed run), and the generational reports
+    (phase 14's)."""
     t_phase = time.perf_counter()
     reqs = service_requests()
     svc = ElasticityService(max_batch=BATCH_S, precision="f64", chunk_iters=SERVICE_CHUNK,
@@ -1347,9 +1394,9 @@ def service_phase(batch_iters: list[int]) -> tuple[list, float]:
           f"queue_wait + compute + overhead == wall per ticket to {worst} s; Chrome trace "
           f"written to a temporary directory")
     print(f"[service] phase wall {time.perf_counter() - t_phase} s")
-    del svc, gen, fenced, runs
+    del svc, fenced, runs
     torch.cuda.empty_cache()
-    return fixed_run
+    return (*fixed_run, gen)
 
 
 def small_service_check() -> None:
@@ -3083,6 +3130,374 @@ def xlstm_phase(card: str) -> None:
     print(f"[xlstm] phase wall {time.perf_counter() - t_phase} s ({card})")
 
 
+def fenced_ms(fn, n: int = 5) -> float:
+    """Median over ``n`` calls of the host-clock time of one call of
+    ``fn()`` between synchronize fences, in ms."""
+    fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def virtual_mesh(n: int) -> tuple:
+    """n virtual devices on the one card."""
+    return ("cuda:0",) * n
+
+
+def dd_phase(card: str) -> int:
+    """Phase 14 (a) and (b): the domain-decomposed PAop on virtual devices
+    of the card against the global operator, counted and timed; returns
+    the PAop launches of one DD apply at the 51.17M-DoF size."""
+    shape = ELASTICITY_SHAPES[DD_SHAPE]
+    space = H1Space(beam_hex().refined(shape.n_h_refine), shape.p)
+    m = space.mesh
+    dd = SlabDecomposition(space, virtual_mesh(DD_SHARDS), dtype=torch.float32)
+    print(f"[dd] {DD_SHAPE}: p={shape.p}, {m.nx}x{m.ny}x{m.nz} elements, {space.ndof} DoFs, "
+          f"f32, on {DD_SHARDS} virtual devices of cuda:0: grid {dd.gx}x{dd.gy}, "
+          f"{dd.bx}x{dd.by}x{m.nz} elements and {dd.block_ids.shape[1]} nodes a shard")
+    if (dd.gx, dd.gy, dd.bx, dd.by) != (2, 2, m.nx // 2, m.ny // 2):
+        raise SystemExit(f"DD grid {dd.gx}x{dd.gy} is not 2x2")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((space.nscalar, 3), generator=gen, dtype=torch.float32, device="cuda")
+    op = ElasticityOperator(space, "paop_cuda", dtype=torch.float32, device="cuda")
+    y_ref = op.apply(x)
+    xb = dd.to_blocks(x)
+    if [b.device for b in (*xb, *dd.lam_blocks)] != [torch.device("cuda", 0)] * 2 * DD_SHARDS:
+        raise SystemExit("DD blocks are not on their mesh devices")
+    reset_all_counts()
+    yb = dd.apply_blocks(xb)
+    torch.cuda.synchronize()
+    launches, plain = all_counts()["pa_elasticity"]
+    y = dd.from_blocks(yb)
+    scale = float(y_ref.abs().max())
+    err = float((y - y_ref).abs().max())
+    planes_equal = all(torch.equal(y[torch.as_tensor(ids, device="cuda")], b)
+                       for ids, b in zip(dd.block_ids, yb))
+    print(f"[dd] one DD apply: PAop launches {launches}, plain calls {plain}; against the "
+          f"global paop_cuda apply: max abs diff {err:.3e}, {err / scale:.3e} of max |y| "
+          f"(tolerance {DD_F32_TOL}); shared planes equal in every block: {planes_equal}")
+    if (launches, plain) != (DD_SHARDS, 0):
+        raise SystemExit(f"a DD apply launched PAop {launches} times with {plain} plain calls")
+    if not (bool(torch.isfinite(y).all()) and err <= DD_F32_TOL * scale and planes_equal):
+        raise SystemExit("the DD apply disagrees with the global operator")
+    del y, yb
+    dd_ms = fenced_ms(lambda: dd.apply_blocks(xb))
+    glob_ms = fenced_ms(lambda: op.apply(x))
+    split = []
+    for _ in range(5):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        ys = [dd.local_apply(k, b) for k, b in enumerate(xb)]
+        ev[1].record()
+        dd.halo_exchange(ys)
+        ev[2].record()
+        ev[2].synchronize()
+        split.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])))
+        del ys
+    local_ms = statistics.median(t[0] for t in split)
+    halo_ms = statistics.median(t[1] for t in split)
+    print(f"[dd] {card}: DD apply {dd_ms} ms fenced (median of 5), four shards queued on one "
+          f"card (says nothing of traffic between cards)")
+    print(f"[dd] {card}: halo rounds {halo_ms} ms by CUDA events, "
+          f"{100 * halo_ms / (local_ms + halo_ms)}% of local applies {local_ms} ms + halo "
+          f"(median of 5)")
+    print(f"[dd] {card}: global paop_cuda apply {glob_ms} ms fenced (median of 5); DD / "
+          f"global {dd_ms / glob_ms}")
+    del dd, op, x, xb, y_ref
+    torch.cuda.empty_cache()
+
+    space = H1Space(beam_hex().refined(MAIN_REFINE), MAIN_P)
+    op = ElasticityOperator(space, "paop_cuda", dtype=torch.float64, device="cuda")
+    x = torch.randn((space.nscalar, 3), generator=gen, dtype=torch.float64, device="cuda")
+    y_ref = op.apply(x)
+    scale = float(y_ref.abs().max())
+    for n in DD_F64_SHARDS:
+        dd = SlabDecomposition(space, virtual_mesh(n), dtype=torch.float64)
+        reset_all_counts()
+        y = dd.from_blocks(dd.apply_blocks(dd.to_blocks(x)))
+        counts = all_counts()["pa_elasticity"]
+        diff = (y - y_ref).abs()
+        ok = bool((diff <= DD_F64_RTOL * y_ref.abs() + 1e-12 * scale).all())
+        print(f"[dd] p={MAIN_P} refine={MAIN_REFINE} f64 on {n} virtual device(s), grid "
+              f"{dd.gx}x{dd.gy}: max abs diff {float(diff.max()):.3e} against the global "
+              f"apply, within rtol {DD_F64_RTOL}: {ok}; (launches, plain calls) {counts}")
+        if not ok or counts != (n, 0):
+            raise SystemExit(f"the f64 DD on {n} devices disagrees with the global operator")
+        del dd, y, diff
+    del op, x, y_ref
+    torch.cuda.empty_cache()
+    return launches
+
+
+def sharded_batched_check(batch_iters: list[int], card: str) -> None:
+    """Phase 14 (c): phase 5's batch with the scenario axis on 2 and 4
+    virtual devices against the unsharded solver: per-row iterations and
+    flags, solutions, host syncs of a warm prepare and of every chunk, PAop
+    launches; the wall time of one solve() each."""
+    mats, trs, tols = batched_scenarios()
+    ones = np.ones(BATCH_S, bool)
+    runs = {}
+    for n in (None, *MESH_SIZES):
+        mesh = None if n is None else virtual_mesh(n)
+        solver = BatchedGMGSolver(beam_hex(), MAIN_REFINE, MAIN_P, precision="f64",
+                                  device="cuda", mesh=mesh)
+        lam, mu = solver.pack_materials(mats)
+        # A first prepare builds each level's index tables on the card (two
+        # copies a level); the counted one runs warm.
+        solver.prepare(lam, mu, ones, solver.empty_prep(BATCH_S))
+        reset_all_counts()
+        prep, prep_sites = sync_sites(
+            lambda: solver.prepare(lam, mu, ones, solver.empty_prep(BATCH_S)))
+        prep_syncs = sum(prep_sites.values())
+        state, chunk_syncs, first = solver.empty_state(BATCH_S), [], True
+        while first or bool(gather_scenario(state.active).any()):
+            (state, _), syncs = count_syncs(
+                lambda: solver.run_chunk(trs, tols, ones, state, prep, MESH_CHUNK,
+                                         do_reset=first))
+            chunk_syncs.append(syncs)
+            first = False
+        counts = all_counts()
+        res = bpcg_result(state)
+        del state, prep, lam, mu
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full = solver.solve(mats, trs, tols)
+        torch.cuda.synchronize()
+        t_solve = time.perf_counter() - t0
+        born = (res.iterations == 0) & (res.initial_norm == 0)
+        runs[n] = (res.x, res.iterations.tolist(), res.converged.tolist(), born.tolist(),
+                   res.final_norm, prep_syncs, chunk_syncs)
+        tag = "unsharded" if n is None else f"{n} virtual devices"
+        print(f"[mesh batched] {tag}: iters {res.iterations.tolist()}, converged "
+              f"{res.converged.tolist()}; host syncs: prepare {prep_syncs} "
+              f"({dict(prep_sites)}), chunks of {MESH_CHUNK} {chunk_syncs}; counts "
+              f"(launches, plain_calls) {counts}; solve() {t_solve} s wall ({card})")
+        if not (torch.equal(full.iterations, res.iterations)
+                and float((full.x - res.x).abs().max()) <= MESH_X_REL * float(res.x.abs().max())):
+            raise SystemExit(f"{tag}: solve() differs from its chunked run")
+        if counts["pa_elasticity"][0] == 0 or any(c[1] for c in counts.values()):
+            raise SystemExit(f"{tag}: the chunks did not run only through the PAop kernel")
+        del solver, res, full
+        torch.cuda.empty_cache()
+    x0, iters0, conv0, born0, fin0, prep0, chunks0 = runs[None]
+    if iters0 != batch_iters:
+        raise SystemExit(f"unsharded chunked iterations {iters0} differ from phase 5's "
+                         f"{batch_iters}")
+    scale = float(x0.abs().max())
+    for n in MESH_SIZES:
+        x, iters, conv, born, fin, prep_syncs, chunk_syncs = runs[n]
+        rel = float((x - x0).abs().max()) / scale
+        norm_rel = float(((fin - fin0).abs() / fin0.abs().clamp_min(1e-300)).max())
+        print(f"[mesh batched] {n} virtual devices against unsharded: iterations, converged, "
+              f"born_converged equal: {(iters, conv, born) == (iters0, conv0, born0)}; max "
+              f"|x| diff {rel:.3e} of max |x|; final norms within {norm_rel:.3e}; host syncs "
+              f"equal: prepare {prep_syncs == prep0}, every chunk {chunk_syncs == chunks0}")
+        if (iters, conv, born) != (iters0, conv0, born0) or rel > MESH_X_REL \
+                or norm_rel > MESH_NORM_RTOL:
+            raise SystemExit(f"the batch on {n} virtual devices differs from the unsharded one")
+        if chunk_syncs != chunks0 or prep_syncs != prep0:
+            raise SystemExit(f"the batch on {n} virtual devices makes other host syncs than "
+                             f"the unsharded one")
+    del runs
+    torch.cuda.empty_cache()
+
+
+def check_reports_close(tag: str, got: list, want: list, against: str = "unsharded") -> None:
+    """Per request the same iterations and flags as ``want`` (the
+    ``against`` run's), residuals within MESH_NORM_RTOL and kept solutions
+    within MESH_X_REL of max |x|."""
+    worst_x = worst_norm = 0.0
+    for g, w in zip(got, want, strict=True):
+        if (g.iterations, g.converged, g.born_converged) != (w.iterations, w.converged,
+                                                              w.born_converged):
+            raise SystemExit(f"{tag}: request {g.ticket} gave {g.iterations} iterations, "
+                             f"converged {g.converged}; {against} {w.iterations}, {w.converged}")
+        if w.final_rel_norm:
+            worst_norm = max(worst_norm, abs(g.final_rel_norm / w.final_rel_norm - 1.0))
+        if w.x is not None:
+            worst_x = max(worst_x, float(np.abs(g.x - w.x).max() / np.abs(w.x).max()))
+    print(f"[mesh service] {tag}: iterations and flags equal to the {against} run's; "
+          f"residuals within {worst_norm:.3e}, kept solutions within {worst_x:.3e} of max |x|")
+    if worst_norm > MESH_NORM_RTOL or worst_x > MESH_X_REL:
+        raise SystemExit(f"{tag}: residuals or solutions differ from the {against} run's")
+
+
+def restore_request(i: int, rel_tol=None) -> SolveRequest:
+    mats = ({1: (50.0, 50.0), 2: (1.0, 1.0)}, {1: (80.0, 60.0), 2: (2.0, 1.0)},
+            {1: (9.0, 9.0), 2: (1.0, 3.0)})[i % 3]
+    return SolveRequest(p=MESH_RESTORE_P, refine=MESH_RESTORE_REFINE, materials=mats,
+                        traction=(0.0, 2e-3 * (i % 2), -1e-2 * (1.0 + 0.25 * i)),
+                        rel_tol=(1e-8 if i % 2 else 1e-10) if rel_tol is None else rel_tol,
+                        keep_solution=True)
+
+
+def drained(svc: ElasticityService) -> dict:
+    while not svc.idle():
+        svc.step()
+    return {r.ticket: r for r in svc.drain()}
+
+
+def sharded_service_check(fixed: list, gen: list, card: str) -> None:
+    """Phase 14 (d): phase 5b's service with its scenario axis on two
+    virtual devices, generational and continuous, against the unsharded
+    runs."""
+    reqs = service_requests()
+    svc = ElasticityService(max_batch=BATCH_S, precision="f64", chunk_iters=SERVICE_CHUNK,
+                            device="cuda", mesh=virtual_mesh(2))
+    for continuous, want in ((False, gen), (True, fixed)):
+        tag = "continuous fixed" if continuous else "generational"
+        reps, dt, counts, stats, _, latency = service_run(svc, reqs, continuous=continuous)
+        check_service_counts(f"2-device {tag}", counts, want_probe=not continuous)
+        print(f"[mesh service] 2 virtual devices, {tag}: {dt} s ({card}), padded rows "
+              f"{sorted({r.padded_rows for r in reps})}; counts {counts}; stats {stats}")
+        check_reports_close(f"2 virtual devices, {tag}", reps, want)
+        if any(r.padded_rows % 2 for r in reps):
+            raise SystemExit("a sharded bucket does not divide the mesh")
+    del svc
+    torch.cuda.empty_cache()
+
+
+def sharded_restore_check() -> None:
+    """Phase 14 (d): a checkpoint on two virtual devices restored onto two
+    (bitwise) and onto one, beside undisturbed runs on one and on two
+    devices as the witness of what a change of rows a program does; and
+    a 3-row flight restored onto two (the re-bucket branch)."""
+
+    def service(n: int, max_batch: int) -> ElasticityService:
+        return ElasticityService(max_batch=max_batch, chunk_iters=2, device="cuda",
+                                 mesh=virtual_mesh(n))
+
+    tmp = tempfile.mkdtemp(prefix="mesh_restore_")
+    try:
+        # a checkpoint on two virtual devices restored onto two and onto one
+        reqs = [restore_request(i) for i in range(6)]
+
+        def undisturbed(n: int) -> dict:
+            svc = service(n, BATCH_S)
+            for r in reqs:
+                svc.submit(r)
+            return drained(svc)
+
+        def restored(n: int, where: str) -> tuple[dict, list]:
+            svc = service(2, BATCH_S)
+            rec = ServiceRecovery(svc, os.path.join(tmp, where), every=1)
+            for r in reqs:
+                svc.submit(r)
+            svc.step()
+            rec.maybe_checkpoint()
+            svc = service(n, BATCH_S)
+            if not ServiceRecovery(svc, os.path.join(tmp, where)).restore():
+                raise SystemExit("no checkpoint to restore from")
+            buckets = [fl.bucket for fl in svc._flights.values()]
+            got = drained(svc)
+            if set(got) != set(base):
+                raise SystemExit(f"the restore onto {n} device(s) lost or added tickets")
+            return got, buckets
+
+        def bitwise(got: dict, want: dict) -> bool:
+            return all(got[t].final_rel_norm == w.final_rel_norm
+                       and np.array_equal(got[t].x, w.x) for t, w in want.items())
+
+        base, base1 = undisturbed(2), undisturbed(1)
+        got2, _ = restored(2, "a2")
+        got, buckets = restored(1, "a1")
+        same_layout, rows_matter = bitwise(got2, base), not bitwise(base1, base)
+        print(f"[mesh restore] p={MESH_RESTORE_P} refine={MESH_RESTORE_REFINE}, 6 requests "
+              f"checkpointed after step 1 on 2 virtual devices (4 rows a program): restored "
+              f"onto 2, bitwise as the undisturbed 2-device run: {same_layout}; restored "
+              f"onto 1 (buckets {buckets}, identity path, 8 rows a program), bitwise as the "
+              f"undisturbed 2-device run: {bitwise(got, base)}, as the undisturbed 1-device "
+              f"run: {bitwise(got, base1)}; the undisturbed 1- and 2-device runs differ: "
+              f"{rows_matter}")
+        if not same_layout:
+            raise SystemExit("the restore onto the same 2 devices is not bitwise")
+        # The witness: when the undisturbed 1- and 2-device runs differ, the
+        # card's GEMMs and row reductions depend on how many rows a program
+        # holds, and a change of rows a program is held to the tolerances of
+        # a change of mesh.  When they do not, the restore onto one device
+        # must be bitwise too.
+        if rows_matter:
+            check_reports_close("restore 2 -> 1 virtual devices", [got[t] for t in sorted(base)],
+                                [base[t] for t in sorted(base)], against="undisturbed")
+        elif not bitwise(got, base):
+            raise SystemExit("the restore onto one device is not bitwise, while the "
+                             "undisturbed 1- and 2-device runs are")
+
+        # a 3-row flight (max_batch 3 on 3 devices) restored onto two
+        reqs = [restore_request(0), restore_request(1, rel_tol=1e-1), restore_request(2)]
+        base = service(3, 3)
+        for r in reqs:
+            base.submit(r)
+        base = drained(base)
+        svc = service(3, 3)
+        rec = ServiceRecovery(svc, os.path.join(tmp, "b"), every=1)
+        for r in reqs:
+            svc.submit(r)
+        svc.step()
+        svc.step()
+        rec.maybe_checkpoint()
+        (fl,) = svc._flights.values()
+        old = (fl.bucket, [None if s is None else s.ticket for s in fl.slots])
+        svc = service(2, 3)
+        if not ServiceRecovery(svc, os.path.join(tmp, "b")).restore():
+            raise SystemExit("no checkpoint to restore from")
+        (fl,) = svc._flights.values()
+        new = (fl.bucket, [None if s is None else s.ticket for s in fl.slots])
+        rebuckets = svc.stats["rebuckets"]
+        got = drained(svc)
+        kept = [t for t in (0, 2) if old[1].index(t) == new[1].index(t)]
+        moved = [t for t in (0, 2) if t not in kept]
+        flags = all((got[t].iterations, got[t].converged) == (b.iterations, b.converged)
+                    for t, b in base.items()) and set(got) == set(base)
+        kept_ok = all(np.array_equal(got[t].x, base[t].x)
+                      and got[t].final_rel_norm == base[t].final_rel_norm for t in kept)
+        moved_rel = max(float(np.abs(got[t].x - base[t].x).max() / np.abs(base[t].x).max())
+                        for t in moved)
+        print(f"[mesh restore] 3-row flight (bucket, tickets by slot) {old} on 3 virtual "
+              f"devices restored onto 2 as {new}, rebuckets {rebuckets}: iterations and flags "
+              f"equal {flags}; kept tickets {kept} bitwise {kept_ok}; moved tickets {moved} "
+              f"within {moved_rel:.3e} of max |x|")
+        if old != (3, [0, None, 2]) or new != (2, [0, 2]) or rebuckets != 1:
+            raise SystemExit("the restore onto two devices did not take the re-bucket branch")
+        if not (flags and kept_ok and moved_rel <= MESH_X_REL):
+            raise SystemExit("the re-bucketed restore differs from the undisturbed run")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def devices_cli_check() -> None:
+    """Phase 14 (e): ``serve_solve --devices N`` with one more card than the
+    host has raises, naming the card count."""
+    n = torch.cuda.device_count()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve_solve", "--devices", str(n + 1),
+         "--n-requests", "2", "--p", "1", "--refine", "0"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+    )
+    last = (out.stderr.strip().splitlines() or [""])[-1]
+    print(f"[mesh cli] serve_solve --devices {n + 1} on {n} card(s): exit {out.returncode}, "
+          f"{last}")
+    if out.returncode == 0 or f"the host has {n}" not in last:
+        raise SystemExit("serve_solve --devices past the host's cards did not raise")
+
+
+def multidevice_phase(card: str, batch_iters: list[int], fixed: list, gen: list) -> int:
+    """Phase 14: the multi-device solver side on virtual devices of the
+    card; returns the PAop launches of one DD apply."""
+    launches = dd_phase(card)
+    sharded_batched_check(batch_iters, card)
+    sharded_service_check(fixed, gen, card)
+    sharded_restore_check()
+    devices_cli_check()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3132,6 +3547,12 @@ def main() -> int:
     big = ELASTICITY_SHAPES["beam_p8_51m"]
     sweep.add((big.p, beam_hex().nelem * 8**big.n_h_refine))
     cases += [(torch.float64, p, ne) for p, ne in sorted(sweep)]
+    # phase 14's shards: the DD's elements a shard (f32 at 51.17M DoFs, f64
+    # at phase 4's size) and the sharded batch's S / n rows a level
+    cases.append((torch.float32, big.p, beam_hex().nelem * 8**big.n_h_refine // DD_SHARDS))
+    cases += [(torch.float64, MAIN_P, main_shapes[-1][1] // n) for n in DD_F64_SHARDS[1:]]
+    cases += [(torch.float64, p, BATCH_S // n * ne) for n in MESH_SIZES for p, ne in main_shapes]
+    cases += [(torch.float64, 1, n_coarse * BATCH_S // n * main_shapes[0][1]) for n in MESH_SIZES]
     bad = []
     for dt, p, ne in cases:
         args = pa_inputs(p, ne, dt, gen)
@@ -3225,14 +3646,13 @@ def main() -> int:
     wall("5 (batched solve)")
 
     # ---- 5b. the solve service, counted
-    fixed, t_fixed = service_phase(batch_iters)
+    fixed, t_fixed, gen_reports = service_phase(batch_iters)
     small_service_check()
     torch.cuda.empty_cache()
     wall("5b (service)")
 
     # ---- 5c. recovery, counted
     recovery_phase(fixed, t_fixed, card)
-    del fixed
     wall("5c (recovery)")
 
     # ---- 6. the serve path, counted: qwen3-1.7b at full width, bf16
@@ -3351,6 +3771,11 @@ def main() -> int:
     # ---- 13. xLSTM: xlstm-125m at full width and depth, served and trained
     xlstm_phase(card)
     wall("13 (xlstm-125m)")
+
+    # ---- 14. the solver side over a scenario mesh of virtual devices
+    multidevice_phase(card, batch_iters, fixed, gen_reports)
+    del fixed, gen_reports
+    wall("14 (multi-device solver)")
 
     kernels = [
         {

@@ -22,7 +22,10 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def synchronize(device: torch.device) -> None:
-    """Fence for host-clock timing: wait for the card's queued work."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def synchronize(device) -> None:
+    """Fence for host-clock timing: wait for the queued work of a card, or
+    of every card of a sequence of devices (a scenario mesh)."""
+    devices = device if isinstance(device, (tuple, list)) else (device,)
+    for d in dict.fromkeys(torch.device(x) for x in devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)

@@ -1,1 +1,2 @@
-"""Scenario-axis placement helpers of the port (one card for now)."""
+"""Multi-device helpers of the port: scenario-axis sharding, elastic
+meshes and the serving watchdog, and gradient compression."""

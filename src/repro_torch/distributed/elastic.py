@@ -2,24 +2,27 @@
 serving-side remesh and a device-loss test hook.
 
 The recovery model is checkpoint-based: on any fault the job restarts
-from the last complete checkpoint.  For the continuous solve service
-that restart path is :class:`repro_torch.serve.recovery.ServiceRecovery`,
-which restores in-flight :class:`~repro_torch.solvers.batched.BpcgState`
-rows onto the scenario mesh the survivor process builds here.
+from the last complete checkpoint, possibly on a different device count.
+For the continuous solve service that restart path is
+:class:`repro_torch.serve.recovery.ServiceRecovery`, which restores
+in-flight :class:`~repro_torch.solvers.batched.BpcgState` rows onto the
+scenario mesh the survivor process builds here.
 
-* :func:`elastic_scenario_mesh` — the scenario mesh over the alive
-  devices.  The port runs on one card, so this is the one-card mesh
-  :func:`~repro_torch.distributed.sharding.normalize_scenario_mesh`
-  accepts; more devices raise (ROADMAP Queue 1 item 10).
+* :func:`elastic_scenario_mesh` — the serving-side remesh: a scenario
+  mesh over the alive devices.  Scenarios never couple, so every device
+  count is a valid mesh and a rescale is a row re-layout
+  (``BatchedGMGSolver.take_rows``; a host or differently placed state
+  goes onto a mesh through
+  :func:`~repro_torch.distributed.sharding.device_put_scenario`).
 * :func:`simulate_failures` — deterministic device-loss test hook.
 * :class:`StepWatchdog` — straggler/hang detection: a monitor thread
   that fires a callback when a step exceeds ``timeout``.  The solve
   service wires it onto ``step()`` via
   ``ElasticityService.attach_watchdog``.
 
-The reference's training-side ``elastic_remesh`` (a (data, model) device
-mesh) and ``reshard_state`` (re-placing a restored state on a new mesh)
-wait for multi-device support, ROADMAP Queue 1 item 10.
+The reference's training-side ``elastic_remesh`` (a (data, model)
+device mesh) waits for the LM half of multi-device support, ROADMAP
+Queue 1 item 10b.
 """
 
 from __future__ import annotations
@@ -28,21 +31,16 @@ import threading
 import time
 from typing import Callable
 
+from repro_torch.distributed.sharding import scenario_mesh
+
 __all__ = ["elastic_scenario_mesh", "StepWatchdog", "simulate_failures"]
 
 
-def elastic_scenario_mesh(devices=None) -> int:
-    """The scenario mesh over the alive devices, as the service's
-    ``mesh`` option takes it: one card gives ``1``.  ``devices`` is a
-    sequence of devices (default: the one card); a longer one raises
-    NotImplementedError."""
-    n = 1 if devices is None else len(devices)
-    if n != 1:
-        raise NotImplementedError(
-            f"a scenario mesh over {n} devices is not ported "
-            f"(ROADMAP Queue 1 item 10); the port runs on one card"
-        )
-    return 1
+def elastic_scenario_mesh(devices=None):
+    """The scenario mesh over the alive devices (all cards of the host by
+    default), a tuple of ``torch.device`` as the service's ``mesh`` option
+    takes it.  A device the host lacks raises."""
+    return scenario_mesh(devices=devices)
 
 
 def simulate_failures(devices, n_failed: int):

@@ -24,6 +24,8 @@ Usage:
         --checkpoint-dir ckpt --resume               # restart after a kill
     PYTHONPATH=src python -m repro_torch.launch.serve_solve --device cpu \
         --continuous --n-requests 5 --p 1 --refine 0   # plain version, CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve_solve --device cpu \
+        --devices 4 --n-requests 5 --p 1 --refine 0    # 4 virtual CPU devices
 
 The service runs on the card (``--device cuda``, the default; without a
 card it raises) through the PAop kernel (``--assembly paop_cuda``);
@@ -56,8 +58,11 @@ uninterrupted run, bitwise.  ``--watchdog-timeout`` arms the step hang
 detector; ``--kill-after-steps`` SIGKILLs the process mid-run (the
 fault-injection hook of the tests).
 
-Not ported yet: ``--devices`` (scenario sharding, ROADMAP Queue 1 item
-10).
+``--devices N`` shards the scenario axis of every solver over N devices
+(:mod:`repro_torch.distributed.sharding`): the first N cards, raising when
+the host has fewer; with ``--device cpu``, N virtual CPU devices.
+``--devices`` may differ across a ``--resume`` (elastic rescale: a flight
+whose bucket does not divide the new mesh is re-bucketed).
 """
 
 from __future__ import annotations
@@ -137,6 +142,9 @@ def main(argv=None) -> None:
     ap.add_argument("--max-chunk", type=int, default=None,
                     help="adaptive policies: chunk length upper clamp "
                          "(default 4 * chunk-iters)")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="shard the scenario axis over N devices (the first "
+                         "N cards; N virtual CPU devices with --device cpu)")
     ap.add_argument("--material-field", default=None,
                     metavar="{graded,checkerboard,lognormal[:seed]}",
                     help="heterogeneous per-element (lam_e, mu_e) fields "
@@ -188,8 +196,11 @@ def main(argv=None) -> None:
         max_batch=args.max_batch, assembly=args.assembly,
         precision=args.precision, chunk_iters=args.chunk_iters,
         chunk_policy=args.chunk_policy, min_chunk=args.min_chunk,
-        max_chunk=args.max_chunk, spans=spans, device=device,
+        max_chunk=args.max_chunk, spans=spans, device=device, mesh=args.devices,
     )
+    if service.mesh is not None:
+        print(f"scenario mesh: {service.n_shards} devices {[str(d) for d in service.mesh]}")
+    device = service.mesh or device
     recovery = None
     if args.checkpoint_dir:
         recovery = ServiceRecovery(service, args.checkpoint_dir, every=args.checkpoint_every)
@@ -243,7 +254,7 @@ def main(argv=None) -> None:
         # Throughput counts REAL requests only (padding rows excluded).
         print(
             f"-- round {round_i}: {len(reports)} scenarios in {dt:.2f}s "
-            f"({len(reports) / dt:.2f} scenarios/s) on {device}"
+            f"({len(reports) / dt:.2f} scenarios/s) on {service.device}"
         )
         print(
             f"{'i':>3} {'key':16s} {'prec':>7} {'ndof':>7} {'iters':>5} "

@@ -55,8 +55,15 @@ materials, which the digest hashes) and one per kept solution.
 
 Fault tolerance: ``attach_watchdog`` arms a step hang detector, and
 :class:`repro_torch.serve.recovery.ServiceRecovery` checkpoints and
-restores the in-flight state.  Not ported yet: scenario sharding over
-more than one card (``mesh`` > 1, ROADMAP Queue 1 item 10).  The
+restores the in-flight state.
+
+Scenario sharding: with ``mesh`` set (a sequence of devices, repeats
+allowed, or an int: the first n cards, or n virtual CPU devices with
+``device="cpu"``), every solver the service builds splits its batch rows
+over the mesh (:mod:`repro_torch.distributed.sharding`).  Buckets round
+up to a multiple of the device count, reports count the device padding
+rows in ``padded_rows``, and the retire pass gathers each flight's
+(S,) vectors onto the first device before its one transfer.  The
 reference's Pallas-lane arguments have no counterpart: ``assembly``
 picks the kernel (``"paop_cuda"``) or its plain version (``"paop"``).
 """
@@ -82,6 +89,7 @@ from repro_torch.core.precision import PrecisionPolicy, resolve_precision
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.distributed.elastic import StepWatchdog
 from repro_torch.distributed.sharding import (
+    gather_scenario,
     normalize_scenario_mesh,
     scenario_row_devices,
 )
@@ -133,11 +141,14 @@ _HOST_DTYPE = {
 }
 
 
-def _to_host(vecs: list[torch.Tensor]) -> list[np.ndarray]:
+def _to_host(vecs: list) -> list[np.ndarray]:
     """Same-length 1-D device vectors in ONE device-to-host transfer:
+    gathered onto the first one's device when split over a scenario mesh,
     stacked as f64, which holds every f32, int32 and bool value exactly,
     and each cast back to its own dtype on the host."""
-    host = torch.stack([v.to(torch.float64) for v in vecs]).cpu().numpy()
+    vecs = gather_scenario(vecs)
+    dev = vecs[0].device
+    host = torch.stack([v.to(dev, torch.float64) for v in vecs]).cpu().numpy()
     return [row.astype(_HOST_DTYPE[v.dtype]) for v, row in zip(vecs, host)]
 
 
@@ -341,7 +352,10 @@ class ElasticityService:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if cache_size < 1:
             raise ValueError(f"cache_size must be >= 1, got {cache_size}")
-        self.device = resolve_device(device)
+        self.mesh, self.n_shards = normalize_scenario_mesh(mesh, device)
+        self.device = self.mesh[0] if self.mesh is not None else resolve_device(device)
+        # What a fence waits for: every device of the mesh.
+        self._devices = self.mesh or self.device
         self.max_batch = max_batch
         self.cache_size = cache_size
         self.assembly = assembly
@@ -359,7 +373,6 @@ class ElasticityService:
         )
         self.trace = SchedulerTrace()
         self._step_index = 0
-        self.mesh, self.n_shards = normalize_scenario_mesh(mesh)
         self._solvers: OrderedDict[tuple, BatchedGMGSolver] = OrderedDict()
         self._queue: list[tuple[int, SolveRequest]] = []
         self._flights: dict[tuple, _Flight] = {}
@@ -543,6 +556,7 @@ class ElasticityService:
             precision=self._policy_for(req),
             maxiter=self.maxiter,
             device=self.device,
+            mesh=self.mesh,
         )
         self._solvers[key] = solver
         self._inc("cache_misses", key)
@@ -1025,7 +1039,7 @@ class ElasticityService:
                 # Fence, don't fetch: wait for the chunk's work without
                 # transferring anything; the consumed vector still comes
                 # back with the next retire pass.
-                synchronize(self.device)
+                synchronize(self._devices)
                 t_done = self.clock()
                 dt_dev = t_done - t_dispatched
                 rec.emit(
@@ -1126,10 +1140,10 @@ class ElasticityService:
             n=n_real + n_pad,
         )
 
-        synchronize(self.device)
+        synchronize(self._devices)
         t0 = self.clock()
         res = solver.solve(materials, tractions, rel_tols)
-        synchronize(self.device)
+        synchronize(self._devices)
         t_solve = self.clock() - t0
         self._inc("generations", key)
         for _ in reqs:

@@ -25,12 +25,14 @@ blob, restored via ``restore_latest_items``: torn or corrupt checkpoints
 are skipped newest-first.  The blob is read with an unpickler that
 resolves only this package, numpy and the standard library.
 
-Restore keeps every flight's bucket and restores every array bitwise, so
-the resumed service finishes every in-flight request with the solutions
-and iteration counts of an uninterrupted run.  The reference also
-re-buckets a flight whose bucket does not divide a new device mesh; on
-one card every bucket divides the mesh, and that branch waits for
-multi-device support (ROADMAP Queue 1 item 10).
+Restore may land on another device count (elastic rescale).  A flight
+whose bucket divides the new scenario mesh keeps its bucket and restores
+every array bitwise, so the resumed service finishes every in-flight
+request with the solutions and iteration counts of an uninterrupted run.
+One whose bucket does not divide it is re-bucketed: its live rows move
+onto the smallest device-aligned bucket (their state and prep bitwise,
+through ``BatchedGMGSolver.take_rows``), and the filler rows, copies of
+the first live row with zero right-hand sides, are marked for reset.
 
 The hang detector lives on the service itself
 (``ElasticityService.attach_watchdog``); its fires land in the same
@@ -306,12 +308,6 @@ class ServiceRecovery:
         svc = self.service
         key = fb["key"]
         slots = fb["slots"]
-        if fb["bucket"] % svc.n_shards:
-            raise NotImplementedError(
-                f"restoring a bucket of {fb['bucket']} rows onto "
-                f"{svc.n_shards} devices needs a re-bucket, which is not "
-                f"ported (ROADMAP Queue 1 item 10)"
-            )
         live = [r for r, s in enumerate(slots) if s is not None]
         # Any live slot's request rebuilds (or cache-hits) the solver.
         solver, hit, t_setup = svc._solver_for(key, slots[live[0]][1])
@@ -323,23 +319,57 @@ class ServiceRecovery:
         part = lambda sub: {  # noqa: E731
             k[len(pre + sub):]: v for k, v in items.items() if k.startswith(pre + sub)
         }
-        # Identity layout: every row restores in place, bitwise, with the
-        # bucket (and so the program shapes) of the uninterrupted run.
-        fl.state = solver.state_from_host(part("state/"))
-        fl.prep = solver.prep_from_host(part("prep/"))
-        fl.bucket = fb["bucket"]
-        fl.slots = [
-            None if s is None else _Slot(s[0], s[1], now, t_submit=now)
-            for s in slots
-        ]
-        fl.pending_reset = None
-        fl.lam, fl.mu = items[pre + "lam"], items[pre + "mu"]
-        fl.tr, fl.tol = items[pre + "tr"], items[pre + "tol"]
-        fl.row_iters = items[pre + "row_iters"].astype(np.int64)
-        fl.mat_digest = _object_row(fb["mat_digest"])
-        fl.prep_digest = _object_row(fb["prep_digest"])
-        fl.prep_lam, fl.prep_mu = items[pre + "prep_lam"], items[pre + "prep_mu"]
-        fl.prep_valid = np.asarray(fb["prep_valid"], dtype=bool)
+        lam, mu = items[pre + "lam"], items[pre + "mu"]
+        tr, tol = items[pre + "tr"], items[pre + "tol"]
+        row_iters = items[pre + "row_iters"].astype(np.int64)
+        prep_lam, prep_mu = items[pre + "prep_lam"], items[pre + "prep_mu"]
+        mat_digest = _object_row(fb["mat_digest"])
+        prep_digest = _object_row(fb["prep_digest"])
+        prep_valid = np.asarray(fb["prep_valid"], dtype=bool)
+        if fb["bucket"] % svc.n_shards == 0:
+            # Identity layout: every row restores in place, bitwise, with
+            # the bucket (and so the shapes) of the uninterrupted run.
+            fl.state = solver.state_from_host(part("state/"))
+            fl.prep = solver.prep_from_host(part("prep/"))
+            fl.bucket = fb["bucket"]
+            fl.slots = [
+                None if s is None else _Slot(s[0], s[1], now, t_submit=now)
+                for s in slots
+            ]
+            fl.pending_reset = None
+        else:
+            # Elastic re-bucket: the live rows compact onto the smallest
+            # device-aligned bucket of the new mesh; the filler rows
+            # (copies of the first live row) are marked for reset, so the
+            # next launch turns them into born-converged padding.
+            n_live = len(live)
+            bucket = svc.bucket_for(max(n_live, 1))
+            rows = live + [live[0]] * (bucket - n_live)
+            fl.state, fl.prep = solver.take_rows(
+                solver.state_from_host(part("state/"), place=False),
+                solver.prep_from_host(part("prep/"), place=False),
+                rows,
+            )
+            idx = np.asarray(rows)
+            fl.bucket = bucket
+            fl.slots = [
+                _Slot(slots[r][0], slots[r][1], now, t_submit=now) for r in live
+            ] + [None] * (bucket - n_live)
+            lam, mu, tr, tol = lam[idx], mu[idx], tr[idx], tol[idx]
+            row_iters = row_iters[idx]
+            prep_lam, prep_mu = prep_lam[idx], prep_mu[idx]
+            mat_digest, prep_digest = mat_digest[idx], prep_digest[idx]
+            prep_valid = prep_valid[idx]
+            tr[n_live:] = 0.0  # filler rows: zero RHS -> born converged
+            tol[n_live:] = 1e-6
+            row_iters[n_live:] = 0
+            fl.pending_reset = np.arange(bucket) >= n_live
+            svc._inc("rebuckets", key)
+        fl.lam, fl.mu, fl.tr, fl.tol = lam, mu, tr, tol
+        fl.row_iters = row_iters
+        fl.mat_digest, fl.prep_digest = mat_digest, prep_digest
+        fl.prep_lam, fl.prep_mu = prep_lam, prep_mu
+        fl.prep_valid = prep_valid
         fl.chunks = fb["chunks"]
         fl.retire_history.extend(fb["retire_history"])
         svc._flights[key] = fl

@@ -37,6 +37,22 @@ device.
 
 The loop tests ``active.any()`` on the host once per iteration: one
 host sync per iteration, as in :func:`repro_torch.solvers.cg.pcg`.
+
+Multi-device: ``BatchedGMGSolver(..., mesh=...)`` (a sequence of devices,
+repeats allowed, or an int: the first n cards, or n virtual CPU devices
+with ``device="cpu"``; see :mod:`repro_torch.distributed.sharding`)
+splits the scenario axis into one contiguous row block per mesh device.
+The state, the prep and the (S,) vectors a call returns are
+:class:`~repro_torch.distributed.sharding.ScenarioBlocks`; each device
+holds its own hierarchy (one per distinct device) and runs the
+single-device program on its rows, so the PAop kernel launches once per
+shard and apply.  The shards step in lockstep
+(:func:`bpcg_chunk_shards`): each iteration queues every shard's work,
+gathers the (S/n,) active flags onto the first device and reads them on
+the host once, so a sharded chunk makes the host syncs of an unsharded
+one.  Rows never couple, so iterations, flags and solutions do not depend
+on the mesh; ``solve`` pads S to a multiple of the device count with
+born-converged rows and slices them off.
 """
 
 from __future__ import annotations
@@ -55,6 +71,15 @@ from repro_torch.core.geometry import (
 from repro_torch.core.operators import DEFER_MATERIALS, ElasticityOperator, fused_level
 from repro_torch.core.precision import PrecisionPolicy, resolve_precision
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (
+    ScenarioBlocks,
+    device_put_scenario,
+    gather_scenario,
+    join_shards,
+    normalize_scenario_mesh,
+    shard_of,
+    tree_to,
+)
 from repro_torch.fem.mesh import HexMesh
 from repro_torch.fem.space import H1Space
 from repro_torch.fem.transfer import make_transfer
@@ -72,6 +97,7 @@ __all__ = [
     "bpcg",
     "bpcg_init",
     "bpcg_chunk",
+    "bpcg_chunk_shards",
     "bpcg_result",
     "true_residual_audit",
     "merge_states",
@@ -81,6 +107,11 @@ __all__ = [
 ]
 
 _NUMPY_DTYPE = {torch.float64: np.float64, torch.float32: np.float32}
+
+
+def _numpy(a) -> np.ndarray:
+    """A tensor, or row blocks gathered, as a host numpy array."""
+    return (a.cpu() if isinstance(a, ScenarioBlocks) else a.detach().cpu()).numpy()
 
 
 @dataclasses.dataclass
@@ -128,6 +159,24 @@ def _identity(r):
     return r
 
 
+def _per_row(v, s: int, like: torch.Tensor) -> torch.Tensor:
+    """``v`` (a scalar, or (S,) values) as an (S,) tensor like ``like``.
+    A Python scalar is filled on the device: no host-to-device copy, which
+    the card counts as a host sync."""
+    if isinstance(v, torch.Tensor) or np.ndim(v):
+        return torch.as_tensor(v, dtype=like.dtype, device=like.device).expand(s)
+    return torch.full((s,), float(v), dtype=like.dtype, device=like.device)
+
+
+def _host_any(flags: list[torch.Tensor]) -> bool:
+    """Whether any of the per-shard flag tensors holds True, read on the
+    host once: the flags are gathered onto the first one's device first."""
+    if len(flags) == 1:
+        return bool(flags[0].any())
+    dev = flags[0].device
+    return bool(torch.cat([f.reshape(-1).to(dev, non_blocking=True) for f in flags]).any())
+
+
 def bpcg_init(
     A: Callable,
     b: torch.Tensor,
@@ -153,8 +202,8 @@ def bpcg_init(
         r = b - A(x)
     z = M(r)
     nom0 = _dots(z, r)
-    rel = torch.as_tensor(rel_tol, dtype=nom0.dtype, device=nom0.device).expand(s)
-    ab = torch.as_tensor(abs_tol, dtype=nom0.dtype, device=nom0.device).expand(s)
+    rel = _per_row(rel_tol, s, nom0)
+    ab = _per_row(abs_tol, s, nom0)
     threshold = torch.maximum(nom0 * rel**2, ab**2)
     zeros = torch.zeros((s,), dtype=torch.int32, device=b.device)
     return BpcgState(
@@ -197,47 +246,78 @@ def bpcg_chunk(
     it has hit the precision floor of the arithmetic.  The default
     ``stall_iters = 0`` leaves the detector out of the loop entirely, so
     the f64 path does no extra arithmetic."""
-    M = M or _identity
-    st, step = state, 0
-    while (k_iters is None or step < k_iters) and bool(st.active.any()):
-        active = st.active
-        ad = A(st.d)
-        den = _dots(st.d, ad)
-        # Inactive rows get alpha = 0 (frozen); den == 0 cannot occur for
-        # an active SPD row (d != 0 there) but is guarded so one bad or
-        # retired scenario can never NaN the rest of the batch.
-        ok = active & (den > 0)
-        alpha = torch.where(ok, st.nom / torch.where(den == 0, 1.0, den), 0.0)
-        x = st.x + _col(alpha, st.x.ndim) * st.d
-        r = st.r - _col(alpha, st.r.ndim) * ad
-        z = M(r)
-        betanom = _dots(z, r)
-        beta = torch.where(ok, betanom / torch.where(st.nom == 0, 1.0, st.nom), 0.0)
-        d = torch.where(
-            _col(active, st.d.ndim), z + _col(beta, st.d.ndim) * st.d, st.d
-        )
-        nom = torch.where(active, betanom, st.nom)
-        # Count only real steps (ok), matching scalar pcg: an aborted
-        # degenerate direction (den <= 0) takes no step and adds none.
-        iters = st.iters + ok.to(torch.int32)
-        active = ok & (nom > st.threshold) & (iters < maxiter)
+    return bpcg_chunk_shards(
+        [(A, M)], [state], k_iters=k_iters, maxiter=maxiter,
+        stall_iters=stall_iters, stall_rtol=stall_rtol,
+    )[0]
+
+
+def bpcg_chunk_shards(
+    ops: Sequence[tuple[Callable, Callable | None]],
+    states: Sequence[BpcgState],
+    *,
+    k_iters: int | None = None,
+    maxiter: int = 5000,
+    stall_iters: int = 0,
+    stall_rtol: float = 0.99,
+) -> list[BpcgState]:
+    """:func:`bpcg_chunk` over row blocks that never couple, each with its
+    own operator and preconditioner ``ops[k] = (A, M)`` (one block per
+    device of a scenario mesh), in lockstep: an iteration steps every
+    block, then reads whether any row of any block is still active on the
+    host once, from the blocks' flags gathered onto the first block's
+    device.  A block whose rows are all inactive steps frozen, as inactive
+    rows do within a block."""
+    states, step = list(states), 0
+    while (k_iters is None or step < k_iters) and _host_any([st.active for st in states]):
+        states = [
+            _bpcg_step(A, M or _identity, st, maxiter, stall_iters, stall_rtol)
+            for (A, M), st in zip(ops, states)
+        ]
+        step += 1
+    return states
+
+
+def _bpcg_step(A, M, st: BpcgState, maxiter, stall_iters, stall_rtol) -> BpcgState:
+    """One masked PCG iteration of every row of ``st`` (see
+    :func:`bpcg_chunk`)."""
+    active = st.active
+    ad = A(st.d)
+    den = _dots(st.d, ad)
+    # Inactive rows get alpha = 0 (frozen); den == 0 cannot occur for
+    # an active SPD row (d != 0 there) but is guarded so one bad or
+    # retired scenario can never NaN the rest of the batch.
+    ok = active & (den > 0)
+    alpha = torch.where(ok, st.nom / torch.where(den == 0, 1.0, den), 0.0)
+    x = st.x + _col(alpha, st.x.ndim) * st.d
+    r = st.r - _col(alpha, st.r.ndim) * ad
+    z = M(r)
+    betanom = _dots(z, r)
+    beta = torch.where(ok, betanom / torch.where(st.nom == 0, 1.0, st.nom), 0.0)
+    d = torch.where(
+        _col(active, st.d.ndim), z + _col(beta, st.d.ndim) * st.d, st.d
+    )
+    nom = torch.where(active, betanom, st.nom)
+    # Count only real steps (ok), matching scalar pcg: an aborted
+    # degenerate direction (den <= 0) takes no step and adds none.
+    iters = st.iters + ok.to(torch.int32)
+    active = ok & (nom > st.threshold) & (iters < maxiter)
+    new = dataclasses.replace(
+        st, x=x, r=r, z=z, d=d, nom=nom, iters=iters, active=active
+    )
+    if stall_iters > 0:
+        # Progress = the best-seen nom dropped by >= (1 - rtol); the
+        # best so far (not the last step), so an oscillating residual
+        # does not reset the counter on every upswing.
+        improved = betanom < st.best * stall_rtol
+        stall = torch.where(ok, torch.where(improved, 0, st.stall + 1), st.stall)
+        best = torch.where(ok, torch.minimum(st.best, betanom), st.best)
+        hit = active & (stall >= stall_iters)
         new = dataclasses.replace(
-            st, x=x, r=r, z=z, d=d, nom=nom, iters=iters, active=active
+            new, active=active & ~hit, best=best, stall=stall,
+            stalled=st.stalled | hit,
         )
-        if stall_iters > 0:
-            # Progress = the best-seen nom dropped by >= (1 - rtol); the
-            # best so far (not the last step), so an oscillating residual
-            # does not reset the counter on every upswing.
-            improved = betanom < st.best * stall_rtol
-            stall = torch.where(ok, torch.where(improved, 0, st.stall + 1), st.stall)
-            best = torch.where(ok, torch.minimum(st.best, betanom), st.best)
-            hit = active & (stall >= stall_iters)
-            new = dataclasses.replace(
-                new, active=active & ~hit, best=best, stall=stall,
-                stalled=st.stalled | hit,
-            )
-        st, step = new, step + 1
-    return st
+    return new
 
 
 def merge_states(reset_mask, fresh: BpcgState, old: BpcgState) -> BpcgState:
@@ -307,6 +387,9 @@ def _merge_fallback_rows(res: BPCGResult, sub: BPCGResult, rows) -> BPCGResult:
 
 
 def bpcg_result(state: BpcgState) -> BPCGResult:
+    """The result of a state; a sharded state is gathered onto its first
+    device."""
+    state = gather_scenario(state)
     return BPCGResult(
         x=state.x,
         iterations=state.iters,
@@ -378,6 +461,10 @@ class BatchedGMGSolver:
     (nscalar, 3) and broadcast over the batch; without it each level
     draws one from a generator seeded with 1234, as
     :func:`~repro_torch.solvers.gmg.build_hierarchy` does.
+
+    ``mesh`` shards the scenario axis over a device list (see the module
+    docstring); ``device`` then only resolves an int mesh, and
+    ``self.device`` is the mesh's first device, where results gather.
     """
 
     def __init__(
@@ -397,6 +484,7 @@ class BatchedGMGSolver:
         maxiter: int = 200,
         stall_iters: int = 20,
         stall_rtol: float = 0.99,
+        mesh=None,
     ):
         if assembly == "fa":
             raise ValueError("batched solves are matrix-free ('fa' unsupported)")
@@ -404,7 +492,8 @@ class BatchedGMGSolver:
         self.n_h_refine = n_h_refine
         self.p_target = p_target
         self.assembly = assembly
-        self.device = resolve_device(device)
+        self.mesh, self.n_shards = normalize_scenario_mesh(mesh, device)
+        self.device = self.mesh[0] if self.mesh is not None else resolve_device(device)
         self.precision = resolve_precision(precision)
         self.dtype = self.precision.solve_dtype
         self.precond_dtype = self.precision.precond_dtype
@@ -474,6 +563,19 @@ class BatchedGMGSolver:
             dtype=self.dtype, device=self.device,
         )
         self._fine_ess = self._base_ops[-1].ess_mask
+        # The program of each mesh device: this solver on its own device,
+        # one unsharded twin on every other distinct device.
+        twins = {}
+        for d in self.mesh or ():
+            if d != self.device and d not in twins:
+                twins[d] = BatchedGMGSolver(
+                    coarse_mesh, n_h_refine, p_target, assembly=assembly,
+                    precision=self.precision, device=d, start_vectors=start_vectors,
+                    cheb_degree=cheb_degree, power_iters=power_iters,
+                    ess_faces=ess_faces, traction_face=traction_face,
+                    maxiter=maxiter, stall_iters=stall_iters, stall_rtol=stall_rtol,
+                )
+        self._programs = tuple(twins.get(d, self) for d in self.mesh or (self.device,))
 
     def _carrier(self, space: H1Space, dtype, assembly: str) -> ElasticityOperator:
         """A geometry/tables carrier: every call binds per-scenario fields."""
@@ -487,9 +589,10 @@ class BatchedGMGSolver:
         return self.spaces[-1]
 
     def pad_batch(self, n: int) -> int:
-        """Rows a batch of ``n`` scenarios is padded to by default: ``n``
-        (the scenario axis is not sharded across cards)."""
-        return n
+        """Rows a batch of ``n`` scenarios must be padded to so the
+        scenario axis divides the device mesh (``n`` unsharded)."""
+        m = self.n_shards
+        return -(-n // m) * m
 
     def pad_scenarios(self, materials, tractions, rel_tol, n: int | None = None):
         """Pad a scenario batch to ``n`` rows (default :meth:`pad_batch`)
@@ -520,10 +623,48 @@ class BatchedGMGSolver:
     # ``run_chunk`` consumes it, so chunks pay neither power iterations nor
     # refactorization.
 
+    # -- sharding ---------------------------------------------------------------
+    def _check_mesh(self, s: int, what: str) -> None:
+        if s % self.n_shards:
+            raise ValueError(
+                f"{what}: batch size {s} does not divide the "
+                f"{self.n_shards}-device scenario mesh; pad to "
+                f"pad_batch({s}) = {self.pad_batch(s)} born-converged rows"
+            )
+
+    def _put(self, tree):
+        """Every tensor of ``tree`` on this solver's device, or split into
+        row blocks over the mesh."""
+        if self.mesh is None:
+            return self._local(tree)
+        return device_put_scenario(tree, self.mesh)
+
+    def _local(self, tree):
+        """Every tensor of ``tree`` gathered onto this solver's device."""
+        return tree_to(tree, self.device)
+
+    def _shards(self, tree) -> list:
+        """Per-program views of ``tree``: block k of every row-blocked
+        leaf for the program of mesh device k."""
+        if self.mesh is None:
+            return [tree]
+        tree = device_put_scenario(tree, self.mesh)
+        return [shard_of(tree, k) for k in range(self.n_shards)]
+
+    def _join(self, parts: list):
+        return parts[0] if self.mesh is None else join_shards(parts)
+
     def empty_prep(self, s: int) -> dict:
-        """Zero-filled prep of the right shapes for an S-row batch.  Only
-        meaningful as the ``prep`` argument of a ``prepare`` call whose
-        reset mask covers every row that will ever be read."""
+        """Zero-filled prep of the right shapes for an S-row batch (split
+        over the mesh when sharded).  Only meaningful as the ``prep``
+        argument of a ``prepare`` call whose reset mask covers every row
+        that will ever be read."""
+        self._check_mesh(s, "empty_prep")
+        return self._join([
+            prog._empty_prep(s // self.n_shards) for prog in self._programs
+        ])
+
+    def _empty_prep(self, s: int) -> dict:
         pdt, dev = self.precond_dtype, self.device
         lam_w, mu_w, dinv, lmax = [], [], [], []
         for i, (base, sp) in enumerate(zip(self._base_ops, self.spaces)):
@@ -549,7 +690,14 @@ class BatchedGMGSolver:
 
     def empty_state(self, s: int) -> BpcgState:
         """All-rows-retired state of the right shapes for an S-row batch
-        (every row must be reset before its first chunk)."""
+        (every row must be reset before its first chunk; split over the
+        mesh when sharded)."""
+        self._check_mesh(s, "empty_state")
+        return self._join([
+            prog._empty_state(s // self.n_shards) for prog in self._programs
+        ])
+
+    def _empty_state(self, s: int) -> BpcgState:
         dev = self.device
         vec = torch.zeros((s, self.fine_space.nscalar, 3), dtype=self.dtype, device=dev)
         row = torch.zeros((s,), dtype=self.dtype, device=dev)
@@ -588,13 +736,20 @@ class BatchedGMGSolver:
         """Gather batch rows (re-bucketing): returns ``(state, prep)`` whose
         row i is the old row ``rows[i]``, bitwise.  ``rows`` may repeat
         indices (placeholder rows that the caller is about to reset) and
-        may be shorter or longer than the old batch."""
+        may be shorter or longer than the old batch.  The inputs may be
+        laid out anyhow (host tensors of ``state_from_host(place=False)``
+        too): they are gathered onto this solver's device, and the result
+        is split over the mesh (a re-bucketing changes which device owns
+        which row)."""
+        self._check_mesh(len(rows), "take_rows")
+        state, prep = self._local((state, prep))
         idx = self._rows(rows)
         new_state = BpcgState(**{
             f.name: getattr(state, f.name).index_select(0, idx)
             for f in dataclasses.fields(BpcgState)
         })
-        return new_state, self._prep_map(prep, lambda a: a.index_select(0, idx))
+        new_prep = self._prep_map(prep, lambda a: a.index_select(0, idx))
+        return self._put(new_state), self._put(new_prep)
 
     def copy_prep_rows(self, prep: dict, src, dst) -> dict:
         """Duplicate prepared batch rows: row ``dst[i]`` takes row
@@ -605,9 +760,10 @@ class BatchedGMGSolver:
         refilled slot whose materials match a prepared row skips
         ``prepare``.  The input prep is left unchanged."""
         s_idx, d_idx = self._rows(src), self._rows(dst)
-        return self._prep_map(
-            prep, lambda a: a.index_copy(0, d_idx, a.index_select(0, s_idx))
-        )
+        return self._put(self._prep_map(
+            self._local(prep),
+            lambda a: a.index_copy(0, d_idx, a.index_select(0, s_idx)),
+        ))
 
     # -- host (de)serialization ----------------------------------------------
     # The checkpoint contract of fault-tolerant serving
@@ -630,9 +786,10 @@ class BatchedGMGSolver:
         return np.dtype(_NUMPY_DTYPE[self.dtype])
 
     def state_to_host(self, state: BpcgState) -> dict[str, np.ndarray]:
-        """One host numpy array per BpcgState field, bitwise."""
+        """One host numpy array per BpcgState field, bitwise (a sharded
+        field gathered)."""
         return {
-            f.name: getattr(state, f.name).detach().cpu().numpy()
+            f.name: _numpy(getattr(state, f.name))
             for f in dataclasses.fields(BpcgState)
         }
 
@@ -647,9 +804,11 @@ class BatchedGMGSolver:
     ) -> BpcgState:
         """Rebuild a :class:`BpcgState` from a :meth:`state_to_host`
         snapshot, each field cast to :meth:`state_dtype`.  ``place=True``
-        checks that every field has one batch size and puts the state on
-        this solver's device; ``place=False`` leaves CPU tensors (for a
-        ``take_rows`` right after)."""
+        checks that every field has one batch size, which must divide the
+        mesh, and puts the state on this solver's device or mesh (the
+        snapshot may come from another device count); ``place=False``
+        leaves CPU tensors (for a ``take_rows`` right after, when the old
+        batch does not divide the new mesh)."""
         state = BpcgState(**{
             f.name: torch.from_numpy(
                 np.asarray(arrays[f.name], dtype=self.state_dtype(f.name))
@@ -662,15 +821,13 @@ class BatchedGMGSolver:
             {f.name: getattr(state, f.name).shape[0] for f in dataclasses.fields(BpcgState)},
             "state_from_host",
         )
-        return BpcgState(**{
-            f.name: getattr(state, f.name).to(self.device)
-            for f in dataclasses.fields(BpcgState)
-        })
+        self._check_mesh(state.x.shape[0], "state_from_host")
+        return self._put(state)
 
     def prep_to_host(self, prep: dict) -> dict[str, np.ndarray]:
         """One host numpy array per prep tensor, bitwise (see the
         contract note above for the names)."""
-        get = lambda a: a.detach().cpu().numpy()  # noqa: E731
+        get = _numpy
         out: dict[str, np.ndarray] = {}
         for i, (lw, mw) in enumerate(zip(prep["lam_w"], prep["mu_w"])):
             out[f"lam_w{i}"] = get(lw)
@@ -708,7 +865,8 @@ class BatchedGMGSolver:
                 {name: a.shape[0] / per.get(name, 1) for name, a in t.items()},
                 "prep_from_host",
             )
-            t = {name: a.to(self.device) for name, a in t.items()}
+            self._check_mesh(t["chol"].shape[0], "prep_from_host")
+            t = self._put(t)
         prep = {
             "lam_w": tuple(t[f"lam_w{i}"] for i in range(n_lv)),
             "mu_w": tuple(t[f"mu_w{i}"] for i in range(n_lv)),
@@ -730,12 +888,14 @@ class BatchedGMGSolver:
         desc = self._desc_idx[level]
         return field if desc is None else restrict_field(field, desc)
 
-    def _prepare_body(self, lam_vals, mu_vals, reset_mask, prep) -> dict:
+    def _prepare_body(self, lam_vals, mu_vals, reset_mask, prep) -> tuple[dict, torch.Tensor]:
         """Fold the (S, nelem_fine) material fields of the masked rows into
         the per-level weighted fields (coarser levels through
         :meth:`_restrict_field`) and recompute the derived per-scenario data
         (smoother dinv/lambda_max, coarse Cholesky) for exactly those rows;
-        unmasked rows keep their prep bitwise."""
+        unmasked rows keep their prep bitwise.  Returns ``(prep, bad)``:
+        ``bad`` is a device bool, True when a reset row's coarse matrix is
+        not positive definite (the caller reads it)."""
         s = lam_vals.shape[0]
         mask3 = reset_mask[:, None, None]
         lam_w, mu_w, dinv, lmax = [], [], [], []
@@ -755,10 +915,7 @@ class BatchedGMGSolver:
                 # materials yet (an empty prep): their factor is discarded.
                 K = probe_coarse_matrix(op).to(self.coarse_dtype)
                 L, info = torch.linalg.cholesky_ex(K)
-                if bool(((info != 0) & reset_mask).any()):
-                    raise ValueError(
-                        "prepare: a reset row's coarse matrix is not positive definite"
-                    )
+                bad = ((info != 0) & reset_mask).any()
                 chol = torch.where(mask3, L, prep["chol"])
             else:
                 cop = op.constrained()
@@ -789,7 +946,7 @@ class BatchedGMGSolver:
             op = prev.with_materials_rows(lam_vals, mu_vals, reset_mask)
             out["lam_w_solve"] = op.lam_w
             out["mu_w_solve"] = op.mu_w
-        return out
+        return out, bad
 
     def _build_from_prep(self, prep):
         """Hierarchy and preconditioner from a prep dict: binds the stored
@@ -896,20 +1053,31 @@ class BatchedGMGSolver:
 
         ``lam_vals``/``mu_vals`` are (S, nelem_fine) per-element fields (the
         output of :meth:`pack_materials`).  Rows NOT selected by
-        ``reset_mask`` keep their prep bitwise."""
+        ``reset_mask`` keep their prep bitwise.  Sharded, every shard
+        prepares its rows on its device, and the positive-definiteness
+        flags are read on the host once."""
         s, ne = lam_vals.shape
         if ne != self.fine_space.nelem:
             raise ValueError(
                 f"prepare: material fields have {ne} elements per row, "
                 f"expected nelem_fine = {self.fine_space.nelem}"
             )
-        mask = torch.as_tensor(reset_mask, dtype=torch.bool, device=self.device)
-        return self._prepare_body(
-            torch.as_tensor(lam_vals, dtype=self.dtype, device=self.device),
-            torch.as_tensor(mu_vals, dtype=self.dtype, device=self.device),
-            mask,
-            prep,
+        self._check_mesh(s, "prepare")
+        as_t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=self.device)  # noqa: E731
+        args = (
+            as_t(lam_vals, self.dtype), as_t(mu_vals, self.dtype),
+            as_t(reset_mask, torch.bool), prep,
         )
+        outs, bad = [], []
+        for prog, shard in zip(self._programs, self._shards(args)):
+            out, b = prog._prepare_body(*shard)
+            outs.append(out)
+            bad.append(b)
+        if _host_any(bad):
+            raise ValueError(
+                "prepare: a reset row's coarse matrix is not positive definite"
+            )
+        return self._join(outs)
 
     def run_chunk(
         self, tractions, rel_tol, reset_mask, state: BpcgState, prep: dict,
@@ -924,22 +1092,39 @@ class BatchedGMGSolver:
 
         Returns ``(state, consumed)`` where ``consumed`` is the (S,) int32
         count of iterations each row executed inside this chunk (0 for rows
-        that entered inactive)."""
+        that entered inactive).  Sharded, the batch size must divide the
+        mesh, the shards advance in lockstep (:func:`bpcg_chunk_shards`)
+        and both results are split over the mesh."""
         tractions = torch.as_tensor(tractions, dtype=self.dtype, device=self.device)
         s = tractions.shape[0]
-        _, _, A, M = self._build_from_prep(prep)
-        b = self._rhs(tractions)
+        self._check_mesh(s, "run_chunk")
+        rel = mask = None
         if do_reset:
-            fresh = bpcg_init(A, b, M=M, rel_tol=self._row_tensor(rel_tol, s))
-            state = merge_states(reset_mask, fresh, state)
-        start_iters = state.iters
-        out = bpcg_chunk(
-            A, state, M=M, k_iters=int(k_iters), maxiter=self.maxiter,
+            rel = self._row_tensor(rel_tol, s)
+            mask = torch.as_tensor(reset_mask, dtype=torch.bool, device=self.device)
+        ops, states, rhs, starts = [], [], [], []
+        for prog, (tr, rel_k, mask_k, st, pr) in zip(
+            self._programs, self._shards((tractions, rel, mask, state, prep))
+        ):
+            _, _, A, M = prog._build_from_prep(pr)
+            b = prog._rhs(tr)
+            if do_reset:
+                st = merge_states(mask_k, bpcg_init(A, b, M=M, rel_tol=rel_k), st)
+            ops.append((A, M))
+            states.append(st)
+            rhs.append(b)
+            starts.append(st.iters)
+        outs = bpcg_chunk_shards(
+            ops, states, k_iters=int(k_iters), maxiter=self.maxiter,
             stall_iters=self.stall_iters, stall_rtol=self.stall_rtol,
         )
         if self.stall_iters > 0:
-            out = true_residual_audit(A, M, b, out)
-        return out, out.iters - start_iters
+            outs = [
+                true_residual_audit(A, M, b, out)
+                for (A, M), b, out in zip(ops, rhs, outs)
+            ]
+        consumed = [out.iters - s0 for out, s0 in zip(outs, starts)]
+        return self._join(outs), self._join(consumed)
 
     def _f64_fallback_solver(self) -> "BatchedGMGSolver":
         """The lazily built f64 twin that re-solves stalled rows: same
@@ -959,6 +1144,7 @@ class BatchedGMGSolver:
                 ess_faces=self._ess_faces,
                 traction_face=self._traction_face,
                 maxiter=self.maxiter,
+                mesh=self.mesh,
             )
         return self._f64_twin
 
@@ -976,18 +1162,28 @@ class BatchedGMGSolver:
         stagnation detector or the true-residual audit flagged are
         re-solved on the lazily built f64 twin and merged back —
         ``fallback`` marks them, ``iterations`` counts the total work
-        (reduced + f64 passes), and the merged result is promoted to f64."""
+        (reduced + f64 passes), and the merged result is promoted to f64.
+
+        A sharded solver pads S to a multiple of the device count with
+        born-converged rows (:meth:`pad_scenarios`) and slices them off:
+        the result holds the S rows asked for, gathered onto
+        ``self.device``."""
         materials, tractions, rel_tol, s = self.pad_scenarios(
             materials, tractions, rel_tol
         )
+        n = len(materials)
         lam_vals, mu_vals = self.pack_materials(materials)
-        ones = torch.ones((s,), dtype=torch.bool, device=self.device)
-        prep = self.prepare(lam_vals, mu_vals, ones, self.empty_prep(s))
+        ones = torch.ones((n,), dtype=torch.bool, device=self.device)
+        prep = self.prepare(lam_vals, mu_vals, ones, self.empty_prep(n))
         state, _ = self.run_chunk(
-            tractions, rel_tol, ones, self.empty_state(s), prep, self.maxiter,
+            tractions, rel_tol, ones, self.empty_state(n), prep, self.maxiter,
             do_reset=True,
         )
         res = bpcg_result(state)
+        if n > s:
+            res = BPCGResult(**{
+                f.name: getattr(res, f.name)[:s] for f in dataclasses.fields(BPCGResult)
+            })
         if self.precision.reduced:
             need = (res.stalled & ~res.converged).cpu().numpy()
             if need.any():

@@ -10,6 +10,7 @@ import json
 import pathlib
 
 import pytest
+import torch
 
 from repro.distributed.sharding import scenario_row_devices as ref_row_devices
 from repro.serve import chunk_policy as ref_cp
@@ -99,10 +100,18 @@ def test_scenario_row_devices_match_reference(s, n):
 
 
 def test_scenario_mesh_is_one_card():
+    """Meshes of virtual CPU devices; a card mesh longer than the host's
+    cards raises (an int never repeats a card), naming the count."""
+    cpu = torch.device("cpu")
     assert normalize_scenario_mesh(None) == (None, 1)
-    assert normalize_scenario_mesh(1) == (None, 1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        normalize_scenario_mesh(2)
+    assert normalize_scenario_mesh(1, "cpu") == ((cpu,), 1)
+    assert normalize_scenario_mesh(2, "cpu") == ((cpu, cpu), 2)
+    assert normalize_scenario_mesh(["cpu"] * 3) == ((cpu,) * 3, 3)
+    n_cards = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"the host has {n_cards}"):
+        normalize_scenario_mesh(n_cards + 1, "cuda")
+    with pytest.raises(ValueError, match=f"the host has {n_cards} CUDA card"):
+        normalize_scenario_mesh([f"cuda:{n_cards}"])
     for bad in ((8, 3), (4, 0)):
         with pytest.raises(ValueError) as want:
             ref_row_devices(*bad)

@@ -20,6 +20,7 @@ from repro_torch.configs import get_reduced
 from repro_torch.convert import lm_params
 from repro_torch.core.basis import basis_tables
 from repro_torch.core.operators import ASSEMBLY_LEVELS, ElasticityOperator
+from repro_torch.distributed.sharding import gather_scenario, tree_to
 from repro_torch.fem.space import H1Space
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import (
@@ -694,6 +695,45 @@ def test_take_rows_copy_prep_rows_bitwise_on_card(card):
         for old, new in zip(prep[key], swapped[key]):
             assert torch.equal(new.reshape(3, -1)[[1, 0, 2]], old.reshape(3, -1))
     assert torch.equal(swapped["chol"][[1, 0, 2]], prep["chol"])
+
+
+@pytest.mark.cuda
+def test_sharded_host_copies_wait_for_queued_work_on_card(card):
+    """A sharded state and prep on two virtual devices of the card, copied
+    to the host as a checkpoint copies them (state_to_host, prep_to_host,
+    gather_scenario, tree_to) while writes to their blocks are still
+    queued behind a stalled stream, equal bitwise a blocking copy taken
+    once the card is idle."""
+    solver = BatchedGMGSolver(beam_hex(), 1, 2, device=card, mesh=(card,) * 2)
+    mats = [{1: (50.0, 50.0), 2: (1.0, 1.0)}, {1: (10.0, 5.0), 2: (2.0, 2.0)},
+            {1: (20.0, 20.0), 2: (3.0, 1.0)}, {1: (9.0, 9.0), 2: (1.0, 3.0)}]
+    trs = np.array([[0.0, 0.0, -1e-2], [0.0, 1e-3, -2e-2], [0.0, 0.0, -5e-3],
+                    [0.0, 2e-3, -1e-2]])
+    tols = np.full(4, 1e-10)
+    lam, mu = solver.pack_materials(mats)
+    ones = np.ones(4, bool)
+    prep = solver.prepare(lam, mu, ones, solver.empty_prep(4))
+    state, _ = solver.run_chunk(trs, tols, ones, solver.empty_state(4), prep, 3, do_reset=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(500_000_000)  # ~0.25 s: what follows stays queued
+    for leaf in (state.x, state.r, prep["chol"], prep["lam_w"][0]):
+        for b in leaf.blocks:
+            b.mul_(2.0)
+    got = {"state": solver.state_to_host(state), "prep": solver.prep_to_host(prep),
+           "gather": gather_scenario(state.r, "cpu").numpy(),
+           "tree": tree_to({"x": state.x}, "cpu")["x"].numpy()}
+    torch.cuda.synchronize()
+
+    def blocking(leaf):
+        return torch.cat([b.cpu() for b in getattr(leaf, "blocks", (leaf,))]).numpy()
+
+    for f in dataclasses.fields(state):
+        np.testing.assert_array_equal(got["state"][f.name], blocking(getattr(state, f.name)),
+                                      err_msg=f.name)
+    np.testing.assert_array_equal(got["prep"]["chol"], blocking(prep["chol"]))
+    np.testing.assert_array_equal(got["prep"]["lam_w0"], blocking(prep["lam_w"][0]))
+    np.testing.assert_array_equal(got["gather"], blocking(state.r))
+    np.testing.assert_array_equal(got["tree"], blocking(state.x))
 
 
 class _ScriptedCrash(RuntimeError):

@@ -26,6 +26,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from repro.fem.mesh import beam_hex as ref_beam_hex
 from repro.obs import SpanRecorder as RefSpanRecorder
@@ -40,6 +41,7 @@ from repro_torch.distributed.elastic import (
     elastic_scenario_mesh,
     simulate_failures,
 )
+from repro_torch.distributed.sharding import device_put_scenario
 from repro_torch.fem.mesh import beam_hex
 from repro_torch.launch import serve_solve
 from repro_torch.obs import SpanRecorder
@@ -430,9 +432,17 @@ def test_watchdog_fires_counter_and_span():
 
 
 def test_elastic_helpers_on_one_card():
-    assert elastic_scenario_mesh() == 1 and elastic_scenario_mesh(["cuda:0"]) == 1
-    with pytest.raises(NotImplementedError, match="item 10"):
-        elastic_scenario_mesh(["cuda:0", "cuda:1"])
+    """The survivor mesh over virtual CPU devices; a card the host lacks
+    raises; a host state goes onto the survivor mesh as row blocks."""
+    mesh = elastic_scenario_mesh(["cpu"] * 2)
+    assert mesh == (torch.device("cpu"),) * 2
+    n_cards = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"the host has {n_cards} CUDA card"):
+        elastic_scenario_mesh([f"cuda:{i}" for i in range(n_cards + 1)])
+    tree = {"x": np.arange(8.0).reshape(4, 2), "k": 3}
+    placed = device_put_scenario(tree, mesh)
+    assert placed["k"] == 3 and [b.tolist() for b in placed["x"].blocks] == [
+        [[0.0, 1.0], [2.0, 3.0]], [[4.0, 5.0], [6.0, 7.0]]]
     assert simulate_failures([0, 1, 2, 3], 3) == [0]
     with pytest.raises(ValueError):
         simulate_failures([0, 1], 2)

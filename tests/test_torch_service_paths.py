@@ -144,8 +144,14 @@ def test_left_out_parts_raise_and_idle_paths():
     # the step watchdog is ported (recovery): idle steps run under it
     wd = svc.attach_watchdog(1.0)
     assert svc.watchdog is wd and wd.timeouts == 0
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        es.ElasticityService(device="cpu", mesh=2)
+    # a mesh of two virtual CPU devices rounds buckets up to pairs; a card
+    # the host lacks raises, naming the count
+    sharded = es.ElasticityService(device="cpu", mesh=2)
+    assert sharded.n_shards == 2 and sharded.mesh == (torch.device("cpu"),) * 2
+    assert [sharded.bucket_for(n) for n in (1, 2, 3, 5, 8, 9)] == [2, 2, 4, 8, 8, 8]
+    n_cards = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"the host has {n_cards} CUDA card"):
+        es.ElasticityService(mesh=[f"cuda:{n_cards}"])
     # precision names fail at intake (the port has no bfloat16 policy yet)
     with pytest.raises(ValueError, match="unknown precision policy 'f16'"):
         svc.submit(es.SolveRequest(precision="f16"))
