@@ -288,8 +288,30 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    bitwise is printed) and a 3-row flight restored onto 2 (the re-bucket
    branch: the row kept in place bitwise, the moved row within 1e-12);
    (e) ``serve_solve --devices`` past the
-   host's cards raises, naming the count.  The wall time of each phase is
-   printed (``[wall]`` lines).
+   host's cards raises, naming the count.
+15. the LM side on a (data, model) mesh of virtual devices of the card
+   (``[lm mesh]`` lines; the shards queue on one card, so no number says
+   anything of traffic between cards): (a) phase 9's cell (qwen3-1.7b at
+   full width and depth, bf16, B = 4, S = 4096) through
+   ``train_loop(mesh=make_local_mesh(2, devices=("cuda:0",) * 4))``, its
+   memory reckoning printed, step 1 run twice from one state (bitwise),
+   then one warm-up and five timed steps, each counted (4 x (2L + L) wgmma
+   flash launches, no plain call), the losses held to phase 9's, and a
+   gathered checkpoint written; (b) olmoe-1b-7b: one full-width MoE layer
+   expert parallel on (2, 2) against ``moe_apply`` on each data row's
+   rows (ids identical), then the model at the depth its mesh reckoning
+   allows, two steps, the loss with the global aux against the unsharded
+   forward's and the share of equal expert ids printed, and the same
+   reduced in f32; (c) ``pipeline_apply`` of qwen3-1.7b's 28 blocks as 4
+   stages of 7 on 4 virtual devices, 8 microbatches of 1 x 2048, bitwise
+   equal to the sequential apply, both timed, the bubble fraction
+   printed; (d) 2 of (a)'s 4 devices fail, ``elastic_remesh`` gives (1,
+   2), (a)'s checkpoint is restored and resharded onto it and stepped
+   twice: bitwise equal to (a)'s state resharded in memory and stepped
+   the same, within 2^-8 of (a)'s own continuation on (2, 2) (its first
+   step profiled: the collectives' share); (e) a mesh naming one card
+   more than the host has raises, naming the count.  The wall time of
+   each phase is printed (``[wall]`` lines).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -362,6 +384,19 @@ from repro_torch.core.geometry import MATERIALS_BEAM  # noqa: E402
 from repro_torch.solvers.batched import BatchedGMGSolver, bpcg_result  # noqa: E402
 from repro_torch.core.paop_dd import SlabDecomposition  # noqa: E402
 from repro_torch.distributed.sharding import gather_scenario  # noqa: E402
+from repro_torch.distributed.sharding import (  # noqa: E402
+    LMMesh, Sharded, param_pspecs, place, state_pspecs)
+from repro_torch.distributed.elastic import (  # noqa: E402
+    elastic_remesh, reshard_state, simulate_failures)
+from repro_torch.distributed.pipeline import (  # noqa: E402
+    bubble_fraction, pipeline_apply, split_stages)
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
+from repro_torch.launch.train import _host_like  # noqa: E402
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
+from repro_torch.train.trainer import _requires_grad  # noqa: E402
+from repro_torch.models.transformer import _block_x as model_block  # noqa: E402
+from repro_torch.models.transformer import _positions as model_positions  # noqa: E402
+from repro_torch.models.transformer import _unstack as model_unstack  # noqa: E402
 from repro_torch.serve.elasticity_service import SolveRequest  # noqa: E402
 from repro_torch.solvers.coarse import (  # noqa: E402
     assembled_coarse_matrix, cholesky_solver, make_coarse_solver, probe_coarse_matrix)
@@ -571,6 +606,26 @@ DD_SHAPE, DD_SHARDS, DD_F32_TOL, DD_F64_SHARDS, DD_F64_RTOL = "beam_p8_51m", 4, 
 MESH_SIZES, MESH_CHUNK, MESH_X_REL, MESH_NORM_RTOL = (2, 4), 8, 1e-12, 1e-8
 # (d)'s restores at a small size: p=2, refine=1, chunks of 2.
 MESH_RESTORE_P, MESH_RESTORE_REFINE = 2, 1
+# Phase 15: the LM side on a (data, model) mesh of virtual devices of the
+# card.  (a) phase 9's cell on a (2, 2) mesh: its losses against phase 9's
+# within LM_MESH_LOSS_REL of each loss: the two runs differ only in the
+# order and bf16 rounding of sums (a projection's two halves all-reduced,
+# two data rows' gradients summed), and one bf16 rounding of the loss is
+# 2^-8 of it; (b) olmoe-1b-7b on the same mesh at the depth its reckoning
+# allows, one step's loss against the unsharded forward's to the same
+# tolerance, the share of expert ids that agree printed (random-init gates
+# are near uniform, so ids flip within the rounding of the router input),
+# and one full-width MoE layer on the mesh against moe_apply on each data
+# row's rows (ids identical, outputs within LM_MESH_LOSS_REL of max);
+# (c) GPipe of qwen3-1.7b's 28 blocks as
+# PIPE_STAGES stages; (d) a restart of (a)'s checkpoint on the (1, 2) mesh
+# left after 2 of its 4 devices fail.
+LM_MESH_DEVICES, LM_MESH_MP = ("cuda:0",) * 4, 2
+LM_MESH_LOSS_REL = 2.0 ** -8
+LM_MESH_RESUME_STEPS = 2
+PIPE_STAGES, PIPE_MICRO, PIPE_BATCH, PIPE_SEQ = 4, 8, 8, 2048
+TRAIN_HISTORY: dict = {}  # phase 9's (and every train_full_width run's) logged steps
+
 # Where a train step's device time goes (phase 9c's profile): kernels by
 # name, the optimizer by its record_function range.
 TRAIN_TOP_KERNELS = 6  # kernels listed per category
@@ -2037,6 +2092,7 @@ def train_full_width(card: str, cfg, batch: int, finite_grads: bool = True) -> i
                                     device="cuda", step_context=counted)
     finally:
         flash_ops.flash_attention_bwd = inner
+    TRAIN_HISTORY[cfg.name] = history
     want = {"flash_attention": (2 * n, 0), "flash_attention_bwd": (n, 0)}
     for i, (counts, routes, bwd_routes) in enumerate(per_step):
         got = {k: counts[k] for k in want}
@@ -3498,6 +3554,434 @@ def multidevice_phase(card: str, batch_iters: list[int], fixed: list, gen: list)
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the LM side on a mesh of virtual devices of the card
+# ---------------------------------------------------------------------------
+def mesh_train_reckoning(cfg, batch: int, mesh) -> tuple[int, str]:
+    """The reckoned training peak of ``cfg`` at ``batch`` x TRAIN_SEQ on
+    ``mesh``, in bytes, and its printed terms: :func:`train_reckoning`'s
+    (the state and the stacked gradient split into blocks that sum to the
+    whole), with the residual kept between blocks and one block's
+    transients once a model device (each keeps and computes its replica of
+    its data row's rows), every device's gather of one layer's weights in
+    the forward and again in the backward (at most the whole layer each),
+    and each data row's first device's gather of the embedding or head
+    (its weight and its gradient)."""
+    need, terms = train_reckoning(cfg, batch)
+    M, n = mesh.shape.get("model", 1), mesh.size
+    D = n // M
+    shapes = param_shapes(cfg)
+    layer = sum(math.prod(sh[1:]) for sh in _leaves(shapes["blocks"])) * 2
+    saved = cfg.n_layers * batch * TRAIN_SEQ * cfg.d_model * 2 * (M - 1)
+    block = ffn_transients(cfg, batch, TRAIN_SEQ) * (M - 1)
+    head = 2 * D * math.prod(shapes.get("lm_head", shapes["embed"])) * 2
+    gathers = 2 * n * layer
+    extra = saved + block + gathers + head
+    return need + extra, (f"{terms} + on the {mesh.shape} mesh: replicas kept between blocks "
+                          f"{saved / 1e9:.2f} GB + replicas' block transients {block / 1e9:.2f} "
+                          f"GB + gathered layer weights {gathers / 1e9:.2f} GB + gathered head "
+                          f"{head / 1e9:.2f} GB")
+
+
+def clone_state(state):
+    """A copy of a train state on a mesh, block for block."""
+    def clone(x):
+        if isinstance(x, Sharded):
+            return Sharded([b.detach().clone().requires_grad_(b.requires_grad)
+                            for b in x.blocks], x.spec, x.mesh, x.shape)
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    return dataclasses.replace(state, params=_tree_map(clone, state.params),
+                               opt_state=_tree_map(clone, state.opt_state),
+                               step=state.step.clone())
+
+
+def state_blocks(state) -> list:
+    """Every tensor of a train state on a mesh: each leaf's blocks, and the
+    counters."""
+    return [b for x in _leaves([state.params, state.opt_state, state.step])
+            for b in (x.blocks if isinstance(x, Sharded) else (x,))]
+
+
+def mesh_batch(cfg, shape, step: int) -> dict:
+    return {k: torch.from_numpy(a) for k, a in make_batch(cfg, shape, step, SEED).items()}
+
+
+def mesh_steps(cfg, shape, state, mesh, steps, opt, card: str = "", profile=False
+               ) -> list[float]:
+    """Steps ``steps`` (batch indices) of ``state`` on ``mesh``, in place;
+    returns their losses.  With ``profile`` the first runs under the
+    profiler: its device time by category, the collectives (each gather
+    with its backward's reduce-scatter, each all-reduce both ways) and the
+    replica sums by their ranges."""
+    step_fn = make_train_step(cfg, opt, mesh=mesh)
+    losses = []
+    for j, i in enumerate(steps):
+        batch = mesh_batch(cfg, shape, i)
+        out = []
+
+        def one():
+            out.append(step_fn(state, batch))
+            torch.cuda.synchronize()
+
+        if profile and j == 0:
+            ms, count, busy, top = device_time_by_category(
+                one, TRAIN_CATEGORIES, {
+                    "replica sums": "train.reduce_replicas",
+                    "all-gathers and their reduce-scatters": "collective.all_gather",
+                    "all-reduces": "collective.all_reduce", "AdamW": "train.optimizer"},
+                other="elementwise/copies")
+            parts = ", ".join(f"{c} {ms[c]} ms ({100 * ms[c] / busy:.1f}%, x{count[c]})"
+                              for c in ms)
+            print(f"[lm mesh] profile of step {i + 1} on {mesh.shape}: device busy {busy} ms: "
+                  f"{parts} ({card})")
+            for c, rows in top.items():
+                for name, t, calls in rows[:TRAIN_TOP_KERNELS]:
+                    print(f"[lm mesh]   {c}: {t:9.3f} ms x{calls:<5d} {name[:110]}")
+        else:
+            one()
+        new, m = out[0]
+        losses.append(float(m["loss"]))
+        state.params, state.opt_state, state.step = new.params, new.opt_state, new.step
+    return losses
+
+
+def lm_mesh_train(card: str, ckpt: str) -> tuple[object, dict, object]:
+    """Phase 15(a): phase 9's cell through ``train_loop(mesh=)`` on a (2, 2)
+    mesh of four virtual devices, its checkpoint written to ``ckpt``.
+    First one step twice from one state (bitwise); then one warm-up and
+    five timed steps, each counted (4 devices x (2L forward + L backward)
+    wgmma launches, no plain call), the losses held to phase 9's.  Returns
+    the final state, the launches over the run and the opt config."""
+    cfg = get_config(TRAIN_ARCH)
+    mesh = make_local_mesh(LM_MESH_MP, devices=LM_MESH_DEVICES)
+    shape = ShapeConfig(f"train_4k, global batch 256 cut to {TRAIN_BATCH}", "train", TRAIN_SEQ,
+                        TRAIN_BATCH)
+    opt = AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=max(TRAIN_STEPS // 20, 1))
+    need, terms = mesh_train_reckoning(cfg, TRAIN_BATCH, mesh)
+    free, total = torch.cuda.mem_get_info()
+    print(f"[lm mesh] (a) {cfg.name} B={TRAIN_BATCH} S={TRAIN_SEQ} on {mesh}: reckoned {terms} "
+          f"= {need / 1e9:.2f} GB; {free / 1e9:.2f} GB free of {total / 1e9:.2f} GB ({card})")
+
+    # step 1 twice from one state
+    t0 = time.perf_counter()
+    state = train_state_init(torch.Generator(device="cuda").manual_seed(SEED), cfg, mesh=mesh)
+    twin = clone_state(state)
+    runs = []
+    for st in (state, twin):
+        runs.append(mesh_steps(cfg, shape, st, mesh, [0], opt))
+    same = runs[0] == runs[1] and all(
+        torch.equal(a, b) for a, b in zip(state_blocks(state), state_blocks(twin)))
+    del state, twin
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[lm mesh] (a) step 1 twice from one state on {mesh.shape}: loss {runs[0][0]!r}; "
+          f"loss, parameters and moments {'bitwise equal' if same else 'DIFFER'} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if not same:
+        raise SystemExit("a train step on the mesh is not bitwise repeatable")
+
+    per_step = []
+
+    @contextlib.contextmanager
+    def counted(i):
+        reset_all_counts()
+        yield
+        per_step.append((all_counts(), dict(flash_ops.route_launches),
+                         dict(flash_ops.bwd_route_launches)))
+
+    L, n = cfg.n_layers, mesh.size
+    t0 = time.perf_counter()
+    state, history = train_loop(cfg, shape, steps=TRAIN_STEPS, log_every=1, seed=SEED,
+                                opt=opt, mesh=mesh, step_context=counted, ckpt_dir=ckpt)
+    t_loop = time.perf_counter() - t0
+    ck_bytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(ckpt) for f in fs)
+    print(f"[lm mesh] (a) train_loop wall {t_loop:.1f} s, of which steps "
+          f"{sum(m['step_s'] for m in history):.1f} s; the rest is the state's init and layout "
+          f"and the gathered checkpoint of step {TRAIN_STEPS} ({ck_bytes / 1e9:.2f} GB on disk, "
+          f"the unsharded format)")
+    want = {"flash_attention": (n * 2 * L, 0), "flash_attention_bwd": (n * L, 0)}
+    for i, (counts, routes, bwd_routes) in enumerate(per_step):
+        got = {k: counts[k] for k in want}
+        print(f"[lm mesh] (a) step {i + 1} counts (launches, plain_calls): {got}; forward "
+              f"routes {routes}, backward routes {bwd_routes}")
+        if got != want or routes["wgmma"] != n * 2 * L or bwd_routes["wgmma"] != n * L:
+            raise SystemExit(f"mesh train step {i + 1}: {got}, routes {routes}, {bwd_routes}; "
+                             f"expected {want} on wgmma")
+    ref = TRAIN_HISTORY[cfg.name]
+    rel = [abs(m["loss"] - r["loss"]) / abs(r["loss"]) for m, r in zip(history, ref)]
+    timed = history[1:]
+    step_s = statistics.median(m["step_s"] for m in timed)
+    ref_s = statistics.median(r["step_s"] for r in ref[1:])
+    T = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[lm mesh] (a) {cfg.name} bf16 L={L} on {mesh.shape} ({n} virtual devices of one "
+          f"card, local flash shape ({TRAIN_BATCH // (n // LM_MESH_MP)}, {TRAIN_SEQ}, "
+          f"{cfg.n_heads // LM_MESH_MP}, {cfg.n_kv_heads // LM_MESH_MP}, {cfg.head_dim_})): "
+          f"losses {[m['loss'] for m in history]}, phase 9's {[r['loss'] for r in ref]}, rel "
+          f"diff {rel} (limit {LM_MESH_LOSS_REL}); grad norms {[m['grad_norm'] for m in history]}"
+          f" (phase 9's {[r['grad_norm'] for r in ref]}); timed steps 2-{TRAIN_STEPS}: step s "
+          f"{[m['step_s'] for m in timed]}, median {step_s} s, {T / step_s} tokens/s, "
+          f"{step_s / ref_s}x phase 9's {ref_s} s; peak {max(m['peak_gib'] for m in history)} "
+          f"GiB ({card}; traffic between cards not measured: one card)")
+    if len(history) != TRAIN_STEPS or max(rel) > LM_MESH_LOSS_REL or not all(
+            np.isfinite(m["grad_norm"]) for m in history):
+        raise SystemExit(f"the mesh run's losses are off phase 9's: {rel}")
+    if history[0]["loss"] != runs[0][0]:
+        raise SystemExit(f"train_loop's step 1 {history[0]['loss']!r} is not the repeated "
+                         f"step's {runs[0][0]!r}")
+    launches = {k: sum(c[k][0] for c, _, _ in per_step) for k in want}
+    return state, launches, opt
+
+
+def moe_layer_check(cfg, mesh, card: str) -> None:
+    """Phase 15(b): one MoE layer of ``cfg`` at full width in bf16, random
+    weights and input (B = MOE_TRAIN_BATCH, S = TRAIN_SEQ), through
+    ``moe_mesh_apply`` on ``mesh`` (its leaves laid out by
+    ``param_pspecs``, each data row's rows on its devices) against
+    ``moe_apply`` run unsharded on each data row's rows: the expert ids
+    identical and the outputs within LM_MESH_LOSS_REL of max |unsharded|
+    (capacity is per batch row, so a row's routing and drops do not depend
+    on the other rows); the global aux loss against ``moe_apply`` on the
+    whole batch to the same tolerance.  The ids of ``moe_apply`` on the
+    whole batch are compared too and printed: the router's f32 product
+    rounds differently at another row count, and random-init gates are
+    near uniform, so some flip."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    p = moe_module.moe_init(g, cfg, torch.bfloat16)
+    x = torch.randn((MOE_TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), device="cuda",
+                    generator=g).to(torch.bfloat16)
+    sh = place({"moe": p}, param_pspecs({"moe": p}, mesh), mesh)["moe"]
+    rows = x.chunk(mesh.shape["data"])
+    leaders = mesh.leaders()
+    kept, inner = record_routes()
+    try:
+        with torch.no_grad():
+            per_row = [moe_module.moe_apply(p, r, cfg)[0] for r in rows]
+            y_all, aux = moe_module.moe_apply(p, x, cfg)
+            ys, aux_m = moe_module.moe_mesh_apply(
+                sh, [rows[mesh.coords(k)["data"]] for k in range(mesh.size)], cfg, mesh)
+    finally:
+        moe_module.route = inner
+    nr = len(rows)
+    ids_rows, ids_all, ids_mesh = kept[:nr], kept[nr], kept[nr + 1:]
+    same = all(torch.equal(ids_mesh[k], ids_rows[mesh.coords(k)["data"]])
+               for k in range(mesh.size))
+    y_m, y_r = torch.cat([ys[k] for k in leaders]), torch.cat(per_row)
+    y_err = float((y_m.float() - y_r.float()).abs().max()) / float(y_r.float().abs().max())
+    bitwise = "bitwise" if torch.equal(y_m, y_r) else "not bitwise"
+    aux_err = abs(float(aux_m) - float(aux)) / abs(float(aux))
+    whole = torch.cat([ids_mesh[k] for k in leaders])
+    print(f"[lm mesh] (b) one {cfg.name} MoE layer (B={MOE_TRAIN_BATCH}, S={TRAIN_SEQ}, bf16) on "
+          f"{mesh.shape}, expert parallel: expert ids on every device "
+          f"{'identical to' if same else 'DIFFER from'} moe_apply's on its data row's rows; "
+          f"outputs max abs err {y_err:.3e} of max ({bitwise}); "
+          f"aux {float(aux_m)!r}, moe_apply's on the whole batch {float(aux)!r} (rel "
+          f"{aux_err:.3e}); ids equal to moe_apply's on the whole batch: "
+          f"{int((whole == ids_all).sum())} of {whole.numel()} (the router at another row "
+          f"count) ({card})")
+    if not same or y_err > LM_MESH_LOSS_REL or aux_err > LM_MESH_LOSS_REL:
+        raise SystemExit("the expert-parallel MoE layer disagrees with moe_apply")
+
+
+def lm_mesh_moe(card: str) -> None:
+    """Phase 15(b): olmoe-1b-7b in bf16 on a (2, 2) mesh: one full-width MoE
+    layer against ``moe_apply`` (:func:`moe_layer_check`); then the model at
+    the depth its mesh reckoning allows, two steps through ``train_loop``,
+    the expert branch, step 1's loss (with the global aux) against the
+    unsharded forward's on the same weights and batch, and the share of
+    the expert ids of each layer's forward (each data row's first device's,
+    concatenated) equal to the unsharded forward's, printed; then the same
+    for reduced olmoe in f32 on the same mesh of the card."""
+    t0 = time.perf_counter()
+    mesh = make_local_mesh(LM_MESH_MP, devices=LM_MESH_DEVICES)
+    full = get_config(MOE_TRAIN_ARCH)
+    branch = moe_module.moe_branch(full, TRAIN_SEQ, mesh.shape["model"])
+    if branch != "expert":
+        raise SystemExit(f"olmoe on {mesh.shape} took the {branch!r} branch")
+    moe_layer_check(full, mesh, card)
+    cfg = first_fit("lm mesh", layer_cuts(full),
+                    lambda cut: mesh_train_reckoning(cut, MOE_TRAIN_BATCH, mesh), card)
+    print(f"[lm mesh] (b) {cfg.name} {cfg.n_layers} of {full.n_layers} layers, B="
+          f"{MOE_TRAIN_BATCH} S={TRAIN_SEQ} on {mesh.shape}: MoE branch {branch!r} "
+          f"({cfg.n_experts} experts over a model axis of {mesh.shape['model']}) ({card})")
+    for tag, c, sh in (("full width bf16", cfg, ShapeConfig("t", "train", TRAIN_SEQ,
+                                                             MOE_TRAIN_BATCH)),
+                       ("reduced f32", dataclasses.replace(get_reduced(MOE_TRAIN_ARCH),
+                                                           dtype="float32"),
+                        ShapeConfig("t", "train", 64, 4))):
+        params = init_params(torch.Generator(device="cuda").manual_seed(SEED), c)
+        batch = {k: v.cuda() for k, v in mesh_batch(c, sh, 0).items()}
+        kept, inner = record_routes()
+        try:
+            with torch.no_grad():
+                ref_loss = float(loss_fn(params, batch, c))
+        finally:
+            moe_module.route = inner
+        ref_ids = kept
+        del params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        kept, inner = record_routes()
+        try:
+            _, history = train_loop(c, sh, steps=2 if c is cfg else 1, log_every=1, seed=SEED,
+                                    mesh=mesh)
+        finally:
+            moe_module.route = inner
+        gc.collect()
+        torch.cuda.empty_cache()
+        n, L = mesh.size, c.n_layers
+        fwd = kept[:n * L]  # step 1's forward: a call a device a layer
+        same = sets = total = rows = 0
+        for layer in range(L):
+            got = torch.cat([fwd[layer * n + k] for k in mesh.leaders()])
+            same += int((got == ref_ids[layer]).sum())
+            sets += int((got.sort(-1).values == ref_ids[layer].sort(-1).values).all(-1).sum())
+            total, rows = total + got.numel(), rows + got[..., 0].numel()
+        loss_rel = abs(history[0]["loss"] - ref_loss) / abs(ref_loss)
+        print(f"[lm mesh] (b) {c.name} {tag}: step 1 loss {history[0]['loss']!r} (global aux "
+              f"included), unsharded forward {ref_loss!r}, rel diff {loss_rel:.3e}; expert ids "
+              f"of the {L} layers' forward: {same} of {total} equal ({same / total:.6f}), the "
+              f"top-{c.top_k} sets of {sets} of {rows} tokens ({sets / rows:.6f}); steps "
+              f"{[m['step_s'] for m in history]} s, peak "
+              f"{max(m['peak_gib'] or 0 for m in history)} GiB ({card})")
+        if loss_rel > LM_MESH_LOSS_REL:
+            raise SystemExit(f"{c.name} {tag} on the mesh: loss rel {loss_rel}")
+    print(f"[lm mesh] (b) wall {time.perf_counter() - t0} s ({card})")
+
+
+def lm_mesh_pipeline(card: str) -> None:
+    """Phase 15(c): ``pipeline_apply`` of qwen3-1.7b's blocks as
+    PIPE_STAGES stages on as many virtual devices, forward only, at
+    PIPE_BATCH x PIPE_SEQ in PIPE_MICRO microbatches: bitwise equal to the
+    sequential apply of the same microbatches, each timed between fences,
+    with the flash launches counted."""
+    cfg = get_config(TRAIN_ARCH)
+    params = init_params(torch.Generator(device="cuda").manual_seed(SEED), cfg)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    tokens = torch.randint(0, cfg.vocab, (PIPE_BATCH, PIPE_SEQ), device="cuda", generator=g)
+    x = params["embed"][tokens]
+    pos = model_positions({"tokens": tokens[:PIPE_BATCH // PIPE_MICRO]}, cfg)
+    per = cfg.n_layers // PIPE_STAGES
+
+    def stage(p, xm):
+        for layer in model_unstack(p, per):
+            xm = model_block(layer, xm, cfg, pos)[0]
+        return xm
+
+    staged = split_stages(params["blocks"], PIPE_STAGES)
+    devs = np.empty(PIPE_STAGES, dtype=object)
+    devs[:] = ["cuda:0"] * PIPE_STAGES
+    mesh = LMMesh(devs.reshape(PIPE_STAGES, 1, 1), ("pod", "data", "model"))
+
+    def piped():
+        return pipeline_apply(stage, staged, x, mesh=mesh, n_micro=PIPE_MICRO)
+
+    def sequential():
+        outs = []
+        for xm in x.reshape(PIPE_MICRO, -1, *x.shape[1:]):
+            for s_ in range(PIPE_STAGES):
+                xm = stage(_tree_map(lambda t, s_=s_: t[s_], staged), xm)
+            outs.append(xm)
+        return torch.stack(outs).reshape(x.shape)
+
+    with torch.no_grad():
+        reset_all_counts()
+        got = piped()
+        torch.cuda.synchronize()
+        launches = all_counts()["flash_attention"]
+        want = sequential()
+        same = torch.equal(got, want)
+        t_pipe, t_seq = fenced_ms(piped, 3), fenced_ms(sequential, 3)
+    bubble = bubble_fraction(PIPE_STAGES, PIPE_MICRO)
+    print(f"[lm mesh] (c) pipeline_apply of {cfg.name}'s {cfg.n_layers} blocks as {PIPE_STAGES} "
+          f"stages of {per} on {PIPE_STAGES} virtual devices, B={PIPE_BATCH} S={PIPE_SEQ} bf16 in "
+          f"{PIPE_MICRO} microbatches, forward: {'bitwise equal to' if same else 'DIFFERS from'} "
+          f"the sequential apply; flash (launches, plain) {launches}; bubble fraction {bubble} "
+          f"(a schedule's idle share across {PIPE_STAGES} cards; here the stages queue on one); "
+          f"wall {t_pipe} ms against the sequential {t_seq} ms ({t_pipe / t_seq}x), median of 3 "
+          f"fenced ({card})")
+    if not same or launches != (cfg.n_layers * PIPE_MICRO, 0):
+        raise SystemExit(f"pipeline_apply: bitwise {same}, launches {launches}")
+
+
+def lm_mesh_restart(card: str, state, ckpt: str, opt) -> None:
+    """Phase 15(d): 2 of (a)'s 4 devices fail; ``elastic_remesh`` gives
+    (1, 2).  The undisturbed run: (a)'s final state resharded in memory
+    onto (1, 2) and stepped LM_MESH_RESUME_STEPS times.  The restart: (a)'s
+    checkpoint restored on the host and ``reshard_state``-d onto (1, 2),
+    the same steps: bitwise equal to the undisturbed run, and within
+    LM_MESH_LOSS_REL of (a)'s own continuation on (2, 2)."""
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeConfig("train_4k", "train", TRAIN_SEQ, TRAIN_BATCH)
+    m22 = state.params["embed"].mesh
+    alive = simulate_failures(list(m22.flat), 2)
+    m12 = elastic_remesh(alive, model_parallel=LM_MESH_MP)
+    steps = list(range(TRAIN_STEPS, TRAIN_STEPS + LM_MESH_RESUME_STEPS))
+    und = reshard_state(state, state_pspecs(state, m12), m12)
+    _requires_grad(und.params)
+    cont = mesh_steps(cfg, shape, state, m22, steps, opt, card, profile=True)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    und_losses = mesh_steps(cfg, shape, und, m12, steps, opt)
+    t1 = time.perf_counter()
+    mgr = CheckpointManager(ckpt)
+    restored, _, at = mgr.restore_latest(_host_like(und))
+    t_restore = time.perf_counter() - t1
+    res = reshard_state(restored, state_pspecs(restored, m12), m12)
+    del restored
+    _requires_grad(res.params)
+    res_losses = mesh_steps(cfg, shape, res, m12, steps, opt)
+    same = und_losses == res_losses and all(
+        torch.equal(a, b) for a, b in zip(state_blocks(und), state_blocks(res)))
+    rel = [abs(a - b) / abs(b) for a, b in zip(res_losses, cont)]
+    print(f"[lm mesh] (d) {len(alive)} of {m22.size} devices alive -> elastic_remesh "
+          f"{m12.shape}; checkpoint of step {at} restored in {t_restore:.1f} s and resharded: "
+          f"steps {[i + 1 for i in steps]} losses {res_losses}, "
+          f"{'bitwise equal to' if same else 'DIFFER from'} the undisturbed (1, 2) run's "
+          f"{und_losses} (parameters and moments too); (a)'s continuation on {m22.shape} "
+          f"{cont}, rel diff {rel} (limit {LM_MESH_LOSS_REL}); wall "
+          f"{time.perf_counter() - t0:.1f} s ({card})")
+    if not same or max(rel) > LM_MESH_LOSS_REL or at != TRAIN_STEPS:
+        raise SystemExit("the elastic restart on (1, 2) is off")
+
+
+def lm_mesh_bad_card() -> None:
+    """Phase 15(e): a mesh naming one more card than the host has raises,
+    naming the host's count."""
+    n = torch.cuda.device_count()
+    try:
+        make_local_mesh(LM_MESH_MP, devices=(f"cuda:{n}",) * 4)
+    except ValueError as e:
+        print(f"[lm mesh] (e) make_local_mesh on cuda:{n}: {e}")
+        if f"the host has {n}" not in str(e):
+            raise SystemExit(f"the error does not name the host's {n} card(s): {e}")
+        return
+    raise SystemExit(f"a mesh naming cuda:{n} did not raise")
+
+
+def lm_mesh_phase(card: str) -> dict:
+    """Phase 15; returns (a)'s flash launches over its run."""
+    t_phase = time.perf_counter()
+    ckpt = tempfile.mkdtemp(prefix="lm_mesh_ckpt_")
+    try:
+        print(f"[lm mesh] checkpoint directory {ckpt}: "
+              f"{shutil.disk_usage(ckpt).free / 1e9:.1f} GB free")
+        state, launches, opt = lm_mesh_train(card, ckpt)
+        lm_mesh_restart(card, state, ckpt, opt)
+        del state
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_mesh_moe(card)
+    lm_mesh_pipeline(card)
+    lm_mesh_bad_card()
+    print(f"[lm mesh] phase wall {time.perf_counter() - t_phase} s ({card})")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3777,6 +4261,10 @@ def main() -> int:
     del fixed, gen_reports
     wall("14 (multi-device solver)")
 
+    # ---- 15. the LM side on a (data, model) mesh of virtual devices
+    mesh_launches = lm_mesh_phase(card)
+    wall("15 (multi-device LM)")
+
     kernels = [
         {
             "name": "pa_elasticity",
@@ -3820,6 +4308,12 @@ def main() -> int:
         *bwd_entries,
         *d80_entries,
     ]
+    # phase 15's launches (its (a) run on the mesh) added to the main paths'
+    for entry in kernels:
+        entry["launches"] += {"flash_attention": mesh_launches["flash_attention"],
+                              "flash_attention_bwd_wgmma":
+                              mesh_launches["flash_attention_bwd"]}.get(entry["name"], 0)
+    print(f"[lm mesh] phase 15 (a)'s launches added to the kernels line: {mesh_launches}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

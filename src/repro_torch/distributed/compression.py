@@ -12,9 +12,12 @@ plug into ``make_train_step(grad_transform=...)``:
 * :func:`make_error_feedback_transform` -- either compression with an
   error-feedback residual carried from step to step in float32.
 
-One card: nothing here crosses a link (the reference applies the transform
-before the gradient all-reduce; multi-device is ROADMAP.md, Queue 1
-item 10).
+On a mesh, ``make_train_step(mesh=...)`` applies the transform to each
+device's tree of block gradients (per-tensor quantities such as the int8
+scale are then per block).  The reference applies it inside one compiled
+step before the gradient all-reduce; on the port's one-card host nothing
+crosses a link, so what compression saves in bytes between cards is not
+measured.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
-"""Failure handling for the serving loop: the step watchdog, the
-serving-side remesh and a device-loss test hook.
+"""Failure handling for the serving and training loops: the step
+watchdog, the serving- and training-side remeshes, the reshard of a train
+state and a device-loss test hook.
 
 The recovery model is checkpoint-based: on any fault the job restarts
 from the last complete checkpoint, possibly on a different device count.
@@ -14,15 +15,23 @@ scenario mesh the survivor process builds here.
   (``BatchedGMGSolver.take_rows``; a host or differently placed state
   goes onto a mesh through
   :func:`~repro_torch.distributed.sharding.device_put_scenario`).
+* :func:`elastic_remesh` — the training-side remesh: the largest valid
+  (data, model) :class:`~repro_torch.distributed.sharding.LMMesh` over
+  the alive devices, keeping the model axis's size when the device count
+  allows (the TP degree is architecture-bound; the DP degree is the
+  elastic dimension).
+* :func:`reshard_state` — a restored or differently laid out train state
+  onto a mesh by its specs (:func:`~repro_torch.distributed.sharding.place`):
+  full tensors on any device, or ``Sharded`` leaves of another mesh.
 * :func:`simulate_failures` — deterministic device-loss test hook.
 * :class:`StepWatchdog` — straggler/hang detection: a monitor thread
   that fires a callback when a step exceeds ``timeout``.  The solve
   service wires it onto ``step()`` via
   ``ElasticityService.attach_watchdog``.
 
-The reference's training-side ``elastic_remesh`` (a (data, model)
-device mesh) waits for the LM half of multi-device support, ROADMAP
-Queue 1 item 10b.
+A train state restarts on a new mesh from a checkpoint, which holds the
+gathered state (``launch/train.py``): ``elastic_remesh`` over the
+survivors, then ``reshard_state`` of the restored tensors.
 """
 
 from __future__ import annotations
@@ -31,9 +40,18 @@ import threading
 import time
 from typing import Callable
 
-from repro_torch.distributed.sharding import scenario_mesh
+import numpy as np
+import torch
 
-__all__ = ["elastic_scenario_mesh", "StepWatchdog", "simulate_failures"]
+from repro_torch.distributed.sharding import LMMesh, place, scenario_mesh
+
+__all__ = [
+    "elastic_scenario_mesh",
+    "elastic_remesh",
+    "reshard_state",
+    "StepWatchdog",
+    "simulate_failures",
+]
 
 
 def elastic_scenario_mesh(devices=None):
@@ -41,6 +59,39 @@ def elastic_scenario_mesh(devices=None):
     default), a tuple of ``torch.device`` as the service's ``mesh`` option
     takes it.  A device the host lacks raises."""
     return scenario_mesh(devices=devices)
+
+
+def elastic_remesh(devices=None, *, model_parallel: int = 16,
+                   axis_names=("data", "model")) -> LMMesh:
+    """Largest (data, model) mesh over the alive devices (default: the
+    host's cards).
+
+    Keeps the model axis at ``model_parallel`` if the device count
+    allows, else falls back to the largest power-of-two divisor — the
+    params must still fit per-device, so shrinking TP is the last
+    resort.  Drops stragglers beyond the largest usable rectangle."""
+    if devices is None:
+        n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        devices = [torch.device("cuda", i) for i in range(n_cards)]
+    devices = list(devices)
+    n = len(devices)
+    mp = model_parallel
+    while mp > 1 and n // mp == 0:
+        mp //= 2
+    dp = n // mp
+    if dp == 0:
+        raise RuntimeError(f"not enough devices ({n}) for any mesh")
+    arr = np.empty(dp * mp, dtype=object)
+    arr[:] = devices[: dp * mp]
+    return LMMesh(arr.reshape(dp, mp), axis_names)
+
+
+def reshard_state(state, pspecs, mesh: LMMesh):
+    """Place a (possibly host-resident, possibly differently sharded)
+    state onto ``mesh`` by ``pspecs`` (a parallel tree of specs, e.g.
+    ``state_pspecs(state, mesh)``).  Blocks are copies: the state given is
+    left as it was."""
+    return place(state, pspecs, mesh)
 
 
 def simulate_failures(devices, n_failed: int):

@@ -16,10 +16,17 @@ CPU backend), ``--profile`` (the last step under ``torch.profiler``),
 ``--log-every`` (the reference logs every 10th step and the last; a restart
 test compares every step's loss, so it asks for 1) and
 ``--kill-after-steps`` (SIGKILL after that many steps of this process, for
-restart tests).  One card: the reference's mesh and its
-``state_pspecs``/``batch_pspec`` have no counterpart (ROADMAP.md, Queue 1
-item 10).  Gradient compression is ``train_loop``'s ``compression=``, as in
-the reference, whose CLI has no flag for it either.
+restart tests).  Gradient compression is ``train_loop``'s ``compression=``,
+and a mesh its ``mesh=``, as in the reference, whose CLI has a flag for
+neither.
+
+``train_loop(mesh=)`` trains on an
+:class:`~repro_torch.distributed.sharding.LMMesh` (``launch.mesh.make_local_mesh``,
+``distributed.elastic.elastic_remesh``): the state is laid out by
+``state_pspecs`` (FSDP over ``data``, tensor and expert parallelism over
+``model``), each step's batch split by ``batch_pspec``.  A checkpoint holds
+the gathered state in the same format as without a mesh, so it restores
+onto any mesh (``reshard_state``), or none.
 
 Each logged step prints its loss (the exact float), grad norm, learning
 rate, the step's time on the host clock between device fences, tokens/s,
@@ -42,7 +49,15 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import ShapeConfig, get_config, get_reduced
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.device import resolve_device, synchronize
-from repro_torch.distributed.elastic import StepWatchdog
+from repro_torch.distributed.elastic import StepWatchdog, reshard_state
+from repro_torch.distributed.sharding import (
+    Sharded,
+    _lm_map,
+    batch_pspec,
+    gather,
+    place,
+    state_pspecs,
+)
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.profiling import print_profile
 from repro_torch.train.trainer import _requires_grad, make_train_step, train_state_init
@@ -66,6 +81,7 @@ def train_loop(
     kill_after_steps: int | None = None,
     step_context=None,
     profile: bool = False,
+    mesh=None,
 ):
     """Train; returns (final state, list of metric dicts of the logged
     steps).
@@ -83,21 +99,45 @@ def train_loop(
     and its logged time includes the profiler's overhead.
 
     log_every: the reference's interval; the CLI's ``--log-every 1`` prints
-    every step, which a kill/resume comparison of steps 4-6 needs."""
-    device = resolve_device(device)
+    every step, which a kill/resume comparison of steps 4-6 needs.
+
+    mesh: an ``LMMesh`` to train on (``device`` is then its first device):
+    the state is the unsharded one from the same seed, placed by
+    ``state_pspecs``; checkpoints are saved gathered, in the format and
+    with the paths of an unsharded state, and a restore is resharded onto
+    ``mesh``.  Each logged step's peak memory is the first device's."""
+    device = resolve_device(mesh.flat[0] if mesh is not None else device)
+    devices = mesh.flat if mesh is not None else device
     opt = opt or AdamWConfig(total_steps=steps, warmup_steps=max(steps // 20, 1))
-    state = train_state_init(torch.Generator(device=device).manual_seed(seed), cfg)
+
+    def init():
+        gen = torch.Generator(device=device).manual_seed(seed)
+        if mesh is None:
+            return train_state_init(gen, cfg)
+        return train_state_init(gen, cfg, mesh=mesh)
+
+    state = init()
 
     start_step = 0
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
-    if mgr is not None:
+    if mgr is not None and mgr.available_steps():
+        if mesh is not None:
+            # a sharded state restores through host tensors of its full shapes
+            state = _host_like(state)
         restored = mgr.restore_latest(state)
         if restored is not None:
             state, _, start_step = restored
+            if mesh is not None:
+                state = reshard_state(state, state_pspecs(state, mesh), mesh)
             _requires_grad(state.params)
             print(f"[train] resumed from checkpoint step {start_step}", flush=True)
+        elif mesh is not None:
+            state = init()
 
-    step_fn = make_train_step(cfg, opt, grad_transform=compression)
+    def saved(state):
+        return gather(state, "cpu") if mesh is not None else state
+
+    step_fn = make_train_step(cfg, opt, grad_transform=compression, mesh=mesh)
     pipe = TokenPipeline(cfg, shape, seed=seed, start_step=start_step)
     wd = StepWatchdog(watchdog_timeout)
     tokens = shape.global_batch * shape.seq_len
@@ -109,17 +149,20 @@ def train_loop(
         ts = time.perf_counter()
         with torch.profiler.record_function("train.step"):
             state, metrics = step_fn(state, batch)
-            synchronize(device)
+            synchronize(devices)
         step_s = time.perf_counter() - ts
 
     t0 = time.perf_counter()
     try:
         for i in range(start_step, steps):
             host = next(pipe)
-            batch = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+            if mesh is not None:
+                batch = place(host, batch_pspec(mesh.axis_names, host), mesh)
+            else:
+                batch = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
             if device.type == "cuda":
                 torch.cuda.reset_peak_memory_stats(device)
-            synchronize(device)
+            synchronize(devices)
             ctx = step_context(i) if step_context is not None else contextlib.nullcontext()
             with wd.step(), ctx:
                 if profile and i + 1 == steps:
@@ -139,15 +182,22 @@ def train_loop(
                       f"lr {m['lr']:.2e} step {step_s:.4f}s {m['tokens_per_s']:.0f} tok/s{peak} "
                       f"tokens crc32 {m['tokens_crc32']:08x} ({m['wall_s']:.1f}s)", flush=True)
             if mgr is not None and (i + 1) % ckpt_every == 0:
-                mgr.save(i + 1, state, extra={"arch": cfg.name})
+                mgr.save(i + 1, saved(state), extra={"arch": cfg.name})
             if kill_after_steps is not None and i + 1 - start_step >= kill_after_steps:
                 print(f"[train] kill-after-steps: SIGKILL after step {i + 1}", flush=True)
                 os.kill(os.getpid(), signal.SIGKILL)
     finally:
         pipe.close()
     if mgr is not None:
-        mgr.save(steps, state, extra={"arch": cfg.name})
+        mgr.save(steps, saved(state), extra={"arch": cfg.name})
     return state, history
+
+
+def _host_like(state):
+    """A tree like ``state`` of empty host tensors of its leaves' full
+    shapes and dtypes: what a checkpoint restores into before a reshard."""
+    return _lm_map(lambda _, x: torch.empty(x.shape, dtype=x.dtype)
+                   if isinstance(x, (Sharded, torch.Tensor)) else x, state)
 
 
 def main(argv=None) -> None:

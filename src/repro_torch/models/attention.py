@@ -15,6 +15,14 @@ Two paths, as in the reference:
 * :func:`decode_attention` -- a one-token query against a KV cache (dense,
   or a rolling sliding-window buffer), in plain PyTorch: the reference has
   no kernel for it either.
+* :func:`mesh_attention` -- :func:`attention` on an
+  :class:`~repro_torch.distributed.sharding.LMMesh`, Megatron-style over
+  its ``model`` axis where the heads divide it: each model device runs
+  its own query and kv heads (its column blocks of ``wq``/``wk``/``wv``,
+  and of ``bq``/``bk``/``bv``) through the same flash route and applies
+  its row block of ``wo``; the partial outputs are all-reduced in model
+  order.  Otherwise every device gathers the weights whole and computes
+  the block replicated.
 
 KV heads stay folded (B, S, K, hd) with queries grouped (K, G): query head
 h = k * G + g.  Positions rotate q and k by RoPE ((B, S) positions) or
@@ -24,15 +32,17 @@ leave q and k alone.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
+from repro_torch.distributed.sharding import local_tree_views, mesh_all_reduce
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.common import rmsnorm
 from repro_torch.models.rope import apply_mrope, apply_rope
 
-__all__ = ["attention", "decode_attention", "init_kv_cache"]
+__all__ = ["attention", "mesh_attention", "attention_tp", "decode_attention", "init_kv_cache"]
 
 NEG_INF = -1e30
 
@@ -68,6 +78,34 @@ def attention(params, x, cfg, positions):
     q, k, v = _qkv(params, x, cfg, positions)
     o = flash_attention(q, k, v, window=cfg.sliding_window)
     return o.reshape(B, S, -1) @ params["wo"], (k, v)
+
+
+def _has_model(sh) -> bool:
+    return any("model" in axes for axes in sh.parts())
+
+
+def attention_tp(params, cfg, mesh) -> bool:
+    """Whether the attention runs tensor parallel on ``mesh``: a model axis
+    of M > 1 that divides both head counts, over which the layout splits
+    every projection (``tp=False`` layouts do not)."""
+    M = mesh.shape.get("model", 1)
+    return (M > 1 and cfg.n_heads % M == 0 and cfg.n_kv_heads % M == 0
+            and all(_has_model(params[w]) for w in ("wq", "wk", "wv", "wo")))
+
+
+def mesh_attention(params, xs, cfg, mesh, positions):
+    """Full-sequence causal attention of one block on ``mesh``: params the
+    block's attention leaves (``Sharded``), xs and positions one entry a
+    mesh device (its data row's rows).  Returns each device's output,
+    (B_row, S, d_model); equal over a data row's model devices."""
+    tp = attention_tp(params, cfg, mesh)
+    views = local_tree_views(params, ("model",) if tp else ())
+    if tp:
+        M = mesh.shape["model"]
+        cfg = dataclasses.replace(cfg, n_heads=cfg.n_heads // M,
+                                  n_kv_heads=cfg.n_kv_heads // M, head_dim=cfg.head_dim_)
+    hs = [attention(v, x, cfg, pos)[0] for v, x, pos in zip(views, xs, positions)]
+    return mesh_all_reduce(hs, mesh) if tp else hs
 
 
 # ---------------------------------------------------------------------------

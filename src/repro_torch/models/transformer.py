@@ -37,6 +37,21 @@ mLSTM's dict, a layer.  The reference's forward takes no remat for it;
 here each mLSTM block is rematerialized under ``remat`` (the same values;
 a full-width step needs it), the sLSTM blocks are not.
 
+On an :class:`~repro_torch.distributed.sharding.LMMesh`,
+:func:`mesh_loss_fn` (``loss_fn(..., mesh=)``) runs the same stack as one
+program a mesh device, over parameters laid out by ``param_pspecs``
+(``Sharded`` leaves): each device takes its data row's rows of the batch;
+an attention block runs tensor parallel over ``model`` where the heads
+(:func:`~repro_torch.models.attention.mesh_attention`) and ``d_ff`` divide
+it, the MoE expert or capacity parallel
+(:func:`~repro_torch.models.moe.moe_mesh_apply`); everything else (the
+embedding, the norms and residuals, the Mamba2 and xLSTM blocks) is
+gathered whole and computed replicated over ``model`` (their tensor
+parallelism is ROADMAP Queue 1 item 10, part 10c).  Each block's gathers run inside its
+remat, so the recompute gathers again, as FSDP does.  The loss is taken
+on each data row's first model device: the rows' CE sums over the global
+count of valid labels.  On a (1, 1) mesh it is :func:`loss_fn`, op for op.
+
 Inputs are dicts: ``tokens`` (B, S) integer (codebooks: (B, S, n_cb)),
 ``labels`` shaped like the tokens with -1 masking a position, and for the
 VLM ``vision_embeds`` (B, n_vision_tokens, d_model).
@@ -51,10 +66,19 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.collectives import ordered_sum
+from repro_torch.distributed.sharding import (
+    Sharded,
+    local_tree_views,
+    local_views,
+    mesh_all_reduce,
+    shard_of,
+)
 from repro_torch.models.attention import (
     attention,
     decode_attention,
     init_kv_cache,
+    mesh_attention,
 )
 from repro_torch.models.common import (
     dense_init,
@@ -65,12 +89,13 @@ from repro_torch.models.common import (
 from repro_torch.models import ssm as _ssm
 from repro_torch.models import xlstm as _xl
 from repro_torch.models.moe import DRAWN as MOE_DRAWN
-from repro_torch.models.moe import moe_apply, moe_shapes
+from repro_torch.models.moe import moe_apply, moe_mesh_apply, moe_shapes
 
 __all__ = [
     "init_params",
     "forward",
     "loss_fn",
+    "mesh_loss_fn",
     "prefill",
     "decode_step",
     "init_decode_state",
@@ -204,7 +229,8 @@ def _unstack(blocks, n: int) -> list:
             return {k: walk(v, i) for k, v in tree.items()}
         return tree[i]
 
-    unbound = _tree_map(torch.unbind, blocks)
+    unbound = _tree_map(lambda t: t.unbind() if isinstance(t, Sharded) else torch.unbind(t),
+                        blocks)
     return [walk(unbound, i) for i in range(n)]
 
 
@@ -496,6 +522,12 @@ def chunked_ce_loss(hidden, head_w, labels, chunk: int = LOSS_CHUNK):
     exist only transiently in the forward and in the backward (saving
     every chunk's logits would keep the whole (B, S, V) f32 tensor the
     function exists to avoid)."""
+    return _ce_sum(hidden, head_w, labels, chunk) / torch.clamp((labels >= 0).sum(), min=1)
+
+
+def _ce_sum(hidden, head_w, labels, chunk: int = LOSS_CHUNK):
+    """:func:`chunked_ce_loss`'s summed CE over the valid positions, before
+    the division by their count."""
     B, S, d = hidden.shape
     c = min(chunk, S)
     if S % c:
@@ -507,13 +539,14 @@ def chunked_ce_loss(hidden, head_w, labels, chunk: int = LOSS_CHUNK):
             tot = tot + checkpoint(_ce_chunk, hc, head_w, lc, use_reentrant=False)
         else:
             tot = tot + _ce_chunk(hc, head_w, lc)
-    cnt = (labels >= 0).sum()
-    return tot / torch.clamp(cnt, min=1)
+    return tot
 
 
-def loss_fn(params, batch, cfg, *, remat: bool = True):
+def loss_fn(params, batch, cfg, *, remat: bool = True, mesh=None):
     """Scalar training loss: CE (averaged over codebooks) + AUX_LOSS_COEF *
-    aux (aux is 0 without experts)."""
+    aux (aux is 0 without experts).  With ``mesh``: :func:`mesh_loss_fn`."""
+    if mesh is not None:
+        return mesh_loss_fn(params, batch, cfg, mesh, remat=remat)
     hidden, aux = forward(params, batch, cfg, remat=remat)
     w = _head_weight(params, cfg)
     if cfg.n_codebooks:
@@ -523,6 +556,114 @@ def loss_fn(params, batch, cfg, *, remat: bool = True):
         ce = ce / cfg.n_codebooks
     else:
         ce = chunked_ce_loss(hidden, w, batch["labels"])
+    return ce + AUX_LOSS_COEF * aux
+
+
+# ---------------------------------------------------------------------------
+# the training loss on a mesh: one program a mesh device
+# ---------------------------------------------------------------------------
+def _mesh_mlp(params, hn, cfg, mesh):
+    """The dense MLP on ``mesh``: tensor parallel over ``model`` (each
+    device's ``d_ff`` columns of ``w_gate``/``w_up`` and rows of
+    ``w_down``, the partial outputs all-reduced in model order) when the
+    layout splits every weight over it (``d_ff`` divides the axis), else
+    gathered whole and computed replicated."""
+    tp = mesh.shape.get("model", 1) > 1 and all(
+        any("model" in axes for axes in sh.parts()) for sh in params.values())
+    views = local_tree_views(params, ("model",) if tp else ())
+    ms = [mlp_apply(v, h, cfg.mlp_type) for v, h in zip(views, hn)]
+    return mesh_all_reduce(ms, mesh) if tp else ms
+
+
+def _mesh_attn_block(p, xs, cfg, mesh, positions):
+    """:func:`_attn_block_apply` on a mesh; returns (xs, aux): each
+    device's output and the layer's global MoE aux loss (0.0 without
+    experts) on the mesh's first device."""
+    eps = cfg.norm_eps
+    an = local_views(p["attn_norm"])
+    hs = mesh_attention(p["attn"], [rmsnorm(x, n, eps) for x, n in zip(xs, an)], cfg, mesh,
+                        positions)
+    xs = [x + h for x, h in zip(xs, hs)]
+    mn = local_views(p["mlp_norm"])
+    hn = [rmsnorm(x, n, eps) for x, n in zip(xs, mn)]
+    if cfg.is_moe:
+        ms, aux = moe_mesh_apply(p["moe"], hn, cfg, mesh)
+    else:
+        ms, aux = _mesh_mlp(p["mlp"], hn, cfg, mesh), 0.0
+    return [x + m for x, m in zip(xs, ms)], aux
+
+
+def _mesh_mamba_block(p, xs, cfg):
+    return [_mamba_block_x(v, x, cfg) for v, x in zip(local_tree_views(p), xs)]
+
+
+def _mesh_zamba_group(layers, shared, xs, cfg, mesh, positions, rematted: bool):
+    for p in layers:
+        xs = _remat(rematted, _mesh_mamba_block, p, xs, cfg)
+    return _mesh_attn_block(shared, xs, cfg, mesh, positions)[0]
+
+
+def _mesh_xlstm_block(p, xs, cfg, slstm: bool):
+    return [_xlstm_block_x(v, x, cfg, slstm) for v, x in zip(local_tree_views(p), xs)]
+
+
+def mesh_loss_fn(params, batch, cfg, mesh, *, remat: bool = True):
+    """The training loss of :func:`loss_fn` on ``mesh``, on its first
+    device.  params: ``Sharded`` leaves (``param_pspecs`` on ``mesh``);
+    batch: leaves laid out by ``batch_pspec`` (row blocks over data).
+
+    Every device runs the stack on its data row's rows: the embedding
+    gathered whole, each block as :func:`_mesh_attn_block` (or a Mamba2,
+    zamba2 or xLSTM block gathered whole), each under remat as in
+    :func:`forward`.  The final norm, the head and the chunked CE run on
+    each data row's first model device; the loss is the rows' CE sums over
+    the rows' summed count of valid labels (a mean of the rows' means
+    would weight unequal rows wrongly), summed in row order, plus
+    AUX_LOSS_COEF times the layers' global MoE aux losses."""
+    check_supported(cfg)
+    n, dev, eps = mesh.size, mesh.flat[0], cfg.norm_eps
+    rows = [shard_of(batch, kd) for kd in range(n)]
+    emb = local_views(params["embed"])
+    xs = [_embed({"embed": e}, r, cfg) for e, r in zip(emb, rows)]
+    del emb
+    positions = [_positions(r, cfg) for r in rows]
+    rematted = remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=dev) if cfg.is_moe else 0.0
+    if cfg.block_pattern == "xlstm":
+        for i, p in enumerate(params["blocks"]):
+            slstm = i in cfg.slstm_indices
+            xs = _remat(rematted and not slstm, _mesh_xlstm_block, p, xs, cfg, slstm)
+    else:
+        layers = _unstack(params["blocks"], cfg.n_layers)
+        if cfg.block_pattern == "attn":
+            for p in layers:
+                xs, a = _remat(rematted, _mesh_attn_block, p, xs, cfg, mesh, positions)
+                aux = aux + a
+        elif cfg.block_pattern == "mamba2":
+            for p in layers:
+                xs = _remat(rematted, _mesh_mamba_block, p, xs, cfg)
+        else:
+            every = cfg.shared_attn_every
+            for g in range(cfg.n_layers // every):
+                xs = _remat(rematted, _mesh_zamba_group, layers[g * every:(g + 1) * every],
+                            params["shared"], xs, cfg, mesh, positions, rematted)
+    leaders = mesh.leaders()
+    norms = local_views(params["final_norm"], at=leaders)
+    if cfg.tie_embeddings and not cfg.n_codebooks:
+        heads = [e.T for e in local_views(params["embed"], at=leaders)]
+    else:
+        heads = local_views(params["lm_head"], at=leaders)
+    hidden = [rmsnorm(xs[kd], f, eps) for kd, f in zip(leaders, norms)]
+    labels = [rows[kd]["labels"] for kd in leaders]
+    ce = 0.0
+    for cb in range(cfg.n_codebooks or 1):
+        pick = (lambda t, cb=cb: t[cb]) if cfg.n_codebooks else (lambda t: t)
+        lab = [lb[..., cb] for lb in labels] if cfg.n_codebooks else labels
+        tot = ordered_sum([_ce_sum(h, pick(w), lb) for h, w, lb in zip(hidden, heads, lab)], dev)
+        cnt = ordered_sum([(lb >= 0).sum() for lb in lab], dev)
+        ce = ce + tot / torch.clamp(cnt, min=1)
+    if cfg.n_codebooks:
+        ce = ce / cfg.n_codebooks
     return ce + AUX_LOSS_COEF * aux
 
 

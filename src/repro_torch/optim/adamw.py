@@ -15,6 +15,15 @@ is updated in chunks along its leading axis (as many rows as fit
 with the f32 temporaries of one chunk instead of the leaf's (five f32
 copies of an MoE's stacked expert weights would take more memory than the
 weights and both moments).
+
+On a mesh the leaves are ``Sharded`` (one block a mesh device, laid out by
+``param_pspecs``): the moments mirror the parameters' blocks, the global
+norm sums the squares of each *distinct* block once (the first replica of
+each, in mesh order, a leaf after another, on the mesh's first device), the
+clip scale, learning rate and bias corrections are copied to every device,
+and each block is updated in place, in chunks as above.  So, given the same
+gradients, each element's update is bitwise the unsharded one, and
+replicas stay equal.
 """
 
 from __future__ import annotations
@@ -24,6 +33,9 @@ import math
 from typing import Any
 
 import torch
+
+from repro_torch.distributed.collectives import to_device
+from repro_torch.distributed.sharding import Sharded
 
 __all__ = [
     "AdamWConfig",
@@ -83,12 +95,17 @@ def cosine_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 
 def adamw_init(params) -> dict[str, Any]:
-    """Zero f32 moments shaped like ``params`` and a 0-d int32 step, on the
-    parameters' device."""
+    """Zero f32 moments shaped like ``params`` (like each block of a
+    ``Sharded`` leaf) and a 0-d int32 step, on the parameters' (first)
+    device."""
     def zeros(p):
+        if isinstance(p, Sharded):
+            return Sharded([torch.zeros(b.shape, dtype=torch.float32, device=b.device)
+                            for b in p.blocks], p.spec, p.mesh, p.shape)
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
-    device = next(_leaves(params)).device
+    first = next(_leaves(params))
+    device = first.blocks[0].device if isinstance(first, Sharded) else first.device
     return {
         "m": _tree_map(zeros, params),
         "v": _tree_map(zeros, params),
@@ -97,9 +114,18 @@ def adamw_init(params) -> dict[str, Any]:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, accumulated in f32."""
-    return torch.sqrt(sum(torch.linalg.vector_norm(x, dtype=torch.float32).square()
-                          for x in _leaves(tree)))
+    """sqrt of the sum of squares of every leaf, accumulated in f32.  A
+    ``Sharded`` leaf counts each distinct block once, summed on the mesh's
+    first device in order."""
+    parts = []
+    for x in _leaves(tree):
+        if isinstance(x, Sharded):
+            parts += [x.blocks[k] for k in x.owners()]
+        else:
+            parts.append(x)
+    dev = parts[0].device
+    return torch.sqrt(sum(to_device(torch.linalg.vector_norm(x, dtype=torch.float32).square(),
+                                    dev) for x in parts))
 
 
 @torch.no_grad()
@@ -115,7 +141,8 @@ def adamw_update(cfg: AdamWConfig, params, grads, opt_state):
     bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=stepf.device), stepf)
     bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=stepf.device), stepf)
 
-    def upd_part(p, g, m, v, decay: bool):
+    def upd_part(p, g, m, v, decay: bool, scalars):
+        scale, lr, bc1, bc2 = scalars
         g = g.to(torch.float32) * scale
         m.mul_(b1).add_(g, alpha=1 - b1)
         v.mul_(b2).addcmul_(g, g, value=1 - b2)
@@ -124,13 +151,25 @@ def adamw_update(cfg: AdamWConfig, params, grads, opt_state):
             delta.add_(p.to(torch.float32), alpha=cfg.weight_decay)
         p.copy_(p.to(torch.float32) - lr * delta)
 
+    def upd_block(p, g, m, v, decay: bool, scalars):
+        rows = max(SLICE_ELEMS // (p.numel() // p.shape[0]), 1)
+        for i in range(0, p.shape[0], rows):
+            upd_part(p[i:i + rows], g[i:i + rows], m[i:i + rows], v[i:i + rows], decay, scalars)
+
+    # the scalars on each device that holds a block
+    on = {scale.device: (scale, lr, bc1, bc2)}
+
     def upd(p, g, m, v):
         # decoupled weight decay on matrices only (ndim >= 2 of the whole
         # leaf), the usual exemption for norms and biases.
         decay = p.ndim >= 2
-        rows = max(SLICE_ELEMS // (p.numel() // p.shape[0]), 1)
-        for i in range(0, p.shape[0], rows):
-            upd_part(p[i:i + rows], g[i:i + rows], m[i:i + rows], v[i:i + rows], decay)
+        if not isinstance(p, Sharded):
+            upd_block(p, g, m, v, decay, on[scale.device])
+            return
+        for k, dev in enumerate(p.devices):
+            if dev not in on:
+                on[dev] = tuple(to_device(t, dev) for t in on[scale.device])
+            upd_block(p.blocks[k], g.blocks[k], m.blocks[k], v.blocks[k], decay, on[dev])
 
     _tree_map(upd, params, grads, opt_state["m"], opt_state["v"])
     opt_state["step"] = step

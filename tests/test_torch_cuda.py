@@ -977,3 +977,92 @@ def test_small_moe_serve_on_card_matches_cpu(card, arch):
         eng.generate(reqs)
         out[dev.type] = [r.out_tokens for r in reqs]
     assert out["cuda"] == out["cpu"]
+
+
+def _mesh_step_on(cfg, host, device):
+    """One train step of ``cfg`` from the parameters ``host`` (numpy) on a
+    (2, 2) mesh of four virtual ``device``s; (metrics, gathered host
+    state)."""
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.distributed.sharding import gather
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import make_train_step, train_state_init
+
+    mesh = make_local_mesh(2, devices=(device,) * 4)
+    state = train_state_init(None, cfg, params=lm_params(host, cfg, device=device), mesh=mesh)
+    batch = {k: torch.from_numpy(a)
+             for k, a in make_batch(cfg, ShapeConfig("t", "train", 64, 4), 0).items()}
+    state, m = make_train_step(cfg, AdamWConfig(total_steps=3, warmup_steps=1), mesh=mesh)(
+        state, batch)
+    return {k: float(v) for k, v in m.items()}, gather(state, "cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "olmoe-1b-7b"])
+def test_mesh_train_step_on_card_matches_cpu_and_repeats(card, arch):
+    """The reduced configuration in f32 on a (2, 2) mesh of four virtual
+    devices of the card (tensor parallel attention and MLP, or expert
+    parallel MoE, through the flash kernels) against the same mesh of CPU
+    devices from the same weights: loss, grad norm and every moment leaf
+    within 1e-5 of max |CPU|; two runs on the card bitwise equal."""
+    from repro_torch.models.transformer import _leaves
+
+    cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+    host = _numpy(init_params(torch.Generator().manual_seed(0), cfg))
+    (mc, sc), (mc2, sc2) = (_mesh_step_on(cfg, host, card) for _ in range(2))
+    mh, sh = _mesh_step_on(cfg, host, torch.device("cpu"))
+    for k in ("loss", "grad_norm"):
+        assert abs(mc[k] - mh[k]) <= 1e-5 * abs(mh[k]), (k, mc[k], mh[k])
+    for a, b in zip(_leaves(sc.opt_state), _leaves(sh.opt_state)):
+        assert float((a.float() - b.float()).abs().max()) <= 1e-5 * max(
+            float(b.float().abs().max()), 1e-30)
+    assert mc == mc2
+    assert all(torch.equal(a, b) for a, b in zip(_leaves([sc.params, sc.opt_state]),
+                                                 _leaves([sc2.params, sc2.opt_state])))
+
+
+def _tree_slice(tree, s):
+    if isinstance(tree, dict):
+        return {k: _tree_slice(v, s) for k, v in tree.items()}
+    return tree[s]
+
+
+@pytest.mark.cuda
+def test_pipeline_on_card_is_the_sequential_apply_bitwise(card):
+    """qwen3-1.7b reduced in bf16 (the mma_sync flash route), its 2 blocks
+    as 2 stages on two virtual devices of the card, 4 microbatches,
+    forward and gradient."""
+    from repro_torch.distributed.pipeline import pipeline_apply, split_stages
+    from repro_torch.distributed.sharding import LMMesh
+    from repro_torch.models.transformer import _block_x, _leaves, _positions, _unstack
+
+    cfg = dataclasses.replace(get_reduced("qwen3-1.7b"), dtype="bfloat16")
+    params = init_params(torch.Generator(device=card).manual_seed(0), cfg)
+    leaves = [t.requires_grad_(True) for t in _leaves(params["blocks"])]
+    staged = split_stages(params["blocks"], 2)
+    tokens = torch.randint(0, cfg.vocab, (4, 64), device=card,
+                           generator=torch.Generator(device=card).manual_seed(1))
+    x = params["embed"][tokens].detach()
+    pos = _positions({"tokens": tokens[:1]}, cfg)
+
+    def stage(p, xm):
+        for layer in _unstack(p, p["attn_norm"].shape[0]):
+            xm = _block_x(layer, xm, cfg, pos)[0]
+        return xm
+
+    devs = np.empty(2, dtype=object)
+    devs[:] = [card, card]
+    mesh = LMMesh(devs.reshape(2, 1, 1), ("pod", "data", "model"))
+    got = pipeline_apply(stage, staged, x, mesh=mesh, n_micro=4)
+    outs = []
+    for xm in x.reshape(4, 1, *x.shape[1:]):
+        for s in range(2):
+            xm = stage(_tree_slice(staged, s), xm)
+        outs.append(xm)
+    want = torch.stack(outs).reshape(x.shape)
+    assert torch.equal(got, want)
+    cot = torch.randn_like(got)
+    for a, b in zip(torch.autograd.grad(got, leaves, cot), torch.autograd.grad(want, leaves, cot)):
+        assert torch.equal(a, b)
