@@ -310,8 +310,25 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    twice: bitwise equal to (a)'s state resharded in memory and stepped
    the same, within 2^-8 of (a)'s own continuation on (2, 2) (its first
    step profiled: the collectives' share); (e) a mesh naming one card
-   more than the host has raises, naming the count.  The wall time of
-   each phase is printed (``[wall]`` lines).
+   more than the host has raises, naming the count.
+16. the cell grid and serving on a mesh (``[mesh serve]``, ``[cells]``,
+   ``[dryrun]`` and ``[roofline]`` lines, each beside the card's name and
+   power limit): (a) phase 6's requests (qwen3-1.7b, bf16, 8 x 2048 + 32)
+   through ``mesh_prefill`` and ``mesh_decode_step`` on phase 15's (2, 2)
+   mesh of virtual devices, counted (4 x 28 wgmma flash launches, no plain
+   call), a repeated prefill bitwise equal, every step's logits
+   teacher-forced on phase 6's tokens within ``MESH_SERVE_TOL`` of max
+   |logit| of phase 6's and the greedy tokens equal where phase 6's top-2
+   margin exceeds it, prefill s, decode s a step and the peak; (b) the
+   three elasticity cells (``launch/cells.py``) in f32 through
+   ``paop_cuda`` on a (1, 1) mesh of the card and ``beam_p8_51m:dd`` on
+   four virtual devices, counted, each against ``ElasticityOperator``'s
+   apply, timed and placed against its dry-run bound; (c) the dry-run
+   (``launch/dryrun.py``) of ``DRYRUN_CELLS`` on the meta production
+   meshes; (d) phase 15's (2, 2) train cell dry-run on meta devices, its
+   peak a device x 4 beside phase 15's measured peak; the dry-run and
+   roofline tables of every record.  The wall time of each phase is
+   printed (``[wall]`` lines).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -390,7 +407,12 @@ from repro_torch.distributed.elastic import (  # noqa: E402
     elastic_remesh, reshard_state, simulate_failures)
 from repro_torch.distributed.pipeline import (  # noqa: E402
     bubble_fraction, pipeline_apply, split_stages)
-from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh, make_production_mesh  # noqa: E402
+from repro_torch.launch.cells import build_cell  # noqa: E402
+from repro_torch.launch.dryrun import run_cell  # noqa: E402
+from repro_torch.launch.report import (  # noqa: E402
+    load_records, measured_fraction, render_dryrun, render_roofline, terms_of)
+from repro_torch.models.transformer import mesh_decode_step, mesh_prefill  # noqa: E402
 from repro_torch.launch.train import _host_like  # noqa: E402
 from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.train.trainer import _requires_grad  # noqa: E402
@@ -624,6 +646,35 @@ LM_MESH_DEVICES, LM_MESH_MP = ("cuda:0",) * 4, 2
 LM_MESH_LOSS_REL = 2.0 ** -8
 LM_MESH_RESUME_STEPS = 2
 PIPE_STAGES, PIPE_MICRO, PIPE_BATCH, PIPE_SEQ = 4, 8, 8, 2048
+# Phase 16: the cell grid and serving on a mesh.  (a) phase 6's requests
+# (qwen3-1.7b, bf16, 8 x 2048 + 32) through mesh_prefill and
+# mesh_decode_step on phase 15's (2, 2) mesh of virtual devices,
+# teacher-forced on phase 6's tokens: each step's logits within
+# MESH_SERVE_TOL of max |logit| of phase 6's (bf16 products summed in
+# another order: a projection's halves, the KV cache's two blocks of
+# positions combined by log-sum-exp in f32 where phase 6 rounds the softmax
+# to bf16 before PV; one bf16 rounding of a logit is 2^-8 of it), the
+# greedy tokens equal wherever phase 6's top-2 margin exceeds that bound;
+# (b) the elasticity cells at f32 through paop_cuda on a (1, 1) mesh of the
+# card, and the DD cell on (2, 2) virtual devices, each within CELL_REL of
+# max |y| of ElasticityOperator's apply, timed (fenced, median of
+# CELL_ROUNDS) and placed against its dry-run bound; (c) the dry-run of
+# DRYRUN_CELLS on the meta production meshes; (d) phase 15's (2, 2) train
+# cell dry-run, its peak bytes a device x 4 beside phase 15's measured peak.
+MESH_SERVE_TOL = 2.0 ** -5
+CELL_SHAPES, CELL_REL, CELL_ROUNDS = ("beam_p2_6m", "beam_p8_6m", "beam_p8_51m"), 1e-5, 5
+DD_CELL = "beam_p8_51m:dd"
+# (c)'s cells, one of each kind that traces in seconds to a minute on the
+# chip host (the CLI's run, PERF.md: elasticity beam_p8_51m ~3-4 s on each
+# production mesh, qwen3-1.7b's decode_32k ~35-50 s on (16, 16); its
+# train_4k takes 74-184 s and zamba2-2.7b's long_500k ~45-60 s, more than
+# the script's time limit holds beside phases 1-15); the train kind is (d)'s
+# (2, 2) cell.
+DRYRUN_CELLS = {"single": [("elasticity", "beam_p8_51m", "paop_cuda"),
+                           ("qwen3_17b", "decode_32k", "paop")],
+                "multi": [("elasticity", "beam_p8_51m", "paop_cuda")]}
+SERVE_RECORD: dict = {}  # phase 6's prompts, tokens and every step's logits
+LM_MESH_PEAK: list = []  # phase 15(a)'s measured peak, GiB
 TRAIN_HISTORY: dict = {}  # phase 9's (and every train_full_width run's) logged steps
 
 # Where a train step's device time goes (phase 9c's profile): kernels by
@@ -1007,6 +1058,9 @@ def serve_full_width(cfg, batch: int, rng, card: str,
     if not all(np.isfinite(lg).all() for lg in logits_seen):
         raise SystemExit(f"{cfg.name} serve path: non-finite logits")
     print(f"[serve] {cfg.name} req0 tokens: {reqs[0].out_tokens[:8]}...")
+    if cfg.name == get_config(SERVE_ARCH).name:  # phase 6: phase 16(a) serves it on a mesh
+        SERVE_RECORD[cfg.name] = (np.stack([r.prompt for r in reqs]), np.stack(toks),
+                                  logits_seen)
     del eng, logits_seen
     gc.collect()
     torch.cuda.empty_cache()
@@ -3730,6 +3784,7 @@ def lm_mesh_train(card: str, ckpt: str) -> tuple[object, dict, object]:
         raise SystemExit(f"train_loop's step 1 {history[0]['loss']!r} is not the repeated "
                          f"step's {runs[0][0]!r}")
     launches = {k: sum(c[k][0] for c, _, _ in per_step) for k in want}
+    LM_MESH_PEAK.append(max(m["peak_gib"] for m in history))
     return state, launches, opt
 
 
@@ -3979,6 +4034,205 @@ def lm_mesh_phase(card: str) -> dict:
     lm_mesh_pipeline(card)
     lm_mesh_bad_card()
     print(f"[lm mesh] phase wall {time.perf_counter() - t_phase} s ({card})")
+    return launches
+
+
+def mesh_serve_check(card: str) -> int:
+    """Phase 16(a): phase 6's requests served on (2, 2) virtual devices
+    through mesh_prefill and mesh_decode_step, teacher-forced on phase 6's
+    tokens; returns the prefill's flash launches."""
+    cfg = get_config(SERVE_ARCH)
+    prompts, tokens, want = SERVE_RECORD[cfg.name]
+    mesh = make_local_mesh(LM_MESH_MP, devices=LM_MESH_DEVICES)
+    n, L = mesh.size, cfg.n_layers
+    max_len = SERVE_PROMPT + SERVE_NEW + 8  # phase 6's engine's
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        params = init_params(torch.Generator(device="cuda").manual_seed(SEED), cfg)
+        sp = place(params, param_pspecs(params, mesh), mesh)
+        del params
+        toks = torch.as_tensor(prompts, device="cuda").long()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs = []
+        for _ in range(2):  # the second is the counted run, the first its warm-up twin
+            reset_all_counts()
+            t0 = time.perf_counter()
+            runs.append(mesh_prefill(sp, {"tokens": toks}, cfg, mesh, max_len))
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+        counts, routes = all_counts()["flash_attention"], dict(flash_ops.route_launches)
+        (lg0, st0), (logits, state) = runs
+        same = torch.equal(lg0, logits) and all(
+            torch.equal(a, b) for sa, sb in zip(_leaves(st0), _leaves(state))
+            for a, b in zip(sa.blocks, sb.blocks))
+        del runs, lg0, st0
+        got, step_s = [logits], []
+        for i in range(SERVE_NEW - 1):
+            tok = torch.as_tensor(tokens[:, i], device="cuda").long()[:, None]
+            t0 = time.perf_counter()
+            logits, state = mesh_decode_step(sp, tok, state, SERVE_PROMPT + i, cfg, mesh)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            got.append(logits)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        got = [g.float().cpu().numpy() for g in got]
+    del sp, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel, flips, sure = [], 0, 0
+    for g, w in zip(got, want):
+        scale = float(np.abs(w).max())
+        rel.append(float(np.abs(g - w).max()) / scale)
+        top2 = np.sort(w, axis=-1)[:, -2:]
+        clear = top2[:, 1] - top2[:, 0] > MESH_SERVE_TOL * scale
+        sure += int(clear.sum())
+        flips += int((clear & (g.argmax(-1) != w.argmax(-1))).sum())
+    print(f"[mesh serve] (a) {cfg.name} bf16 on {mesh.shape} ({n} virtual devices of one "
+          f"card), phase 6's {len(prompts)} x {SERVE_PROMPT} prompts + {SERVE_NEW}: prefill "
+          f"{prefill_s} s, decode {statistics.median(step_s)} s a step (median of "
+          f"{len(step_s)}, teacher-forced on phase 6's tokens), peak {peak} GiB ({card})")
+    print(f"[mesh serve] (a) prefill flash (launches, plain) {counts}, routes {routes} "
+          f"(want {n} x {L} on wgmma); a repeated prefill's logits and state "
+          f"{'bitwise equal' if same else 'DIFFER'}")
+    print(f"[mesh serve] (a) logits against phase 6's, each step's max abs diff over max "
+          f"|logit|: max {max(rel)} (limit {MESH_SERVE_TOL}); greedy tokens where phase 6's "
+          f"top-2 margin exceeds the limit: {sure - flips} of {sure} equal")
+    if counts != (n * L, 0) or routes["wgmma"] != n * L:
+        raise SystemExit(f"mesh prefill flash launches {counts}, routes {routes}")
+    if not same:
+        raise SystemExit("a repeated mesh prefill is not bitwise equal")
+    if max(rel) > MESH_SERVE_TOL or flips or not all(np.isfinite(g).all() for g in got):
+        raise SystemExit(f"mesh serving disagrees with phase 6: rel {max(rel)}, {flips} flips")
+    return counts[0]
+
+
+def cell_record(out_dir: str, arch: str, shape: str, tag: str, mesh, **kw) -> dict:
+    """The dry-run record of a cell (``run_cell``), failing the phase on a
+    failed trace."""
+    rec = run_cell(arch, shape, tag, out_dir, mesh=mesh, force=True, **kw)
+    if rec["status"] != "ok":
+        raise SystemExit(f"dry-run of {arch} {shape} on {tag} failed: {rec['error']}\n"
+                         f"{rec['traceback']}")
+    return rec
+
+
+def measured(rec: dict, out_dir: str, seconds: float, card: str, devices: int = 1) -> float:
+    """Write a measured time into a dry-run record; returns the fraction of
+    its bound that the time reached."""
+    rec.update(measured_s=seconds, measured_on=card, measured_devices=devices)
+    path = os.path.join(out_dir, f"{rec['arch']}__{rec['shape'].replace(':', '_')}__"
+                                 f"{rec['mesh']}.json")
+    with open(path, "w") as f:
+        json.dump(rec, f, indent=1)
+    return measured_fraction(rec)
+
+
+def measured_cells(card: str, out_dir: str) -> dict[str, int]:
+    """Phase 16(b): the elasticity cells on the card, against the operator
+    and their dry-run bounds; returns the PAop and probe launches."""
+    launches = dict.fromkeys(("pa_elasticity", "probe"), 0)
+    card_dev = LM_MESH_DEVICES[0]
+    one, meta_one = (make_local_mesh(1, devices=(d,)) for d in (card_dev, "meta"))
+    four, meta_four = (make_local_mesh(2, devices=(d,) * 4) for d in (card_dev, "meta"))
+    for name in CELL_SHAPES + (DD_CELL,):
+        dd = name == DD_CELL
+        mesh = four if dd else one
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_all_counts()
+        cell = build_cell("elasticity", name, mesh, assembly="paop_cuda", seed=SEED)
+        ys = cell.run()
+        torch.cuda.synchronize()
+        counts = all_counts()
+        shards = mesh.size if dd else 1
+        if counts["pa_elasticity"] != (shards, 0) or counts["probe"] != (1, 0):
+            raise SystemExit(f"cell {name}: (launches, plain) {counts}")
+        for k in launches:
+            launches[k] += counts[k][0]
+        if dd:
+            decomp = cell.fn.__self__
+            x, y = decomp.from_blocks(cell.args[0]), decomp.from_blocks(ys)
+            space = decomp.space
+        else:
+            x, y = cell.args[0][0], ys[0]
+            space = H1Space(beam_hex().refined(ELASTICITY_SHAPES[name].n_h_refine),
+                            ELASTICITY_SHAPES[name].p)
+        ref = ElasticityOperator(space, "paop_cuda", dtype=torch.float32,
+                                 device=card_dev).apply(x)
+        rel = float((y - ref).abs().max()) / float(ref.abs().max())
+        del x, y, ref, ys
+        t = fenced_ms(cell.run, CELL_ROUNDS) / 1e3
+        del cell
+        rec = cell_record(out_dir, "elasticity", name, "2x2" if dd else "1x1",
+                          meta_four if dd else meta_one, assembly="paop_cuda")
+        frac = measured(rec, out_dir, t, card, shards)
+        terms = terms_of(rec)
+        print(f"[cells] (b) elasticity {name} f32 paop_cuda on {mesh.shape} "
+              f"({'four virtual devices of one card' if dd else 'the card'}): {space.ndof} "
+              f"DoFs, (launches, plain) {counts['pa_elasticity']}; against ElasticityOperator's "
+              f"apply: max abs diff {rel:.3e} of max |y| (limit {CELL_REL}); AddMult {t * 1e3} "
+              f"ms fenced (median of {CELL_ROUNDS}); dry-run bound {terms.bound_s * shards * 1e3}"
+              f" ms a card ({terms.dominant}), reached {frac:.4f} of it ({card})")
+        if rel > CELL_REL:
+            raise SystemExit(f"cell {name} disagrees with ElasticityOperator: {rel}")
+    return launches
+
+
+def capped_dryrun(card: str, out_dir: str) -> None:
+    """Phase 16(c): DRYRUN_CELLS traced on the meta production meshes."""
+    for kind, cells_ in DRYRUN_CELLS.items():
+        mesh = make_production_mesh(multi_pod=kind == "multi")
+        for arch, shape, assembly in cells_:
+            rec = cell_record(out_dir, arch, shape, kind, mesh, assembly=assembly)
+            mem = rec["memory"]
+            print(f"[dryrun] (c) {arch} {shape} on {mesh.shape} (meta): build "
+                  f"{rec['t_build_s']} s, trace {rec['t_trace_s']} s (host: {card}); "
+                  f"flops/dev {rec['cost']['flops_per_dev']:.4e}, bytes/dev "
+                  f"{rec['cost']['bytes_per_dev']:.4e}, link bytes/dev "
+                  f"{rec['collectives']['link_bytes']:.4e} {rec['collectives']['per_op']}, "
+                  f"peak {mem['peak_bytes_per_device'] / 2**30:.3f} GiB/dev (arguments "
+                  f"{mem['argument_bytes'] / 2**30:.3f}, temp estimate "
+                  f"{mem['temp_bytes'] / 2**30:.3f})")
+
+
+def memory_model_check(card: str, out_dir: str) -> None:
+    """Phase 16(d): phase 15's (2, 2) train cell dry-run on meta devices,
+    its peak a device x 4 beside phase 15's measured peak on the card."""
+    shape = ShapeConfig("train_4k", "train", TRAIN_SEQ, TRAIN_BATCH)
+    mesh = make_local_mesh(LM_MESH_MP, devices=("meta",) * 4)
+    rec = cell_record(out_dir, "qwen3_17b", "train_4k", "lm_mesh_2x2", mesh, shape_cfg=shape)
+    mem = rec["memory"]
+    predicted = 4 * mem["peak_bytes_per_device"] / 2**30
+    got = LM_MESH_PEAK[-1]
+    print(f"[dryrun] (d) qwen3-1.7b train B={TRAIN_BATCH} S={TRAIN_SEQ} on {mesh.shape}: "
+          f"trace {rec['t_trace_s']} s; dry-run peak {mem['peak_bytes_per_device'] / 2**30:.3f} "
+          f"GiB a device (arguments {mem['argument_bytes'] / 2**30:.3f}, temp estimate "
+          f"{mem['temp_bytes'] / 2**30:.3f}) x 4 = {predicted:.3f} GiB against phase 15's "
+          f"measured peak {got:.3f} GiB on the card: ratio {predicted / got:.3f} ({card})")
+
+
+def grid_phase(card: str) -> dict[str, int]:
+    """Phase 16; returns its launches by kernel."""
+    t_phase = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="dryrun_")
+    try:
+        launches = {"flash_attention": mesh_serve_check(card)}
+        print(f"[wall] phase 16 (a): {time.perf_counter() - t_phase} s")
+        launches.update(measured_cells(card, out_dir))
+        print(f"[wall] phase 16 (b): {time.perf_counter() - t_phase} s")
+        capped_dryrun(card, out_dir)
+        print(f"[wall] phase 16 (c): {time.perf_counter() - t_phase} s")
+        memory_model_check(card, out_dir)
+        recs = load_records(out_dir)
+        print(f"[dryrun] {card}\n" + render_dryrun(recs))
+        for kind in sorted({r["mesh"] for r in recs}):
+            print(f"[roofline] {kind} mesh, {H100_SXM.name} ({card})\n"
+                  + render_roofline(recs, kind))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"[cells] phase wall {time.perf_counter() - t_phase} s ({card})")
     return launches
 
 
@@ -4265,6 +4519,10 @@ def main() -> int:
     mesh_launches = lm_mesh_phase(card)
     wall("15 (multi-device LM)")
 
+    # ---- 16. serving on a mesh, the cells measured, the dry-run on meta meshes
+    grid_launches = grid_phase(card)
+    wall("16 (cells, mesh serving, dry-run)")
+
     kernels = [
         {
             "name": "pa_elasticity",
@@ -4314,6 +4572,9 @@ def main() -> int:
                               "flash_attention_bwd_wgmma":
                               mesh_launches["flash_attention_bwd"]}.get(entry["name"], 0)
     print(f"[lm mesh] phase 15 (a)'s launches added to the kernels line: {mesh_launches}")
+    for entry in kernels:
+        entry["launches"] += grid_launches.get(entry["name"], 0)
+    print(f"[cells] phase 16's launches added to the kernels line: {grid_launches}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

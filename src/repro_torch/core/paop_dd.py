@@ -13,7 +13,9 @@ corners), in which both copies of each shared plane add the neighbour's
 partial sum.  The exchange copies a boundary plane to the neighbour's
 device and adds it: no atomics and no collective library.  Both copies of
 a shared plane compute ``a + b`` in floating point, so they stay bitwise
-equal, which the block format requires.
+equal, which the block format requires.  Inside a
+:func:`~repro_torch.distributed.collectives.tally` the planes count as
+collective permutes.
 
 The block format carries consistent (duplicated) values on shared planes;
 :meth:`SlabDecomposition.to_blocks` and
@@ -31,6 +33,7 @@ import torch
 from repro_torch.core.basis import basis_tables
 from repro_torch.core.geometry import MATERIALS_BEAM, material_fields, quadrature_geometry
 from repro_torch.core.paop import paop_apply
+from repro_torch.distributed.collectives import record
 from repro_torch.distributed.sharding import normalize_scenario_mesh
 from repro_torch.fem.mesh import HexMesh
 from repro_torch.fem.space import H1Space
@@ -141,7 +144,8 @@ class SlabDecomposition:
         local fixed-order scatter; (lnz, lny, lnx, 3)."""
         x_e = self.local_space.to_evec(x)  # (lne, 3, D, D, D)
         args = (x_e, self.lam_blocks[k], self.mu_blocks[k], self.jinv[k], self.B[k], self.G[k])
-        y_e = _kops.pa_elasticity(*args) if x.is_cuda else paop_apply(*args)
+        # the kernel on the card; its analytic count on meta stand-ins (dry-run)
+        y_e = _kops.pa_elasticity(*args) if x.device.type != "cpu" else paop_apply(*args)
         return self.local_space.scatter_add(y_e).reshape(self.lnz, self.lny, self.lnx, 3)
 
     def halo_exchange(self, ys: list[torch.Tensor]) -> list[torch.Tensor]:
@@ -151,6 +155,10 @@ class SlabDecomposition:
         x_pairs = [(sx * gy + sy, (sx + 1) * gy + sy) for sx in range(gx - 1) for sy in range(gy)]
         y_pairs = [(sx * gy + sy, sx * gy + sy + 1) for sx in range(gx) for sy in range(gy - 1)]
         for pairs, axis in ((x_pairs, 2), (y_pairs, 1)):
+            if pairs:  # each pair's two planes cross, one each way
+                plane = ys[pairs[0][0]].select(axis, -1)
+                record("collective-permute", plane.numel() * plane.element_size(), 2,
+                       2 * len(pairs))
             for a, b in pairs:
                 hi = ys[a].select(axis, -1)  # a's upper plane == b's lower
                 lo = ys[b].select(axis, 0)

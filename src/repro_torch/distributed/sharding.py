@@ -49,9 +49,12 @@ no GSPMD to act on them, so the layout is explicit:
   back reduce-scattered to its blocks; :func:`reduce_replicas` then sums
   it over the axes its spec leaves out.
 
-Sequence parallelism (``act_pspec``'s ``model`` on the sequence axis)
-and decode on a mesh are not computed by the port (ROADMAP Queue 1
-item 10, part 10c).
+Serving on a mesh lays the decode state out by :func:`decode_state_pspecs`
+(:func:`sharded_zeros` allocates it block by block, :func:`own_part` cuts
+a device's block out of what it computed); see
+``models.transformer.mesh_prefill``.  Sequence parallelism
+(``act_pspec``'s ``model`` on the sequence axis) is not computed by the
+port (ROADMAP Queue 1 item 10, part 10c).
 """
 
 from __future__ import annotations
@@ -65,7 +68,13 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
-from repro_torch.distributed.collectives import all_gather, all_reduce, gather_blocks, to_device
+from repro_torch.distributed.collectives import (
+    all_gather,
+    all_reduce,
+    all_to_all,
+    gather_blocks,
+    to_device,
+)
 
 __all__ = [
     "ScenarioBlocks",
@@ -94,6 +103,10 @@ __all__ = [
     "reduce_replicas",
     "mesh_all_reduce",
     "mesh_all_gather",
+    "mesh_all_to_all",
+    "sharded_zeros",
+    "own_part",
+    "dp_axes",
 ]
 
 Mesh = tuple[torch.device, ...]
@@ -104,11 +117,12 @@ def _card_count() -> int:
 
 
 def _mesh_device(d, what: str = "scenario mesh") -> torch.device:
-    """``d`` as a mesh entry: a CPU device, or a CUDA card with its index
-    that the host has."""
+    """``d`` as a mesh entry: a CPU device, the meta device (shapes only:
+    the dry-run's stand-in for a card), or a CUDA card with its index that
+    the host has."""
     dev = torch.device(d)
-    if dev.type == "cpu":
-        return torch.device("cpu")
+    if dev.type in ("cpu", "meta"):
+        return torch.device(dev.type)
     if dev.type != "cuda":
         raise ValueError(f"{what}: unsupported device {dev}")
     dev = torch.device("cuda", 0 if dev.index is None else dev.index)
@@ -890,6 +904,41 @@ def mesh_all_gather(xs: Sequence[torch.Tensor], mesh: LMMesh, dim: int,
     """Each mesh device's ``xs`` entry concatenated along ``dim`` over
     ``axes`` in group order, a copy on every member."""
     return _over_groups(xs, mesh, axes, lambda group: all_gather(group, dim))
+
+
+def mesh_all_to_all(xs: Sequence[torch.Tensor], mesh: LMMesh, split_dim: int, concat_dim: int,
+                    axes: Sequence[str] = ("model",)) -> list[torch.Tensor]:
+    """Each mesh device's ``xs`` entry through an all-to-all over ``axes``
+    (:func:`~repro_torch.distributed.collectives.all_to_all`)."""
+    return _over_groups(xs, mesh, axes, lambda group: all_to_all(group, split_dim, concat_dim))
+
+
+def dp_axes(mesh: LMMesh) -> tuple[str, ...]:
+    """The mesh's data-parallel axes: ``pod`` and ``data``, those it has."""
+    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+
+def sharded_zeros(tree: Any, specs: Any, mesh: LMMesh) -> Any:
+    """Every tensor leaf of ``tree`` (a meta tensor is enough: only its
+    shape and dtype are read) as a :class:`Sharded` leaf of zero blocks
+    laid out by its spec, each block allocated on its device (on a meta
+    mesh, nothing is allocated)."""
+    def put(_, x, spec):
+        parts = _parts(spec, x.ndim)
+        blocks = [torch.zeros(_region(mesh, k, parts, x.shape)[1], dtype=x.dtype, device=d)
+                  for k, d in enumerate(mesh.flat)]
+        return Sharded(blocks, spec, mesh, x.shape)
+
+    return _lm_map(put, tree, specs)
+
+
+def own_part(sh: Sharded, k: int, local: torch.Tensor, keep: Sequence[str] = ()) -> torch.Tensor:
+    """Device ``k``'s block of ``sh``, cut out of ``local``: what device k
+    holds of the leaf gathered over every spec axis not in ``keep`` (the
+    shape of ``local_views(sh, keep)[k]``)."""
+    offs, sizes = _region(sh.mesh, k, sh.parts(), sh.shape)
+    return local[tuple(slice(None) if set(axes) <= set(keep) else slice(o, o + n)
+                       for axes, o, n in zip(sh.parts(), offs, sizes))]
 
 
 def _over_groups(xs, mesh: LMMesh, axes, fn) -> list[torch.Tensor]:

@@ -29,6 +29,12 @@ have no counterpart.  ``counts["flash_attention"]`` keeps ``launches`` and
 ``plain_calls``; ``route_launches`` counts the launches of each route
 beside it; :func:`reset_counts` zeroes both.
 
+On the meta device (the dry-run's stand-ins) both directions return empty
+results of the right shapes and dtypes, count ``meta_calls`` (never
+``launches`` or ``plain_calls``), and report the kernel's own analytic
+work, :func:`work`, to :func:`repro_torch.kernels._meta.charge`: 4 D FLOPs a scored (query, key) pair of each
+head, 2.5x that backward.  Only a meta tensor takes this path.
+
 With ``lse=True`` a forward also returns each row's log-sum-exp (f32
 (B, H, S), natural log; :func:`.ref.flash_lse` on the CPU): every route's
 kernel writes it beside o.  The serve path never asks for it.
@@ -63,6 +69,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.kernels._meta import charge
 from repro_torch.kernels.flash_attention import build
 from repro_torch.kernels.flash_attention.ref import flash_bwd_ref, flash_lse, flash_ref
 
@@ -86,6 +93,8 @@ __all__ = [
     "BWD_D",
     "WGMMA_D",
     "KERNEL_DTYPES",
+    "band_pairs",
+    "work",
 ]
 
 SUPPORTED_D = (8, 16, 32, 64, 80, 128)
@@ -101,6 +110,7 @@ WGMMA_D = (64, 80, 128)  # the wgmma kernels' instantiations (both directions)
 class Counts:
     launches: int = 0
     plain_calls: int = 0
+    meta_calls: int = 0
 
 
 counts = {"flash_attention": Counts(), "flash_attention_bwd": Counts()}
@@ -110,7 +120,7 @@ bwd_route_launches = dict.fromkeys(BWD_ROUTES, 0)
 
 def reset_counts() -> None:
     for c in counts.values():
-        c.launches = c.plain_calls = 0
+        c.launches = c.plain_calls = c.meta_calls = 0
     for r in ROUTES:
         route_launches[r] = 0
     for r in BWD_ROUTES:
@@ -210,7 +220,39 @@ def flash_attention(q, k, v, *, window=None):
     return _forward(q, k, v, window)
 
 
+def band_pairs(S: int, window=None) -> int:
+    """(query, key) pairs a causal call scores: S(S+1)/2, or under a window
+    W each query's min(i + 1, W) keys."""
+    if window is None or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def work(q, k, window=None, backward: bool = False) -> tuple[float, float]:
+    """(FLOPs, bytes) of one call: 4 B H D x the band's pairs forward (2.5x
+    that backward); q, k, v read and o written once (backward: q, k, v, o
+    and dO read, dq, dk and dv written)."""
+    B, S, H, D = q.shape
+    flops = 4.0 * B * H * D * band_pairs(S, window)
+    qb, kb = q.numel() * q.element_size(), k.numel() * k.element_size()
+    if backward:
+        return 2.5 * flops, 4 * qb + 4 * kb
+    return flops, 2 * qb + 2 * kb
+
+
+def _meta_call(name: str, q, k, window, backward: bool) -> None:
+    counts[name].meta_calls += 1
+    charge(*work(q, k, window, backward))
+
+
 def _forward(q, k, v, window, lse=False):
+    if q.device.type == "meta":
+        _meta_call("flash_attention", q, k, window, backward=False)
+        o = torch.empty_like(q, memory_format=torch.contiguous_format)
+        if lse:
+            B, S, H, _ = q.shape
+            return o, torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        return o
     if q.device.type == "cpu":
         counts["flash_attention"].plain_calls += 1
         o = flash_ref(q, k, v, window=window)
@@ -286,6 +328,10 @@ def flash_attention_bwd(q, k, v, o, do, *, lse=None, window=None):
     ``lse`` too); CPU tensors run :func:`.ref.flash_bwd_ref`, which needs no
     LSE.  One call is one launch in ``counts["flash_attention_bwd"]``."""
     dims = _check_bwd_args(q, k, v, o, do, window)
+    if q.device.type == "meta":
+        _meta_call("flash_attention_bwd", q, k, window, backward=True)
+        return tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
+                     for t in (q, k, v))
     if q.device.type == "cpu":
         counts["flash_attention_bwd"].plain_calls += 1
         return flash_bwd_ref(q, k, v, o, do, window=window)

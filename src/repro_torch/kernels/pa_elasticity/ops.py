@@ -8,9 +8,15 @@ Each wrapper checks device, dtype, shape and contiguity, then:
   fallback;
 * for CPU tensors runs its plain PyTorch version from :mod:`.ref`.
 
-``counts[name]`` keeps two plain integers per kernel, ``launches`` and
+``counts[name]`` keeps plain integers per kernel, ``launches`` and
 ``plain_calls``, so a run can show that its path went through the
 kernels; :func:`reset_counts` zeroes them.
+
+On the meta device (the dry-run's stand-ins) :func:`pa_elasticity` returns
+an empty y_e, counts ``meta_calls`` (never ``launches`` or
+``plain_calls``) and reports the kernel's analytic work to
+:func:`repro_torch.kernels._meta.charge`: ``paop_flops_per_elem(p)`` x NE
+FLOPs, every input read and y_e written once.  Only a meta tensor takes that path.
 """
 
 from __future__ import annotations
@@ -19,7 +25,8 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.flops import default_q1d
+from repro_torch.core.flops import default_q1d, paop_flops_per_elem
+from repro_torch.kernels._meta import charge
 from repro_torch.kernels.pa_elasticity import build
 from repro_torch.kernels.pa_elasticity.ref import paop_ref, probe_ref
 
@@ -42,6 +49,7 @@ KERNEL_DTYPES = (torch.float64, torch.float32)
 class Counts:
     launches: int = 0
     plain_calls: int = 0
+    meta_calls: int = 0
 
 
 counts = {"pa_elasticity": Counts(), "probe": Counts()}
@@ -49,7 +57,7 @@ counts = {"pa_elasticity": Counts(), "probe": Counts()}
 
 def reset_counts() -> None:
     for c in counts.values():
-        c.launches = c.plain_calls = 0
+        c.launches = c.plain_calls = c.meta_calls = 0
 
 
 _PA_NAMES = ("x_e", "lam_w", "mu_w", "jinv", "B", "G")
@@ -144,7 +152,13 @@ def pa_elasticity(x_e, lam_w, mu_w, jinv, B, G):
     B, G:   (Q1D, D1D)
     Returns y_e in the layout of x_e.
     """
-    ne, _, _ = _check_pa_args(x_e, lam_w, mu_w, jinv, B, G)
+    ne, d1d, _ = _check_pa_args(x_e, lam_w, mu_w, jinv, B, G)
+    if x_e.device.type == "meta":
+        counts["pa_elasticity"].meta_calls += 1
+        y = torch.empty_like(x_e)
+        charge(paop_flops_per_elem(d1d - 1) * ne,
+               sum(t.numel() * t.element_size() for t in (x_e, lam_w, mu_w, jinv, B, G, y)))
+        return y
     if not x_e.is_cuda:
         if x_e.device.type != "cpu":
             raise ValueError(f"pa_elasticity: unsupported device {x_e.device}")

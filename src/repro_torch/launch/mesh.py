@@ -11,10 +11,12 @@ Axis roles (see :mod:`repro_torch.distributed.sharding`):
 :class:`~repro_torch.distributed.sharding.LMMesh` over the host's cards
 or over the devices given, repeats allowed: ``make_local_mesh(2,
 devices=("cuda:0",) * 4)`` is a (2, 2) mesh of four virtual devices on
-one card, the counterpart of the reference's forced host devices.  The
-reference's ``make_production_mesh`` (the 16 x 16 and 2 x 16 x 16 dry-run
-meshes) and ``axis_type_kwargs`` belong to the meta-device cells of
-ROADMAP item 12 and are not here.
+one card, the counterpart of the reference's forced host devices.
+
+:func:`make_production_mesh` is the dry-run's mesh: 16 x 16 = 256 devices
+over (data, model), or 2 x 16 x 16 = 512 with ``pod`` first, by default on
+the meta device (shapes only; the chip host has one card, so a mesh of
+real cards at this size is not built).
 """
 
 from __future__ import annotations
@@ -24,12 +26,28 @@ import torch
 
 from repro_torch.distributed.sharding import LMMesh
 
-__all__ = ["MESH_AXES", "make_local_mesh"]
+__all__ = ["MESH_AXES", "make_local_mesh", "make_production_mesh", "axis_type_kwargs"]
 
 MESH_AXES = {
     False: ("data", "model"),
     True: ("pod", "data", "model"),
 }
+
+
+def axis_type_kwargs(n: int) -> dict:
+    """The reference's ``axis_types=(Auto,) * n`` for ``jax.make_mesh``:
+    torch meshes have no axis types, so always ``{}`` (kept for the
+    reference's call sites)."""
+    return {}
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="meta") -> LMMesh:
+    """(16, 16) over ``("data", "model")``, or (2, 16, 16) over ``("pod",
+    "data", "model")`` with ``multi_pod``: every entry ``device``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    arr = np.empty(shape, dtype=object)
+    arr.fill(torch.device(device))
+    return LMMesh(arr, MESH_AXES[multi_pod])
 
 
 def _host_cards() -> list[torch.device]:

@@ -16,6 +16,19 @@ every measured row names its card.
 :func:`model_flops_estimate` is the reference's useful-FLOPs count (6 N T
 for training, 2 N T for prefill, 2 N a row for decode, N the active
 parameters); MFU divides it by a step's time and the peak.
+
+:class:`RooflineTerms` and :func:`roofline_from_artifacts` are the
+reference's three predicted time terms of a dry-run cell, per device:
+
+    compute term    = FLOPs per device / the peak of the cell's dtype
+    memory term     = bytes per device / HBM rate
+    collective term = link bytes per device / NVLink rate
+
+from the cost model's counts (:mod:`repro_torch.launch.jaxpr_cost`) and
+the collectives' own tally (:func:`repro_torch.distributed.collectives.tally`,
+the counterpart of the reference's ``collective_bytes``, which parses
+HLO text: the port has none to parse).  The reference's ``V5E`` constants
+have no counterpart: every term here is on an H100.
 """
 
 from __future__ import annotations
@@ -27,7 +40,7 @@ import torch
 from repro_torch.configs.base import SHAPES, ArchConfig, ShapeConfig, get_config
 
 __all__ = ["HardwareSpec", "H100_SXM", "MeasuredPlacement", "place_measured",
-           "model_flops_estimate"]
+           "model_flops_estimate", "RooflineTerms", "roofline_from_artifacts"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,6 +124,74 @@ def place_measured(
         fraction=(flops_per_apply / t_apply_s) / roof,
         bound="memory" if oi * hw.hbm_bw < peak else "compute",
         hw=hw,
+    )
+
+
+@dataclasses.dataclass
+class RooflineTerms:
+    compute_s: float
+    memory_s: float
+    collective_s: float
+    flops_per_dev: float
+    bytes_per_dev: float
+    link_bytes_per_dev: float
+    operand_bytes_per_dev: float
+    model_flops: float  # global useful FLOPs (6*N*D etc.)
+    chips: int
+    per_op: dict
+
+    @property
+    def dominant(self) -> str:
+        terms = {
+            "compute": self.compute_s,
+            "memory": self.memory_s,
+            "collective": self.collective_s,
+        }
+        return max(terms, key=terms.get)
+
+    @property
+    def bound_s(self) -> float:
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+    @property
+    def useful_flops_ratio(self) -> float:
+        """MODEL_FLOPS / global counted FLOPs (remat and redundancy waste:
+        a block computed replicated over the model axis counts once a
+        device)."""
+        counted = self.flops_per_dev * self.chips
+        return self.model_flops / counted if counted else float("nan")
+
+    @property
+    def roofline_fraction(self) -> float:
+        """Achievable fraction of the compute roof: compute term over the
+        binding term (1.0 = compute-bound at peak)."""
+        return self.compute_s / self.bound_s if self.bound_s else float("nan")
+
+
+def roofline_from_artifacts(
+    *,
+    flops_per_dev: float,
+    bytes_per_dev: float,
+    chips: int,
+    model_flops: float,
+    coll: dict,
+    dtype: torch.dtype,
+    hw: HardwareSpec = H100_SXM,
+) -> RooflineTerms:
+    """The three terms of a dry-run cell on ``hw``: its per-device counts,
+    ``coll`` the tally's per-device dict (``operand_bytes``, ``link_bytes``,
+    ``per_op``), the compute term at the peak of ``dtype``."""
+    return RooflineTerms(
+        compute_s=flops_per_dev / hw.peak(dtype),
+        memory_s=bytes_per_dev / hw.hbm_bw,
+        collective_s=coll["link_bytes"] / hw.link_bw,
+        flops_per_dev=flops_per_dev,
+        bytes_per_dev=bytes_per_dev,
+        link_bytes_per_dev=coll["link_bytes"],
+        operand_bytes_per_dev=coll["operand_bytes"],
+        model_flops=model_flops,
+        chips=chips,
+        per_op=coll.get("per_op", {}),
     )
 
 

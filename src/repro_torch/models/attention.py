@@ -23,6 +23,20 @@ Two paths, as in the reference:
   its row block of ``wo``; the partial outputs are all-reduced in model
   order.  Otherwise every device gathers the weights whole and computes
   the block replicated.
+* :func:`mesh_prefill_cache` and :func:`mesh_decode_attention` -- the KV
+  cache on a mesh, laid out by ``decode_state_pspecs``: its sequence axis
+  split over ``model`` (or, where that does not divide, another axis, or
+  none).  Prefill sends each block of positions' k/v to the model device
+  that owns it (an all-to-all when the heads are split over ``model``).
+  Decode writes the new token's k/v on the owner of its slot; each model
+  device scores the query against its own block of positions, a partial
+  softmax (max, sum, weighted values, all f32), and the partials,
+  stacked in model order, are combined by log-sum-exp (a fixed-order sum
+  over the stack) on each device that applies the heads' output (under
+  tensor parallelism each its own heads, after an all-to-all; else every
+  head, after an all-gather): no atomics, and bitwise repeatable.  A cache whose sequence is not split is gathered
+  whole on each device (a view where nothing is split: on a model axis
+  of 1 the unsharded :func:`decode_attention`, op for op).
 
 KV heads stay folded (B, S, K, hd) with queries grouped (K, G): query head
 h = k * G + g.  Positions rotate q and k by RoPE ((B, S) positions) or
@@ -37,12 +51,22 @@ import math
 
 import torch
 
-from repro_torch.distributed.sharding import local_tree_views, mesh_all_reduce
+from repro_torch.distributed.collectives import gather_blocks
+from repro_torch.distributed.sharding import (
+    dp_axes,
+    local_tree_views,
+    local_views,
+    mesh_all_gather,
+    mesh_all_reduce,
+    mesh_all_to_all,
+    own_part,
+)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.common import rmsnorm
 from repro_torch.models.rope import apply_mrope, apply_rope
 
-__all__ = ["attention", "mesh_attention", "attention_tp", "decode_attention", "init_kv_cache"]
+__all__ = ["attention", "mesh_attention", "attention_tp", "decode_attention", "init_kv_cache",
+           "fill_cache", "mesh_prefill_cache", "mesh_decode_attention"]
 
 NEG_INF = -1e30
 
@@ -93,19 +117,80 @@ def attention_tp(params, cfg, mesh) -> bool:
             and all(_has_model(params[w]) for w in ("wq", "wk", "wv", "wo")))
 
 
+def _local_cfg(cfg, mesh, tp: bool):
+    """``cfg`` with a model device's share of the heads under tensor
+    parallelism."""
+    if not tp:
+        return cfg
+    M = mesh.shape["model"]
+    return dataclasses.replace(cfg, n_heads=cfg.n_heads // M, n_kv_heads=cfg.n_kv_heads // M,
+                               head_dim=cfg.head_dim_)
+
+
 def mesh_attention(params, xs, cfg, mesh, positions):
     """Full-sequence causal attention of one block on ``mesh``: params the
     block's attention leaves (``Sharded``), xs and positions one entry a
     mesh device (its data row's rows).  Returns each device's output,
-    (B_row, S, d_model); equal over a data row's model devices."""
+    (B_row, S, d_model), equal over a data row's model devices, and its
+    (k, v), (B_row, S, K_local, hd): its own kv heads under tensor
+    parallelism (:func:`attention_tp`), every head otherwise."""
     tp = attention_tp(params, cfg, mesh)
     views = local_tree_views(params, ("model",) if tp else ())
-    if tp:
-        M = mesh.shape["model"]
-        cfg = dataclasses.replace(cfg, n_heads=cfg.n_heads // M,
-                                  n_kv_heads=cfg.n_kv_heads // M, head_dim=cfg.head_dim_)
-    hs = [attention(v, x, cfg, pos)[0] for v, x, pos in zip(views, xs, positions)]
-    return mesh_all_reduce(hs, mesh) if tp else hs
+    lcfg = _local_cfg(cfg, mesh, tp)
+    outs = [attention(v, x, lcfg, pos) for v, x, pos in zip(views, xs, positions)]
+    hs = [h for h, _ in outs]
+    return (mesh_all_reduce(hs, mesh) if tp else hs), [kv for _, kv in outs]
+
+
+def _seq_split(cache_sh, mesh) -> bool:
+    """Whether a cache layer's (B, size, K, hd) layout splits its
+    positions over a model axis of more than one device."""
+    return mesh.shape.get("model", 1) > 1 and "model" in cache_sh.parts()[1]
+
+
+def fill_cache(cache, t, cfg) -> None:
+    """Write a prompt's k or v, t (B, S, K, hd), into one layer's cache
+    (B, size, K, hd), in place: its first S slots, or under SWA with S >
+    size the rolling window's (position t of the last ``size`` lands in
+    slot t % size)."""
+    S, size = t.shape[1], cache.shape[1]
+    if cfg.sliding_window and S > size:
+        slots = torch.arange(S - size, S, device=t.device) % size
+        cache[:, slots] = t[:, S - size:].to(cache.dtype)
+    else:
+        cache[:, :S] = t.to(cache.dtype)
+
+
+def mesh_prefill_cache(cache: dict, kvs: list, cfg, mesh, tp: bool) -> None:
+    """Write one layer's prompt k/v into its cache on ``mesh``, in place.
+    cache: ``{"k", "v"}`` :class:`Sharded` (B, size, K, hd) layers; kvs:
+    each device's (k, v) from :func:`mesh_attention` (``tp``: its own kv
+    heads).  Each device first lays its k/v out as the unsharded prefill
+    does (the first S slots, or a rolling window's slots), then keeps its
+    block: under tensor parallelism a sequence-split cache takes its
+    positions' k/v of every head by an all-to-all, a head-split one its own
+    heads; otherwise the heads are gathered first."""
+    keep = dp_axes(mesh)
+    for j, name in enumerate(("k", "v")):
+        sh = cache[name]
+        size = sh.shape[1]
+        fills = []
+        for kv in kvs:
+            t = kv[j]
+            fill = t.new_zeros((t.shape[0], size) + tuple(t.shape[2:]), dtype=sh.dtype)
+            fill_cache(fill, t, cfg)
+            fills.append(fill)
+        heads_split = "model" in sh.parts()[2]
+        if tp and _seq_split(sh, mesh):
+            blocks = mesh_all_to_all(fills, mesh, split_dim=1, concat_dim=2)
+        elif tp and heads_split:
+            blocks = [own_part(sh, kd, f, keep + ("model",)) for kd, f in enumerate(fills)]
+        else:
+            if tp:
+                fills = mesh_all_gather(fills, mesh, 2)
+            blocks = [own_part(sh, kd, f, keep) for kd, f in enumerate(fills)]
+        for b, new in zip(sh.blocks, blocks):
+            b.copy_(new)
 
 
 # ---------------------------------------------------------------------------
@@ -135,11 +220,7 @@ def decode_attention(params, x, cfg, cache, pos: int, rope_pos: int | None = Non
     B = x.shape[0]
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     G = H // K
-    positions = torch.full((B, 1), pos if rope_pos is None else rope_pos, dtype=torch.long,
-                           device=x.device)
-    if cfg.pos_embed == "mrope":
-        positions = positions.expand(3, B, 1)
-    q, k_new, v_new = _qkv(params, x, cfg, positions)
+    q, k_new, v_new = _qkv(params, x, cfg, _decode_positions(x, cfg, pos, rope_pos))
 
     size = cache["k"].shape[1]
     slot = pos % size if cfg.sliding_window else pos
@@ -155,3 +236,93 @@ def decode_attention(params, x, cfg, cache, pos: int, rope_pos: int | None = Non
     p = torch.softmax(s, dim=-1).to(x.dtype)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v).reshape(B, 1, H * hd)
     return o @ params["wo"], cache
+
+
+def _decode_positions(x, cfg, pos: int, rope_pos: int | None):
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos if rope_pos is None else rope_pos, dtype=torch.long,
+                           device=x.device)
+    return positions.expand(3, B, 1) if cfg.pos_embed == "mrope" else positions
+
+
+def mesh_decode_attention(params, xs, cfg, mesh, cache: dict, pos: int,
+                          rope_pos: int | None = None) -> list:
+    """:func:`decode_attention` of one block on ``mesh``: params the
+    block's attention leaves (``Sharded``), xs each device's (B_row, 1, d)
+    rows, cache ``{"k", "v"}`` :class:`Sharded` (B, size, K, hd) layers
+    (written in place).  Returns each device's output (B_row, 1, d)."""
+    if not _seq_split(cache["k"], mesh):
+        return _gathered_decode(params, xs, cfg, mesh, cache, pos, rope_pos)
+    tp = attention_tp(params, cfg, mesh)
+    views = local_tree_views(params, ("model",) if tp else ())
+    lcfg = _local_cfg(cfg, mesh, tp)
+    qkv = [_qkv(v, x, lcfg, _decode_positions(x, cfg, pos, rope_pos))
+           for v, x in zip(views, xs)]
+    qs = [q for q, _, _ in qkv]
+    if tp:
+        qs = mesh_all_gather(qs, mesh, 2)  # every head's query on each model device
+    kc, vc = cache["k"], cache["v"]
+    size = kc.shape[1]
+    C = size // mesh.shape["model"]
+    slot = pos % size if cfg.sliding_window else pos
+    owner = slot // C
+    # the new token's k/v (every head) on the device that owns the slot
+    for j, sh in ((1, kc), (2, vc)):
+        for kd in range(mesh.size):
+            if mesh.coords(kd)["model"] != owner:
+                continue
+            new = qkv[kd][j]
+            if tp:
+                group = mesh.group(kd, ("model",))
+                parts = [qkv[g][j] for g in group]
+                kl = parts[0].shape[2]
+                new = gather_blocks(parts, [(0, 0, i * kl, 0) for i in range(len(group))],
+                                    (new.shape[0], 1, kl * len(group), new.shape[3]),
+                                    [mesh.flat[kd]])[0]
+            sh.blocks[kd][:, slot - owner * C] = new[:, 0].to(sh.dtype)
+    K, hd = cfg.n_kv_heads, cfg.head_dim_
+    G = cfg.n_heads // K
+    packs = []
+    for kd, q in enumerate(qs):
+        m = mesh.coords(kd)["model"]
+        kb, vb = kc.blocks[kd], vc.blocks[kd]
+        B = q.shape[0]
+        s = torch.einsum("bqkgd,bskd->bkgqs", q.reshape(B, 1, K, G, hd), kb) / math.sqrt(hd)
+        idx = torch.arange(m * C, (m + 1) * C, device=q.device)
+        valid = idx <= slot if not cfg.sliding_window else (idx <= slot) | (pos >= size)
+        s = torch.where(valid, s.float(), NEG_INF)
+        mx = s.amax(dim=-1, keepdim=True)
+        e = torch.exp(s - mx)
+        acc = torch.einsum("bkgqs,bskd->bkgqd", e, vb.float())
+        packs.append(torch.cat([mx, e.sum(dim=-1, keepdim=True), acc], dim=-1)[None])
+    # (M, B, K_local, G, 1, hd + 2): every model device's partial (max, sum,
+    # weighted values) of the heads used here; o is (B, K_local, G, 1, hd)
+    parts = (mesh_all_to_all(packs, mesh, split_dim=2, concat_dim=0) if tp
+             else mesh_all_gather(packs, mesh, 0))
+    hs = []
+    for v, x, part in zip(views, xs, parts):
+        # log-sum-exp over the model axis, a fixed-order reduction
+        mx = part[..., :1]
+        w = torch.exp(mx - mx.amax(dim=0))
+        o = ((w * part[..., 2:]).sum(dim=0) / (w * part[..., 1:2]).sum(dim=0)).to(x.dtype)
+        hs.append(o.permute(0, 3, 1, 2, 4).reshape(x.shape[0], 1, -1) @ v["wo"])
+    return mesh_all_reduce(hs, mesh) if tp else hs
+
+
+def _gathered_decode(params, xs, cfg, mesh, cache, pos, rope_pos) -> list:
+    """Decode attention with each device's rows of the cache gathered over
+    ``model`` (a view of its block where the layout splits nothing but
+    rows) and every head computed replicated; the device's block is then
+    cut back out of its updated copy."""
+    keep = dp_axes(mesh)
+    views = local_tree_views(params)
+    ks, vs = (local_views(cache[n], keep) for n in ("k", "v"))
+    hs = []
+    for kd, (v, x) in enumerate(zip(views, xs)):
+        local = {"k": ks[kd], "v": vs[kd]}
+        h, _ = decode_attention(v, x, cfg, local, pos, rope_pos)
+        hs.append(h)
+        for n in ("k", "v"):
+            if local[n] is not cache[n].blocks[kd]:
+                cache[n].blocks[kd].copy_(own_part(cache[n], kd, local[n], keep))
+    return hs

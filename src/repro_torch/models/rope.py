@@ -42,7 +42,7 @@ def apply_mrope(x, positions3, theta: float, sections: tuple[int, ...]):
         raise ValueError(f"mrope sections {sections} do not sum to head_dim // 2 = {half}")
     freqs = rope_frequencies(x.shape[-1], theta, device=x.device)
     sec_id = torch.repeat_interleave(torch.arange(len(sections), device=x.device),
-                                     torch.tensor(sections, device=x.device))
+                                     torch.tensor(sections, device=x.device), output_size=half)
     pos = positions3[sec_id]  # (half, B, S): each slot's coordinate
     ang = torch.movedim(pos, 0, -1).float() * freqs  # (B, S, half)
     cos = torch.cos(ang)[..., None, :].to(x.dtype)

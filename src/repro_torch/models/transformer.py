@@ -49,8 +49,19 @@ embedding, the norms and residuals, the Mamba2 and xLSTM blocks) is
 gathered whole and computed replicated over ``model`` (their tensor
 parallelism is ROADMAP Queue 1 item 10, part 10c).  Each block's gathers run inside its
 remat, so the recompute gathers again, as FSDP does.  The loss is taken
-on each data row's first model device: the rows' CE sums over the global
-count of valid labels.  On a (1, 1) mesh it is :func:`loss_fn`, op for op.
+on each data row's first model device (on every device when the batch is
+split over ``model`` too, the pure-DP layout): the rows' CE sums over the
+global count of valid labels.  On a (1, 1) mesh it is :func:`loss_fn`, op
+for op.
+
+:func:`mesh_prefill` and :func:`mesh_decode_step` serve on the same
+layout: parameters by ``param_pspecs``, the decode state by
+``decode_state_pspecs`` (batch rows over ``data``, a KV cache's positions
+over ``model``; see :func:`~repro_torch.models.attention.mesh_decode_attention`),
+each device computing its data row's rows; the Mamba2, zamba2 and xLSTM
+mixers gathered whole and their states gathered over ``model`` for use,
+each device keeping its block of the new state.  On a (1, 1) mesh they are
+:func:`prefill` and :func:`decode_step`, op for op.
 
 Inputs are dicts: ``tokens`` (B, S) integer (codebooks: (B, S, n_cb)),
 ``labels`` shaped like the tokens with -1 masking a position, and for the
@@ -59,6 +70,7 @@ VLM ``vision_embeds`` (B, n_vision_tokens, d_model).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
@@ -66,19 +78,27 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.collectives import ordered_sum
+from repro_torch.distributed.collectives import gather_blocks, ordered_sum, to_device
 from repro_torch.distributed.sharding import (
     Sharded,
+    decode_state_pspecs,
+    dp_axes,
     local_tree_views,
     local_views,
     mesh_all_reduce,
+    own_part,
     shard_of,
+    sharded_zeros,
 )
 from repro_torch.models.attention import (
     attention,
+    attention_tp,
     decode_attention,
+    fill_cache,
     init_kv_cache,
     mesh_attention,
+    mesh_decode_attention,
+    mesh_prefill_cache,
 )
 from repro_torch.models.common import (
     dense_init,
@@ -98,6 +118,9 @@ __all__ = [
     "mesh_loss_fn",
     "prefill",
     "decode_step",
+    "mesh_prefill",
+    "mesh_decode_step",
+    "abstract_params",
     "init_decode_state",
     "chunked_ce_loss",
     "param_count",
@@ -160,11 +183,15 @@ def _attn_block_apply(p, x, cfg, positions):
     return x + m, aux, kv
 
 
+def _rope_pos(pos: int, cfg) -> int | None:
+    """M-RoPE's rotary position of decode position pos: text tokens past the
+    vision prefix sit at t = h = w = pos - nv + g; None for other models."""
+    return pos - cfg.n_vision_tokens + _grid(cfg) if cfg.pos_embed == "mrope" else None
+
+
 def _attn_block_decode(p, x, cfg, cache, pos: int):
-    # M-RoPE: text tokens past the vision prefix sit at t = h = w = pos - nv + g
-    rope_pos = pos - cfg.n_vision_tokens + _grid(cfg) if cfg.pos_embed == "mrope" else None
     h, cache = decode_attention(
-        p["attn"], rmsnorm(x, p["attn_norm"], cfg.norm_eps), cfg, cache, pos, rope_pos
+        p["attn"], rmsnorm(x, p["attn_norm"], cfg.norm_eps), cfg, cache, pos, _rope_pos(pos, cfg)
     )
     x = x + h
     m, _ = _ffn(p, rmsnorm(x, p["mlp_norm"], cfg.norm_eps), cfg)
@@ -575,22 +602,34 @@ def _mesh_mlp(params, hn, cfg, mesh):
     return mesh_all_reduce(ms, mesh) if tp else ms
 
 
-def _mesh_attn_block(p, xs, cfg, mesh, positions):
-    """:func:`_attn_block_apply` on a mesh; returns (xs, aux): each
-    device's output and the layer's global MoE aux loss (0.0 without
-    experts) on the mesh's first device."""
-    eps = cfg.norm_eps
-    an = local_views(p["attn_norm"])
-    hs = mesh_attention(p["attn"], [rmsnorm(x, n, eps) for x, n in zip(xs, an)], cfg, mesh,
-                        positions)
-    xs = [x + h for x, h in zip(xs, hs)]
+def _mesh_ffn(p, xs, cfg, mesh):
+    """The block's MLP or MoE on ``mesh`` after its pre-norm, with the
+    residual; returns (xs, aux)."""
     mn = local_views(p["mlp_norm"])
-    hn = [rmsnorm(x, n, eps) for x, n in zip(xs, mn)]
+    hn = [rmsnorm(x, n, cfg.norm_eps) for x, n in zip(xs, mn)]
     if cfg.is_moe:
         ms, aux = moe_mesh_apply(p["moe"], hn, cfg, mesh)
     else:
         ms, aux = _mesh_mlp(p["mlp"], hn, cfg, mesh), 0.0
     return [x + m for x, m in zip(xs, ms)], aux
+
+
+def _mesh_attn_block_apply(p, xs, cfg, mesh, positions):
+    """:func:`_attn_block_apply` on a mesh; returns (xs, aux, kvs): each
+    device's output, the layer's global MoE aux loss (0.0 without experts)
+    on the mesh's first device, and each device's (k, v)
+    (:func:`~repro_torch.models.attention.mesh_attention`)."""
+    an = local_views(p["attn_norm"])
+    hs, kvs = mesh_attention(p["attn"], [rmsnorm(x, n, cfg.norm_eps) for x, n in zip(xs, an)],
+                             cfg, mesh, positions)
+    xs, aux = _mesh_ffn(p, [x + h for x, h in zip(xs, hs)], cfg, mesh)
+    return xs, aux, kvs
+
+
+def _mesh_attn_block(p, xs, cfg, mesh, positions):
+    """(xs, aux) of :func:`_mesh_attn_block_apply`."""
+    xs, aux, _ = _mesh_attn_block_apply(p, xs, cfg, mesh, positions)
+    return xs, aux
 
 
 def _mesh_mamba_block(p, xs, cfg):
@@ -647,7 +686,11 @@ def mesh_loss_fn(params, batch, cfg, mesh, *, remat: bool = True):
             for g in range(cfg.n_layers // every):
                 xs = _remat(rematted, _mesh_zamba_group, layers[g * every:(g + 1) * every],
                             params["shared"], xs, cfg, mesh, positions, rematted)
-    leaders = mesh.leaders()
+    # the devices whose rows the CE takes: each data row's first model
+    # device, or every device when the batch is split over ``model`` too
+    # (the pure-DP layout of a small model)
+    tok = batch["tokens"]
+    leaders = tok.owners() if isinstance(tok, Sharded) else mesh.leaders()
     norms = local_views(params["final_norm"], at=leaders)
     if cfg.tie_embeddings and not cfg.n_codebooks:
         heads = [e.T for e in local_views(params["embed"], at=leaders)]
@@ -707,12 +750,6 @@ def init_decode_state(cfg, batch: int, max_len: int, device=None):
         init_kv_cache(cfg, batch, max_len, dtype, device), attention_layers(cfg))}
 
 
-def _set_state(stack: dict, i: int, state: dict) -> None:
-    """Write one layer's state into slice i of the stacked state, in place."""
-    for name, t in state.items():
-        stack[name][i].copy_(t)
-
-
 def decode_step(params, token, state, pos: int, cfg):
     """One decode step.
 
@@ -721,100 +758,304 @@ def decode_step(params, token, state, pos: int, cfg):
     V)), state); the state (caches, Mamba2 states; the xLSTM's list, whose
     entries are replaced) is updated in place and returned.
     """
-    check_supported(cfg)
-    x = _embed(params, {"tokens": token}, cfg)
-    if cfg.pos_embed == "sinusoidal":
-        # _embed added position 0's embedding; put pos's in its place
-        dev = x.device
-        x = x - sinusoidal_positions(torch.zeros((1, 1), dtype=torch.long, device=dev),
-                                     cfg.d_model, x.dtype)
-        x = x + sinusoidal_positions(torch.full((1, 1), pos, dtype=torch.long, device=dev),
-                                     cfg.d_model, x.dtype)
-    if cfg.block_pattern == "xlstm":
-        for i, p in enumerate(params["blocks"]):
-            x, state[i] = _xlstm_block_decode(p, x, cfg, state[i], i in cfg.slstm_indices)
-        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-        return _logits(x, _head_weight(params, cfg)), state
-    layers = _unstack(params["blocks"], cfg.n_layers)
-    if cfg.block_pattern == "attn":
-        for i, p in enumerate(layers):
-            cache = {"k": state["k"][i], "v": state["v"][i]}  # views: written in place
-            x, _ = _attn_block_decode(p, x, cfg, cache, pos)
-    else:
-        mamba = state["mamba"] if cfg.block_pattern == "zamba2" else state
-        for i, p in enumerate(layers):
-            x, st = _mamba_block_decode(p, x, cfg, {k: t[i] for k, t in mamba.items()})
-            _set_state(mamba, i, st)
-            if cfg.block_pattern == "zamba2" and (i + 1) % cfg.shared_attn_every == 0:
-                g = i // cfg.shared_attn_every
-                cache = {k: t[g] for k, t in state["shared_kv"].items()}
-                x, _ = _attn_block_decode(params["shared"], x, cfg, cache, pos)
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return _logits(x, _head_weight(params, cfg)), state
+    return _decode_step(_ONE_DEVICE, params, token, state, pos, cfg)
 
 
 def prefill(params, batch, cfg, max_len: int | None = None):
     """Process a full prompt; returns (last-position logits (B, V), or
-    (B, n_cb, V) with codebooks, and the decode state)."""
+    (B, n_cb, V) with codebooks, and the decode state).  Each attention
+    layer's k/v go straight into the preallocated (L, B, size, K, hd)
+    cache, in place (the reference stacks every layer's k/v, then copies
+    the stack into its cache); each Mamba2 layer's final ssm state and conv
+    tail into the stacked state; the xLSTM's final states replace the
+    entries of its list."""
+    return _prefill(_ONE_DEVICE, params, batch, cfg, max_len)
+
+
+def _prefill(ops, params, batch, cfg, max_len):
+    """:func:`prefill` on one device or on a mesh (``ops``)."""
     check_supported(cfg)
     B, S = batch["tokens"].shape[:2]
-    max_len = max_len or S
-    x = _embed(params, batch, cfg)
-    positions = _positions(batch, cfg)
-    state = init_decode_state(cfg, B, max_len, x.device)
-    if cfg.block_pattern == "attn":
-        x = _attn_prefill(params, x, cfg, positions, state)
-    else:
-        x = _recurrent_prefill(params, x, cfg, positions, state)
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return _logits(x[:, -1], _head_weight(params, cfg)), state
+    rows = ops.rows(batch, B)
+    x = ops.embed(params, rows, cfg)
+    positions = ops.each(lambda r: _positions(r, cfg), rows)
+    state = ops.new_state(cfg, B, max_len or S, x)
+    if cfg.block_pattern in ("attn", "zamba2"):
+        size = (state["k"] if cfg.block_pattern == "attn" else state["shared_kv"]["k"]).shape[2]
+        if S > size and not (cfg.block_pattern == "attn" and cfg.sliding_window):
+            raise ValueError(f"prompt of {S} tokens does not fit a cache of {size} slots")
+
+    def step(p, h, _, slstm=False):
+        if cfg.block_pattern == "xlstm":
+            return _xlstm_block_apply(p, h, cfg, slstm)
+        return _mamba_block_apply(p, h, cfg)
+
+    x = _serve_blocks(ops, params, x, state, cfg,
+                      lambda p, h, cache: ops.attn_prefill(p, h, cfg, positions, cache), step,
+                      use_state=False)
+    return ops.logits(params, x, cfg, B), state
 
 
-def _attn_prefill(params, x, cfg, positions, state):
-    """The attention stack over the prompt; each layer's k/v go straight
-    into the preallocated (L, B, size, K, hd) cache, in place (the
-    reference stacks every layer's k/v, then copies the stack into its
-    cache).  Returns the hidden states."""
-    S = x.shape[1]
-    size = state["k"].shape[2]
-    if S > size and not cfg.sliding_window:
-        raise ValueError(f"prompt of {S} tokens does not fit a cache of {size} slots")
-    if cfg.sliding_window and S > size:
-        # rolling window layout: position t of the last `size` lands in
-        # slot t % size
-        slots = torch.arange(S - size, S, device=x.device) % size
-    for i, p in enumerate(_unstack(params["blocks"], cfg.n_layers)):
-        x, _, (k, v) = _attn_block_apply(p, x, cfg, positions)
-        for name, t in (("k", k), ("v", v)):
-            if cfg.sliding_window and S > size:
-                state[name][i][:, slots] = t[:, S - size:].to(state[name].dtype)
-            else:
-                state[name][i, :, :S] = t.to(state[name].dtype)
-    return x
+def _decode_step(ops, params, token, state, pos: int, cfg):
+    """:func:`decode_step` on one device or on a mesh (``ops``)."""
+    check_supported(cfg)
+    B = token.shape[0]
+    x = ops.embed(params, ops.rows({"tokens": token}, B), cfg)
+    if cfg.pos_embed == "sinusoidal":
+        x = ops.each(lambda h: _at_position(h, pos, cfg), x)
+
+    def step(p, h, st, slstm=False):
+        if cfg.block_pattern == "xlstm":
+            return _xlstm_block_decode(p, h, cfg, st, slstm)
+        return _mamba_block_decode(p, h, cfg, st)
+
+    x = _serve_blocks(ops, params, x, state, cfg,
+                      lambda p, h, cache: ops.attn_decode(p, h, cfg, cache, pos), step,
+                      use_state=True)
+    return ops.logits(params, x, cfg, B), state
 
 
-def _recurrent_prefill(params, x, cfg, positions, state):
-    """The Mamba2 (and zamba2) stack over the prompt in one pass: each
-    layer's final ssm state and conv tail go into the preallocated stacked
-    state, and each zamba2 group's shared-block k/v into its slice of the
-    shared cache, in place; the xLSTM's final states replace the entries of
-    its list.  Returns the hidden states."""
+def _at_position(x, pos: int, cfg):
+    """x embedded at position 0 (:func:`_embed` adds position 0's
+    sinusoidal embedding to a single token), with pos's in its place."""
+    dev = x.device
+    x = x - sinusoidal_positions(torch.zeros((1, 1), dtype=torch.long, device=dev),
+                                 cfg.d_model, x.dtype)
+    return x + sinusoidal_positions(torch.full((1, 1), pos, dtype=torch.long, device=dev),
+                                    cfg.d_model, x.dtype)
+
+
+def _serve_blocks(ops, params, x, state, cfg, attn, step, use_state: bool):
+    """The block loop of prefill and decode, on one device or on a mesh
+    (``ops``): ``attn(p, x, cache)`` runs an attention block against its
+    cache layer (written in place), ``step(p, x, layer_state, slstm) -> (x,
+    new state)`` a recurrent block, whose new state ``ops.mixer`` keeps
+    (``use_state`` False: prefill's blocks start from none).  Returns x."""
     if cfg.block_pattern == "xlstm":
         for i, p in enumerate(params["blocks"]):
-            x, state[i] = _xlstm_block_apply(p, x, cfg, i in cfg.slstm_indices)
+            slstm = i in cfg.slstm_indices
+            x = ops.mixer(p, x, state, i, functools.partial(step, slstm=slstm), use_state)
         return x
-    S = x.shape[1]
+    layers = _unstack(params["blocks"], cfg.n_layers)
+    if cfg.block_pattern == "attn":
+        for p, cache in zip(layers, ops.layers(state)):
+            x = attn(p, x, cache)
+        return x
     zamba = cfg.block_pattern == "zamba2"
-    mamba = state["mamba"] if zamba else state
-    if zamba and S > state["shared_kv"]["k"].shape[2]:
-        raise ValueError(f"prompt of {S} tokens does not fit a cache of "
-                         f"{state['shared_kv']['k'].shape[2]} slots")
-    for i, p in enumerate(_unstack(params["blocks"], cfg.n_layers)):
-        x, st = _mamba_block_apply(p, x, cfg)
-        _set_state(mamba, i, st)
+    states = ops.layers(state["mamba"] if zamba else state)
+    caches = ops.layers(state["shared_kv"]) if zamba else None
+    for i, p in enumerate(layers):
+        x = ops.mixer(p, x, states, i, step, use_state)
         if zamba and (i + 1) % cfg.shared_attn_every == 0:
-            g = i // cfg.shared_attn_every
-            x, _, kv = _attn_block_apply(params["shared"], x, cfg, positions)
-            for name, t in zip(("k", "v"), kv):
-                state["shared_kv"][name][g, :, :S] = t.to(state["shared_kv"][name].dtype)
+            x = attn(params["shared"], x, caches[i // cfg.shared_attn_every])
     return x
+
+
+class _StackedLayers(list):
+    """Each layer's state as views of a stacked state; assigning a layer's
+    new state copies it into the stack, in place."""
+
+    def __setitem__(self, i, state):
+        for name, t in state.items():
+            self[i][name].copy_(t)
+
+
+class _OneDevice:
+    """The serving loop's operations on one device: x a tensor, the decode
+    state's leaves tensors."""
+
+    def rows(self, batch, B):
+        return batch
+
+    def each(self, fn, *args):
+        return fn(*args)
+
+    def embed(self, params, batch, cfg):
+        return _embed(params, batch, cfg)
+
+    def new_state(self, cfg, B, max_len, x):
+        return init_decode_state(cfg, B, max_len, x.device)
+
+    def layers(self, tree) -> _StackedLayers:
+        n = len(next(iter(tree.values())))
+        return _StackedLayers({k: t[i] for k, t in tree.items()} for i in range(n))
+
+    def mixer(self, p, x, states, i, step, use_state):
+        x, states[i] = step(p, x, states[i])
+        return x
+
+    def attn_prefill(self, p, x, cfg, positions, cache):
+        x, _, kv = _attn_block_apply(p, x, cfg, positions)
+        for name, t in zip(("k", "v"), kv):
+            fill_cache(cache[name], t, cfg)
+        return x
+
+    def attn_decode(self, p, x, cfg, cache, pos):
+        return _attn_block_decode(p, x, cfg, cache, pos)[0]
+
+    def logits(self, params, x, cfg, B):
+        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        return _logits(x[:, -1], _head_weight(params, cfg))
+
+
+_ONE_DEVICE = _OneDevice()
+
+
+# ---------------------------------------------------------------------------
+# serving on a mesh: one program a mesh device
+# ---------------------------------------------------------------------------
+def abstract_params(cfg, device="meta") -> dict:
+    """Stand-ins of :func:`init_params`' tree: every leaf an uninitialised
+    tensor of its shape and dtype on ``device`` (the meta device by
+    default: nothing is allocated; the counterpart of ``jax.eval_shape``
+    of the reference's ``init_params``)."""
+    dtype = param_dtype(cfg)
+
+    def walk(tree, name=None):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, name) for v in tree]
+        return torch.empty(tree, dtype=leaf_dtype(name, dtype), device=device)
+
+    return walk(param_shapes(cfg))
+
+
+def _dp_index(mesh, kd: int) -> tuple[int, int]:
+    """(index, count) of device ``kd``'s data row over the data axes."""
+    c, idx, n = mesh.coords(kd), 0, 1
+    for a in dp_axes(mesh):
+        idx, n = idx * mesh.shape[a] + c[a], n * mesh.shape[a]
+    return idx, n
+
+
+def _device_rows(batch: dict, mesh, B: int) -> list[dict]:
+    """Each mesh device's rows of ``batch``: the blocks of leaves laid out
+    by ``batch_pspec``, or of full tensors its data row's rows when B
+    divides the data axes (else every row, replicated), moved to it."""
+    out = []
+    for kd, dev in enumerate(mesh.flat):
+        idx, n = _dp_index(mesh, kd)
+        rows = slice(idx * (B // n), (idx + 1) * (B // n)) if B % n == 0 else slice(None)
+        out.append({name: t.blocks[kd] if isinstance(t, Sharded) else to_device(t[rows], dev)
+                    for name, t in batch.items()})
+    return out
+
+
+def _mesh_logits(params, xs, cfg, mesh, B: int):
+    """The final norm and the head of the last position on each data row's
+    first model device, the rows gathered in data order on the mesh's
+    first device: (B, V) or (B, n_cb, V)."""
+    leaders = mesh.leaders()
+    norms = local_views(params["final_norm"], at=leaders)
+    if cfg.tie_embeddings and not cfg.n_codebooks:
+        heads = [e.T for e in local_views(params["embed"], at=leaders)]
+    else:
+        heads = local_views(params["lm_head"], at=leaders)
+    outs = [_logits(rmsnorm(xs[kd], f, cfg.norm_eps)[:, -1], w)
+            for kd, f, w in zip(leaders, norms, heads)]
+    if len(outs) == 1 or outs[0].shape[0] == B:
+        return outs[0]
+    rows = outs[0].shape[0]
+    return gather_blocks(outs, [(i * rows,) + (0,) * (outs[0].ndim - 1)
+                                for i in range(len(outs))],
+                         (B,) + tuple(outs[0].shape[1:]), [mesh.flat[0]])[0]
+
+
+def _mesh_state_layers(tree) -> list[dict]:
+    """Each layer of a stacked state tree of :class:`Sharded` leaves, as
+    views of the blocks."""
+    layers = {k: t.unbind() for k, t in tree.items()}
+    return [{k: t[i] for k, t in layers.items()} for i in range(len(next(iter(layers.values()))))]
+
+
+def _mesh_mixer(layer_params, xs, state, mesh, step, use_state: bool = True):
+    """A recurrent block gathered whole (replicated) on each device:
+    ``step(p, x, st) -> (x, new state)``, ``state`` a dict or tuple of
+    :class:`Sharded` leaves, gathered over ``model`` for use (when
+    ``use_state``; prefill starts from none), each device then keeping its
+    block of the new state in place."""
+    keep = dp_axes(mesh)
+    views = local_tree_views(layer_params)
+    keys = list(state) if isinstance(state, dict) else list(range(len(state)))
+    gathered = {key: local_views(state[key], keep) for key in keys} if use_state else None
+    out = []
+    for kd, (v, x) in enumerate(zip(views, xs)):
+        st = None
+        if use_state:
+            st = ({key: gathered[key][kd] for key in keys} if isinstance(state, dict)
+                  else type(state)(gathered[key][kd] for key in keys))
+        x, new = step(v, x, st)
+        for key in keys:
+            state[key].blocks[kd].copy_(own_part(state[key], kd, new[key], keep))
+        out.append(x)
+    return out
+
+
+class _OnMesh:
+    """The serving loop's operations on ``mesh``: x a list, one entry a
+    mesh device (its data row's rows), the decode state's leaves
+    :class:`Sharded`."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def rows(self, batch, B):
+        return _device_rows(batch, self.mesh, B)
+
+    def each(self, fn, *args):
+        return [fn(*a) for a in zip(*args)]
+
+    def embed(self, params, rows, cfg):
+        return [_embed({"embed": e}, r, cfg) for e, r in zip(local_views(params["embed"]), rows)]
+
+    def new_state(self, cfg, B, max_len, xs):
+        shapes = init_decode_state(cfg, B, max_len, device="meta")
+        specs = decode_state_pspecs(shapes, self.mesh.axis_names, cfg, self.mesh)
+        return sharded_zeros(shapes, specs, self.mesh)
+
+    def layers(self, tree) -> list[dict]:
+        return _mesh_state_layers(tree)
+
+    def mixer(self, p, xs, states, i, step, use_state):
+        return _mesh_mixer(p, xs, states[i], self.mesh, step, use_state)
+
+    def attn_prefill(self, p, xs, cfg, positions, cache):
+        xs, _, kvs = _mesh_attn_block_apply(p, xs, cfg, self.mesh, positions)
+        mesh_prefill_cache(cache, kvs, cfg, self.mesh, attention_tp(p["attn"], cfg, self.mesh))
+        return xs
+
+    def attn_decode(self, p, xs, cfg, cache, pos):
+        an = local_views(p["attn_norm"])
+        hs = mesh_decode_attention(p["attn"],
+                                   [rmsnorm(x, n, cfg.norm_eps) for x, n in zip(xs, an)],
+                                   cfg, self.mesh, cache, pos, _rope_pos(pos, cfg))
+        return _mesh_ffn(p, [x + h for x, h in zip(xs, hs)], cfg, self.mesh)[0]
+
+    def logits(self, params, xs, cfg, B):
+        return _mesh_logits(params, xs, cfg, self.mesh, B)
+
+
+def mesh_prefill(params, batch, cfg, mesh, max_len: int | None = None):
+    """:func:`prefill` on ``mesh``: params ``Sharded`` by ``param_pspecs``;
+    batch full tensors or leaves laid out by ``batch_pspec``.  Returns the
+    last position's logits on the mesh's first device and the decode state
+    as ``Sharded`` leaves laid out by ``decode_state_pspecs``.
+
+    The block loop is :func:`prefill`'s, each device running its data
+    row's rows (every row when the batch does not divide the data axes):
+    attention blocks through
+    :func:`~repro_torch.models.attention.mesh_attention` (the flash kernel
+    on each device's heads), their k/v to the cache's owners
+    (:func:`~repro_torch.models.attention.mesh_prefill_cache`); Mamba2 and
+    xLSTM blocks gathered whole, each keeping its block of the final
+    states."""
+    return _prefill(_OnMesh(mesh), params, batch, cfg, max_len)
+
+
+def mesh_decode_step(params, token, state, pos: int, cfg, mesh):
+    """:func:`decode_step` on ``mesh``: token (B, 1) (codebooks: (B, 1,
+    n_cb)), a full tensor or laid out by ``batch_pspec``; state from
+    :func:`mesh_prefill` (updated in place).  Returns (logits on the mesh's
+    first device, state)."""
+    return _decode_step(_OnMesh(mesh), params, token, state, pos, cfg)

@@ -1066,3 +1066,59 @@ def test_pipeline_on_card_is_the_sequential_apply_bitwise(card):
     cot = torch.randn_like(got)
     for a, b in zip(torch.autograd.grad(got, leaves, cot), torch.autograd.grad(want, leaves, cot)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_mesh_prefill_on_card_repeats_bitwise(card):
+    """qwen3-1.7b reduced in bf16 (the mma_sync flash route) on a (2, 2)
+    mesh of four virtual devices of the card: mesh_prefill twice, logits
+    and every block of the sequence-split cache bitwise equal, one flash
+    launch a device a layer and no plain call; one decode step's logits
+    within 2^-5 of max |logit| of the unsharded decode_step on the card."""
+    from repro_torch.distributed.sharding import param_pspecs, place
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.transformer import decode_step, mesh_decode_step, mesh_prefill, prefill
+
+    cfg = dataclasses.replace(get_reduced("qwen3-1.7b"), dtype="bfloat16")
+    params = init_params(torch.Generator(device=card).manual_seed(0), cfg)
+    mesh = make_local_mesh(2, devices=(card,) * 4)
+    sp = place(params, param_pspecs(params, mesh), mesh)
+    tokens = torch.randint(0, cfg.vocab, (4, 64), device=card,
+                           generator=torch.Generator(device=card).manual_seed(1))
+    runs = []
+    with torch.inference_mode():
+        for _ in range(2):
+            flash_ops.reset_counts()
+            runs.append(mesh_prefill(sp, {"tokens": tokens}, cfg, mesh, max_len=72))
+            counts = flash_ops.counts["flash_attention"]
+            assert (counts.launches, counts.plain_calls) == (4 * cfg.n_layers, 0)
+        (l1, s1), (l2, s2) = runs
+        assert torch.equal(l1, l2)
+        assert all(torch.equal(a, b) for n in ("k", "v")
+                   for a, b in zip(s1[n].blocks, s2[n].blocks))
+        tok = l1.argmax(-1)[:, None]
+        got, _ = mesh_decode_step(sp, tok, s1, 64, cfg, mesh)
+        _, whole = prefill(params, {"tokens": tokens}, cfg, max_len=72)
+        want, _ = decode_step(params, tok, whole, 64, cfg)
+    assert float((got - want).float().abs().max()) <= 2.0 ** -5 * float(want.float().abs().max())
+
+
+@pytest.mark.cuda
+def test_elasticity_cell_on_card_is_the_operator(card):
+    """The beam_p2_6m cell (f32, paop_cuda) on a (1, 1) mesh of the card:
+    one PAop launch, no plain call, and the operator's apply on the same
+    vector (the cell's own path: equal to 1e-5 of max |y|)."""
+    from repro_torch.configs.elasticity import ELASTICITY_SHAPES
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.mesh import make_local_mesh
+
+    mesh = make_local_mesh(1, devices=(card,))
+    cell = build_cell("elasticity", "beam_p2_6m", mesh, assembly="paop_cuda", seed=0)
+    ops.reset_counts()
+    (y,) = cell.run()
+    assert (ops.counts["pa_elasticity"].launches, ops.counts["pa_elasticity"].plain_calls) == (1, 0)
+    es = ELASTICITY_SHAPES["beam_p2_6m"]
+    space = H1Space(beam_hex().refined(es.n_h_refine), es.p)
+    want = ElasticityOperator(space, "paop_cuda", dtype=torch.float32, device=card).apply(
+        cell.args[0][0])
+    assert float((y - want).abs().max()) <= 1e-5 * float(want.abs().max())
