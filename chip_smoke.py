@@ -16,7 +16,10 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    baseline, the first port's kernel, also the shared bytes per block and
    the blocks an SM holds), and hold the probe kernel against ``2 * x``;
 3. hold the PAop kernel against its plain PyTorch version on the card for
-   p = 1..8 in float64 and float32 at NE in {1, 7, 4096}, and at every
+   p = 1..8 in float64, float32 and bfloat16 at NE in {1, 7, 4096}
+   (bfloat16 also from views at a storage offset of 1 and 3 values, and at
+   every (p, NE) that phase 5d's solves and service give it, within 2^-7
+   of max |plain|), and at every
    (p, NE) the single and the batched solve give it (S * NE elements, and
    the coarse probe's n * S * NE) and phase 8's sweep times it at (p = 1..8
    at the refinements of ``ABLATION_REFINE``, and beam_p8_51m), with the
@@ -37,7 +40,9 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    the 2-material beam (32,768 elements, 6,502,275 DoFs) with every
    kernel count zeroed just before and read just after; it must converge
    to rel_tol 1e-6 through the kernels alone, to a finite solution, and a
-   small solve on the card must agree with the same solve on the CPU;
+   small solve on the card must agree with the same solve on the CPU
+   (its iterations, solve time and peak memory are printed again in
+   phase 5d);
 5. the batched solve path: ``BatchedGMGSolver(beam_hex(), 4, 4,
    precision="f64", device="cuda")`` at S = 8 requests of the reference
    ``serve_solve`` workload (``repro_torch.launch.workload``: 4 rows of
@@ -93,6 +98,22 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    uninterrupted, SIGKILLed after 2 steps with a checkpoint every step,
    and resumed: the resumed run's ``--report-out`` lines must equal the
    uninterrupted run's;
+5d. the ``mixed-bf16`` policy (``[bf16]`` lines, beside the card's name
+   and power limit): (a) ``solve_beam(4, 4, precision="mixed-bf16",
+   device="cuda")`` with every count zeroed just before and read just
+   after, converged to 1e-6 through the kernels alone (bfloat16 and f64
+   PAop launches, no plain call), its iterations, solve time and peak
+   memory beside phase 4's f64 solve and a ``mixed`` solve of the same
+   beam, and a small solve (p=2, refine=1) within 1 iteration and 1e-5 of
+   max |x| of the same solve on the CPU; (b) ``BatchedGMGSolver(beam_hex(),
+   4, 4, precision="mixed-bf16")`` on phase 5's S = 8 rows, counted the
+   same way: every row converged (a row the policy's breakdown or
+   stagnation check flags is re-solved in f64: the fallback flags are
+   printed), each with the true residual of an f64 solver's operator and
+   preconditioner within its rel_tol, the rows' iterations beside phase
+   5's; (c) a small continuous service (p=2, refine=1, 6 requests,
+   max_batch 4) on the card and the CPU, every request converged, within
+   1 iteration of each other;
 6. the serve path: qwen3-1.7b at full width in bfloat16 (28 layers,
    seeded random weights) generates 32 greedy tokens for each of 8
    requests of 2048 prompt tokens, with every count zeroed just before
@@ -105,7 +126,9 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    reduced float32 qwen3 must give the same tokens and logits on the card
    as on the CPU;
 7. time the PAop apply at p in {2, 4, 8} (NE=32768, f64; p=4 is the
-   fine level of the solve) beside the baseline kernel, and the flash
+   fine level of the solve; and its f32 and bfloat16 instantiations in the
+   same rounds, the bfloat16 one with its own bound and plain version)
+   beside the baseline kernel, and the flash
    kernel at (8, 2048, 16, 8, 128) bf16, beside their plain versions, a
    library call where one exists, and their bounds: rounds of back-to-back
    launches between one pair of CUDA events, the versions in turns (the
@@ -437,7 +460,11 @@ MEM_BYTES_PER_S = H100_SXM.hbm_bw
 PEAK_FLOPS = {dt: H100_SXM.peak(dt) for dt in (torch.float64, torch.float32, torch.bfloat16)}
 # The tests' tolerances (docs/KERNELS.md): rtol, and atol as a fraction
 # of max |plain|.
-TOL = {torch.float64: (1e-12, 1e-12), torch.float32: (2e-4, 2e-5)}
+TOL = {torch.float64: (1e-12, 1e-12), torch.float32: (2e-4, 2e-5),
+       # bfloat16: the kernel and its plain version sum in other orders
+       # in f32, so a value may round to its neighbouring bfloat16.
+       torch.bfloat16: (0.0, 2.0 ** -7)}
+DT_TAG = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16"}
 MAIN_P, MAIN_REFINE = 4, 4
 PA_TIME_P = (2, 4, 8)  # orders timed at the fine level's NE, in f64
 SEED = 0
@@ -721,7 +748,7 @@ def ptxas_summary(log: str, smem_bytes=None, pa_config=None, bwd_smem_bytes=None
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = m.group(1)
-            k = re.search(r"pa_elasticity_(baseline_)?kernelI([df])Li(\d+)E", name)
+            k = re.search(r"pa_elasticity_(baseline_)?kernelI(d|f|13__nv_bfloat16)Li(\d+)E", name)
             f = re.search(r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", name)
             tc = re.search(r"flash_fwd_tc_kernelILi(\d+)ELi(\d+)E", name)
             wg = re.search(r"flash_fwd_wgmma_kernelILi(\d+)ELb([01])E", name)
@@ -746,7 +773,7 @@ def ptxas_summary(log: str, smem_bytes=None, pa_config=None, bwd_smem_bytes=None
                 name = f"flash_attention<bf16, D={d}, BQ=BK=128> (wgmma, TMA{smem}{lse})"
             elif k:
                 kname = "pa_elasticity_baseline" if k.group(1) else "pa_elasticity"
-                dt = torch.float64 if k.group(2) == "d" else torch.float32
+                dt = {"d": torch.float64, "f": torch.float32}.get(k.group(2), torch.bfloat16)
                 d = int(k.group(3))
                 name = f"{kname}<{str(dt)[6:]}, D={d}, Q={d + 1}>"
                 if pa_config:
@@ -799,24 +826,38 @@ def event_ms(fns: dict, n: int, rounds: int, warmup: int = 2) -> dict[str, float
     return {name: statistics.median(t) for name, t in times.items()}
 
 
-def pa_inputs(p: int, ne: int, dtype, gen: torch.Generator) -> tuple:
+def pa_inputs(p: int, ne: int, dtype, gen: torch.Generator, offset: int = 0) -> tuple:
+    """PAop inputs on the card: x, lam_w, mu_w in ``dtype`` (with ``offset``
+    > 0 as views that start ``offset`` values into their storage), the
+    tables in the kernel's table dtype for it (f32 for bfloat16)."""
     tb = basis_tables(p)
     d, q = tb.d1d, tb.q1d
-    dev = "cuda"
-    x = torch.randn((ne, 3, d, d, d), generator=gen, dtype=dtype, device=dev)
-    lam = torch.rand((ne, q, q, q), generator=gen, dtype=dtype, device=dev) + 0.5
-    mu = torch.rand((ne, q, q, q), generator=gen, dtype=dtype, device=dev) + 0.5
+    dev, tdt = "cuda", ops.TABLE_DTYPE[dtype]
+
+    def at_offset(t):
+        if not offset:
+            return t
+        buf = torch.empty(t.numel() + offset, dtype=dtype, device=dev)
+        view = buf[offset:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    x = at_offset(torch.randn((ne, 3, d, d, d), generator=gen, dtype=dtype, device=dev))
+    lam = at_offset(torch.rand((ne, q, q, q), generator=gen, dtype=dtype, device=dev) + 0.5)
+    mu = at_offset(torch.rand((ne, q, q, q), generator=gen, dtype=dtype, device=dev) + 0.5)
     # A non-diagonal J^{-1}, as a linear_map mesh gives.
-    jinv = torch.diag(torch.tensor([2.0, 3.0, 4.0], dtype=dtype, device=dev))
-    jinv = jinv + 0.1 * torch.randn((3, 3), generator=gen, dtype=dtype, device=dev)
-    B = torch.as_tensor(tb.B, dtype=dtype, device=dev)
-    G = torch.as_tensor(tb.G, dtype=dtype, device=dev)
+    jinv = torch.diag(torch.tensor([2.0, 3.0, 4.0], dtype=tdt, device=dev))
+    jinv = jinv + 0.1 * torch.randn((3, 3), generator=gen, dtype=tdt, device=dev)
+    B = torch.as_tensor(tb.B, dtype=tdt, device=dev)
+    G = torch.as_tensor(tb.G, dtype=tdt, device=dev)
     return x, lam, mu, jinv, B, G
 
 
 def compare(y, ref, dtype) -> tuple[float, float, bool]:
     """(max abs err, max rel err against max |ref|, within tolerance)."""
     rtol, atol_frac = TOL[dtype]
+    if dtype == torch.bfloat16:
+        y, ref = y.float(), ref.float()
     scale = float(ref.abs().max())
     diff = (y - ref).abs()
     ok = bool((diff <= atol_frac * scale + rtol * ref.abs()).all())
@@ -827,11 +868,11 @@ def compare(y, ref, dtype) -> tuple[float, float, bool]:
 def paop_bound(args, y, p: int) -> tuple[float, str]:
     """Least time for one apply: the larger of bytes over the memory rate
     (each input read once, the output written once) and FLOPs over the
-    peak rate of the dtype."""
+    peak rate of the dtype it computes in (f32 for bfloat16 storage)."""
     nbytes = sum(t.numel() * t.element_size() for t in (*args, y))
     flops = paop_flops_per_elem(p) * args[0].shape[0]
     t_bytes = nbytes / MEM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[args[0].dtype]
+    t_ops = flops / PEAK_FLOPS[ops.TABLE_DTYPE[args[0].dtype]]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -1540,6 +1581,117 @@ def small_service_check() -> None:
             [(r.iterations, r.converged) for r in out["cpu"]] or diff > 1e-10 \
             or not all(r.converged for r in out["cpu"]):
         raise SystemExit("small service on the card disagrees with the CPU")
+
+
+def f64_true_rel(mats, trs, x) -> torch.Tensor:
+    """Per row, sqrt((M r, r) / (M b, b)) with r = b - A x, the operator,
+    preconditioner and arithmetic of an f64 solver at phase 4's size, from
+    scratch: the norm the rows' rel_tol bounds, without the reduced
+    policy's recurrence or preconditioner."""
+    s64 = BatchedGMGSolver(beam_hex(), MAIN_REFINE, MAIN_P, precision="f64", device="cuda")
+    s = len(mats)
+    lam, mu = s64.pack_materials(mats)
+    prep = s64.prepare(lam, mu, np.ones(s, bool), s64.empty_prep(s))
+    _, _, A, M = s64._build_from_prep(prep)
+    b = s64._rhs(torch.as_tensor(np.asarray(trs), dtype=torch.float64, device="cuda"))
+    r = b - A(x.to(device="cuda", dtype=torch.float64))
+    dots = lambda u, v: (u * v).reshape(s, -1).sum(dim=1)  # noqa: E731
+    return torch.sqrt(dots(M(r), r) / dots(M(b), b)).cpu()
+
+
+def bf16_phase(f64_solve: dict, batch_iters: list[int], card: str) -> dict:
+    """Phase 5d, the mixed-bf16 policy (see the module docstring); returns
+    the PAop launches by dtype of its counted runs."""
+    pa = ops.counts["pa_elasticity"]
+    launched = collections.Counter()
+
+    def counted(tag: str, want: tuple) -> dict:
+        counts, by_dtype = all_counts(), dict(pa.dtype_launches)
+        print(f"[bf16] {tag}: PAop launches by dtype "
+              f"{ {str(k)[6:]: v for k, v in by_dtype.items()} }, counts {counts}")
+        if any(by_dtype.get(dt, 0) == 0 for dt in want) or any(c[1] for c in counts.values()):
+            raise SystemExit(f"{tag} did not run only through the kernels: {counts}, "
+                             f"{by_dtype}")
+        launched.update(by_dtype)
+        return by_dtype
+
+    # (a) solve_beam at phase 4's size: mixed for comparison, mixed-bf16 counted
+    rows = {"f64 (phase 4)": f64_solve}
+    for pol in ("mixed", "mixed-bf16"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_counts()
+        rep = solve_beam(MAIN_P, MAIN_REFINE, precision=pol, device="cuda",
+                         keep_solution=True)
+        rows[pol] = {"iters": rep.iterations, "t_solve": rep.t_solve,
+                     "peak": torch.cuda.max_memory_allocated()}
+        print(f"[bf16] solve_beam p={MAIN_P} refine={MAIN_REFINE} {pol}: iters "
+              f"{rep.iterations} rel {rep.final_rel_norm:.3e} converged {rep.converged} "
+              f"prec {rep.t_precond} s solve {rep.t_solve} s")
+        if not (rep.converged and rep.final_rel_norm <= 1e-6
+                and bool(torch.isfinite(rep.x).all())):
+            raise SystemExit(f"{pol} solve did not converge to 1e-6")
+        if pol == "mixed-bf16":
+            counted("solve_beam mixed-bf16", (torch.bfloat16, torch.float64))
+        del rep
+    print(f"[bf16] solve_beam p={MAIN_P} refine={MAIN_REFINE} on {card}: " + "; ".join(
+        f"{k} iters {v['iters']}, t_solve {v['t_solve']} s, peak "
+        f"{v['peak'] / 2**30:.3f} GiB" for k, v in rows.items()))
+    spaces = hierarchy_spaces(beam_hex(), 1, 2)
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    sv = [torch.randn((sp.nscalar, 3), generator=cpu_gen, dtype=torch.float64)
+          for sp in spaces[1:]]
+    small = {dev: solve_beam(2, 1, precision="mixed-bf16", device=dev, start_vectors=sv,
+                             keep_solution=True) for dev in ("cuda", "cpu")}
+    sdiff = float((small["cuda"].x.cpu() - small["cpu"].x).abs().max()
+                  / small["cpu"].x.abs().max())
+    print(f"[bf16] small solve p=2 refine=1: iters card/cpu {small['cuda'].iterations}/"
+          f"{small['cpu'].iterations}, max rel diff {sdiff:.3e}")
+    if abs(small["cuda"].iterations - small["cpu"].iterations) > 1 or sdiff > 1e-5 \
+            or not (small["cuda"].converged and small["cpu"].converged):
+        raise SystemExit("small mixed-bf16 solve on the card disagrees with the CPU")
+    del small
+
+    # (b) the batched solver on phase 5's rows
+    mats, trs, tols = batched_scenarios()
+    torch.cuda.synchronize()
+    reset_all_counts()
+    t0 = time.perf_counter()
+    solver = BatchedGMGSolver(beam_hex(), MAIN_REFINE, MAIN_P, precision="mixed-bf16",
+                              device="cuda")
+    res = solver.solve(mats, trs, tols)
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    counted("batched mixed-bf16", (torch.bfloat16, torch.float64, torch.float32))
+    rel = f64_true_rel(mats, trs, res.x)
+    print(f"[bf16] batched S={BATCH_S} p={MAIN_P} refine={MAIN_REFINE} mixed-bf16 on {card}: "
+          f"construction + solve {t_solve} s; iters {res.iterations.tolist()} (phase 5, f64: "
+          f"{batch_iters}); converged {res.converged.tolist()}; stalled "
+          f"{res.stalled.tolist()}; fallback {res.fallback.tolist()}; f64 true rel "
+          f"{rel.tolist()} against rel_tol {np.asarray(tols).tolist()}")
+    if not bool(res.converged.all()) or bool((rel > torch.as_tensor(tols)).any()):
+        raise SystemExit("a mixed-bf16 batched row did not converge to its rel_tol")
+    del solver, res
+
+    # (c) a small continuous service, card against CPU
+    reqs = [dataclasses.replace(r, keep_solution=True, precision="mixed-bf16")
+            for r in serve_workload(6, [2], 1, BATCH_BASE_TOL, f"lognormal:{SEED}")[:3]
+            + serve_workload(6, [2], 1, BATCH_BASE_TOL)[3:]]
+    inner = elasticity_service.BatchedGMGSolver
+    elasticity_service.BatchedGMGSolver = functools.partial(inner, start_vectors=sv)
+    try:
+        out = {dev: ElasticityService(max_batch=4, chunk_iters=3, device=dev)
+               .solve_continuous(reqs) for dev in ("cuda", "cpu")}
+    finally:
+        elasticity_service.BatchedGMGSolver = inner
+    print(f"[bf16] small service p=2 refine=1, 6 requests, max_batch 4, continuous: iters "
+          f"card/cpu {[r.iterations for r in out['cuda']]}/"
+          f"{[r.iterations for r in out['cpu']]}, fallback "
+          f"{[r.fallback for r in out['cuda']]}/{[r.fallback for r in out['cpu']]}")
+    if not all(r.converged for r in out["cuda"] + out["cpu"]) or any(
+            abs(a.iterations - b.iterations) > 1 for a, b in zip(out["cuda"], out["cpu"])):
+        raise SystemExit("small mixed-bf16 service on the card disagrees with the CPU")
+    return launched
 
 
 class ScriptedCrash(RuntimeError):
@@ -4285,6 +4437,16 @@ def main() -> int:
     big = ELASTICITY_SHAPES["beam_p8_51m"]
     sweep.add((big.p, beam_hex().nelem * 8**big.n_h_refine))
     cases += [(torch.float64, p, ne) for p, ne in sorted(sweep)]
+    # phase 5d: bfloat16 at every p and NE, unaligned views, and the V-cycle
+    # levels of its solves (S = 1 and 8, and the small service's buckets);
+    # the batched coarse probe runs the f32 kernel on the bfloat16 fields
+    cases += [(torch.bfloat16, p, ne) for p in ops.SUPPORTED_P for ne in (1, 7, 4096)]
+    cases += [(torch.bfloat16, p, ne, off) for p in ops.SUPPORTED_P for ne in (7, 4096)
+              for off in (1, 3)]
+    cases += [(torch.bfloat16, p, s * ne) for s in (1, BATCH_S) for p, ne in main_shapes[1:]]
+    cases.append((torch.float32, 1, n_coarse * BATCH_S * main_shapes[0][1]))
+    small = [(sp.p, sp.nelem) for sp in hierarchy_spaces(beam_hex(), 1, 2)]
+    cases += [(torch.bfloat16, p, s * ne) for s in (1, 2, 4) for p, ne in small[1:]]
     # phase 14's shards: the DD's elements a shard (f32 at 51.17M DoFs, f64
     # at phase 4's size) and the sharded batch's S / n rows a level
     cases.append((torch.float32, big.p, beam_hex().nelem * 8**big.n_h_refine // DD_SHARDS))
@@ -4292,12 +4454,12 @@ def main() -> int:
     cases += [(torch.float64, p, BATCH_S // n * ne) for n in MESH_SIZES for p, ne in main_shapes]
     cases += [(torch.float64, 1, n_coarse * BATCH_S // n * main_shapes[0][1]) for n in MESH_SIZES]
     bad = []
-    for dt, p, ne in cases:
-        args = pa_inputs(p, ne, dt, gen)
+    for dt, p, ne, *off in cases:
+        args = pa_inputs(p, ne, dt, gen, *off)
         y = ops.pa_elasticity(*args)
         torch.cuda.synchronize()
         _, rel, ok = compare(y, paop_ref(*args), dt)
-        tag = "f64" if dt == torch.float64 else "f32"
+        tag = DT_TAG[dt] + (f" offset {off[0]}" if off else "")
         print(f"[paop vs plain] p={p} {tag} NE={ne}: max rel err {rel:.3e} "
               f"{'ok' if ok else 'OUT OF TOLERANCE'}")
         if not ok:
@@ -4333,8 +4495,11 @@ def main() -> int:
 
     # ---- 4. the solve path, counted
     reset_all_counts()
+    torch.cuda.reset_peak_memory_stats()
     rep = solve_beam(MAIN_P, MAIN_REFINE, precision="f64", device="cuda",
                      keep_solution=True)
+    f64_solve = {"iters": rep.iterations, "t_solve": rep.t_solve,
+                 "peak": torch.cuda.max_memory_allocated()}
     solve_counts = all_counts()
     main_counts = {k: solve_counts[k] for k in ops.counts}
     print(f"[solve] p={rep.p} refine={MAIN_REFINE} nelem={rep.nelem} "
@@ -4393,6 +4558,11 @@ def main() -> int:
     recovery_phase(fixed, t_fixed, card)
     wall("5c (recovery)")
 
+    # ---- 5d. the mixed-bf16 policy, counted
+    bf16_launches = bf16_phase(f64_solve, batch_iters, card)
+    torch.cuda.empty_cache()
+    wall("5d (mixed-bf16)")
+
     # ---- 6. the serve path, counted: qwen3-1.7b at full width, bf16
     rng = np.random.default_rng(SEED)
     serve_counts = serve_full_width(get_config(SERVE_ARCH), SERVE_REQUESTS, rng, card)
@@ -4409,22 +4579,47 @@ def main() -> int:
         ref = paop_ref(*args)
         max_abs, rel, ok = compare(y, ref, torch.float64)
         _, base_rel, base_ok = compare(ops.launch_baseline(*args), ref, torch.float64)
-        if not (ok and base_ok):
+        # the f32 and bfloat16 instantiations, timed in the same rounds
+        low = {dt: pa_inputs(p, ne, dt, gen) for dt in (torch.float32, torch.bfloat16)}
+        low_y = {dt: ops.pa_elasticity(*a) for dt, a in low.items()}
+        low_err = {dt: compare(low_y[dt], paop_ref(*a), dt) for dt, a in low.items()}
+        if not (ok and base_ok and all(e[2] for e in low_err.values())):
             raise SystemExit(f"p={p} NE={ne} apply out of tolerance: kernel {rel}, "
-                             f"baseline {base_rel}")
+                             f"baseline {base_rel}, f32/bf16 {low_err}")
         del ref
-        t = event_ms({"kernel": lambda: ops.pa_elasticity(*args),
-                      "baseline": lambda: ops.launch_baseline(*args),
-                      "plain": lambda: paop_ref(*args)}, n=10, rounds=5)
+        a32, a16 = low[torch.float32], low[torch.bfloat16]
+        fns = {"kernel": lambda: ops.pa_elasticity(*args),
+               "baseline": lambda: ops.launch_baseline(*args),
+               "plain": lambda: paop_ref(*args),
+               "f32": lambda: ops.pa_elasticity(*a32),
+               "bf16": lambda: ops.pa_elasticity(*a16)}
+        if p == MAIN_P:  # the kernels line's plain versions
+            fns.update({"plain f32": lambda: paop_ref(*a32),
+                        "plain bf16": lambda: paop_ref(*a16)})
+        t = event_ms(fns, n=10, rounds=5)
         bound_ms, bound_by = paop_bound(args, y, p)
-        pa_t[p] = {**t, "bound_ms": bound_ms, "bound_by": bound_by, "max_abs": max_abs}
+        b32_ms, b32_by = paop_bound(a32, low_y[torch.float32], p)
+        b16_ms, b16_by = paop_bound(a16, low_y[torch.bfloat16], p)
+        pa_t[p] = {**t, "bound_ms": bound_ms, "bound_by": bound_by, "max_abs": max_abs,
+                   "f32_bound_ms": b32_ms, "f32_bound_by": b32_by,
+                   "f32_max_abs": low_err[torch.float32][0],
+                   "bf16_bound_ms": b16_ms, "bf16_bound_by": b16_by,
+                   "bf16_max_abs": low_err[torch.bfloat16][0]}
         print(f"[time] pa_elasticity p={p} NE={ne} f64, in turns, median of 5 rounds of 10: "
               f"kernel {t['kernel']} ms ({100 * bound_ms / t['kernel']}% of bound), baseline "
               f"{t['baseline']} ms ({100 * bound_ms / t['baseline']}% of bound), plain "
               f"{t['plain']} ms; bound {bound_ms} ms ({bound_by}); kernel "
               f"{t['baseline'] / t['kernel']}x faster than the baseline; max rel err "
               f"kernel {rel:.3e}, baseline {base_rel:.3e}")
-        del args, y
+        print(f"[time] pa_elasticity p={p} NE={ne} f32 and bf16, the same rounds: f32 "
+              f"{t['f32']} ms ({100 * b32_ms / t['f32']}% of its bound {b32_ms} ms, "
+              f"{b32_by}); bf16 {t['bf16']} ms ({100 * b16_ms / t['bf16']}% of its bound "
+              f"{b16_ms} ms, {b16_by}), plain f32/bf16 {t.get('plain f32', 'not timed')}/"
+              f"{t.get('plain bf16', 'not timed')} ms; bf16 "
+              f"{t['f32'] / t['bf16']}x f32's speed, {t['kernel'] / t['bf16']}x f64's; "
+              f"max rel err f32 {low_err[torch.float32][1]:.3e}, bf16 "
+              f"{low_err[torch.bfloat16][1]:.3e}; {card}")
+        del args, y, low, low_y, a32, a16
     main_t = pa_t[MAIN_P]
     flash_args = flash_inputs(*FLASH_MAIN, torch.bfloat16, gen)
     if flash_ops.route(*flash_args) != "wgmma":
@@ -4537,6 +4732,22 @@ def main() -> int:
             "bound_by": main_t["bound_by"],
             "library_ms": None,
         },
+        *(
+            {
+                "name": f"pa_elasticity_{tag}",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/pa_elasticity/csrc/pa_elasticity.cu",
+                "replaces": "src/repro/kernels/pa_elasticity/pa_elasticity.py:85",
+                "launches": bf16_launches[dt],
+                "max_abs_err": main_t[f"{tag}_max_abs"],
+                "ms": main_t[tag],
+                "plain_ms": main_t[f"plain {tag}"],
+                "bound_ms": main_t[f"{tag}_bound_ms"],
+                "bound_by": main_t[f"{tag}_bound_by"],
+                "library_ms": None,
+            }
+            for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))
+        ),
         {
             "name": "probe",
             "route": "cuda",

@@ -31,6 +31,14 @@ axis, so the element operator runs unchanged on S * nelem elements.
 ``materials=DEFER_MATERIALS`` builds a geometry carrier whose fields are
 bound later; the ``with_*`` methods return shallow copies that share
 geometry, tables and masks (and do not run the probe again).
+
+bfloat16 (the ``mixed-bf16`` V-cycle): vectors and the weighted fields
+``lam_w``/``mu_w`` are bfloat16 (the bytes the element operator streams),
+while the geometry and basis tables stay float32 (``table_dtype``): every
+matrix-free level computes in float32 and rounds y_e to bfloat16 once, as
+the PAop kernel's bfloat16 instantiation does.  bfloat16 tables would
+break G's zero row sums, and with them the rigid-body modes a multigrid
+V-cycle relies on.
 """
 
 from __future__ import annotations
@@ -100,15 +108,13 @@ class ElasticityOperator:
         self.space = space
         self.assembly = assembly
         self.dtype = dtype
+        self.table_dtype = _kops.TABLE_DTYPE.get(dtype, dtype)
         self.tables = space.tables
         if assembly == "paop_cuda" and self.device.type == "cuda":
             _kops.check_probe(self.device)
 
         geom = quadrature_geometry(space.mesh, self.tables)
-        self.w_detj = self._tensor(geom.w_detj)  # (Q,Q,Q)
-        self.jinv = self._tensor(geom.jinv)
-        self.B = self._tensor(self.tables.B)
-        self.G = self._tensor(self.tables.G)
+        self._set_tables(geom)
         self.ess_mask = torch.as_tensor(
             space.essential_mask(ess_faces), device=self.device
         )
@@ -124,7 +130,9 @@ class ElasticityOperator:
 
         self._g3d = None
         if assembly == "pa_baseline":
-            self._g3d = _base.dense_grad_table(space.p, dtype=dtype, device=self.device)
+            self._g3d = _base.dense_grad_table(
+                space.p, dtype=self.table_dtype, device=self.device
+            )
         self._sparse: _fa.SparseMatrix | None = None
         if assembly == "fa":
             if self.nbatch is not None or not isinstance(self.materials, dict):
@@ -140,6 +148,21 @@ class ElasticityOperator:
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(a, dtype=self.dtype, device=self.device)
+
+    def _table(self, a) -> torch.Tensor:
+        return torch.as_tensor(a, dtype=self.table_dtype, device=self.device)
+
+    def _set_tables(self, geom) -> None:
+        self.w_detj = self._table(geom.w_detj)  # (Q,Q,Q)
+        self.jinv = self._table(geom.jinv)
+        self.B = self._table(self.tables.B)
+        self.G = self._table(self.tables.G)
+
+    def _weighted(self, field_e: torch.Tensor) -> torch.Tensor:
+        """``field_e * w_detj`` at the quadrature points, (n, Q, Q, Q) from
+        (n,), formed in the table dtype and rounded to the operator's
+        dtype once."""
+        return (field_e.reshape(-1)[:, None, None, None] * self.w_detj).to(self.dtype)
 
     @staticmethod
     def _is_field_pair(m) -> bool:
@@ -193,7 +216,7 @@ class ElasticityOperator:
     def _bind_materials(self, lam_e, mu_e) -> None:
         """Set lam_w/mu_w from (nelem,) or (S, nelem) coefficient fields;
         a leading scenario axis is folded into the element axis."""
-        lam_e, mu_e = self._tensor(lam_e), self._tensor(mu_e)
+        lam_e, mu_e = self._table(lam_e), self._table(mu_e)
         ne = self.space.nelem
         if (
             lam_e.shape != mu_e.shape
@@ -205,8 +228,8 @@ class ElasticityOperator:
                 f"both be ({ne},) or (S, {ne})"
             )
         self.nbatch = lam_e.shape[0] if lam_e.ndim == 2 else None
-        self.lam_w = lam_e.reshape(-1)[:, None, None, None] * self.w_detj
-        self.mu_w = mu_e.reshape(-1)[:, None, None, None] * self.w_detj
+        self.lam_w = self._weighted(lam_e)
+        self.mu_w = self._weighted(mu_e)
 
     def with_materials(self, lam_e, mu_e) -> "ElasticityOperator":
         """A shallow copy with new coefficient fields, (nelem,) or
@@ -231,6 +254,24 @@ class ElasticityOperator:
         new.mu_w = mu_w
         return new
 
+    def with_dtype(self, dtype: torch.dtype) -> "ElasticityOperator":
+        """A shallow copy computing in ``dtype``: geometry and basis tables
+        rebuilt from the float64 geometry, the bound weighted fields cast
+        (a bfloat16 operator's fields upcast exactly).  Matrix-free only."""
+        if self.assembly == "fa":
+            raise ValueError("with_dtype is matrix-free only (not 'fa')")
+        new = copy.copy(self)
+        new.dtype = dtype
+        new.table_dtype = _kops.TABLE_DTYPE.get(dtype, dtype)
+        new._set_tables(quadrature_geometry(self.space.mesh, self.tables))
+        if self.lam_w is not None:
+            new.lam_w, new.mu_w = self.lam_w.to(dtype), self.mu_w.to(dtype)
+        if self.assembly == "pa_baseline":
+            new._g3d = _base.dense_grad_table(
+                self.space.p, dtype=new.table_dtype, device=self.device
+            )
+        return new
+
     def with_materials_rows(self, lam_e, mu_e, row_mask) -> "ElasticityOperator":
         """Per-scenario-row field update: rows selected by ``row_mask`` (S,)
         take freshly weighted fields from the (S, nelem) candidates; the
@@ -240,7 +281,7 @@ class ElasticityOperator:
         if self.nbatch is None:
             raise ValueError("with_materials_rows requires a scenario-batched operator")
         s, ne = self.nbatch, self.space.nelem
-        lam_e, mu_e = self._tensor(lam_e), self._tensor(mu_e)
+        lam_e, mu_e = self._table(lam_e), self._table(mu_e)
         if lam_e.shape != (s, ne) or mu_e.shape != (s, ne):
             raise ValueError(
                 f"candidate fields {tuple(lam_e.shape)}/{tuple(mu_e.shape)} must "
@@ -249,7 +290,7 @@ class ElasticityOperator:
         mask = torch.as_tensor(row_mask, device=self.device).reshape((s,) + (1,) * 4)
 
         def merge(old_w, cand_e):
-            cand_w = cand_e.reshape(-1)[:, None, None, None] * self.w_detj
+            cand_w = self._weighted(cand_e)
             tail = old_w.shape[1:]
             return torch.where(
                 mask, cand_w.reshape((s, ne) + tail), old_w.reshape((s, ne) + tail)
@@ -266,16 +307,23 @@ class ElasticityOperator:
         if self.lam_w is None:
             raise ValueError("materials are deferred; bind them with with_materials first")
         a = self.assembly
+        if a == "paop_cuda":
+            return _kops.pa_elasticity(x_e, self.lam_w, self.mu_w, self.jinv, self.B, self.G)
+        # The plain levels compute in the table dtype (bfloat16 operands
+        # upcast, y_e rounded once, as the kernel does).
+        t = self.table_dtype
+        x_t, lam_t, mu_t = x_e.to(t), self.lam_w.to(t), self.mu_w.to(t)
         if a == "pa_baseline":
-            return _base.pa_baseline_apply(x_e, self.lam_w, self.mu_w, self.jinv, self._g3d)
-        args = (x_e, self.lam_w, self.mu_w, self.jinv, self.B, self.G)
-        if a == "pa_sumfact":
-            return _sf.pa_sumfact_apply(*args)
-        if a == "pa_sumfact_voigt":
-            return _sf.pa_sumfact_voigt_apply(*args)
-        if a == "paop":
-            return _paop.paop_apply(*args)
-        return _kops.pa_elasticity(*args)
+            y = _base.pa_baseline_apply(x_t, lam_t, mu_t, self.jinv, self._g3d)
+        else:
+            args = (x_t, lam_t, mu_t, self.jinv, self.B, self.G)
+            if a == "pa_sumfact":
+                y = _sf.pa_sumfact_apply(*args)
+            elif a == "pa_sumfact_voigt":
+                y = _sf.pa_sumfact_voigt_apply(*args)
+            else:
+                y = _paop.paop_apply(*args)
+        return y.to(self.dtype)
 
     def apply(self, x):
         """Unconstrained y = A x on the L-vector (nscalar, 3), or on the
@@ -300,7 +348,10 @@ class ElasticityOperator:
             return self._tensor(self._sparse.csr.diagonal()).reshape(-1, 3)
         if self.lam_w is None:
             raise ValueError("materials are deferred; bind them with with_materials first")
-        d_e = _diag.element_diagonal(self.lam_w, self.mu_w, self.jinv, self.B, self.G)
+        t = self.table_dtype
+        d_e = _diag.element_diagonal(
+            self.lam_w.to(t), self.mu_w.to(t), self.jinv, self.B, self.G
+        ).to(self.dtype)
         if self.nbatch is not None:
             d_e = d_e.reshape((self.nbatch, self.space.nelem) + d_e.shape[1:])
         return self.space.scatter_add(d_e)
@@ -315,5 +366,4 @@ class ElasticityOperator:
         for FA (paper Fig. 4 peak-memory comparison)."""
         if self.assembly == "fa":
             return self._sparse.memory_bytes()
-        n = self.lam_w.numel() + self.mu_w.numel() + self.jinv.numel()
-        return int(n) * self.lam_w.element_size()
+        return int(sum(t.numel() * t.element_size() for t in (self.lam_w, self.mu_w, self.jinv)))

@@ -17,11 +17,14 @@ name            solve_dtype  precond_dtype  coarse_dtype
 ``f64``         float64      float64        float64
 ``f32``         float32      float32        float32
 ``mixed``       float64      float32        float32
+``mixed-bf16``  float64      bfloat16       float32
 ==============  ===========  =============  ============
 
-``mixed-bf16`` (a bfloat16 V-cycle) is not available in this package
-yet: the PAop kernel has no bfloat16 instantiation, and asking for the
-policy raises ``NotImplementedError``.
+``mixed-bf16`` halves the bytes every V-cycle apply of the PAop kernel
+streams (its bfloat16 instantiation reads x, lambda_w and mu_w and writes
+y in bfloat16, and computes in float32).  The coarse tier stays float32:
+bfloat16 has too few mantissa bits to factor even a well-conditioned
+coarse matrix, and torch has no bfloat16 Cholesky.
 """
 
 from __future__ import annotations
@@ -60,13 +63,8 @@ PRECISION_POLICIES: dict[str, PrecisionPolicy] = {
     "f64": PrecisionPolicy("f64", torch.float64, torch.float64, torch.float64),
     "f32": PrecisionPolicy("f32", torch.float32, torch.float32, torch.float32),
     "mixed": PrecisionPolicy("mixed", torch.float64, torch.float32, torch.float32),
-}
-
-_NOT_PORTED = {
-    "mixed-bf16": (
-        "precision policy 'mixed-bf16' needs a bfloat16 instantiation of "
-        "the pa_elasticity CUDA kernel, which this package does not have "
-        "yet; use 'f64', 'f32' or 'mixed'"
+    "mixed-bf16": PrecisionPolicy(
+        "mixed-bf16", torch.float64, torch.bfloat16, torch.float32
     ),
 }
 
@@ -89,8 +87,6 @@ def resolve_precision(
             if pol.uniform and pol.solve_dtype == dtype:
                 return pol
         raise ValueError(f"no precision policy runs uniformly in {dtype}")
-    elif precision in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[precision])
     else:
         try:
             pol = PRECISION_POLICIES[precision]

@@ -28,6 +28,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 SOURCES = ("pa_elasticity.cu", "pa_elasticity_baseline.cu", "probe.cu")
 
 _P = ctypes.c_void_p
+_DTYPE_OF_TAG = {"f64": torch.float64, "f32": torch.float32, "bf16": torch.bfloat16}
 
 
 class KernelLibrary:
@@ -38,13 +39,16 @@ class KernelLibrary:
         self.build_seconds = build_seconds  # 0.0 when loaded from _build/
         self.log = log  # nvcc/ptxas output of the build (registers, spills)
         lib = ctypes.CDLL(str(path))
-        # The C entry points, looked up once: PAop and its baseline (the
-        # first port's kernel, a yardstick) by dtype, their launch shapes,
-        # the probe.
+        # The C entry points, looked up once: PAop by dtype (f64, f32,
+        # bf16) and its baseline (the first port's kernel, a yardstick; f64
+        # and f32), their launch shapes, the probe.
         self.pa_elasticity, self.pa_elasticity_baseline, self._config = {}, {}, {}
-        for dtype, tag in ((torch.float64, "f64"), (torch.float32, "f32")):
-            for name, table in (("pa_elasticity", self.pa_elasticity),
-                                ("pa_elasticity_baseline", self.pa_elasticity_baseline)):
+        for name, table, tags in (
+            ("pa_elasticity", self.pa_elasticity, ("f64", "f32", "bf16")),
+            ("pa_elasticity_baseline", self.pa_elasticity_baseline, ("f64", "f32")),
+        ):
+            for tag in tags:
+                dtype = _DTYPE_OF_TAG[tag]
                 fn = getattr(lib, f"{name}_{tag}")
                 fn.argtypes = [_P] * 7 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P]
                 fn.restype = ctypes.c_int

@@ -55,8 +55,24 @@
 // latency between the short, synchronised sweeps sets the pace; tune.py
 // times the launch-configuration choices.
 //
-// Instantiated for p = 1..8 (D = p + 1, Q = p + 2) in float64 and float32.
+// Instantiated for p = 1..8 (D = p + 1, Q = p + 2) in float64, float32 and
+// bfloat16.  The bfloat16 instantiation (the mixed-bf16 policy's V-cycle)
+// is two-typed: x, lam_w, mu_w and y are stored in bfloat16 (the storage
+// type St), and everything else is the float32 instantiation: its Config,
+// shared-memory layout and register cap, the tables B, G and J^{-1} (read
+// once a block, so float32 costs no bytes, and rounding them to bfloat16
+// breaks G's zero row sums, which the V-cycle's rigid-body modes need:
+// PERF.md), every sweep, the stress and the pull-back in float32 on the
+// bfloat16 inputs.  The conversions sit at the edges: x is read with
+// 16-byte global loads and widened into shared memory (cp.async cannot
+// convert), the owners' lam_w/mu_w are widened as they are read, and y is
+// rounded once (to nearest even) as it is written, 16 bytes a store where
+// y is aligned.  Per element it moves half the f32 instantiation's bytes:
+// at p = 4, NE = 32,768, 77.5 MB, 0.0231 ms at 3.35 TB/s, under the
+// 0.052 ms its 3.50 GFLOP take on the f32 FMA pipes (67 TFLOP/s), so
+// operations bound it.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -122,6 +138,31 @@ struct Config {
   static constexpr int kMinBlocks = kSmemBlocks < kRegBlocks ? kSmemBlocks : kRegBlocks;
 };
 
+// The type a storage type St is computed in: itself, or float for bfloat16.
+template <typename St>
+struct Compute {
+  using type = St;
+};
+template <>
+struct Compute<__nv_bfloat16> {
+  using type = float;
+};
+template <typename St>
+using compute_t = typename Compute<St>::type;
+
+template <typename St>
+constexpr bool kWiden = !std::is_same<St, compute_t<St>>::value;
+
+// One stored value in its compute type.
+template <typename St>
+__device__ __forceinline__ compute_t<St> widen(St v) {
+  if constexpr (kWiden<St>) {
+    return __bfloat162float(v);
+  } else {
+    return v;
+  }
+}
+
 // Voigt slot of the symmetric pair (a, b): [00, 11, 22, 01, 02, 12].
 __host__ __device__ constexpr int voigt(int a, int b) {
   return a == b ? a : 2 + a + b;
@@ -171,6 +212,66 @@ __device__ __forceinline__ void copy_in(T* dst, const T* src, int n, int tid) {
   }
 }
 
+// The bfloat16 copies.  n values from global src into float shared dst,
+// which lies shift_words(src) % 4 floats past a 16-byte boundary: value
+// loads up to src's first 16-byte boundary, then 16-byte loads of 8 values
+// (a bfloat16 is the high half of its float), each widened into two
+// 16-byte shared stores at dst's matching 16-byte boundary, then a value
+// tail.
+template <int NT>
+__device__ __forceinline__ void widen_in(float* dst, const __nv_bfloat16* src, int n,
+                                         int tid) {
+  const int head = min(n, (8 - shift_words(src)) % 8);
+  const int body = (n - head) / 8;
+  for (int i = tid; i < head; i += NT) dst[i] = __bfloat162float(src[i]);
+  for (int i = tid; i < body; i += NT) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(src + head) + i);
+    float4* d = reinterpret_cast<float4*>(dst + head) + 2 * i;
+    d[0] = make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
+                       __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
+    d[1] = make_float4(__uint_as_float(v.z << 16), __uint_as_float(v.z & 0xffff0000u),
+                       __uint_as_float(v.w << 16), __uint_as_float(v.w & 0xffff0000u));
+  }
+  for (int i = head + body * 8 + tid; i < n; i += NT) dst[i] = __bfloat162float(src[i]);
+}
+
+// n float values from shared src, rounded to nearest even, into global
+// bfloat16 dst: value stores up to dst's first 16-byte boundary, then
+// 16-byte stores of 8 values (read from src as two 16-byte loads where
+// src is aligned there too, which it is when x and y agree modulo 16
+// bytes), then a value tail.
+template <int NT>
+__device__ __forceinline__ void narrow_out(__nv_bfloat16* dst, const float* src, int n,
+                                           int tid) {
+  const int head = min(n, (8 - shift_words(dst)) % 8);
+  const int body = (n - head) / 8;
+  const bool vec = (reinterpret_cast<uintptr_t>(src + head) & 15) == 0;
+  for (int i = tid; i < head; i += NT) dst[i] = __float2bfloat16_rn(src[i]);
+  for (int i = tid; i < body; i += NT) {
+    const float* s = src + head + 8 * i;
+    float v[8];
+    if (vec) {
+      const float4 a = reinterpret_cast<const float4*>(s)[0];
+      const float4 b = reinterpret_cast<const float4*>(s)[1];
+      v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+      v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] = s[k];
+    }
+    unsigned w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+      w[k] = *reinterpret_cast<const unsigned*>(&h);
+    }
+    reinterpret_cast<uint4*>(dst + head)[i] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  for (int i = head + body * 8 + tid; i < n; i += NT) {
+    dst[i] = __float2bfloat16_rn(src[i]);
+  }
+}
+
 // n words from shared src to global dst: 16-byte stores where the two
 // agree modulo 16 bytes, word stores otherwise.
 template <typename T, int NT>
@@ -190,12 +291,16 @@ __device__ __forceinline__ void copy_out(T* dst, const T* src, int n, int tid) {
   for (int i = head + body * V + tid; i < n; i += NT) dst[i] = src[i];
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(Config<T, D>::kThreads, Config<T, D>::kMinBlocks)
-pa_elasticity_kernel(const T* __restrict__ x, const T* __restrict__ lam,
-                     const T* __restrict__ mu, const T* __restrict__ jinv,
-                     const T* __restrict__ Bg, const T* __restrict__ Gg,
-                     T* __restrict__ y, long long ne) {
+template <typename St, int D>
+__global__ void __launch_bounds__(Config<compute_t<St>, D>::kThreads,
+                                  Config<compute_t<St>, D>::kMinBlocks)
+pa_elasticity_kernel(const St* __restrict__ x, const St* __restrict__ lam,
+                     const St* __restrict__ mu,
+                     const compute_t<St>* __restrict__ jinv,
+                     const compute_t<St>* __restrict__ Bg,
+                     const compute_t<St>* __restrict__ Gg, St* __restrict__ y,
+                     long long ne) {
+  using T = compute_t<St>;
   using C = Config<T, D>;
   constexpr int Q = C::Q, NT = C::kThreads, NB = C::kElems, CG = C::kGroup;
   constexpr int S = C::kSplit, Qh = C::Qh;
@@ -218,10 +323,17 @@ pa_elasticity_kernel(const T* __restrict__ x, const T* __restrict__ lam,
   const long long e0 = static_cast<long long>(blockIdx.x) * NB;
   const int nb = static_cast<int>(ne - e0 < NB ? ne - e0 : NB);  // ragged tail
 
-  // ---- stage x with cp.async, and the tables.
-  const T* xg = x + e0 * 3 * D3;
-  T* sX = sXr + shift_words(xg);  // [NB][3][z][y][x]: x, then y
-  copy_in<T, NT>(sX, xg, nb * 3 * D3, tid);
+  // ---- stage x with cp.async (bfloat16: widened by plain loads), and the
+  // tables.
+  const St* xg = x + e0 * 3 * D3;
+  T* sX;  // [NB][3][z][y][x]: x, then y
+  if constexpr (kWiden<St>) {
+    sX = sXr + shift_words(xg) % 4;
+    widen_in<NT>(sX, xg, nb * 3 * D3, tid);
+  } else {
+    sX = sXr + shift_words(xg);
+    copy_in<T, NT>(sX, xg, nb * 3 * D3, tid);
+  }
   cp_async_commit();
   for (int i = tid; i < Q * D; i += NT) {
     sB[i] = Bg[i];
@@ -370,12 +482,12 @@ pa_elasticity_kernel(const T* __restrict__ x, const T* __restrict__ lam,
   // (loaded before the sweeps, they cost registers that the sweeps need
   // more: tune.py).
   if (owner) {
-    const T* lq = lam + (e0 + ce) * Q3 + col;
-    const T* mq = mu + (e0 + ce) * Q3 + col;
+    const St* lq = lam + (e0 + ce) * Q3 + col;
+    const St* mq = mu + (e0 + ce) * Q3 + col;
 #pragma unroll
     for (int k = 0; k < Qh; ++k) {
       if (Q % S != 0 && qz0 + k >= Q) break;
-      const T lw = lq[(qz0 + k) * QQ], mw = mq[(qz0 + k) * QQ];
+      const T lw = widen(lq[(qz0 + k) * QQ]), mw = widen(mq[(qz0 + k) * QQ]);
       const T ld = lw * (acc[0][k] + acc[1][k] + acc[2][k]);
       const T two_mu = T(2) * mw;
       acc[0][k] = ld + two_mu * acc[0][k];
@@ -530,48 +642,53 @@ pa_elasticity_kernel(const T* __restrict__ x, const T* __restrict__ lam,
     }
   }
   __syncthreads();
-  copy_out<T, NT>(y + e0 * 3 * D3, sX, nb * 3 * D3, tid);
+  if constexpr (kWiden<St>) {
+    narrow_out<NT>(y + e0 * 3 * D3, sX, nb * 3 * D3, tid);
+  } else {
+    copy_out<T, NT>(y + e0 * 3 * D3, sX, nb * 3 * D3, tid);
+  }
 }
 
-template <typename T, int D>
+// St is the storage type, as for the kernel.
+template <typename St, int D>
 cudaError_t allow_smem() {
-  using C = Config<T, D>;
+  using C = Config<compute_t<St>, D>;
   if (C::kBytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(pa_elasticity_kernel<T, D>,
+  return cudaFuncSetAttribute(pa_elasticity_kernel<St, D>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(C::kBytes));
 }
 
-template <typename T, int D>
+template <typename St, int D>
 cudaError_t launch(const void* x, const void* lam, const void* mu,
                    const void* jinv, const void* B, const void* G, void* y,
                    long long ne, cudaStream_t stream) {
+  using T = compute_t<St>;
   using C = Config<T, D>;
-  const cudaError_t err = allow_smem<T, D>();
+  const cudaError_t err = allow_smem<St, D>();
   if (err != cudaSuccess) return err;
   const long long blocks = (ne + C::kElems - 1) / C::kElems;
   if (blocks == 0) return cudaSuccess;
-  pa_elasticity_kernel<T, D><<<static_cast<unsigned>(blocks), C::kThreads,
-                               C::kBytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(lam),
-      static_cast<const T*>(mu), static_cast<const T*>(jinv),
-      static_cast<const T*>(B), static_cast<const T*>(G),
-      static_cast<T*>(y), ne);
+  pa_elasticity_kernel<St, D><<<static_cast<unsigned>(blocks), C::kThreads,
+                                C::kBytes, stream>>>(
+      static_cast<const St*>(x), static_cast<const St*>(lam),
+      static_cast<const St*>(mu), static_cast<const T*>(jinv),
+      static_cast<const T*>(B), static_cast<const T*>(G), static_cast<St*>(y), ne);
   return cudaGetLastError();
 }
 
 // The launch shape of one instantiation and how many of its blocks an SM
 // of the current card holds at once.
-template <typename T, int D>
+template <typename St, int D>
 cudaError_t config(int* threads, int* elems, int* smem_bytes, int* blocks_per_sm) {
-  using C = Config<T, D>;
-  const cudaError_t err = allow_smem<T, D>();
+  using C = Config<compute_t<St>, D>;
+  const cudaError_t err = allow_smem<St, D>();
   if (err != cudaSuccess) return err;
   *threads = C::kThreads;
   *elems = C::kElems;
   *smem_bytes = C::kBytes;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, pa_elasticity_kernel<T, D>, C::kThreads, C::kBytes);
+      blocks_per_sm, pa_elasticity_kernel<St, D>, C::kThreads, C::kBytes);
 }
 
 // f(std::integral_constant<int, D>) for D = d1d in 2..9.
@@ -625,6 +742,12 @@ int pa_elasticity_f32(const void* x, const void* lam, const void* mu,
   return dispatch<float>(x, lam, mu, jinv, B, G, y, ne, d1d, q1d, stream);
 }
 
+int pa_elasticity_bf16(const void* x, const void* lam, const void* mu,
+                       const void* jinv, const void* B, const void* G, void* y,
+                       long long ne, int d1d, int q1d, void* stream) {
+  return dispatch<__nv_bfloat16>(x, lam, mu, jinv, B, G, y, ne, d1d, q1d, stream);
+}
+
 int pa_elasticity_config_f64(int d1d, int* threads, int* elems, int* smem_bytes,
                              int* blocks_per_sm) {
   return dispatch_config<double>(d1d, threads, elems, smem_bytes, blocks_per_sm);
@@ -633,6 +756,11 @@ int pa_elasticity_config_f64(int d1d, int* threads, int* elems, int* smem_bytes,
 int pa_elasticity_config_f32(int d1d, int* threads, int* elems, int* smem_bytes,
                              int* blocks_per_sm) {
   return dispatch_config<float>(d1d, threads, elems, smem_bytes, blocks_per_sm);
+}
+
+int pa_elasticity_config_bf16(int d1d, int* threads, int* elems, int* smem_bytes,
+                              int* blocks_per_sm) {
+  return dispatch_config<__nv_bfloat16>(d1d, threads, elems, smem_bytes, blocks_per_sm);
 }
 
 const char* kernel_error_string(int err) {

@@ -9,8 +9,9 @@ Each wrapper checks device, dtype, shape and contiguity, then:
 * for CPU tensors runs its plain PyTorch version from :mod:`.ref`.
 
 ``counts[name]`` keeps plain integers per kernel, ``launches`` and
-``plain_calls``, so a run can show that its path went through the
-kernels; :func:`reset_counts` zeroes them.
+``plain_calls`` (and, for PAop, ``dtype_launches``: the launches by the
+dtype of x_e), so a run can show that its path went through the kernels;
+:func:`reset_counts` zeroes them.
 
 On the meta device (the dry-run's stand-ins) :func:`pa_elasticity` returns
 an empty y_e, counts ``meta_calls`` (never ``launches`` or
@@ -39,10 +40,16 @@ __all__ = [
     "reset_counts",
     "SUPPORTED_P",
     "KERNEL_DTYPES",
+    "TABLE_DTYPE",
 ]
 
 SUPPORTED_P = tuple(range(1, 9))
-KERNEL_DTYPES = (torch.float64, torch.float32)
+KERNEL_DTYPES = (torch.float64, torch.float32, torch.bfloat16)
+# The dtype of J^{-1}, B and G for an x_e/lam_w/mu_w dtype: the compute
+# dtype.  The bfloat16 kernel reads its tables in float32 (read once a block;
+# rounded to bfloat16, G's rows no longer sum to zero).
+TABLE_DTYPE = {torch.float64: torch.float64, torch.float32: torch.float32,
+               torch.bfloat16: torch.float32}
 
 
 @dataclasses.dataclass
@@ -50,6 +57,7 @@ class Counts:
     launches: int = 0
     plain_calls: int = 0
     meta_calls: int = 0
+    dtype_launches: dict = dataclasses.field(default_factory=dict)
 
 
 counts = {"pa_elasticity": Counts(), "probe": Counts()}
@@ -58,6 +66,7 @@ counts = {"pa_elasticity": Counts(), "probe": Counts()}
 def reset_counts() -> None:
     for c in counts.values():
         c.launches = c.plain_calls = c.meta_calls = 0
+        c.dtype_launches.clear()
 
 
 _PA_NAMES = ("x_e", "lam_w", "mu_w", "jinv", "B", "G")
@@ -70,13 +79,19 @@ def _check_pa_args(x_e, lam_w, mu_w, jinv, B, G) -> tuple[int, int, int]:
             "use repro_torch.core.paop.paop_apply for per-element geometry"
         )
     dtype, index = x_e.dtype, x_e.get_device()  # -1 off the card
+    if dtype not in KERNEL_DTYPES:
+        raise ValueError(
+            f"pa_elasticity: no kernel instantiation for dtype {dtype}; "
+            f"instantiated for float64, float32 and bfloat16"
+        )
     for name, t in zip(_PA_NAMES, (x_e, lam_w, mu_w, jinv, B, G)):
-        if t.dtype != dtype or t.get_device() != index or (
+        want = dtype if name in ("x_e", "lam_w", "mu_w") else TABLE_DTYPE[dtype]
+        if t.dtype != want or t.get_device() != index or (
             index < 0 and t.device != x_e.device
         ):
             raise ValueError(
                 f"pa_elasticity: {name} is {t.dtype} on {t.device}, expected "
-                f"{dtype} on {x_e.device} like x_e"
+                f"{want} on {x_e.device} (x_e is {dtype})"
             )
         if not t.is_contiguous():
             raise ValueError(f"pa_elasticity: {name} must be contiguous")
@@ -97,11 +112,6 @@ def _check_pa_args(x_e, lam_w, mu_w, jinv, B, G) -> tuple[int, int, int]:
         raise ValueError(
             f"pa_elasticity: B {tuple(B.shape)}, G {tuple(G.shape)} must be "
             f"(Q1D, D1D) = ({q1d}, {d1d}) and jinv {tuple(jinv.shape)} (3, 3)"
-        )
-    if dtype not in KERNEL_DTYPES:
-        raise ValueError(
-            f"pa_elasticity: no kernel instantiation for dtype {dtype}; "
-            f"instantiated for float64 and float32"
         )
     p = d1d - 1
     if p not in SUPPORTED_P or q1d != default_q1d(p):
@@ -150,7 +160,10 @@ def pa_elasticity(x_e, lam_w, mu_w, jinv, B, G):
     lam_w:  (nelem, Q1D, Q1D, Q1D)     (mu_w likewise)
     jinv:   (3, 3) mesh-constant affine J^{-1}
     B, G:   (Q1D, D1D)
-    Returns y_e in the layout of x_e.
+    Returns y_e in the layout and dtype of x_e.  x_e, lam_w and mu_w are
+    float64, float32 or bfloat16; the tables are in :data:`TABLE_DTYPE`
+    of that (float32 for bfloat16, whose apply computes in float32 and
+    rounds y_e once).
     """
     ne, d1d, _ = _check_pa_args(x_e, lam_w, mu_w, jinv, B, G)
     if x_e.device.type == "meta":
@@ -166,7 +179,9 @@ def pa_elasticity(x_e, lam_w, mu_w, jinv, B, G):
         return paop_ref(x_e, lam_w, mu_w, jinv, B, G)
     y = _launch("pa_elasticity", x_e, lam_w, mu_w, jinv, B, G)
     if ne:
-        counts["pa_elasticity"].launches += 1
+        c = counts["pa_elasticity"]
+        c.launches += 1
+        c.dtype_launches[x_e.dtype] = c.dtype_launches.get(x_e.dtype, 0) + 1
     return y
 
 
@@ -181,6 +196,8 @@ def launch_baseline(x_e, lam_w, mu_w, jinv, B, G):
         raise ValueError(
             f"pa_elasticity baseline: runs only on CUDA tensors, got {x_e.device}"
         )
+    if x_e.dtype == torch.bfloat16:
+        raise ValueError("pa_elasticity baseline: instantiated for float64 and float32")
     return _launch("pa_elasticity_baseline", x_e, lam_w, mu_w, jinv, B, G)
 
 

@@ -120,9 +120,12 @@ def main(argv=None) -> None:
     ap.add_argument("--assembly", default="paop_cuda", choices=["paop_cuda", "paop"],
                     help="paop_cuda: the PAop kernel (card); paop: its plain "
                          "PyTorch version")
-    ap.add_argument("--precision", default="f64", choices=["f64", "f32", "mixed"],
+    ap.add_argument("--precision", default="f64",
+                    choices=["f64", "f32", "mixed", "mixed-bf16"],
                     help="service-default precision policy (requests may "
-                         "still name their own).  Reduced policies fall "
+                         "still name their own; mixed / mixed-bf16: f64 "
+                         "outer PCG over an f32 / bfloat16 V-cycle).  "
+                         "Reduced policies fall "
                          "stagnated rows back to f64: the report's prec "
                          "column shows the policy that produced each "
                          "answer, * marks a fallback")

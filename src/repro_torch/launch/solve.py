@@ -82,7 +82,8 @@ def solve_beam(
     :class:`~repro_torch.core.precision.PrecisionPolicy`: the GMG
     hierarchy is built at the policy's ``precond_dtype`` while the outer
     PCG runs at ``solve_dtype``, with casts only at the preconditioner
-    boundary.  ``start_vectors`` are the power iterations' start vectors
+    boundary; over a bfloat16 V-cycle it is flexible PCG
+    (:func:`~repro_torch.solvers.cg.pcg`).  ``start_vectors`` are the power iterations' start vectors
     (see :func:`~repro_torch.solvers.gmg.build_hierarchy`)."""
     device = resolve_device(device)
     # The f32 tiers must not drop to TF32 in the transfer einsums.
@@ -141,7 +142,8 @@ def solve_beam(
 
     # --- outer PCG with the GMG preconditioner
     with record_function("solve_beam.pcg"):
-        res = pcg(A, b, M=M, rel_tol=rel_tol, maxiter=maxiter)
+        res = pcg(A, b, M=M, rel_tol=rel_tol, maxiter=maxiter,
+                  flexible=policy.precond_dtype == torch.bfloat16)
         synchronize(device)
     t3 = time.perf_counter()
 
@@ -172,9 +174,10 @@ def main(argv=None) -> None:
     ap.add_argument("--rel-tol", type=float, default=1e-6)
     ap.add_argument("--precision", default="f64",
                     choices=["f64", "f32", "mixed", "mixed-bf16"],
-                    help="precision policy: uniform f64/f32, or mixed (f64 "
-                         "outer PCG over an f32 V-cycle); mixed-bf16 is not "
-                         "available yet and raises")
+                    help="precision policy: uniform f64/f32, or mixed / "
+                         "mixed-bf16 (f64 outer PCG over an f32 / bfloat16 "
+                         "V-cycle; mixed-bf16 factors the coarse level in "
+                         "f32)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "PyTorch version)")

@@ -110,8 +110,21 @@ _NUMPY_DTYPE = {torch.float64: np.float64, torch.float32: np.float32}
 
 
 def _numpy(a) -> np.ndarray:
-    """A tensor, or row blocks gathered, as a host numpy array."""
-    return (a.cpu() if isinstance(a, ScenarioBlocks) else a.detach().cpu()).numpy()
+    """A tensor, or row blocks gathered, as a host numpy array; bfloat16
+    (which numpy lacks) as its uint16 bit patterns."""
+    t = a.cpu() if isinstance(a, ScenarioBlocks) else a.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _from_numpy(a, dtype: torch.dtype) -> torch.Tensor:
+    """The inverse of :func:`_numpy` for a leaf of ``dtype``: bfloat16 from
+    its 16-bit patterns (any 2-byte array), bitwise; other arrays as they
+    are."""
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.asarray(a))
 
 
 @dataclasses.dataclass
@@ -185,13 +198,16 @@ def bpcg_init(
     x0=None,
     rel_tol=1e-6,
     abs_tol=0.0,
+    flexible: bool = False,
 ) -> BpcgState:
     """Build the initial :class:`BpcgState` for ``A x = b``.
 
     MFEM-style thresholds, per scenario: a row stops when
     ``nom <= max(nom0 * rel_tol^2, abs_tol^2)``; ``rel_tol``/``abs_tol``
     may be scalars or (S,) arrays.  A row with a zero RHS is born
-    converged (0 iterations), which is also what makes padding rows free."""
+    converged (0 iterations), which is also what makes padding rows free.
+    With ``flexible`` (an indefinite preconditioner, see :func:`bpcg_chunk`)
+    a row whose first (z, r) is negative starts stalled and inactive."""
     M = M or _identity
     s = b.shape[0]
     if x0 is None:
@@ -206,6 +222,7 @@ def bpcg_init(
     ab = _per_row(abs_tol, s, nom0)
     threshold = torch.maximum(nom0 * rel**2, ab**2)
     zeros = torch.zeros((s,), dtype=torch.int32, device=b.device)
+    broke = (nom0 < 0) if flexible else torch.zeros((s,), dtype=torch.bool, device=b.device)
     return BpcgState(
         x=x,
         r=r,
@@ -218,7 +235,7 @@ def bpcg_init(
         active=nom0 > threshold,
         best=nom0,
         stall=zeros,
-        stalled=torch.zeros((s,), dtype=torch.bool, device=b.device),
+        stalled=broke,
     )
 
 
@@ -231,9 +248,12 @@ def bpcg_chunk(
     maxiter: int = 5000,
     stall_iters: int = 0,
     stall_rtol: float = 0.99,
+    flexible: bool = False,
 ) -> BpcgState:
     """Advance every active row by up to ``k_iters`` PCG iterations
     (to convergence or ``maxiter`` when ``k_iters`` is None).
+    ``flexible`` takes the Polak-Ribiere direction update, as
+    :func:`repro_torch.solvers.cg.pcg` does.
 
     Chunked resumption is exact: inactive rows are frozen (alpha forced
     to 0, direction updates gated), so ``chunk(k1)`` followed by
@@ -245,10 +265,12 @@ def bpcg_chunk(
     factor ``stall_rtol`` is flagged ``stalled`` (sticky) and deactivated:
     it has hit the precision floor of the arithmetic.  The default
     ``stall_iters = 0`` leaves the detector out of the loop entirely, so
-    the f64 path does no extra arithmetic."""
+    the f64 path does no extra arithmetic.  With ``flexible`` a row whose
+    (z, r) turns negative is flagged ``stalled`` and deactivated too
+    (see :func:`repro_torch.solvers.cg.pcg`)."""
     return bpcg_chunk_shards(
         [(A, M)], [state], k_iters=k_iters, maxiter=maxiter,
-        stall_iters=stall_iters, stall_rtol=stall_rtol,
+        stall_iters=stall_iters, stall_rtol=stall_rtol, flexible=flexible,
     )[0]
 
 
@@ -260,6 +282,7 @@ def bpcg_chunk_shards(
     maxiter: int = 5000,
     stall_iters: int = 0,
     stall_rtol: float = 0.99,
+    flexible: bool = False,
 ) -> list[BpcgState]:
     """:func:`bpcg_chunk` over row blocks that never couple, each with its
     own operator and preconditioner ``ops[k] = (A, M)`` (one block per
@@ -271,14 +294,14 @@ def bpcg_chunk_shards(
     states, step = list(states), 0
     while (k_iters is None or step < k_iters) and _host_any([st.active for st in states]):
         states = [
-            _bpcg_step(A, M or _identity, st, maxiter, stall_iters, stall_rtol)
+            _bpcg_step(A, M or _identity, st, maxiter, stall_iters, stall_rtol, flexible)
             for (A, M), st in zip(ops, states)
         ]
         step += 1
     return states
 
 
-def _bpcg_step(A, M, st: BpcgState, maxiter, stall_iters, stall_rtol) -> BpcgState:
+def _bpcg_step(A, M, st: BpcgState, maxiter, stall_iters, stall_rtol, flexible) -> BpcgState:
     """One masked PCG iteration of every row of ``st`` (see
     :func:`bpcg_chunk`)."""
     active = st.active
@@ -293,17 +316,28 @@ def _bpcg_step(A, M, st: BpcgState, maxiter, stall_iters, stall_rtol) -> BpcgSta
     r = st.r - _col(alpha, st.r.ndim) * ad
     z = M(r)
     betanom = _dots(z, r)
-    beta = torch.where(ok, betanom / torch.where(st.nom == 0, 1.0, st.nom), 0.0)
+    num = betanom - _dots(z, st.r) if flexible else betanom
+    beta = torch.where(ok, num / torch.where(st.nom == 0, 1.0, st.nom), 0.0)
     d = torch.where(
         _col(active, st.d.ndim), z + _col(beta, st.d.ndim) * st.d, st.d
     )
-    nom = torch.where(active, betanom, st.nom)
     # Count only real steps (ok), matching scalar pcg: an aborted
     # degenerate direction (den <= 0) takes no step and adds none.
     iters = st.iters + ok.to(torch.int32)
-    active = ok & (nom > st.threshold) & (iters < maxiter)
+    if flexible:
+        # A negative (z, r) is a breakdown of the indefinite
+        # preconditioner: the row keeps its last nom (unconverged) and is
+        # flagged stalled, which routes it to the f64 fallback.
+        broke = ok & (betanom < 0)
+        nom = torch.where(active & ~broke, betanom, st.nom)
+        active = ok & ~broke & (nom > st.threshold) & (iters < maxiter)
+        stalled = st.stalled | broke
+    else:
+        nom = torch.where(active, betanom, st.nom)
+        active = ok & (nom > st.threshold) & (iters < maxiter)
+        stalled = st.stalled
     new = dataclasses.replace(
-        st, x=x, r=r, z=z, d=d, nom=nom, iters=iters, active=active
+        st, x=x, r=r, z=z, d=d, nom=nom, iters=iters, active=active, stalled=stalled
     )
     if stall_iters > 0:
         # Progress = the best-seen nom dropped by >= (1 - rtol); the
@@ -315,7 +349,7 @@ def _bpcg_step(A, M, st: BpcgState, maxiter, stall_iters, stall_rtol) -> BpcgSta
         hit = active & (stall >= stall_iters)
         new = dataclasses.replace(
             new, active=active & ~hit, best=best, stall=stall,
-            stalled=st.stalled | hit,
+            stalled=new.stalled | hit,
         )
     return new
 
@@ -352,7 +386,8 @@ def true_residual_audit(
     claimed = ~state.active & (state.nom <= state.threshold) & ~state.stalled
     rt = b - A(state.x)
     nomt = _dots(M(rt), rt)
-    lying = claimed & (nomt > state.threshold * slack)
+    # A negative nomt only an indefinite (bfloat16) preconditioner gives.
+    lying = claimed & ((nomt > state.threshold * slack) | (nomt < 0))
     return dataclasses.replace(
         state,
         nom=torch.where(lying, nomt, state.nom),
@@ -393,7 +428,7 @@ def bpcg_result(state: BpcgState) -> BPCGResult:
     return BPCGResult(
         x=state.x,
         iterations=state.iters,
-        converged=state.nom <= state.threshold,
+        converged=(state.nom <= state.threshold) & ~(state.stalled & (state.nom < 0)),
         final_norm=torch.sqrt(torch.abs(state.nom)),
         initial_norm=torch.sqrt(torch.abs(state.nom0)),
         stalled=state.stalled,
@@ -412,6 +447,7 @@ def bpcg(
     maxiter: int = 5000,
     stall_iters: int = 0,
     stall_rtol: float = 0.99,
+    flexible: bool = False,
 ) -> BPCGResult:
     """MFEM-style PCG over a leading scenario axis with masked convergence.
 
@@ -419,10 +455,10 @@ def bpcg(
     cross-scenario coupling; ``rel_tol``/``abs_tol`` may be scalars or
     (S,) tensors.  The resumable step program run in one uninterrupted
     chunk (see :func:`bpcg_init` / :func:`bpcg_chunk`)."""
-    state = bpcg_init(A, b, M, x0=x0, rel_tol=rel_tol, abs_tol=abs_tol)
+    state = bpcg_init(A, b, M, x0=x0, rel_tol=rel_tol, abs_tol=abs_tol, flexible=flexible)
     state = bpcg_chunk(
         A, state, M, k_iters=None, maxiter=maxiter,
-        stall_iters=stall_iters, stall_rtol=stall_rtol,
+        stall_iters=stall_iters, stall_rtol=stall_rtol, flexible=flexible,
     )
     return bpcg_result(state)
 
@@ -447,10 +483,13 @@ class BatchedGMGSolver:
 
     Precision: ``precision`` names a
     :class:`~repro_torch.core.precision.PrecisionPolicy` (``"f64"``,
-    ``"f32"``, ``"mixed"`` or a policy object).  The outer Krylov loop
-    runs in ``policy.solve_dtype`` (``self.dtype``), the V-cycle in
-    ``policy.precond_dtype``, the coarse probe/Cholesky in
-    ``policy.coarse_dtype``.  When the solve and V-cycle dtypes differ the
+    ``"f32"``, ``"mixed"``, ``"mixed-bf16"`` or a policy object).  The
+    outer Krylov loop runs in ``policy.solve_dtype`` (``self.dtype``), the
+    V-cycle in ``policy.precond_dtype``, the coarse probe/Cholesky in
+    ``policy.coarse_dtype``: the coarse matrix is probed through a
+    coarse-dtype copy of the coarsest operator on the precond-dtype
+    weighted fields upcast (the reference probes at the precond dtype and
+    casts, which under ``mixed-bf16`` gives a NaN factor).  When the solve and V-cycle dtypes differ the
     fine level keeps a second, solve-dtype copy of its weighted fields
     (``prep["lam_w_solve"]``/``prep["mu_w_solve"]``).  Reduced policies
     run with the stagnation detector on, and ``solve`` re-solves any
@@ -505,6 +544,8 @@ class BatchedGMGSolver:
         # f64 loop does no detector arithmetic at all.
         self.stall_iters = stall_iters if self.precision.reduced else 0
         self.stall_rtol = stall_rtol
+        # A bfloat16 V-cycle is no fixed linear map: flexible PCG.
+        self.flexible = self.precond_dtype == torch.bfloat16
         self._f64_twin: BatchedGMGSolver | None = None
         self._ess_faces = ess_faces
         self._traction_face = traction_face
@@ -535,6 +576,13 @@ class BatchedGMGSolver:
             self._carrier(sp, self.precond_dtype, assembly if i > 0 else coarse)
             for i, sp in enumerate(spaces)
         ]
+        # The coarse probe's operator: the coarsest carrier itself, or one at
+        # the coarse dtype when that differs from the V-cycle's.
+        self._coarse_base = (
+            self._base_ops[0]
+            if self.coarse_dtype == self.precond_dtype
+            else self._carrier(spaces[0], self.coarse_dtype, coarse)
+        )
         self._desc_idx = level_descendants(spaces, self.device)
         self._fine_base_solve = (
             self._carrier(spaces[-1], self.dtype, assembly if len(spaces) > 1 else coarse)
@@ -824,9 +872,16 @@ class BatchedGMGSolver:
         self._check_mesh(state.x.shape[0], "state_from_host")
         return self._put(state)
 
+    def _prep_dtype(self, name: str) -> torch.dtype:
+        """The dtype of the prep leaf ``name`` under this solver's policy."""
+        if name == "chol":
+            return self.coarse_dtype
+        return self.dtype if name.endswith("_solve") else self.precond_dtype
+
     def prep_to_host(self, prep: dict) -> dict[str, np.ndarray]:
         """One host numpy array per prep tensor, bitwise (see the
-        contract note above for the names)."""
+        contract note above for the names); a bfloat16 leaf as its uint16
+        bit patterns."""
         get = _numpy
         out: dict[str, np.ndarray] = {}
         for i, (lw, mw) in enumerate(zip(prep["lam_w"], prep["mu_w"])):
@@ -855,7 +910,7 @@ class BatchedGMGSolver:
         names += ["chol"]
         if self._split_fine:
             names += ["lam_w_solve", "mu_w_solve"]
-        t = {name: torch.from_numpy(np.asarray(arrays[name])) for name in names}
+        t = {name: _from_numpy(arrays[name], self._prep_dtype(name)) for name in names}
         if place:
             # The weighted fields fold each scenario's elements into axis 0.
             per = {f"{n}{i}": sp.nelem for i, sp in enumerate(self.spaces)
@@ -910,10 +965,13 @@ class BatchedGMGSolver:
             lam_w.append(op.lam_w)
             mu_w.append(op.mu_w)
             if i == 0:
-                # Probe at the V-cycle dtype (the operator's own), factor at
-                # the coarse dtype.  Rows outside the mask may hold no
-                # materials yet (an empty prep): their factor is discarded.
-                K = probe_coarse_matrix(op).to(self.coarse_dtype)
+                # Probe and factor at the coarse dtype, through the coarse
+                # carrier on this level's weighted fields upcast.  Rows
+                # outside the mask may hold no materials yet (an empty
+                # prep): their factor is discarded.
+                cdt = self.coarse_dtype
+                K = probe_coarse_matrix(self._coarse_base.with_material_weights(
+                    op.lam_w.to(cdt), op.mu_w.to(cdt), s))
                 L, info = torch.linalg.cholesky_ex(K)
                 bad = ((info != 0) & reset_mask).any()
                 chol = torch.where(mask3, L, prep["chol"])
@@ -1109,7 +1167,9 @@ class BatchedGMGSolver:
             _, _, A, M = prog._build_from_prep(pr)
             b = prog._rhs(tr)
             if do_reset:
-                st = merge_states(mask_k, bpcg_init(A, b, M=M, rel_tol=rel_k), st)
+                st = merge_states(
+                    mask_k, bpcg_init(A, b, M=M, rel_tol=rel_k, flexible=self.flexible), st
+                )
             ops.append((A, M))
             states.append(st)
             rhs.append(b)
@@ -1117,6 +1177,7 @@ class BatchedGMGSolver:
         outs = bpcg_chunk_shards(
             ops, states, k_iters=int(k_iters), maxiter=self.maxiter,
             stall_iters=self.stall_iters, stall_rtol=self.stall_rtol,
+            flexible=self.flexible,
         )
         if self.stall_iters > 0:
             outs = [

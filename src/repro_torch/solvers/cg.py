@@ -4,6 +4,16 @@ For preconditioned solves MFEM tests (B r_k, r_k)^{1/2} / (B r_0, r_0)^{1/2}
 <= rel_tol (paper Sec. 3.2); iteration capped at ``maxiter``.  The loop is
 a Python loop; its stopping test reads two flags from the device once per
 iteration (one host sync per iteration).
+
+``flexible=True`` takes the Polak-Ribiere direction update,
+beta = (z_k, r_k - r_{k-1}) / (z_{k-1}, r_{k-1}), for a preconditioner that
+is not a fixed linear map to working precision (a bfloat16 V-cycle: its
+rounding changes with its input).  With a fixed SPD preconditioner the
+extra term (z_k, r_{k-1}) is zero in exact arithmetic (Notay, "Flexible
+conjugate gradients", SIAM J. Sci. Comput. 22, 2000).  Such a
+preconditioner need not be positive definite either: a negative
+(z_k, r_k) is a breakdown, which stops the loop unconverged (in the
+fixed-preconditioner loop it would pass the stopping test).
 """
 
 from __future__ import annotations
@@ -38,8 +48,10 @@ def pcg(
     rel_tol: float = 1e-6,
     abs_tol: float = 0.0,
     maxiter: int = 5000,
+    flexible: bool = False,
 ) -> PCGResult:
-    """MFEM-style PCG. ``A`` and ``M`` map L-vectors to L-vectors."""
+    """MFEM-style PCG. ``A`` and ``M`` map L-vectors to L-vectors;
+    ``flexible`` as in the module docstring."""
     if M is None:
         M = lambda r: r  # noqa: E731
     x = torch.zeros_like(b) if x0 is None else x0
@@ -62,11 +74,16 @@ def pcg(
         bad = den <= 0
         alpha = torch.where(bad, 0.0, nom / torch.where(bad, 1.0, den))
         x = x + alpha * d
-        r = r - alpha * ad
+        r_prev, r = r, r - alpha * ad
         z = M(r)
         betanom = _dot(z, r)
-        beta = betanom / torch.where(nom == 0, 1.0, nom)
+        num = betanom - _dot(z, r_prev) if flexible else betanom
+        beta = num / torch.where(nom == 0, 1.0, nom)
         d = torch.where(bad, d, z + beta * d)
+        if flexible:
+            # A breakdown keeps the last (positive) nom: unconverged.
+            bad = bad | (betanom < 0)
+            betanom = torch.where(betanom < 0, nom, betanom)
         nom = betanom
         stop, above = torch.stack([bad, nom > threshold]).tolist()
         if not stop:
@@ -75,7 +92,8 @@ def pcg(
     return PCGResult(
         x=x,
         iterations=k,
-        converged=bool(nom <= threshold),
+        # (flexible: a negative nom can only be nom0, a breakdown)
+        converged=bool(nom <= threshold) and not (flexible and bool(nom < 0)),
         final_norm=float(torch.sqrt(torch.abs(nom))),
         initial_norm=float(torch.sqrt(torch.abs(nom0))),
     )

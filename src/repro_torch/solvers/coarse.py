@@ -12,6 +12,12 @@ inexact inner PCG.  Two solvers:
   round-off).  A scenario-batched operator gets one factor per scenario;
 * ``pcg_jacobi``: the paper's inexact inner PCG with a Jacobi
   preconditioner (single scenario only).
+
+The Cholesky factor of a bfloat16 operator (the ``mixed-bf16`` V-cycle)
+is formed and factored in float32 (:func:`factor_dtype`): bfloat16 has
+too few mantissa bits to factor even a well-conditioned coarse matrix,
+and torch has no bfloat16 Cholesky.  The solve enters and leaves it with
+casts.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from repro_torch.core.operators import ElasticityOperator
 from repro_torch.solvers.cg import pcg
 
 __all__ = [
+    "factor_dtype",
     "make_coarse_solver",
     "assembled_coarse_matrix",
     "probe_coarse_matrix",
@@ -33,11 +40,17 @@ __all__ = [
 ]
 
 
+def factor_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the coarse matrix of an operator in ``dtype`` is formed and
+    factored in: ``dtype`` itself, float32 for bfloat16."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
 def assembled_coarse_matrix(op: ElasticityOperator) -> torch.Tensor:
     """The constrained (n, n) matrix of a single-scenario operator with
     attribute-dict materials, assembled through scipy (essential rows and
     columns eliminated, unit diagonal), as a dense tensor on the
-    operator's device."""
+    operator's device at :func:`factor_dtype` of its dtype."""
     space = op.space
     csr = assemble_csr(
         space,
@@ -45,13 +58,15 @@ def assembled_coarse_matrix(op: ElasticityOperator) -> torch.Tensor:
         op.materials,
         ess_mask=op.ess_mask.cpu().numpy(),
     )
-    return torch.as_tensor(csr.toarray(), dtype=op.dtype, device=op.device)
+    return torch.as_tensor(csr.toarray(), dtype=factor_dtype(op.dtype), device=op.device)
 
 
 def probe_coarse_matrix(op: ElasticityOperator) -> torch.Tensor:
     """Densify the constrained operator by applying it to the identity
     columns: the (n, n) matrix, n = nscalar * 3, or the (S, n, n) stack of
-    a scenario-batched operator.
+    a scenario-batched operator, in the operator's dtype (a bfloat16
+    operator is probed through its :meth:`~ElasticityOperator.with_dtype`
+    float32 copy: :func:`make_coarse_solver`).
 
     All n columns go through ONE apply: they are folded into the scenario
     axis (n * S rows, each scenario's weighted fields repeated n times).
@@ -90,11 +105,15 @@ def make_coarse_solver(
 ) -> Callable:
     """Return solve(b) -> x for the constrained coarsest-level system."""
     if method == "cholesky":
+        cdt = factor_dtype(op.dtype)
         if op.nbatch is None and isinstance(op.materials, dict):
             K = assembled_coarse_matrix(op)
         else:
-            K = probe_coarse_matrix(op)
-        return cholesky_solver(torch.linalg.cholesky(K))
+            K = probe_coarse_matrix(op if cdt == op.dtype else op.with_dtype(cdt))
+        solve = cholesky_solver(torch.linalg.cholesky(K))
+        if cdt == op.dtype:
+            return solve
+        return lambda b: solve(b.to(cdt)).to(op.dtype)
 
     if method == "pcg_jacobi":
         if op.nbatch is not None:

@@ -520,7 +520,11 @@ def test_default_device_raises_without_card():
 
 
 def test_mixed_bf16_and_bad_start_vectors_raise():
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        BatchedGMGSolver(beam_hex(), 0, 1, precision="mixed-bf16", device="cpu")
+    # mixed-bf16 is accepted now: its leaves carry the policy's dtypes
+    s = BatchedGMGSolver(beam_hex(), 0, 1, precision="mixed-bf16", device="cpu")
+    prep = s.empty_prep(2)
+    assert prep["lam_w"][0].dtype == torch.bfloat16
+    assert prep["chol"].dtype == torch.float32
+    assert prep["lam_w_solve"].dtype == torch.float64
     with pytest.raises(ValueError, match="smoothed levels"):
         BatchedGMGSolver(beam_hex(), 1, 1, device="cpu", start_vectors=[])

@@ -83,6 +83,69 @@ def test_kernel_matches_plain_on_card(card, p, dtype):
         torch.testing.assert_close(y, ref, rtol=rtol, atol=atol * float(ref.abs().max()))
 
 
+def _bf16_args(p, ne, device, offset):
+    """bfloat16 x_e, lam_w and mu_w as views at a storage offset of
+    ``offset`` values (2-byte but not 16-byte aligned for 1 and 3), and
+    float32 tables, as the bfloat16 kernel takes them."""
+    x, lam, mu, jinv, B, G = _args(p, ne, torch.float32, "cpu")
+
+    def at_offset(t):
+        buf = torch.zeros(t.numel() + offset, dtype=torch.bfloat16, device=device)
+        view = buf[offset:].view(t.shape)
+        view.copy_(t.to(torch.bfloat16))
+        return view
+
+    return [at_offset(x), at_offset(lam), at_offset(mu)] + [t.to(device) for t in (jinv, B, G)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("p", ops.SUPPORTED_P)
+def test_bf16_kernel_matches_plain_on_card(card, p, offset):
+    """The bfloat16 instantiation against its plain version (f32 apply on
+    the same bfloat16 inputs, y rounded once): the two sum in other orders,
+    so a value may round to the neighbouring bfloat16, within 2^-7 of max
+    |y|."""
+    elems = build.load().config("pa_elasticity", torch.bfloat16, p + 1)["elems"]
+    for ne in (1, 7, 300, 41 * elems + 1):
+        args = _bf16_args(p, ne, card, offset)
+        before = ops.counts["pa_elasticity"].launches
+        y = ops.pa_elasticity(*args)
+        assert ops.counts["pa_elasticity"].launches == before + 1
+        assert y.dtype == torch.bfloat16
+        ref = paop_ref(*args).float()
+        assert float((y.float() - ref).abs().max()) <= 2.0 ** -7 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_bf16_solves_on_card_match_cpu(card):
+    """solve_beam and a batched solve (p=2, refine=1) under mixed-bf16 on
+    the card and on the CPU from the same start vectors: the kernel and its
+    plain version round a few values of y apart, so iterations within 1
+    and x within 1e-5 of max |x|; the card launches PAop in bfloat16 and
+    makes no plain call."""
+    spaces = hierarchy_spaces(beam_hex(), 1, 2)
+    g = torch.Generator().manual_seed(0)
+    sv = [torch.randn((sp.nscalar, 3), generator=g, dtype=torch.float64) for sp in spaces[1:]]
+    ops.reset_counts()
+    a = solve_beam(2, 1, precision="mixed-bf16", device=card, start_vectors=sv,
+                   keep_solution=True)
+    assert ops.counts["pa_elasticity"].plain_calls == 0
+    assert ops.counts["pa_elasticity"].launches > 0
+    b = solve_beam(2, 1, precision="mixed-bf16", device="cpu", start_vectors=sv,
+                   keep_solution=True)
+    assert a.converged and b.converged and abs(a.iterations - b.iterations) <= 1
+    scale = float(b.x.abs().max())
+    torch.testing.assert_close(a.x.cpu(), b.x, rtol=0, atol=1e-5 * scale)
+    mats = [{1: (50.0, 50.0), 2: (1.0, 1.0)}, {1: (10.0, 5.0), 2: (2.0, 2.0)}]
+    trs = np.array([[0.0, 0.0, -1e-2], [0.0, 1e-3, -2e-2]])
+    out = [BatchedGMGSolver(beam_hex(), 1, 2, precision="mixed-bf16", device=dev,
+                            start_vectors=sv).solve(mats, trs, 1e-6)
+           for dev in (card, "cpu")]
+    assert all(bool(r.converged.all()) for r in out)
+    assert bool(((out[0].iterations.cpu() - out[1].iterations).abs() <= 1).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("p", [2, 4, 8])
 def test_baseline_matches_plain_on_card(card, p):

@@ -152,11 +152,14 @@ def test_left_out_parts_raise_and_idle_paths():
     n_cards = torch.cuda.device_count()
     with pytest.raises(ValueError, match=f"the host has {n_cards} CUDA card"):
         es.ElasticityService(mesh=[f"cuda:{n_cards}"])
-    # precision names fail at intake (the port has no bfloat16 policy yet)
+    # unknown precision names fail at intake; mixed-bf16 is accepted and
+    # keys its own flight
     with pytest.raises(ValueError, match="unknown precision policy 'f16'"):
         svc.submit(es.SolveRequest(precision="f16"))
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        svc.submit(es.SolveRequest(precision="mixed-bf16"))
+    bf16_req = es.SolveRequest(precision="mixed-bf16")
+    assert svc.group_key(bf16_req)[-1] == "mixed-bf16"
+    bf16 = es.ElasticityService(device="cpu")
+    assert bf16.submit(bf16_req) == 0
     assert svc.step() == 0 and svc.drain() == [] and svc.solve([]) == []
     assert svc.latency_summary() == {}
     assert [svc.bucket_for(n) for n in (1, 2, 3, 5, 8, 9)] == [1, 2, 4, 8, 8, 8]

@@ -180,14 +180,17 @@ def test_convert_operator_data_and_start_vectors():
 
 
 def test_precision_policies():
-    assert set(PRECISION_POLICIES) == {"f64", "f32", "mixed"}
+    assert set(PRECISION_POLICIES) == {"f64", "f32", "mixed", "mixed-bf16"}
     assert resolve_precision(None).name == "f64"
     assert resolve_precision(None, torch.float32).name == "f32"
     mixed = resolve_precision("mixed")
     assert (mixed.solve_dtype, mixed.precond_dtype) == (torch.float64, torch.float32)
     assert not mixed.uniform and PRECISION_POLICIES["f32"].uniform
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        resolve_precision("mixed-bf16")
+    bf16 = resolve_precision("mixed-bf16")
+    assert (bf16.solve_dtype, bf16.precond_dtype, bf16.coarse_dtype) == (
+        torch.float64, torch.bfloat16, torch.float32)
+    assert bf16.reduced and not bf16.uniform
+    assert resolve_precision("mixed-bf16", torch.float64) is bf16
     with pytest.raises(ValueError, match="unknown precision"):
         resolve_precision("f16")
     with pytest.raises(ValueError, match="solves in"):

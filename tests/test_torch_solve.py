@@ -100,8 +100,15 @@ def test_solve_default_device_raises_without_card():
 
 
 def test_mixed_bf16_raises():
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        solve_beam(1, 0, device="cpu", precision="mixed-bf16")
+    """The policy runs (it raised before the bfloat16 kernel existed): the
+    V-cycle in bfloat16 through the kernel's plain version, the coarse
+    factor in float32, the outer PCG in float64."""
+    ops.reset_counts()
+    rep = solve_beam(1, 0, device="cpu", precision="mixed-bf16", keep_solution=True)
+    assert rep.precision == "mixed-bf16" and rep.converged
+    assert rep.final_rel_norm <= REL_TOL and rep.x.dtype == torch.float64
+    assert ops.counts["pa_elasticity"].plain_calls > 0
+    assert ops.counts["pa_elasticity"].launches == 0
 
 
 def test_start_vector_count_checked():
