@@ -93,11 +93,12 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    the card's name and power limit: free disk, checkpoint leaves and
    bytes, each write's seconds and one write's parts (device-to-host
    copy, crc32, np.save + fsync), the restore's seconds, the resumed run
-   against phase 5b's undisturbed one.  Then ``serve_solve --continuous``
-   on the card (p=2, refine=1, 6 requests, max_batch 4, chunks of 2)
-   uninterrupted, SIGKILLed after 2 steps with a checkpoint every step,
-   and resumed: the resumed run's ``--report-out`` lines must equal the
-   uninterrupted run's;
+   against phase 5b's undisturbed one.  In phase 9(d), beside the train
+   CLI's round trip, ``serve_solve --continuous`` on the card (p=2,
+   refine=1, 6 requests, max_batch 4, chunks of 2) uninterrupted and
+   SIGKILLed after 2 steps with a checkpoint every step, then resumed: the
+   resumed run's ``--report-out`` lines must equal the uninterrupted
+   run's;
 5d. the ``mixed-bf16`` policy (``[bf16]`` lines, beside the card's name
    and power limit): (a) ``solve_beam(4, 4, precision="mixed-bf16",
    device="cuda")`` with every count zeroed just before and read just
@@ -182,7 +183,7 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    and (4, 4096, 16, 8, 64), each beside its bound; (c)
    ``train_loop`` of qwen3-1.7b at full width in bf16, B = 4 and S = 4096
    (``SHAPES["train_4k"]``'s sequence, its global batch of 256 cut to 4),
-   batches from ``data/pipeline``, one warm-up step and 5 timed, with every
+   batches from ``data/pipeline``, one warm-up step and 3 timed, with every
    count zeroed just before and read just after each step: 56 flash forward
    launches (28, and 28 in the remat recompute, all wgmma), 28 backward
    launches, all wgmma, no plain call, every loss and grad norm finite; per
@@ -194,9 +195,11 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    float32, first-step gradients (1e-3 of max |CPU| a leaf) and three train
    steps' losses (1e-4 relative) on the card against the CPU from one
    state; (d) ``python -m repro_torch.launch.train --reduced --steps 6
-   --ckpt-every 3`` on the card uninterrupted, SIGKILLed after step 4, and
-   rerun: it resumes from step 3 with the same batches, and steps 4-6 and
-   the final state are bitwise the uninterrupted run's; (e) ``train_loop``
+   --ckpt-every 3`` on the card uninterrupted and, in a second process
+   started beside it, SIGKILLed after step 4; then rerun: it resumes from
+   step 3 with the same batches, and steps 4-6 and the final state are
+   bitwise the uninterrupted run's (phase 5c's serve_solve round trip runs
+   beside it, its processes started with these); (e) ``train_loop``
    of that ``--reduced`` configuration in bf16 (head dim 16) at the CLI's
    --seq 256 --batch 8, two steps, each counted: every flash forward and
    backward launch on the mma_sync routes, no plain call; the forward's o
@@ -268,7 +271,7 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    and backward under sync debug mode "error" and a reduced bf16 zamba2
    step twice from one state, bitwise, counted together (head dim 16: the
    mma_sync routes); zamba2-2.7b trained as 9(c) (B = 4, S =
-   4096, layers cut only by the printed reckoning; 18 forward and 9
+   4096, its depth cut to 24 layers, 4 of its 9 groups; 8 forward and 4
    backward flash launches a step on wgmma, 0 mma_sync, 0 plain; MFU
    counting every application of the shared block; the profile with the
    scan and the conv as entries of their own); the wgmma and mma_sync
@@ -286,8 +289,10 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    logits, first-step gradients and three steps' losses); a reduced
    forward and backward under sync debug mode "error" and a reduced bf16
    step twice from one state, bitwise, counted together (no launch);
-   xlstm-125m trained as 9(c) at S = 4096, its global batch of 256 cut to
-   the largest of (64, 32, 16, 8, 4) that the printed reckoning fits (0
+   xlstm-125m at full width, its depth cut to its first 6 layers (the
+   sLSTM at 5, mLSTM blocks before it), trained as 9(c) at S = 4096, its
+   global batch of 256 cut to the largest of (16, 8, 4) that the printed
+   reckoning fits (0
    flash launches; MFU through ``model_flops_estimate`` and, beside it,
    with N counted from the parameters built plus the mLSTM's chunked
    products; the profile with ``xlstm.mlstm`` and ``xlstm.slstm`` as
@@ -318,9 +323,9 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    full width and depth, bf16, B = 4, S = 4096) through
    ``train_loop(mesh=make_local_mesh(2, devices=("cuda:0",) * 4))``, its
    memory reckoning printed, step 1 run twice from one state (bitwise),
-   then one warm-up and five timed steps, each counted (4 x (2L + L) wgmma
-   flash launches, no plain call), the losses held to phase 9's, and a
-   gathered checkpoint written; (b) olmoe-1b-7b: one full-width MoE layer
+   then one warm-up and three timed steps, each counted (4 x (2L + L) wgmma
+   flash launches, no plain call), the losses held to phase 9's, and one
+   more step profiled (the collectives' share); (b) olmoe-1b-7b: one full-width MoE layer
    expert parallel on (2, 2) against ``moe_apply`` on each data row's
    rows (ids identical), then the model at the depth its mesh reckoning
    allows, two steps, the loss with the global aux against the unsharded
@@ -328,12 +333,22 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    reduced in f32; (c) ``pipeline_apply`` of qwen3-1.7b's 28 blocks as 4
    stages of 7 on 4 virtual devices, 8 microbatches of 1 x 2048, bitwise
    equal to the sequential apply, both timed, the bubble fraction
-   printed; (d) 2 of (a)'s 4 devices fail, ``elastic_remesh`` gives (1,
-   2), (a)'s checkpoint is restored and resharded onto it and stepped
-   twice: bitwise equal to (a)'s state resharded in memory and stepped
-   the same, within 2^-8 of (a)'s own continuation on (2, 2) (its first
-   step profiled: the collectives' share); (e) a mesh naming one card
-   more than the host has raises, naming the count.
+   printed; (d) (a)'s cell at full width with its depth cut to
+   LM_RESTART_LAYERS, trained on (2, 2) through ``train_loop`` with a
+   gathered checkpoint; 2 of its 4 devices fail, ``elastic_remesh`` gives
+   (1, 2), the checkpoint is restored and resharded onto it and stepped
+   twice: bitwise equal to the final state resharded in memory and
+   stepped the same, within 2^-8 of its own continuation on (2, 2); (e) a mesh naming one card
+   more than the host has raises, naming the count; (f) (a)'s cell with
+   the reference's specs, ``make_train_step(mesh=,
+   act_spec=act_pspec(axes), logits_spec=P(dp, None, "model"))``
+   (sequence parallelism and the vocab-parallel CE): step 1 run twice
+   from one state (bitwise), then three timed steps after it, each
+   counted (4 x (2L + L) wgmma flash launches, no plain call), the
+   losses held to phase 9's and (a)'s, step s and the peak beside (a)'s,
+   one more step profiled (the ``collective.*`` ranges' share); (b)'s
+   full-width MoE layer also runs on blocks of positions gathered along
+   the sequence, its expert ids identical to (b)'s.
 16. the cell grid and serving on a mesh (``[mesh serve]``, ``[cells]``,
    ``[dryrun]`` and ``[roofline]`` lines, each beside the card's name and
    power limit): (a) phase 6's requests (qwen3-1.7b, bf16, 8 x 2048 + 32)
@@ -347,9 +362,12 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    ``paop_cuda`` on a (1, 1) mesh of the card and ``beam_p8_51m:dd`` on
    four virtual devices, counted, each against ``ElasticityOperator``'s
    apply, timed and placed against its dry-run bound; (c) the dry-run
-   (``launch/dryrun.py``) of ``DRYRUN_CELLS`` on the meta production
-   meshes; (d) phase 15's (2, 2) train cell dry-run on meta devices, its
-   peak a device x 4 beside phase 15's measured peak; the dry-run and
+   CLI (``launch/dryrun.py``) of ``DRYRUN_CELLS`` on the meta production
+   meshes, one process at a lower priority with no card visible, started
+   after the build and run beside phases 3-15 (a trace runs on the host
+   alone); (d) phase 15's (2, 2) train cell dry-run on meta devices (with
+   the reference's specs: the step of 15(f)), its peak a device x 4
+   beside 15(f)'s and 15(a)'s measured peaks; the dry-run and
    roofline tables of every record.  The wall time of each phase is
    printed (``[wall]`` lines).
 
@@ -425,12 +443,13 @@ from repro_torch.solvers.batched import BatchedGMGSolver, bpcg_result  # noqa: E
 from repro_torch.core.paop_dd import SlabDecomposition  # noqa: E402
 from repro_torch.distributed.sharding import gather_scenario  # noqa: E402
 from repro_torch.distributed.sharding import (  # noqa: E402
-    LMMesh, Sharded, param_pspecs, place, state_pspecs)
+    P, LMMesh, Sharded, act_pspec, dp_axes, mesh_all_gather, mesh_block, param_pspecs, place,
+    state_pspecs)
 from repro_torch.distributed.elastic import (  # noqa: E402
     elastic_remesh, reshard_state, simulate_failures)
 from repro_torch.distributed.pipeline import (  # noqa: E402
     bubble_fraction, pipeline_apply, split_stages)
-from repro_torch.launch.mesh import make_local_mesh, make_production_mesh  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.launch.cells import build_cell  # noqa: E402
 from repro_torch.launch.dryrun import run_cell  # noqa: E402
 from repro_torch.launch.report import (  # noqa: E402
@@ -547,8 +566,8 @@ TABLE4 = {(MAIN_P, MAIN_REFINE): ("pa_baseline", "pa_sumfact_voigt", "paop_cuda"
 
 # Training (phase 9): qwen3-1.7b at full width in bf16, train_4k's sequence
 # with its global batch of 256 cut to 4 so that one card holds the step; one
-# warm-up step and 5 timed.
-TRAIN_ARCH, TRAIN_BATCH, TRAIN_STEPS = "qwen3-1.7b", 4, 6
+# warm-up step and 3 timed (phases 10-13 and 15(a) take as many).
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_STEPS = "qwen3-1.7b", 4, 4
 TRAIN_SEQ = SHAPES["train_4k"].seq_len
 FLASH_TRAIN = (TRAIN_BATCH, TRAIN_SEQ, 16, 8, 128)  # (B, S, H, K, D)
 # The backward kernel against its plain version (B, S, H, K, D, window):
@@ -617,23 +636,27 @@ MOE_FLASH_TIMES = [("olmoe-1b-7b", (8, SERVE_PROMPT, 16, 16, 128), None),
 MOE_BWD_SHAPE = (MOE_TRAIN_BATCH, TRAIN_SEQ, 16, 16, 128)
 # Phase 12: zamba2-2.7b (Mamba2 with a shared attention block every 6
 # layers) at full width and depth in bf16, served 8 x (SERVE_PROMPT +
-# SERVE_NEW) and trained at train_4k's sequence, its global batch cut to
-# SSM_TRAIN_BATCH; its reduced configuration and a reduced plain Mamba2
+# SERVE_NEW), and trained at full width at train_4k's sequence, its global
+# batch cut to SSM_TRAIN_BATCH and its depth to SSM_TRAIN_LAYERS (4 of its
+# 9 groups); its reduced configuration and a reduced plain Mamba2
 # stack card against CPU; a reduced zamba2 step repeated bitwise.  Its
 # head dim of 80 (2560 / 32) takes the wgmma flash routes: held in phase 3
 # at the serve and training shapes and a ragged S (the mma_sync kernels
 # too, launched by name), both routes timed at the first two.
-SSM_ARCH, SSM_TRAIN_BATCH = "zamba2-2.7b", 4
+SSM_ARCH, SSM_TRAIN_BATCH, SSM_TRAIN_LAYERS = "zamba2-2.7b", 4, 24
 D80_SERVE = (SERVE_REQUESTS, SERVE_PROMPT, 32, 32, 80)  # (B, S, H, K, D)
 D80_TRAIN = (SSM_TRAIN_BATCH, TRAIN_SEQ, 32, 32, 80)
 D80_SHAPES = [D80_SERVE, D80_TRAIN, (2, 333, 32, 32, 80)]
 # Phase 13: xlstm-125m (mLSTM blocks, sLSTM at 5 and 11) at full width and
-# depth in bf16, served 8 x (SERVE_PROMPT + SERVE_NEW) and trained at
-# train_4k's sequence, its global batch of 256 cut to the largest of
+# depth in bf16, served 8 x (SERVE_PROMPT + SERVE_NEW), and at full width
+# with its depth cut to its first XLSTM_TRAIN_LAYERS (one sLSTM block: the
+# host launches every step of its recurrence, so a layer costs its share of
+# the step and of the profiled step, where each launch is recorded) trained
+# at train_4k's sequence, its global batch of 256 cut to the largest of
 # XLSTM_TRAIN_BATCHES that the printed reckoning fits; its reduced
 # configuration card against CPU; a reduced step with no host sync and one
 # repeated bitwise.  No attention: no flash launch anywhere.
-XLSTM_ARCH, XLSTM_TRAIN_BATCHES = "xlstm-125m", (64, 32, 16, 8, 4)
+XLSTM_ARCH, XLSTM_TRAIN_BATCHES, XLSTM_TRAIN_LAYERS = "xlstm-125m", (16, 8, 4), 6
 # The sLSTM's gradient at full width overflows f32 past ~1,000 positions, in
 # the reference too (ROADMAP Queue 3): the S = 4096 run times the step, and
 # a short run at XLSTM_FINITE_SEQ holds the losses finite and falling.
@@ -667,11 +690,19 @@ MESH_RESTORE_P, MESH_RESTORE_REFINE = 2, 1
 # and one full-width MoE layer on the mesh against moe_apply on each data
 # row's rows (ids identical, outputs within LM_MESH_LOSS_REL of max);
 # (c) GPipe of qwen3-1.7b's 28 blocks as
-# PIPE_STAGES stages; (d) a restart of (a)'s checkpoint on the (1, 2) mesh
-# left after 2 of its 4 devices fail.
+# PIPE_STAGES stages; (d) (a)'s cell cut to LM_RESTART_LAYERS layers
+# trained LM_RESTART_STEPS steps on (2, 2) with a gathered checkpoint of
+# its whole state (the embedding and its moments most of it; at full
+# depth the 17 GB written and read back through the temporary directory's
+# disk took a minute of the phase), and restarted on the (1, 2) mesh left
+# after 2 of its 4 devices fail; (f) (a)'s cell with the reference's
+# act_spec and logits_spec, LM_SP_STEPS steps after the repeated first,
+# its losses within LM_MESH_LOSS_REL of phase 9's and (a)'s.
 LM_MESH_DEVICES, LM_MESH_MP = ("cuda:0",) * 4, 2
 LM_MESH_LOSS_REL = 2.0 ** -8
 LM_MESH_RESUME_STEPS = 2
+LM_RESTART_LAYERS, LM_RESTART_STEPS = 4, 2
+LM_SP_STEPS = 3
 PIPE_STAGES, PIPE_MICRO, PIPE_BATCH, PIPE_SEQ = 4, 8, 8, 2048
 # Phase 16: the cell grid and serving on a mesh.  (a) phase 6's requests
 # (qwen3-1.7b, bf16, 8 x 2048 + 32) through mesh_prefill and
@@ -686,7 +717,8 @@ PIPE_STAGES, PIPE_MICRO, PIPE_BATCH, PIPE_SEQ = 4, 8, 8, 2048
 # card, and the DD cell on (2, 2) virtual devices, each within CELL_REL of
 # max |y| of ElasticityOperator's apply, timed (fenced, median of
 # CELL_ROUNDS) and placed against its dry-run bound; (c) the dry-run of
-# DRYRUN_CELLS on the meta production meshes; (d) phase 15's (2, 2) train
+# DRYRUN_CELLS on the meta production meshes (traced beside phases 3-15 in
+# a process of its own); (d) phase 15's (2, 2) train
 # cell dry-run, its peak bytes a device x 4 beside phase 15's measured peak.
 MESH_SERVE_TOL = 2.0 ** -5
 CELL_SHAPES, CELL_REL, CELL_ROUNDS = ("beam_p2_6m", "beam_p8_6m", "beam_p8_51m"), 1e-5, 5
@@ -702,6 +734,7 @@ DRYRUN_CELLS = {"single": [("elasticity", "beam_p8_51m", "paop_cuda"),
                 "multi": [("elasticity", "beam_p8_51m", "paop_cuda")]}
 SERVE_RECORD: dict = {}  # phase 6's prompts, tokens and every step's logits
 LM_MESH_PEAK: list = []  # phase 15(a)'s measured peak, GiB
+LM_SP_PEAK: list = []  # phase 15(f)'s measured peak, GiB
 TRAIN_HISTORY: dict = {}  # phase 9's (and every train_full_width run's) logged steps
 
 # Where a train step's device time goes (phase 9c's profile): kernels by
@@ -1739,34 +1772,72 @@ def write_parts(svc: ElasticityService, directory: str) -> dict[str, float]:
             "crc32": t2 - t1, "np.save + fsync": t3 - t2}
 
 
-def cli_round_trip(tmp: str, card: str) -> None:
-    """serve_solve --continuous on the card three times: uninterrupted;
-    SIGKILLed after 2 local steps with a checkpoint every step; resumed.
-    The resumed run's --report-out lines must equal the uninterrupted
-    run's, x_sha256 included."""
+def run_together(cmds: list, env: dict, timeout: float = 600) -> list:
+    """Run ``cmds`` ((argument list, working directory) pairs) as processes
+    started together; returns each one's ``(CompletedProcess, wall
+    seconds)`` in order.  A process still running at ``timeout`` fails the
+    phase, and every one is killed first."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(c, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for c, cwd in cmds]
+
+    def wait(proc):
+        out, err = proc.communicate(timeout=max(timeout - (time.perf_counter() - t0), 1))
+        return out, err, time.perf_counter() - t0
+
+    try:
+        with concurrent.futures.ThreadPoolExecutor(len(procs)) as pool:
+            done = list(pool.map(wait, procs))
+    except subprocess.TimeoutExpired as e:
+        raise SystemExit(f"{' '.join(e.cmd)} still ran after {timeout} s") from e
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return [(subprocess.CompletedProcess(c, p.returncode, out, err), wall)
+            for (c, _), p, (out, err, wall) in zip(cmds, procs, done)]
+
+
+def run_round_trips(*trips) -> None:
+    """Drive CLI round trips together: each is a generator that yields a
+    stage's (argument list, working directory) pairs and is sent back their
+    ``(CompletedProcess, wall seconds)`` pairs; every stage of every trip
+    still running starts its processes together."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    stages = {trip: next(trip) for trip in trips}
+    while stages:
+        outs = run_together([c for cmds in stages.values() for c in cmds], env)
+        nxt = {}
+        for trip, cmds in stages.items():
+            mine, outs = outs[:len(cmds)], outs[len(cmds):]
+            try:
+                nxt[trip] = trip.send(mine)
+            except StopIteration:
+                pass
+        stages = nxt
+
+
+def serve_cli_round_trip(tmp: str, card: str):
+    """Phase 5c's CLI round trip, run in phase 9(d) beside the train CLI's
+    (``run_round_trips``): serve_solve --continuous on the card three
+    times: uninterrupted and, in a second process started beside it,
+    SIGKILLed after 2 local steps with a checkpoint every step; then
+    resumed.  The resumed run's --report-out lines must equal the
+    uninterrupted run's, x_sha256 included."""
     common = [sys.executable, "-m", "repro_torch.launch.serve_solve", "--continuous",
               "--device", "cuda", *RECOVERY_CLI]
-    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
-    tmp = os.path.join(tmp, "cli")
-    os.makedirs(tmp)
-    walls = []
-
-    def run(*extra):
-        t0 = time.perf_counter()
-        out = subprocess.run(common + list(extra), cwd=tmp, env=env, capture_output=True,
-                             text=True, timeout=600)
-        walls.append(time.perf_counter() - t0)
-        return out
-
-    a = run("--report-out", "a.jsonl")
+    (a, wa), (b, wb) = yield [
+        (common + ["--report-out", "a.jsonl"], tmp),
+        (common + ["--checkpoint-dir", "ckpt", "--checkpoint-every", "1", "--kill-after-steps",
+                   "2", "--report-out", "b.jsonl"], tmp)]
     if a.returncode != 0:
         raise SystemExit(f"serve_solve (uninterrupted) failed:\n{a.stderr[-4000:]}")
-    b = run("--checkpoint-dir", "ckpt", "--checkpoint-every", "1", "--kill-after-steps", "2",
-            "--report-out", "b.jsonl")
     if b.returncode != -signal.SIGKILL:
         raise SystemExit(f"serve_solve --kill-after-steps 2 ended with {b.returncode}, not "
                          f"SIGKILL:\n{b.stderr[-4000:]}")
-    c = run("--checkpoint-dir", "ckpt", "--resume", "--report-out", "c.jsonl")
+    (c, wc), = yield [(common + ["--checkpoint-dir", "ckpt", "--resume", "--report-out",
+                                 "c.jsonl"], tmp)]
     if c.returncode != 0 or "resumed from checkpoint step 2" not in c.stdout:
         raise SystemExit(f"serve_solve --resume failed ({c.returncode}):\n{c.stdout[-2000:]}"
                          f"\n{c.stderr[-4000:]}")
@@ -1781,9 +1852,10 @@ def cli_round_trip(tmp: str, card: str) -> None:
                          f"{base}\n{got}")
     recovery = [ln for ln in c.stdout.splitlines() if ln.startswith("recovery:")]
     print(f"[recovery] serve_solve --continuous {' '.join(RECOVERY_CLI)} --device cuda: "
-          f"uninterrupted {walls[0]} s, SIGKILLed after 2 local steps {walls[1]} s, resumed "
-          f"from step 2 {walls[2]} s (process walls); {len(base)} --report-out lines equal, "
-          f"x_sha256 included, iterations {[r['iterations'] for r in base]}; {recovery} ({card})")
+          f"uninterrupted {wa} s and SIGKILLed after 2 local steps {wb} s, resumed from step 2 "
+          f"{wc} s (process walls; four processes at once, then two, with the train CLI's); "
+          f"{len(base)} --report-out lines equal, x_sha256 included, iterations "
+          f"{[r['iterations'] for r in base]}; {recovery} ({card})")
 
 
 def recovery_phase(fixed: list, t_fixed: float, card: str) -> None:
@@ -1791,8 +1863,8 @@ def recovery_phase(fixed: list, t_fixed: float, card: str) -> None:
     a crash inside step 4 right after the chunk launch, a restore into a
     fresh service with a watchdog, drained with every count zeroed just
     before the restore and read after; bitwise against phase 5b's fixed
-    run (``fixed``, ``t_fixed`` s); then the CLI's SIGKILL/--resume
-    round trip."""
+    run (``fixed``, ``t_fixed`` s).  The CLI's SIGKILL/--resume round
+    trip (``serve_cli_round_trip``) runs in phase 9(d)."""
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="recovery_")
     try:
@@ -1907,7 +1979,6 @@ def recovery_phase(fixed: list, t_fixed: float, card: str) -> None:
         del svc, rec, got
         gc.collect()
         torch.cuda.empty_cache()
-        cli_round_trip(tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"[recovery] phase wall {time.perf_counter() - t_phase} s ({card})")
@@ -2032,8 +2103,13 @@ def coarse_factor_times(card: str, rounds: int = 5) -> None:
 def ablation_phase(card: str) -> None:
     """The ablation (phase 8): the paper's assembly ladder on the card."""
     t_phase = time.perf_counter()
+
+    def lap(part):
+        print(f"[ablation] {part} done at {time.perf_counter() - t_phase} s of the phase")
+
     ablation_check(card)
     torch.cuda.empty_cache()
+    lap("(a) the check")
 
     # (b) the sweet-spot sweep, then (c) fa at its own size
     def point(p, refine, a):
@@ -2052,10 +2128,13 @@ def ablation_phase(card: str) -> None:
         best = max(mine, key=lambda r: r["gdofs_per_s"])
         print(f"[ablation] {a}: GDoF/s by p {[round(r['gdofs_per_s'], 4) for r in mine]}, "
               f"peak at p={best['p']} ({card})")
+    lap("(b) the sweep")
     for p in ABLATION_PROFILE_P:
         ablation_profile(p, ABLATION_REFINE[p], card)
+    lap("(b) the profiles")
     big = ELASTICITY_SHAPES["beam_p8_51m"]
     rows += [point(big.p, big.n_h_refine, a) for a in ABLATION_51M]
+    lap("(b) beam_p8_51m")
     mem_total = torch.cuda.get_device_properties(0).total_memory
     for p, refine in ABLATION_FA.items():
         space = H1Space(beam_hex().refined(refine), p)
@@ -2071,6 +2150,7 @@ def ablation_phase(card: str) -> None:
             t0 = time.perf_counter()
             rows.append(point(p, refine, "fa"))
             print(f"[ablation] fa p={p}: assembly + timing {time.perf_counter() - t0} s ({card})")
+    lap("(c) fa")
 
     # (d) the paper's Table 4 on the card
     for (p, refine), levels in TABLE4.items():
@@ -2104,6 +2184,7 @@ def ablation_phase(card: str) -> None:
         if len(set(iters.values())) != 1:
             raise SystemExit(f"phase 8: table4 iterations differ across levels at p={p} "
                              f"refine={refine}: {iters}")
+    lap("(d) Table 4")
     coarse_factor_times(card)
     torch.cuda.empty_cache()
     print(f"[ablation] phase wall {time.perf_counter() - t_phase} s ({card})")
@@ -2553,21 +2634,13 @@ def train_small_check(card: str, arch: str = TRAIN_ARCH, **change) -> None:
         raise SystemExit(f"small train of {cfg.name} on the card disagrees with the CPU")
 
 
-def train_cli_round_trip(card: str) -> None:
-    """Phase 9(d): the train CLI on the card uninterrupted, SIGKILLed after
-    step 4, and rerun; the rerun resumes from step 3 with the same batches,
-    and its steps and final checkpoint must be the uninterrupted run's."""
+def train_cli_round_trip(tmp: str, card: str):
+    """Phase 9(d)'s train CLI round trip (a generator for
+    ``run_round_trips``): the train CLI on the card uninterrupted and, in a
+    second process started beside it, SIGKILLed after step 4; then rerun:
+    the rerun resumes from step 3 with the same batches, and its steps and
+    final checkpoint must be the uninterrupted run's."""
     common = [sys.executable, "-m", "repro_torch.launch.train", "--device", "cuda", *TRAIN_CLI]
-    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
-    tmp = tempfile.mkdtemp()
-    walls = []
-
-    def run(*extra):
-        t0 = time.perf_counter()
-        out = subprocess.run(common + list(extra), cwd=tmp, env=env, capture_output=True,
-                             text=True, timeout=600)
-        walls.append(time.perf_counter() - t0)
-        return out
 
     def steps(out):
         return {int(m[1]): m.groups()[1:] for m in map(TRAIN_LINE.match, out.splitlines()) if m}
@@ -2576,33 +2649,42 @@ def train_cli_round_trip(card: str) -> None:
         with open(os.path.join(tmp, d, "step_000000006", "manifest.json")) as f:
             return [(e["path"], e["crc32"]) for e in json.load(f)["leaves"]]
 
+    (a, wa), (b, wb) = yield [(common + ["--ckpt-dir", "a"], tmp),
+                              (common + ["--ckpt-dir", "b", "--kill-after-steps", "4"], tmp)]
+    if a.returncode != 0:
+        raise SystemExit(f"train CLI (uninterrupted) failed:\n{a.stderr[-4000:]}")
+    if b.returncode != -signal.SIGKILL:
+        raise SystemExit(f"train CLI --kill-after-steps 4 ended with {b.returncode}:\n"
+                         f"{b.stderr[-4000:]}")
+    (c, wc), = yield [(common + ["--ckpt-dir", "b"], tmp)]
+    if c.returncode != 0 or "resumed from checkpoint step 3" not in c.stdout:
+        raise SystemExit(f"train CLI rerun failed ({c.returncode}):\n{c.stdout[-2000:]}\n"
+                         f"{c.stderr[-4000:]}")
+    sa, sb, sc = steps(a.stdout), steps(b.stdout), steps(c.stdout)
+    batches = all(sa[i][3] == sc[i][3] for i in (4, 5, 6)) and sorted(sc) == [4, 5, 6]
+    same_steps = all(sa[i] == sb[i] for i in sb) and all(sa[i] == sc[i] for i in sc)
+    differ = [p for (p, x), (_, y) in zip(manifest("a"), manifest("b")) if x != y]
+    print(f"[train] train CLI {' '.join(TRAIN_CLI)} --device cuda: uninterrupted {wa} s and "
+          f"SIGKILLed after step 4 {wb} s, rerun {wc} s (process walls; four processes at once, "
+          f"then two, with serve_solve's); the rerun resumed from step 3, batches of steps 4-6 "
+          f"{'the same' if batches else 'DIFFERENT'} (tokens crc32), steps' loss, grad "
+          f"norm and lr {'bitwise equal' if same_steps else 'DIFFER'}, final checkpoint "
+          f"{'bitwise equal' if not differ else f'differs in {differ}'} ({card})")
+    print(f"[train]   uninterrupted {sa}; resumed {sc}")
+    if not batches or not same_steps or differ:
+        raise SystemExit("the resumed training run is not the uninterrupted one")
+
+
+def cli_round_trips(card: str) -> None:
+    """Phase 9(d): the train CLI's round trip and phase 5c's serve_solve
+    one, their stages' processes started together."""
+    dirs = [tempfile.mkdtemp(prefix=f"{tag}_cli_") for tag in ("train", "serve")]
     try:
-        a = run("--ckpt-dir", "a")
-        if a.returncode != 0:
-            raise SystemExit(f"train CLI (uninterrupted) failed:\n{a.stderr[-4000:]}")
-        b = run("--ckpt-dir", "b", "--kill-after-steps", "4")
-        if b.returncode != -signal.SIGKILL:
-            raise SystemExit(f"train CLI --kill-after-steps 4 ended with {b.returncode}:\n"
-                             f"{b.stderr[-4000:]}")
-        c = run("--ckpt-dir", "b")
-        if c.returncode != 0 or "resumed from checkpoint step 3" not in c.stdout:
-            raise SystemExit(f"train CLI rerun failed ({c.returncode}):\n{c.stdout[-2000:]}\n"
-                             f"{c.stderr[-4000:]}")
-        sa, sb, sc = steps(a.stdout), steps(b.stdout), steps(c.stdout)
-        batches = all(sa[i][3] == sc[i][3] for i in (4, 5, 6)) and sorted(sc) == [4, 5, 6]
-        same_steps = all(sa[i] == sb[i] for i in sb) and all(sa[i] == sc[i] for i in sc)
-        differ = [p for (p, x), (_, y) in zip(manifest("a"), manifest("b")) if x != y]
-        print(f"[train] train CLI {' '.join(TRAIN_CLI)} --device cuda: uninterrupted "
-              f"{walls[0]} s, SIGKILLed after step 4 {walls[1]} s, rerun {walls[2]} s (process "
-              f"walls); the rerun resumed from step 3, batches of steps 4-6 "
-              f"{'the same' if batches else 'DIFFERENT'} (tokens crc32), steps' loss, grad "
-              f"norm and lr {'bitwise equal' if same_steps else 'DIFFER'}, final checkpoint "
-              f"{'bitwise equal' if not differ else f'differs in {differ}'} ({card})")
-        print(f"[train]   uninterrupted {sa}; resumed {sc}")
-        if not batches or not same_steps or differ:
-            raise SystemExit("the resumed training run is not the uninterrupted one")
+        run_round_trips(train_cli_round_trip(dirs[0], card),
+                        serve_cli_round_trip(dirs[1], card))
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
 
 
 def train_phase(gen, card: str) -> list[dict]:
@@ -2611,9 +2693,12 @@ def train_phase(gen, card: str) -> list[dict]:
     mma_sync route (the reduced bf16 path's, at its shape)."""
     t_phase = time.perf_counter()
     entries = {"wgmma": train_kernel_checks(gen, card)}
+    print(f"[train] (a) done at {time.perf_counter() - t_phase} s of the phase")
     entries["wgmma"]["launches"] = train_full_width(card, get_config(TRAIN_ARCH), TRAIN_BATCH)
+    print(f"[train] (c) done at {time.perf_counter() - t_phase} s of the phase")
     train_small_check(card)
-    train_cli_round_trip(card)
+    cli_round_trips(card)
+    print(f"[train] (b), (d) done at {time.perf_counter() - t_phase} s of the phase")
     entries["mma_sync"] = train_reduced_bf16(card)
     print(f"[train] phase wall {time.perf_counter() - t_phase} s ({card})")
     csrc = "src/repro_torch/kernels/flash_attention/csrc/"
@@ -3272,8 +3357,9 @@ def ssm_phase(card: str, d80_errs: dict) -> list[dict]:
     configuration and a reduced plain Mamba2 stack card against CPU (serve,
     train); a reduced zamba2 forward and backward with no host sync and a
     reduced bf16 step repeated bitwise, counted together (head dim 16: only
-    the mma_sync routes); zamba2-2.7b trained at full width (layers cut only
-    by the printed reckoning; ``train_full_width``); the D = 80 flash
+    the mma_sync routes); zamba2-2.7b trained at full width (its layers cut
+    to SSM_TRAIN_LAYERS, or fewer if the printed reckoning says so;
+    ``train_full_width``); the D = 80 flash
     kernels timed.  Returns their JSON entries: the wgmma kernels with the
     full-width launches, the mma_sync ones (the route of no full-width path
     since the wgmma kernels took D = 80) with the reduced runs'."""
@@ -3304,8 +3390,9 @@ def ssm_phase(card: str, d80_errs: dict) -> list[dict]:
           f"{time.perf_counter() - t0} s ({card})")
     t0 = time.perf_counter()
     cut = train_layer_cut(cfg, SSM_TRAIN_BATCH, card)
+    cut = dataclasses.replace(cut, n_layers=min(cut.n_layers, SSM_TRAIN_LAYERS))
     print(f"[train] {cfg.name} layers {cfg.n_layers} -> {cut.n_layers} by the reckoning above "
-          f"({card})")
+          f"and the cap of {SSM_TRAIN_LAYERS} ({card})")
     bwd_launches = train_full_width(card, cut, SSM_TRAIN_BATCH)
     print(f"[train] {cfg.name} wall {time.perf_counter() - t0} s ({card})")
     t0 = time.perf_counter()
@@ -3359,10 +3446,10 @@ def xlstm_phase(card: str) -> None:
     its reduced configuration card against CPU (serve, train); a reduced
     forward and backward with no host sync and a reduced bf16 step repeated
     bitwise, counted together (no flash call); xlstm-125m trained at full
-    width and depth, its batch the largest of XLSTM_TRAIN_BATCHES that the
-    printed reckoning fits (``train_full_width``: both MFU figures, the
-    profile with the mLSTM and sLSTM recurrences as entries of their own,
-    the idle share)."""
+    width, its depth cut to its first XLSTM_TRAIN_LAYERS, its batch the
+    largest of XLSTM_TRAIN_BATCHES that the printed reckoning fits
+    (``train_full_width``: both MFU figures, the profile with the mLSTM and
+    sLSTM recurrences as entries of their own, the idle share)."""
     t_phase = time.perf_counter()
     rng = np.random.default_rng(SEED + 13)
     cfg = get_config(XLSTM_ARCH)
@@ -3382,7 +3469,11 @@ def xlstm_phase(card: str) -> None:
         raise SystemExit(f"the xLSTM runs launched a kernel or ran a plain version: serve "
                          f"{serve_counts}, reduced {reduced}")
     t0 = time.perf_counter()
-    train_full_width(card, cfg, train_batch_cut(cfg, card, XLSTM_TRAIN_BATCHES),
+    cut = dataclasses.replace(cfg, n_layers=XLSTM_TRAIN_LAYERS, slstm_indices=tuple(
+        i for i in cfg.slstm_indices if i < XLSTM_TRAIN_LAYERS))
+    print(f"[train] {cfg.name} trained at {XLSTM_TRAIN_LAYERS} of {cfg.n_layers} layers, sLSTM "
+          f"at {cut.slstm_indices} ({card})")
+    train_full_width(card, cut, train_batch_cut(cut, card, XLSTM_TRAIN_BATCHES),
                      finite_grads=False)
     print(f"[train] {cfg.name} wall {time.perf_counter() - t0} s ({card})")
     t0 = time.perf_counter()
@@ -3732,31 +3823,51 @@ def sharded_restore_check() -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def devices_cli_check() -> None:
+def devices_cli_check() -> subprocess.Popen:
     """Phase 14 (e): ``serve_solve --devices N`` with one more card than the
-    host has raises, naming the card count."""
-    n = torch.cuda.device_count()
+    host has; started here, beside the phase's other checks, and held by
+    :func:`devices_cli_result`."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve_solve", "--devices", str(n + 1),
-         "--n-requests", "2", "--p", "1", "--refine", "0"],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
-    )
-    last = (out.stderr.strip().splitlines() or [""])[-1]
-    print(f"[mesh cli] serve_solve --devices {n + 1} on {n} card(s): exit {out.returncode}, "
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve_solve", "--devices",
+         str(torch.cuda.device_count() + 1), "--n-requests", "2", "--p", "1", "--refine", "0"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def devices_cli_result(proc: subprocess.Popen) -> None:
+    """Phase 14 (e)'s run raised, naming the card count."""
+    n = torch.cuda.device_count()
+    try:
+        _, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    last = (err.strip().splitlines() or [""])[-1]
+    print(f"[mesh cli] serve_solve --devices {n + 1} on {n} card(s): exit {proc.returncode}, "
           f"{last}")
-    if out.returncode == 0 or f"the host has {n}" not in last:
+    if proc.returncode == 0 or f"the host has {n}" not in last:
         raise SystemExit("serve_solve --devices past the host's cards did not raise")
 
 
 def multidevice_phase(card: str, batch_iters: list[int], fixed: list, gen: list) -> int:
     """Phase 14: the multi-device solver side on virtual devices of the
     card; returns the PAop launches of one DD apply."""
-    launches = dd_phase(card)
-    sharded_batched_check(batch_iters, card)
-    sharded_service_check(fixed, gen, card)
-    sharded_restore_check()
-    devices_cli_check()
+    t_phase = time.perf_counter()
+    cli = devices_cli_check()
+    try:
+        launches = dd_phase(card)
+        print(f"[dd] (a), (b) done at {time.perf_counter() - t_phase} s of the phase")
+        sharded_batched_check(batch_iters, card)
+        print(f"[mesh batched] (c) done at {time.perf_counter() - t_phase} s of the phase")
+        sharded_service_check(fixed, gen, card)
+        sharded_restore_check()
+        print(f"[mesh restore] (d) done at {time.perf_counter() - t_phase} s of the phase")
+    except BaseException:
+        cli.kill()
+        cli.wait()
+        raise
+    devices_cli_result(cli)
     return launches
 
 
@@ -3852,13 +3963,14 @@ def mesh_steps(cfg, shape, state, mesh, steps, opt, card: str = "", profile=Fals
     return losses
 
 
-def lm_mesh_train(card: str, ckpt: str) -> tuple[object, dict, object]:
+def lm_mesh_train(card: str) -> tuple[dict, list]:
     """Phase 15(a): phase 9's cell through ``train_loop(mesh=)`` on a (2, 2)
-    mesh of four virtual devices, its checkpoint written to ``ckpt``.
-    First one step twice from one state (bitwise); then one warm-up and
-    five timed steps, each counted (4 devices x (2L forward + L backward)
-    wgmma launches, no plain call), the losses held to phase 9's.  Returns
-    the final state, the launches over the run and the opt config."""
+    mesh of four virtual devices.  First one step twice from one state
+    (bitwise); then one warm-up and TRAIN_STEPS - 1 timed steps, each
+    counted (4 devices x (2L forward + L backward) wgmma launches, no plain
+    call), the losses held to phase 9's; one more step profiled (the
+    collectives' share).  Returns the launches over the counted run and
+    its logged steps."""
     cfg = get_config(TRAIN_ARCH)
     mesh = make_local_mesh(LM_MESH_MP, devices=LM_MESH_DEVICES)
     shape = ShapeConfig(f"train_4k, global batch 256 cut to {TRAIN_BATCH}", "train", TRAIN_SEQ,
@@ -3899,13 +4011,10 @@ def lm_mesh_train(card: str, ckpt: str) -> tuple[object, dict, object]:
     L, n = cfg.n_layers, mesh.size
     t0 = time.perf_counter()
     state, history = train_loop(cfg, shape, steps=TRAIN_STEPS, log_every=1, seed=SEED,
-                                opt=opt, mesh=mesh, step_context=counted, ckpt_dir=ckpt)
+                                opt=opt, mesh=mesh, step_context=counted)
     t_loop = time.perf_counter() - t0
-    ck_bytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(ckpt) for f in fs)
     print(f"[lm mesh] (a) train_loop wall {t_loop:.1f} s, of which steps "
-          f"{sum(m['step_s'] for m in history):.1f} s; the rest is the state's init and layout "
-          f"and the gathered checkpoint of step {TRAIN_STEPS} ({ck_bytes / 1e9:.2f} GB on disk, "
-          f"the unsharded format)")
+          f"{sum(m['step_s'] for m in history):.1f} s; the rest is the state's init and layout")
     want = {"flash_attention": (n * 2 * L, 0), "flash_attention_bwd": (n * L, 0)}
     for i, (counts, routes, bwd_routes) in enumerate(per_step):
         got = {k: counts[k] for k in want}
@@ -3937,7 +4046,11 @@ def lm_mesh_train(card: str, ckpt: str) -> tuple[object, dict, object]:
                          f"step's {runs[0][0]!r}")
     launches = {k: sum(c[k][0] for c, _, _ in per_step) for k in want}
     LM_MESH_PEAK.append(max(m["peak_gib"] for m in history))
-    return state, launches, opt
+    loss = mesh_steps(cfg, shape, state, mesh, [TRAIN_STEPS], opt, card, profile=True)
+    print(f"[lm mesh] (a) the profiled step {TRAIN_STEPS + 1}: loss {loss[0]!r} ({card})")
+    if not np.isfinite(loss[0]):
+        raise SystemExit(f"15(a)'s profiled step: loss {loss[0]}")
+    return launches, history
 
 
 def moe_layer_check(cfg, mesh, card: str) -> None:
@@ -3988,6 +4101,27 @@ def moe_layer_check(cfg, mesh, card: str) -> None:
           f"count) ({card})")
     if not same or y_err > LM_MESH_LOSS_REL or aux_err > LM_MESH_LOSS_REL:
         raise SystemExit("the expert-parallel MoE layer disagrees with moe_apply")
+    # 15(f): the same layer under sequence parallelism, as mesh_loss_fn runs
+    # it: each device's block of positions of its data row's rows, gathered
+    # along the sequence, the MoE on the whole, each device keeping its block
+    blocks = [mesh_block(rows[mesh.coords(k)["data"]], mesh, k, 1) for k in range(mesh.size)]
+    kept, inner = record_routes()
+    try:
+        with torch.no_grad():
+            ys_sp, aux_sp = moe_module.moe_mesh_apply(sh, mesh_all_gather(blocks, mesh, 1), cfg,
+                                                      mesh)
+    finally:
+        moe_module.route = inner
+    same_sp = all(torch.equal(a, b) for a, b in zip(kept, ids_mesh))
+    out_sp = all(torch.equal(mesh_block(a, mesh, k, 1), mesh_block(b, mesh, k, 1))
+                 for k, (a, b) in enumerate(zip(ys_sp, ys)))
+    print(f"[lm mesh] (f) the same {cfg.name} MoE layer on {mesh.shape} under sequence "
+          f"parallelism (blocks of {TRAIN_SEQ // mesh.shape['model']} positions gathered along "
+          f"the sequence): expert ids on every device {'identical to' if same_sp else 'DIFFER from'}"
+          f" (b)'s; each device's block of the output {'bitwise equal to' if out_sp else 'DIFFERS from'}"
+          f" (b)'s; aux {'bitwise equal' if torch.equal(aux_sp, aux_m) else 'DIFFERS'} ({card})")
+    if not same_sp or not out_sp:
+        raise SystemExit("the MoE layer under sequence parallelism is not (b)'s")
 
 
 def lm_mesh_moe(card: str) -> None:
@@ -4111,31 +4245,51 @@ def lm_mesh_pipeline(card: str) -> None:
         raise SystemExit(f"pipeline_apply: bitwise {same}, launches {launches}")
 
 
-def lm_mesh_restart(card: str, state, ckpt: str, opt) -> None:
-    """Phase 15(d): 2 of (a)'s 4 devices fail; ``elastic_remesh`` gives
-    (1, 2).  The undisturbed run: (a)'s final state resharded in memory
-    onto (1, 2) and stepped LM_MESH_RESUME_STEPS times.  The restart: (a)'s
-    checkpoint restored on the host and ``reshard_state``-d onto (1, 2),
-    the same steps: bitwise equal to the undisturbed run, and within
-    LM_MESH_LOSS_REL of (a)'s own continuation on (2, 2)."""
+def lm_mesh_restart(card: str) -> None:
+    """Phase 15(d): (a)'s cell at full width, its depth cut to
+    LM_RESTART_LAYERS, trained LM_RESTART_STEPS steps on (2, 2) through
+    ``train_loop`` with a gathered checkpoint of its last step; 2 of the 4
+    devices fail and ``elastic_remesh`` gives (1, 2).  The undisturbed run:
+    the final state resharded in memory onto (1, 2) and stepped
+    LM_MESH_RESUME_STEPS times.  The restart: the checkpoint restored on the
+    host and ``reshard_state``-d onto (1, 2), the same steps: bitwise equal
+    to the undisturbed run, and within LM_MESH_LOSS_REL of the state's own
+    continuation on (2, 2)."""
     t0 = time.perf_counter()
-    cfg = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=LM_RESTART_LAYERS)
     shape = ShapeConfig("train_4k", "train", TRAIN_SEQ, TRAIN_BATCH)
-    m22 = state.params["embed"].mesh
-    alive = simulate_failures(list(m22.flat), 2)
-    m12 = elastic_remesh(alive, model_parallel=LM_MESH_MP)
-    steps = list(range(TRAIN_STEPS, TRAIN_STEPS + LM_MESH_RESUME_STEPS))
-    und = reshard_state(state, state_pspecs(state, m12), m12)
-    _requires_grad(und.params)
-    cont = mesh_steps(cfg, shape, state, m22, steps, opt, card, profile=True)
-    del state
-    gc.collect()
-    torch.cuda.empty_cache()
-    und_losses = mesh_steps(cfg, shape, und, m12, steps, opt)
-    t1 = time.perf_counter()
-    mgr = CheckpointManager(ckpt)
-    restored, _, at = mgr.restore_latest(_host_like(und))
-    t_restore = time.perf_counter() - t1
+    m22 = make_local_mesh(LM_MESH_MP, devices=LM_MESH_DEVICES)
+    opt = AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=max(TRAIN_STEPS // 20, 1))
+    ckpt = tempfile.mkdtemp(prefix="lm_mesh_ckpt_")
+    try:
+        print(f"[lm mesh] (d) checkpoint directory {ckpt}: "
+              f"{shutil.disk_usage(ckpt).free / 1e9:.1f} GB free")
+        state, history = train_loop(cfg, shape, steps=LM_RESTART_STEPS, seed=SEED, opt=opt,
+                                    mesh=m22, ckpt_dir=ckpt)
+        t_loop = time.perf_counter() - t0
+        ck_bytes = sum(os.path.getsize(os.path.join(d, f))
+                       for d, _, fs in os.walk(ckpt) for f in fs)
+        print(f"[lm mesh] (d) {cfg.name} {LM_RESTART_LAYERS} of "
+              f"{get_config(TRAIN_ARCH).n_layers} layers on {m22.shape}: train_loop wall "
+              f"{t_loop:.1f} s, of which steps {sum(m['step_s'] for m in history):.1f} s; the "
+              f"rest is the state's init and layout and the gathered checkpoint of step "
+              f"{LM_RESTART_STEPS} ({ck_bytes / 1e9:.2f} GB on disk, the unsharded format) "
+              f"({card})")
+        alive = simulate_failures(list(m22.flat), 2)
+        m12 = elastic_remesh(alive, model_parallel=LM_MESH_MP)
+        steps = list(range(LM_RESTART_STEPS, LM_RESTART_STEPS + LM_MESH_RESUME_STEPS))
+        und = reshard_state(state, state_pspecs(state, m12), m12)
+        _requires_grad(und.params)
+        cont = mesh_steps(cfg, shape, state, m22, steps, opt)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        und_losses = mesh_steps(cfg, shape, und, m12, steps, opt)
+        t1 = time.perf_counter()
+        restored, _, at = CheckpointManager(ckpt).restore_latest(_host_like(und))
+        t_restore = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
     res = reshard_state(restored, state_pspecs(restored, m12), m12)
     del restored
     _requires_grad(res.params)
@@ -4147,11 +4301,114 @@ def lm_mesh_restart(card: str, state, ckpt: str, opt) -> None:
           f"{m12.shape}; checkpoint of step {at} restored in {t_restore:.1f} s and resharded: "
           f"steps {[i + 1 for i in steps]} losses {res_losses}, "
           f"{'bitwise equal to' if same else 'DIFFER from'} the undisturbed (1, 2) run's "
-          f"{und_losses} (parameters and moments too); (a)'s continuation on {m22.shape} "
+          f"{und_losses} (parameters and moments too); the continuation on {m22.shape} "
           f"{cont}, rel diff {rel} (limit {LM_MESH_LOSS_REL}); wall "
           f"{time.perf_counter() - t0:.1f} s ({card})")
-    if not same or max(rel) > LM_MESH_LOSS_REL or at != TRAIN_STEPS:
+    if not same or max(rel) > LM_MESH_LOSS_REL or at != LM_RESTART_STEPS:
         raise SystemExit("the elastic restart on (1, 2) is off")
+    del und, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_mesh_seq_parallel(card: str, ref_a: list) -> dict:
+    """Phase 15(f): phase 9's cell on (a)'s (2, 2) mesh through
+    ``make_train_step(mesh=, act_spec=act_pspec(axes), logits_spec=P(dp,
+    None, "model"))``: step 1 twice from one state (bitwise), then
+    LM_SP_STEPS timed steps, each step counted (4 devices x (2L forward +
+    L backward) wgmma launches, no plain call) and fenced, its peak read;
+    the losses held to phase 9's and to (a)'s (``ref_a``, its logged
+    steps); one more step profiled: the ``collective.*`` ranges' share of
+    the device time.  Returns the flash launches of the counted steps."""
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    mesh = make_local_mesh(LM_MESH_MP, devices=LM_MESH_DEVICES)
+    shape = ShapeConfig(f"train_4k, global batch 256 cut to {TRAIN_BATCH}", "train", TRAIN_SEQ,
+                        TRAIN_BATCH)
+    opt = AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=max(TRAIN_STEPS // 20, 1))
+    specs = {"act_spec": act_pspec(mesh.axis_names),
+             "logits_spec": P(dp_axes(mesh), None, "model")}
+    step_fn = make_train_step(cfg, opt, mesh=mesh, **specs)
+    L, n = cfg.n_layers, mesh.size
+    want = {"flash_attention": (n * 2 * L, 0), "flash_attention_bwd": (n * L, 0)}
+    launches = {k: 0 for k in want}
+
+    def run(state, i, profile=False):
+        batch = mesh_batch(cfg, shape, i)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_counts()
+        out = []
+
+        def one():
+            out.append(step_fn(state, batch))
+            torch.cuda.synchronize()
+
+        ts = time.perf_counter()
+        if profile:
+            prof = device_time_by_category(one, TRAIN_CATEGORIES, {
+                "all-gathers and their reduce-scatters": "collective.all_gather",
+                "reduce-scatters and their all-gathers": "collective.reduce_scatter",
+                "all-reduces": "collective.all_reduce", "replica sums": "train.reduce_replicas",
+                "AdamW": "train.optimizer"}, other="elementwise/copies")
+        else:
+            one()
+            prof = None
+        step_s = time.perf_counter() - ts
+        counts = all_counts()
+        got = {k: counts[k] for k in want}
+        routes = (flash_ops.route_launches["wgmma"], flash_ops.bwd_route_launches["wgmma"])
+        if got != want or routes != (n * 2 * L, n * L):
+            raise SystemExit(f"15(f) step {i + 1}: {got}, wgmma routes {routes}; expected {want}")
+        for k in want:
+            launches[k] += got[k][0]
+        new, m = out[0]
+        state.params, state.opt_state, state.step = new.params, new.opt_state, new.step
+        return float(m["loss"]), float(m["grad_norm"]), step_s, \
+            torch.cuda.max_memory_allocated() / 2**30, prof
+
+    state = train_state_init(torch.Generator(device="cuda").manual_seed(SEED), cfg, mesh=mesh)
+    twin = clone_state(state)
+    first = [run(st, 0) for st in (state, twin)]
+    same = first[0][:2] == first[1][:2] and all(
+        torch.equal(a, b) for a, b in zip(state_blocks(state), state_blocks(twin)))
+    del twin
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[lm mesh] (f) {cfg.name} bf16 L={L} B={TRAIN_BATCH} S={TRAIN_SEQ} on {mesh.shape} "
+          f"with act_spec {specs['act_spec']} and logits_spec {specs['logits_spec']}: step 1 "
+          f"twice from one state: loss {first[0][0]!r}; loss, parameters and moments "
+          f"{'bitwise equal' if same else 'DIFFER'}; step s {first[0][2]}, {first[1][2]} ({card})")
+    if not same:
+        raise SystemExit("a sequence-parallel train step is not bitwise repeatable")
+    hist = [first[0]] + [run(state, i) for i in range(1, 1 + LM_SP_STEPS)]
+    losses = [h[0] for h in hist]
+    ref9 = [r["loss"] for r in TRAIN_HISTORY[cfg.name]][:len(hist)]
+    refa = [r["loss"] for r in ref_a][:len(hist)]
+    rel9 = [abs(a - b) / abs(b) for a, b in zip(losses, ref9)]
+    rela = [abs(a - b) / abs(b) for a, b in zip(losses, refa)]
+    timed = [h[2] for h in hist[1:]]
+    step_s = statistics.median(timed)
+    peak = max(h[3] for h in hist)
+    ref_s = statistics.median(r["step_s"] for r in ref_a[1:])
+    print(f"[lm mesh] (f) steps 1-{len(hist)} losses {losses}; phase 9's {ref9} (rel diff "
+          f"{rel9}), (a)'s {refa} (rel diff {rela}), limit {LM_MESH_LOSS_REL}; grad norms "
+          f"{[h[1] for h in hist]}; timed steps 2-{len(hist)}: step s {timed}, median {step_s} "
+          f"s, {TRAIN_BATCH * TRAIN_SEQ / step_s} tokens/s, {step_s / ref_s}x (a)'s {ref_s} s; "
+          f"peak of the card {peak} GiB against (a)'s {LM_MESH_PEAK[-1]} GiB "
+          f"({peak - LM_MESH_PEAK[-1]:+.3f}; four virtual devices on one card) ({card})")
+    if max(rel9 + rela) > LM_MESH_LOSS_REL or not all(np.isfinite(h[1]) for h in hist):
+        raise SystemExit(f"15(f)'s losses are off phase 9's or (a)'s: {rel9}, {rela}")
+    LM_SP_PEAK.append(peak)
+    loss, _, s_prof, _, (ms, count, busy, _) = run(state, len(hist), profile=True)
+    coll = sum(ms.get(c, 0.0) for c in ms if "gather" in c or "scatter" in c or "reduces" in c)
+    parts = ", ".join(f"{c} {ms[c]} ms ({100 * ms[c] / busy:.1f}%, x{count[c]})" for c in ms)
+    print(f"[lm mesh] (f) profile of step {len(hist) + 1} (loss {loss!r}, {s_prof} s under the "
+          f"profiler): device busy {busy} ms; the collective.* ranges {coll} ms, "
+          f"{100 * coll / busy:.2f}% of it; {parts} ({card})")
+    print(f"[lm mesh] (f) wall {time.perf_counter() - t0} s; launches counted {launches} "
+          f"({card})")
+    return launches
 
 
 def lm_mesh_bad_card() -> None:
@@ -4169,17 +4426,14 @@ def lm_mesh_bad_card() -> None:
 
 
 def lm_mesh_phase(card: str) -> dict:
-    """Phase 15; returns (a)'s flash launches over its run."""
+    """Phase 15; returns (a)'s and (f)'s flash launches over their runs."""
     t_phase = time.perf_counter()
-    ckpt = tempfile.mkdtemp(prefix="lm_mesh_ckpt_")
-    try:
-        print(f"[lm mesh] checkpoint directory {ckpt}: "
-              f"{shutil.disk_usage(ckpt).free / 1e9:.1f} GB free")
-        state, launches, opt = lm_mesh_train(card, ckpt)
-        lm_mesh_restart(card, state, ckpt, opt)
-        del state
-    finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
+    launches, hist_a = lm_mesh_train(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_mesh_restart(card)
+    for k, v in lm_mesh_seq_parallel(card, hist_a).items():
+        launches[k] += v
     gc.collect()
     torch.cuda.empty_cache()
     lm_mesh_moe(card)
@@ -4332,15 +4586,55 @@ def measured_cells(card: str, out_dir: str) -> dict[str, int]:
     return launches
 
 
-def capped_dryrun(card: str, out_dir: str) -> None:
-    """Phase 16(c): DRYRUN_CELLS traced on the meta production meshes."""
+BACKGROUND: list = []  # processes started beside the phases, stopped on exit
+BACKGROUND_DIRS: list = []  # their output directories, removed on exit
+
+
+def start_dryrun(out_dir: str) -> subprocess.Popen:
+    """Phase 16(c), started after the build: the cells of DRYRUN_CELLS
+    traced one after the other on their meta production meshes
+    (``launch/dryrun.py::run_cell``, the dry-run CLI's) in one process of
+    its own at a lower priority, with no card visible, each record written
+    to ``out_dir``.  A trace runs on the host alone, so the process runs
+    beside phases 3-15; :func:`capped_dryrun` holds it."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"), "CUDA_VISIBLE_DEVICES": "",
+           "OMP_NUM_THREADS": "1"}
+    cells_ = [(kind, *cell) for kind, cs in DRYRUN_CELLS.items() for cell in cs]
+    code = ("import json, os, sys\n"
+            "os.nice(10)\n"
+            "from repro_torch.launch.dryrun import run_cell\n"
+            "for kind, arch, shape, assembly in json.loads(sys.argv[2]):\n"
+            "    run_cell(arch, shape, kind, sys.argv[1], assembly=assembly, force=True)\n")
+    BACKGROUND_DIRS.append(out_dir)
+    proc = subprocess.Popen([sys.executable, "-c", code, out_dir, json.dumps(cells_)],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    BACKGROUND.append(proc)
+    return proc
+
+
+def capped_dryrun(card: str, out_dir: str, proc: subprocess.Popen) -> None:
+    """Phase 16(c): DRYRUN_CELLS traced on the meta production meshes by
+    the process of :func:`start_dryrun`, which must exit 0 with an ``ok``
+    record of every cell."""
+    try:
+        out, _ = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired as e:
+        raise SystemExit("the dry-run of DRYRUN_CELLS still ran after 600 s") from e
     for kind, cells_ in DRYRUN_CELLS.items():
-        mesh = make_production_mesh(multi_pod=kind == "multi")
-        for arch, shape, assembly in cells_:
-            rec = cell_record(out_dir, arch, shape, kind, mesh, assembly=assembly)
+        for arch, shape, _ in cells_:
+            path = os.path.join(out_dir, f"{arch}__{shape.replace(':', '_')}__{kind}.json")
+            rec = {}
+            if os.path.exists(path):
+                with open(path) as f:
+                    rec = json.load(f)
+            if proc.returncode != 0 or rec.get("status") != "ok":
+                raise SystemExit(f"dry-run of {arch} {shape} on {kind} failed (exit "
+                                 f"{proc.returncode}): {rec.get('error')}\n{out[-4000:]}")
             mem = rec["memory"]
-            print(f"[dryrun] (c) {arch} {shape} on {mesh.shape} (meta): build "
-                  f"{rec['t_build_s']} s, trace {rec['t_trace_s']} s (host: {card}); "
+            print(f"[dryrun] (c) {arch} {shape} on {rec['mesh_shape']} (meta): build "
+                  f"{rec['t_build_s']} s, trace {rec['t_trace_s']} s (host: {card}; traced in "
+                  f"a process of its own beside phases 3-15); "
                   f"flops/dev {rec['cost']['flops_per_dev']:.4e}, bytes/dev "
                   f"{rec['cost']['bytes_per_dev']:.4e}, link bytes/dev "
                   f"{rec['collectives']['link_bytes']:.4e} {rec['collectives']['per_op']}, "
@@ -4350,31 +4644,36 @@ def capped_dryrun(card: str, out_dir: str) -> None:
 
 
 def memory_model_check(card: str, out_dir: str) -> None:
-    """Phase 16(d): phase 15's (2, 2) train cell dry-run on meta devices,
-    its peak a device x 4 beside phase 15's measured peak on the card."""
+    """Phase 16(d): phase 15's (2, 2) train cell dry-run on meta devices
+    (with the reference's act_spec and logits_spec: 15(f)'s step), its peak
+    a device x 4 beside 15(f)'s and 15(a)'s measured peaks on the card."""
     shape = ShapeConfig("train_4k", "train", TRAIN_SEQ, TRAIN_BATCH)
     mesh = make_local_mesh(LM_MESH_MP, devices=("meta",) * 4)
     rec = cell_record(out_dir, "qwen3_17b", "train_4k", "lm_mesh_2x2", mesh, shape_cfg=shape)
     mem = rec["memory"]
     predicted = 4 * mem["peak_bytes_per_device"] / 2**30
-    got = LM_MESH_PEAK[-1]
-    print(f"[dryrun] (d) qwen3-1.7b train B={TRAIN_BATCH} S={TRAIN_SEQ} on {mesh.shape}: "
-          f"trace {rec['t_trace_s']} s; dry-run peak {mem['peak_bytes_per_device'] / 2**30:.3f} "
-          f"GiB a device (arguments {mem['argument_bytes'] / 2**30:.3f}, temp estimate "
-          f"{mem['temp_bytes'] / 2**30:.3f}) x 4 = {predicted:.3f} GiB against phase 15's "
-          f"measured peak {got:.3f} GiB on the card: ratio {predicted / got:.3f} ({card})")
+    sp, got = LM_SP_PEAK[-1], LM_MESH_PEAK[-1]
+    specs = {k: tuple(rec["meta"][k]) for k in ("act_spec", "logits_spec")} \
+        if "act_spec" in rec.get("meta", {}) else "not recorded"
+    print(f"[dryrun] (d) qwen3-1.7b train B={TRAIN_BATCH} S={TRAIN_SEQ} on {mesh.shape} "
+          f"({specs}): trace {rec['t_trace_s']} s; dry-run peak "
+          f"{mem['peak_bytes_per_device'] / 2**30:.3f} GiB a device (arguments "
+          f"{mem['argument_bytes'] / 2**30:.3f}, temp estimate "
+          f"{mem['temp_bytes'] / 2**30:.3f}) x 4 = {predicted:.3f} GiB against 15(f)'s measured "
+          f"peak {sp:.3f} GiB on the card (ratio {predicted / sp:.3f}) and 15(a)'s, without "
+          f"the specs, {got:.3f} GiB (ratio {predicted / got:.3f}) ({card})")
 
 
-def grid_phase(card: str) -> dict[str, int]:
-    """Phase 16; returns its launches by kernel."""
+def grid_phase(card: str, out_dir: str, dryrun: subprocess.Popen) -> dict[str, int]:
+    """Phase 16, its records in ``out_dir`` (where the process ``dryrun``
+    writes (c)'s); returns its launches by kernel."""
     t_phase = time.perf_counter()
-    out_dir = tempfile.mkdtemp(prefix="dryrun_")
     try:
         launches = {"flash_attention": mesh_serve_check(card)}
         print(f"[wall] phase 16 (a): {time.perf_counter() - t_phase} s")
         launches.update(measured_cells(card, out_dir))
         print(f"[wall] phase 16 (b): {time.perf_counter() - t_phase} s")
-        capped_dryrun(card, out_dir)
+        capped_dryrun(card, out_dir, dryrun)
         print(f"[wall] phase 16 (c): {time.perf_counter() - t_phase} s")
         memory_model_check(card, out_dir)
         recs = load_records(out_dir)
@@ -4419,6 +4718,8 @@ def main() -> int:
     if probe_err != 0.0:
         raise SystemExit(f"probe kernel disagrees with 2*x: {probe_err}")
     print(f"[probe] o = 2x on (8, 128) f32: max abs err {probe_err}")
+    dryrun_dir = tempfile.mkdtemp(prefix="dryrun_")
+    dryrun = start_dryrun(dryrun_dir)
     wall("1-2 (card, build, probe)")
 
     # ---- 3. kernel vs plain on the card
@@ -4715,7 +5016,7 @@ def main() -> int:
     wall("15 (multi-device LM)")
 
     # ---- 16. serving on a mesh, the cells measured, the dry-run on meta meshes
-    grid_launches = grid_phase(card)
+    grid_launches = grid_phase(card, dryrun_dir, dryrun)
     wall("16 (cells, mesh serving, dry-run)")
 
     kernels = [
@@ -4777,12 +5078,13 @@ def main() -> int:
         *bwd_entries,
         *d80_entries,
     ]
-    # phase 15's launches (its (a) run on the mesh) added to the main paths'
+    # phase 15's launches (its (a) and (f) runs on the mesh) added to the main paths'
     for entry in kernels:
         entry["launches"] += {"flash_attention": mesh_launches["flash_attention"],
                               "flash_attention_bwd_wgmma":
                               mesh_launches["flash_attention_bwd"]}.get(entry["name"], 0)
-    print(f"[lm mesh] phase 15 (a)'s launches added to the kernels line: {mesh_launches}")
+    print(f"[lm mesh] phase 15 (a)'s and (f)'s launches added to the kernels line: "
+          f"{mesh_launches}")
     for entry in kernels:
         entry["launches"] += grid_launches.get(entry["name"], 0)
     print(f"[cells] phase 16's launches added to the kernels line: {grid_launches}")
@@ -4796,4 +5098,12 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        for proc in BACKGROUND:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for d in BACKGROUND_DIRS:
+            shutil.rmtree(d, ignore_errors=True)

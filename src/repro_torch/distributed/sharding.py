@@ -52,9 +52,14 @@ no GSPMD to act on them, so the layout is explicit:
 Serving on a mesh lays the decode state out by :func:`decode_state_pspecs`
 (:func:`sharded_zeros` allocates it block by block, :func:`own_part` cuts
 a device's block out of what it computed); see
-``models.transformer.mesh_prefill``.  Sequence parallelism
-(``act_pspec``'s ``model`` on the sequence axis) is not computed by the
-port (ROADMAP Queue 1 item 10, part 10c).
+``models.transformer.mesh_prefill``.  Sequence parallelism (``act_pspec``'s
+``model`` on the sequence axis) is computed by the train step
+(``models.transformer.mesh_loss_fn(act_spec=)``): the residual stream
+between blocks is each device's block of positions (:func:`mesh_block`,
+the blocks :func:`place` makes), all-gathered over ``model`` into a block
+(:func:`mesh_all_gather`) and reduce-scattered back out of it
+(:func:`mesh_reduce_scatter`).  The recurrent mixers are gathered whole;
+their tensor parallelism is ROADMAP Queue 1 item 10c's second part.
 """
 
 from __future__ import annotations
@@ -73,6 +78,7 @@ from repro_torch.distributed.collectives import (
     all_reduce,
     all_to_all,
     gather_blocks,
+    reduce_scatter,
     to_device,
 )
 
@@ -104,6 +110,8 @@ __all__ = [
     "mesh_all_reduce",
     "mesh_all_gather",
     "mesh_all_to_all",
+    "mesh_reduce_scatter",
+    "mesh_block",
     "sharded_zeros",
     "own_part",
     "dp_axes",
@@ -472,9 +480,12 @@ def _lm_map(fn: Callable, tree, *rest, path: str = ""):
 
 
 def act_pspec(mesh_axes: tuple[str, ...]) -> P:
-    """Between-blocks residual constraint: batch over dp, sequence over
-    'model' (Megatron-SP).  The port computes no sequence parallelism
-    (ROADMAP Queue 1 item 10, part 10c); the spec is the reference's."""
+    """Between-blocks residual layout: batch over dp, sequence over
+    'model' (Megatron-SP).  ``mesh_loss_fn(act_spec=)`` computes it: each
+    device keeps its block of positions between blocks, a tensor-parallel
+    block all-gathers its normed input and reduce-scatters its output, any
+    other block (the recurrent mixers: ROADMAP item 10c's second part) is
+    gathered whole and keeps its block."""
     dp = tuple(a for a in mesh_axes if a in ("pod", "data"))
     return P(dp, "model", None)
 
@@ -911,6 +922,27 @@ def mesh_all_to_all(xs: Sequence[torch.Tensor], mesh: LMMesh, split_dim: int, co
     """Each mesh device's ``xs`` entry through an all-to-all over ``axes``
     (:func:`~repro_torch.distributed.collectives.all_to_all`)."""
     return _over_groups(xs, mesh, axes, lambda group: all_to_all(group, split_dim, concat_dim))
+
+
+def mesh_reduce_scatter(xs: Sequence[torch.Tensor], mesh: LMMesh, dim: int,
+                        axes: Sequence[str] = ("model",)) -> list[torch.Tensor]:
+    """Each mesh device's ``xs`` entry summed over ``axes`` in group order,
+    the sum split along ``dim`` into equal blocks, member i's block on
+    member i (:func:`~repro_torch.distributed.collectives.reduce_scatter`,
+    whose backward is the all-gather)."""
+    return _over_groups(xs, mesh, axes, lambda group: reduce_scatter(group, dim))
+
+
+def mesh_block(x: torch.Tensor, mesh: LMMesh, k: int, dim: int,
+               axes: Sequence[str] = ("model",)) -> torch.Tensor:
+    """Device ``k``'s block of ``x`` along ``dim``: ``x`` split into equal
+    contiguous blocks over ``axes`` (the first major), in mesh order, as
+    :func:`place` splits a leaf; a view."""
+    c, idx, cnt = mesh.coords(k), 0, 1
+    for a in axes:
+        idx, cnt = idx * mesh.shape[a] + c[a], cnt * mesh.shape[a]
+    n = x.shape[dim] // cnt
+    return x.narrow(dim, idx * n, n)
 
 
 def dp_axes(mesh: LMMesh) -> tuple[str, ...]:

@@ -25,7 +25,10 @@ __all__ = ["KernelLibrary", "load", "BUILD_DIR", "SOURCES"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
-SOURCES = ("pa_elasticity.cu", "pa_elasticity_baseline.cu", "probe.cu")
+# pa_elasticity.cu through its three storage types' translation units
+# (each includes it), which nvcc compiles in parallel
+SOURCES = ("pa_elasticity_f64.cu", "pa_elasticity_f32.cu", "pa_elasticity_bf16.cu",
+           "pa_elasticity_baseline.cu", "probe.cu")
 
 _P = ctypes.c_void_p
 _DTYPE_OF_TAG = {"f64": torch.float64, "f32": torch.float32, "bf16": torch.bfloat16}

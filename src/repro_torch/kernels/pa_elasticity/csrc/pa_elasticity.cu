@@ -728,24 +728,20 @@ int dispatch_config(int d1d, int* threads, int* elems, int* smem_bytes,
 
 }  // namespace
 
+// PA_ELASTICITY_DTYPE (64, 32 or 16) keeps one storage type's entry points
+// and so its instantiations: pa_elasticity_{f64,f32,bf16}.cu each include
+// this file with one, and the build compiles the three in parallel.
+#ifndef PA_ELASTICITY_DTYPE
+#error "build pa_elasticity_{f64,f32,bf16}.cu, which set PA_ELASTICITY_DTYPE"
+#endif
+
 extern "C" {
 
+#if PA_ELASTICITY_DTYPE == 64
 int pa_elasticity_f64(const void* x, const void* lam, const void* mu,
                       const void* jinv, const void* B, const void* G, void* y,
                       long long ne, int d1d, int q1d, void* stream) {
   return dispatch<double>(x, lam, mu, jinv, B, G, y, ne, d1d, q1d, stream);
-}
-
-int pa_elasticity_f32(const void* x, const void* lam, const void* mu,
-                      const void* jinv, const void* B, const void* G, void* y,
-                      long long ne, int d1d, int q1d, void* stream) {
-  return dispatch<float>(x, lam, mu, jinv, B, G, y, ne, d1d, q1d, stream);
-}
-
-int pa_elasticity_bf16(const void* x, const void* lam, const void* mu,
-                       const void* jinv, const void* B, const void* G, void* y,
-                       long long ne, int d1d, int q1d, void* stream) {
-  return dispatch<__nv_bfloat16>(x, lam, mu, jinv, B, G, y, ne, d1d, q1d, stream);
 }
 
 int pa_elasticity_config_f64(int d1d, int* threads, int* elems, int* smem_bytes,
@@ -753,18 +749,35 @@ int pa_elasticity_config_f64(int d1d, int* threads, int* elems, int* smem_bytes,
   return dispatch_config<double>(d1d, threads, elems, smem_bytes, blocks_per_sm);
 }
 
+const char* kernel_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+#endif
+
+#if PA_ELASTICITY_DTYPE == 32
+int pa_elasticity_f32(const void* x, const void* lam, const void* mu,
+                      const void* jinv, const void* B, const void* G, void* y,
+                      long long ne, int d1d, int q1d, void* stream) {
+  return dispatch<float>(x, lam, mu, jinv, B, G, y, ne, d1d, q1d, stream);
+}
+
 int pa_elasticity_config_f32(int d1d, int* threads, int* elems, int* smem_bytes,
                              int* blocks_per_sm) {
   return dispatch_config<float>(d1d, threads, elems, smem_bytes, blocks_per_sm);
+}
+#endif
+
+#if PA_ELASTICITY_DTYPE == 16
+int pa_elasticity_bf16(const void* x, const void* lam, const void* mu,
+                       const void* jinv, const void* B, const void* G, void* y,
+                       long long ne, int d1d, int q1d, void* stream) {
+  return dispatch<__nv_bfloat16>(x, lam, mu, jinv, B, G, y, ne, d1d, q1d, stream);
 }
 
 int pa_elasticity_config_bf16(int d1d, int* threads, int* elems, int* smem_bytes,
                               int* blocks_per_sm) {
   return dispatch_config<__nv_bfloat16>(d1d, threads, elems, smem_bytes, blocks_per_sm);
 }
-
-const char* kernel_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
+#endif
 
 }  // extern "C"

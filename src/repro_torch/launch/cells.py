@@ -21,9 +21,12 @@ cell traces it (``launch/dryrun.py``).  On a mesh of cards,
 ``build_cell(..., seed=)`` draws the arguments with numpy from the seed, so
 that a cell that fits can run there.
 
-The port applies no sequence parallelism (ROADMAP item 10c): a device's
-activations are its data row's (rows, S, d), replicated over ``model``, not
-the reference's sequence-split ones; ``Cell.meta["act_layout"]`` says so.
+A train cell passes the reference's ``act_spec`` and ``logits_spec`` to
+its step: ``act_pspec`` (sequence parallelism over ``model``) and the
+vocab-parallel CE, but batch-only layouts for the xLSTM and the pure-DP
+layout of a small model; ``Cell.meta`` records both, and ``act_layout``
+says what each device holds.  The recurrent mixers are gathered whole
+(their tensor parallelism is ROADMAP item 10c's second part).
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from repro_torch.data.pipeline import batch_shapes, make_batch
 from repro_torch.distributed.sharding import (
     P,
     _lm_map,
+    act_pspec,
     batch_pspec,
     decode_state_pspecs,
     dp_axes,
@@ -58,9 +62,12 @@ __all__ = ["build_cell", "cell_ids", "Cell", "skip_reason", "SMALL_MODEL_PARAMS"
 
 SMALL_MODEL_PARAMS = int(5e8)  # below this, TP costs more than it saves
 
-_NO_SP = ("the port applies no sequence parallelism (ROADMAP item 10c): each device "
-          "holds its data row's (rows, S, d) activations, replicated over 'model'")
-
+# The reference's prefill applies ``act_spec`` only to the MoE's dispatch,
+# which ``moe_mesh_apply`` computes; decode has one position a row.
+_PREFILL_LAYOUT = ("each device its data row's (rows, S, d), replicated over 'model' (the "
+                   "reference's prefill splits the sequence nowhere; the MoE's dispatch is "
+                   "expert or capacity parallel)")
+_DECODE_LAYOUT = "each device its data row's (rows, 1, d): one position a row"
 
 @dataclasses.dataclass
 class Cell:
@@ -161,13 +168,24 @@ def _train_cell(arch: str, cfg, shape: ShapeConfig, mesh, seed) -> Cell:
     mb = _meta_batch(cfg, shape)
     bspec = (_lm_map(lambda _, t: P(dp, *(None,) * (t.ndim - 1)), mb) if pure_dp
              else batch_pspec(axes, mb))
-    step = make_train_step(cfg, AdamWConfig(), remat=True, mesh=mesh)
+    # the reference's choice: sequence-parallel activations, but the xLSTM's
+    # per-token recurrences and the pure-DP layout shard the batch only
+    if cfg.block_pattern == "xlstm" or pure_dp:
+        aspec = P(dp, None, None)
+        layout = ("pure DP: each device its own rows, every weight gathered whole" if pure_dp
+                  else "each device its data row's (rows, S, d), replicated over 'model'")
+    else:
+        aspec = act_pspec(axes)
+        layout = ("each device its data row's (rows, S / M, d) block of positions between "
+                  "blocks (Megatron-SP over 'model')")
+    lspec = P(dp, None, None if pure_dp else "model")
+    step = make_train_step(cfg, AdamWConfig(), remat=True, mesh=mesh, act_spec=aspec,
+                           logits_spec=lspec)
     return Cell(arch=arch, shape=shape.name, fn=step,
                 args=(state, _batch(cfg, shape, bspec, mesh, seed)), mesh=mesh,
                 meta={"kind": "train", "tokens": shape.seq_len * shape.global_batch,
-                      "pure_dp": pure_dp,
-                      "act_layout": ("pure DP: each device its own rows, every weight "
-                                     "gathered whole" if pure_dp else _NO_SP)})
+                      "pure_dp": pure_dp, "act_spec": aspec, "logits_spec": lspec,
+                      "act_layout": layout})
 
 
 def _lm_params(cfg, mesh, seed):
@@ -194,7 +212,7 @@ def _prefill_cell(arch: str, cfg, shape: ShapeConfig, mesh, seed) -> Cell:
     return Cell(arch=arch, shape=shape.name, fn=fn, args=(_lm_params(cfg, mesh, seed), batch),
                 mesh=mesh,
                 meta={"kind": "prefill", "tokens": shape.seq_len * shape.global_batch,
-                      "act_layout": _NO_SP})
+                      "act_layout": _PREFILL_LAYOUT})
 
 
 def _decode_cell(arch: str, cfg, shape: ShapeConfig, mesh, seed) -> Cell:
@@ -214,7 +232,7 @@ def _decode_cell(arch: str, cfg, shape: ShapeConfig, mesh, seed) -> Cell:
 
     return Cell(arch=arch, shape=shape.name, fn=fn,
                 args=(_lm_params(cfg, mesh, seed), token, state, shape.seq_len - 1), mesh=mesh,
-                meta={"kind": "decode", "tokens": B, "act_layout": _NO_SP})
+                meta={"kind": "decode", "tokens": B, "act_layout": _DECODE_LAYOUT})
 
 
 # ---------------------------------------------------------------------------

@@ -21,8 +21,10 @@ Two paths, as in the reference:
   its own query and kv heads (its column blocks of ``wq``/``wk``/``wv``,
   and of ``bq``/``bk``/``bv``) through the same flash route and applies
   its row block of ``wo``; the partial outputs are all-reduced in model
-  order.  Otherwise every device gathers the weights whole and computes
-  the block replicated.
+  order (under sequence parallelism the normed input is all-gathered
+  along the sequence and the partial outputs reduce-scattered along it).
+  Otherwise every device gathers the weights whole and computes the block
+  replicated.
 * :func:`mesh_prefill_cache` and :func:`mesh_decode_attention` -- the KV
   cache on a mesh, laid out by ``decode_state_pspecs``: its sequence axis
   split over ``model`` (or, where that does not divide, another axis, or
@@ -59,6 +61,8 @@ from repro_torch.distributed.sharding import (
     mesh_all_gather,
     mesh_all_reduce,
     mesh_all_to_all,
+    mesh_block,
+    mesh_reduce_scatter,
     own_part,
 )
 from repro_torch.kernels.flash_attention import flash_attention
@@ -127,19 +131,31 @@ def _local_cfg(cfg, mesh, tp: bool):
                                head_dim=cfg.head_dim_)
 
 
-def mesh_attention(params, xs, cfg, mesh, positions):
+def mesh_attention(params, xs, cfg, mesh, positions, seq_parallel: bool = False):
     """Full-sequence causal attention of one block on ``mesh``: params the
     block's attention leaves (``Sharded``), xs and positions one entry a
     mesh device (its data row's rows).  Returns each device's output,
     (B_row, S, d_model), equal over a data row's model devices, and its
     (k, v), (B_row, S, K_local, hd): its own kv heads under tensor
-    parallelism (:func:`attention_tp`), every head otherwise."""
+    parallelism (:func:`attention_tp`), every head otherwise.
+
+    ``seq_parallel`` (Megatron-SP): each x is the device's block of
+    positions (B_row, S / M, d_model), all-gathered over ``model`` along
+    the sequence first; the output is the device's block of positions,
+    the partial outputs of tensor parallelism reduce-scattered along the
+    sequence (else its block of the replicated output)."""
     tp = attention_tp(params, cfg, mesh)
     views = local_tree_views(params, ("model",) if tp else ())
     lcfg = _local_cfg(cfg, mesh, tp)
+    if seq_parallel:
+        xs = mesh_all_gather(xs, mesh, 1)
     outs = [attention(v, x, lcfg, pos) for v, x, pos in zip(views, xs, positions)]
     hs = [h for h, _ in outs]
-    return (mesh_all_reduce(hs, mesh) if tp else hs), [kv for _, kv in outs]
+    kvs = [kv for _, kv in outs]
+    if seq_parallel:
+        return (mesh_reduce_scatter(hs, mesh, 1) if tp
+                else [mesh_block(h, mesh, kd, 1) for kd, h in enumerate(hs)]), kvs
+    return (mesh_all_reduce(hs, mesh) if tp else hs), kvs
 
 
 def _seq_split(cache_sh, mesh) -> bool:

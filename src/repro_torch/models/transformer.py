@@ -44,15 +44,22 @@ program a mesh device, over parameters laid out by ``param_pspecs``
 an attention block runs tensor parallel over ``model`` where the heads
 (:func:`~repro_torch.models.attention.mesh_attention`) and ``d_ff`` divide
 it, the MoE expert or capacity parallel
-(:func:`~repro_torch.models.moe.moe_mesh_apply`); everything else (the
-embedding, the norms and residuals, the Mamba2 and xLSTM blocks) is
-gathered whole and computed replicated over ``model`` (their tensor
-parallelism is ROADMAP Queue 1 item 10, part 10c).  Each block's gathers run inside its
-remat, so the recompute gathers again, as FSDP does.  The loss is taken
-on each data row's first model device (on every device when the batch is
-split over ``model`` too, the pure-DP layout): the rows' CE sums over the
-global count of valid labels.  On a (1, 1) mesh it is :func:`loss_fn`, op
-for op.
+(:func:`~repro_torch.models.moe.moe_mesh_apply`); the Mamba2 and xLSTM
+blocks are gathered whole (their tensor parallelism is ROADMAP Queue 1
+item 10c's second part).  Each block's gathers run inside its remat, so
+the recompute gathers again, as FSDP does.  Without specs the residual
+stream is each device's data row's (rows, S, d), replicated over
+``model``, and the CE runs on each data row's first model device (on every
+device when the batch is split over ``model`` too, the pure-DP layout).
+The reference's ``act_spec = act_pspec(axes)`` is computed as Megatron-SP:
+each device keeps its (rows, S / M, d) block of positions between blocks
+(what remat saves for a block), a tensor-parallel block all-gathers its
+normed input along the sequence and reduce-scatters its partial outputs,
+any other block runs on the gathered sequence and keeps its block;
+``logits_spec = P(dp, None, "model")`` runs the chunked CE vocab parallel
+(each device's (rows, c, V / M) logits, the log-sum-exp combined over
+``model``).  The rows' CE sums over the global count of valid labels.  On a
+(1, 1) mesh it is :func:`loss_fn`, op for op.
 
 :func:`mesh_prefill` and :func:`mesh_decode_step` serve on the same
 layout: parameters by ``param_pspecs``, the decode state by
@@ -85,7 +92,10 @@ from repro_torch.distributed.sharding import (
     dp_axes,
     local_tree_views,
     local_views,
+    mesh_all_gather,
     mesh_all_reduce,
+    mesh_block,
+    mesh_reduce_scatter,
     own_part,
     shard_of,
     sharded_zeros,
@@ -411,24 +421,32 @@ def _leaves(tree):
 # ---------------------------------------------------------------------------
 # embedding / positions / head
 # ---------------------------------------------------------------------------
-def _embed(params, batch, cfg):
+def _embed(params, batch, cfg, span: tuple[int, int] | None = None):
     """Token embeddings (codebooks: their sum), the vision embeddings over
-    the first ``n_vision_tokens`` positions, and sinusoidal positions."""
+    the first ``n_vision_tokens`` positions, and sinusoidal positions; of
+    positions [o, o + s) of the sequence with ``span`` (o, s)."""
     tokens = batch["tokens"]
+    S = tokens.shape[1]
+    o, s = span or (0, S)
+    if span is not None:
+        tokens = tokens[:, o:o + s]
     if cfg.n_codebooks:
         x = params["embed"][0][tokens[..., 0]]
         for c in range(1, cfg.n_codebooks):
             x = x + params["embed"][c][tokens[..., c]]
     else:
         x = params["embed"][tokens]
-    S = tokens.shape[1]
     if cfg.n_vision_tokens and "vision_embeds" in batch:
         nv = cfg.n_vision_tokens
         if S < nv:
             raise ValueError(f"{S} positions cannot hold the {nv} vision tokens")
-        x = torch.cat([batch["vision_embeds"].to(x.dtype), x[:, nv:]], dim=1)
+        if span is None:
+            x = torch.cat([batch["vision_embeds"].to(x.dtype), x[:, nv:]], dim=1)
+        elif o < nv:
+            k = min(nv - o, s)
+            x = torch.cat([batch["vision_embeds"][:, o:o + k].to(x.dtype), x[:, k:]], dim=1)
     if cfg.pos_embed == "sinusoidal":
-        pos = torch.arange(S, device=x.device)[None]
+        pos = torch.arange(o, o + s, device=x.device)[None]
         x = x + sinusoidal_positions(pos, cfg.d_model, x.dtype)
     return x
 
@@ -569,11 +587,17 @@ def _ce_sum(hidden, head_w, labels, chunk: int = LOSS_CHUNK):
     return tot
 
 
-def loss_fn(params, batch, cfg, *, remat: bool = True, mesh=None):
+def loss_fn(params, batch, cfg, *, remat: bool = True, mesh=None, act_spec=None,
+            logits_spec=None):
     """Scalar training loss: CE (averaged over codebooks) + AUX_LOSS_COEF *
-    aux (aux is 0 without experts).  With ``mesh``: :func:`mesh_loss_fn`."""
+    aux (aux is 0 without experts).  With ``mesh``: :func:`mesh_loss_fn`,
+    which takes ``act_spec`` and ``logits_spec`` (the port's ``P``, laid
+    out on ``mesh``); a spec without a mesh raises ``ValueError``."""
     if mesh is not None:
-        return mesh_loss_fn(params, batch, cfg, mesh, remat=remat)
+        return mesh_loss_fn(params, batch, cfg, mesh, remat=remat, act_spec=act_spec,
+                            logits_spec=logits_spec)
+    if act_spec is not None or logits_spec is not None:
+        raise ValueError("act_spec and logits_spec lay activations out on a mesh: pass mesh=")
     hidden, aux = forward(params, batch, cfg, remat=remat)
     w = _head_weight(params, cfg)
     if cfg.n_codebooks:
@@ -589,64 +613,223 @@ def loss_fn(params, batch, cfg, *, remat: bool = True, mesh=None):
 # ---------------------------------------------------------------------------
 # the training loss on a mesh: one program a mesh device
 # ---------------------------------------------------------------------------
-def _mesh_mlp(params, hn, cfg, mesh):
+def _splits(spec, dim: int) -> bool:
+    """Whether ``spec`` (a :class:`~repro_torch.distributed.sharding.P` or
+    None) puts ``model`` on dimension ``dim``."""
+    if spec is None or len(spec) <= dim or spec[dim] is None:
+        return False
+    part = spec[dim]
+    return "model" in ((part,) if isinstance(part, str) else tuple(part))
+
+
+def _remat_devices(rematted: bool, fn, p, xs, *args):
+    """``fn(p, xs, *args)`` (xs one tensor a mesh device) under remat, each
+    x a tensor input of the checkpoint: what it keeps of the block is the
+    devices' inputs, saved by autograd."""
+    if not rematted:
+        return fn(p, xs, *args)
+    return checkpoint(lambda *ts: fn(p, list(ts), *args), *xs, use_reentrant=False)
+
+
+def _mesh_mlp(params, hn, cfg, mesh, sp: bool):
     """The dense MLP on ``mesh``: tensor parallel over ``model`` (each
     device's ``d_ff`` columns of ``w_gate``/``w_up`` and rows of
     ``w_down``, the partial outputs all-reduced in model order) when the
     layout splits every weight over it (``d_ff`` divides the axis), else
-    gathered whole and computed replicated."""
+    gathered whole and computed replicated.  ``sp``: hn are blocks of
+    positions, all-gathered along the sequence first, and each device
+    returns its block of positions (the partial outputs reduce-scattered)."""
     tp = mesh.shape.get("model", 1) > 1 and all(
         any("model" in axes for axes in sh.parts()) for sh in params.values())
     views = local_tree_views(params, ("model",) if tp else ())
+    if sp:
+        hn = mesh_all_gather(hn, mesh, 1)
     ms = [mlp_apply(v, h, cfg.mlp_type) for v, h in zip(views, hn)]
+    if sp:
+        return (mesh_reduce_scatter(ms, mesh, 1) if tp
+                else [mesh_block(m, mesh, kd, 1) for kd, m in enumerate(ms)])
     return mesh_all_reduce(ms, mesh) if tp else ms
 
 
-def _mesh_ffn(p, xs, cfg, mesh):
+def _mesh_ffn(p, xs, cfg, mesh, sp: bool = False):
     """The block's MLP or MoE on ``mesh`` after its pre-norm, with the
-    residual; returns (xs, aux)."""
+    residual; returns (xs, aux).  Under ``sp`` the MoE runs on the whole
+    sequence, gathered along it, and each device keeps its block of
+    positions of the output."""
     mn = local_views(p["mlp_norm"])
     hn = [rmsnorm(x, n, cfg.norm_eps) for x, n in zip(xs, mn)]
     if cfg.is_moe:
+        if sp:
+            hn = mesh_all_gather(hn, mesh, 1)
         ms, aux = moe_mesh_apply(p["moe"], hn, cfg, mesh)
+        if sp:
+            ms = [mesh_block(m, mesh, kd, 1) for kd, m in enumerate(ms)]
     else:
-        ms, aux = _mesh_mlp(p["mlp"], hn, cfg, mesh), 0.0
+        ms, aux = _mesh_mlp(p["mlp"], hn, cfg, mesh, sp), 0.0
     return [x + m for x, m in zip(xs, ms)], aux
 
 
-def _mesh_attn_block_apply(p, xs, cfg, mesh, positions):
+def _mesh_attn_block_apply(p, xs, cfg, mesh, positions, sp: bool = False):
     """:func:`_attn_block_apply` on a mesh; returns (xs, aux, kvs): each
     device's output, the layer's global MoE aux loss (0.0 without experts)
     on the mesh's first device, and each device's (k, v)
-    (:func:`~repro_torch.models.attention.mesh_attention`)."""
+    (:func:`~repro_torch.models.attention.mesh_attention`).  ``sp``: xs are
+    the devices' blocks of positions, and so are the outputs."""
     an = local_views(p["attn_norm"])
     hs, kvs = mesh_attention(p["attn"], [rmsnorm(x, n, cfg.norm_eps) for x, n in zip(xs, an)],
-                             cfg, mesh, positions)
-    xs, aux = _mesh_ffn(p, [x + h for x, h in zip(xs, hs)], cfg, mesh)
+                             cfg, mesh, positions, seq_parallel=sp)
+    xs, aux = _mesh_ffn(p, [x + h for x, h in zip(xs, hs)], cfg, mesh, sp)
     return xs, aux, kvs
 
 
-def _mesh_attn_block(p, xs, cfg, mesh, positions):
+def _mesh_attn_block(p, xs, cfg, mesh, positions, sp: bool = False):
     """(xs, aux) of :func:`_mesh_attn_block_apply`."""
-    xs, aux, _ = _mesh_attn_block_apply(p, xs, cfg, mesh, positions)
+    xs, aux, _ = _mesh_attn_block_apply(p, xs, cfg, mesh, positions, sp)
     return xs, aux
 
 
-def _mesh_mamba_block(p, xs, cfg):
-    return [_mamba_block_x(v, x, cfg) for v, x in zip(local_tree_views(p), xs)]
+def _mesh_mamba_block(p, xs, cfg, mesh, sp: bool):
+    """A Mamba2 block gathered whole on each device; ``sp``: xs are blocks
+    of positions, all-gathered along the sequence, and each device keeps
+    its block of the output."""
+    views = local_tree_views(p)
+    if not sp:
+        return [_mamba_block_x(v, x, cfg) for v, x in zip(views, xs)]
+    full = mesh_all_gather(xs, mesh, 1)
+    return [x + mesh_block(_ssm.mamba2_apply(v["mixer"], rmsnorm(f, v["norm"], cfg.norm_eps),
+                                             cfg)[0], mesh, kd, 1)
+            for kd, (v, x, f) in enumerate(zip(views, xs, full))]
 
 
-def _mesh_zamba_group(layers, shared, xs, cfg, mesh, positions, rematted: bool):
+def _mesh_zamba_group(layers, xs, shared, cfg, mesh, positions, rematted: bool, sp: bool):
+    """One zamba2 group on ``mesh``: its Mamba2 layers (each under remat
+    when ``rematted``), then the shared block; ``sp``: blocks of
+    positions in and out, the reference's constraint points (after each
+    Mamba2 layer; the shared block follows the attention rule)."""
     for p in layers:
-        xs = _remat(rematted, _mesh_mamba_block, p, xs, cfg)
-    return _mesh_attn_block(shared, xs, cfg, mesh, positions)[0]
+        xs = _remat_devices(rematted, _mesh_mamba_block, p, xs, cfg, mesh, sp)
+    return _mesh_attn_block(shared, xs, cfg, mesh, positions, sp)[0]
 
 
 def _mesh_xlstm_block(p, xs, cfg, slstm: bool):
     return [_xlstm_block_x(v, x, cfg, slstm) for v, x in zip(local_tree_views(p), xs)]
 
 
-def mesh_loss_fn(params, batch, cfg, mesh, *, remat: bool = True):
+def _spans(mesh, S: int) -> list[tuple[int, int]]:
+    """Each device's (offset, length) of positions under sequence
+    parallelism: equal blocks in model order (:func:`mesh_block`'s)."""
+    M = mesh.shape["model"]
+    return [(mesh.coords(kd)["model"] * (S // M), S // M) for kd in range(mesh.size)]
+
+
+def _gather_positions(hs, spans, mesh, i: int, c: int, at) -> dict:
+    """Positions [i, i + c) of the data rows of the devices ``at``: from
+    hs (one tensor a device, its positions ``spans[kd]``) gathered over
+    ``model`` from the members' pieces (an empty piece from a member that
+    holds none of them), a copy on each member in ``at``; with ``spans``
+    None (each device holds the whole sequence) its own, as is.  Returns
+    {kd: (rows, c, d)}."""
+    if spans is None:
+        return {kd: hs[kd][:, i:i + c] for kd in at}
+    out, wanted = {}, set(at)
+    for kd in at:
+        if kd in out:
+            continue
+        group = mesh.group(kd, ("model",))
+        pieces, offsets = [], []
+        for g in group:
+            o, s = spans[g]
+            a, b = max(i, o), min(i + c, o + s)
+            pieces.append(hs[g].narrow(1, a - o, b - a) if b > a else hs[g].narrow(1, 0, 0))
+            offsets.append((0, a - i if b > a else 0, 0))
+        dests = [g for g in group if g in wanted]
+        out.update(zip(dests, gather_blocks(pieces, offsets,
+                                            (hs[kd].shape[0], c, hs[kd].shape[2]),
+                                            [mesh.flat[g] for g in dests])))
+    return out
+
+
+def _head_views(params, cfg, keep, at=None) -> list:
+    """The head, (d, V) or (n_cb, d, V), as each device of ``at`` uses it:
+    gathered over every axis but ``keep`` (``("model",)``: its block of
+    vocab columns)."""
+    if cfg.tie_embeddings and not cfg.n_codebooks:
+        return [e.T for e in local_views(params["embed"], keep, at)]
+    return local_views(params["lm_head"], keep, at)
+
+
+def _vocab_split(params, tok, cfg, mesh, logits_spec) -> bool:
+    """Whether the CE runs vocab parallel: ``logits_spec`` puts ``model``
+    on the vocab, the model axis has more than one device over which the
+    batch's rows (``tok``) are not split, and the head's layout splits its
+    vocab over ``model`` alone."""
+    if not _splits(logits_spec, 2) or mesh.shape.get("model", 1) <= 1:
+        return False
+    if isinstance(tok, Sharded) and "model" in tok.parts()[0]:
+        return False
+    if cfg.tie_embeddings and not cfg.n_codebooks:
+        sh, dim = params["embed"], -2
+    else:
+        sh, dim = params["lm_head"], -1
+    return isinstance(sh, Sharded) and sh.parts()[dim] == ("model",)
+
+
+def _vp_ce_chunk(mesh, spans, leaders, i: int, c: int, *ts):
+    """One chunk of the vocab-parallel CE: positions [i, i + c) of each
+    data row gathered on its model devices; each device's (rows, c, V / M)
+    f32 logits from its block of head columns; the log-sum-exp combined
+    over ``model`` (the max all-gathered, the summed exponentials
+    all-reduced in member order); the label's logit from the device whose
+    columns hold it (a masked pick, all-reduced); labels of -1 count
+    nothing.  ts: the final-normed hidden, the head blocks (d, V / M) and
+    the labels (rows, S), one a device each.  Returns each leader's summed
+    CE."""
+    n = mesh.size
+    hs, heads, labels = list(ts[:n]), ts[n:2 * n], ts[2 * n:]
+    hc = _gather_positions(hs, spans, mesh, i, c, range(n))
+    logits = [(hc[kd] @ w).float() for kd, w in enumerate(heads)]
+    top = [pk.amax(0) for pk in mesh_all_gather([lg.detach().amax(-1)[None] for lg in logits],
+                                                mesh, 0)]
+    sums = mesh_all_reduce([torch.exp(lg - t[..., None]).sum(-1) for lg, t in zip(logits, top)],
+                           mesh)
+    picks = []
+    for kd, (lg, lab) in enumerate(zip(logits, labels)):
+        vl = lg.shape[-1]
+        col = lab[:, i:i + c].long() - mesh.coords(kd)["model"] * vl
+        got = lg.gather(-1, col.clamp(0, vl - 1)[..., None])[..., 0]
+        picks.append(torch.where((col >= 0) & (col < vl), got, 0.0))
+    picks = mesh_all_reduce(picks, mesh)
+    return tuple(torch.where(labels[kd][:, i:i + c] >= 0,
+                             top[kd] + torch.log(sums[kd]) - picks[kd], 0.0).sum()
+                 for kd in leaders)
+
+
+def _vp_ce_sums(hs, heads, labels, spans, mesh, chunk: int = LOSS_CHUNK) -> list:
+    """:func:`_ce_sum` of each data row, vocab parallel: hs the
+    final-normed hidden (a block of positions, ``spans``, or with ``spans``
+    None the whole sequence), heads the (d, V / M) blocks, labels (rows,
+    S), one a mesh device each.  Chunked over the sequence as
+    :func:`_ce_sum`, each chunk under checkpoint in grad mode, so that no
+    device holds more than its (rows, c, V / M) f32 logits.  Returns the
+    sums on the leaders (``mesh.leaders()``)."""
+    S = labels[0].shape[1]
+    c = min(chunk, S)
+    if S % c:
+        raise ValueError(f"chunked_ce_loss: sequence {S} is not a multiple of the chunk {c}")
+    leaders = mesh.leaders()
+    tots = [torch.zeros((), dtype=torch.float32, device=mesh.flat[kd]) for kd in leaders]
+    for i in range(0, S, c):
+        fn = functools.partial(_vp_ce_chunk, mesh, spans, leaders, i, c)
+        if torch.is_grad_enabled():
+            got = checkpoint(fn, *hs, *heads, *labels, use_reentrant=False)
+        else:
+            got = fn(*hs, *heads, *labels)
+        tots = [t + g for t, g in zip(tots, got)]
+    return tots
+
+
+def mesh_loss_fn(params, batch, cfg, mesh, *, remat: bool = True, act_spec=None,
+                 logits_spec=None):
     """The training loss of :func:`loss_fn` on ``mesh``, on its first
     device.  params: ``Sharded`` leaves (``param_pspecs`` on ``mesh``);
     batch: leaves laid out by ``batch_pspec`` (row blocks over data).
@@ -658,51 +841,95 @@ def mesh_loss_fn(params, batch, cfg, mesh, *, remat: bool = True):
     each data row's first model device; the loss is the rows' CE sums over
     the rows' summed count of valid labels (a mean of the rows' means
     would weight unequal rows wrongly), summed in row order, plus
-    AUX_LOSS_COEF times the layers' global MoE aux losses."""
+    AUX_LOSS_COEF times the layers' global MoE aux losses.
+
+    ``act_spec`` with ``model`` on the sequence (``act_pspec``: Megatron-SP)
+    on a model axis of M > 1: each device embeds and keeps its S / M
+    positions of its rows between blocks (S % M must be 0; the positions
+    of RoPE stay the whole sequence's); a tensor-parallel attention or MLP
+    all-gathers its normed input along the sequence and reduce-scatters its
+    partial outputs; any other block (an attention or MLP whose heads or
+    ``d_ff`` do not split, the MoE, a Mamba2 layer) runs on the gathered
+    sequence, and each device keeps its positions; the xLSTM gathers the
+    sequence once, before its first block, as the reference splits only
+    its embedding.  ``logits_spec`` with ``model`` on the vocab, where the
+    head's layout splits V over ``model``: the CE runs vocab parallel on
+    every device (:func:`_vp_ce_sums`); otherwise on the leaders, the
+    sequence gathered there.  Without them, or on a model axis of 1, each
+    device holds its data row's whole sequence throughout and the CE runs
+    on the leaders."""
     check_supported(cfg)
     n, dev, eps = mesh.size, mesh.flat[0], cfg.norm_eps
     rows = [shard_of(batch, kd) for kd in range(n)]
+    tok = batch["tokens"]
+    S = rows[0]["tokens"].shape[1]
+    spans = None
+    if _splits(act_spec, 1) and mesh.shape.get("model", 1) > 1:
+        M = mesh.shape["model"]
+        if S % M:
+            raise ValueError(f"sequence parallelism: a sequence of {S} positions does not "
+                             f"split over a model axis of {M} devices")
+        if isinstance(tok, Sharded) and "model" in tok.parts()[0]:
+            raise ValueError("sequence parallelism splits the sequence over 'model', and the "
+                             f"batch's rows are laid out over it too ({tok.spec})")
+        spans = _spans(mesh, S)
+    sp = spans is not None
     emb = local_views(params["embed"])
-    xs = [_embed({"embed": e}, r, cfg) for e, r in zip(emb, rows)]
+    xs = [_embed({"embed": e}, r, cfg, spans[kd] if sp else None)
+          for kd, (e, r) in enumerate(zip(emb, rows))]
     del emb
     positions = [_positions(r, cfg) for r in rows]
     rematted = remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=dev) if cfg.is_moe else 0.0
     if cfg.block_pattern == "xlstm":
+        if sp:
+            xs, spans = mesh_all_gather(xs, mesh, 1), None
         for i, p in enumerate(params["blocks"]):
             slstm = i in cfg.slstm_indices
-            xs = _remat(rematted and not slstm, _mesh_xlstm_block, p, xs, cfg, slstm)
+            xs = _remat_devices(rematted and not slstm, _mesh_xlstm_block, p, xs, cfg, slstm)
     else:
         layers = _unstack(params["blocks"], cfg.n_layers)
         if cfg.block_pattern == "attn":
             for p in layers:
-                xs, a = _remat(rematted, _mesh_attn_block, p, xs, cfg, mesh, positions)
+                xs, a = _remat_devices(rematted, _mesh_attn_block, p, xs, cfg, mesh, positions,
+                                       sp)
                 aux = aux + a
         elif cfg.block_pattern == "mamba2":
             for p in layers:
-                xs = _remat(rematted, _mesh_mamba_block, p, xs, cfg)
+                xs = _remat_devices(rematted, _mesh_mamba_block, p, xs, cfg, mesh, sp)
         else:
             every = cfg.shared_attn_every
             for g in range(cfg.n_layers // every):
-                xs = _remat(rematted, _mesh_zamba_group, layers[g * every:(g + 1) * every],
-                            params["shared"], xs, cfg, mesh, positions, rematted)
-    # the devices whose rows the CE takes: each data row's first model
-    # device, or every device when the batch is split over ``model`` too
-    # (the pure-DP layout of a small model)
-    tok = batch["tokens"]
-    leaders = tok.owners() if isinstance(tok, Sharded) else mesh.leaders()
-    norms = local_views(params["final_norm"], at=leaders)
-    if cfg.tie_embeddings and not cfg.n_codebooks:
-        heads = [e.T for e in local_views(params["embed"], at=leaders)]
+                xs = _remat_devices(rematted, _mesh_zamba_group,
+                                    layers[g * every:(g + 1) * every], xs, params["shared"],
+                                    cfg, mesh, positions, rematted, sp)
+    labels = [r["labels"] for r in rows]
+    vocab = _vocab_split(params, tok, cfg, mesh, logits_spec)
+    if vocab:
+        leaders = mesh.leaders()
+        hidden = [rmsnorm(x, f, eps) for x, f in zip(xs, local_views(params["final_norm"]))]
+        heads = _head_views(params, cfg, ("model",))
     else:
-        heads = local_views(params["lm_head"], at=leaders)
-    hidden = [rmsnorm(xs[kd], f, eps) for kd, f in zip(leaders, norms)]
-    labels = [rows[kd]["labels"] for kd in leaders]
+        # the devices whose rows the CE takes: each data row's first model
+        # device, or every device when the batch is split over ``model`` too
+        # (the pure-DP layout of a small model)
+        leaders = tok.owners() if isinstance(tok, Sharded) else mesh.leaders()
+        if spans is not None:
+            xs = _gather_positions(xs, spans, mesh, 0, S, leaders)
+        norms = local_views(params["final_norm"], at=leaders)
+        hidden = [rmsnorm(xs[kd], f, eps) for kd, f in zip(leaders, norms)]
+        heads = _head_views(params, cfg, (), leaders)
+        labels = [labels[kd] for kd in leaders]
     ce = 0.0
     for cb in range(cfg.n_codebooks or 1):
         pick = (lambda t, cb=cb: t[cb]) if cfg.n_codebooks else (lambda t: t)
         lab = [lb[..., cb] for lb in labels] if cfg.n_codebooks else labels
-        tot = ordered_sum([_ce_sum(h, pick(w), lb) for h, w, lb in zip(hidden, heads, lab)], dev)
+        if vocab:
+            sums = _vp_ce_sums(hidden, [pick(w) for w in heads], lab, spans, mesh)
+            lab = [lab[kd] for kd in leaders]
+        else:
+            sums = [_ce_sum(h, pick(w), lb) for h, w, lb in zip(hidden, heads, lab)]
+        tot = ordered_sum(sums, dev)
         cnt = ordered_sum([(lb >= 0).sum() for lb in lab], dev)
         ce = ce + tot / torch.clamp(cnt, min=1)
     if cfg.n_codebooks:

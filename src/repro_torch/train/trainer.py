@@ -17,9 +17,12 @@ which each gathered leaf's gradient is reduce-scattered back to its blocks
 in data order; a block replicated over an axis then gets the sum of its
 replicas' gradients (``reduce_replicas``); ``grad_transform`` is applied to
 each device's tree of block gradients; AdamW updates the blocks.  The
-reference expresses the same step as sharding constraints
-(``act_spec``/``logits_spec``) for GSPMD; its sequence-parallel
-``act_spec`` has no counterpart (ROADMAP Queue 1 item 10, part 10c).
+reference's ``act_spec`` and ``logits_spec`` are the port's ``P`` on that
+mesh: ``act_pspec(axes)`` keeps each device's block of positions between
+blocks (Megatron-SP; tensor-parallel blocks all-gather along the sequence
+and reduce-scatter their outputs), ``P(dp, None, "model")`` runs the CE
+vocab parallel; the recurrent mixers are gathered whole under either (their
+tensor parallelism is ROADMAP Queue 1 item 10c's second part).
 """
 
 from __future__ import annotations
@@ -83,6 +86,8 @@ def make_train_step(
     remat: bool = True,
     grad_transform: Callable | None = None,
     mesh=None,
+    act_spec=None,
+    logits_spec=None,
 ) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics) with metrics
     ``loss``, ``grad_norm`` and ``lr`` as 0-d tensors on the device (the
@@ -94,9 +99,15 @@ def make_train_step(
     grad_transform: optional hook applied to the gradient tree before the
     optimizer (where gradient compression,
     :mod:`repro_torch.distributed.compression`, plugs in); on a mesh, to
-    each device's tree of block gradients."""
+    each device's tree of block gradients.  act_spec, logits_spec: the
+    residual stream's and the CE logits' layout on ``mesh``
+    (``models.transformer.mesh_loss_fn``); a spec without a mesh raises
+    ``ValueError``."""
     if mesh is not None:
-        return _mesh_train_step(cfg, opt_cfg, remat, grad_transform, mesh)
+        return _mesh_train_step(cfg, opt_cfg, remat, grad_transform, mesh, act_spec,
+                                logits_spec)
+    if act_spec is not None or logits_spec is not None:
+        raise ValueError("act_spec and logits_spec lay activations out on a mesh: pass mesh=")
 
     def train_step(state: TrainState, batch):
         leaves = list(_leaves(state.params))
@@ -115,13 +126,15 @@ def make_train_step(
     return train_step
 
 
-def _mesh_train_step(cfg, opt_cfg, remat, grad_transform, mesh) -> Callable:
+def _mesh_train_step(cfg, opt_cfg, remat, grad_transform, mesh, act_spec, logits_spec
+                     ) -> Callable:
     def train_step(state: TrainState, batch):
         if not all(isinstance(x, Sharded) for x in batch.values()):
             batch = place(batch, batch_pspec(mesh.axis_names, batch), mesh)
         shards = list(_leaves(state.params))
         with record_function("train.forward_backward"):
-            loss = loss_fn(state.params, batch, cfg, remat=remat, mesh=mesh)
+            loss = loss_fn(state.params, batch, cfg, remat=remat, mesh=mesh, act_spec=act_spec,
+                           logits_spec=logits_spec)
             flat = iter(torch.autograd.grad(loss, [b for sh in shards for b in sh.blocks],
                                             allow_unused=True))
         with record_function("train.reduce_replicas"):

@@ -37,7 +37,7 @@ from repro.models import transformer as ref_tf
 from repro_torch.configs import base
 from repro_torch.configs.elasticity import ElasticityShape
 from repro_torch.distributed import collectives
-from repro_torch.distributed.sharding import P, Sharded
+from repro_torch.distributed.sharding import P, Sharded, act_pspec
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.pa_elasticity import ops as pa_ops
 from repro_torch.launch import cells, dryrun, report
@@ -80,8 +80,16 @@ def test_build_cell_on_meta_mesh_allocates_nothing(arch, shape):
     ts = _all_tensors(cell.args)
     assert ts and all(t.device.type == "meta" for t in ts)
     assert cell.meta["kind"] in ("train", "prefill", "decode", "addmult")
-    if arch != "elasticity":
-        assert "sequence parallelism" in cell.meta["act_layout"] or cell.meta.get("pure_dp")
+    if cell.meta["kind"] == "train":
+        # the specs the step computes: sequence parallel but for the xLSTM
+        # and pure DP, the CE vocab parallel but for pure DP
+        dp, pure_dp = cell.meta["act_spec"][0], cell.meta["pure_dp"]
+        sp = not pure_dp and base.get_config(arch).block_pattern != "xlstm"
+        assert cell.meta["act_spec"] == (act_pspec(mesh.axis_names) if sp else P(dp, None, None))
+        assert cell.meta["logits_spec"] == P(dp, None, None if pure_dp else "model")
+        assert ("block of positions" in cell.meta["act_layout"]) == sp
+    elif arch != "elasticity":
+        assert "act_spec" not in cell.meta and cell.meta["act_layout"]
 
 
 def _reduced(arch, shape):

@@ -1042,23 +1042,26 @@ def test_small_moe_serve_on_card_matches_cpu(card, arch):
     assert out["cuda"] == out["cpu"]
 
 
-def _mesh_step_on(cfg, host, device):
+def _mesh_step_on(cfg, host, device, seq_parallel: bool = False):
     """One train step of ``cfg`` from the parameters ``host`` (numpy) on a
-    (2, 2) mesh of four virtual ``device``s; (metrics, gathered host
+    (2, 2) mesh of four virtual ``device``s (``seq_parallel``: with the
+    reference's act_spec and logits_spec); (metrics, gathered host
     state)."""
     from repro_torch.data.pipeline import make_batch
     from repro_torch.configs import ShapeConfig
-    from repro_torch.distributed.sharding import gather
+    from repro_torch.distributed.sharding import P, act_pspec, gather
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.trainer import make_train_step, train_state_init
 
     mesh = make_local_mesh(2, devices=(device,) * 4)
+    specs = ({"act_spec": act_pspec(mesh.axis_names), "logits_spec": P("data", None, "model")}
+             if seq_parallel else {})
     state = train_state_init(None, cfg, params=lm_params(host, cfg, device=device), mesh=mesh)
     batch = {k: torch.from_numpy(a)
              for k, a in make_batch(cfg, ShapeConfig("t", "train", 64, 4), 0).items()}
-    state, m = make_train_step(cfg, AdamWConfig(total_steps=3, warmup_steps=1), mesh=mesh)(
-        state, batch)
+    state, m = make_train_step(cfg, AdamWConfig(total_steps=3, warmup_steps=1), mesh=mesh,
+                               **specs)(state, batch)
     return {k: float(v) for k, v in m.items()}, gather(state, "cpu")
 
 
@@ -1076,6 +1079,28 @@ def test_mesh_train_step_on_card_matches_cpu_and_repeats(card, arch):
     host = _numpy(init_params(torch.Generator().manual_seed(0), cfg))
     (mc, sc), (mc2, sc2) = (_mesh_step_on(cfg, host, card) for _ in range(2))
     mh, sh = _mesh_step_on(cfg, host, torch.device("cpu"))
+    for k in ("loss", "grad_norm"):
+        assert abs(mc[k] - mh[k]) <= 1e-5 * abs(mh[k]), (k, mc[k], mh[k])
+    for a, b in zip(_leaves(sc.opt_state), _leaves(sh.opt_state)):
+        assert float((a.float() - b.float()).abs().max()) <= 1e-5 * max(
+            float(b.float().abs().max()), 1e-30)
+    assert mc == mc2
+    assert all(torch.equal(a, b) for a, b in zip(_leaves([sc.params, sc.opt_state]),
+                                                 _leaves([sc2.params, sc2.opt_state])))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "olmoe-1b-7b", "zamba2-2.7b"])
+def test_sequence_parallel_step_on_card_matches_cpu_and_repeats(card, arch):
+    """The same with sequence parallelism and the vocab-parallel CE: card
+    against CPU within 1e-5 of max |CPU| (loss, grad norm, every moment
+    leaf), two runs on the card bitwise equal."""
+    from repro_torch.models.transformer import _leaves
+
+    cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+    host = _numpy(init_params(torch.Generator().manual_seed(0), cfg))
+    (mc, sc), (mc2, sc2) = (_mesh_step_on(cfg, host, card, True) for _ in range(2))
+    mh, sh = _mesh_step_on(cfg, host, torch.device("cpu"), True)
     for k in ("loss", "grad_norm"):
         assert abs(mc[k] - mh[k]) <= 1e-5 * abs(mh[k]), (k, mc[k], mh[k])
     for a, b in zip(_leaves(sc.opt_state), _leaves(sh.opt_state)):
