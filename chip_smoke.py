@@ -348,7 +348,19 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    losses held to phase 9's and (a)'s, step s and the peak beside (a)'s,
    one more step profiled (the ``collective.*`` ranges' share); (b)'s
    full-width MoE layer also runs on blocks of positions gathered along
-   the sequence, its expert ids identical to (b)'s.
+   the sequence, its expert ids identical to (b)'s; (g) the recurrent
+   mixers tensor parallel by heads (``[mixer tp]`` lines, and a ``[wall]
+   phase 15 (g)`` line): zamba2-2.7b at full width cut to 6 of 54 layers
+   (one group and one application of the shared block), bf16, B = 4, S =
+   4096, on (a)'s (2, 2) mesh with (f)'s specs: step 1 twice from one
+   state (bitwise), two timed steps and one profiled, each counted (4 x
+   (2 + 1) D = 80 wgmma flash launches, no plain call), the mixers asserted
+   to have run on H / M heads, the losses within 2^-8 of the same model's
+   two unsharded steps on the card, step s, the peak and the ``mamba.ssd``,
+   ``mamba.conv`` and ``collective.*`` ranges' device ms, the summed SSD
+   time beside its prediction from phase 12's; xlstm-125m at full width
+   cut to 6 of 12 layers on (1, 2), B = 16, S = 256, two steps against the
+   unsharded ones the same way.
 16. the cell grid and serving on a mesh (``[mesh serve]``, ``[cells]``,
    ``[dryrun]`` and ``[roofline]`` lines, each beside the card's name and
    power limit): (a) phase 6's requests (qwen3-1.7b, bf16, 8 x 2048 + 32)
@@ -430,6 +442,7 @@ from repro_torch.distributed.compression import (  # noqa: E402
 from repro_torch.models import attention as attention_module  # noqa: E402
 from repro_torch.models import moe as moe_module  # noqa: E402
 from repro_torch.models import ssm as ssm_module  # noqa: E402
+from repro_torch.models import transformer as transformer_module  # noqa: E402
 from repro_torch.models.transformer import forward as model_forward  # noqa: E402
 from repro_torch.models.transformer import init_params  # noqa: E402
 from repro_torch.serve import elasticity_service  # noqa: E402
@@ -697,12 +710,28 @@ MESH_RESTORE_P, MESH_RESTORE_REFINE = 2, 1
 # disk took a minute of the phase), and restarted on the (1, 2) mesh left
 # after 2 of its 4 devices fail; (f) (a)'s cell with the reference's
 # act_spec and logits_spec, LM_SP_STEPS steps after the repeated first,
-# its losses within LM_MESH_LOSS_REL of phase 9's and (a)'s.
+# its losses within LM_MESH_LOSS_REL of phase 9's and (a)'s; (g) tensor
+# parallelism of the recurrent mixers by heads: zamba2-2.7b at full width,
+# its depth cut to MIXER_TP_LAYERS (one group of Mamba2 layers and one
+# application of the shared block), B = SSM_TRAIN_BATCH, S = TRAIN_SEQ, on
+# (a)'s (2, 2) mesh with (f)'s specs, step 1 twice from one state, then
+# MIXER_TP_TIMED timed steps and one profiled, its first MIXER_TP_REF
+# losses within LM_MESH_LOSS_REL of the same model's unsharded steps on the
+# card; xlstm-125m at full width cut to XLSTM_TRAIN_LAYERS on (1, 2), B =
+# MIXER_TP_XLSTM_BATCH at S = XLSTM_FINITE_SEQ (its gradient is NaN at 4096,
+# ROADMAP Queue 3), MIXER_TP_REF steps against the unsharded ones.
 LM_MESH_DEVICES, LM_MESH_MP = ("cuda:0",) * 4, 2
 LM_MESH_LOSS_REL = 2.0 ** -8
 LM_MESH_RESUME_STEPS = 2
 LM_RESTART_LAYERS, LM_RESTART_STEPS = 4, 2
 LM_SP_STEPS = 3
+MIXER_TP_LAYERS, MIXER_TP_TIMED, MIXER_TP_REF, MIXER_TP_XLSTM_BATCH = 6, 2, 2, 16
+# (g)'s prediction, written before its first run: the profiled step's
+# mamba.ssd device time summed over the four virtual devices over phase
+# 12's at MIXER_TP_LAYERS / SSM_TRAIN_LAYERS of its layers (each device
+# scans its data row's rows on H / M heads: the whole once, where the
+# gathered-whole layout scanned it twice)
+MIXER_TP_SSD_PREDICTED = (0.9, 1.2)
 PIPE_STAGES, PIPE_MICRO, PIPE_BATCH, PIPE_SEQ = 4, 8, 8, 2048
 # Phase 16: the cell grid and serving on a mesh.  (a) phase 6's requests
 # (qwen3-1.7b, bf16, 8 x 2048 + 32) through mesh_prefill and
@@ -736,6 +765,7 @@ SERVE_RECORD: dict = {}  # phase 6's prompts, tokens and every step's logits
 LM_MESH_PEAK: list = []  # phase 15(a)'s measured peak, GiB
 LM_SP_PEAK: list = []  # phase 15(f)'s measured peak, GiB
 TRAIN_HISTORY: dict = {}  # phase 9's (and every train_full_width run's) logged steps
+TRAIN_PROFILE: dict = {}  # every train_full_width run's profiled step: (layers, ms by category)
 
 # Where a train step's device time goes (phase 9c's profile): kernels by
 # name, the optimizer by its record_function range.
@@ -2473,6 +2503,7 @@ def train_full_width(card: str, cfg, batch: int, finite_grads: bool = True) -> i
     ms, count, busy, top = device_time_by_category(one_step, TRAIN_CATEGORIES, ranges,
                                                    other="elementwise/copies")
     host_ms = (time.perf_counter() - t0) * 1e3
+    TRAIN_PROFILE[cfg.name] = (cfg.n_layers, ms)
     parts = ", ".join(f"{c} {ms[c]} ms ({100 * ms[c] / busy:.1f}%, x{count[c]})" for c in ms)
     print(f"[train] profile of one step (under the profiler, host {host_ms} ms with its "
           f"overhead): device busy {busy} ms: {parts} ({card})")
@@ -4332,40 +4363,17 @@ def lm_mesh_seq_parallel(card: str, ref_a: list) -> dict:
     L, n = cfg.n_layers, mesh.size
     want = {"flash_attention": (n * 2 * L, 0), "flash_attention_bwd": (n * L, 0)}
     launches = {k: 0 for k in want}
+    ranges = {"all-gathers and their reduce-scatters": "collective.all_gather",
+              "reduce-scatters and their all-gathers": "collective.reduce_scatter",
+              "all-reduces": "collective.all_reduce", "replica sums": "train.reduce_replicas",
+              "AdamW": "train.optimizer"}
 
     def run(state, i, profile=False):
-        batch = mesh_batch(cfg, shape, i)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_all_counts()
-        out = []
-
-        def one():
-            out.append(step_fn(state, batch))
-            torch.cuda.synchronize()
-
-        ts = time.perf_counter()
-        if profile:
-            prof = device_time_by_category(one, TRAIN_CATEGORIES, {
-                "all-gathers and their reduce-scatters": "collective.all_gather",
-                "reduce-scatters and their all-gathers": "collective.reduce_scatter",
-                "all-reduces": "collective.all_reduce", "replica sums": "train.reduce_replicas",
-                "AdamW": "train.optimizer"}, other="elementwise/copies")
-        else:
-            one()
-            prof = None
-        step_s = time.perf_counter() - ts
-        counts = all_counts()
-        got = {k: counts[k] for k in want}
-        routes = (flash_ops.route_launches["wgmma"], flash_ops.bwd_route_launches["wgmma"])
-        if got != want or routes != (n * 2 * L, n * L):
-            raise SystemExit(f"15(f) step {i + 1}: {got}, wgmma routes {routes}; expected {want}")
+        got = counted_step(step_fn, state, mesh_batch(cfg, shape, i), want,
+                           f"15(f) step {i + 1}", ranges if profile else None)
         for k in want:
-            launches[k] += got[k][0]
-        new, m = out[0]
-        state.params, state.opt_state, state.step = new.params, new.opt_state, new.step
-        return float(m["loss"]), float(m["grad_norm"]), step_s, \
-            torch.cuda.max_memory_allocated() / 2**30, prof
+            launches[k] += got[5][k]
+        return got[:5]
 
     state = train_state_init(torch.Generator(device="cuda").manual_seed(SEED), cfg, mesh=mesh)
     twin = clone_state(state)
@@ -4411,6 +4419,190 @@ def lm_mesh_seq_parallel(card: str, ref_a: list) -> dict:
     return launches
 
 
+def counted_step(step_fn, state, batch, want: dict, tag: str, ranges=None) -> tuple:
+    """One step of ``step_fn`` on ``state`` (updated in place), fenced, with
+    every count zeroed just before and read just after: the flash launches
+    must be ``want`` ((launches, plain calls) by kernel), all on the wgmma
+    routes; with ``ranges`` under the profiler (device time by category and
+    by those ``record_function`` ranges).  Returns (loss, grad norm, step
+    s, peak GiB, the profile or None, the launches by kernel)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    out = []
+
+    def one():
+        out.append(step_fn(state, batch))
+        torch.cuda.synchronize()
+
+    ts = time.perf_counter()
+    prof = None
+    if ranges:
+        prof = device_time_by_category(one, TRAIN_CATEGORIES, ranges, other="elementwise/copies")
+    else:
+        one()
+    step_s = time.perf_counter() - ts
+    counts = all_counts()
+    got = {k: counts[k] for k in want}
+    routes = (flash_ops.route_launches["wgmma"], flash_ops.bwd_route_launches["wgmma"])
+    if got != want or routes != (want["flash_attention"][0], want["flash_attention_bwd"][0]):
+        raise SystemExit(f"{tag}: {got}, wgmma routes {routes}; expected {want} on wgmma")
+    new, m = out[0]
+    state.params, state.opt_state, state.step = new.params, new.opt_state, new.step
+    return (float(m["loss"]), float(m["grad_norm"]), step_s,
+            torch.cuda.max_memory_allocated() / 2**30, prof, {k: got[k][0] for k in want})
+
+
+@contextlib.contextmanager
+def tp_mixer_calls():
+    """The model-axis size of every recurrent mixer that ran tensor parallel
+    by heads inside the block (``transformer._mixer_tp_views``' calls)."""
+    seen, inner = [], transformer_module._mixer_tp_views
+
+    def counting(p, mesh, ranges):
+        seen.append(mesh.shape["model"])
+        return inner(p, mesh, ranges)
+
+    transformer_module._mixer_tp_views = counting
+    try:
+        yield seen
+    finally:
+        transformer_module._mixer_tp_views = inner
+
+
+def mixer_tp_against_unsharded(tag: str, cfg, shape, mesh, specs, card: str) -> dict:
+    """15(g)'s runs of ``cfg`` on ``mesh`` (with ``specs``): step 1 twice
+    from one state (bitwise), then MIXER_TP_TIMED timed steps (zamba2) or
+    MIXER_TP_REF - 1 more (xLSTM) and, for zamba2, one profiled, each
+    counted; then MIXER_TP_REF unsharded steps of the same model from the
+    same seed, its losses the reference.  Returns the launches over the
+    counted mesh steps, by kernel."""
+    opt = AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=max(TRAIN_STEPS // 20, 1))
+    n_attn, n = attention_layers(cfg), mesh.size
+    mamba = cfg.block_pattern == "zamba2"
+    want = {"flash_attention": (n * 2 * n_attn, 0), "flash_attention_bwd": (n * n_attn, 0)}
+    launches = {k: 0 for k in want}
+    step_fn = make_train_step(cfg, opt, mesh=mesh, **specs)
+    batches = [mesh_batch(cfg, shape, i) for i in range(MIXER_TP_TIMED + 2)]
+
+    def run(state, i, ranges=None):
+        got = counted_step(step_fn, state, batches[i], want, f"15(g) {tag} step {i + 1}", ranges)
+        for k in want:
+            launches[k] += got[5][k]
+        return got[:5]
+
+    state = train_state_init(torch.Generator(device="cuda").manual_seed(SEED), cfg, mesh=mesh)
+    twin = clone_state(state)
+    with tp_mixer_calls() as calls:
+        first = [run(st, 0) for st in (state, twin)]
+    same = first[0][:2] == first[1][:2] and all(
+        torch.equal(a, b) for a, b in zip(state_blocks(state), state_blocks(twin)))
+    del twin
+    gc.collect()
+    torch.cuda.empty_cache()
+    M = mesh.shape["model"]
+    print(f"[mixer tp] ({tag}) {cfg.name} {cfg.dtype} L={cfg.n_layers} B={shape.global_batch} "
+          f"S={shape.seq_len} on {mesh.shape}{f' with {specs}' if specs else ''}: step 1 twice "
+          f"from one state: loss {first[0][0]!r}; loss, parameters and moments "
+          f"{'bitwise equal' if same else 'DIFFER'}; step s {first[0][2]}, {first[1][2]}; the "
+          f"mixers ran tensor parallel {len(calls)} times over both, on model axes {set(calls)} "
+          f"({card})")
+    if not same or not calls or set(calls) != {M}:
+        raise SystemExit(f"15(g) {tag}: step 1 not bitwise repeatable ({same}) or the mixers "
+                         f"did not run tensor parallel ({calls})")
+    more = MIXER_TP_TIMED if mamba else MIXER_TP_REF - 1
+    hist = [first[0]] + [run(state, i) for i in range(1, 1 + more)]
+    prof = None
+    if mamba:
+        ranges = {"Mamba2 SSD": "mamba.ssd", "Mamba2 conv": "mamba.conv",
+                  "all-gathers and their reduce-scatters": "collective.all_gather",
+                  "reduce-scatters and their all-gathers": "collective.reduce_scatter",
+                  "all-reduces": "collective.all_reduce",
+                  "replica sums": "train.reduce_replicas", "AdamW": "train.optimizer"}
+        prof = run(state, len(hist), ranges)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ustate = train_state_init(torch.Generator(device="cuda").manual_seed(SEED), cfg)
+    ustep = make_train_step(cfg, opt)
+    uwant = {k: (v[0] // n, 0) for k, v in want.items()}
+    ref = [counted_step(ustep, ustate, {k: v.cuda() for k, v in batches[i].items()}, uwant,
+                        f"15(g) {tag} unsharded step {i + 1}")[:4] for i in range(MIXER_TP_REF)]
+    del ustate
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = [h[0] for h in hist]
+    rel = [abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(hist, ref)]
+    timed = [h[2] for h in hist[1:]]
+    step_s = statistics.median(timed)
+    print(f"[mixer tp] ({tag}) losses {losses}, the unsharded steps' {[r[0] for r in ref]} (rel "
+          f"diff {rel}, limit {LM_MESH_LOSS_REL}); grad norms {[h[1] for h in hist]} (unsharded "
+          f"{[r[1] for r in ref]}); steps 2-{len(hist)}: step s {timed}, median {step_s} s, "
+          f"{shape.global_batch * shape.seq_len / step_s} tokens/s; unsharded step s {[r[2] for r in ref]}; peak of the card "
+          f"{max(h[3] for h in hist)} GiB on the mesh ({n} virtual devices), "
+          f"{max(r[3] for r in ref)} GiB unsharded ({card})")
+    if max(rel) > LM_MESH_LOSS_REL or not all(np.isfinite(h[0]) and np.isfinite(h[1])
+                                              for h in hist + ref):
+        raise SystemExit(f"15(g) {tag}: losses off the unsharded steps' or not finite: {rel}, "
+                         f"{hist}, {ref}")
+    if prof is not None:
+        loss, _, s_prof, _, (ms, count, busy, _) = prof
+        coll = sum(ms[c] for c in ms if "gather" in c or "scatter" in c or "reduces" in c)
+        parts = ", ".join(f"{c} {ms[c]} ms ({100 * ms[c] / busy:.1f}%, x{count[c]})"
+                          for c in ms)
+        print(f"[mixer tp] ({tag}) profile of step {len(hist) + 1} (loss {loss!r}, {s_prof} s "
+              f"under the profiler): device busy {busy} ms; the collective.* ranges {coll} ms "
+              f"({100 * coll / busy:.2f}%); {parts} ({card})")
+        layers12, ms12 = TRAIN_PROFILE[SSM_ARCH]
+        share = ms12["Mamba2 SSD"] * cfg.n_layers / layers12
+        lo, hi = MIXER_TP_SSD_PREDICTED
+        print(f"[mixer tp] ({tag}) mamba.ssd device time summed over the {n} devices "
+              f"{ms['Mamba2 SSD']} ms against phase 12's {ms12['Mamba2 SSD']} ms at {layers12} "
+              f"layers x {cfg.n_layers}/{layers12} = {share} ms: {ms['Mamba2 SSD'] / share}x "
+              f"(predicted {lo}-{hi}x; the gathered-whole layout ~2x); mamba.conv "
+              f"{ms['Mamba2 conv']} ms against phase 12's "
+              f"{ms12['Mamba2 conv'] * cfg.n_layers / layers12} ms at the same share ({card})")
+    return launches
+
+
+def lm_mesh_mixer_tp(card: str) -> dict:
+    """Phase 15(g): the Mamba2, mLSTM and sLSTM mixers tensor parallel by
+    heads in the mesh train step (``[mixer tp]`` lines): zamba2-2.7b at
+    full width cut to MIXER_TP_LAYERS on (a)'s (2, 2) mesh with (f)'s
+    specs, xlstm-125m at full width cut to XLSTM_TRAIN_LAYERS on (1, 2),
+    each against its unsharded steps (``mixer_tp_against_unsharded``).
+    Returns (a)'s flash launches by JSON entry (the D = 80 wgmma kernels)."""
+    t0 = time.perf_counter()
+    full = get_config(SSM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MIXER_TP_LAYERS)
+    mesh = make_local_mesh(LM_MESH_MP, devices=LM_MESH_DEVICES)
+    print(f"[mixer tp] (a) {cfg.name} at {cfg.n_layers} of {full.n_layers} layers (one group "
+          f"of {cfg.shared_attn_every} Mamba2 layers, one application of the shared block), "
+          f"{cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim // LM_MESH_MP} of "
+          f"{cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim} Mamba2 heads a model device "
+          f"({card})")
+    shape = ShapeConfig(f"train_4k, global batch 256 cut to {SSM_TRAIN_BATCH}", "train",
+                        TRAIN_SEQ, SSM_TRAIN_BATCH)
+    specs = {"act_spec": act_pspec(mesh.axis_names),
+             "logits_spec": P(dp_axes(mesh), None, "model")}
+    got = mixer_tp_against_unsharded("a", cfg, shape, mesh, specs, card)
+    t1 = time.perf_counter()
+    xfull = get_config(XLSTM_ARCH)
+    xcfg = dataclasses.replace(xfull, n_layers=XLSTM_TRAIN_LAYERS, slstm_indices=tuple(
+        i for i in xfull.slstm_indices if i < XLSTM_TRAIN_LAYERS))
+    xmesh = make_local_mesh(LM_MESH_MP, devices=LM_MESH_DEVICES[:LM_MESH_MP])
+    print(f"[mixer tp] (b) {xcfg.name} at {xcfg.n_layers} of {xfull.n_layers} layers (sLSTM at "
+          f"{xcfg.slstm_indices}), {xcfg.n_heads // LM_MESH_MP} of {xcfg.n_heads} heads a model "
+          f"device, S = {XLSTM_FINITE_SEQ} ({card})")
+    xshape = ShapeConfig(f"S = {XLSTM_FINITE_SEQ}", "train", XLSTM_FINITE_SEQ,
+                         MIXER_TP_XLSTM_BATCH)
+    mixer_tp_against_unsharded("b", xcfg, xshape, xmesh, {}, card)
+    print(f"[mixer tp] wall (a) {t1 - t0} s, (b) {time.perf_counter() - t1} s ({card})")
+    return {"flash_attention_wgmma_d80": got["flash_attention"],
+            "flash_attention_bwd_wgmma_d80": got["flash_attention_bwd"]}
+
+
 def lm_mesh_bad_card() -> None:
     """Phase 15(e): a mesh naming one more card than the host has raises,
     naming the host's count."""
@@ -4425,8 +4617,9 @@ def lm_mesh_bad_card() -> None:
     raise SystemExit(f"a mesh naming cuda:{n} did not raise")
 
 
-def lm_mesh_phase(card: str) -> dict:
-    """Phase 15; returns (a)'s and (f)'s flash launches over their runs."""
+def lm_mesh_phase(card: str) -> tuple[dict, dict]:
+    """Phase 15; returns (a)'s and (f)'s flash launches over their runs,
+    and (g)'s by JSON entry."""
     t_phase = time.perf_counter()
     launches, hist_a = lm_mesh_train(card)
     gc.collect()
@@ -4439,8 +4632,13 @@ def lm_mesh_phase(card: str) -> dict:
     lm_mesh_moe(card)
     lm_mesh_pipeline(card)
     lm_mesh_bad_card()
+    t0 = time.perf_counter()
+    tp_launches = lm_mesh_mixer_tp(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[wall] phase 15 (g): {time.perf_counter() - t0} s")
     print(f"[lm mesh] phase wall {time.perf_counter() - t_phase} s ({card})")
-    return launches
+    return launches, tp_launches
 
 
 def mesh_serve_check(card: str) -> int:
@@ -5012,7 +5210,7 @@ def main() -> int:
     wall("14 (multi-device solver)")
 
     # ---- 15. the LM side on a (data, model) mesh of virtual devices
-    mesh_launches = lm_mesh_phase(card)
+    mesh_launches, tp_launches = lm_mesh_phase(card)
     wall("15 (multi-device LM)")
 
     # ---- 16. serving on a mesh, the cells measured, the dry-run on meta meshes
@@ -5085,6 +5283,9 @@ def main() -> int:
                               mesh_launches["flash_attention_bwd"]}.get(entry["name"], 0)
     print(f"[lm mesh] phase 15 (a)'s and (f)'s launches added to the kernels line: "
           f"{mesh_launches}")
+    for entry in kernels:
+        entry["launches"] += tp_launches.get(entry["name"], 0)
+    print(f"[mixer tp] phase 15 (g)'s launches added to the kernels line: {tp_launches}")
     for entry in kernels:
         entry["launches"] += grid_launches.get(entry["name"], 0)
     print(f"[cells] phase 16's launches added to the kernels line: {grid_launches}")

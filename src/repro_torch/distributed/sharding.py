@@ -58,8 +58,11 @@ a device's block out of what it computed); see
 between blocks is each device's block of positions (:func:`mesh_block`,
 the blocks :func:`place` makes), all-gathered over ``model`` into a block
 (:func:`mesh_all_gather`) and reduce-scattered back out of it
-(:func:`mesh_reduce_scatter`).  The recurrent mixers are gathered whole;
-their tensor parallelism is ROADMAP Queue 1 item 10c's second part.
+(:func:`mesh_reduce_scatter`).  The recurrent mixers run tensor parallel
+by heads in the train step: :func:`head_column_views` fetches each device
+only the columns its heads read of a projection whose layout's column
+blocks are not head-aligned, and :func:`mesh_rmsnorm` norms over channels
+split across ``model``; serving on a mesh still gathers them whole.
 """
 
 from __future__ import annotations
@@ -106,12 +109,14 @@ __all__ = [
     "lm_layout_mismatches",
     "local_views",
     "local_tree_views",
+    "head_column_views",
     "reduce_replicas",
     "mesh_all_reduce",
     "mesh_all_gather",
     "mesh_all_to_all",
     "mesh_reduce_scatter",
     "mesh_block",
+    "mesh_rmsnorm",
     "sharded_zeros",
     "own_part",
     "dp_axes",
@@ -483,9 +488,11 @@ def act_pspec(mesh_axes: tuple[str, ...]) -> P:
     """Between-blocks residual layout: batch over dp, sequence over
     'model' (Megatron-SP).  ``mesh_loss_fn(act_spec=)`` computes it: each
     device keeps its block of positions between blocks, a tensor-parallel
-    block all-gathers its normed input and reduce-scatters its output, any
-    other block (the recurrent mixers: ROADMAP item 10c's second part) is
-    gathered whole and keeps its block."""
+    block (attention, MLP, a Mamba2 mixer by heads) all-gathers its normed
+    input and reduce-scatters its output, any other block (the MoE, a
+    mixer whose heads do not split) runs on the gathered sequence and keeps
+    its block; the xLSTM gathers the sequence once, before its first
+    block."""
     dp = tuple(a for a in mesh_axes if a in ("pod", "data"))
     return P(dp, "model", None)
 
@@ -873,6 +880,63 @@ def local_views(sh: Sharded, keep: Sequence[str] = (), at: Sequence[int] | None 
     return [views[k] for k in at]
 
 
+def _merged(ranges) -> tuple[tuple[int, int], ...]:
+    """``ranges`` in their order, each range that starts where the one
+    before it stops joined to it."""
+    out: list[list[int]] = []
+    for a, b in ranges:
+        if out and out[-1][1] == a:
+            out[-1][1] = b
+        else:
+            out.append([a, b])
+    return tuple((a, b) for a, b in out)
+
+
+def head_column_views(sh: Sharded, ranges: Sequence, dim: int = -1,
+                      at: Sequence[int] | None = None) -> list[torch.Tensor]:
+    """What each device of ``at`` (default: every mesh device) computes with
+    under tensor parallelism by heads: the leaf gathered over every axis of
+    its spec, restricted along ``dim`` to device k's ``ranges[k]``
+    (half-open (start, stop) pairs, their pieces in that order).  Only
+    those ranges move: each member of the leaf's gather group gives the
+    narrowed pieces of its block that fall inside them, through one
+    differentiable :func:`~repro_torch.distributed.collectives.gather_blocks`
+    for each distinct request (the devices that ask the same ranges of the
+    same group share it), whose backward sums the requesters' gradients in
+    order and returns each piece's region to its block.  A request that
+    the device's own block holds (a replicated leaf, or its own row or
+    column block) is a view of it, or the concatenation of its pieces: no
+    collective."""
+    mesh, parts = sh.mesh, sh.parts()
+    dim %= sh.ndim
+    at = list(range(mesh.size)) if at is None else list(at)
+    axes = [a for part in parts for a in part]
+    jobs: dict = {}
+    for k in at:
+        group = tuple(mesh.group(k, axes)) if axes else (k,)
+        jobs.setdefault((group, _merged(ranges[k])), []).append(k)
+    views: dict[int, torch.Tensor] = {}
+    for (group, want), dests in jobs.items():
+        owners, pieces, offsets, pos = set(), [], [], 0
+        for a, b in want:
+            for g in group:
+                offs, sizes = _region(mesh, g, parts, sh.shape)
+                lo, hi = max(a, offs[dim]), min(b, offs[dim] + sizes[dim])
+                if lo < hi:
+                    owners.add(g)
+                    pieces.append(sh.blocks[g].narrow(dim, lo - offs[dim], hi - lo))
+                    offsets.append([pos + lo - a if i == dim else o for i, o in enumerate(offs)])
+            pos += b - a
+        if len(dests) == 1 and owners == {dests[0]}:
+            views[dests[0]] = pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim)
+            continue
+        shape = list(sh.shape)
+        shape[dim] = pos
+        views.update(zip(dests, gather_blocks(pieces, offsets, shape,
+                                              [mesh.flat[d] for d in dests])))
+    return [views[k] for k in at]
+
+
 @torch.no_grad()
 def reduce_replicas(sh: Sharded, grads: Sequence[torch.Tensor | None]) -> list[torch.Tensor]:
     """Per-device gradients of ``sh``'s blocks (None: zeros) summed over
@@ -931,6 +995,21 @@ def mesh_reduce_scatter(xs: Sequence[torch.Tensor], mesh: LMMesh, dim: int,
     member i (:func:`~repro_torch.distributed.collectives.reduce_scatter`,
     whose backward is the all-gather)."""
     return _over_groups(xs, mesh, axes, lambda group: reduce_scatter(group, dim))
+
+
+def mesh_rmsnorm(xs: Sequence[torch.Tensor], scales: Sequence[torch.Tensor], mesh: LMMesh,
+                 eps: float, axes: Sequence[str] = ("model",)) -> list[torch.Tensor]:
+    """``models.common.rmsnorm`` of the concatenation over ``axes`` (in
+    group order) of the devices' equal blocks of channels ``xs`` (one a
+    mesh device; the last dimension), each device's block scaled by its
+    ``scales`` block: each device sums the squares of its channels in
+    float32, the sums are all-reduced over ``axes`` in member order, and
+    their mean is over the whole width.  Returns each device's block."""
+    xf = [x.float() for x in xs]
+    sums = mesh_all_reduce([(f * f).sum(dim=-1, keepdim=True) for f in xf], mesh, axes)
+    width = xs[0].shape[-1] * math.prod(mesh.shape[a] for a in axes)
+    return [(f * torch.rsqrt(s / width + eps) * sc.float()).to(x.dtype)
+            for x, f, s, sc in zip(xs, xf, sums, scales)]
 
 
 def mesh_block(x: torch.Tensor, mesh: LMMesh, k: int, dim: int,

@@ -25,8 +25,11 @@ A train cell passes the reference's ``act_spec`` and ``logits_spec`` to
 its step: ``act_pspec`` (sequence parallelism over ``model``) and the
 vocab-parallel CE, but batch-only layouts for the xLSTM and the pure-DP
 layout of a small model; ``Cell.meta`` records both, and ``act_layout``
-says what each device holds.  The recurrent mixers are gathered whole
-(their tensor parallelism is ROADMAP item 10c's second part).
+says what each device holds.  In the tensor-parallel layout the Mamba2
+(zamba2) and xLSTM mixers run tensor parallel by heads, as the attention
+and the MLP do; the pure-DP layout (xlstm-125m, under
+``SMALL_MODEL_PARAMS``) gathers every weight whole.  Serving cells gather
+the mixers whole.
 """
 
 from __future__ import annotations
@@ -179,13 +182,26 @@ def _train_cell(arch: str, cfg, shape: ShapeConfig, mesh, seed) -> Cell:
         layout = ("each device its data row's (rows, S / M, d) block of positions between "
                   "blocks (Megatron-SP over 'model')")
     lspec = P(dp, None, None if pure_dp else "model")
+    meta = {"kind": "train", "tokens": shape.seq_len * shape.global_batch, "pure_dp": pure_dp,
+            "act_spec": aspec, "logits_spec": lspec, "act_layout": layout}
+    if cfg.block_pattern != "attn":
+        meta["mixers"] = _mixer_layout(cfg, mesh, pure_dp)
     step = make_train_step(cfg, AdamWConfig(), remat=True, mesh=mesh, act_spec=aspec,
                            logits_spec=lspec)
     return Cell(arch=arch, shape=shape.name, fn=step,
-                args=(state, _batch(cfg, shape, bspec, mesh, seed)), mesh=mesh,
-                meta={"kind": "train", "tokens": shape.seq_len * shape.global_batch,
-                      "pure_dp": pure_dp, "act_spec": aspec, "logits_spec": lspec,
-                      "act_layout": layout})
+                args=(state, _batch(cfg, shape, bspec, mesh, seed)), mesh=mesh, meta=meta)
+
+
+def _mixer_layout(cfg, mesh, pure_dp: bool) -> str:
+    """What a train cell's recurrent mixers compute on (the rule of
+    ``models.transformer._mixer_tp``)."""
+    from repro_torch.models.transformer import mixer_heads
+
+    M, H = mesh.shape.get("model", 1), mixer_heads(cfg)
+    if pure_dp or M == 1 or H % M:
+        why = "pure DP" if pure_dp else f"{H} heads on a model axis of {M}"
+        return f"gathered whole on each device ({why})"
+    return f"tensor parallel by heads over 'model': {H // M} of {H} heads a device"
 
 
 def _lm_params(cfg, mesh, seed):

@@ -44,6 +44,8 @@ __all__ = [
     "mamba2_init",
     "mamba2_shapes",
     "mamba2_apply",
+    "mamba2_gated",
+    "tp_ranges",
     "mamba2_decode",
     "init_mamba2_state",
     "chunk_len",
@@ -98,8 +100,35 @@ def mamba2_init(generator: torch.Generator, cfg, dtype) -> dict:
         for name in shapes}
 
 
+def _local_dims(params, cfg):
+    """(d_in, H, N) of the heads that ``params`` holds: the layer's, or a
+    model device's share under tensor parallelism (``a_log`` has one entry
+    a head)."""
+    H = params["a_log"].shape[0]
+    return H * cfg.ssm_head_dim, H, cfg.ssm_state
+
+
+def tp_ranges(cfg, j: int, M: int) -> dict:
+    """What model device ``j`` of ``M`` reads of each parameter of a layer
+    under tensor parallelism by heads (heads [j H/M, (j+1) H/M)), as
+    ``{name: (dim, [(start, stop), ...])}``: of ``in_proj``'s [z | x | B |
+    C | dt] columns its heads' z, x and dt and all of B and C (every head
+    reads them); the conv's channels of its x and of B and C; its heads of
+    ``a_log``, ``d_skip``, ``dt_bias``; its channels of ``norm`` and its
+    rows of ``out_proj``."""
+    d_in, H, N = _dims(cfg)
+    h0, h1 = j * H // M, (j + 1) * H // M
+    c0, c1 = h0 * cfg.ssm_head_dim, h1 * cfg.ssm_head_dim
+    dt = 2 * d_in + 2 * N
+    conv = [(c0, c1), (d_in, d_in + 2 * N)]
+    heads = (0, [(h0, h1)])
+    return {"in_proj": (1, [(c0, c1), (d_in + c0, d_in + c1), (2 * d_in, dt), (dt + h0, dt + h1)]),
+            "conv_w": (1, conv), "conv_b": (0, conv), "a_log": heads, "d_skip": heads,
+            "dt_bias": heads, "norm": (0, [(c0, c1)]), "out_proj": (0, [(c0, c1)])}
+
+
 def _split_proj(params, x, cfg):
-    d_in, _, N = _dims(cfg)
+    d_in, _, N = _local_dims(params, cfg)
     zxbcdt = x @ params["in_proj"]
     return (zxbcdt[..., :d_in], zxbcdt[..., d_in:2 * d_in + 2 * N],
             zxbcdt[..., 2 * d_in + 2 * N:])
@@ -158,12 +187,13 @@ def _ssd_chunked(xh, dt, a_log, bmat, cmat, chunk):
     return y.permute(0, 1, 3, 2, 4).reshape(B, L, H, P), s
 
 
-def mamba2_apply(params, x, cfg):
-    """Full-sequence Mamba2 mixer. x (B, L, d_model) -> (y, state): the
-    final ssm state (B, H, N, P) f32 and the conv tail (B, W - 1, C), the
-    last W - 1 pre-conv inputs, zero-padded in front when L < W - 1."""
-    d_in, H, N = _dims(cfg)
-    P, W = cfg.ssm_head_dim, cfg.conv_width
+def mamba2_gated(params, x, cfg):
+    """The mixer up to its gated norm, for the heads that ``params`` holds
+    (the layer's, or a model device's share, :func:`tp_ranges`). x (B, L,
+    d_model) -> (y * silu(z) (B, L, d_in) in x's dtype, the final ssm state
+    (B, H, N, P) f32, the pre-conv inputs (B, L, C))."""
+    d_in, H, N = _local_dims(params, cfg)
+    P = cfg.ssm_head_dim
     B, L, _ = x.shape
     z, xbc_raw, dt_raw = _split_proj(params, x, cfg)
     with record_function("mamba.conv"):
@@ -175,7 +205,16 @@ def mamba2_apply(params, x, cfg):
                                 xbc[..., d_in + N:].float(), cfg.chunk_size)
     y = y + params["d_skip"][:, None] * xs
     y = y.reshape(B, L, d_in).to(x.dtype)
-    out = rmsnorm(y * F.silu(z), params["norm"], cfg.norm_eps) @ params["out_proj"]
+    return y * F.silu(z), state, xbc_raw
+
+
+def mamba2_apply(params, x, cfg):
+    """Full-sequence Mamba2 mixer. x (B, L, d_model) -> (y, state): the
+    final ssm state (B, H, N, P) f32 and the conv tail (B, W - 1, C), the
+    last W - 1 pre-conv inputs, zero-padded in front when L < W - 1."""
+    W, L = cfg.conv_width, x.shape[1]
+    gated, state, xbc_raw = mamba2_gated(params, x, cfg)
+    out = rmsnorm(gated, params["norm"], cfg.norm_eps) @ params["out_proj"]
     tail = xbc_raw[:, max(L - (W - 1), 0):]
     conv_state = F.pad(tail, (0, 0, W - 1 - tail.shape[1], 0))
     return out, {"ssm": state, "conv": conv_state}

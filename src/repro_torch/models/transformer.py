@@ -44,10 +44,11 @@ program a mesh device, over parameters laid out by ``param_pspecs``
 an attention block runs tensor parallel over ``model`` where the heads
 (:func:`~repro_torch.models.attention.mesh_attention`) and ``d_ff`` divide
 it, the MoE expert or capacity parallel
-(:func:`~repro_torch.models.moe.moe_mesh_apply`); the Mamba2 and xLSTM
-blocks are gathered whole (their tensor parallelism is ROADMAP Queue 1
-item 10c's second part).  Each block's gathers run inside its remat, so
-the recompute gathers again, as FSDP does.  Without specs the residual
+(:func:`~repro_torch.models.moe.moe_mesh_apply`); the Mamba2, mLSTM and
+sLSTM mixers tensor parallel by heads where their heads divide it and the
+layout splits their projections (:func:`_mesh_mamba_block`,
+:func:`_mesh_xlstm_block`), else gathered whole.  Each block's gathers run
+inside its remat, so the recompute gathers again, as FSDP does.  Without specs the residual
 stream is each device's data row's (rows, S, d), replicated over
 ``model``, and the CE runs on each data row's first model device (on every
 device when the batch is split over ``model`` too, the pure-DP layout).
@@ -66,9 +67,11 @@ layout: parameters by ``param_pspecs``, the decode state by
 ``decode_state_pspecs`` (batch rows over ``data``, a KV cache's positions
 over ``model``; see :func:`~repro_torch.models.attention.mesh_decode_attention`),
 each device computing its data row's rows; the Mamba2, zamba2 and xLSTM
-mixers gathered whole and their states gathered over ``model`` for use,
-each device keeping its block of the new state.  On a (1, 1) mesh they are
-:func:`prefill` and :func:`decode_step`, op for op.
+mixers gathered whole (not tensor parallel as in training: the conv's and
+the mLSTM's state layouts are not head-aligned) and their states gathered
+over ``model`` for use, each device keeping its block of the new state.
+On a (1, 1) mesh they are :func:`prefill` and :func:`decode_step`, op for
+op.
 
 Inputs are dicts: ``tokens`` (B, S) integer (codebooks: (B, S, n_cb)),
 ``labels`` shaped like the tokens with -1 masking a position, and for the
@@ -90,12 +93,14 @@ from repro_torch.distributed.sharding import (
     Sharded,
     decode_state_pspecs,
     dp_axes,
+    head_column_views,
     local_tree_views,
     local_views,
     mesh_all_gather,
     mesh_all_reduce,
     mesh_block,
     mesh_reduce_scatter,
+    mesh_rmsnorm,
     own_part,
     shard_of,
     sharded_zeros,
@@ -126,6 +131,7 @@ __all__ = [
     "forward",
     "loss_fn",
     "mesh_loss_fn",
+    "mixer_heads",
     "prefill",
     "decode_step",
     "mesh_prefill",
@@ -688,17 +694,71 @@ def _mesh_attn_block(p, xs, cfg, mesh, positions, sp: bool = False):
     return xs, aux
 
 
+# The weights that tensor parallelism by heads needs split over ``model``,
+# a mixer's (``param_pspecs`` drops an axis that does not divide).
+_TP_SPLIT = {"mamba2": ("in_proj", "out_proj"), "mlstm": ("w_up", "wq", "wk", "wv", "w_down"),
+             "slstm": ("w_in", "w_out")}
+
+
+def mixer_heads(cfg) -> int:
+    """The heads of a recurrent mixer of ``cfg``, which tensor parallelism
+    splits: the Mamba2's d_inner / ssm_head_dim, the xLSTM's n_heads."""
+    if cfg.block_pattern == "xlstm":
+        return cfg.n_heads
+    return cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+
+
+def _mixer_tp(p: dict, kind: str, cfg, mesh) -> bool:
+    """Whether a recurrent mixer runs tensor parallel over ``model`` by
+    heads: a model axis of M > 1 that divides its heads, over which the
+    layout splits its projections (``_TP_SPLIT``; ``tp=False`` layouts do
+    not)."""
+    M = mesh.shape.get("model", 1)
+    return M > 1 and mixer_heads(cfg) % M == 0 and all(
+        any("model" in axes for axes in p[w].parts()) for w in _TP_SPLIT[kind])
+
+
+def _mixer_tp_views(p: dict, mesh, ranges) -> list[dict]:
+    """Each mesh device's parameters of a mixer under tensor parallelism by
+    heads: every leaf restricted to what its model device reads
+    (``ranges(j, M)``, a mixer's ``tp_ranges``), through
+    :func:`~repro_torch.distributed.sharding.head_column_views`."""
+    M = mesh.shape["model"]
+    table = [ranges(mesh.coords(k)["model"], M) for k in range(mesh.size)]
+    views = {name: head_column_views(sh, [t[name][1] for t in table], table[0][name][0])
+             for name, sh in p.items()}
+    return [{name: v[k] for name, v in views.items()} for k in range(mesh.size)]
+
+
 def _mesh_mamba_block(p, xs, cfg, mesh, sp: bool):
-    """A Mamba2 block gathered whole on each device; ``sp``: xs are blocks
-    of positions, all-gathered along the sequence, and each device keeps
-    its block of the output."""
-    views = local_tree_views(p)
-    if not sp:
-        return [_mamba_block_x(v, x, cfg) for v, x in zip(views, xs)]
-    full = mesh_all_gather(xs, mesh, 1)
-    return [x + mesh_block(_ssm.mamba2_apply(v["mixer"], rmsnorm(f, v["norm"], cfg.norm_eps),
-                                             cfg)[0], mesh, kd, 1)
-            for kd, (v, x, f) in enumerate(zip(views, xs, full))]
+    """A Mamba2 block on ``mesh``.  Tensor parallel over ``model`` by heads
+    where :func:`_mixer_tp` allows: each device its heads' columns of
+    ``in_proj`` (and all of B and C), its share of the conv, the scan on
+    H / M heads, the gated norm over all of d_in through the summed
+    squares of each device's channels (:func:`mesh_rmsnorm`), its rows of
+    ``out_proj``; the partial outputs all-reduced, or with ``sp`` (xs
+    blocks of positions, the normed input all-gathered along the sequence)
+    reduce-scattered to each device's block.  Otherwise gathered whole on
+    each device (``sp``: xs all-gathered, each device keeping its block of
+    the output)."""
+    if not _mixer_tp(p["mixer"], "mamba2", cfg, mesh):
+        views = local_tree_views(p)
+        if not sp:
+            return [_mamba_block_x(v, x, cfg) for v, x in zip(views, xs)]
+        full = mesh_all_gather(xs, mesh, 1)
+        return [x + mesh_block(_ssm.mamba2_apply(v["mixer"],
+                                                 rmsnorm(f, v["norm"], cfg.norm_eps), cfg)[0],
+                               mesh, kd, 1)
+                for kd, (v, x, f) in enumerate(zip(views, xs, full))]
+    hn = [rmsnorm(x, n, cfg.norm_eps) for x, n in zip(xs, local_views(p["norm"]))]
+    if sp:
+        hn = mesh_all_gather(hn, mesh, 1)
+    views = _mixer_tp_views(p["mixer"], mesh, lambda j, M: _ssm.tp_ranges(cfg, j, M))
+    gated = [_ssm.mamba2_gated(v, h, cfg)[0] for v, h in zip(views, hn)]
+    normed = mesh_rmsnorm(gated, [v["norm"] for v in views], mesh, cfg.norm_eps)
+    ys = [g @ v["out_proj"] for g, v in zip(normed, views)]
+    ys = mesh_reduce_scatter(ys, mesh, 1) if sp else mesh_all_reduce(ys, mesh)
+    return [x + y for x, y in zip(xs, ys)]
 
 
 def _mesh_zamba_group(layers, xs, shared, cfg, mesh, positions, rematted: bool, sp: bool):
@@ -711,8 +771,32 @@ def _mesh_zamba_group(layers, xs, shared, cfg, mesh, positions, rematted: bool, 
     return _mesh_attn_block(shared, xs, cfg, mesh, positions, sp)[0]
 
 
-def _mesh_xlstm_block(p, xs, cfg, slstm: bool):
-    return [_xlstm_block_x(v, x, cfg, slstm) for v, x in zip(local_tree_views(p), xs)]
+def _mesh_xlstm_block(p, xs, cfg, mesh, slstm: bool):
+    """An sLSTM or mLSTM block on ``mesh`` (xs each device's whole
+    sequence).  Tensor parallel over ``model`` by heads where
+    :func:`_mixer_tp` allows: the sLSTM's recurrence on its heads' gate
+    columns of ``w_in`` and its heads of ``r`` and ``b``; the mLSTM's whole
+    xb (its columns of ``w_up``) and conv, then its heads' q, k, v, gates
+    and z; the norm over all channels through the summed squares of each
+    device's (:func:`mesh_rmsnorm`), its rows of ``w_out`` or ``w_down``,
+    the partial outputs all-reduced.  Otherwise gathered whole on each
+    device."""
+    mixer = p if slstm else p["mixer"]
+    if not _mixer_tp(mixer, "slstm" if slstm else "mlstm", cfg, mesh):
+        return [_xlstm_block_x(v, x, cfg, slstm) for v, x in zip(local_tree_views(p), xs)]
+    eps = cfg.norm_eps
+    if slstm:
+        views = _mixer_tp_views(p, mesh, lambda j, M: _xl.slstm_tp_ranges(cfg, j, M))
+        hs = [_xl.slstm_hidden(v, x, cfg)[0] for v, x in zip(views, xs)]
+        hs = mesh_rmsnorm(hs, [v["norm"] for v in views], mesh, eps)
+        ys = [h @ v["w_out"] for h, v in zip(hs, views)]
+    else:
+        hn = [rmsnorm(x, n, eps) for x, n in zip(xs, local_views(p["norm"]))]
+        views = _mixer_tp_views(p["mixer"], mesh, lambda j, M: _xl.mlstm_tp_ranges(cfg, j, M))
+        outs = [_xl.mlstm_hidden(v, h, cfg) for v, h in zip(views, hn)]
+        hs = mesh_rmsnorm([o[0] for o in outs], [v["norm"] for v in views], mesh, eps)
+        ys = [(h * F.silu(o[1])) @ v["w_down"] for h, o, v in zip(hs, outs, views)]
+    return [x + y for x, y in zip(xs, mesh_all_reduce(ys, mesh))]
 
 
 def _spans(mesh, S: int) -> list[tuple[int, int]]:
@@ -835,8 +919,9 @@ def mesh_loss_fn(params, batch, cfg, mesh, *, remat: bool = True, act_spec=None,
     batch: leaves laid out by ``batch_pspec`` (row blocks over data).
 
     Every device runs the stack on its data row's rows: the embedding
-    gathered whole, each block as :func:`_mesh_attn_block` (or a Mamba2,
-    zamba2 or xLSTM block gathered whole), each under remat as in
+    gathered whole, each block as :func:`_mesh_attn_block`,
+    :func:`_mesh_mamba_block` or :func:`_mesh_xlstm_block` (tensor parallel
+    where the heads split over ``model``), each under remat as in
     :func:`forward`.  The final norm, the head and the chunked CE run on
     each data row's first model device; the loss is the rows' CE sums over
     the rows' summed count of valid labels (a mean of the rows' means
@@ -846,10 +931,10 @@ def mesh_loss_fn(params, batch, cfg, mesh, *, remat: bool = True, act_spec=None,
     ``act_spec`` with ``model`` on the sequence (``act_pspec``: Megatron-SP)
     on a model axis of M > 1: each device embeds and keeps its S / M
     positions of its rows between blocks (S % M must be 0; the positions
-    of RoPE stay the whole sequence's); a tensor-parallel attention or MLP
-    all-gathers its normed input along the sequence and reduce-scatters its
-    partial outputs; any other block (an attention or MLP whose heads or
-    ``d_ff`` do not split, the MoE, a Mamba2 layer) runs on the gathered
+    of RoPE stay the whole sequence's); a tensor-parallel attention, MLP or
+    Mamba2 mixer all-gathers its normed input along the sequence and
+    reduce-scatters its partial outputs; any other block (one whose heads
+    or ``d_ff`` do not split, the MoE) runs on the gathered
     sequence, and each device keeps its positions; the xLSTM gathers the
     sequence once, before its first block, as the reference splits only
     its embedding.  ``logits_spec`` with ``model`` on the vocab, where the
@@ -886,7 +971,8 @@ def mesh_loss_fn(params, batch, cfg, mesh, *, remat: bool = True, act_spec=None,
             xs, spans = mesh_all_gather(xs, mesh, 1), None
         for i, p in enumerate(params["blocks"]):
             slstm = i in cfg.slstm_indices
-            xs = _remat_devices(rematted and not slstm, _mesh_xlstm_block, p, xs, cfg, slstm)
+            xs = _remat_devices(rematted and not slstm, _mesh_xlstm_block, p, xs, cfg, mesh,
+                                slstm)
     else:
         layers = _unstack(params["blocks"], cfg.n_layers)
         if cfg.block_pattern == "attn":

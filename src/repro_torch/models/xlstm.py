@@ -54,11 +54,15 @@ __all__ = [
     "mlstm_init",
     "mlstm_shapes",
     "mlstm_apply",
+    "mlstm_hidden",
+    "mlstm_tp_ranges",
     "mlstm_decode",
     "init_mlstm_state",
     "slstm_init",
     "slstm_shapes",
     "slstm_apply",
+    "slstm_hidden",
+    "slstm_tp_ranges",
     "slstm_decode",
     "init_slstm_state",
     "DRAWN",
@@ -120,8 +124,27 @@ def _scale(dh: int) -> float:
     return float(torch.reciprocal(torch.sqrt(torch.tensor(float(dh)))))
 
 
-def _mlstm_qkvg(params, x, cfg):
+def mlstm_tp_ranges(cfg, j: int, M: int) -> dict:
+    """What model device ``j`` of ``M`` reads of each parameter of an mLSTM
+    mixer under tensor parallelism by heads (heads [j H/M, (j+1) H/M)), as
+    ``{name: (dim, [(start, stop), ...])}``: of ``w_up``'s [xb | z]
+    columns all of xb (q and k come from the conv of all of it, v from all
+    of it) and its heads' z; the whole conv; its heads' columns of ``wq``,
+    ``wk``, ``wv``; its heads of ``w_gates``' and ``b_gates``' [li | lf];
+    its channels of ``norm`` and its rows of ``w_down``."""
     d_in, H, dh = _mdims(cfg)
+    h0, h1 = j * H // M, (j + 1) * H // M
+    c = [(h0 * dh, h1 * dh)]
+    gates = [(h0, h1), (H + h0, H + h1)]
+    return {"w_up": (1, [(0, d_in), (d_in + h0 * dh, d_in + h1 * dh)]),
+            "conv_w": (1, [(0, d_in)]), "conv_b": (0, [(0, d_in)]), "wq": (1, c),
+            "wk": (1, c), "wv": (1, c), "w_gates": (1, gates), "b_gates": (0, gates),
+            "norm": (0, c), "w_down": (0, c)}
+
+
+def _mlstm_qkvg(params, x, cfg):
+    d_in, _, dh = _mdims(cfg)
+    H = params["b_gates"].shape[0] // 2  # the heads params holds
     B, L, _ = x.shape
     up = x @ params["w_up"]
     xb, z = up[..., :d_in], up[..., d_in:]
@@ -191,18 +214,25 @@ def _mlstm_chunked(q, k, v, li, lf, chunk):
     return h.permute(0, 1, 3, 2, 4).reshape(B, L, H, dh), (C, n, m)
 
 
+def mlstm_hidden(params, x, cfg):
+    """The mixer before its norm, for the heads that ``params`` holds (the
+    layer's, or a model device's share, :func:`mlstm_tp_ranges`). x (B, L,
+    d_model) -> (h (B, L, H dh) in x's dtype, z (B, L, H dh), xb (B, L,
+    d_in), the final (C, n, m))."""
+    B, L, _ = x.shape
+    q, k, v, li, lf, z, xb = _mlstm_qkvg(params, x, cfg)
+    with record_function("xlstm.mlstm"):
+        h, state = _mlstm_chunked(q, k, v, li, lf, cfg.chunk_size)
+    return h.reshape(B, L, -1).to(x.dtype), z, xb, state
+
+
 def mlstm_apply(params, x, cfg):
     """Full-sequence mLSTM mixer. x (B, L, d_model) -> (y, state): the final
     C (B, H, dh, dh), n (B, H, dh), m (B, H), all f32, and the conv tail
     (B, W - 1, d_in), the last W - 1 pre-conv inputs, zero-padded in front
     when L < W - 1."""
-    d_in = _mdims(cfg)[0]
-    B, L, _ = x.shape
-    W = cfg.conv_width
-    q, k, v, li, lf, z, xb = _mlstm_qkvg(params, x, cfg)
-    with record_function("xlstm.mlstm"):
-        h, (C, n, m) = _mlstm_chunked(q, k, v, li, lf, cfg.chunk_size)
-    h = h.reshape(B, L, d_in).to(x.dtype)
+    L, W = x.shape[1], cfg.conv_width
+    h, z, xb, (C, n, m) = mlstm_hidden(params, x, cfg)
     out = (rmsnorm(h, params["norm"], cfg.norm_eps) * F.silu(z)) @ params["w_down"]
     tail = xb[:, max(L - (W - 1), 0):]
     return out, {"C": C, "n": n, "m": m, "conv": F.pad(tail, (0, 0, W - 1 - tail.shape[1], 0))}
@@ -288,11 +318,25 @@ def _slstm_cell(r2t, b, wx_t, carry):
     return c, n, h, m_new
 
 
-def _slstm_weights(params, cfg):
+def slstm_tp_ranges(cfg, j: int, M: int) -> dict:
+    """What model device ``j`` of ``M`` reads of each parameter of an sLSTM
+    block under tensor parallelism by heads (heads [j H/M, (j+1) H/M)), as
+    ``{name: (dim, [(start, stop), ...])}``: its heads' columns of each of
+    ``w_in``'s four gates [z | i | f | o], its heads of ``r`` and of ``b``,
+    its channels of ``norm`` and its rows of ``w_out``."""
+    d, H = cfg.d_model, cfg.n_heads
+    dh = d // H
+    h0, h1 = j * H // M, (j + 1) * H // M
+    c = [(h0 * dh, h1 * dh)]
+    return {"w_in": (1, [(g * d + h0 * dh, g * d + h1 * dh) for g in range(4)]),
+            "r": (1, [(h0, h1)]), "b": (1, c), "norm": (0, c), "w_out": (0, c)}
+
+
+def _slstm_weights(params):
     """``r`` as (H, dh, 4 dh) float32 (column g dh + d of head h's block is
-    r[g, h, d]) and ``b`` as (H, 1, 4 dh)."""
-    H = cfg.n_heads
-    dh = cfg.d_model // H
+    r[g, h, d]) and ``b`` as (H, 1, 4 dh), for the heads that ``params``
+    holds."""
+    _, H, dh, _ = params["r"].shape
     r2t = params["r"].float().permute(1, 3, 0, 2).reshape(H, dh, 4 * dh)
     return r2t, params["b"].reshape(4, H, dh).transpose(0, 1).reshape(H, 1, 4 * dh)
 
@@ -307,23 +351,32 @@ def _heads_first(wx, H: int):
     return wx.permute(order).reshape(*lead, H, B, -1)
 
 
-def slstm_apply(params, x, cfg):
-    """Full-sequence sLSTM block (its norm after the recurrence, no
-    pre-norm). x (B, L, d) -> (y, (c, n, h, m)), the final carry.  The
+def slstm_hidden(params, x, cfg):
+    """The sLSTM's recurrence, for the heads that ``params`` holds (the
+    layer's, or a model device's share, :func:`slstm_tp_ranges`). x (B, L,
+    d) -> (h (B, L, H dh) in x's dtype, the final carry heads first).  The
     positions are a Python loop, in order; the input projections are
     unbound into per-position views once (so the gradient of the whole is
     one stack of the positions' gradients, not a zero-filled copy each)."""
-    B, L, d = x.shape
-    H = cfg.n_heads
+    B, L, _ = x.shape
+    H, dh = params["r"].shape[1:3]
     wx = _heads_first(x @ params["w_in"], H).unbind(0)  # L x (H, B, 4 dh)
-    r2t, b = _slstm_weights(params, cfg)
-    carry = tuple(t.transpose(0, 1) for t in init_slstm_state(cfg, B, x.dtype, x.device))
+    r2t, b = _slstm_weights(params)
+    carry = tuple(torch.zeros((B, H, dh), dtype=torch.float32, device=x.device).transpose(0, 1)
+                  for _ in range(4))
     hs = []
     with record_function("xlstm.slstm"):
         for t in range(L):
             carry = _slstm_cell(r2t, b, wx[t], carry)
             hs.append(carry[2])
-        h = torch.stack(hs).permute(2, 0, 1, 3).reshape(B, L, d).to(x.dtype)
+        h = torch.stack(hs).permute(2, 0, 1, 3).reshape(B, L, H * dh).to(x.dtype)
+    return h, carry
+
+
+def slstm_apply(params, x, cfg):
+    """Full-sequence sLSTM block (its norm after the recurrence, no
+    pre-norm). x (B, L, d) -> (y, (c, n, h, m)), the final carry."""
+    h, carry = slstm_hidden(params, x, cfg)
     y = rmsnorm(h, params["norm"], cfg.norm_eps) @ params["w_out"]
     return y, tuple(t.transpose(0, 1) for t in carry)
 
@@ -340,7 +393,7 @@ def slstm_decode(params, x, cfg, carry):
     """One-token sLSTM step. x (B, 1, d) -> (y (B, 1, d), new carry)."""
     B, _, d = x.shape
     wx = _heads_first(x[:, 0] @ params["w_in"], cfg.n_heads)
-    r2t, b = _slstm_weights(params, cfg)
+    r2t, b = _slstm_weights(params)
     carry = _slstm_cell(r2t, b, wx, tuple(t.transpose(0, 1) for t in carry))
     h = carry[2].transpose(0, 1).reshape(B, 1, d).to(x.dtype)
     y = rmsnorm(h, params["norm"], cfg.norm_eps) @ params["w_out"]

@@ -21,8 +21,10 @@ reference's ``act_spec`` and ``logits_spec`` are the port's ``P`` on that
 mesh: ``act_pspec(axes)`` keeps each device's block of positions between
 blocks (Megatron-SP; tensor-parallel blocks all-gather along the sequence
 and reduce-scatter their outputs), ``P(dp, None, "model")`` runs the CE
-vocab parallel; the recurrent mixers are gathered whole under either (their
-tensor parallelism is ROADMAP Queue 1 item 10c's second part).
+vocab parallel.  The Mamba2, mLSTM and sLSTM mixers run tensor parallel
+over ``model`` by heads where their heads split over it (each device its
+heads' columns of the projections, the norm's sums all-reduced), under
+either spec.
 """
 
 from __future__ import annotations
